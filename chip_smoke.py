@@ -10,36 +10,64 @@ Phases, one JSON line each on stdout:
 
 1. device  — requires CUDA; the card's name and power limit.
 2. build   — compiles the port's CUDA sources (paddle_tpu_torch/csrc) with
-             nvcc for sm_90a into build/paddle_tpu_torch/ and loads them.
-3. kernel  — each kernel at the serving path's shapes, held against its
-             plain PyTorch version on the same bf16 inputs at the
-             tolerance stated in TOLERANCES, and timed beside its bound,
-             its plain version and one PyTorch library call.
+             nvcc for sm_90a, one nvcc per source started together, into
+             build/paddle_tpu_torch/ and loads them.
+3. kernel  — each kernel at its main path's shapes (the serve's decode
+             step for the paged attention, LayerNorm and bias+GELU
+             forwards; the gpt_1p3b train step, B=8 L=2048, for the
+             flash forward, dQ, dK/dV and the LayerNorm and bias+GELU
+             backwards, plus the two forwards at that step's shapes),
+             held against its plain PyTorch version on the same bf16
+             inputs at the tolerance stated in TOLERANCES, and timed
+             beside its bound, its plain version and one PyTorch
+             library call. The flash wrapper, forward and backward
+             through its autograd Function, is held against the plain
+             versions at the train shape in bf16 and fp32, and at a
+             ragged L=1000.
 4. serve   — gpt_1p3b at full width and depth (random weights from a
              fixed torch.Generator seed, bf16 weights and KV) serves 16
              greedy requests of 32-384 prompt tokens and 64 new tokens
              through ServingEngine; every request must complete, the
-             pool must drain, every kernel's launch counter must rise
-             during the serve, and the engine's prefill logits for two
-             short prompts must match the port's CPU fp32 run on the
-             same weights.
-5. summary — the `kernels` line, the nvidia-smi line, and as the last
+             pool must drain, every serving kernel's launch counter must
+             rise during the serve, and the engine's prefill logits for
+             two short prompts must match the port's CPU fp32 run on the
+             same weights. Then a profiled serve.
+5. train   — gpt_1p3b at full width and depth (bf16, dropout 0, flash
+             attention) trains through jit.TrainStep(use_buckets=False)
+             with AdamW (lr 1e-4, decay 0.01, bf16 moments, no master
+             weights — bench.py:139-142) on one batch of 8 x 2048 tokens:
+             a warm-up step, then 5 timed steps. Every loss must be
+             finite, the 5th timed loss below the 1st, every training
+             kernel's counter must rise during the timed steps and the
+             paged kernel's must not. Prints ms/step, tokens/s, model
+             TFLOP/s and MFU (bench.py's FLOP formula), peak memory, and
+             one profiled step's device busy share and time by group.
+6. check   — the whole path on the card against the CPU: a 2-layer model
+             at gpt_1p3b's width in fp32 (TF32 off) takes one TrainStep
+             (SGD) at B=1, L=512 (the flash route) on the card and on the
+             CPU from the same weights; the losses, every parameter's
+             gradient and every updated parameter must agree within
+             WHOLE_PATH_RTOL (relative L2 error per tensor).
+7. summary — the `kernels` line, the nvidia-smi line, and as the last
              line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
 line; it also fails when torch.cuda.is_available() is false and when
 the paddle_tpu_torch package is not beside it.
 
-Timing: a kernel's time is the device time of CUDA-graph replays of
-ITERS launches, measured with CUDA events and divided by ITERS, so
+Timing: a short kernel's time is the device time of CUDA-graph replays
+of ITERS launches, measured with CUDA events and divided by ITERS, so
 host launch overhead is excluded on every side. LayerNorm and bias+GELU
-run on L2-warm inputs (on the serving path they consume the output of
-the matmul just before them); attention cycles through COLD_COPIES
+run on L2-warm inputs (on their paths they consume the output of the
+matmul just before them); decode attention cycles through COLD_COPIES
 copies of the KV pool (more than the 50 MB L2 holds), as a decode step
-finds each layer's pages cold. bound_ms is the larger of the bytes the
-function must move over 3.35 TB/s and its operations over the peak rate
-for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
+finds each layer's pages cold. The flash kernels, their plain versions
+and SDPA (each a millisecond or more at the train shape) are timed with
+CUDA events around a loop of launches. bound_ms is the larger of the
+bytes the function must move over 3.35 TB/s and its operations over the
+peak rate for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
 """
+import gc
 import json
 import os
 import subprocess
@@ -53,14 +81,31 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 ITERS = 50
 COLD_COPIES = 4
-# |kernel - plain| <= atol + rtol * |plain|, on bf16 outputs:
-#  layer_norm / bias_gelu: the two compute in fp32 with different
+# |kernel - plain| <= atol + rtol * |plain| per element:
+#  layer_norm / bias_gelu (bf16): the two compute in fp32 with different
 #    summation order or libm, which can flip one bf16 rounding (2^-8
 #    relative) of an output of magnitude up to ~4;
-#  attention: fp32 online softmax in another key order than the dense
-#    plain version, then one bf16 rounding.
+#  paged_attention (bf16): fp32 online softmax in another key order than
+#    the dense plain version, then one bf16 rounding.
+# For SCALED names atol is a multiple of the plain tensor's RMS, since
+# attention outputs and gradients and the fp32 dw/db sums have no fixed
+# magnitude, and the tensor's relative L2 error must stay under REL_L2:
+#  flash_bf16: both sides compute in fp32 (agreeing to ~1e-6 of a row's
+#    scale) and round once to bf16, which differs by at most one bf16
+#    spacing, 2^-7 of the value; atol 2^-6 of the RMS then catches a
+#    kernel that drops or misplaces even a few keys of a row;
+#  flash_fp32, fp32_sum: summation order over up to 2048 keys or 16384
+#    rows.
 TOLERANCES = {'layer_norm': (2e-2, 1e-2), 'bias_gelu': (2e-2, 1e-2),
-              'paged_attention': (1e-2, 2e-2)}
+              'paged_attention': (1e-2, 2e-2),
+              'layer_norm_bwd': (2e-2, 1e-2), 'bias_gelu_bwd': (2e-2, 1e-2),
+              'flash_bf16': (2.0 ** -6, 2.0 ** -7), 'flash_fp32': (1e-3, 1e-3),
+              'fp32_sum': (1e-4, 1e-3)}
+SCALED = {'flash_bf16', 'flash_fp32', 'fp32_sum'}
+REL_L2 = {'flash_bf16': 1e-2, 'flash_fp32': 1e-4, 'fp32_sum': 1e-4}
+# the whole-path check: relative L2 error per tensor, card vs CPU, fp32
+WHOLE_PATH_RTOL = 1e-3
+FLASH_ITERS = 5
 # engine bf16 logits vs the port's CPU fp32 run: max |diff| over the
 # vocab <= LOGITS_RTOL * max |fp32 logits| (bf16 rounds at 2^-9; a 24-
 # layer residual stream accumulates a few percent of relative error)
@@ -113,12 +158,39 @@ def bound_ms(nbytes, ops, peak):
             'bytes' if by_bytes >= by_ops else 'operations')
 
 
+def loop_ms(torch, fn, iters=FLASH_ITERS):
+    """Device milliseconds per call of fn, for calls of a millisecond or
+    more: CUDA events around a loop of `iters` calls after one warm-up
+    call (the host queues the next call while the card runs this one)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def check_close(name, got, want):
+    """Max |got - want| after the TOLERANCES check; raises outside it."""
     atol, rtol = TOLERANCES[name]
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
+    if g.shape != w.shape:
+        raise AssertionError(f'{name}: shape {tuple(g.shape)} != '
+                             f'{tuple(w.shape)}')
     if not bool(g.isfinite().all()):
         raise AssertionError(f'{name}: non-finite kernel output')
     err = (g - w).abs()
+    if name in SCALED:
+        norm = float(w.norm())
+        atol *= norm / w.numel() ** 0.5
+        rel = float(err.norm()) / norm if norm else float(err.norm())
+        if rel > REL_L2[name]:
+            raise AssertionError(f'{name}: relative L2 error {rel:.3g} > '
+                                 f'{REL_L2[name]}')
     bad = err > atol + rtol * w.abs()
     if bool(bad.any()):
         raise AssertionError(
@@ -127,50 +199,95 @@ def check_close(name, got, want):
     return float(err.max())
 
 
+def make_randn(torch, seed):
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(*shape, generator=gen, device='cuda')
+                ).to(dtype)
+    return randn
+
+
+# the gpt_1p3b train step: B=8, L=2048, H=16, D=128, hidden 2048, ffn 8192
+TRAIN_B, TRAIN_L, HEADS, HEAD_DIM = 8, 2048, 16, 128
+TRAIN_ROWS = TRAIN_B * TRAIN_L
+# LayerNorm and bias+GELU shapes: (rows, n) -> the path whose step gives
+# that kernel that shape (a decode step, the train step, or neither)
+ROW_SHAPES = ((8, 2048), (128, 2048), (8, 8192), (128, 8192),
+              (TRAIN_ROWS, 2048), (TRAIN_ROWS, 8192))
+ROW_PATHS = {'layer_norm': {(8, 2048): 'decode', (TRAIN_ROWS, 2048): 'train'},
+             'bias_gelu': {(8, 8192): 'decode', (TRAIN_ROWS, 8192): 'train'}}
+
+
 def kernel_phase(torch, F):
-    """Each kernel at the main path's shapes vs its plain version."""
+    """The paged attention at the serve's shapes, and the LayerNorm and
+    bias+GELU forwards at the serve's and the train step's shapes, each
+    vs its plain version. At the train step's rows the LayerNorm runs the
+    forward that writes mean and rstd, as LayerNormFunction does, and the
+    plain versions (fp32 temporaries of the whole input) are timed with
+    loop_ms, not inside a CUDA graph."""
     from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
     from paddle_tpu_torch.ops.kernels import fused_norm as fn
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
-    gen = torch.Generator(device='cuda').manual_seed(0)
+    randn = make_randn(torch, 0)
+    gen = torch.Generator(device='cuda').manual_seed(1)
     bf16 = torch.bfloat16
-
-    def randn(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, generator=gen, device='cuda')
-                ).to(bf16)
+    aten = torch.ops.aten
 
     results = {'layer_norm': [], 'bias_gelu': [], 'paged_attention': []}
-    for rows, n in ((8, 2048), (128, 2048), (8, 8192), (128, 8192)):
+    for rows, n in ROW_SHAPES:
+        train = rows == TRAIN_ROWS
+        iters = 20 if train else ITERS
         x = randn(rows, n)
         w = (1.0 + 0.1 * torch.randn(n, generator=gen, device='cuda')
              ).to(bf16)
         b = randn(n, scale=0.1)
-        err = check_close('layer_norm', fn.layer_norm(x, w, b, 1e-5),
-                          fn.layer_norm_plain(x, w, b, 1e-5))
-        bms, by = bound_ms(2 * rows * n * 2 + 2 * n * 2, 8 * rows * n,
-                           FP32_FLOPS)
+        if train:
+            y, mean, rstd = fn._fwd_kernel(x, w, b, 1e-5, True)
+            y_p, mean_p, rstd_p = fn.layer_norm_fwd_plain(x, w, b, 1e-5)
+            err = max(check_close('layer_norm', y, y_p),
+                      check_close('fp32_sum', mean, mean_p),
+                      check_close('fp32_sum', rstd, rstd_p))
+            del y, y_p, mean, rstd, mean_p, rstd_p
+            run = lambda: fn._fwd_kernel(x, w, b, 1e-5, True)
+            plain_ms = loop_ms(torch, lambda: fn.layer_norm_fwd_plain(
+                x, w, b, 1e-5))
+            library = lambda: aten.native_layer_norm(x, [n], w, b, 1e-5)
+            stats = rows * 8
+        else:
+            err = check_close('layer_norm', fn.layer_norm(x, w, b, 1e-5),
+                              fn.layer_norm_plain(x, w, b, 1e-5))
+            run = lambda: fn.layer_norm(x, w, b, 1e-5)
+            plain_ms = device_ms(
+                torch, lambda: fn.layer_norm_plain(x, w, b, 1e-5))
+            library = lambda: F.layer_norm(x, (n,), w, b, 1e-5)
+            stats = 0
+        bms, by = bound_ms(2 * rows * n * 2 + 2 * n * 2 + stats,
+                           8 * rows * n, FP32_FLOPS)
         results['layer_norm'].append(dict(
-            shape=f'x[{rows},{n}] bf16', decode_step=(rows, n) == (8, 2048),
-            max_abs_err=err,
-            ms=device_ms(torch, lambda: fn.layer_norm(x, w, b, 1e-5)),
-            plain_ms=device_ms(
-                torch, lambda: fn.layer_norm_plain(x, w, b, 1e-5)),
-            library_ms=device_ms(
-                torch, lambda: F.layer_norm(x, (n,), w, b, 1e-5)),
+            shape=f'x[{rows},{n}] bf16' + (', mean/rstd out' if train else ''),
+            path=ROW_PATHS['layer_norm'].get((rows, n)), max_abs_err=err,
+            ms=device_ms(torch, run, iters=iters), plain_ms=plain_ms,
+            library_ms=device_ms(torch, library, iters=iters),
             bound_ms=bms, bound_by=by))
         err = check_close('bias_gelu', fe.bias_gelu(x, b, True),
                           fe.bias_gelu_plain(x, b, True))
+        plain = lambda: fe.bias_gelu_plain(x, b, True)
         bms, by = bound_ms(2 * rows * n * 2 + n * 2, 12 * rows * n,
                            FP32_FLOPS)
         results['bias_gelu'].append(dict(
-            shape=f'x[{rows},{n}] bf16', decode_step=(rows, n) == (8, 8192),
-            max_abs_err=err,
-            ms=device_ms(torch, lambda: fe.bias_gelu(x, b, True)),
-            plain_ms=device_ms(torch, lambda: fe.bias_gelu_plain(x, b, True)),
+            shape=f'x[{rows},{n}] bf16',
+            path=ROW_PATHS['bias_gelu'].get((rows, n)), max_abs_err=err,
+            ms=device_ms(torch, lambda: fe.bias_gelu(x, b, True),
+                         iters=iters),
+            plain_ms=(loop_ms(torch, plain) if train
+                      else device_ms(torch, plain)),
             library_ms=device_ms(
-                torch, lambda: F.gelu(x + b, approximate='tanh')),
+                torch, lambda: F.gelu(x + b, approximate='tanh'),
+                iters=iters),
             bound_ms=bms, bound_by=by))
+        del x, w, b
 
     # paged attention at the serve's shapes: gpt_1p3b heads, page_size
     # 16, 28 pages a row, a pool of 8 x 28 pages
@@ -237,7 +354,7 @@ def kernel_phase(torch, F):
         results['paged_attention'].append(dict(
             shape=(f'{label}: B={B} T={T} H={H} D={D} ps={ps} '
                    f'context={[int(s) for s in seq_lens]}'),
-            decode_step=label == 'decode',
+            path='decode' if label == 'decode' else None,
             max_abs_err=err, ms=device_ms(torch, run_kernel),
             plain_ms=device_ms(torch, run_plain),
             library_ms=device_ms(torch, run_library),
@@ -246,6 +363,168 @@ def kernel_phase(torch, F):
         for r in rows:
             emit({'phase': 'kernel', 'name': name, **r})
     return results
+
+
+def flash_check(torch, fa, randn, B, L, dtype, tol):
+    """flash_attention_packed, forward and backward through its autograd
+    Function, causal, on [B, L, H*D] inputs of `dtype`, against the plain
+    forward and backward on the same inputs; the lse through the
+    forward's dispatching entry. Returns {tensor: max |diff|}."""
+    H, D = HEADS, HEAD_DIM
+    q, k, v, do = (randn(B, L, H * D, dtype=dtype) for _ in range(4))
+    kw = dict(num_heads=H, head_dim=D, bias=None, causal=True)
+    _o, lse = fa.flash_attention_packed_fwd(q, k, v, **kw)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention_packed(*leaves, H, D, causal=True)
+    if o.grad_fn is None:
+        raise AssertionError('flash_attention_packed: no grad_fn')
+    o.backward(do)
+    o_p, lse_p = fa.flash_attention_packed_plain(q, k, v, **kw)
+    errs = {'o': check_close(tol, o, o_p),
+            'lse': check_close('flash_fp32', lse, lse_p)}
+    want = fa.flash_attention_packed_bwd_plain(q, k, v, o_p, lse_p, do, **kw)
+    for name, leaf, w in zip(('dq', 'dk', 'dv'), leaves, want):
+        errs[name] = check_close(tol, leaf.grad, w)
+    return errs
+
+
+def train_kernel_phase(torch, F):
+    """Each training kernel not checked in kernel_phase at the gpt_1p3b
+    train step's shapes vs its plain version, timed: the LayerNorm and
+    bias+GELU backwards and the three flash kernels. The flash wrapper is
+    checked forward and backward at that shape in bf16 and in fp32, and
+    at a ragged L=1000. The plain versions, which allocate fp32
+    temporaries of the whole input, are timed with loop_ms, not inside a
+    CUDA graph."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
+    from paddle_tpu_torch.ops.kernels import fused_norm as fn
+
+    randn = make_randn(torch, 5)
+    aten = torch.ops.aten
+    rows_out = {}
+    B, L, H, D = TRAIN_B, TRAIN_L, HEADS, HEAD_DIM
+    HD = H * D
+    rows, hidden, ffn = TRAIN_ROWS, 2048, 8192
+    parts = _build.reduction_parts(torch.device('cuda'), rows)
+
+    # -- LayerNorm backward over the hidden size --------------------------
+    x, dy = randn(rows, hidden), randn(rows, hidden)
+    w = 1.0 + randn(hidden, scale=0.1)
+    b = randn(hidden, scale=0.1)
+    _y, mean, rstd = fn._fwd_kernel(x, w, b, 1e-5, True)
+    got = fn.layer_norm_bwd(x, w, dy, mean, rstd)
+    want = fn.layer_norm_bwd_plain(x, w, dy, mean, rstd)
+    err = max(check_close('layer_norm_bwd', got[0], want[0]),
+              check_close('fp32_sum', got[1], want[1]),
+              check_close('fp32_sum', got[2], want[2]))
+    bms, by = bound_ms(3 * rows * hidden * 2 + rows * 8 + hidden * 2
+                       + 2 * parts * 2 * hidden * 4 + 2 * hidden * 4,
+                       14 * rows * hidden, FP32_FLOPS)
+    _y, lmean, lrstd = aten.native_layer_norm(x, [hidden], w, b, 1e-5)
+    rows_out['layer_norm_bwd'] = dict(
+        shape=f'x, dy [{rows},{hidden}] bf16', max_abs_err=err,
+        ms=device_ms(torch, lambda: fn.layer_norm_bwd(x, w, dy, mean, rstd),
+                     iters=20),
+        plain_ms=loop_ms(torch, lambda: fn.layer_norm_bwd_plain(
+            x, w, dy, mean, rstd)),
+        library_ms=device_ms(torch, lambda: aten.native_layer_norm_backward(
+            dy, x, [hidden], lmean, lrstd, w, b, [True, True, True]),
+            iters=20),
+        bound_ms=bms, bound_by=by)
+    del x, dy, _y, got, want
+
+    # -- bias + GELU backward over the ffn size ---------------------------
+    x, dy = randn(rows, ffn), randn(rows, ffn)
+    b = randn(ffn, scale=0.1)
+    dx, db = fe.bias_gelu_bwd(x, b, dy, True)
+    dx_p, db_p = fe.bias_gelu_bwd_plain(x, b, dy, True)
+    err = max(check_close('bias_gelu_bwd', dx, dx_p),
+              check_close('fp32_sum', db, db_p))
+    bms, by = bound_ms(3 * rows * ffn * 2 + ffn * 2
+                       + 2 * parts * ffn * 4 + ffn * 4,
+                       25 * rows * ffn, FP32_FLOPS)
+    u = x + b
+
+    def library_bias_gelu_bwd():
+        du = aten.gelu_backward(dy, u, approximate='tanh')
+        return du, du.sum(0, dtype=torch.float32)
+
+    rows_out['bias_gelu_bwd'] = dict(
+        shape=f'x, dy [{rows},{ffn}] bf16', max_abs_err=err,
+        ms=device_ms(torch, lambda: fe.bias_gelu_bwd(x, b, dy, True),
+                     iters=20),
+        plain_ms=loop_ms(torch, lambda: fe.bias_gelu_bwd_plain(
+            x, b, dy, True)),
+        library_ms=device_ms(torch, library_bias_gelu_bwd, iters=20),
+        bound_ms=bms, bound_by=by)
+    del x, dy, u, dx, dx_p
+
+    # -- flash attention, causal, packed [B, L, H*D] ----------------------
+    checks = {}
+    for dtype, tol, shape in ((torch.bfloat16, 'flash_bf16', (B, L)),
+                              (torch.float32, 'flash_fp32', (B, L)),
+                              (torch.bfloat16, 'flash_bf16', (1, 1000)),
+                              (torch.float32, 'flash_fp32', (1, 1000))):
+        label = f'{str(dtype).split(".")[-1]} B={shape[0]} L={shape[1]}'
+        checks[label] = flash_check(torch, fa, randn, *shape, dtype, tol)
+        free_cuda(torch)
+    main = checks[f'bfloat16 B={B} L={L}']
+    q, k, v, do = (randn(B, L, HD) for _ in range(4))
+    kw = dict(num_heads=H, head_dim=D, bias=None, causal=True)
+    o, lse = fa.flash_attention_packed_fwd(q, k, v, **kw)
+    causal_mac = B * H * L * L * D / 2          # one product, causal half
+    io = 4 * B * L * HD * 2 + B * L * H * 4
+    bms, by = bound_ms(io, 4 * causal_mac, BF16_FLOPS)
+    qh, kh, vh, doh = (t.reshape(B, L, H, D).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    rows_out['flash_fwd'] = dict(
+        shape=f'q, k, v [{B},{L},{HD}] bf16, H={H} D={D}, causal',
+        max_abs_err=max(main['o'], main['lse']),
+        ms=loop_ms(torch, lambda: fa.flash_attention_packed_fwd(q, k, v,
+                                                                **kw)),
+        plain_ms=loop_ms(torch, lambda: fa.flash_attention_packed_plain(
+            q, k, v, **kw), iters=2),
+        library_ms=loop_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), iters=10),
+        library='SDPA is_causal on [B,H,L,D] copies',
+        bound_ms=bms, bound_by=by)
+    # the two backward kernels timed apart (the Function's backward runs
+    # both, after delta)
+    args = fa._bwd_args(q, k, v, do, H, D, None, True)
+    delta = fa.attention_delta(o, do, H, D).contiguous()
+    plain_bwd_ms = loop_ms(torch, lambda: fa.flash_attention_packed_bwd_plain(
+        q, k, v, o, lse, do, **kw), iters=2)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_bwd_ms = loop_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), doh, retain_graph=True), iters=10)
+    for name, err, n_products, fn_ in (
+            ('flash_bwd_dq', main['dq'], 6,
+             lambda: fa._dq_kernel(q, k, v, None, do, lse, delta, args)),
+            ('flash_bwd_dkv', max(main['dk'], main['dv']), 8,
+             lambda: fa._dkv_kernel(q, k, v, None, do, lse, delta, args))):
+        bms, by = bound_ms(io + B * L * HD * 2 + 2 * B * L * H * 4,
+                           n_products * causal_mac, BF16_FLOPS)
+        rows_out[name] = dict(
+            shape=f'q, k, v, dO [{B},{L},{HD}] bf16, H={H} D={D}, causal',
+            max_abs_err=err, ms=loop_ms(torch, fn_),
+            plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            plain='one plain backward computes dQ, dK and dV',
+            library='SDPA backward (dQ, dK, dV together): compare with '
+                    'the sum of the two kernels',
+            bound_ms=bms, bound_by=by)
+    del q, k, v, do, o, lse, delta, qh, kh, vh, doh, qs, ks, vs, out
+    torch.cuda.synchronize()
+    for name, r in rows_out.items():
+        emit({'phase': 'kernel', 'name': name, 'path': 'train', **r})
+    emit({'phase': 'kernel', 'name': 'flash_wrapper_checks',
+          'tolerances': {t: dict(atol_x_rms=TOLERANCES[t][0],
+                                 rtol=TOLERANCES[t][1], rel_l2=REL_L2[t])
+                         for t in ('flash_bf16', 'flash_fp32')},
+          'max_abs_err': checks})
+    return rows_out
 
 
 def serve_phase(torch, card):
@@ -288,9 +567,14 @@ def serve_phase(torch, card):
     if eng.pool.pages_in_use != 0:
         raise AssertionError(f'pool did not drain: '
                              f'{eng.pool.pages_in_use} pages in use')
-    idle = [k for k, n in launches.items() if n <= 0]
+    idle = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if idle:
         raise AssertionError(f'kernels never launched by the serve: {idle}')
+    trained = [k for k in TRAIN_KERNELS
+               if k not in SERVE_KERNELS and launches[k]]
+    if trained:
+        raise AssertionError(f'training kernels launched by the serve: '
+                             f'{trained}')
 
     # the engine's prefill logits vs the port's CPU fp32 run
     short = [list(rng.randint(1, cfg.vocab_size, n)) for n in (7, 19)]
@@ -335,9 +619,213 @@ def serve_phase(torch, card):
     return launches
 
 
+TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'layer_norm',
+                 'layer_norm_bwd', 'bias_gelu', 'bias_gelu_bwd')
+PEAK_BF16_TFLOPS = 989.0
+TIMED_STEPS = 5
+
+
+def _train_loss(model, ids, labels):
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    return GPTPretrainingCriterion()(model(ids), labels)
+
+
+def train_phase(torch, card):
+    """gpt_1p3b through the port's TrainStep on the card: bench.py's
+    bench_gpt_1p3b('adamw') configuration, one batch of 8 x 2048 tokens
+    (the bench's 4 micro-batches of 2, folded into one: TrainStep does
+    not accumulate)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    B, L = 8, cfg.max_seq_len
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
+                           generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                multi_precision=False, moment_dtype='bfloat16')
+    step = TrainStep(model, _train_loss, opt, use_buckets=False)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (B, L)).astype('int32')
+    labels = np.roll(ids, -1, 1).astype('int32')
+    ids_t = torch.from_numpy(ids).cuda()
+    labels_t = torch.from_numpy(labels).cuda()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(step(ids_t, labels_t))                 # warm-up
+    warm_s = time.perf_counter() - t0
+    _build.reset_launches()
+    losses, walls = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids_t, labels_t)))     # float() syncs
+        walls.append(time.perf_counter() - t0)
+    launches = _build.routes_snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f'non-finite training loss: {[warm] + losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'loss did not fall over the timed steps: '
+                             f'{losses}')
+    idle = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f'training kernels never launched: {idle}')
+    if launches['paged_attention']:
+        raise AssertionError('the paged kernel launched during training')
+    tokens = B * L
+    flops = 6 * n_params * tokens + \
+        12 * cfg.num_layers * cfg.hidden_size * L * tokens   # bench.py:200
+    step_s = float(np.mean(walls))
+    prof = profile_train_step(torch, step, ids_t, labels_t)
+    emit({'phase': 'train', 'card': card, 'model': 'gpt_1p3b',
+          'layers': cfg.num_layers, 'hidden': cfg.hidden_size,
+          'params': n_params, 'batch': B, 'seq_len': L,
+          'optimizer': 'AdamW lr 1e-4 wd 0.01 bf16 moments, no master',
+          'model_build_s': build_s, 'warmup_step_s': warm_s,
+          'warmup_loss': warm, 'losses': losses, 'step_s': walls,
+          'ms_per_step': 1e3 * step_s, 'tokens_per_sec': tokens / step_s,
+          'model_flops_per_step': flops,
+          'model_tflops': flops / step_s / 1e12,
+          'mfu': flops / step_s / 1e12 / PEAK_BF16_TFLOPS,
+          'peak_memory_bytes': peak,
+          'launches': launches,
+          'launches_per_step': {k: launches[k] / TIMED_STEPS
+                                for k in TRAIN_KERNELS},
+          **prof})
+    return launches
+
+
+def profile_train_step(torch, step, ids, labels):
+    """One train step under torch.profiler: device busy time (the CUDA
+    kernels' self time) against the step's wall, and that time by
+    group and by port kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(ids, labels))
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    groups, port = _group_device_time(kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {'profiled_step_wall_s': wall,
+            'device_busy_s': busy if kernels else None,
+            'busy_share_of_profiled_wall': busy / wall if kernels else None,
+            'device_s_by_group': groups, 'device_s_by_port_kernel': port,
+            'top_kernels': [dict(name=e.key[:90],
+                                 device_ms=e.self_device_time_total / 1e3,
+                                 calls=e.count) for e in top]}
+
+
+def whole_path_check(torch):
+    """One TrainStep of a 2-layer fp32 model at gpt_1p3b's width on the
+    card and on the CPU from the same weights (L=512: the flash route)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import SGD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    cfg.num_layers = 2
+    gen = torch.Generator(device='cuda').manual_seed(99)
+    card_model = GPTForCausalLM(cfg, device='cuda', dtype=torch.float32,
+                                generator=gen)
+    with torch.device('meta'):
+        cpu_model = GPTForCausalLM(cfg)
+    cpu_model = cpu_model.to_empty(device='cpu')
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in card_model.state_dict().items()})
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, cfg.vocab_size, (1, 512)).astype('int32')
+    labels = np.roll(ids, -1, 1).astype('int32')
+    _build.reset_launches()
+    card_step = TrainStep(card_model, _train_loss, SGD(learning_rate=1e-3),
+                          use_buckets=False)
+    card_loss = float(card_step(ids, labels))
+    launches = _build.routes_snapshot()
+    cpu_step = TrainStep(cpu_model, _train_loss, SGD(learning_rate=1e-3),
+                         use_buckets=False, device='cpu')
+    cpu_loss = float(cpu_step(ids, labels))
+    idle = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f'whole-path check: kernels not launched: '
+                             f'{idle}')
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double()
+        den = float(b.norm())
+        return float((a - b).norm()) / den if den else float(a.norm())
+
+    cpu_params = dict(cpu_model.named_parameters())
+    grad_err, param_err = {}, {}
+    for n, p in card_model.named_parameters():
+        grad_err[n] = rel(p.grad, cpu_params[n].grad)
+        param_err[n] = rel(p, cpu_params[n])
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_p = max(param_err, key=param_err.get)
+    emit({'phase': 'check', 'what': 'one fp32 TrainStep (SGD lr 1e-3), '
+          '2 layers at gpt_1p3b width, B=1 L=512, card vs CPU',
+          'card_loss': card_loss, 'cpu_loss': cpu_loss,
+          'loss_rel_err': loss_err,
+          'max_grad_rel_l2': grad_err[worst_g], 'worst_grad': worst_g,
+          'max_param_rel_l2': param_err[worst_p], 'worst_param': worst_p,
+          'rtol': WHOLE_PATH_RTOL, 'launches': launches})
+    if not np.isfinite(card_loss) or loss_err > WHOLE_PATH_RTOL \
+            or grad_err[worst_g] > WHOLE_PATH_RTOL \
+            or param_err[worst_p] > WHOLE_PATH_RTOL:
+        raise AssertionError(
+            f'card step differs from the CPU step: loss {card_loss} vs '
+            f'{cpu_loss}; grad {worst_g} {grad_err[worst_g]:.3g}; param '
+            f'{worst_p} {param_err[worst_p]:.3g} (rtol {WHOLE_PATH_RTOL})')
+
+
+# the port's kernels by the device-side names the profiler shows; the
+# column sum is the second pass of both backward reductions
 KERNEL_NAMES = {'paged_attention': 'ragged_paged_attention_kernel',
                 'layer_norm': 'layer_norm_fwd_kernel',
-                'bias_gelu': 'bias_gelu_fwd_kernel'}
+                'bias_gelu': 'bias_gelu_fwd_kernel',
+                'layer_norm_bwd': 'layer_norm_bwd_kernel',
+                'bias_gelu_bwd': 'bias_gelu_bwd_kernel',
+                'column_sum': 'column_sum_kernel',
+                'flash_fwd': 'flash_fwd_kernel',
+                'flash_bwd_dq': 'flash_bwd_dq_kernel',
+                'flash_bwd_dkv': 'flash_bwd_dkv_kernel'}
+
+
+def _group_device_time(kernels):
+    """Device seconds of profiler events by group (port kernels, GEMMs,
+    other) and by port kernel."""
+    groups = {'port_kernels': 0.0, 'gemm': 0.0, 'other': 0.0}
+    port = {}
+    for e in kernels:
+        t = e.self_device_time_total / 1e6
+        name = next((n for n, k in KERNEL_NAMES.items() if k in e.key), None)
+        if name is not None:
+            groups['port_kernels'] += t
+            port[name] = port.get(name, 0.0) + t
+        elif any(k in e.key.lower() for k in ('gemm', 'xmma', 'cutlass',
+                                                'nvjet', 'sm90')):
+            groups['gemm'] += t
+        else:
+            groups['other'] += t
+    return groups, port
 
 
 def profile_phase(torch, eng, prompts):
@@ -363,16 +851,7 @@ def profile_phase(torch, eng, prompts):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    groups = {'port_kernels': 0.0, 'gemm': 0.0, 'other': 0.0}
-    for e in kernels:
-        t = e.self_device_time_total / 1e6
-        if any(k in e.key for k in KERNEL_NAMES.values()):
-            groups['port_kernels'] += t
-        elif any(k in e.key.lower() for k in ('gemm', 'xmma', 'cutlass',
-                                                'nvjet', 'sm90')):
-            groups['gemm'] += t
-        else:
-            groups['other'] += t
+    groups, _port = _group_device_time(kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit({'phase': 'profile', 'requests': len(prompts), 'max_new_tokens': 16,
           'wall_s': wall_plain, 'wall_profiled_s': wall_prof,
@@ -393,7 +872,24 @@ SOURCES = {
                    'paddle_tpu/ops/pallas/fused_norm.py:52'),
     'bias_gelu': ('paddle_tpu_torch/csrc/fused_elementwise.cu',
                   'paddle_tpu/ops/pallas/fused_elementwise.py:64'),
+    'layer_norm_bwd': ('paddle_tpu_torch/csrc/fused_norm.cu',
+                       'paddle_tpu/ops/pallas/fused_norm.py:63'),
+    'bias_gelu_bwd': ('paddle_tpu_torch/csrc/fused_elementwise.cu',
+                      'paddle_tpu/ops/pallas/fused_elementwise.py:69'),
+    'flash_fwd': ('paddle_tpu_torch/csrc/flash_attention.cu',
+                  'paddle_tpu/ops/pallas/flash_attention.py:278'),
+    'flash_bwd_dq': ('paddle_tpu_torch/csrc/flash_attention.cu',
+                     'paddle_tpu/ops/pallas/flash_attention.py:336'),
+    'flash_bwd_dkv': ('paddle_tpu_torch/csrc/flash_attention.cu',
+                      'paddle_tpu/ops/pallas/flash_attention.py:390'),
 }
+SERVE_KERNELS = ('paged_attention', 'layer_norm', 'bias_gelu')
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -419,21 +915,53 @@ def main():
           'library': os.path.relpath(lib_path),
           'sources': [os.path.relpath(s) for s in _build.sources()]})
 
+    t0 = time.perf_counter()
     results = kernel_phase(torch, F)
-    launches = serve_phase(torch, card)
+    train_rows = train_kernel_phase(torch, F)
+    free_cuda(torch)
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_launches = serve_phase(torch, card)
+    free_cuda(torch)
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_launches = train_phase(torch, card)
+    free_cuda(torch)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole_path_check(torch)
+    emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
+          'train': train_s, 'check': time.perf_counter() - t0})
+
+    def row_of(name, path):
+        (row,) = [r for r in results[name] if r['path'] == path]
+        return row
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        # the shape a gpt_1p3b decode step gives the kernel: LayerNorm
-        # over hidden 2048, bias+GELU over ffn 8192, attention at B=8
-        (dec,) = [r for r in results[name] if r['decode_step']]
-        kernels.append({
+        if name in SERVE_KERNELS:
+            # the shape a gpt_1p3b decode step gives the kernel: LayerNorm
+            # over hidden 2048, bias+GELU over ffn 8192, attention at B=8
+            row = row_of(name, 'decode')
+            launches = serve_launches[name]
+        else:
+            row = train_rows[name]
+            launches = train_launches[name]
+        entry = {
             'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': launches[name],
-            'max_abs_err': dec['max_abs_err'], 'ms': dec['ms'],
-            'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
-            'bound_by': dec['bound_by'],
-            'library_ms': dec['library_ms'], 'shape': dec['shape']})
+            'replaces': replaces, 'launches': launches,
+            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+            'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+            'bound_by': row['bound_by'], 'library_ms': row['library_ms'],
+            'shape': row['shape']}
+        if name in ROW_PATHS:
+            # on both paths: the train step's launches and shape too
+            train = row_of(name, 'train')
+            entry['launches_train'] = train_launches[name]
+            entry['train_shape'] = {k: train[k] for k in (
+                'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                'library_ms')}
+        kernels.append(entry)
     emit({'kernels': kernels})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': card,

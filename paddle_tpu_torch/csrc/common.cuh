@@ -93,6 +93,46 @@ class DeviceGuard {
   cudaError_t err_ = cudaSuccess;
 };
 
+// Second pass of a cross-row reduction: out[c] = sum over p of
+// part[p * n + c], for c < n, summed in p order so the result does not
+// depend on how CTAs were scheduled (no float atomics). The backward
+// kernels write one row of fp32 partials per CTA of their first pass;
+// this pass replaces the Pallas bodies' VMEM accumulation across their
+// sequential row grid. (Internal linkage: every source that includes this
+// header gets its own copy, so the link sees no duplicate symbol.)
+// A CTA of 32 x 8 threads takes 32 neighbouring columns; thread (x, y) sums
+// the partials p = y, y + 8, ... of column x in order, and the 8 sums are then
+// added in y order: a fixed order, whatever the schedule.
+namespace {
+constexpr int kSumCols = 32, kSumGroups = 8;
+
+__global__ void __launch_bounds__(kSumCols * kSumGroups)
+    column_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                      int parts, int n) {
+  __shared__ float sums[kSumGroups][kSumCols];
+  const int c = blockIdx.x * kSumCols + threadIdx.x;
+  float s = 0.f;
+  if (c < n)
+    for (int p = threadIdx.y; p < parts; p += kSumGroups)
+      s += part[static_cast<long long>(p) * n + c];
+  sums[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int g = 0; g < kSumGroups; ++g) t += sums[g][threadIdx.x];
+    out[c] = t;
+  }
+}
+
+void launch_column_sum(const float* part, float* out, int parts, int n,
+                       cudaStream_t stream) {
+  column_sum_kernel<<<(n + kSumCols - 1) / kSumCols,
+                      dim3(kSumCols, kSumGroups), 0, stream>>>(part, out,
+                                                               parts, n);
+}
+}  // namespace
+
 }  // namespace ptt
 
 // Dispatch a dtype code to a type alias T; an unknown code returns

@@ -1,21 +1,33 @@
-// Bias + GELU forward, y = gelu(x + b), for Hopper (sm_90a).
+// Bias + GELU forward y = gelu(x + b) and its backward, for Hopper (sm_90a).
 //
-// Replaces: paddle_tpu/ops/pallas/fused_elementwise.py:64 `_bg_fwd_kernel`,
-// launched by `_bg_fwd_impl` (:92) through `nn_ops.bias_gelu`
+// Replaces: paddle_tpu/ops/pallas/fused_elementwise.py:64 `_bg_fwd_kernel`
+// (launched by `_bg_fwd_impl`, :92) and :69 `_bg_bwd_kernel` (launched by
+// `_bg_bwd`, :114), reached through `nn_ops.bias_gelu`
 // (paddle_tpu/ops/nn_ops.py:53) from GPTMLP (paddle_tpu/models/gpt.py:339).
 //
-// What bounds it on this card: bytes. It reads x and writes y once (the bias
-// row stays in L1/L2) and does ~10 fp32 operations per element, below the
-// H100's ~20 operations per byte ridge.
+// What bounds them on this card: bytes. The forward reads x and writes y; the
+// backward reads x and dy and writes dx (the bias row stays in L1/L2); both do
+// ~10-25 fp32 operations per element, far below the H100's ~295 operations
+// per byte ridge.
 //
-// Design: a grid-stride loop over 16-byte vectors of x, one vector a thread per
-// step, so every load and store moves 16 bytes and neighbouring threads touch
-// neighbouring addresses. The TPU's row-block grid becomes a flat index space;
-// there is no cross-row state in the forward.
+// Forward design: a grid-stride loop over 16-byte vectors of x, one vector a
+// thread per step, so every load and store moves 16 bytes and neighbouring
+// threads touch neighbouring addresses. The TPU's row-block grid becomes a
+// flat index space; there is no cross-row state in the forward.
+//
+// Backward design: du = dy * gelu'(u) with u = x + b added in x's dtype and
+// upcast (:76), dx = du rounded to x's dtype, and db = the fp32 sum of du over
+// rows. The Pallas body accumulates db over its SEQUENTIAL row grid in VMEM;
+// CTAs have no order, so pass 1 gives each CTA a fixed strided set of rows and
+// a private fp32 [n] accumulator in shared memory (thread tid owns columns
+// tid + 256 k), written as one row of `part` [parts, n]; pass 2
+// (ptt::launch_column_sum, a second launch from the same entry point) sums
+// the partials in CTA order: deterministic, no atomics.
 //
 // Numerics: the bias is cast to x's dtype and added in x's dtype, as in
-// fused_elementwise.py:105 and :143. The GELU then runs in fp32 and is rounded
-// once to x's dtype. JAX evaluates jax.nn.gelu inside bf16 arithmetic instead,
+// fused_elementwise.py:105 and :143. The GELU and its derivative run in fp32
+// (the derivative op for op as `_gelu_grad`, :48-58). The forward rounds once
+// to x's dtype; JAX evaluates jax.nn.gelu inside bf16 arithmetic instead,
 // rounding after each op, so bf16 outputs may differ from the JAX route by a
 // few bf16 ulps; fp32 agrees to float rounding.
 #include "common.cuh"
@@ -67,6 +79,74 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// d gelu(u) / du, op for op as fused_elementwise.py:48-58 `_gelu_grad`
+template <bool kTanh>
+__device__ __forceinline__ float gelu_grad(float u) {
+  if constexpr (kTanh) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    const float inner = c * (u + 0.044715f * (u * u * u));
+    const float t = tanhf(inner);
+    // 0.5 (1 + t) + 0.5 u (1 - t^2) c (1 + 3 * 0.044715 u^2)
+    return 0.5f * (1.0f + t) +
+           0.5f * u * (1.0f - t * t) * c * (1.0f + 0.134145f * (u * u));
+  }
+  const float phi = expf(-0.5f * u * u) * 0.3989422804014327f;  // 1/sqrt(2pi)
+  const float cdf = 0.5f * (1.0f + erff(u * 0.7071067811865476f));
+  return cdf + u * phi;
+}
+
+template <typename T, bool kTanh>
+__global__ void __launch_bounds__(kThreads)
+    bias_gelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                         const T* __restrict__ dy, T* __restrict__ dx,
+                         float* __restrict__ part, int rows, int n) {
+  extern __shared__ float db[];  // n floats
+  for (int c = threadIdx.x; c < n; c += kThreads) db[c] = 0.f;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const long long off = static_cast<long long>(r) * n;
+    for (int c = threadIdx.x; c < n; c += kThreads) {
+      const float u = ptt::to_f32(ptt::add_t(x[off + c], b[c]));
+      const float du = ptt::to_f32(dy[off + c]) * gelu_grad<kTanh>(u);
+      dx[off + c] = ptt::from_f32<T>(du);
+      db[c] += du;
+    }
+  }
+  float* out = part + static_cast<long long>(blockIdx.x) * n;
+  for (int c = threadIdx.x; c < n; c += kThreads) out[c] = db[c];
+}
+
+template <typename T, bool kTanh>
+int launch_bwd_t(const void* x, const void* b, const void* dy, void* dx,
+                 float* part, float* db, int rows, int n, int parts,
+                 cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bias_gelu_bwd_kernel<T, kTanh>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  bias_gelu_bwd_kernel<T, kTanh><<<parts, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(b),
+      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, n);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ptt::launch_column_sum(part, db, parts, n, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* b, const void* dy, void* dx,
+               float* part, float* db, int rows, int n, int parts,
+               bool approximate, cudaStream_t stream) {
+  return approximate
+             ? launch_bwd_t<T, true>(x, b, dy, dx, part, db, rows, n, parts,
+                                     stream)
+             : launch_bwd_t<T, false>(x, b, dy, dx, part, db, rows, n, parts,
+                                      stream);
+}
+
 template <typename T>
 int launch(const void* x, const void* b, void* y, int rows, int n,
            bool approximate, cudaStream_t stream) {
@@ -102,5 +182,24 @@ extern "C" int ptt_bias_gelu_fwd(const void* x, const void* b, void* y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   PTT_DISPATCH_DTYPE(dtype, T,
                      return launch<T>(x, b, y, rows, n, approximate != 0, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x, dy, dx: [rows, n] contiguous; b: [n] in x's dtype. part: [parts, n] fp32
+// scratch; db: [n] fp32 out. Two launches: pass 1, then the column sum.
+extern "C" int ptt_bias_gelu_bwd(const void* x, const void* b, const void* dy,
+                                 void* dx, void* part, void* db, int rows,
+                                 int n, int parts, int approximate, int dtype,
+                                 int device, void* stream) {
+  if (rows <= 0 || n <= 0 || parts <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PTT_DISPATCH_DTYPE(
+      dtype, T,
+      return launch_bwd<T>(x, b, dy, dx, static_cast<float*>(part),
+                           static_cast<float*>(db), rows, n, parts,
+                           approximate != 0, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

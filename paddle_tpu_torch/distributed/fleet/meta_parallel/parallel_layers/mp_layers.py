@@ -1,7 +1,7 @@
 """Megatron-style tensor-parallel layers at model-parallel world size 1 —
 counterparts of `paddle_tpu/distributed/fleet/meta_parallel/
 parallel_layers/mp_layers.py` (VocabParallelEmbedding, ColumnParallel-
-Linear, RowParallelLinear). At world size 1 each is the dense layer,
+Linear, RowParallelLinear, ParallelCrossEntropy). At world size 1 each is the dense layer,
 exactly what the JAX layers compute outside an SPMD region. Sharding
 over mp > 1 waits for the multi-GPU slice: passing an `mp_group` raises.
 """
@@ -85,3 +85,18 @@ class RowParallelLinear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Vocab-parallel softmax cross entropy (mp_layers.py:168-182); at
+    world size 1 the hard-label `softmax_with_cross_entropy`."""
+
+    def __init__(self, mp_group=None, name=None, ignore_index=-100):
+        super().__init__()
+        _world_size_one(mp_group)
+        self.world_size = 1
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):
+        return F.softmax_with_cross_entropy(input, label,
+                                            ignore_index=self.ignore_index)

@@ -1,3 +1,4 @@
 from .convert import load_jax_params  # noqa: F401
-from .gpt import (GPTConfig, GPTForCausalLM, GPTModel, gpt_1p3b,  # noqa: F401
-                  gpt_medium, gpt_small, gpt_tiny)
+from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
+                  GPTPretrainingCriterion, gpt_1p3b, gpt_medium, gpt_small,
+                  gpt_tiny)

@@ -1,9 +1,13 @@
-"""GPT causal LM for serving — counterpart of `paddle_tpu/models/gpt.py`.
+"""GPT causal LM — counterpart of `paddle_tpu/models/gpt.py`.
 
-This slice carries the serving path: `GPTModel.forward_paged` over the
+Two paths are ported: serving (`GPTModel.forward_paged` over the
 block-paged KV pool and `GPTForCausalLM.generate_batch` on the serving
-engine. The uncached and dense-cache forwards wait for the training
-slice and raise NotImplementedError.
+engine) and training (the uncached `forward` of every layer and
+`GPTPretrainingCriterion`, run by `jit.TrainStep`). Attention in the
+uncached forward takes the flash route (the packed flash kernels) when
+`use_flash_attention` and L >= 512, the dense route otherwise
+(gpt.py:173-213). The dense-cache decode forward (`forward(caches=...)`)
+is not ported and raises NotImplementedError.
 
 Parameter names and layouts are paddle's, so `models/convert.py` copies
 the JAX package's weights without renaming: Linear weights are [in,
@@ -18,8 +22,10 @@ from torch import nn
 
 from .. import nn as pnn
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding)
 from ..ops import nn_ops as F
+from ..ops.kernels import flash_attention as fa
 from ..ops.kernels import paged_attention as pa
 
 
@@ -60,11 +66,16 @@ def gpt_1p3b(**kw):  # GPT-3 1.3B
                      max_seq_len=2048, **kw)
 
 
-def _uncached_forward():
+def _dense_cache_forward():
     return NotImplementedError(
-        'the uncached and dense-cache GPT forwards are not ported yet '
-        '(the serving slice runs forward_paged; training is the next '
-        'slice)')
+        'the dense-cache GPT decode forward is not ported yet (serving '
+        'runs forward_paged over the paged KV pool)')
+
+
+def _no_attention_dropout():
+    return NotImplementedError(
+        'attention dropout > 0 in training is not ported yet (the '
+        'dropout-fused flash kernels come with the dropout slice)')
 
 
 def _normal_(w, std, generator):
@@ -106,6 +117,8 @@ class GPTAttention(nn.Module):
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
         self.local_heads = config.num_heads // self.world_size
+        self.attn_dropout_p = config.attn_dropout
+        self.use_flash = config.use_flash_attention
         kw = {'device': device, 'dtype': dtype}
         self.qkv_proj = ColumnParallelLinear(
             config.hidden_size, 3 * config.hidden_size, gather_output=False,
@@ -118,7 +131,39 @@ class GPTAttention(nn.Module):
                  / math.sqrt(2 * config.num_layers), generator)
 
     def forward(self, x, cache=None, cache_len=None):
-        raise _uncached_forward()
+        """Uncached causal self-attention over x [B, L, H] (gpt.py:151):
+        the flash route at L >= 512 when use_flash_attention, the dense
+        route otherwise."""
+        if cache is not None:
+            raise _dense_cache_forward()
+        qkv = self.qkv_proj(x)
+        B, L = qkv.shape[0], qkv.shape[1]
+        hd = self.head_dim
+        nh = qkv.shape[-1] // (3 * hd)
+        dropout = self.attn_dropout_p if self.training else 0.0
+        if dropout > 0.0:
+            raise _no_attention_dropout()
+        if self.use_flash and L >= 512:
+            ctx = fa.causal_attention(qkv, nh, hd)
+        else:
+            ctx = self._dense_attention(qkv, B, L, nh, hd)
+        return self.out_proj(ctx)
+
+    @staticmethod
+    def _dense_attention(qkv, B, L, nh, hd):
+        """gpt.py:173-191: fp32 scores, causal mask at -1e9 (this
+        route's own constant; the flash kernels use -1e30), softmax in
+        fp32, probabilities cast to the activations' dtype."""
+        x5 = qkv.reshape(B, L, nh, 3, hd)
+        q, k, v = (t.transpose(1, 2) for t in x5.unbind(3))  # B, nh, L, hd
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores * (1.0 / math.sqrt(hd))
+        causal = torch.ones(L, L, dtype=torch.bool, device=qkv.device).tril()
+        scores = torch.where(causal, scores,
+                             torch.full_like(scores, -1e9))
+        probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+        out = torch.matmul(probs, v)
+        return out.transpose(1, 2).reshape(B, L, nh * hd)
 
     def forward_paged(self, x, kv, page_tables, seq_lens, q_lens,
                       write_index=None):
@@ -192,7 +237,10 @@ class GPTDecoderLayer(nn.Module):
                              training=self.training)
 
     def forward(self, x, cache=None, cache_len=None):
-        raise _uncached_forward()
+        if cache is not None:
+            raise _dense_cache_forward()
+        x = self._join(self.attn(self.ln1(x)), x)
+        return self._join(self.mlp(self.ln2(x)), x)
 
     def forward_paged(self, x, kv, page_tables, seq_lens, q_lens,
                       write_index=None):
@@ -217,7 +265,14 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_len=None):
-        raise _uncached_forward()
+        """Hidden states [B, L, H] after the final norm (gpt.py:416-444,
+        without sequence parallelism)."""
+        if caches is not None:
+            raise _dense_cache_forward()
+        x = self.embeddings(input_ids, position_ids)
+        for layer in self.layers:
+            x = layer(x)
+        return self.final_norm(x)
 
     def forward_paged(self, input_ids, position_ids, kv_list, page_tables,
                       seq_lens, q_lens):
@@ -251,7 +306,11 @@ class GPTForCausalLM(nn.Module):
                             generator=generator)
 
     def forward(self, input_ids, position_ids=None):
-        raise _uncached_forward()
+        """Logits [B, L, V] in the params' dtype: the tied head
+        hidden @ W_emb^T (gpt.py:481-497)."""
+        hidden = self.gpt(input_ids, position_ids)
+        w = self.gpt.embeddings.word_embeddings.weight
+        return torch.matmul(hidden, w.t())
 
     def generate_batch(self, prompts, max_new_tokens=32, temperature=1.0,
                        top_k=0, eos_token_id=None, serving_config=None,
@@ -280,3 +339,20 @@ class GPTForCausalLM(nn.Module):
         return eng.generate(prompts, max_new_tokens=max_new_tokens,
                             eos_token_id=eos_token_id,
                             temperature=temperature, top_k=top_k)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Softmax cross entropy with the mean over tokens (gpt.py:737-749);
+    with `loss_mask`, the masked sum over the mask's sum."""
+
+    def __init__(self, config=None):
+        super().__init__()
+        self.ce = ParallelCrossEntropy()
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = self.ce(logits, labels)
+        if loss_mask is not None:
+            masked = loss.reshape(labels.shape) * loss_mask
+            return masked.sum() / loss_mask.sum()
+        # jnp.mean of a bf16 array sums in fp32 and rounds the mean once
+        return loss.float().mean().to(loss.dtype)

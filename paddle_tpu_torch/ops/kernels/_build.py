@@ -52,8 +52,8 @@ def register(name):
     _LAUNCHES.setdefault(name, 0)
 
 
-def count_launch(name):
-    _LAUNCHES[name] += 1
+def count_launch(name, n=1):
+    _LAUNCHES[name] += n
 
 
 def routes_snapshot():
@@ -136,14 +136,35 @@ def build():
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w, b, y, rows, n, eps, dtype, device, stream
-    'ptt_layer_norm_fwd': (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, w, b, y, mean (or None), rstd (or None), rows, n, eps, dtype,
+    # device, stream
+    'ptt_layer_norm_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, w, dy, mean, rstd, dx, part, dw_db, rows, n, parts, dtype, device,
+    # stream
+    'ptt_layer_norm_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _P),
     # x, b, y, rows, n, approximate, dtype, device, stream
     'ptt_bias_gelu_fwd': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, b, dy, dx, part, db, rows, n, parts, approximate, dtype, device,
+    # stream
+    'ptt_bias_gelu_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P),
     # q, k_pages, v_pages, page_tables, seq_lens, q_lens, out,
     # B, T, H, D, N, page_size, pages_per_seq, dtype, device, stream
     'ptt_ragged_paged_attention': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, bias (or None), o, lse, B, L, H, D, scale, causal, dtype,
+    # device, stream
+    'ptt_flash_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                      _I, _P),
+    # q, k, v, bias, dout, lse, delta, dq, B, L, H, D, scale, causal, dtype,
+    # device, stream
+    'ptt_flash_bwd_dq': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                         _I, _I, _I, _P),
+    # q, k, v, bias, dout, lse, delta, dk, dv, B, L, H, D, scale, causal,
+    # dtype, device, stream
+    'ptt_flash_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _F, _I, _I, _I, _P),
 }
 
 
@@ -193,12 +214,20 @@ def require_contiguous(name, **tensors):
             raise ValueError(f'{name}: {arg} must be contiguous')
 
 
-def launch(fn_name, kernel, device, *args):
+def reduction_parts(device, rows):
+    """CTAs of the first pass of a cross-row reduction (the backward
+    kernels' dw/db partials): two per SM, at most one per row."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(rows, 2 * sms))
+
+
+def launch(fn_name, kernel, device, *args, launches=1):
     """Call C entry `fn_name` on `device`'s current stream, raise on a
-    non-zero cudaError, and count one launch of `kernel`."""
+    non-zero cudaError, and count `launches` launches of `kernel` (an
+    entry point that runs a second reduction pass launches twice)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib(), fn_name)(*args, device.index or 0, stream)
     if rc:
         msg = lib().ptt_error_string(rc).decode(errors='replace')
         raise RuntimeError(f'{kernel}: CUDA error {rc} ({msg})')
-    count_launch(kernel)
+    count_launch(kernel, launches)

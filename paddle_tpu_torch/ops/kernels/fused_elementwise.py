@@ -1,20 +1,26 @@
-"""Fused bias + GELU forward — counterpart of
-`paddle_tpu/ops/pallas/fused_elementwise.py` (its `_bg_fwd_kernel`,
-:64).
+"""Fused bias + GELU forward and backward — counterpart of
+`paddle_tpu/ops/pallas/fused_elementwise.py` (its `_bg_fwd_kernel`, :64,
+and `_bg_bwd_kernel`, :69, under the `bias_gelu` custom VJP, :86).
 
 `bias_gelu(x, bias, approximate)` computes gelu(x + bias) with the bias
-cast to x's dtype first (fused_elementwise.py:105, :143). On CUDA
-tensors it launches the hand-written kernel in
-`csrc/fused_elementwise.cu`; on CPU tensors it runs `bias_gelu_plain`.
-Both add in x's dtype, evaluate the GELU in fp32 (tanh form with
-0.044715 when `approximate`, the erf form otherwise — jax.nn.gelu's two
-forms) and round once to x's dtype. The JAX route rounds inside bf16
-arithmetic instead, so in bf16 the two agree to a few bf16 ulps (the
-tests hold them at 5e-2); in fp32 they agree to float rounding.
+cast to x's dtype first (fused_elementwise.py:105, :143), through
+`BiasGeluFunction`, which saves x and the bias and whose backward
+computes dx = dy * gelu'(x + b) and db, the fp32 sum of that over rows,
+cast to the bias's dtype (:134). Both
+directions dispatch by device: CUDA tensors launch the hand-written
+kernels in `csrc/fused_elementwise.cu`, CPU tensors run
+`bias_gelu_plain` and `bias_gelu_bwd_plain`.
 
-`dropout_add`'s kernels are not on the serving path: at eval or p=0 it
-is a plain add (`ops/nn_ops.py`). They wait for the training slice, as
-does the bias+GELU backward.
+Numerics: both routes add in x's dtype and evaluate the GELU (tanh form
+with 0.044715 when `approximate`, the erf form otherwise — jax.nn.gelu's
+two forms) and its derivative (`gelu_grad_f32`, the port's copy of
+`_gelu_grad`, :48-58) in fp32; the forward rounds once to x's dtype. The
+JAX route rounds inside bf16 arithmetic instead, so in bf16 the two
+agree to a few bf16 ulps (the tests hold them at 5e-2); in fp32 they
+agree to float rounding.
+
+`dropout_add`'s kernels are not on this slice's paths: at eval or p=0
+it is a plain add (`ops/nn_ops.py`).
 """
 import math
 
@@ -23,7 +29,9 @@ import torch
 from . import _build
 
 KERNEL = 'bias_gelu'
+BWD_KERNEL = 'bias_gelu_bwd'
 _build.register(KERNEL)
+_build.register(BWD_KERNEL)
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -37,6 +45,19 @@ def gelu_f32(u, approximate):
     return 0.5 * u * torch.erfc(-u * math.sqrt(0.5))
 
 
+def gelu_grad_f32(u, approximate):
+    """d gelu(u) / du on an fp32 tensor, op for op as `_gelu_grad`."""
+    if approximate:
+        c = _SQRT_2_OVER_PI
+        inner = c * (u + 0.044715 * (u * u * u))
+        t = torch.tanh(inner)
+        return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * c * \
+            (1.0 + 3 * 0.044715 * (u * u))
+    phi = torch.exp(-0.5 * u * u) * (1.0 / math.sqrt(2.0 * math.pi))
+    cdf = 0.5 * (1.0 + torch.erf(u * (1.0 / math.sqrt(2.0))))
+    return cdf + u * phi
+
+
 def bias_gelu_plain(x, bias, approximate):
     """Plain PyTorch gelu(x + bias) (the kernel's reference, and the
     CPU route)."""
@@ -44,17 +65,26 @@ def bias_gelu_plain(x, bias, approximate):
     return gelu_f32(u, approximate).to(x.dtype)
 
 
-def bias_gelu(x, bias, approximate):
-    """x [..., N], bias [N]."""
-    if _build.on_cpu(x, bias):
-        return bias_gelu_plain(x, bias, approximate)
+def bias_gelu_bwd_plain(x, bias, dy, approximate):
+    """Plain PyTorch backward: (dx in x's dtype, db fp32 [N])."""
+    u = (x + bias.to(x.dtype)).float()
+    du = dy.float() * gelu_grad_f32(u, approximate)
+    return du.to(x.dtype), du.reshape(-1, x.shape[-1]).sum(0)
+
+
+def _check(x, bias, name):
     N = x.shape[-1]
     if bias.shape != (N,):
-        raise ValueError(f'bias_gelu: bias must be [{N}], got '
+        raise ValueError(f'{name}: bias must be [{N}], got '
                          f'{tuple(bias.shape)}')
-    code = _build.dtype_code(x, KERNEL)
-    b = bias.to(x.dtype).contiguous()
-    _build.require_contiguous(KERNEL, x=x)
+    code = _build.dtype_code(x, name)
+    _build.require_contiguous(name, x=x)
+    return code, bias.to(x.dtype).contiguous()
+
+
+def _fwd_kernel(x, bias, approximate):
+    code, b = _check(x, bias, KERNEL)
+    N = x.shape[-1]
     y = torch.empty_like(x)
     rows = x.numel() // max(N, 1)
     if rows == 0 or N == 0:
@@ -63,3 +93,57 @@ def bias_gelu(x, bias, approximate):
                   b.data_ptr(), y.data_ptr(), rows, N, int(bool(approximate)),
                   code)
     return y
+
+
+def _bwd_kernel(x, bias, dy, approximate):
+    code, b = _check(x, bias, BWD_KERNEL)
+    if dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError('bias_gelu_bwd: dy must match x in shape and dtype')
+    dy = dy.contiguous()
+    N = x.shape[-1]
+    rows = x.numel() // max(N, 1)
+    dx = torch.empty_like(x)
+    db = torch.zeros(N, dtype=torch.float32, device=x.device)
+    if rows == 0 or N == 0:
+        return dx, db
+    parts = _build.reduction_parts(x.device, rows)
+    part = torch.empty(parts, N, dtype=torch.float32, device=x.device)
+    _build.launch('ptt_bias_gelu_bwd', BWD_KERNEL, x.device, x.data_ptr(),
+                  b.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                  db.data_ptr(), rows, N, parts, int(bool(approximate)), code,
+                  launches=2)
+    return dx, db
+
+
+def bias_gelu_bwd(x, bias, dy, approximate):
+    """(dx, db fp32): the backward kernel on CUDA tensors, its plain
+    version on CPU tensors."""
+    if _build.on_cpu(x, bias, dy):
+        return bias_gelu_bwd_plain(x, bias, dy, approximate)
+    return _bwd_kernel(x, bias, dy, approximate)
+
+
+class BiasGeluFunction(torch.autograd.Function):
+    """The `bias_gelu` custom VJP: saves x and the bias; the backward
+    recomputes u = x + b once."""
+
+    @staticmethod
+    def forward(ctx, x, bias, approximate):
+        if _build.on_cpu(x, bias):
+            y = bias_gelu_plain(x, bias, approximate)
+        else:
+            y = _fwd_kernel(x, bias, approximate)
+        ctx.save_for_backward(x, bias)
+        ctx.approximate = approximate
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, bias = ctx.saved_tensors
+        dx, db = bias_gelu_bwd(x, bias, dy, ctx.approximate)
+        return dx, db.to(bias.dtype), None
+
+
+def bias_gelu(x, bias, approximate):
+    """x [..., N], bias [N]. Differentiable in x and bias."""
+    return BiasGeluFunction.apply(x, bias, approximate)

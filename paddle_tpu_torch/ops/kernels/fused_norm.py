@@ -1,36 +1,68 @@
-"""Fused LayerNorm forward — counterpart of
-`paddle_tpu/ops/pallas/fused_norm.py` (its `_fwd_kernel`, :52).
+"""Fused LayerNorm forward and backward — counterpart of
+`paddle_tpu/ops/pallas/fused_norm.py` (its `_fwd_kernel`, :52, and
+`_bwd_kernel`, :63, under the `fused_layer_norm` custom VJP, :138).
 
 `layer_norm(x, weight, bias, eps)` normalises over the last axis with
-weight and bias of x's dtype. On CUDA tensors it launches the hand-
-written kernel in `csrc/fused_norm.cu`; on CPU tensors it runs
-`layer_norm_plain`, the same function in plain PyTorch. The op order is
-the Pallas body's: mean and variance in fp32 (two-pass), normalise in
-fp32, cast to x's dtype, then `* w` and `+ b` in x's dtype. The
-backward kernel waits for the training slice.
+weight and bias of x's dtype. When a gradient is needed it runs
+`LayerNormFunction`, whose forward also keeps the fp32 mean and rstd
+[rows] and whose backward computes dx, dw and db from them; otherwise
+it runs the forward alone (serving pays for no statistics). Both
+directions dispatch by device: CUDA tensors launch the hand-written
+kernels in `csrc/fused_norm.cu`, CPU tensors run `layer_norm_fwd_plain`
+and `layer_norm_bwd_plain`, the same functions in plain PyTorch.
+
+Op order is the Pallas bodies': mean and variance in fp32 (two-pass),
+normalise in fp32, cast to x's dtype, then `* w` and `+ b` in x's dtype;
+dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) with
+dxhat = dy * w in fp32; dw sums dy * xhat with xhat cast to x's dtype
+and back, db sums dy, both in fp32 over all rows, and the Function
+returns them cast to the weight's and the bias's dtype (fused_norm.py:
+165-166).
 """
 import torch
 
 from . import _build
 
 KERNEL = 'layer_norm'
+BWD_KERNEL = 'layer_norm_bwd'
 _build.register(KERNEL)
+_build.register(BWD_KERNEL)
 
 
-def layer_norm_plain(x, weight, bias, eps):
-    """Plain PyTorch LayerNorm over the last axis (the kernel's
-    reference, and the CPU route)."""
+def layer_norm_fwd_plain(x, weight, bias, eps):
+    """Plain PyTorch LayerNorm over the last axis: (y, mean, rstd), the
+    statistics fp32 [rows] (the kernel's reference, and the CPU
+    route)."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    out = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-    return out * weight + bias
+    rstd = torch.rsqrt(var + eps)
+    out = ((xf - mean) * rstd).to(x.dtype)
+    return out * weight + bias, mean.reshape(-1), rstd.reshape(-1)
 
 
-def layer_norm(x, weight, bias, eps):
-    """x [..., N]; weight, bias [N] of x's dtype."""
-    if _build.on_cpu(x, weight, bias):
-        return layer_norm_plain(x, weight, bias, eps)
+def layer_norm_plain(x, weight, bias, eps):
+    """The forward's output alone."""
+    return layer_norm_fwd_plain(x, weight, bias, eps)[0]
+
+
+def layer_norm_bwd_plain(x, weight, dy, mean, rstd):
+    """Plain PyTorch LayerNorm backward from the saved statistics:
+    (dx in x's dtype, dw fp32 [N], db fp32 [N])."""
+    N = x.shape[-1]
+    xf = x.reshape(-1, N).float()
+    dyf = dy.reshape(-1, N).float()
+    mean, rstd = mean.reshape(-1, 1), rstd.reshape(-1, 1)
+    xhat = (xf - mean) * rstd
+    dxhat = dyf * weight.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
+    xhat_c = xhat.to(x.dtype).float()
+    return dx, (dyf * xhat_c).sum(0), dyf.sum(0)
+
+
+def _check(x, weight, bias):
     N = x.shape[-1]
     if weight.shape != (N,) or bias.shape != (N,):
         raise ValueError(f'layer_norm: weight/bias must be [{N}], got '
@@ -38,12 +70,85 @@ def layer_norm(x, weight, bias, eps):
     if not (weight.dtype == bias.dtype == x.dtype):
         raise TypeError('layer_norm: x, weight and bias must share a dtype')
     _build.require_contiguous(KERNEL, x=x, weight=weight, bias=bias)
-    code = _build.dtype_code(x, KERNEL)
-    y = torch.empty_like(x)
+    return _build.dtype_code(x, KERNEL)
+
+
+def _fwd_kernel(x, weight, bias, eps, with_stats):
+    code = _check(x, weight, bias)
+    N = x.shape[-1]
     rows = x.numel() // max(N, 1)
+    y = torch.empty_like(x)
+    mean = rstd = None
+    if with_stats:
+        mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
     if rows == 0 or N == 0:
-        return y
+        return y, mean, rstd
     _build.launch('ptt_layer_norm_fwd', KERNEL, x.device, x.data_ptr(),
-                  weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, N,
+                  weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                  mean.data_ptr() if with_stats else None,
+                  rstd.data_ptr() if with_stats else None, rows, N,
                   float(eps), code)
-    return y
+    return y, mean, rstd
+
+
+def _bwd_kernel(x, weight, dy, mean, rstd):
+    code = _build.dtype_code(x, BWD_KERNEL)
+    if dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError('layer_norm_bwd: dy must match x in shape and dtype')
+    dy = dy.contiguous()
+    N = x.shape[-1]
+    rows = x.numel() // max(N, 1)
+    dx = torch.empty_like(x)
+    if rows == 0 or N == 0:
+        zeros = torch.zeros(N, dtype=torch.float32, device=x.device)
+        return dx, zeros, zeros.clone()
+    parts = _build.reduction_parts(x.device, rows)
+    part = torch.empty(parts, 2 * N, dtype=torch.float32, device=x.device)
+    dw_db = torch.empty(2 * N, dtype=torch.float32, device=x.device)
+    _build.launch('ptt_layer_norm_bwd', BWD_KERNEL, x.device, x.data_ptr(),
+                  weight.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+                  rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                  dw_db.data_ptr(), rows, N, parts, code, launches=2)
+    return dx, dw_db[:N], dw_db[N:]
+
+
+def layer_norm_bwd(x, weight, dy, mean, rstd):
+    """(dx, dw fp32, db fp32): the backward kernel on CUDA tensors, its
+    plain version on CPU tensors."""
+    if _build.on_cpu(x, weight, dy, mean, rstd):
+        return layer_norm_bwd_plain(x, weight, dy, mean, rstd)
+    return _bwd_kernel(x, weight, dy, mean, rstd)
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """The `fused_layer_norm` custom VJP: mean and rstd are the saved
+    residuals; the backward recomputes no reduction of the forward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        if _build.on_cpu(x, weight, bias):
+            y, mean, rstd = layer_norm_fwd_plain(x, weight, bias, eps)
+        else:
+            y, mean, rstd = _fwd_kernel(x, weight, bias, eps, True)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.out_dtypes = (weight.dtype, bias.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x, weight, dy, mean, rstd)
+        w_dtype, b_dtype = ctx.out_dtypes
+        return dx, dw.to(w_dtype), db.to(b_dtype), None
+
+
+def layer_norm(x, weight, bias, eps):
+    """x [..., N]; weight, bias [N] of x's dtype. Differentiable in x,
+    weight and bias."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return LayerNormFunction.apply(x, weight, bias, eps)
+    if _build.on_cpu(x, weight, bias):
+        return layer_norm_plain(x, weight, bias, eps)
+    return _fwd_kernel(x, weight, bias, eps, False)[0]

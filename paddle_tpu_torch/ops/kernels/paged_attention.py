@@ -30,6 +30,12 @@ key. The serving engine never builds a query without one: its idle
 decode slots (seq_len 1, q_len 0, page row 0) see key 0 of page 0 and
 their output is ignored.
 
+There is no backward: the JAX package has none, and the serving engine
+runs under `torch.inference_mode()`. So the wrapper refuses, on any
+device, a call that would need one (grad mode on and an input that
+requires grad) rather than return an output that silently has no
+gradient.
+
 `write_kv_pages` scatters the step's new K/V rows into the pool IN PLACE
 (`index_copy_` on the flattened pool), where the JAX function returns
 new arrays; padded tokens (t >= q_len) are filtered out before the
@@ -83,6 +89,12 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
                            q_lens, *, num_heads, head_dim):
     """Attention of each row's new queries over its pages; see the
     module docstring for layouts and semantics."""
+    if torch.is_grad_enabled() and (q.requires_grad or k_pages.requires_grad
+                                    or v_pages.requires_grad):
+        raise RuntimeError(
+            'ragged_paged_attention has no backward (nor has the JAX '
+            'kernel): call it under torch.no_grad() or '
+            'torch.inference_mode(), as the serving engine does')
     if _build.on_cpu(q, k_pages, v_pages):
         return ragged_paged_attention_plain(
             q, k_pages, v_pages, page_tables, seq_lens, q_lens,

@@ -1,8 +1,10 @@
 """Neural-network functional ops — the subset of `paddle_tpu/ops/nn_ops.py`
-the serving slice runs: `gelu` (:36), `bias_gelu` (:41), the eval / p=0
-branch of `dropout_add` (:60), `layer_norm` (:217) with its fused-route
-gate (:243-246), `linear` (:402), `embedding` (:746) and eval-mode
-`dropout`. Training-mode dropout waits for the training slice and raises.
+the serving and training slices run: `gelu` (:36), `bias_gelu` (:41),
+the eval / p=0 branch of `dropout_add` (:60), `layer_norm` (:217) with
+its fused-route gate (:243-246), `linear` (:402), `embedding` (:746),
+eval-mode `dropout` and the hard-label `softmax_with_cross_entropy`
+(:906) on its fused route (`_fused_hard_xent`, :768-798). Dropout at
+p > 0 in training waits for the dropout slice and raises.
 
 Functions take and return torch tensors.
 """
@@ -27,8 +29,8 @@ def bias_gelu(x, bias=None, approximate=False):
 
 def _not_served(what):
     return NotImplementedError(
-        f'{what} is not ported yet: the serving slice runs eval-mode '
-        f'dropout only (training waits for the training slice)')
+        f'{what} is not ported yet: the port runs dropout at eval or at '
+        f'p=0 only (dropout at p > 0 waits for the dropout slice)')
 
 
 def dropout(x, p=0.5, training=True, mode='upscale_in_train'):
@@ -87,3 +89,67 @@ def linear(x, weight, bias=None):
 def embedding(x, weight):
     """Rows of `weight` at integer ids `x` (lookup_table_v2)."""
     return weight[x.to(torch.long)]
+
+
+class _HardXent(torch.autograd.Function):
+    """Hard-label softmax cross-entropy over the last axis, the custom
+    VJP `_fused_hard_xent` (nn_ops.py:768-798): lg [N, C], idx [N] ->
+    loss [N] fp32. Only the (low-precision) logits and the [N] fp32
+    logsumexp are saved; the backward recomputes the softmax, so no
+    fp32 [N, C] log-probability tensor outlives the forward. The fp32
+    [N, C] temporaries of each direction are updated in place, one at a
+    time."""
+
+    @staticmethod
+    def forward(ctx, lg, idx, ignore_index):
+        m = lg.amax(-1, keepdim=True).float()
+        e = lg.to(torch.float32, copy=True)    # never the logits themselves
+        e.sub_(m).exp_()
+        lse = m + torch.log(e.sum(-1, keepdim=True))
+        del e
+        ignored = idx == ignore_index
+        safe = torch.where(ignored, torch.zeros_like(idx), idx)
+        picked = lg.gather(-1, safe[:, None]).float()
+        loss = (lse - picked)[:, 0]
+        loss = torch.where(ignored, torch.zeros_like(loss), loss)
+        ctx.save_for_backward(lg, safe, lse, ignored)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, safe, lse, ignored = ctx.saved_tensors
+        p = lg.to(torch.float32, copy=True)
+        p.sub_(lse).exp_()                                  # the softmax
+        rows = torch.arange(p.shape[0], device=p.device)
+        p[rows, safe] -= 1.0                                # - onehot
+        valid = (~ignored).float()
+        p.mul_((g.float() * valid)[:, None])
+        return p.to(lg.dtype), None, None
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    """Parity: operators/softmax_with_cross_entropy_op, hard labels over
+    the last axis. label holds class ids, shaped like logits without its
+    last axis or with a trailing 1. Returns the per-row loss [..., 1] in
+    the logits' dtype (nn_ops.py:931, :937): computed in fp32, rows whose
+    label is `ignore_index` give 0."""
+    if soft_label or return_softmax:
+        raise NotImplementedError(
+            'softmax_with_cross_entropy: soft labels and return_softmax '
+            'are not ported yet (the GPT criterion uses hard labels)')
+    if axis % logits.dim() != logits.dim() - 1:
+        raise NotImplementedError(
+            'softmax_with_cross_entropy: only the last axis is ported')
+    lead = logits.shape[:-1]
+    if label.shape == lead + (1,):
+        label = label.reshape(lead)
+    if label.shape != lead:
+        raise ValueError(f'softmax_with_cross_entropy: label shape '
+                         f'{tuple(label.shape)} does not match logits '
+                         f'{tuple(logits.shape)}')
+    C = logits.shape[-1]
+    idx = label.reshape(-1).to(device=logits.device, dtype=torch.long)
+    out = _HardXent.apply(logits.reshape(-1, C), idx, ignore_index)
+    return out.reshape(lead + (1,)).to(logits.dtype)

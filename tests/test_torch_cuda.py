@@ -12,18 +12,24 @@ Tolerances: fp32 at rtol 2e-4 / atol 2e-5 (summation order); bf16
 LayerNorm and bias+GELU at rtol 1e-2 / atol 2e-2 (one bf16 rounding may
 flip, 2^-8 relative, on outputs up to ~4); bf16 attention at rtol 2e-2
 / atol 1e-2 (fp32 online softmax in another key order, one bf16
-rounding).
+rounding). fp32 flash attention and the fp32 backward reductions at
+rtol 1e-3 / atol 1e-4: the kernels sum up to 256 keys, 128 dims or
+hundreds of rows in another order than the plain versions, with fp32
+intermediates of magnitude ~10, so they differ by a few 1e-6 relative
+(the bar leaves a margin of ten or more).
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import fused_norm as tfn
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
+FP32_SUMS = dict(rtol=1e-3, atol=1e-4)
 BF16_ELEMENTWISE = dict(rtol=1e-2, atol=2e-2)
 BF16_ATTENTION = dict(rtol=2e-2, atol=1e-2)
 
@@ -145,3 +151,127 @@ class TestOnCard:
         with pytest.raises(ValueError, match='head_dim > 256'):
             tpa.ragged_paged_attention(q, pages, pages, *meta, num_heads=2,
                                        head_dim=512)
+
+    # -----------------------------------------------------------------
+    # the training slice's kernels
+    # -----------------------------------------------------------------
+    @pytest.mark.parametrize('L', [256, 200])
+    @pytest.mark.parametrize('head_dim', [64, 128])
+    @pytest.mark.parametrize('with_bias', [False, True],
+                             ids=['nobias', 'bias'])
+    @pytest.mark.parametrize('causal', [True, False],
+                             ids=['causal', 'full'])
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_flash_kernels(self, cuda, dtype, causal, with_bias, head_dim,
+                           L):
+        g = torch.Generator(device=cuda).manual_seed(7)
+        B, H = 2, 2
+        q, k, v, do = (torch.randn(B, L, H * head_dim, generator=g,
+                                   device=cuda).to(dtype) for _ in range(4))
+        bias = None
+        if with_bias:
+            bias = torch.where(torch.rand(B, L, generator=g, device=cuda)
+                               > 0.2, 0.0, -1e4)
+        kw = dict(num_heads=H, head_dim=head_dim, bias=bias, causal=causal)
+        _build.reset_launches()
+        o, lse = tfa.flash_attention_packed_fwd(q, k, v, **kw)
+        dq, dk, dv = tfa.flash_attention_packed_bwd(q, k, v, o, lse, do,
+                                                    **kw)
+        snap = _build.routes_snapshot()
+        assert (snap['flash_fwd'], snap['flash_bwd_dq'],
+                snap['flash_bwd_dkv']) == (1, 1, 1)
+        o_p, lse_p = tfa.flash_attention_packed_plain(q, k, v, **kw)
+        grads_p = tfa.flash_attention_packed_bwd_plain(q, k, v, o_p, lse_p,
+                                                       do, **kw)
+        tol = FP32_SUMS if dtype == torch.float32 else BF16_ATTENTION
+        torch.testing.assert_close(o.float(), o_p.float(), **tol)
+        torch.testing.assert_close(lse, lse_p, **FP32_SUMS)
+        for got, want in zip((dq, dk, dv), grads_p):
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize('shape', [(3, 5, 64), (300, 2048), (2, 37)])
+    def test_layer_norm_bwd_kernel(self, cuda, dtype, shape):
+        g = torch.Generator(device=cuda).manual_seed(2)
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        w = torch.randn(shape[-1], generator=g, device=cuda).to(dtype)
+        b = torch.randn(shape[-1], generator=g, device=cuda).to(dtype)
+        dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        _y, mean, rstd = tfn.layer_norm_fwd_plain(x, w, b, 1e-5)
+        _build.reset_launches()
+        got = tfn.layer_norm_bwd(x, w, dy, mean, rstd)
+        assert _build.routes_snapshot()['layer_norm_bwd'] == 2
+        want = tfn.layer_norm_bwd_plain(x, w, dy, mean, rstd)
+        tol = FP32_SUMS if dtype == torch.float32 else BF16_ELEMENTWISE
+        torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+        for a, e in zip(got[1:], want[1:]):       # fp32 sums over rows
+            torch.testing.assert_close(a, e, **FP32_SUMS)
+
+    @pytest.mark.parametrize('approximate', [True, False])
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize('shape', [(3, 5, 64), (300, 8192), (2, 37)])
+    def test_bias_gelu_bwd_kernel(self, cuda, dtype, shape, approximate):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        b = torch.randn(shape[-1], generator=g, device=cuda)
+        dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        _build.reset_launches()
+        dx, db = tfe.bias_gelu_bwd(x, b, dy, approximate)
+        assert _build.routes_snapshot()['bias_gelu_bwd'] == 2
+        dx_p, db_p = tfe.bias_gelu_bwd_plain(x, b, dy, approximate)
+        tol = FP32 if dtype == torch.float32 else BF16_ELEMENTWISE
+        torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
+        torch.testing.assert_close(db, db_p, **FP32_SUMS)
+
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_gradients_flow_through_every_kernel_wrapper(self, cuda, dtype):
+        """A CUDA output that needs a gradient has a grad_fn, and its
+        backward fills every input's .grad through the kernels, as the
+        CPU route's does."""
+        g = torch.Generator(device=cuda).manual_seed(4)
+
+        def leaf(*shape):
+            return torch.randn(*shape, generator=g, device=cuda).to(
+                dtype).requires_grad_()
+
+        x, w, b = leaf(6, 128), leaf(128), leaf(128)
+        fb = leaf(128)
+        B, L, H, D = 1, 96, 2, 64
+        q, k, v = leaf(B, L, H * D), leaf(B, L, H * D), leaf(B, L, H * D)
+        _build.reset_launches()
+        outs = [tfn.layer_norm(x, w, b, 1e-5), tfe.bias_gelu(x, fb, True),
+                tfa.flash_attention_packed(q, k, v, H, D, causal=True)]
+        for o in outs:
+            assert o.grad_fn is not None
+        sum(o.float().square().sum() for o in outs).backward()
+        for t in (x, w, b, fb, q, k, v):
+            assert t.grad is not None and t.grad.dtype == dtype
+            assert bool(t.grad.float().abs().sum() > 0)
+        snap = _build.routes_snapshot()
+        for name in ('layer_norm', 'layer_norm_bwd', 'bias_gelu',
+                     'bias_gelu_bwd', 'flash_fwd', 'flash_bwd_dq',
+                     'flash_bwd_dkv'):
+            assert snap[name] > 0, name
+        # the same loss through the plain versions on the CPU
+        cpu = [t.detach().cpu().requires_grad_() for t in (x, w, b, fb, q, k,
+                                                            v)]
+        xc, wc, bc, fbc, qc, kc, vc = cpu
+        outs_c = [tfn.layer_norm(xc, wc, bc, 1e-5),
+                  tfe.bias_gelu(xc, fbc, True),
+                  tfa.flash_attention_packed(qc, kc, vc, H, D, causal=True)]
+        sum(o.float().square().sum() for o in outs_c).backward()
+        tol = FP32_SUMS if dtype == torch.float32 else BF16_ATTENTION
+        for t, c in zip((x, w, b, fb, q, k, v), cpu):
+            torch.testing.assert_close(t.grad.float().cpu(), c.grad.float(),
+                                       **tol)
+
+    def test_paged_attention_refuses_grad_on_card(self, cuda):
+        q, kp, vp, pt, sl, ql, H = _paged_case(32)
+        args = [torch.from_numpy(a).to(cuda, torch.float32)
+                for a in (q, kp, vp)]
+        args[0].requires_grad_()
+        args += [torch.from_numpy(a).to(cuda) for a in (pt, sl, ql)]
+        with pytest.raises(RuntimeError, match='no backward'):
+            tpa.ragged_paged_attention(*args, num_heads=H, head_dim=32)
+        with torch.no_grad():
+            tpa.ragged_paged_attention(*args, num_heads=H, head_dim=32)

@@ -6,7 +6,16 @@ port through `load_jax_params`, which must cover every name. Then one
 `forward_paged` chunked-prefill step and one decode step, on the same
 numpy inputs, must give the JAX model's hidden states and KV pages at
 fp32 (atol 1e-4: matmul and softmax summation order differ).
+
+The uncached forward: `__graft_entry__.entry()`'s GPT (vocab 4096,
+hidden 256, 4 layers) gives the JAX logits at fp32, and the tiny GPT's
+loss and every parameter's gradient equal `jax.value_and_grad` of the
+JAX model's loss on the dense route (L=128) and the flash route (L=512,
+the Pallas packed kernels in interpret mode against the port's flash
+Function on the CPU). Logits, loss and gradients at the fp32 bars,
+rtol 2e-4 / atol 2e-5 (matmul and softmax summation order).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,9 +149,79 @@ def test_presets_match_jax():
 
 
 def test_unported_forwards_raise(bridged):
+    # the uncached forward is ported; the dense-cache decode is not
     _jm, tm, _named = bridged
     ids = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match='not ported'):
-        tm(ids)
+        tm.gpt(ids, caches=[None, None])
     with pytest.raises(NotImplementedError, match='not ported'):
-        tm.gpt(ids)
+        tm.gpt.layers[0].attn(torch.zeros(1, 4, 64), cache=(None, None))
+
+
+def test_entry_config_logits_match_jax():
+    import __graft_entry__
+    forward, (params, ids) = __graft_entry__.entry()
+    want = np.asarray(forward(params, ids))
+    cfg = tgpt.GPTConfig(vocab_size=4096, hidden_size=256, num_layers=4,
+                         num_heads=8, max_seq_len=256, hidden_dropout=0.0,
+                         attn_dropout=0.0, use_flash_attention=False)
+    tm = tgpt.GPTForCausalLM(cfg)
+    load_jax_params(tm, {n: np.asarray(a) for n, a in params.items()})
+    with torch.no_grad():
+        got = tm(torch.from_numpy(np.array(ids))).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+GRAD = dict(rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize('L', [128, 512], ids=['dense', 'flash'])
+def test_loss_and_every_gradient_match_jax(L):
+    from paddle_tpu.jit import bind_arrays
+    cfg = dict(TINY, max_seq_len=512, use_flash_attention=True)
+    paddle.seed(11)
+    jm = jgpt.GPTForCausalLM(jgpt.GPTConfig(**cfg))
+    jcrit = jgpt.GPTPretrainingCriterion()
+    params = {n: p.data for n, p in jm.named_parameters()}
+    rng = np.random.RandomState(L)
+    ids = rng.randint(0, 128, (2, L)).astype(np.int32)
+    labels = np.roll(ids, -1, 1)
+
+    def loss_of(ps):
+        with bind_arrays(jm, ps), no_grad():
+            return jcrit(jm(Tensor(jnp.asarray(ids))),
+                         Tensor(jnp.asarray(labels))).data.astype(
+                             jnp.float32)
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_of))(params)
+    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg))
+    load_jax_params(tm, {n: np.asarray(a) for n, a in params.items()})
+    from paddle_tpu_torch.ops.kernels import _build
+    tloss = tgpt.GPTPretrainingCriterion()(
+        tm(torch.from_numpy(ids)), torch.from_numpy(labels))
+    tloss.backward()
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss),
+                               rtol=2e-4, atol=2e-5)
+    grads = {n: p.grad for n, p in tm.named_parameters()}
+    assert set(grads) == set(jgrads)
+    for n, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[n]),
+                                   err_msg=n, **GRAD)
+    assert all(v == 0 for v in _build.routes_snapshot().values())
+
+
+def test_criterion_with_loss_mask_matches_jax():
+    rng = np.random.RandomState(3)
+    logits = rng.randn(2, 8, 16).astype(np.float32)
+    labels = rng.randint(0, 16, (2, 8)).astype(np.int32)
+    labels[0, 3] = -100                                   # ignore_index
+    mask = (rng.rand(2, 8) > 0.3).astype(np.float32)
+    with no_grad():
+        want = jgpt.GPTPretrainingCriterion()(
+            Tensor(jnp.asarray(logits)), Tensor(jnp.asarray(labels)),
+            Tensor(jnp.asarray(mask)))
+    crit = tgpt.GPTPretrainingCriterion()
+    got = crit(torch.from_numpy(logits), torch.from_numpy(labels),
+               torch.from_numpy(mask))
+    np.testing.assert_allclose(float(got), float(want.data), rtol=2e-4,
+                               atol=2e-5)

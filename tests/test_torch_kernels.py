@@ -1,8 +1,9 @@
 """paddle_tpu_torch kernels' plain versions vs the JAX package.
 
 Each kernel module of the port (ops/kernels/{fused_norm,
-fused_elementwise,paged_attention}.py) keeps a plain PyTorch version
-that CPU tensors route to. Here the same numpy inputs (seeded) go
+fused_elementwise,paged_attention,flash_attention}.py) keeps a plain
+PyTorch version that CPU tensors route to (the flash kernels are held
+in tests/test_torch_flash.py). Here the same numpy inputs (seeded) go
 through that version and through the JAX package's two routes: the jnp
 reference and the Pallas kernel body under interpret mode (the JAX
 package's own CPU coverage of its kernels). Tolerances: fp32 at rtol
@@ -14,11 +15,14 @@ holds them against the plain versions there, and chip_smoke.py does the
 same at the serving path's shapes.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.core import flags
+from paddle_tpu.core.autograd import no_grad
 from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.ops import nn_ops as jnn
 from paddle_tpu.ops.pallas import fused_elementwise as jfe
@@ -124,6 +128,137 @@ def test_gelu_and_bias_none_match_jax(approximate):
     got = tnn.bias_gelu(_t(x, torch.float32), None, approximate=approximate)
     ref = jnn.gelu(Tensor(jnp.asarray(x)), approximate=approximate)
     np.testing.assert_allclose(_np(got), _np(ref), **FP32)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' plain versions and the autograd Functions
+# ---------------------------------------------------------------------------
+def _jax_vjp(fn, primals, cot):
+    """(out, grads) of fn at `primals` (arrays) with cotangent `cot`; fn
+    runs the JAX package's Tensor ops under its no_grad, as a jitted
+    train step does."""
+    def f(*arrays):
+        with no_grad():
+            return fn(*[Tensor(a) for a in arrays]).data
+    out, vjp = jax.vjp(f, *primals)
+    return out, vjp(cot)
+
+
+def _torch_vjp(fn, primals, cot):
+    leaves = [p.clone().requires_grad_() for p in primals]
+    out = fn(*leaves)
+    out.backward(cot)
+    return out, [p.grad for p in leaves]
+
+
+@pytest.fixture
+def fused_flags():
+    """Forces the JAX package's fused (Pallas, interpret-mode) routes on,
+    as tests/test_fused_primitives.py does, and restores auto after."""
+    def force(on):
+        flags.set_flags({'FLAGS_fused_layer_norm': on,
+                         'FLAGS_fused_elementwise': on})
+    yield force
+    force(None)
+
+
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_layer_norm_bwd_plain_matches_pallas_body(dtype):
+    _ndt, jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.RandomState(11)
+    x = rng.randn(150, 64).astype(np.float32) * 2 + 0.5
+    w = 1 + 0.1 * rng.randn(64).astype(np.float32)
+    b = 0.1 * rng.randn(64).astype(np.float32)
+    dy = rng.randn(150, 64).astype(np.float32)
+    _y, mean, rstd = tfn.layer_norm_fwd_plain(_t(x, tdt), _t(w, tdt),
+                                              _t(b, tdt), 1e-5)
+    got = tfn.layer_norm_bwd_plain(_t(x, tdt), _t(w, tdt), _t(dy, tdt),
+                                   mean, rstd)
+    _o, jmean, jrstd = jfn._fwd_pallas(_j(x, jdt), _j(w, jdt), _j(b, jdt),
+                                       1e-5)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean)[:150, 0],
+                               **FP32)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd)[:150, 0],
+                               **FP32)
+    want = jfn._bwd_pallas(_j(x, jdt), _j(w, jdt), _j(dy, jdt), jmean, jrstd)
+    for g, e in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(e), **tol)
+
+
+@pytest.mark.parametrize('fused', [True, False], ids=['pallas', 'jnp'])
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_layer_norm_function_grads_match_jax_grad(dtype, fused,
+                                                  fused_flags):
+    """The port's LayerNormFunction (autograd, plain CPU route) against
+    jax.vjp of nn_ops.layer_norm on the fused custom-VJP route (Pallas
+    bodies) and on the jnp route."""
+    _ndt, jdt, tdt, tol = DTYPES[dtype]
+    fused_flags(fused)
+    rng = np.random.RandomState(12)
+    x = rng.randn(3, 50, 64).astype(np.float32)
+    w = 1 + 0.1 * rng.randn(64).astype(np.float32)
+    b = 0.1 * rng.randn(64).astype(np.float32)
+    cot = rng.randn(3, 50, 64).astype(np.float32)
+    jout, jg = _jax_vjp(lambda a, c, d: jnn.layer_norm(a, 64, c, d, 1e-5),
+                        [_j(a, jdt) for a in (x, w, b)], _j(cot, jdt))
+    tout, tg = _torch_vjp(lambda a, c, d: tnn.layer_norm(a, 64, c, d, 1e-5),
+                          [_t(a, tdt) for a in (x, w, b)], _t(cot, tdt))
+    assert tout.grad_fn is not None
+    np.testing.assert_allclose(_np(tout.detach()), _np(jout), **tol)
+    for g, e in zip(tg, jg):
+        assert g.dtype == tdt
+        if dtype == 'bfloat16' and not fused:
+            # XLA's autodiff of the jnp route sums dw and db over the 150
+            # rows in bf16, ~sqrt(150) * 2^-8 relative noise; the port
+            # (like the Pallas route above) sums in fp32. Bar: 4 % of the
+            # largest entry.
+            tol = dict(rtol=5e-2, atol=4e-2 * float(np.abs(_np(e)).max()))
+        np.testing.assert_allclose(_np(g), _np(e), **tol)
+
+
+@pytest.mark.parametrize('approximate', [True, False], ids=['tanh', 'erf'])
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_bias_gelu_bwd_plain_matches_pallas_body(dtype, approximate):
+    _ndt, jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.RandomState(13)
+    x = 2 * rng.randn(150, 48).astype(np.float32)
+    b = rng.randn(48).astype(np.float32)
+    dy = rng.randn(150, 48).astype(np.float32)
+    dx, db = tfe.bias_gelu_bwd_plain(_t(x, tdt), _t(b, tdt), _t(dy, tdt),
+                                     approximate)
+    jdx, jdb = jfe._bg_bwd(approximate, (_j(x, jdt), _j(b, jdt)),
+                           _j(dy, jdt))
+    np.testing.assert_allclose(_np(dx), _np(jdx), **tol)
+    np.testing.assert_allclose(_np(db), _np(jdb), **tol)
+    u = torch.linspace(-6, 6, 241)
+    np.testing.assert_allclose(
+        tfe.gelu_grad_f32(u, approximate).numpy(),
+        np.asarray(jfe._gelu_grad(jnp.asarray(u.numpy()), approximate)),
+        **FP32)
+
+
+@pytest.mark.parametrize('fused', [True, False], ids=['pallas', 'jnp'])
+@pytest.mark.parametrize('approximate', [True, False], ids=['tanh', 'erf'])
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_bias_gelu_function_grads_match_jax_grad(dtype, approximate, fused,
+                                                 fused_flags):
+    _ndt, jdt, tdt, tol = DTYPES[dtype]
+    fused_flags(fused)
+    rng = np.random.RandomState(14)
+    x = 2 * rng.randn(3, 20, 48).astype(np.float32)
+    b = rng.randn(48).astype(np.float32)
+    cot = rng.randn(3, 20, 48).astype(np.float32)
+    jout, jg = _jax_vjp(
+        lambda a, c: jnn.bias_gelu(a, c, approximate=approximate),
+        [_j(x, jdt), _j(b, jdt)], _j(cot, jdt))
+    tout, tg = _torch_vjp(
+        lambda a, c: tnn.bias_gelu(a, c, approximate=approximate),
+        [_t(x, tdt), _t(b, tdt)], _t(cot, tdt))
+    assert tout.grad_fn is not None
+    np.testing.assert_allclose(_np(tout.detach()), _np(jout), **tol)
+    for g, e in zip(tg, jg):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(_np(g), _np(e), **tol)
 
 
 def test_dropout_add_eval_is_plain_add_and_training_raises():
@@ -264,7 +399,9 @@ def test_cpu_tensors_take_plain_route_and_count_no_launch():
         tpa.ragged_paged_attention(*args, num_heads=H, head_dim=D),
         tpa.ragged_paged_attention_plain(*args, num_heads=H, head_dim=D))
     snap = _build.routes_snapshot()
-    assert set(snap) == {'layer_norm', 'bias_gelu', 'paged_attention'}
+    assert set(snap) == {'layer_norm', 'layer_norm_bwd', 'bias_gelu',
+                         'bias_gelu_bwd', 'paged_attention', 'flash_fwd',
+                         'flash_bwd_dq', 'flash_bwd_dkv'}
     assert all(n == 0 for n in snap.values())
 
 
@@ -279,8 +416,8 @@ def test_mixed_devices_raise():
 
 def test_build_digest_covers_every_source():
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ['fused_elementwise.cu', 'fused_norm.cu',
-                    'paged_attention.cu']
+    assert srcs == ['flash_attention.cu', 'fused_elementwise.cu',
+                    'fused_norm.cu', 'paged_attention.cu']
     assert '-gencode' in _build.NVCC_FLAGS and \
         'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert len(_build._digest()) == 16
