@@ -42,14 +42,36 @@ Phases, one JSON line each on stdout:
              paged kernel's must not. Prints ms/step, tokens/s, model
              TFLOP/s and MFU (bench.py's FLOP formula), peak memory, and
              one profiled step's device busy share and time by group.
-6. check   — the whole path on the card against the CPU: a 2-layer model
-             at gpt_1p3b's width in fp32 (TF32 off) takes one TrainStep
-             (SGD) at B=1, L=512 (the flash route) on the card and on the
-             CPU from the same weights; the losses, every parameter's
-             gradient and every updated parameter must agree within
-             WHOLE_PATH_RTOL (relative L2 error per tensor).
-7. summary — the `kernels` line, the nvidia-smi line, and as the last
-             line {"ok": true, "device": {...}}.
+6. optimizer kernels — the fused-optimizer kernels (gradient statistics,
+             bucket update) over gpt_1p3b's largest bucket (the word
+             embedding, 103 M elements) and a ragged one, and the
+             dropout+residual kernels forward and backward at the train
+             step's [16384, 2048], each against its plain version and
+             timed; the update as the path's AdamW (bf16 params and
+             moments, no master) and with fp32 moments and a master; a
+             found-inf step on NaN gradients must leave every output
+             bit-equal; a NaN must poison the statistics and be counted.
+7. train_bucketed — gpt_1p3b at full width and depth pretrains through
+             jit.TrainStep's default (bucketed) route: hidden dropout 0.1,
+             attention dropout 0, AdamW with bf16 moments and no master,
+             ClipGradByGlobalNorm(1.0), LinearWarmup(2 steps, 0 -> 2e-4)
+             into CosineAnnealingDecay (lr 2e-4, GPT-3 1.3B's), stepped
+             once a step; a warm-up step and 5 timed steps. Losses must be
+             finite and fall, every kernel of the path must launch (the
+             optimizer kernels once a bucket a step, dropout+residual 48
+             times a step), the paged kernel never, and the lr each step
+             fed must equal the schedule's. Then a profiled step.
+8. check   — the whole path on the card against the CPU, at gpt_1p3b's
+             width with 2 layers in fp32 (TF32 off), from the same
+             weights: one per-parameter TrainStep (SGD) at B=1, L=512
+             (the flash route), and two default (bucketed) TrainSteps with
+             AdamW, the global-norm clip, the warm-up schedule and hidden
+             dropout 0.1 on the card's masks, replayed on the CPU. The
+             losses, every parameter's gradient and every updated
+             parameter must agree within WHOLE_PATH_RTOL (relative L2
+             error per tensor).
+9. summary — the `kernels` line (all 12 kernels), the nvidia-smi line,
+             and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
 line; it also fails when torch.cuda.is_available() is false and when
@@ -96,11 +118,22 @@ COLD_COPIES = 4
 #    kernel that drops or misplaces even a few keys of a row;
 #  flash_fp32, fp32_sum: summation order over up to 2048 keys or 16384
 #    rows.
+#  update_fp32: the fused update's fp32 outputs (master, moments) — the
+#    reference test's bar (tests/test_fused_primitives.py:177): the same op
+#    order, each op rounded;
+#  grad_stats: the sum of squares, fp32 summation order over up to 10^8
+#    terms (the nonfinite count must be exact).
+# UPDATE_BF16_EQUAL: the share of the fused update's bf16 outputs that must
+# be bit-equal to the plain version's; the rest must lie within one bf16 ulp
+# (the same fp32 value rounds once, unless an fp32 ulp of difference crosses
+# a bf16 rounding boundary). The dropout+residual kernels must be bit-equal.
 TOLERANCES = {'layer_norm': (2e-2, 1e-2), 'bias_gelu': (2e-2, 1e-2),
               'paged_attention': (1e-2, 2e-2),
               'layer_norm_bwd': (2e-2, 1e-2), 'bias_gelu_bwd': (2e-2, 1e-2),
               'flash_bf16': (2.0 ** -6, 2.0 ** -7), 'flash_fp32': (1e-3, 1e-3),
-              'fp32_sum': (1e-4, 1e-3)}
+              'fp32_sum': (1e-4, 1e-3), 'update_fp32': (5e-7, 2e-6),
+              'grad_stats': (0.0, 1e-5)}
+UPDATE_BF16_EQUAL = 0.999
 SCALED = {'flash_bf16', 'flash_fp32', 'fp32_sum'}
 REL_L2 = {'flash_bf16': 1e-2, 'flash_fp32': 1e-4, 'fp32_sum': 1e-4}
 # the whole-path check: relative L2 error per tensor, card vs CPU, fp32
@@ -570,7 +603,7 @@ def serve_phase(torch, card):
     idle = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if idle:
         raise AssertionError(f'kernels never launched by the serve: {idle}')
-    trained = [k for k in TRAIN_KERNELS
+    trained = [k for k in TRAIN_KERNELS + BUCKETED_KERNELS
                if k not in SERVE_KERNELS and launches[k]]
     if trained:
         raise AssertionError(f'training kernels launched by the serve: '
@@ -703,6 +736,366 @@ def train_phase(torch, card):
     return launches
 
 
+# gpt_1p3b's largest bucket: the word embedding, 50304 x 2048, larger than
+# the 32 MiB cap and so a bucket of its own; and a ragged length, no
+# multiple of the kernels' 2048-element block nor of their 8-element vector
+BIG_BUCKET = 50304 * 2048
+RAGGED_BUCKET = 16 * 2 ** 20 + 1005
+DROPOUT_P = 0.1
+# the path's AdamW update moves, per element: p and g read, the two bf16
+# moments read and written, p written (the fp32 scalar block is ~nothing)
+UPDATE_BYTES = 2 + 2 + 2 * 2 + 2 * 2 + 2
+
+
+def check_update(torch, got, want):
+    """The fused update's outputs ({name: tensor}) against the plain
+    version's: fp32 within `update_fp32`; bf16 at least UPDATE_BF16_EQUAL
+    bit-equal and every element within one bf16 ulp. Max |diff|."""
+    errs = []
+    for key, w in want.items():
+        g = got[key]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f'update {key}: {g.dtype} {tuple(g.shape)} '
+                                 f'!= {w.dtype} {tuple(w.shape)}')
+        if g.dtype == torch.float32:
+            errs.append(check_close('update_fp32', g, w))
+            continue
+        gf, wf = g.float(), w.float()
+        if not bool(gf.isfinite().all()):
+            raise AssertionError(f'update {key}: non-finite kernel output')
+        equal = float((g == w).float().mean())
+        ulp = torch.exp2(torch.floor(torch.log2(
+            wf.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+        diff = (gf - wf).abs()
+        if equal < UPDATE_BF16_EQUAL or bool((diff > ulp).any()):
+            raise AssertionError(
+                f'update {key}: {equal:.6f} bit-equal (>= '
+                f'{UPDATE_BF16_EQUAL}), {int((diff > ulp).sum())} elements '
+                f'beyond one bf16 ulp')
+        errs.append(float(diff.max()))
+    return max(errs)
+
+
+def update_inputs(torch, opt, n, dtype, master, seed, nan=False):
+    """A bucket's params, gradients (in the bucket's dtype) and a state a
+    few steps in, on the card."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    p = (0.02 * torch.randn(n, generator=gen, device='cuda')).to(dtype)
+    g = (1e-3 * torch.randn(n, generator=gen, device='cuda')).to(dtype)
+    if nan:
+        g.fill_(float('nan'))
+    st = opt.init_state(torch.empty(n, device='cuda'))
+    st['moment1'].copy_(1e-4 * torch.randn(n, generator=gen, device='cuda'))
+    st['moment2'].copy_(1e-8 * torch.rand(n, generator=gen, device='cuda'))
+    st['beta1_pow'].fill_(0.9 ** 10)
+    st['beta2_pow'].fill_(0.999 ** 10)
+    if master:
+        st['master'] = p.float() + 1e-5 * torch.randn(
+            n, generator=gen, device='cuda')
+    return p, g, st
+
+
+def run_update(FO, opt, p, g, st, lr, pref, found_inf=None):
+    """The kernel on copies of (p, state): {name: output}."""
+    kp, ks = p.clone(), {k: v.clone() for k, v in st.items()}
+    _p, ns = FO.fused_shard_update(opt, kp, g, ks, lr, prefactor=pref,
+                                   found_inf=found_inf)
+    return {'param': kp, **ns}
+
+
+def optimizer_kernel_phase(torch):
+    """The fused-optimizer kernels over gpt_1p3b's largest bucket and a
+    ragged one, and the dropout+residual kernels at the train step's
+    shape, each against its plain version, timed."""
+    from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rows_out, checks = {}, {}
+    lr = torch.tensor(2e-4, device='cuda')
+    pref = torch.tensor(0.37, device='cuda')      # a global-clip factor
+    path_opt = AdamW(learning_rate=2e-4, weight_decay=0.01,
+                     multi_precision=False, moment_dtype='bfloat16')
+    master_opt = AdamW(learning_rate=2e-4, weight_decay=0.01,
+                       multi_precision=True)
+
+    # -- grad_stats --------------------------------------------------------
+    for n in (BIG_BUCKET, RAGGED_BUCKET):
+        gen = torch.Generator(device='cuda').manual_seed(n % 97)
+        x = (1e-3 * torch.randn(n, generator=gen, device='cuda')).to(
+            torch.bfloat16)
+        s, c = FO.grad_stats(x)
+        ps, pc = FO.grad_stats_plain(x)
+        err = check_close('grad_stats', s, ps)
+        if float(c) != float(pc) or float(c) != 0.0:
+            raise AssertionError(f'grad_stats count {float(c)} != '
+                                 f'{float(pc)}')
+        x[n // 3] = float('nan')
+        x[n - 1] = float('inf')
+        s2, c2 = FO.grad_stats(x)
+        if bool(torch.isfinite(s2)) or float(c2) != 2.0:
+            raise AssertionError(f'grad_stats: NaN and inf gave sum '
+                                 f'{float(s2)}, count {float(c2)}')
+        checks[f'grad_stats n={n}'] = dict(sum_rel_err=abs(
+            float(s) - float(ps)) / float(ps), nonfinite_poisons=True)
+        if n == BIG_BUCKET:
+            x[n // 3], x[n - 1] = 0.0, 0.0
+            bms, by = bound_ms(2 * n + 8, 3 * n, FP32_FLOPS)
+            rows_out['grad_stats'] = dict(
+                shape=f'flat [{n}] bf16 (the word embedding bucket)',
+                max_abs_err=err,
+                ms=device_ms(torch, lambda: FO.grad_stats(x), iters=20),
+                plain_ms=loop_ms(torch, lambda: FO.grad_stats_plain(x)),
+                library_ms=device_ms(torch, lambda: torch.linalg.vector_norm(
+                    x, dtype=torch.float32), iters=20),
+                library='torch.linalg.vector_norm(dtype=float32), no count',
+                bound_ms=bms, bound_by=by)
+        del x
+        free_cuda(torch)
+
+    # -- the update ----------------------------------------------------------
+    for n in (BIG_BUCKET, RAGGED_BUCKET):
+        for label, opt, dtype, master in (
+                ('path: bf16 p and moments, no master', path_opt,
+                 torch.bfloat16, False),
+                ('fp32 moments and master', master_opt, torch.bfloat16,
+                 True)):
+            if master and n == BIG_BUCKET:
+                continue
+            p, g, st = update_inputs(torch, opt, n, dtype, master, seed=3)
+            want_p, want_s = FO.fused_shard_update_plain(
+                opt, p, g, st, lr, prefactor=pref)
+            got = run_update(FO, opt, p, g, st, lr, pref)
+            err = check_update(torch, got, {'param': want_p, **want_s})
+            checks[f'update {label} n={n}'] = err
+            del want_p, want_s, got
+            if n == BIG_BUCKET:
+                bms, by = bound_ms(n * UPDATE_BYTES + 5 * 4 + 2 * 4,
+                                   20 * n, FP32_FLOPS)
+                kp, ks = p.clone(), {k: v.clone() for k, v in st.items()}
+                ms = device_ms(torch, lambda: FO.fused_shard_update(
+                    opt, kp, g, ks, lr, prefactor=pref), iters=10)
+                plain_ms = loop_ms(torch, lambda: FO.fused_shard_update_plain(
+                    opt, p, g, st, lr, prefactor=pref), iters=3)
+                m1, m2 = ks['moment1'], ks['moment2']
+                steps = [torch.tensor(10.0, device='cuda')]
+                library_ms = loop_ms(torch, lambda: torch._fused_adamw_(
+                    [kp], [g], [m1], [m2], [], steps, amsgrad=False,
+                    lr=2e-4, beta1=0.9, beta2=0.999, weight_decay=0.01,
+                    eps=1e-8, maximize=False), iters=10)
+                rows_out['optimizer_step'] = dict(
+                    shape=f'AdamW, p, g, m1, m2 [{n}] bf16, no master '
+                          f'(the word embedding bucket)',
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms,
+                    library='torch._fused_adamw_ (eps after the bias '
+                            'correction: a timing yardstick only)',
+                    bytes_per_element=UPDATE_BYTES, bound_ms=bms,
+                    bound_by=by)
+                del kp, ks, m1, m2
+            del p, g, st
+            free_cuda(torch)
+    # found_inf on NaN gradients: every output keeps its input's bits
+    for label, opt, master in (('path', path_opt, False),
+                               ('master', master_opt, True)):
+        p, g, st = update_inputs(torch, opt, RAGGED_BUCKET, torch.bfloat16,
+                                 master, seed=4, nan=True)
+        got = run_update(FO, opt, p, g, st, lr, pref,
+                         found_inf=torch.tensor(True, device='cuda'))
+        for key, before in [('param', p)] + list(st.items()):
+            after = got[key]
+            same = torch.equal(after.view(torch.int16), before.view(
+                torch.int16)) if after.dtype == torch.bfloat16 \
+                else torch.equal(after.view(torch.int32),
+                                 before.view(torch.int32))
+            if not same:
+                raise AssertionError(f'found_inf ({label}): {key} changed')
+        checks[f'found_inf noop {label}'] = True
+        del p, g, st, got
+    free_cuda(torch)
+
+    # -- dropout + residual, forward and backward ----------------------------
+    rows, n = TRAIN_ROWS, 2048
+    randn = make_randn(torch, 11)
+    x, r, dy = randn(rows, n), randn(rows, n), randn(rows, n)
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    keep = torch.rand(rows, n, generator=gen, device='cuda') < 1 - DROPOUT_P
+    leaves = [t.detach().requires_grad_() for t in (x, r)]
+    y = fe.dropout_add(*leaves, keep, DROPOUT_P)
+    if y.grad_fn is None:
+        raise AssertionError('dropout_add: no grad_fn')
+    y.backward(dy)
+    want_y = fe.dropout_add_plain(x, r, keep, DROPOUT_P)
+    want_dx = fe.dropout_add_bwd_plain(keep, dy, DROPOUT_P)
+    for name, got, want in (('dropout_add', y, want_y),
+                            ('dropout_add_bwd', leaves[0].grad, want_dx),
+                            ('residual grad', leaves[1].grad, dy)):
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f'{name}: not bit-equal to the plain version '
+                f'(max |diff| {float((got.float() - want.float()).abs().max())})')
+    del y, leaves, want_y, want_dx
+    mask_b = keep.to(torch.bfloat16)
+    scaled = mask_b / (1 - DROPOUT_P)
+    N = rows * n
+    bms, by = bound_ms(7 * N, 2 * N, FP32_FLOPS)
+    rows_out['dropout_add'] = dict(
+        shape=f'x, residual [{rows},{n}] bf16, bool mask, p={DROPOUT_P}',
+        max_abs_err=0.0,
+        ms=device_ms(torch, lambda: fe.dropout_add_fwd(x, r, keep,
+                                                       DROPOUT_P), iters=20),
+        plain_ms=loop_ms(torch, lambda: fe.dropout_add_plain(x, r, keep,
+                                                             DROPOUT_P)),
+        library_ms=device_ms(torch, lambda: torch.addcmul(
+            r, x, mask_b, value=1 / (1 - DROPOUT_P)), iters=20),
+        library='torch.addcmul(residual, x, bf16 mask, value=1/(1-p))',
+        bound_ms=bms, bound_by=by)
+    bms, by = bound_ms(5 * N, N, FP32_FLOPS)
+    rows_out['dropout_add_bwd'] = dict(
+        shape=f'dy [{rows},{n}] bf16, bool mask, p={DROPOUT_P}',
+        max_abs_err=0.0,
+        ms=device_ms(torch, lambda: fe.dropout_add_bwd(keep, dy, DROPOUT_P),
+                     iters=20),
+        plain_ms=loop_ms(torch, lambda: fe.dropout_add_bwd_plain(
+            keep, dy, DROPOUT_P)),
+        library_ms=device_ms(torch, lambda: torch.mul(dy, scaled), iters=20),
+        library='torch.mul(dy, bf16 mask / (1-p))',
+        bound_ms=bms, bound_by=by)
+    del x, r, dy, keep, mask_b, scaled
+    torch.cuda.synchronize()
+    for name, row in rows_out.items():
+        emit({'phase': 'kernel', 'name': name, 'path': 'train_bucketed',
+              **row})
+    emit({'phase': 'kernel', 'name': 'optimizer_kernel_checks',
+          'tolerances': {'update_fp32': TOLERANCES['update_fp32'],
+                         'update_bf16_bit_equal': UPDATE_BF16_EQUAL,
+                         'grad_stats_rtol': TOLERANCES['grad_stats'][1],
+                         'dropout_add': 'bit-equal'},
+          'checks': checks})
+    return rows_out
+
+
+BUCKETED_KERNELS = ('grad_stats', 'optimizer_step', 'dropout_add',
+                    'dropout_add_bwd')
+LR_PEAK = 2e-4                 # GPT-3 1.3B (GPT-3 paper, Table 2.1)
+WARMUP_STEPS, T_MAX = 2, 100
+
+
+def pretrain_optimizer(sched_mod, AdamW, clip, **kw):
+    """The pretraining recipe: AdamW, global-norm clip 1.0, linear
+    warm-up into cosine decay (GPT-3 paper §2.3, App. B)."""
+    sched = sched_mod.LinearWarmup(
+        sched_mod.CosineAnnealingDecay(LR_PEAK, T_max=T_MAX),
+        warmup_steps=WARMUP_STEPS, start_lr=0.0, end_lr=LR_PEAK)
+    return AdamW(learning_rate=sched, weight_decay=0.01, grad_clip=clip(1.0),
+                 **kw), sched
+
+
+def train_bucketed_phase(torch, card):
+    """gpt_1p3b pretraining through TrainStep's default (bucketed) route,
+    hidden dropout 0.1, on the card."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as sched_mod
+
+    cfg = gpt_1p3b(hidden_dropout=DROPOUT_P, attn_dropout=0.0,
+                   use_flash_attention=True)
+    B, L = 8, cfg.max_seq_len
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
+                           generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt, sched = pretrain_optimizer(sched_mod, AdamW, ClipGradByGlobalNorm,
+                                    multi_precision=False,
+                                    moment_dtype='bfloat16')
+    step = TrainStep(model, _train_loss, opt, seed=2024)   # the default route
+    if not step.use_buckets:
+        raise AssertionError('TrainStep did not take the bucketed route')
+    n_buckets = len(step.layout.buckets)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (B, L)).astype('int32')
+    labels = np.roll(ids, -1, 1).astype('int32')
+    ids_t = torch.from_numpy(ids).cuda()
+    labels_t = torch.from_numpy(labels).cuda()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fed = []
+
+    def one_step():
+        want = float(np.float32(opt.get_lr()))
+        loss = float(step(ids_t, labels_t))              # float() syncs
+        fed.append((float(step._lr), want))
+        sched.step()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = one_step()
+    warm_s = time.perf_counter() - t0
+    _build.reset_launches()
+    losses, walls = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(one_step())
+        walls.append(time.perf_counter() - t0)
+    launches = _build.routes_snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    clip_factor = float(step.last_clip_factor)
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f'non-finite training loss: {[warm] + losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'loss did not fall over the timed steps: '
+                             f'{losses}')
+    idle = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f'training kernels never launched: {idle}')
+    want = {'grad_stats': 2 * n_buckets * TIMED_STEPS,
+            'optimizer_step': n_buckets * TIMED_STEPS,
+            'dropout_add': 2 * cfg.num_layers * TIMED_STEPS,
+            'dropout_add_bwd': 2 * cfg.num_layers * TIMED_STEPS}
+    wrong = {k: (launches[k], v) for k, v in want.items()
+             if launches[k] != v}
+    if wrong:
+        raise AssertionError(f'launches (got, want): {wrong}')
+    if launches['paged_attention']:
+        raise AssertionError('the paged kernel launched during training')
+    if any(got != w for got, w in fed):
+        raise AssertionError(f'fed lr != the schedule: {fed}')
+    tokens = B * L
+    flops = 6 * n_params * tokens + \
+        12 * cfg.num_layers * cfg.hidden_size * L * tokens   # bench.py:200
+    step_s = float(np.mean(walls))
+    prof = profile_train_step(torch, step, ids_t, labels_t)
+    emit({'phase': 'train_bucketed', 'card': card, 'model': 'gpt_1p3b',
+          'layers': cfg.num_layers, 'hidden': cfg.hidden_size,
+          'params': n_params, 'batch': B, 'seq_len': L,
+          'hidden_dropout': DROPOUT_P, 'attn_dropout': 0.0,
+          'optimizer': f'AdamW wd 0.01 bf16 moments, no master, '
+                       f'ClipGradByGlobalNorm(1.0), LinearWarmup('
+                       f'{WARMUP_STEPS} steps, 0 -> {LR_PEAK}) into '
+                       f'CosineAnnealingDecay(T_max={T_MAX})',
+          'buckets': n_buckets,
+          'bucket_sizes': sorted({b.size for b in step.layout.buckets}),
+          'model_build_s': build_s, 'warmup_step_s': warm_s,
+          'warmup_loss': warm, 'losses': losses, 'step_s': walls,
+          'lr_fed': [f for f, _w in fed],
+          'last_clip_factor': clip_factor,
+          'ms_per_step': 1e3 * step_s, 'tokens_per_sec': tokens / step_s,
+          'model_flops_per_step': flops,
+          'model_tflops': flops / step_s / 1e12,
+          'mfu': flops / step_s / 1e12 / PEAK_BF16_TFLOPS,
+          'peak_memory_bytes': peak,
+          'launches': launches,
+          'launches_per_step': {k: launches[k] / TIMED_STEPS
+                                for k in TRAIN_KERNELS + BUCKETED_KERNELS},
+          **prof})
+    return launches
+
+
 def profile_train_step(torch, step, ids, labels):
     """One train step under torch.profiler: device busy time (the CUDA
     kernels' self time) against the step's wall, and that time by
@@ -730,20 +1123,11 @@ def profile_train_step(torch, step, ids, labels):
                                  calls=e.count) for e in top]}
 
 
-def whole_path_check(torch):
-    """One TrainStep of a 2-layer fp32 model at gpt_1p3b's width on the
-    card and on the CPU from the same weights (L=512: the flash route)."""
-    from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
-    from paddle_tpu_torch.ops.kernels import _build
-    from paddle_tpu_torch.optimizer import SGD
+def _card_and_cpu_models(torch, cfg, seed):
+    """A model at `cfg` in fp32 on the card and its copy on the CPU."""
+    from paddle_tpu_torch.models import GPTForCausalLM
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
-                   use_flash_attention=True)
-    cfg.num_layers = 2
-    gen = torch.Generator(device='cuda').manual_seed(99)
+    gen = torch.Generator(device='cuda').manual_seed(seed)
     card_model = GPTForCausalLM(cfg, device='cuda', dtype=torch.float32,
                                 generator=gen)
     with torch.device('meta'):
@@ -751,6 +1135,80 @@ def whole_path_check(torch):
     cpu_model = cpu_model.to_empty(device='cpu')
     cpu_model.load_state_dict({k: v.cpu()
                                for k, v in card_model.state_dict().items()})
+    return card_model, cpu_model
+
+
+def _rel(a, b, where=None):
+    """Relative L2 error of a (card) against b (CPU), over `where`."""
+    a, b = a.detach().double().cpu(), b.detach().double()
+    if where is not None:
+        a, b = a[where], b[where]
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float(a.norm())
+
+
+def _compare(card_model, cpu_model, card_losses, cpu_losses, adam=False):
+    """Per-tensor relative L2 errors of the gradients and the updated
+    parameters, card vs CPU. Under Adam every element steps by about lr
+    whatever its gradient's size, so an element whose gradient is below
+    the gradient check's own bar (WHOLE_PATH_RTOL of its tensor's RMS:
+    rounding noise, e.g. the key part of the qkv bias, whose exact
+    gradient is 0) may step either way; those elements are left out of
+    the parameter comparison and counted."""
+    cpu_params = dict(cpu_model.named_parameters())
+    grad_err, param_err, skipped, total = {}, {}, 0, 0
+    for n, p in card_model.named_parameters():
+        g_cpu = cpu_params[n].grad
+        grad_err[n] = _rel(p.grad, g_cpu)
+        where = None
+        if adam:
+            rms = float(g_cpu.double().square().mean().sqrt())
+            where = g_cpu.abs() > WHOLE_PATH_RTOL * rms
+            skipped += int((~where).sum())
+        total += p.numel()
+        param_err[n] = _rel(p, cpu_params[n], where)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                        cpu_losses))
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_p = max(param_err, key=param_err.get)
+    out = {'card_losses': card_losses, 'cpu_losses': cpu_losses,
+           'loss_rel_err': loss_err,
+           'max_grad_rel_l2': grad_err[worst_g], 'worst_grad': worst_g,
+           'max_param_rel_l2': param_err[worst_p], 'worst_param': worst_p,
+           'rtol': WHOLE_PATH_RTOL}
+    if adam:
+        out['param_elements_left_out'] = skipped
+        out['param_elements'] = total
+    if not all(np.isfinite(card_losses)) or loss_err > WHOLE_PATH_RTOL \
+            or grad_err[worst_g] > WHOLE_PATH_RTOL \
+            or param_err[worst_p] > WHOLE_PATH_RTOL:
+        raise AssertionError(
+            f'card step differs from the CPU step: losses {card_losses} vs '
+            f'{cpu_losses}; grad {worst_g} {grad_err[worst_g]:.3g}; param '
+            f'{worst_p} {param_err[worst_p]:.3g} (rtol {WHOLE_PATH_RTOL})')
+    return out
+
+
+def whole_path_check(torch):
+    """One per-parameter TrainStep (SGD) of a 2-layer fp32 model at
+    gpt_1p3b's width on the card and on the CPU from the same weights
+    (L=512: the flash route); then two default (bucketed) TrainSteps of
+    the pretraining recipe with hidden dropout, the card's masks replayed
+    on the CPU."""
+    from paddle_tpu_torch.core import rng as port_rng
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    from paddle_tpu_torch.optimizer import lr as sched_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    cfg.num_layers = 2
+    card_model, cpu_model = _card_and_cpu_models(torch, cfg, 99)
     rng = np.random.RandomState(1)
     ids = rng.randint(0, cfg.vocab_size, (1, 512)).astype('int32')
     labels = np.roll(ids, -1, 1).astype('int32')
@@ -766,34 +1224,69 @@ def whole_path_check(torch):
     if idle:
         raise AssertionError(f'whole-path check: kernels not launched: '
                              f'{idle}')
+    emit({'phase': 'check', 'what': 'one fp32 TrainStep (SGD lr 1e-3, '
+          'per-parameter route), 2 layers at gpt_1p3b width, B=1 L=512, '
+          'card vs CPU', 'launches': launches,
+          **_compare(card_model, cpu_model, [card_loss], [cpu_loss])})
+    del card_model, cpu_model, card_step, cpu_step
+    free_cuda(torch)
 
-    def rel(a, b):
-        a, b = a.detach().double().cpu(), b.detach().double()
-        den = float(b.norm())
-        return float((a - b).norm()) / den if den else float(a.norm())
+    # the default (bucketed) route, hidden dropout on the card's masks
+    cfg = gpt_1p3b(hidden_dropout=DROPOUT_P, attn_dropout=0.0,
+                   use_flash_attention=True)
+    cfg.num_layers = 2
+    card_model, cpu_model = _card_and_cpu_models(torch, cfg, 98)
+    draw = port_rng.keep_mask
+    recorded, replayed = [], []
 
-    cpu_params = dict(cpu_model.named_parameters())
-    grad_err, param_err = {}, {}
-    for n, p in card_model.named_parameters():
-        grad_err[n] = rel(p.grad, cpu_params[n].grad)
-        param_err[n] = rel(p, cpu_params[n])
-    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    worst_g = max(grad_err, key=grad_err.get)
-    worst_p = max(param_err, key=param_err.get)
-    emit({'phase': 'check', 'what': 'one fp32 TrainStep (SGD lr 1e-3), '
-          '2 layers at gpt_1p3b width, B=1 L=512, card vs CPU',
-          'card_loss': card_loss, 'cpu_loss': cpu_loss,
-          'loss_rel_err': loss_err,
-          'max_grad_rel_l2': grad_err[worst_g], 'worst_grad': worst_g,
-          'max_param_rel_l2': param_err[worst_p], 'worst_param': worst_p,
-          'rtol': WHOLE_PATH_RTOL, 'launches': launches})
-    if not np.isfinite(card_loss) or loss_err > WHOLE_PATH_RTOL \
-            or grad_err[worst_g] > WHOLE_PATH_RTOL \
-            or param_err[worst_p] > WHOLE_PATH_RTOL:
-        raise AssertionError(
-            f'card step differs from the CPU step: loss {card_loss} vs '
-            f'{cpu_loss}; grad {worst_g} {grad_err[worst_g]:.3g}; param '
-            f'{worst_p} {param_err[worst_p]:.3g} (rtol {WHOLE_PATH_RTOL})')
+    def record(shape, keep_prob, device):
+        m = draw(shape, keep_prob, device)
+        recorded.append(m.cpu())
+        return m
+
+    def replay(shape, keep_prob, device):
+        m = recorded[len(replayed)]
+        replayed.append(m)
+        if tuple(m.shape) != tuple(shape):
+            raise AssertionError(f'mask replay: {tuple(m.shape)} != {shape}')
+        return m.to(device)
+
+    losses = {}
+    try:
+        for where, draw_fn in (('card', record), ('cpu', replay)):
+            port_rng.keep_mask = draw_fn
+            opt, sched = pretrain_optimizer(sched_mod, AdamW,
+                                            ClipGradByGlobalNorm)
+            model = card_model if where == 'card' else cpu_model
+            _build.reset_launches()
+            step = TrainStep(model, _train_loss, opt,
+                             device=None if where == 'card' else 'cpu')
+            if not step.use_buckets:
+                raise AssertionError('whole-path check: not bucketed')
+            losses[where] = []
+            for _ in range(2):
+                losses[where].append(float(step(ids, labels)))
+                sched.step()
+            if where == 'card':
+                launches = _build.routes_snapshot()
+                n_buckets = len(step.layout.buckets)
+    finally:
+        port_rng.keep_mask = draw
+    idle = [k for k in TRAIN_KERNELS + BUCKETED_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f'whole-path check (bucketed): kernels not '
+                             f'launched: {idle}')
+    if len(replayed) != len(recorded) or not recorded:
+        raise AssertionError(f'masks: {len(recorded)} drawn on the card, '
+                             f'{len(replayed)} replayed on the CPU')
+    emit({'phase': 'check', 'what': 'two fp32 TrainSteps on the default '
+          '(bucketed) route: AdamW, ClipGradByGlobalNorm(1.0), warm-up '
+          f'into cosine, hidden dropout {DROPOUT_P} (the card\'s masks '
+          'replayed on the CPU), 2 layers at gpt_1p3b width, B=1 L=512, '
+          'card vs CPU', 'buckets': n_buckets, 'masks': len(recorded),
+          'launches': launches,
+          **_compare(card_model, cpu_model, losses['card'], losses['cpu'],
+                     adam=True)})
 
 
 # the port's kernels by the device-side names the profiler shows; the
@@ -806,7 +1299,11 @@ KERNEL_NAMES = {'paged_attention': 'ragged_paged_attention_kernel',
                 'column_sum': 'column_sum_kernel',
                 'flash_fwd': 'flash_fwd_kernel',
                 'flash_bwd_dq': 'flash_bwd_dq_kernel',
-                'flash_bwd_dkv': 'flash_bwd_dkv_kernel'}
+                'flash_bwd_dkv': 'flash_bwd_dkv_kernel',
+                'dropout_add': 'dropout_add_fwd_kernel',
+                'dropout_add_bwd': 'dropout_add_bwd_kernel',
+                'grad_stats': 'grad_stats_kernel',
+                'optimizer_step': 'update_kernel'}
 
 
 def _group_device_time(kernels):
@@ -882,6 +1379,14 @@ SOURCES = {
                      'paddle_tpu/ops/pallas/flash_attention.py:336'),
     'flash_bwd_dkv': ('paddle_tpu_torch/csrc/flash_attention.cu',
                       'paddle_tpu/ops/pallas/flash_attention.py:390'),
+    'dropout_add': ('paddle_tpu_torch/csrc/fused_elementwise.cu',
+                    'paddle_tpu/ops/pallas/fused_elementwise.py:149'),
+    'dropout_add_bwd': ('paddle_tpu_torch/csrc/fused_elementwise.cu',
+                        'paddle_tpu/ops/pallas/fused_elementwise.py:156'),
+    'grad_stats': ('paddle_tpu_torch/csrc/fused_optimizer.cu',
+                   'paddle_tpu/ops/pallas/fused_optimizer.py:81'),
+    'optimizer_step': ('paddle_tpu_torch/csrc/fused_optimizer.cu',
+                       'paddle_tpu/ops/pallas/fused_optimizer.py:117'),
 }
 SERVE_KERNELS = ('paged_attention', 'layer_norm', 'bias_gelu')
 
@@ -929,9 +1434,18 @@ def main():
     free_cuda(torch)
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    opt_rows = optimizer_kernel_phase(torch)
+    free_cuda(torch)
+    opt_kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bucketed_launches = train_bucketed_phase(torch, card)
+    free_cuda(torch)
+    bucketed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     whole_path_check(torch)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
-          'train': train_s, 'check': time.perf_counter() - t0})
+          'train': train_s, 'optimizer_kernels': opt_kernel_s,
+          'train_bucketed': bucketed_s, 'check': time.perf_counter() - t0})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -944,6 +1458,9 @@ def main():
             # over hidden 2048, bias+GELU over ffn 8192, attention at B=8
             row = row_of(name, 'decode')
             launches = serve_launches[name]
+        elif name in BUCKETED_KERNELS:
+            row = opt_rows[name]
+            launches = bucketed_launches[name]
         else:
             row = train_rows[name]
             launches = train_launches[name]
@@ -961,6 +1478,8 @@ def main():
             entry['train_shape'] = {k: train[k] for k in (
                 'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                 'library_ms')}
+        if name in TRAIN_KERNELS:
+            entry['launches_train_bucketed'] = bucketed_launches[name]
         kernels.append(entry)
     emit({'kernels': kernels})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-// Bias + GELU forward y = gelu(x + b) and its backward, for Hopper (sm_90a).
+// Bias + GELU forward y = gelu(x + b) and its backward, and the dropout +
+// residual join forward and backward, for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/pallas/fused_elementwise.py:64 `_bg_fwd_kernel`
 // (launched by `_bg_fwd_impl`, :92) and :69 `_bg_bwd_kernel` (launched by
@@ -30,6 +31,29 @@
 // to x's dtype; JAX evaluates jax.nn.gelu inside bf16 arithmetic instead,
 // rounding after each op, so bf16 outputs may differ from the JAX route by a
 // few bf16 ulps; fp32 agrees to float rounding.
+//
+// Dropout + residual join. Replaces :149 `_da_fwd_kernel` (launched by
+// `_da_fwd_impl`, :184) and :156 `_da_bwd_kernel` (launched by `_da_bwd`,
+// :199), reached through `nn_ops.dropout_add` (paddle_tpu/ops/nn_ops.py:
+// 101-109) from both residual joins of each GPT decoder layer
+// (paddle_tpu/models/gpt.py:378). Forward: y = where(keep, x / (1 - p), 0),
+// rounded to x's dtype, + residual; backward: dx = where(keep, dy / (1 - p),
+// 0) (the residual's gradient is dy itself and needs no kernel). The keep
+// mask is drawn by the caller and read here as one byte an element (a torch
+// bool tensor), where the reference streams an fp32 0/1 mask; "keep iff
+// nonzero" reads as the reference's "keep iff > 0.5".
+//
+// What bounds them: bytes. The forward reads x, the residual and the mask and
+// writes y (7 bytes an element in bf16), the backward reads the mask and dy
+// and writes dx (5 bytes); one divide and one add an element. Design: a
+// grid-stride loop over 16-byte vectors of x (with the matching 8- or 4-byte
+// slice of the mask), a scalar loop over the ragged tail.
+//
+// Numerics: jnp divides a bf16 x by a Python float in bf16, so the divisor is
+// 1 - p rounded to x's dtype first (0.9 becomes 0.8984375 in bf16); the
+// quotient is rounded to x's dtype BEFORE the residual add, as `.astype(
+// x.dtype)` does at fused_elementwise.py:151-153, and the add rounds again.
+// Adding in fp32 and rounding once would give other bf16 bits.
 #include "common.cuh"
 
 namespace {
@@ -170,7 +194,157 @@ int launch(const void* x, const void* b, void* y, int rows, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the mask bytes that go with one 16-byte vector of T
+template <int V>
+struct MaskBytes;
+template <>
+struct MaskBytes<8> {
+  using type = uint2;
+};
+template <>
+struct MaskBytes<4> {
+  using type = unsigned int;
+};
+
+// where(keep, v / keep_prob, 0) rounded to T, with keep_prob already in T
+template <typename T>
+__device__ __forceinline__ T dropped(T v, bool keep, float kp) {
+  return ptt::from_f32<T>(keep ? __fdiv_rn(ptt::to_f32(v), kp) : 0.f);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dropout_add_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                           const uint8_t* __restrict__ keep,
+                           T* __restrict__ y, long long n, float keep_prob,
+                           bool vec) {
+  constexpr int V = ptt::kVec16<T>;
+  using MB = typename MaskBytes<V>::type;
+  const float kp = ptt::to_f32(ptt::from_f32<T>(keep_prob));
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    for (long long i = first; i < n / V; i += stride) {
+      const uint4 rx = reinterpret_cast<const uint4*>(x)[i];
+      const uint4 rr = reinterpret_cast<const uint4*>(r)[i];
+      const MB rm = reinterpret_cast<const MB*>(keep)[i];
+      const T* ex = reinterpret_cast<const T*>(&rx);
+      const T* er = reinterpret_cast<const T*>(&rr);
+      const uint8_t* em = reinterpret_cast<const uint8_t*>(&rm);
+      uint4 out;
+      T* eo = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        eo[j] = ptt::add_t(dropped(ex[j], em[j] != 0, kp), er[j]);
+      reinterpret_cast<uint4*>(y)[i] = out;
+    }
+    done = n / V * V;
+  }
+  for (long long i = done + first; i < n; i += stride)
+    y[i] = ptt::add_t(dropped(x[i], keep[i] != 0, kp), r[i]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dropout_add_bwd_kernel(const uint8_t* __restrict__ keep,
+                           const T* __restrict__ dy, T* __restrict__ dx,
+                           long long n, float keep_prob, bool vec) {
+  constexpr int V = ptt::kVec16<T>;
+  using MB = typename MaskBytes<V>::type;
+  const float kp = ptt::to_f32(ptt::from_f32<T>(keep_prob));
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    for (long long i = first; i < n / V; i += stride) {
+      const uint4 rd = reinterpret_cast<const uint4*>(dy)[i];
+      const MB rm = reinterpret_cast<const MB*>(keep)[i];
+      const T* ed = reinterpret_cast<const T*>(&rd);
+      const uint8_t* em = reinterpret_cast<const uint8_t*>(&rm);
+      uint4 out;
+      T* eo = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < V; ++j) eo[j] = dropped(ed[j], em[j] != 0, kp);
+      reinterpret_cast<uint4*>(dx)[i] = out;
+    }
+    done = n / V * V;
+  }
+  for (long long i = done + first; i < n; i += stride)
+    dx[i] = dropped(dy[i], keep[i] != 0, kp);
+}
+
+// one 16-byte vector a thread per step, enough CTAs to fill the SMs several
+// times over; the grid-stride loop does the rest
+template <typename T>
+int elementwise_grid(long long n, bool vec) {
+  const long long work = vec ? n / ptt::kVec16<T> : n;
+  const long long want = (work + kThreads - 1) / kThreads;
+  return static_cast<int>(want < 1 ? 1 : (want < 132 * 16 ? want : 132 * 16));
+}
+
+inline bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <typename T>
+int launch_dropout_fwd(const void* x, const void* r, const void* keep,
+                       void* y, long long n, float keep_prob,
+                       cudaStream_t stream) {
+  const bool vec = ptt::aligned16(x) && ptt::aligned16(r) &&
+                   ptt::aligned16(y) && aligned(keep, ptt::kVec16<T>);
+  dropout_add_fwd_kernel<T><<<elementwise_grid<T>(n, vec), kThreads, 0,
+                              stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const uint8_t*>(keep), static_cast<T*>(y), n, keep_prob,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dropout_bwd(const void* keep, const void* dy, void* dx,
+                       long long n, float keep_prob, cudaStream_t stream) {
+  const bool vec = ptt::aligned16(dy) && ptt::aligned16(dx) &&
+                   aligned(keep, ptt::kVec16<T>);
+  dropout_add_bwd_kernel<T><<<elementwise_grid<T>(n, vec), kThreads, 0,
+                              stream>>>(
+      static_cast<const uint8_t*>(keep), static_cast<const T*>(dy),
+      static_cast<T*>(dx), n, keep_prob, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// x, residual, y: [n] contiguous, one dtype; keep: [n] bytes (0: dropped).
+extern "C" int ptt_dropout_add_fwd(const void* x, const void* residual,
+                                   const void* keep, void* y, long long n,
+                                   float keep_prob, int dtype, int device,
+                                   void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PTT_DISPATCH_DTYPE(dtype, T,
+                     return launch_dropout_fwd<T>(x, residual, keep, y, n,
+                                                  keep_prob, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// keep: [n] bytes; dy, dx: [n] contiguous, one dtype.
+extern "C" int ptt_dropout_add_bwd(const void* keep, const void* dy, void* dx,
+                                   long long n, float keep_prob, int dtype,
+                                   int device, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PTT_DISPATCH_DTYPE(dtype, T,
+                     return launch_dropout_bwd<T>(keep, dy, dx, n, keep_prob,
+                                                  s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // x, y: [rows, n] contiguous; b: [n] in x's dtype.
 extern "C" int ptt_bias_gelu_fwd(const void* x, const void* b, void* y,

@@ -1,0 +1,382 @@
+// Fused optimizer step over flat buckets, for Hopper (sm_90a): the gradient
+// statistics pass and the one-pass bucket update.
+//
+// Replaces: paddle_tpu/ops/pallas/fused_optimizer.py:81 `_stats_kernel`
+// (launched by `grad_stats_pallas`, :96, from core/bucketing.grad_stats:565)
+// and :117 `_update_kernel` (launched by `fused_shard_update`, :164, from
+// core/bucketing.shard_update:581), on jit.TrainStep's bucketed route.
+//
+// What bounds them on this card: bytes. grad_stats reads each gradient once
+// (2 bytes an element in bf16) and does 3 operations an element; the update
+// reads p and g and the states and writes p and the states once each (AdamW
+// with bf16 p, g and moments and no master: 14 bytes an element) with ~20
+// fp32 operations an element, far below the ~295 operations a byte at which
+// the H100's compute would bound them.
+//
+// grad_stats design: each of 2 x SMs CTAs walks a grid-stride range of 8-element
+// vectors (16-byte loads in bf16), summing x^2 in fp32 and counting
+// !isfinite(x) as an integer; the CTA reduces its threads in a fixed order and
+// writes one (sum, count) row of `part`. The Pallas body accumulates across a
+// SEQUENTIAL grid into (1, 1) outputs; CTAs have no order, so a second launch
+// (ptt::launch_column_sum) sums the rows in CTA order: deterministic, no float
+// atomics. The sum is not masked, so a NaN or an inf poisons it as the jnp
+// reference's jnp.sum(g * g) does; that needs IEEE semantics, so this file is
+// never built with fast math.
+//
+// Update design: one pass, each thread taking 8 consecutive elements at a time
+// (16- or 32-byte vector loads and stores of every operand), in the
+// reference's operation order: the prefactor multiply, decay into the
+// gradient, the rule in fp32, the found-inf no-op, and the parameter write in
+// its dtype beside the fp32 master write. The scalars that change per step
+// (lr, prefactor, found_inf, Adam's beta powers) come through a pointer to a
+// small fp32 device block, as the Pallas body's `sc_ref` does, so no step
+// reads them back to the host. Every CTA reads the OLD beta powers from that
+// block; the new powers go to a separate two-float output written by one
+// thread, never over the block the other CTAs are still reading. Vector
+// states are updated IN PLACE (each thread reads and writes only its own
+// elements), where the JAX step donates its buffers. The found-inf no-op is a
+// select: a skipped step writes nothing, so every output stays bit-equal to
+// its input even when the gradient is NaN.
+//
+// Numerics: every multiply, add, divide and square root is an explicitly
+// rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), so nvcc
+// contracts nothing into an FMA and each fp32 result rounds where the
+// reference's op chain rounds; bf16 gradients widen exactly to fp32.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kVec = 8;  // elements a thread takes per step
+
+enum Rule : int { kSGD = 0, kMomentum = 1, kAdam = 2 };
+
+// Constants of the rule (fixed for a run, so passed by value); the scalars
+// that change per step are in the device block `sc`:
+//   sc[0] lr, sc[1] prefactor, sc[2] found_inf (> 0.5: skip),
+//   sc[3] beta1_pow, sc[4] beta2_pow (Adam).
+struct Hyper {
+  float wd;        // decay folded into the gradient (0: none)
+  float coeff;     // AdamW's decoupled decay coefficient
+  float b1, b2, omb1, omb2, eps;
+  float momentum;
+  int nesterov, decoupled, use_pref, use_fi;
+};
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* __restrict__ p, float (&out)[kVec]) {
+  constexpr int N = kVec * sizeof(T) / 16;
+  uint4 raw[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) raw[k] = reinterpret_cast<const uint4*>(p)[k];
+  const T* e = reinterpret_cast<const T*>(raw);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) out[j] = ptt::to_f32(e[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* __restrict__ p, const float (&in)[kVec]) {
+  constexpr int N = kVec * sizeof(T) / 16;
+  uint4 raw[N];
+  T* e = reinterpret_cast<T*>(raw);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) e[j] = ptt::from_f32<T>(in[j]);
+#pragma unroll
+  for (int k = 0; k < N; ++k) reinterpret_cast<uint4*>(p)[k] = raw[k];
+}
+
+// ---------------------------------------------------------------------------
+// grad_stats
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    grad_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
+                      long long n, bool vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  float s = 0.f;
+  int cnt = 0;
+  long long done = 0;
+  if (vec) {
+    for (long long c = first; c < n / kVec; c += stride) {
+      float v[kVec];
+      load8(x + c * kVec, v);
+      float q[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        q[j] = __fmul_rn(v[j], v[j]);
+        cnt += !isfinite(v[j]);
+      }
+      // pairwise within the vector, then into the running sum
+      const float a = __fadd_rn(__fadd_rn(q[0], q[1]), __fadd_rn(q[2], q[3]));
+      const float b = __fadd_rn(__fadd_rn(q[4], q[5]), __fadd_rn(q[6], q[7]));
+      s = __fadd_rn(s, __fadd_rn(a, b));
+    }
+    done = n / kVec * kVec;
+  }
+  for (long long i = done + first; i < n; i += stride) {
+    const float v = ptt::to_f32(x[i]);
+    s = __fadd_rn(s, __fmul_rn(v, v));
+    cnt += !isfinite(v);
+  }
+  // the CTA's threads in a fixed order: warps by shuffle, then warp 0
+  __shared__ float ws[kThreads / 32];
+  __shared__ int wc[kThreads / 32];
+  s = ptt::warp_sum(s);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    ws[warp] = s;
+    wc[warp] = cnt;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    long long c = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      t = __fadd_rn(t, ws[w]);
+      c += wc[w];
+    }
+    part[2 * blockIdx.x] = t;
+    part[2 * blockIdx.x + 1] = static_cast<float>(c);
+  }
+}
+
+template <typename T>
+int launch_stats(const void* x, float* part, float* out, long long n,
+                 int parts, cudaStream_t stream) {
+  const bool vec = ptt::aligned16(x);
+  grad_stats_kernel<T><<<parts, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), part, n, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // out[0] = sum of the CTAs' sums, out[1] = sum of their counts, CTA order
+  ptt::launch_column_sum(part, out, parts, 2, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the update
+// ---------------------------------------------------------------------------
+// The rule on one element, in fp32, op for op as optimizer.py's `update`:
+// m1 is Momentum's velocity or Adam's first moment, m2 Adam's second.
+template <int kRule>
+__device__ __forceinline__ float apply_rule(float p32, float g32, float& m1,
+                                            float& m2, const Hyper& h,
+                                            float lr, float lr_t,
+                                            float decay) {
+  if constexpr (kRule == kSGD) {
+    return __fsub_rn(p32, __fmul_rn(lr, g32));
+  } else if constexpr (kRule == kMomentum) {
+    const float v = __fadd_rn(__fmul_rn(h.momentum, m1), g32);
+    m1 = v;
+    if (h.nesterov)
+      return __fsub_rn(p32,
+                       __fmul_rn(lr, __fadd_rn(g32, __fmul_rn(h.momentum, v))));
+    return __fsub_rn(p32, __fmul_rn(lr, v));
+  } else {
+    // AdamW decays the param before the Adam rule: param * (1 - lr * coeff)
+    const float pp = h.decoupled ? __fmul_rn(p32, decay) : p32;
+    m1 = __fadd_rn(__fmul_rn(h.b1, m1), __fmul_rn(h.omb1, g32));
+    m2 = __fadd_rn(__fmul_rn(h.b2, m2),
+                   __fmul_rn(__fmul_rn(h.omb2, g32), g32));
+    // param - lr_t * m1 / (sqrt(m2) + eps)
+    return __fsub_rn(pp, __fdiv_rn(__fmul_rn(lr_t, m1),
+                                   __fadd_rn(__fsqrt_rn(m2), h.eps)));
+  }
+}
+
+// the gradient as the rule sees it: prefactor multiply, then decay into it
+__device__ __forceinline__ float prep_grad(float g32, float p32, float pref,
+                                           const Hyper& h) {
+  if (h.use_pref) g32 = __fmul_rn(g32, pref);
+  if (h.wd != 0.f) g32 = __fadd_rn(g32, __fmul_rn(h.wd, p32));
+  return g32;
+}
+
+template <int kRule, typename T, typename G, typename M, bool kMaster>
+__global__ void __launch_bounds__(kThreads)
+    update_kernel(T* __restrict__ p, const G* __restrict__ g,
+                  float* __restrict__ master, M* __restrict__ s1,
+                  M* __restrict__ s2, const float* __restrict__ sc,
+                  float* __restrict__ sc_out, long long n, Hyper h,
+                  bool vec) {
+  constexpr bool kS1 = kRule != kSGD, kS2 = kRule == kAdam;
+  const float lr = sc[0];
+  const float pref = sc[1];
+  const bool skip = h.use_fi && sc[2] > 0.5f;
+  float lr_t = 0.f, decay = 1.f;
+  if constexpr (kRule == kAdam) {
+    const float b1p = __fmul_rn(sc[3], h.b1), b2p = __fmul_rn(sc[4], h.b2);
+    // lr * sqrt(1 - b2p) / (1 - b1p)
+    lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
+                     __fsub_rn(1.f, b1p));
+    decay = __fsub_rn(1.f, __fmul_rn(lr, h.coeff));
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      sc_out[0] = skip ? sc[3] : b1p;
+      sc_out[1] = skip ? sc[4] : b2p;
+    }
+  }
+  if (skip) return;  // found_inf: every vector output keeps its input's bits
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    for (long long c = first; c < n / kVec; c += stride) {
+      const long long i = c * kVec;
+      float pv[kVec], gv[kVec], m1[kVec], m2[kVec], out[kVec];
+      if constexpr (kMaster) {
+        load8(master + i, pv);
+      } else {
+        load8(p + i, pv);
+      }
+      load8(g + i, gv);
+      if constexpr (kS1) load8(s1 + i, m1);
+      if constexpr (kS2) load8(s2 + i, m2);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float g32 = prep_grad(gv[j], pv[j], pref, h);
+        out[j] = apply_rule<kRule>(pv[j], g32, m1[j], m2[j], h, lr, lr_t,
+                                   decay);
+      }
+      store8(p + i, out);
+      if constexpr (kMaster) store8(master + i, out);
+      if constexpr (kS1) store8(s1 + i, m1);
+      if constexpr (kS2) store8(s2 + i, m2);
+    }
+    done = n / kVec * kVec;
+  }
+  for (long long i = done + first; i < n; i += stride) {
+    const float p32 = kMaster ? master[i] : ptt::to_f32(p[i]);
+    const float g32 = prep_grad(ptt::to_f32(g[i]), p32, pref, h);
+    float m1 = 0.f, m2 = 0.f;
+    if constexpr (kS1) m1 = ptt::to_f32(s1[i]);
+    if constexpr (kS2) m2 = ptt::to_f32(s2[i]);
+    const float out = apply_rule<kRule>(p32, g32, m1, m2, h, lr, lr_t, decay);
+    p[i] = ptt::from_f32<T>(out);
+    if constexpr (kMaster) master[i] = out;
+    if constexpr (kS1) s1[i] = ptt::from_f32<M>(m1);
+    if constexpr (kS2) s2[i] = ptt::from_f32<M>(m2);
+  }
+}
+
+struct UpdateArgs {
+  void *p, *master, *s1, *s2;
+  const void* g;
+  const float* sc;
+  float* sc_out;
+  long long n;
+  Hyper h;
+  cudaStream_t stream;
+};
+
+template <int R, typename T, typename G, typename M, bool kMaster>
+int launch_update(const UpdateArgs& a) {
+  const bool vec = ptt::aligned16(a.p) && ptt::aligned16(a.g) &&
+                   (!kMaster || ptt::aligned16(a.master)) &&
+                   (a.s1 == nullptr || ptt::aligned16(a.s1)) &&
+                   (a.s2 == nullptr || ptt::aligned16(a.s2));
+  const long long work = vec ? (a.n + kVec - 1) / kVec : a.n;
+  const long long want = (work + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(want < 132 * 8 ? (want > 0 ? want : 1)
+                                                   : 132 * 8);
+  update_kernel<R, T, G, M, kMaster><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<T*>(a.p), static_cast<const G*>(a.g),
+      static_cast<float*>(a.master), static_cast<M*>(a.s1),
+      static_cast<M*>(a.s2), a.sc, a.sc_out, a.n, a.h, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R, typename T, typename G, typename M>
+int launch_master(const UpdateArgs& a) {
+  return a.master != nullptr ? launch_update<R, T, G, M, true>(a)
+                             : launch_update<R, T, G, M, false>(a);
+}
+
+template <int R, typename T, typename G>
+int launch_moments(const UpdateArgs& a, int m_dtype) {
+  switch (m_dtype) {
+    case ptt::kFloat32:
+      return launch_master<R, T, G, float>(a);
+    case ptt::kBFloat16:
+      return launch_master<R, T, G, __nv_bfloat16>(a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// (param dtype, gradient dtype): the bucket's own dtype for both, or a bf16
+// bucket with fp32 gradients (clipped by value in fp32 before the update)
+template <int R>
+int launch_rule(const UpdateArgs& a, int p_dtype, int g_dtype, int m_dtype) {
+  if (p_dtype == ptt::kFloat32 && g_dtype == ptt::kFloat32)
+    return launch_moments<R, float, float>(a, m_dtype);
+  if (p_dtype == ptt::kBFloat16 && g_dtype == ptt::kBFloat16)
+    return launch_moments<R, __nv_bfloat16, __nv_bfloat16>(a, m_dtype);
+  if (p_dtype == ptt::kBFloat16 && g_dtype == ptt::kFloat32)
+    return launch_moments<R, __nv_bfloat16, float>(a, m_dtype);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// x: [n] contiguous gradient bucket (fp32 or bf16). part: [parts, 2] fp32
+// scratch; out: [2] fp32 (sum of squares, nonfinite count). Two launches:
+// the per-CTA pass, then the ordered sum of the CTAs' rows.
+extern "C" int ptt_grad_stats(const void* x, void* part, void* out,
+                              long long n, int parts, int dtype, int device,
+                              void* stream) {
+  if (n <= 0 || parts <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PTT_DISPATCH_DTYPE(dtype, T,
+                     return launch_stats<T>(x, static_cast<float*>(part),
+                                            static_cast<float*>(out), n,
+                                            parts, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One bucket's update, in place. p: [n] params; g: [n] gradients; master:
+// [n] fp32 or null; s1, s2: [n] vector states or null (Momentum: s1 the
+// fp32 velocity; Adam: s1, s2 the moments, fp32 or bf16). sc: the fp32
+// scalar block above; sc_out: [2] fp32, Adam's new beta powers.
+extern "C" int ptt_fused_update(void* p, const void* g, void* master,
+                                void* s1, void* s2, const void* sc,
+                                void* sc_out, long long n, int rule,
+                                int p_dtype, int g_dtype, int m_dtype,
+                                float wd, float coeff, float b1, float b2,
+                                float omb1, float omb2, float eps,
+                                float momentum, int nesterov, int decoupled,
+                                int use_pref, int use_fi, int device,
+                                void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  UpdateArgs a;
+  a.p = p;
+  a.g = g;
+  a.master = master;
+  a.s1 = s1;
+  a.s2 = s2;
+  a.sc = static_cast<const float*>(sc);
+  a.sc_out = static_cast<float*>(sc_out);
+  a.n = n;
+  a.h = Hyper{wd,   coeff,    b1,        b2,        omb1,     omb2,
+              eps,  momentum, nesterov,  decoupled, use_pref, use_fi};
+  a.stream = static_cast<cudaStream_t>(stream);
+  switch (rule) {
+    case kSGD:
+      return launch_rule<kSGD>(a, p_dtype, g_dtype, ptt::kFloat32);
+    case kMomentum:
+      return launch_rule<kMomentum>(a, p_dtype, g_dtype, m_dtype);
+    case kAdam:
+      return launch_rule<kAdam>(a, p_dtype, g_dtype, m_dtype);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

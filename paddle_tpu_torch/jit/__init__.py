@@ -1,73 +1,166 @@
-"""Train step — counterpart of `paddle_tpu.jit.TrainStep` on its
-per-parameter route (`use_buckets=False`, paddle_tpu/jit/__init__.py:
-141-143, 174-185, 237-239).
+"""Train step — counterpart of `paddle_tpu.jit.TrainStep`
+(paddle_tpu/jit/__init__.py:141-185, 233-239).
 
 PyTorch runs eagerly, so a step is the forward, the backward and the
-optimizer's `functional_apply` in turn; nothing is compiled. The
-parameters are updated IN PLACE (`copy_` into each parameter), where the
-JAX step donates its buffers and returns new ones; after a call each
-parameter's `.grad` holds that step's gradient.
+optimizer update in turn; nothing is compiled. Two routes, chosen as
+the reference chooses them (`use_buckets=None` is the default):
+
+* **bucketed** (`use_buckets` not False, the optimizer elementwise, and
+  parameters to train): `core/bucketing.py`. The parameters are packed
+  into flat dtype-homogeneous buckets (`BucketLayout.build(...,
+  bucket_bytes=32 MiB, pad_to=8)` in `named_parameters()` order); each
+  parameter's `.data` becomes a view into its parameter bucket and its
+  `.grad` a view into a gradient bucket of its dtype, which each step
+  zeroes and the backward accumulates into. The update
+  (`flat_functional_apply`) then runs the fused stats and update
+  kernels over the buckets in place. Only the default bucket cap is
+  ported; the env and strategy knobs come with the multi-GPU port.
+* **per-parameter** (otherwise): `optimizer.functional_apply` over
+  {name: tensor} dicts, the new values copied into the parameters.
+
+Either way the parameters are updated IN PLACE, where the JAX step
+donates its buffers and returns new ones, and after a call each
+parameter's `.grad` holds that step's gradient (clipped by norm in
+place on the bucketed route under `ClipGradByNorm`).
+
+The lr is read from `optimizer.get_lr()` at each call and written into
+a device scalar only when it changed (the host path of the reference's
+`LrFeed`, optimizer/device_lr.py:39-80); the caller steps a scheduler.
+The step owns a `torch.Generator` on its device, seeded from `seed`,
+and binds it around the forward: the dropout ops draw their keep masks
+from it (`core/rng.py`).
 """
 import numpy as np
 import torch
 
+from ..core import bucketing as B
+from ..core import rng
 from ..device import resolve_device
 
 
-def _later_slice(what):
+def _no_remat(policy):
     return NotImplementedError(
-        f'TrainStep: {what} is not ported yet (the bucketed optimizer '
-        f'with the fused-optimizer kernels, and remat, come in slice 3); '
-        f'pass use_buckets=False and no remat policy')
+        f'TrainStep: remat_policy={policy!r} is not ported yet (the remat '
+        f'policies come with the remat slice, as torch selective '
+        f'activation checkpointing); pass no remat policy')
 
 
 class TrainStep:
     """One train step: loss_fn(model, *batch) -> scalar loss; backward;
-    per-parameter optimizer update. Runs on the card unless the caller
-    passes device='cpu'; raises when the card is asked for and absent.
-    Moves the model to that device."""
+    optimizer update. Runs on the card unless the caller passes
+    device='cpu'; raises when the card is asked for and absent. Moves
+    the model to that device."""
 
-    def __init__(self, model, loss_fn, optimizer, use_buckets=False,
-                 remat_policy=None, device=None):
-        if use_buckets is not False:
-            raise _later_slice(f'use_buckets={use_buckets!r}')
+    def __init__(self, model, loss_fn, optimizer, use_buckets=None,
+                 remat_policy=None, device=None, seed=0):
         if remat_policy not in (None, 'none'):
-            raise _later_slice(f'remat_policy={remat_policy!r}')
+            raise _no_remat(remat_policy)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._params = {n: p for n, p in self.model.named_parameters()
                         if p.requires_grad}
-        self._opt_states = {}
-        for n, p in self._params.items():
-            st = optimizer.init_state(p.detach())
-            if p.dtype != torch.float32 and optimizer._multi_precision:
-                # the fp32 master is seeded from the param, as the JAX
-                # step pre-seeds it so its state pytree stays stable
-                st['master'] = p.detach().float()
-            self._opt_states[n] = st
-        self._lr = torch.tensor(optimizer.get_lr(), dtype=torch.float32,
-                                device=self.device)
+        self._use_buckets = (use_buckets is not False
+                             and B.elementwise(optimizer)
+                             and bool(self._params))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        if self._use_buckets:
+            self._build_buckets()
+        else:
+            self._layout = None
+            self._opt_states = {}
+            for n, p in self._params.items():
+                st = optimizer.init_state(p.detach())
+                if p.dtype != torch.float32 and optimizer._multi_precision:
+                    # the fp32 master is seeded from the param, as the JAX
+                    # step pre-seeds it so its state pytree stays stable
+                    st['master'] = p.detach().float()
+                self._opt_states[n] = st
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._lr_host = None
+        self.last_clip_factor = None
+
+    @property
+    def use_buckets(self):
+        return self._use_buckets
+
+    @property
+    def layout(self):
+        """The BucketLayout on the bucketed route, else None."""
+        return self._layout
+
+    def _build_buckets(self):
+        """Move every trained parameter into its bucket (its .data a view)
+        and give it a .grad view into a gradient bucket of its dtype."""
+        self._layout = B.BucketLayout.build(
+            {n: (p.shape, p.dtype) for n, p in self._params.items()},
+            bucket_bytes=B.DEFAULT_BUCKET_BYTES, pad_to=8)
+        self._flat_params, self._flat_grads, self._opt_states = [], [], []
+        with torch.no_grad():
+            for b in self._layout.buckets:
+                flat = torch.zeros(b.size, dtype=b.dtype, device=self.device)
+                grad = torch.zeros(b.size, dtype=b.dtype, device=self.device)
+                for s in b.slots:
+                    p = self._params[s.name]
+                    view = flat[s.offset:s.offset + s.size].view(s.shape)
+                    view.copy_(p.detach())
+                    p.data = view
+                    p.grad = grad[s.offset:s.offset + s.size].view(s.shape)
+                self._flat_params.append(flat)
+                self._flat_grads.append(grad)
+                self._opt_states.append(
+                    B.init_bucket_state(self.optimizer, b, flat))
 
     def _to_device(self, b):
         if isinstance(b, np.ndarray):
             b = torch.from_numpy(b)
         return b.to(self.device) if isinstance(b, torch.Tensor) else b
 
+    def _feed_lr(self):
+        """The lr as a device scalar, written only when it changed."""
+        v = float(self.optimizer.get_lr())
+        if v != self._lr_host:
+            self._lr.fill_(v)
+            self._lr_host = v
+        return self._lr
+
     def __call__(self, *batch):
         """One step on `batch` (tensors or numpy arrays); returns the
         loss as an fp32 0-dim tensor on the step's device."""
         batch = [self._to_device(b) for b in batch]
-        for p in self._params.values():
-            p.grad = None
-        loss = self.loss_fn(self.model, *batch).float()
+        if self._use_buckets:
+            for g in self._flat_grads:
+                g.zero_()
+        else:
+            for p in self._params.values():
+                p.grad = None
+        with rng.rng_guard(self.generator):
+            loss = self.loss_fn(self.model, *batch).float()
         loss.backward()
-        grads = {n: p.grad for n, p in self._params.items()}
+        lr = self._feed_lr()
         with torch.no_grad():
-            new_params, self._opt_states = self.optimizer.functional_apply(
-                {n: p.detach() for n, p in self._params.items()}, grads,
-                self._opt_states, self._lr)
-            for n, p in self._params.items():
-                p.copy_(new_params[n])
+            if self._use_buckets:
+                self._opt_states, self.last_clip_factor = \
+                    B.flat_functional_apply(
+                        self.optimizer, self._layout, self._flat_params,
+                        self._flat_grads, self._opt_states, lr)
+            else:
+                grads = {n: p.grad for n, p in self._params.items()}
+                new_params, self._opt_states = \
+                    self.optimizer.functional_apply(
+                        {n: p.detach() for n, p in self._params.items()},
+                        grads, self._opt_states, lr)
+                for n, p in self._params.items():
+                    p.copy_(new_params[n])
         return loss.detach()
+
+    def named_opt_states(self):
+        """{param: {state key: CPU tensor}} in the per-parameter schema,
+        on either route (bucketing.flat_states_to_named on the bucketed
+        one)."""
+        if self._use_buckets:
+            return B.flat_states_to_named(self._layout, self._opt_states)
+        return {n: {k: v.detach().cpu().clone() for k, v in st.items()}
+                for n, st in self._opt_states.items()}

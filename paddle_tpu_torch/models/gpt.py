@@ -6,7 +6,12 @@ engine) and training (the uncached `forward` of every layer and
 `GPTPretrainingCriterion`, run by `jit.TrainStep`). Attention in the
 uncached forward takes the flash route (the packed flash kernels) when
 `use_flash_attention` and L >= 512, the dense route otherwise
-(gpt.py:173-213). The dense-cache decode forward (`forward(caches=...)`)
+(gpt.py:173-213). In training, hidden dropout runs in the embeddings
+(gpt.py:105-117) and in both residual joins of each decoder layer (the
+fused dropout+residual kernels, gpt.py:378), its masks drawn in the
+reference's order: the embedding first, then per layer the attention
+join and the MLP join. Attention dropout > 0 in training raises (its
+kernels come with the next slice). The dense-cache decode forward (`forward(caches=...)`)
 is not ported and raises NotImplementedError.
 
 Parameter names and layouts are paddle's, so `models/convert.py` copies
@@ -75,7 +80,8 @@ def _dense_cache_forward():
 def _no_attention_dropout():
     return NotImplementedError(
         'attention dropout > 0 in training is not ported yet (the '
-        'dropout-fused flash kernels come with the dropout slice)')
+        'dropout-fused BHLD flash kernels come with the next slice, '
+        'slice 4); hidden dropout trains')
 
 
 def _normal_(w, std, generator):

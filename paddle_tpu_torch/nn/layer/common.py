@@ -62,17 +62,19 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Identity at eval or p=0; training-mode dropout is not ported yet
-    and raises NotImplementedError."""
+    """F.dropout with the layer's p, axis and mode (common.py:64-78):
+    identity at eval or p=0 in upscale_in_train mode; in training the
+    keep mask comes from the bound generator (core/rng.py)."""
 
-    def __init__(self, p=0.5, mode='upscale_in_train'):
+    def __init__(self, p=0.5, axis=None, mode='upscale_in_train'):
         super().__init__()
         self.p = p
+        self.axis = axis
         self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, p=self.p, training=self.training,
-                         mode=self.mode)
+        return F.dropout(x, p=self.p, axis=self.axis,
+                         training=self.training, mode=self.mode)
 
     def extra_repr(self):
         return f'p={self.p}'

@@ -134,7 +134,8 @@ def build():
     return lib_path
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 _SIGNATURES = {
     # x, w, b, y, mean (or None), rstd (or None), rows, n, eps, dtype,
     # device, stream
@@ -165,6 +166,18 @@ _SIGNATURES = {
     # dtype, device, stream
     'ptt_flash_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _F, _I, _I, _I, _P),
+    # x, residual, keep, y, n, keep_prob, dtype, device, stream
+    'ptt_dropout_add_fwd': (_P, _P, _P, _P, _L, _F, _I, _I, _P),
+    # keep, dy, dx, n, keep_prob, dtype, device, stream
+    'ptt_dropout_add_bwd': (_P, _P, _P, _L, _F, _I, _I, _P),
+    # x, part, out, n, parts, dtype, device, stream
+    'ptt_grad_stats': (_P, _P, _P, _L, _I, _I, _I, _P),
+    # p, g, master, s1, s2, sc, sc_out, n, rule, p_dtype, g_dtype, m_dtype,
+    # wd, coeff, b1, b2, omb1, omb2, eps, momentum, nesterov, decoupled,
+    # use_pref, use_fi, device, stream
+    'ptt_fused_update': (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I,
+                         _I, _P),
 }
 
 
@@ -212,6 +225,11 @@ def require_contiguous(name, **tensors):
     for arg, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f'{name}: {arg} must be contiguous')
+
+
+def ptr(t):
+    """A tensor's device pointer, or None (a C null) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def reduction_parts(device, rows):

@@ -1,6 +1,8 @@
-"""Fused bias + GELU forward and backward — counterpart of
-`paddle_tpu/ops/pallas/fused_elementwise.py` (its `_bg_fwd_kernel`, :64,
-and `_bg_bwd_kernel`, :69, under the `bias_gelu` custom VJP, :86).
+"""Fused bias + GELU and dropout + residual, forward and backward —
+counterpart of `paddle_tpu/ops/pallas/fused_elementwise.py` (its
+`_bg_fwd_kernel`, :64, and `_bg_bwd_kernel`, :69, under the `bias_gelu`
+custom VJP, :86; its `_da_fwd_kernel`, :149, and `_da_bwd_kernel`,
+:156, under the `dropout_add` custom VJP, :162).
 
 `bias_gelu(x, bias, approximate)` computes gelu(x + bias) with the bias
 cast to x's dtype first (fused_elementwise.py:105, :143), through
@@ -19,8 +21,19 @@ JAX route rounds inside bf16 arithmetic instead, so in bf16 the two
 agree to a few bf16 ulps (the tests hold them at 5e-2); in fp32 they
 agree to float rounding.
 
-`dropout_add`'s kernels are not on this slice's paths: at eval or p=0
-it is a plain add (`ops/nn_ops.py`).
+`dropout_add(x, residual, keep, p)` computes where(keep, x / (1-p), 0)
+rounded to x's dtype, plus the residual, through `DropoutAddFunction`,
+which saves the keep mask; its backward gives dx = where(keep, dy /
+(1-p), 0) and the residual's gradient dy itself (:195-207). Both
+directions dispatch by device as `BiasGeluFunction` does. The keep mask
+is drawn by the caller (`ops/nn_ops.dropout_add`) and stored as a torch
+bool tensor, one byte an element, where the reference keeps an fp32 0/1
+mask: "keep iff true" reads as its "keep iff > 0.5". On the gpt_1p3b
+step the 48 saved masks then take 48 x 34 MB ~ 1.6 GB, where fp32 masks
+would take ~6.4 GB. Numerics: as jnp does for a bf16 x divided by a
+Python float, the divisor 1-p is rounded to x's dtype first, and the
+quotient is rounded to x's dtype before the residual add; the plain
+versions and the kernels agree bit for bit.
 """
 import math
 
@@ -30,8 +43,10 @@ from . import _build
 
 KERNEL = 'bias_gelu'
 BWD_KERNEL = 'bias_gelu_bwd'
-_build.register(KERNEL)
-_build.register(BWD_KERNEL)
+DA_KERNEL = 'dropout_add'
+DA_BWD_KERNEL = 'dropout_add_bwd'
+for _name in (KERNEL, BWD_KERNEL, DA_KERNEL, DA_BWD_KERNEL):
+    _build.register(_name)
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -147,3 +162,99 @@ class BiasGeluFunction(torch.autograd.Function):
 def bias_gelu(x, bias, approximate):
     """x [..., N], bias [N]. Differentiable in x and bias."""
     return BiasGeluFunction.apply(x, bias, approximate)
+
+
+# ---------------------------------------------------------------------------
+# dropout + residual add
+# ---------------------------------------------------------------------------
+def keep_scale(x, p):
+    """1 - p as a 0-dim tensor of x's dtype on x's device: the divisor jnp
+    uses for `x / (1.0 - p)` (a weak-typed scalar takes x's dtype)."""
+    return torch.tensor(1.0 - p, dtype=torch.float32,
+                        device=x.device).to(x.dtype)
+
+
+def dropout_add_plain(x, residual, keep, p):
+    """Plain PyTorch forward (the kernel's reference, and the CPU route):
+    where(keep, x / (1-p), 0) in x's dtype, + residual."""
+    dropped = torch.where(keep, x / keep_scale(x, p), torch.zeros_like(x))
+    return dropped.to(x.dtype) + residual
+
+
+def dropout_add_bwd_plain(keep, dy, p):
+    """Plain PyTorch backward: dx = where(keep, dy / (1-p), 0)."""
+    return torch.where(keep, dy / keep_scale(dy, p),
+                       torch.zeros_like(dy)).to(dy.dtype)
+
+
+def _check_keep(keep, like, name):
+    if keep.dtype != torch.bool or keep.shape != like.shape:
+        raise ValueError(f'{name}: keep must be a bool mask of shape '
+                         f'{tuple(like.shape)}, got {keep.dtype} '
+                         f'{tuple(keep.shape)}')
+
+
+def _da_fwd_kernel(x, residual, keep, p):
+    code = _build.dtype_code(x, DA_KERNEL)
+    if residual.dtype != x.dtype or residual.shape != x.shape:
+        raise ValueError('dropout_add: residual must match x in shape and '
+                         'dtype')
+    _check_keep(keep, x, DA_KERNEL)
+    x, residual, keep = (t.contiguous() for t in (x, residual, keep))
+    y = torch.empty_like(x)
+    if x.numel():
+        _build.launch('ptt_dropout_add_fwd', DA_KERNEL, x.device,
+                      x.data_ptr(), residual.data_ptr(), keep.data_ptr(),
+                      y.data_ptr(), x.numel(), 1.0 - p, code)
+    return y
+
+
+def _da_bwd_kernel(keep, dy, p):
+    code = _build.dtype_code(dy, DA_BWD_KERNEL)
+    _check_keep(keep, dy, DA_BWD_KERNEL)
+    keep, dy = keep.contiguous(), dy.contiguous()
+    dx = torch.empty_like(dy)
+    if dy.numel():
+        _build.launch('ptt_dropout_add_bwd', DA_BWD_KERNEL, dy.device,
+                      keep.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                      dy.numel(), 1.0 - p, code)
+    return dx
+
+
+def dropout_add_fwd(x, residual, keep, p):
+    """y: the forward kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    if _build.on_cpu(x, residual, keep):
+        return dropout_add_plain(x, residual, keep, p)
+    return _da_fwd_kernel(x, residual, keep, p)
+
+
+def dropout_add_bwd(keep, dy, p):
+    """dx: the backward kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    if _build.on_cpu(keep, dy):
+        return dropout_add_bwd_plain(keep, dy, p)
+    return _da_bwd_kernel(keep, dy, p)
+
+
+class DropoutAddFunction(torch.autograd.Function):
+    """The `dropout_add` custom VJP: saves the keep mask; the residual's
+    gradient is the incoming gradient itself."""
+
+    @staticmethod
+    def forward(ctx, x, residual, keep, p):
+        y = dropout_add_fwd(x, residual, keep, p)
+        ctx.save_for_backward(keep)
+        ctx.p = p
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (keep,) = ctx.saved_tensors
+        return dropout_add_bwd(keep, dy, ctx.p), dy, None, None
+
+
+def dropout_add(x, residual, keep, p):
+    """residual + upscale-dropout(x) with the caller's bool keep mask (of
+    x's shape). Differentiable in x and the residual."""
+    return DropoutAddFunction.apply(x, residual, keep, p)

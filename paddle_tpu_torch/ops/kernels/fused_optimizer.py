@@ -1,0 +1,229 @@
+"""Fused optimizer step over flat buckets — counterpart of
+`paddle_tpu/ops/pallas/fused_optimizer.py`: `fusible` (:61),
+`grad_stats_pallas` (:96, its `_stats_kernel` :81) and
+`fused_shard_update` (:164, its `_update_kernel` :117).
+
+`grad_stats(flat)` returns (sum of squares, nonfinite count) of a flat
+gradient bucket as fp32 0-dim tensors on its device, in one pass. The
+sum is not masked: a NaN or an inf gradient poisons it, as the
+reference's `jnp.sum(g * g)` does, and the count reports it apart.
+
+`fused_shard_update(optimizer, p, g, state, lr, prefactor=None,
+found_inf=None)` has `core.bucketing.shard_update`'s contract
+(bucketing.py:581-627): the prefactor multiply, decay into the gradient
+when `_decay_into_grad()`, the optimizer's rule in fp32, the found-inf
+no-op (a select, so NaN gradients leave every output bit-equal to its
+input), and the parameter write in its dtype beside the fp32 master
+write where the state has a master. It updates IN PLACE where the JAX
+step donates: `p` and every vector state (master, moments, velocity)
+are overwritten and returned; the scalar states (Adam's beta powers)
+come back as new fp32 0-dim tensors. `lr`, `prefactor`, `found_inf`
+and the beta powers reach the kernel through one small fp32 device
+block, never by value, so no step reads a device value back to the
+host. The gradient may be the bucket's dtype or fp32.
+
+The kernel (`csrc/fused_optimizer.cu`) implements the rules of SGD,
+Momentum (with Nesterov), Adam and AdamW, with moments in fp32 or bf16;
+each must be written out in CUDA, where Pallas traced `update` into its
+body. The reference's other `_pallas_fusible` rules (RMSProp, Adamax,
+Adagrad, Adadelta, DecayedAdagrad) come with their optimizer classes.
+
+Plain versions: `grad_stats_plain` and `fused_shard_update_plain` (the
+reference `shard_update`'s op chain, functional). CPU tensors run the
+plain versions (the update's results copied back into its inputs, so
+both routes keep one contract); CUDA tensors launch the kernels or
+raise.
+"""
+import torch
+
+from . import _build
+
+STEP = 'optimizer_step'
+STATS = 'grad_stats'
+_build.register(STATS)
+_build.register(STEP)
+
+# csrc/fused_optimizer.cu: Rule
+_SGD, _MOMENTUM, _ADAM = 0, 1, 2
+
+
+def fusible(optimizer):
+    """Optimizers whose flat update the fused kernel runs: strictly
+    elementwise AND tagged `_pallas_fusible`."""
+    return bool(getattr(optimizer, '_elementwise', False)) and \
+        bool(getattr(optimizer, '_pallas_fusible', False))
+
+
+# ---------------------------------------------------------------------------
+# grad_stats
+# ---------------------------------------------------------------------------
+def grad_stats_plain(flat):
+    """(sum of x^2, count of nonfinite x) of a flat array, fp32 0-dim."""
+    x = flat.reshape(-1).float()
+    return (x * x).sum(), (~torch.isfinite(x)).float().sum()
+
+
+def _stats_kernel(flat):
+    code = _build.dtype_code(flat, STATS)
+    x = flat.reshape(-1)
+    _build.require_contiguous(STATS, flat=x)
+    out = torch.zeros(2, dtype=torch.float32, device=x.device)
+    if x.numel():
+        parts = _build.reduction_parts(x.device, -(-x.numel() // 2048))
+        part = torch.empty(parts, 2, dtype=torch.float32, device=x.device)
+        _build.launch('ptt_grad_stats', STATS, x.device, x.data_ptr(),
+                      part.data_ptr(), out.data_ptr(), x.numel(), parts,
+                      code, launches=2)
+    return out[0], out[1]
+
+
+def grad_stats(flat):
+    """(sum of squares, nonfinite count) as fp32 0-dim tensors: the
+    kernel (a per-CTA pass and an ordered sum of the CTAs' partials, two
+    launches) on a CUDA tensor, its plain version on a CPU tensor."""
+    if _build.on_cpu(flat):
+        return grad_stats_plain(flat)
+    return _stats_kernel(flat)
+
+
+# ---------------------------------------------------------------------------
+# the update
+# ---------------------------------------------------------------------------
+def _decay_into_grad(optimizer):
+    wd = getattr(optimizer, '_weight_decay', None)
+    return float(wd) if (wd and optimizer._decay_into_grad()) else 0.0
+
+
+def fused_shard_update_plain(optimizer, p, g, st, lr, prefactor=None,
+                             found_inf=None):
+    """The reference `shard_update`'s op chain (bucketing.py:581-627),
+    functional: (new p in its dtype, new state)."""
+    low = p.dtype != torch.float32
+    st = dict(st)
+    master = st.pop('master', None)
+    p32 = master if master is not None else (p.float() if low else p)
+    g32 = g.float()
+    if prefactor is not None:
+        g32 = g32 * prefactor
+    wd = _decay_into_grad(optimizer)
+    if wd:
+        g32 = g32 + wd * p32
+    new32, ns = optimizer.update(p32, g32, st, lr)
+    ns = dict(ns)
+    if master is not None or (low and getattr(optimizer,
+                                              '_multi_precision', True)):
+        ns['master'] = new32
+    new_p = new32.to(p.dtype)
+    if found_inf is not None:
+        old = dict(st)
+        if master is not None:
+            old['master'] = master
+        new_p = torch.where(found_inf, p, new_p)
+        ns = {k: (torch.where(found_inf, old[k], v) if k in old else v)
+              for k, v in ns.items()}
+        if 'master' in ns and master is None:
+            ns['master'] = torch.where(found_inf, p32, ns['master'])
+    return new_p, ns
+
+
+def _rule(optimizer):
+    """(rule code, the rule's constants) for the kernel."""
+    from ...optimizer.optimizer import SGD, Adam, AdamW, Momentum
+    h = dict(wd=_decay_into_grad(optimizer), coeff=0.0, b1=0.0, b2=0.0,
+             omb1=0.0, omb2=0.0, eps=0.0, momentum=0.0, nesterov=0,
+             decoupled=0)
+    if isinstance(optimizer, Adam):
+        b1, b2 = optimizer._beta1, optimizer._beta2
+        h.update(b1=b1, b2=b2, omb1=1 - b1, omb2=1 - b2,
+                 eps=optimizer._epsilon)
+        if isinstance(optimizer, AdamW):
+            h.update(coeff=optimizer._coeff, decoupled=1)
+        return _ADAM, h
+    if isinstance(optimizer, Momentum):
+        h.update(momentum=optimizer._momentum,
+                 nesterov=int(bool(optimizer._use_nesterov)))
+        return _MOMENTUM, h
+    if type(optimizer) is SGD:
+        return _SGD, h
+    raise NotImplementedError(
+        f'fused_shard_update: no kernel rule for {type(optimizer).__name__} '
+        f'(the port has SGD, Momentum, Adam and AdamW)')
+
+
+_VEC_KEYS = {_SGD: (), _MOMENTUM: ('velocity',),
+             _ADAM: ('moment1', 'moment2')}
+_SCALAR_KEYS = {_SGD: (), _MOMENTUM: (), _ADAM: ('beta1_pow', 'beta2_pow')}
+
+
+def _update_kernel(optimizer, p, g, st, lr, prefactor, found_inf):
+    rule, h = _rule(optimizer)
+    st = dict(st)
+    master = st.get('master')
+    if master is None and p.dtype != torch.float32 and \
+            getattr(optimizer, '_multi_precision', True):
+        master = st['master'] = p.float()       # seeded from the param
+    vecs = [st[k] for k in _VEC_KEYS[rule]]
+    n = p.numel()
+    for name, t in [('g', g), ('master', master)] + list(
+            zip(_VEC_KEYS[rule], vecs)):
+        if t is not None and t.numel() != n:
+            raise ValueError(f'fused_shard_update: {name} has {t.numel()} '
+                             f'elements, p has {n}')
+    if master is not None and master.dtype != torch.float32:
+        raise TypeError('fused_shard_update: the master must be fp32')
+    if rule == _ADAM and vecs[0].dtype != vecs[1].dtype:
+        raise TypeError('fused_shard_update: the moments must share a dtype')
+    _build.require_contiguous(STEP, p=p, g=g, **({} if master is None
+                                                  else {'master': master}),
+                              **dict(zip(_VEC_KEYS[rule], vecs)))
+    dev = p.device
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    scalars = [lr, one if prefactor is None else prefactor,
+               zero if found_inf is None else found_inf]
+    scalars += [st[k] for k in _SCALAR_KEYS[rule]]
+    sc = torch.stack([s.to(device=dev, dtype=torch.float32).reshape(())
+                      for s in scalars])
+    sc_out = torch.empty(max(len(_SCALAR_KEYS[rule]), 1),
+                         dtype=torch.float32, device=dev)
+    s1 = vecs[0] if vecs else None
+    s2 = vecs[1] if len(vecs) > 1 else None
+    m_code = _build.dtype_code(s1, STEP) if s1 is not None else 0
+    if n:
+        _build.launch(
+            'ptt_fused_update', STEP, dev, p.data_ptr(), g.data_ptr(),
+            _build.ptr(master), _build.ptr(s1), _build.ptr(s2),
+            sc.data_ptr(), sc_out.data_ptr(), n, rule,
+            _build.dtype_code(p, STEP), _build.dtype_code(g, STEP), m_code,
+            h['wd'], h['coeff'], h['b1'], h['b2'], h['omb1'], h['omb2'],
+            h['eps'], h['momentum'], h['nesterov'], h['decoupled'],
+            int(prefactor is not None), int(found_inf is not None))
+    for j, k in enumerate(_SCALAR_KEYS[rule]):
+        st[k] = sc_out[j]
+    return p, st
+
+
+def fused_shard_update(optimizer, p, g, st, lr, prefactor=None,
+                       found_inf=None):
+    """One bucket's update, in place: returns (p, new state), where p
+    and the state's vector tensors are the ones passed in, overwritten.
+    The kernel on CUDA tensors; on CPU tensors the plain version, its
+    results copied into the inputs."""
+    if not fusible(optimizer):
+        raise NotImplementedError(
+            f'fused_shard_update: {type(optimizer).__name__} is not an '
+            f'elementwise, fusible optimizer')
+    extra = [t for t in (lr, prefactor, found_inf) if t is not None]
+    if _build.on_cpu(p, g, *st.values(), *extra):
+        new_p, ns = fused_shard_update_plain(optimizer, p, g, st, lr,
+                                             prefactor, found_inf)
+        p.copy_(new_p)
+        out = {}
+        for k, v in ns.items():
+            old = st.get(k)
+            if old is not None and old.dim() >= 1:
+                old.copy_(v)
+                v = old
+            out[k] = v
+        return p, out
+    return _update_kernel(optimizer, p, g, st, lr, prefactor, found_inf)

@@ -1,15 +1,23 @@
 """Neural-network functional ops — the subset of `paddle_tpu/ops/nn_ops.py`
 the serving and training slices run: `gelu` (:36), `bias_gelu` (:41),
-the eval / p=0 branch of `dropout_add` (:60), `layer_norm` (:217) with
-its fused-route gate (:243-246), `linear` (:402), `embedding` (:746),
-eval-mode `dropout` and the hard-label `softmax_with_cross_entropy`
-(:906) on its fused route (`_fused_hard_xent`, :768-798). Dropout at
-p > 0 in training waits for the dropout slice and raises.
+`dropout_add` (:60-110), `layer_norm` (:217) with its fused-route gate
+(:243-246), `linear` (:402), `dropout` (:703-720), `embedding` (:746)
+and the hard-label `softmax_with_cross_entropy` (:906) on its fused
+route (`_fused_hard_xent`, :768-798).
+
+Dropout in training draws its keep mask from the generator bound by
+`core.rng.rng_guard` (jit.TrainStep binds its own) and raises when none
+is bound. `dropout_add` in training (upscale_in_train) runs the fused
+dropout+residual kernels through `DropoutAddFunction`; `dropout` stays
+plain PyTorch, as the reference's is plain jnp. As in jnp, a scalar
+operand takes the tensor's dtype: a bf16 x is divided by (or scaled
+with) 1 - p rounded to bf16.
 
 Functions take and return torch tensors.
 """
 import torch
 
+from ..core import rng as _rng
 from .kernels import fused_elementwise as _fe
 from .kernels import fused_norm as _fln
 
@@ -27,27 +35,46 @@ def bias_gelu(x, bias=None, approximate=False):
     return _fe.bias_gelu(x, bias, approximate)
 
 
-def _not_served(what):
-    return NotImplementedError(
-        f'{what} is not ported yet: the port runs dropout at eval or at '
-        f'p=0 only (dropout at p > 0 waits for the dropout slice)')
+def _mask_shape(x, axis):
+    if axis is None:
+        return tuple(x.shape)
+    axes = [axis] if isinstance(axis, int) else list(axis)
+    axes = [a % x.dim() for a in axes]
+    return tuple(d if i in axes else 1 for i, d in enumerate(x.shape))
 
 
-def dropout(x, p=0.5, training=True, mode='upscale_in_train'):
+def dropout(x, p=0.5, axis=None, training=True, mode='upscale_in_train'):
+    """Parity: operators/dropout_op (nn_ops.py:703-720). In training the
+    keep mask (of x's shape, or broadcast along the dims not in `axis`)
+    comes from the bound generator; upscale_in_train divides the kept
+    elements by 1 - p, downscale_in_infer keeps them as they are and
+    scales by 1 - p at eval."""
     if not training or p == 0.0:
-        return x if mode == 'upscale_in_train' else x * (1.0 - p)
-    raise _not_served('training-mode dropout')
+        if mode == 'upscale_in_train':
+            return x
+        return x * _fe.keep_scale(x, p)
+    keep = _rng.keep_mask(_mask_shape(x, axis), 1.0 - p, x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if mode == 'upscale_in_train':
+        return torch.where(keep, x / _fe.keep_scale(x, p), zero)
+    return torch.where(keep, x, zero)
 
 
 def dropout_add(x, residual, p=0.5, training=True,
                 mode='upscale_in_train'):
-    """The residual join `residual + dropout(x)`; at eval or p=0 a plain
-    add (its fused kernels are training-only)."""
+    """The residual join `residual + dropout(x)` (nn_ops.py:60-110). In
+    training with upscale_in_train: the fused dropout+residual kernels
+    (their plain versions on the CPU) on a keep mask drawn from the bound
+    generator at the point the plain `dropout` would draw it; at eval or
+    p=0 a plain add."""
     if not training or p == 0.0:
         if mode == 'upscale_in_train':
             return x + residual
-        return x * (1 - p) + residual
-    raise _not_served('training-mode dropout_add')
+        return x * _fe.keep_scale(x, p) + residual
+    if mode != 'upscale_in_train':
+        return dropout(x, p=p, training=training, mode=mode) + residual
+    keep = _rng.keep_mask(tuple(x.shape), 1.0 - p, x.device)
+    return _fe.dropout_add(x, residual, keep, p)
 
 
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,

@@ -1,2 +1,3 @@
-"""Optimizers — counterpart of `paddle_tpu/optimizer`."""
-from .optimizer import SGD, Adam, AdamW, Optimizer  # noqa: F401
+"""Optimizers and LR schedules — counterpart of `paddle_tpu/optimizer`."""
+from . import lr  # noqa: F401
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer  # noqa: F401

@@ -1,6 +1,7 @@
 """Optimizers' functional update — counterpart of
 `paddle_tpu/optimizer/optimizer.py`: the base class's `functional_apply`
-(:103-158) and the SGD (:398), Adam (:546) and AdamW (:589) rules.
+(:103-158) and the SGD (:398), Momentum (:415), Adam (:546) and AdamW
+(:589) rules.
 
 `functional_apply(params, grads, states, lr)` maps {name: tensor} dicts
 to new ones, as the JAX package's pure update does: for a low-precision
@@ -8,24 +9,43 @@ param with `multi_precision` on, an fp32 master rides in the state and
 the update runs on it; otherwise the update runs on an fp32 copy of the
 param and the result is stored back in the param's dtype (:81-92, 146,
 156), so bf16 params with `multi_precision=False` round every step.
-Weight decay goes into the gradient when `_decay_into_grad()` (SGD and
-Adam); AdamW decays the param instead, `param * (1 - lr * coeff)`,
-before the Adam rule (:608-612). The update math is fp32 throughout:
-`lr` is an fp32 0-dim tensor, and Adam's beta powers are fp32 0-dim
-tensors in the state (:572-573), never Python floats.
+Weight decay goes into the gradient when `_decay_into_grad()` (SGD,
+Momentum and Adam); AdamW decays the param instead, `param * (1 - lr *
+coeff)`, before the Adam rule (:608-612). The update math is fp32
+throughout: `lr` is an fp32 0-dim tensor, and Adam's beta powers are
+fp32 0-dim tensors in the state (:572-573), never Python floats.
 
-This slice takes a constant float learning rate only. An LRScheduler,
-`grad_clip` and AdamW's `apply_decay_param_fun` raise
-NotImplementedError; none is ignored.
+`learning_rate` is a float or an `LRScheduler` (`optimizer/lr.py`),
+read through `get_lr()` (:56-67). `grad_clip` (`nn/clip.py`) is applied
+first, as :108-129 applies it: under `ClipGradByGlobalNorm` the factor
+is cast to each gradient's dtype before the multiply, so a bf16
+gradient is scaled in bf16.
+
+The `_elementwise` tag (:31) says the rule is strictly per element, so
+`jit.TrainStep` may run it over flat buckets (`core/bucketing.py`); the
+`_pallas_fusible` tag (:37) says the fused update kernel
+(`ops/kernels/fused_optimizer.py`) implements it. SGD, Momentum, Adam
+and AdamW carry both.
+
+AdamW's `apply_decay_param_fun` and `lr_ratio` raise
+NotImplementedError: the reference's functional routes decay every
+parameter whatever the argument says (`_cur_decay` is a class attribute
+that is True, :609, :614), and the port does not copy that silently.
 """
 import torch
 
 
+from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
+                       ClipGradByValue, global_factor, norm_factor)
+from .lr import LRScheduler
+
+
 def _not_ported(what):
     return NotImplementedError(
-        f'{what} is not ported yet: the port\'s optimizers take a '
-        f'constant float learning rate, no grad_clip and no per-param '
-        f'decay selection')
+        f'AdamW({what}=...) is not ported: the reference\'s functional '
+        f'routes (TrainStep) ignore it and decay every parameter at the '
+        f'one learning rate, and the port does not ignore an argument '
+        f'silently')
 
 
 def _as_dtype(dtype):
@@ -35,26 +55,48 @@ def _as_dtype(dtype):
 
 
 class Optimizer:
+    _elementwise = False
+    _pallas_fusible = False
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=True):
         """`parameters` and `name` are accepted for the JAX package's
         signature; the functional update takes its params per call."""
-        if isinstance(learning_rate, bool) or \
-                not isinstance(learning_rate, (int, float)):
-            raise _not_ported('an LRScheduler')
-        if grad_clip is not None:
-            raise _not_ported('grad_clip')
+        if not isinstance(learning_rate, LRScheduler):
+            if isinstance(learning_rate, bool) or \
+                    not isinstance(learning_rate, (int, float)):
+                raise TypeError(f'learning_rate must be a float or an '
+                                f'LRScheduler, got {learning_rate!r}')
+            learning_rate = float(learning_rate)
+        if grad_clip is not None and not isinstance(
+                grad_clip, (ClipGradByGlobalNorm, ClipGradByNorm,
+                            ClipGradByValue)):
+            raise TypeError(f'grad_clip must be a ClipGradBy* of '
+                            f'paddle_tpu_torch.nn.clip, got {grad_clip!r}')
         if weight_decay is not None and not isinstance(weight_decay,
                                                        (int, float)):
-            raise _not_ported('a regularizer object as weight_decay')
-        self._learning_rate = float(learning_rate)
+            raise NotImplementedError(
+                'a regularizer object as weight_decay is not ported yet; '
+                'pass a float')
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
         self._weight_decay = None if weight_decay is None \
             else float(weight_decay)
         self._multi_precision = multi_precision
 
     def get_lr(self):
-        return self._learning_rate
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
+        return float(self._learning_rate)
+
+    def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("can't set_lr when using an LRScheduler")
+        self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
 
     def _decay_into_grad(self):
         return True
@@ -71,6 +113,7 @@ class Optimizer:
     def functional_apply(self, params, grads, states, lr):
         """One update of every param that has a gradient: returns
         ({name: new param in its dtype}, {name: new state})."""
+        grads = self._clip(grads)
         new_params, new_states = {}, {}
         for n, p in params.items():
             g = grads.get(n)
@@ -100,8 +143,35 @@ class Optimizer:
         return new_params, new_states
 
 
+    def _clip(self, grads):
+        """grad_clip on {name: grad}, as functional_apply (:108-129)
+        applies it."""
+        clip = self._grad_clip
+        live = {n: g for n, g in grads.items() if g is not None}
+        if isinstance(clip, ClipGradByGlobalNorm):
+            sq = None
+            for g in live.values():
+                s = (g.float() ** 2).sum()
+                sq = s if sq is None else sq + s
+            if sq is None:
+                return grads
+            factor = global_factor(torch.sqrt(sq), clip.clip_norm)
+            live = {n: g * factor.to(g.dtype) for n, g in live.items()}
+        elif isinstance(clip, ClipGradByNorm):
+            live = {n: g * norm_factor(g, clip.clip_norm).to(g.dtype)
+                    for n, g in live.items()}
+        elif isinstance(clip, ClipGradByValue):
+            live = {n: g.clamp(clip.min, clip.max) for n, g in live.items()}
+        else:
+            return grads
+        return {n: live.get(n) for n in grads}
+
+
 class SGD(Optimizer):
     """Parity: operators/optimizers/sgd_op."""
+
+    _elementwise = True
+    _pallas_fusible = True
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=True,
@@ -113,10 +183,41 @@ class SGD(Optimizer):
         return param - lr * grad, state
 
 
+class Momentum(Optimizer):
+    """Parity: operators/optimizers/momentum_op (use_nesterov
+    supported); the velocity is fp32."""
+
+    _elementwise = True
+    _pallas_fusible = True
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=True, name=None, **kwargs):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def init_state(self, param):
+        return {'velocity': torch.zeros(param.shape, dtype=torch.float32,
+                                        device=param.device)}
+
+    def update(self, param, grad, state, lr):
+        v = self._momentum * state['velocity'] + grad
+        if self._use_nesterov:
+            new_p = param - lr * (grad + self._momentum * v)
+        else:
+            new_p = param - lr * v
+        return new_p, {'velocity': v}
+
+
 class Adam(Optimizer):
     """Parity: operators/optimizers/adam_op, with beta-power states.
     `moment_dtype` ('bfloat16' or a torch dtype) stores the moments in
     fewer bits; the update math stays fp32."""
+
+    _elementwise = True
+    _pallas_fusible = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,

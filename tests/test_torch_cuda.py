@@ -16,14 +16,21 @@ rounding). fp32 flash attention and the fp32 backward reductions at
 rtol 1e-3 / atol 1e-4: the kernels sum up to 256 keys, 128 dims or
 hundreds of rows in another order than the plain versions, with fp32
 intermediates of magnitude ~10, so they differ by a few 1e-6 relative
-(the bar leaves a margin of ten or more).
+(the bar leaves a margin of ten or more). The fused update: fp32 at
+rtol 2e-6 / atol 5e-7 (the reference test's bar: the same op order,
+each op rounded), bf16 outputs 99.9 % bit-equal and the rest within one
+bf16 ulp; the gradient sum of squares at rtol 1e-5 (summation order),
+its nonfinite count exact; dropout+residual bit-equal. The bucketed
+step on the card vs the CPU: fp32, one clipped SGD step, rtol 1e-4.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels import fused_optimizer as tfo
 from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import fused_norm as tfn
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
@@ -275,3 +282,200 @@ class TestOnCard:
             tpa.ragged_paged_attention(*args, num_heads=H, head_dim=32)
         with torch.no_grad():
             tpa.ragged_paged_attention(*args, num_heads=H, head_dim=32)
+
+    # -----------------------------------------------------------------
+    # the bucketed optimizer's and the dropout+residual kernels
+    # -----------------------------------------------------------------
+    @pytest.mark.parametrize('n', [8, 7777, 1 << 20, 3 * 2048 + 5])
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_grad_stats_kernel(self, cuda, dtype, n):
+        g = torch.Generator(device=cuda).manual_seed(8)
+        x = torch.randn(n, generator=g, device=cuda).to(dtype)
+        _build.reset_launches()
+        s, c = tfo.grad_stats(x)
+        assert _build.routes_snapshot()['grad_stats'] == 2
+        ps, pc = tfo.grad_stats_plain(x)
+        torch.testing.assert_close(s, ps, rtol=1e-5, atol=0)
+        assert float(c) == float(pc) == 0.0
+        x[n // 2] = float('nan')
+        x[0] = float('inf')
+        s, c = tfo.grad_stats(x)
+        assert not bool(torch.isfinite(s)) and float(c) == 2.0
+
+    @pytest.mark.parametrize('n', [1000, 4096 + 3])
+    @pytest.mark.parametrize('storage', [
+        (torch.float32, False), (torch.float32, True),
+        (torch.bfloat16, True), (torch.bfloat16, False)],
+        ids=['fp32', 'fp32-master', 'bf16-master', 'bf16'])
+    @pytest.mark.parametrize('rule', ['sgd', 'momentum', 'nesterov', 'adam',
+                                      'adamw', 'adamw_bf16_moments'])
+    def test_fused_update_kernel(self, cuda, rule, storage, n):
+        dtype, master = storage
+        mk = {'sgd': lambda: topt.SGD(0.1, weight_decay=0.01,
+                                      multi_precision=master),
+              'momentum': lambda: topt.Momentum(0.05, weight_decay=1e-4,
+                                                multi_precision=master),
+              'nesterov': lambda: topt.Momentum(0.05, use_nesterov=True,
+                                                multi_precision=master),
+              'adam': lambda: topt.Adam(0.01, weight_decay=0.01,
+                                        multi_precision=master),
+              'adamw': lambda: topt.AdamW(0.01, multi_precision=master),
+              'adamw_bf16_moments': lambda: topt.AdamW(
+                  0.01, moment_dtype='bfloat16', multi_precision=master)}
+        opt = mk[rule]()
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        p = torch.randn(n, generator=gen, device=cuda).to(dtype)
+        st = opt.init_state(torch.zeros(n, device=cuda))
+        for k, v in st.items():
+            if v.dim():
+                v.copy_(0.1 * torch.rand(n, generator=gen, device=cuda))
+            else:
+                v.fill_(0.9 ** 3 if k == 'beta1_pow' else 0.999 ** 3)
+        if master:
+            st['master'] = p.float() + 1e-3 * torch.randn(
+                n, generator=gen, device=cuda)
+        lr, pref = torch.tensor(0.01, device=cuda), torch.tensor(
+            0.7, device=cuda)
+        for gdt in {dtype, torch.float32}:
+            grad = torch.randn(n, generator=gen, device=cuda).to(gdt)
+            for fi in (None, torch.tensor(False, device=cuda)):
+                want_p, want_s = tfo.fused_shard_update_plain(
+                    opt, p, grad, dict(st), lr, prefactor=pref, found_inf=fi)
+                gp, gs = p.clone(), {k: v.clone() for k, v in st.items()}
+                _build.reset_launches()
+                out_p, out_s = tfo.fused_shard_update(
+                    opt, gp, grad, gs, lr, prefactor=pref, found_inf=fi)
+                assert _build.routes_snapshot()['optimizer_step'] == 1
+                assert out_p is gp and set(out_s) == set(want_s)
+                for got, want in [(out_p, want_p)] + [
+                        (out_s[k], want_s[k]) for k in want_s]:
+                    assert got.dtype == want.dtype
+                    if got.dtype == torch.float32:
+                        torch.testing.assert_close(got, want, rtol=2e-6,
+                                                   atol=5e-7)
+                    else:
+                        # bf16: the same fp32 value rounds once; an fp32
+                        # ulp may cross a bf16 rounding boundary
+                        torch.testing.assert_close(
+                            got.float(), want.float(), rtol=2.0 ** -7,
+                            atol=0)
+                        same = (got == want).float().mean()
+                        assert float(same) >= 0.999
+
+    @pytest.mark.parametrize('rule', ['momentum', 'adamw_bf16_moments'])
+    def test_fused_update_found_inf_is_an_exact_noop(self, cuda, rule):
+        opt = (topt.Momentum(0.05) if rule == 'momentum' else topt.AdamW(
+            0.01, moment_dtype='bfloat16', multi_precision=False))
+        n = 5000
+        p = torch.randn(n, device=cuda).to(torch.bfloat16)
+        st = opt.init_state(torch.zeros(n, device=cuda))
+        for v in st.values():
+            v.copy_(torch.rand(v.shape, device=cuda)) if v.dim() else \
+                v.fill_(0.5)
+        grad = torch.full((n,), float('nan'), device=cuda,
+                          dtype=torch.bfloat16)
+        gp, gs = p.clone(), {k: v.clone() for k, v in st.items()}
+        _, ns = tfo.fused_shard_update(
+            opt, gp, grad, gs, torch.tensor(0.01, device=cuda),
+            prefactor=torch.tensor(1.0, device=cuda),
+            found_inf=torch.tensor(True, device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(gp.view(torch.int16), p.view(torch.int16))
+        for k, v in st.items():
+            assert torch.equal(ns[k], v), k
+
+    @pytest.mark.parametrize('shape', [(3, 5, 64), (16, 2048), (7, 37)])
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_dropout_add_kernels(self, cuda, dtype, shape):
+        g = torch.Generator(device=cuda).manual_seed(10)
+        x, r, dy = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                    for _ in range(3))
+        keep = torch.rand(shape, generator=g, device=cuda) < 0.9
+        _build.reset_launches()
+        y = tfe.dropout_add_fwd(x, r, keep, 0.1)
+        dx = tfe.dropout_add_bwd(keep, dy, 0.1)
+        snap = _build.routes_snapshot()
+        assert (snap['dropout_add'], snap['dropout_add_bwd']) == (1, 1)
+        assert torch.equal(y, tfe.dropout_add_plain(x, r, keep, 0.1))
+        assert torch.equal(dx, tfe.dropout_add_bwd_plain(keep, dy, 0.1))
+
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_gradients_flow_through_dropout_add(self, cuda, dtype):
+        g = torch.Generator(device=cuda).manual_seed(11)
+        x, r = (torch.randn(4, 96, generator=g, device=cuda).to(dtype)
+                .requires_grad_() for _ in range(2))
+        keep = torch.rand(4, 96, generator=g, device=cuda) < 0.8
+        _build.reset_launches()
+        y = tfe.dropout_add(x, r, keep, 0.2)
+        assert y.grad_fn is not None
+        y.float().square().sum().backward()
+        snap = _build.routes_snapshot()
+        assert (snap['dropout_add'], snap['dropout_add_bwd']) == (1, 1)
+        dy = (2 * y.detach().float()).to(dtype)
+        assert torch.equal(r.grad, dy)
+        assert torch.equal(x.grad, tfe.dropout_add_bwd_plain(keep, dy, 0.2))
+        assert not bool(x.grad[~keep].any())
+
+    def test_bucketed_train_step_on_card(self, cuda):
+        """The default TrainStep on the card: grads are views of their
+        buckets, every new kernel launches, and the card's first step
+        (SGD with the global-norm clip) matches the CPU's from the same
+        weights and masks."""
+        from paddle_tpu_torch import jit as tjit
+        from paddle_tpu_torch import nn as tnn
+        from paddle_tpu_torch.core import rng as trng
+        from paddle_tpu_torch.models import gpt as tgpt
+
+        cfg = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
+                   max_seq_len=64, hidden_dropout=0.1, attn_dropout=0.0)
+        gen = torch.Generator().manual_seed(0)
+        cpu_model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg), generator=gen)
+        card_model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg))
+        card_model.load_state_dict(cpu_model.state_dict())
+        masks = [torch.rand(2, 32, 64, generator=gen) < 0.9
+                 for _ in range(5)]
+        calls = []
+
+        def replay(shape, keep_prob, device):
+            calls.append(shape)
+            return masks[(len(calls) - 1) % 5].to(device)
+
+        def loss(model, ids, labels):
+            return tgpt.GPTPretrainingCriterion()(model(ids), labels)
+
+        ids = torch.randint(0, 128, (2, 32), generator=gen)
+        labels = torch.roll(ids, -1, 1)
+        losses = []
+        orig = trng.keep_mask
+        trng.keep_mask = replay
+        try:
+            for model, dev in ((card_model, None), (cpu_model, 'cpu')):
+                calls.clear()
+                # SGD: Adam would step a noise-level gradient (the key
+                # bias's, exactly 0 in exact arithmetic) by ~lr either way
+                opt = topt.SGD(0.1, grad_clip=tnn.ClipGradByGlobalNorm(1.0))
+                step = tjit.TrainStep(model, loss, opt, device=dev)
+                assert step.use_buckets
+                _build.reset_launches()
+                losses.append(float(step(ids, labels)))
+                snap = _build.routes_snapshot()
+                nb = len(step.layout.buckets)
+                if dev is None:
+                    assert snap['grad_stats'] == 2 * nb
+                    assert snap['optimizer_step'] == nb
+                    assert snap['dropout_add'] == snap['dropout_add_bwd'] == 4
+                    for n, p in model.named_parameters():
+                        s = step.layout.slots[n]
+                        base = step._flat_grads[s.bucket]
+                        assert p.grad.data_ptr() == base.data_ptr() + \
+                            s.offset * base.element_size()
+                        assert p.data_ptr() == \
+                            step._flat_params[s.bucket].data_ptr() + \
+                            s.offset * base.element_size()
+        finally:
+            trng.keep_mask = orig
+        assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+        cpu = dict(cpu_model.named_parameters())
+        for n, p in card_model.named_parameters():
+            torch.testing.assert_close(p.detach().cpu(), cpu[n].detach(),
+                                       rtol=1e-4, atol=1e-5)

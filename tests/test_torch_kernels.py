@@ -262,10 +262,12 @@ def test_bias_gelu_function_grads_match_jax_grad(dtype, approximate, fused,
 
 
 def test_dropout_add_eval_is_plain_add_and_training_raises():
+    """At eval or p=0 a plain add; in training it needs a bound
+    generator (tests/test_torch_dropout.py holds the training route)."""
     a, r = torch.randn(2, 3), torch.randn(2, 3)
     assert torch.equal(tnn.dropout_add(a, r, p=0.1, training=False), a + r)
     assert torch.equal(tnn.dropout_add(a, r, p=0.0, training=True), a + r)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match='bound generator'):
         tnn.dropout_add(a, r, p=0.1, training=True)
 
 
@@ -401,7 +403,8 @@ def test_cpu_tensors_take_plain_route_and_count_no_launch():
     snap = _build.routes_snapshot()
     assert set(snap) == {'layer_norm', 'layer_norm_bwd', 'bias_gelu',
                          'bias_gelu_bwd', 'paged_attention', 'flash_fwd',
-                         'flash_bwd_dq', 'flash_bwd_dkv'}
+                         'flash_bwd_dq', 'flash_bwd_dkv', 'dropout_add',
+                         'dropout_add_bwd', 'grad_stats', 'optimizer_step'}
     assert all(n == 0 for n in snap.values())
 
 
@@ -417,7 +420,8 @@ def test_mixed_devices_raise():
 def test_build_digest_covers_every_source():
     srcs = [p.name for p in _build.sources()]
     assert srcs == ['flash_attention.cu', 'fused_elementwise.cu',
-                    'fused_norm.cu', 'paged_attention.cu']
+                    'fused_norm.cu', 'fused_optimizer.cu',
+                    'paged_attention.cu']
     assert '-gencode' in _build.NVCC_FLAGS and \
         'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert len(_build._digest()) == 16

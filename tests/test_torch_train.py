@@ -30,6 +30,7 @@ Tolerances:
   steps) breaks all three; fp32 moments or a master weight break the
   state check.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,7 +40,10 @@ import paddle_tpu as paddle
 from paddle_tpu import jit as jjit
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu_torch import jit as tjit
+from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch.core import rng as trng
+from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import load_jax_params
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
@@ -203,6 +207,149 @@ def test_bf16_params_without_master_round_each_step():
 
 
 # ---------------------------------------------------------------------------
+# the slice whole: the default (bucketed) route with hidden dropout
+# ---------------------------------------------------------------------------
+DROPOUT = dict(TINY, hidden_dropout=0.1)
+BATCH = (2, 32)
+
+
+class _ReplayMasks:
+    """The same numpy keep masks on both sides, in call order: the
+    embedding's, then per layer the attention join's and the MLP join's.
+    The jitted JAX step traces its forward once, so it replays the same
+    masks every step; the port's draw cycles through them the same way."""
+
+    def __init__(self, n, seed=9):
+        rng = np.random.RandomState(seed)
+        shape = BATCH + (DROPOUT['hidden_size'],)
+        self.masks = [rng.rand(*shape) < 0.9 for _ in range(n)]
+        self.j = self.t = 0
+
+    def jax_bernoulli(self, key, p, shape):
+        m = self.masks[self.j % len(self.masks)]
+        self.j += 1
+        assert tuple(shape) == m.shape and abs(p - 0.9) < 1e-12
+        return jnp.asarray(m)
+
+    def torch_keep(self, shape, keep_prob, device):
+        m = self.masks[self.t % len(self.masks)]
+        self.t += 1
+        assert tuple(shape) == m.shape and abs(keep_prob - 0.9) < 1e-12
+        return torch.from_numpy(m).to(device)
+
+
+def _schedule(mod):
+    return mod.LinearWarmup(mod.CosineAnnealingDecay(2e-3, T_max=10),
+                            warmup_steps=2, start_lr=0.0, end_lr=2e-3)
+
+
+def _default_optimizers(kind, jparams):
+    """(JAX optimizer, port optimizer, JAX schedule, port schedule)."""
+    if kind == 'sgd':
+        return (paddle.optimizer.SGD(learning_rate=LR, parameters=jparams),
+                topt.SGD(learning_rate=LR), None, None)
+    if kind == 'momentum':
+        js, ts = _schedule(paddle.optimizer.lr), _schedule(tlr)
+        kw = dict(momentum=0.9, use_nesterov=True, weight_decay=0.01)
+        return (paddle.optimizer.Momentum(
+            learning_rate=js, parameters=jparams,
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0), **kw),
+            topt.Momentum(learning_rate=ts,
+                          grad_clip=tnn.ClipGradByGlobalNorm(1.0), **kw),
+            js, ts)
+    js, ts = _schedule(paddle.optimizer.lr), _schedule(tlr)
+    kw = dict(weight_decay=0.01, multi_precision=False,
+              moment_dtype='bfloat16')
+    return (paddle.optimizer.AdamW(
+        learning_rate=js, parameters=jparams,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0), **kw),
+        topt.AdamW(learning_rate=ts, grad_clip=tnn.ClipGradByGlobalNorm(1.0),
+                   **kw), js, ts)
+
+
+def _run_default_both(kind, monkeypatch):
+    masks = _ReplayMasks(1 + 2 * DROPOUT['num_layers'])
+    monkeypatch.setattr(jax.random, 'bernoulli', masks.jax_bernoulli)
+    monkeypatch.setattr(trng, 'keep_mask', masks.torch_keep)
+    paddle.seed(21)
+    jm = jgpt.GPTForCausalLM(jgpt.GPTConfig(**DROPOUT))
+    bf16 = kind == 'adamw_bf16'
+    if bf16:
+        for p in jm.parameters():
+            p.data = p.data.astype(jnp.bfloat16)
+    named = {n: np.asarray(p.data) for n, p in jm.named_parameters()}
+    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**DROPOUT),
+                             dtype=torch.bfloat16 if bf16 else None)
+    load_jax_params(tm, named)
+    jopt, opt, jsched, tsched = _default_optimizers(kind, jm.parameters())
+    jstep = jjit.TrainStep(jm, _jax_loss, jopt)           # the defaults
+    tstep = tjit.TrainStep(tm, _torch_loss, opt, device='cpu')
+    assert jstep._use_buckets and tstep.use_buckets
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, 128, BATCH).astype(np.int32)
+    labels = np.roll(ids, -1, 1)
+    jl, tl, fed = [], [], []
+    for _ in range(STEPS):
+        jl.append(float(jstep(paddle.to_tensor(ids),
+                              paddle.to_tensor(labels)).numpy()))
+        want_lr = opt.get_lr()
+        tl.append(float(tstep(ids, labels)))
+        fed.append((float(tstep._lr), float(np.float32(want_lr))))
+        for sched in (jsched, tsched):
+            if sched is not None:
+                sched.step()
+    assert masks.t == STEPS * len(masks.masks)
+    assert masks.j >= len(masks.masks)         # the JAX trace drew them all
+    assert all(a == b for a, b in fed), fed
+    # each param's .grad is a view of its gradient bucket
+    for n, p in tm.named_parameters():
+        slot = tstep.layout.slots[n]
+        base = tstep._flat_grads[slot.bucket]
+        assert p.grad.data_ptr() == base.data_ptr() + \
+            slot.offset * base.element_size()
+    jp = {n: np.asarray(a, np.float32) for n, a in jstep._params.items()}
+    tp = {n: p.detach().float().numpy() for n, p in tm.named_parameters()}
+    assert set(jp) == set(tp)
+    return jl, tl, jp, tp, named, (_jax_named_states(jstep),
+                                   tstep.named_opt_states())
+
+
+def _jax_named_states(jstep):
+    from paddle_tpu.core import bucketing as JB
+    return {n: {k: np.asarray(v) for k, v in st.items()}
+            for n, st in JB.flat_states_to_named(
+                jstep._layout, [{k: np.asarray(v) for k, v in s.items()}
+                                for s in jstep._opt_states]).items()}
+
+
+@pytest.mark.parametrize('kind', ['sgd', 'momentum', 'adamw_bf16'])
+def test_default_train_step_matches_jax_with_hidden_dropout(kind,
+                                                            monkeypatch):
+    """3 steps of the port's default TrainStep (bucketed) against
+    `paddle_tpu.jit.TrainStep` with its defaults, hidden dropout 0.1 on
+    replayed masks: SGD in fp32; Momentum (Nesterov, decay) in fp32 with
+    global-norm clipping and warm-up into cosine; AdamW with bf16
+    params and moments, no master, clipping and the schedule (the bars
+    of the bf16 AdamW case above)."""
+    jl, tl, jp, tp, before, states = _run_default_both(kind, monkeypatch)
+    assert tl[-1] < tl[0]
+    if kind != 'adamw_bf16':
+        np.testing.assert_allclose(tl, jl, **FP32)
+        for n in tp:
+            np.testing.assert_allclose(tp[n], jp[n], err_msg=n, **FP32)
+        jst, tst = states
+        for n in tst:
+            assert set(tst[n]) == set(jst[n]), n
+            for k in tst[n]:
+                np.testing.assert_allclose(tst[n][k].float().numpy(),
+                                           jst[n][k], err_msg=f'{n} {k}',
+                                           **FP32)
+        return
+    np.testing.assert_allclose(tl, jl, rtol=2.0 ** -8)
+    _check_bf16_update(jp, tp, before, *states)
+
+
+# ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope='module')
@@ -216,27 +363,55 @@ def tiny():
                                 dict(remat_policy='attn_mlp_boundaries')],
                          ids=['buckets-default', 'buckets', 'remat'])
 def test_train_step_refuses_unported_routes(tiny, kw):
-    with pytest.raises(NotImplementedError, match='slice 3'):
-        tjit.TrainStep(tiny, _torch_loss, topt.SGD(), device='cpu', **kw)
+    """The bucketed route is ported (the default, as in the reference);
+    remat still raises, naming its slice."""
+    if 'remat_policy' in kw:
+        with pytest.raises(NotImplementedError, match='remat'):
+            tjit.TrainStep(tiny, _torch_loss, topt.SGD(), device='cpu', **kw)
+        return
+    step = tjit.TrainStep(tiny, _torch_loss, topt.SGD(), device='cpu', **kw)
+    assert step.use_buckets and step.layout is not None
 
 
 def test_optimizer_refusals():
-    with pytest.raises(NotImplementedError, match='grad_clip'):
-        topt.AdamW(grad_clip=object())
-    with pytest.raises(NotImplementedError, match='LRScheduler'):
-        topt.SGD(learning_rate=object())
     with pytest.raises(NotImplementedError, match='apply_decay_param_fun'):
         topt.AdamW(apply_decay_param_fun=lambda n: True)
+    with pytest.raises(NotImplementedError, match='lr_ratio'):
+        topt.AdamW(lr_ratio=lambda p: 1.0)
+
+
+def test_optimizer_takes_a_schedule_and_a_clip():
+    sched = tlr.LinearWarmup(tlr.CosineAnnealingDecay(2e-4, T_max=8), 2,
+                             0.0, 2e-4)
+    opt = topt.AdamW(learning_rate=sched,
+                     grad_clip=tnn.ClipGradByGlobalNorm(1.0))
+    assert opt.get_lr() == 0.0 and opt._grad_clip.clip_norm == 1.0
+    with pytest.raises(TypeError, match='grad_clip'):
+        topt.AdamW(grad_clip=object())
+    with pytest.raises(TypeError, match='learning_rate'):
+        topt.SGD(learning_rate=object())
 
 
 def test_dropout_in_training_raises():
+    """Hidden dropout trains (its masks from the bound generator);
+    attention dropout in training still raises, naming slice 4."""
     ids = torch.zeros(1, 8, dtype=torch.long)
-    for kw in (dict(hidden_dropout=0.1), dict(attn_dropout=0.1)):
-        m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**dict(TINY, **kw)))
-        with pytest.raises(NotImplementedError, match='dropout'):
+    m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**dict(TINY, hidden_dropout=0.1)))
+    with pytest.raises(RuntimeError, match='bound generator'):
+        m(ids)
+    with trng.rng_guard(torch.Generator().manual_seed(0)):
+        a = m(ids)
+    with trng.rng_guard(torch.Generator().manual_seed(0)):
+        b = m(ids)
+    assert torch.equal(a, b)
+    m.eval()
+    assert not torch.equal(m(ids), a)            # eval: dropout is inert
+    m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**dict(TINY, attn_dropout=0.1)))
+    with pytest.raises(NotImplementedError, match='slice 4'):
+        with trng.rng_guard(torch.Generator().manual_seed(0)):
             m(ids)
-        m.eval()
-        m(ids)                                   # eval: dropout is inert
+    m.eval()
+    m(ids)
     qkv = torch.zeros(1, 16, 2 * 3 * 32)
     with pytest.raises(NotImplementedError, match='slice 4'):
         tfa.causal_attention(qkv, 2, 32, dropout=0.1)
