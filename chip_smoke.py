@@ -23,7 +23,13 @@ Phases, one JSON line each on stdout:
              library call. The flash wrapper, forward and backward
              through its autograd Function, is held against the plain
              versions at the train shape in bf16 and fp32, and at a
-             ragged L=1000.
+             ragged L=1000. The BHLD flash forward, dQ and dK/dV (the
+             attention-dropout route) at the train step's [B*H, L, D] =
+             [128, 2048, 128] with a keep mask at p = 0.1, and with a key
+             bias, full and causal, at B=8 H=12 L=512 D=64, each through
+             its autograd Function against the plain versions; the
+             attention keep mask's draw (core.rng.keep_mask) at the train
+             step's [B, H, L, L], its keep share and time.
 4. serve   — gpt_1p3b at full width and depth (random weights from a
              fixed torch.Generator seed, bf16 weights and KV) serves 16
              greedy requests of 32-384 prompt tokens and 64 new tokens
@@ -48,29 +54,43 @@ Phases, one JSON line each on stdout:
              dropout+residual kernels forward and backward at the train
              step's [16384, 2048], each against its plain version and
              timed; the update as the path's AdamW (bf16 params and
-             moments, no master) and with fp32 moments and a master; a
-             found-inf step on NaN gradients must leave every output
-             bit-equal; a NaN must poison the statistics and be counted.
-7. train_bucketed — gpt_1p3b at full width and depth pretrains through
-             jit.TrainStep's default (bucketed) route: hidden dropout 0.1,
-             attention dropout 0, AdamW with bf16 moments and no master,
+             moments, no master) and with fp32 moments and a master, and
+             as Adagrad, RMSProp (plain and centered), Adamax, Adadelta
+             and DecayedAdagrad over the same bucket (bf16 params with
+             the fp32 master those classes always keep, fp32 states) and
+             a ragged fp32 bucket with a master, each bit-equal to its
+             plain chain; a found-inf step on NaN
+             gradients must leave every output bit-equal; a NaN must
+             poison the statistics and be counted.
+7. rules   — three default-route TrainSteps per rule of the five at
+             gpt_1p3b's width with 2 layers (GPTConfig's default dropouts,
+             B=2 L=512, global-norm clip): finite losses and exact launch
+             counts of the update and statistics kernels.
+8. train_bucketed — gpt_1p3b at full width and depth pretrains through
+             jit.TrainStep's default (bucketed) route in GPTConfig's
+             default configuration: hidden and attention dropout 0.1
+             (the attention on the BHLD flash kernels, its keep masks
+             drawn from TrainStep's generator), AdamW with bf16 moments
+             and no master,
              ClipGradByGlobalNorm(1.0), LinearWarmup(2 steps, 0 -> 2e-4)
              into CosineAnnealingDecay (lr 2e-4, GPT-3 1.3B's), stepped
              once a step; a warm-up step and 5 timed steps. Losses must be
              finite and fall, every kernel of the path must launch (the
              optimizer kernels once a bucket a step, dropout+residual 48
-             times a step), the paged kernel never, and the lr each step
+             times a step, the BHLD flash kernels 24 times a step), the
+             packed flash and paged kernels never, and the lr each step
              fed must equal the schedule's. Then a profiled step.
-8. check   — the whole path on the card against the CPU, at gpt_1p3b's
+9. check   — the whole path on the card against the CPU, at gpt_1p3b's
              width with 2 layers in fp32 (TF32 off), from the same
              weights: one per-parameter TrainStep (SGD) at B=1, L=512
              (the flash route), and two default (bucketed) TrainSteps with
              AdamW, the global-norm clip, the warm-up schedule and hidden
-             dropout 0.1 on the card's masks, replayed on the CPU. The
+             and attention dropout 0.1 on the card's masks, replayed on
+             the CPU. The
              losses, every parameter's gradient and every updated
              parameter must agree within WHOLE_PATH_RTOL (relative L2
              error per tensor).
-9. summary — the `kernels` line (all 12 kernels), the nvidia-smi line,
+10. summary — the `kernels` line (all 15 kernels), the nvidia-smi line,
              and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
@@ -560,6 +580,175 @@ def train_kernel_phase(torch, F):
     return rows_out
 
 
+# the biased BHLD route's shape: nn.MultiHeadAttention with BERT-base's 12
+# heads of 64 over 512 tokens, 8 rows
+BIAS_B, BIAS_H, BIAS_L, BIAS_D = 8, 12, 512, 64
+
+
+def bhld_check(torch, fa, randn, gen, B, H, L, D, dtype, tol, causal,
+               with_bias, mask_p):
+    """The BHLD route through the entry a caller uses (`_flash_attn_dropout`
+    with a keep mask, `_flash_attn_biased` with a key bias), forward and
+    backward through its autograd Function, on [B*H, L, D] inputs of
+    `dtype`, against the plain forward and backward on the same inputs;
+    the lse through `_flash_forward`. Returns {tensor: max |diff|}."""
+    q, k, v, do = (randn(B * H, L, D, dtype=dtype) for _ in range(4))
+    bias = mask = None
+    if with_bias:
+        bias = torch.where(torch.rand(B, L, generator=gen, device='cuda')
+                           > 0.2, 0.0, -1e4)
+    if mask_p:
+        mask = torch.rand(B * H, L, L, generator=gen, device='cuda') >= mask_p
+    heads = H if with_bias else 1
+    kw = dict(bias=bias, num_heads=heads, causal=causal, dropout_mask=mask,
+              dropout=mask_p)
+    _o, lse = fa._flash_forward(q, k, v, **kw)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    if mask is not None:
+        o = fa._flash_attn_dropout(mask_p, *leaves, mask)
+    else:
+        o = fa._flash_attn_biased(causal, heads, *leaves, bias)
+    if o.grad_fn is None:
+        raise AssertionError('BHLD flash: no grad_fn')
+    o.backward(do)
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
+    errs = {'o': check_close(tol, o, o_p),
+            'lse': check_close('flash_fp32', lse, lse_p)}
+    want = fa.flash_backward_plain(q, k, v, o_p, lse_p, do, **kw)
+    for name, leaf, w in zip(('dq', 'dk', 'dv'), leaves, want):
+        errs[name] = check_close(tol, leaf.grad, w)
+    return errs
+
+
+def keep_mask_draw(torch, shape):
+    """The attention keep mask as the path draws it (core.rng.keep_mask,
+    one bool draw from the bound generator) at `shape`: a bool tensor of
+    that shape keeping 1 - DROPOUT_P of its elements, the same mask from
+    the same seed; timed beside uniforms and a compare (`torch.rand <
+    keep`, a 4-byte transient an element). The bound is the mask's bytes
+    written once."""
+    from paddle_tpu_torch.core import rng as port_rng
+
+    keep_prob, n = 1 - DROPOUT_P, int(np.prod(shape))
+
+    def draw(seed):
+        gen = torch.Generator(device='cuda').manual_seed(seed)
+        with port_rng.rng_guard(gen):
+            return port_rng.keep_mask(shape, keep_prob, 'cuda')
+
+    keep = draw(23)
+    share = float(keep.sum(dtype=torch.int64)) / n
+    # a binomial share's standard deviation is ~1.3e-5 at this size
+    if keep.dtype != torch.bool or tuple(keep.shape) != shape or \
+            abs(share - keep_prob) > 1e-3 or not torch.equal(keep, draw(23)):
+        raise AssertionError(f'keep_mask: {keep.dtype} {tuple(keep.shape)}, '
+                             f'keep share {share}')
+    del keep
+    gen = torch.Generator(device='cuda').manual_seed(24)
+    with port_rng.rng_guard(gen):
+        ms = loop_ms(torch, lambda: port_rng.keep_mask(shape, keep_prob,
+                                                       'cuda'))
+    rand_lt_ms = loop_ms(torch, lambda: torch.rand(
+        shape, generator=gen, device='cuda') < keep_prob)
+    free_cuda(torch)
+    emit({'phase': 'kernel', 'name': 'attention_keep_mask_draw',
+          'shape': f'{list(shape)} bool, keep {keep_prob}',
+          'keep_share': share, 'ms': ms, 'rand_lt_ms': rand_lt_ms,
+          'bound_ms': bound_ms(n, 0, FP32_FLOPS)[0], 'bound_by': 'bytes'})
+
+
+def bhld_kernel_phase(torch, F):
+    """Rows 11-13, the BHLD flash forward, dQ and dK/dV, each checked
+    through its autograd Function against the plain versions: at the
+    gpt_1p3b train step's attention-dropout shape ([B*H, L, D] = [128,
+    2048, 128], causal, keep mask at p = 0.1) in bf16; with a key bias,
+    full and causal, at the multi-head attention shape in bf16; causal
+    with a mask in fp32 there. Timed at the train step's shape beside
+    SDPA with dropout_p=0.1 (which cannot take the mask: a timing
+    yardstick only)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    randn = make_randn(torch, 21)
+    gen = torch.Generator(device='cuda').manual_seed(22)
+    B, L, H, D = TRAIN_B, TRAIN_L, HEADS, HEAD_DIM
+    small = (BIAS_B, BIAS_H, BIAS_L, BIAS_D)
+    checks = {}
+    for label, shape, dtype, tol, causal, with_bias, mask_p in (
+            ('train: causal, mask p=0.1, bf16', (B, H, L, D),
+             torch.bfloat16, 'flash_bf16', True, False, DROPOUT_P),
+            ('mha: full, key bias, bf16', small, torch.bfloat16,
+             'flash_bf16', False, True, 0.0),
+            ('mha: causal, key bias, bf16', small, torch.bfloat16,
+             'flash_bf16', True, True, 0.0),
+            ('mha: causal, mask p=0.1, fp32', small, torch.float32,
+             'flash_fp32', True, False, DROPOUT_P)):
+        checks[label] = bhld_check(torch, fa, randn, gen, *shape, dtype, tol,
+                                   causal, with_bias, mask_p)
+        free_cuda(torch)
+    main = checks['train: causal, mask p=0.1, bf16']
+
+    BH = B * H
+    q, k, v, do = (randn(BH, L, D) for _ in range(4))
+    mask = torch.rand(BH, L, L, generator=gen, device='cuda') >= DROPOUT_P
+    kw = dict(num_heads=1, causal=True, dropout_mask=mask, dropout=DROPOUT_P)
+    o, lse = fa._flash_forward(q, k, v, **kw)
+    causal_mac = BH * L * L * D / 2             # one product, causal half
+    mask_bytes = BH * L * (L + 1) // 2          # the causal half it reads
+    tensor = BH * L * D * 2                     # one bf16 [B*H, L, D]
+    stat = BH * L * 4                           # one fp32 [B*H, L]
+    qh, kh, vh, doh = (t.view(B, H, L, D) for t in (q, k, v, do))
+    rows = {}
+    bms, by = bound_ms(4 * tensor + stat + mask_bytes, 4 * causal_mac,
+                       BF16_FLOPS)
+    shape = (f'q, k, v [{BH},{L},{D}] bf16 (B={B} H={H}), causal, bool '
+             f'keep mask [{BH},{L},{L}] p={DROPOUT_P}')
+    rows['flash_bhld_fwd'] = dict(
+        shape=shape, max_abs_err=max(main['o'], main['lse']),
+        ms=loop_ms(torch, lambda: fa._flash_forward(q, k, v, **kw)),
+        plain_ms=loop_ms(torch, lambda: fa.flash_forward_plain(
+            q, k, v, **kw), iters=2),
+        library_ms=loop_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=DROPOUT_P, is_causal=True), iters=10),
+        library='SDPA dropout_p=0.1 is_causal (its own mask): timing only',
+        bound_ms=bms, bound_by=by, mask_bytes=BH * L * L)
+    args = fa._bhld_bwd_args(q, k, v, do, None, mask, 1, True, DROPOUT_P)
+    delta = fa.bhld_delta(o, do)
+    plain_bwd_ms = loop_ms(torch, lambda: fa.flash_backward_plain(
+        q, k, v, o, lse, do, **kw), iters=2)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    out = F.scaled_dot_product_attention(qs, ks, vs, dropout_p=DROPOUT_P,
+                                         is_causal=True)
+    sdpa_bwd_ms = loop_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), doh, retain_graph=True), iters=10)
+    for name, err, n_products, outs, fn_ in (
+            ('flash_bhld_bwd_dq', main['dq'], 3, 1,
+             lambda: fa._bhld_dq_kernel(q, k, v, None, mask, do, lse, delta,
+                                        args)),
+            ('flash_bhld_bwd_dkv', max(main['dk'], main['dv']), 4, 2,
+             lambda: fa._bhld_dkv_kernel(q, k, v, None, mask, do, lse,
+                                         delta, args))):
+        bms, by = bound_ms((4 + outs) * tensor + 2 * stat + mask_bytes,
+                           2 * n_products * causal_mac, BF16_FLOPS)
+        rows[name] = dict(
+            shape=shape + ', dO', max_abs_err=err, ms=loop_ms(torch, fn_),
+            plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            plain='one plain backward computes dQ, dK and dV',
+            library='SDPA dropout_p=0.1 backward (dQ, dK, dV together): '
+                    'compare with the sum of the two kernels',
+            bound_ms=bms, bound_by=by)
+    del q, k, v, do, o, lse, delta, mask, qh, kh, vh, doh, qs, ks, vs, out
+    free_cuda(torch)
+    keep_mask_draw(torch, (B, H, L, L))
+    for name, r in rows.items():
+        emit({'phase': 'kernel', 'name': name, 'path': 'train_bucketed', **r})
+    emit({'phase': 'kernel', 'name': 'flash_bhld_checks',
+          'tolerances': {t: dict(atol_x_rms=TOLERANCES[t][0],
+                                 rtol=TOLERANCES[t][1], rel_l2=REL_L2[t])
+                         for t in ('flash_bf16', 'flash_fp32')},
+          'max_abs_err': checks})
+    return rows
+
+
 def serve_phase(torch, card):
     """gpt_1p3b through the port's serving engine on the card."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
@@ -603,7 +792,7 @@ def serve_phase(torch, card):
     idle = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if idle:
         raise AssertionError(f'kernels never launched by the serve: {idle}')
-    trained = [k for k in TRAIN_KERNELS + BUCKETED_KERNELS
+    trained = [k for k in TRAIN_KERNELS + BHLD_KERNELS + BUCKETED_KERNELS
                if k not in SERVE_KERNELS and launches[k]]
     if trained:
         raise AssertionError(f'training kernels launched by the serve: '
@@ -654,6 +843,8 @@ def serve_phase(torch, card):
 
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'layer_norm',
                  'layer_norm_bwd', 'bias_gelu', 'bias_gelu_bwd')
+PACKED_FLASH = TRAIN_KERNELS[:3]
+BHLD_KERNELS = ('flash_bhld_fwd', 'flash_bhld_bwd_dq', 'flash_bhld_bwd_dkv')
 PEAK_BF16_TFLOPS = 989.0
 TIMED_STEPS = 5
 
@@ -914,6 +1105,9 @@ def optimizer_kernel_phase(torch):
         del p, g, st, got
     free_cuda(torch)
 
+    rows_out['optimizer_step']['rules'] = rule_kernel_checks(torch, FO, lr,
+                                                             pref, checks)
+
     # -- dropout + residual, forward and backward ----------------------------
     rows, n = TRAIN_ROWS, 2048
     randn = make_randn(torch, 11)
@@ -975,8 +1169,144 @@ def optimizer_kernel_phase(torch):
     return rows_out
 
 
+def rule_optimizers(**kw):
+    """The update kernel's rules added with their optimizer classes
+    (RMSProp twice: plain and centered, both with momentum), each at a
+    learning rate whose first steps move an element by about 2e-4 to
+    5e-4, as AdamW's 2e-4 does at gpt_1p3b's width (Adadelta at its
+    customary 1.0)."""
+    from paddle_tpu_torch import optimizer as O
+    return {'adagrad': O.Adagrad(1e-2, initial_accumulator_value=0.1, **kw),
+            'rmsprop': O.RMSProp(1e-4, momentum=0.9, **kw),
+            'rmsprop_centered': O.RMSProp(1e-4, momentum=0.9, centered=True,
+                                          **kw),
+            'adamax': O.Adamax(2e-4, **kw),
+            'adadelta': O.Adadelta(1.0, **kw),
+            'decayed_adagrad': O.DecayedAdagrad(1e-4, **kw)}
+
+
+def rule_inputs(torch, opt, n, dtype, master, seed):
+    """A bucket's params, gradients and a state a few steps in, for any
+    rule: vector states positive and small, |mean_grad| <= half the root
+    of mean_square, beta powers ten steps in."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    p = (0.02 * torch.randn(n, generator=gen, device='cuda')).to(dtype)
+    g = (1e-3 * torch.randn(n, generator=gen, device='cuda')).to(dtype)
+    st = opt.init_state(torch.empty(n, device='cuda'))
+    for k, v in st.items():
+        if k == 'mean_grad':
+            v.copy_((torch.rand(n, generator=gen, device='cuda') - 0.5)
+                    * st['mean_square'].sqrt())
+        elif v.dim():
+            v.copy_(1e-6 * torch.rand(n, generator=gen, device='cuda'))
+        else:
+            v.fill_(0.9 ** 10)
+    if master:
+        st['master'] = p.float() + 1e-5 * torch.randn(
+            n, generator=gen, device='cuda')
+    return p, g, st
+
+
+def rule_kernel_checks(torch, FO, lr, pref, checks):
+    """The five rules added with their classes over gpt_1p3b's largest
+    bucket (bf16 params and gradients with the fp32 master those classes
+    always keep, as the reference's do; fp32 states) and a ragged fp32
+    bucket with a master: every output bit-equal to the plain chain's;
+    timed over the largest bucket. Returns {rule: timing row}."""
+    out = {}
+    for n, dtype in ((BIG_BUCKET, torch.bfloat16),
+                     (RAGGED_BUCKET, torch.float32)):
+        for name, opt in rule_optimizers().items():
+            p, g, st = rule_inputs(torch, opt, n, dtype, True, seed=5)
+            want_p, want_s = FO.fused_shard_update_plain(
+                opt, p, g, st, lr, prefactor=pref)
+            got = run_update(FO, opt, p, g, st, lr, pref)
+            for key, w in {'param': want_p, **want_s}.items():
+                if got[key].dtype != w.dtype or not torch.equal(got[key], w):
+                    raise AssertionError(
+                        f'update {name} {key} n={n}: '
+                        f'{int((got[key] != w).sum())} elements differ from '
+                        f'the plain chain')
+            checks[f'update {name} {str(dtype)[6:]} n={n}'] = 'bit-equal'
+            del want_p, want_s, got
+            if n == BIG_BUCKET:
+                vecs = sum(1 for k, v in st.items()
+                           if v.dim() and k != 'master')
+                # p written, g read, the master and the states read and
+                # written
+                per_elem = 2 + 2 + 2 * 4 + 2 * 4 * vecs
+                bms, by = bound_ms(n * per_elem, 20 * n, FP32_FLOPS)
+                kp, ks = p.clone(), {k: v.clone() for k, v in st.items()}
+                out[name] = dict(
+                    ms=device_ms(torch, lambda: FO.fused_shard_update(
+                        opt, kp, g, ks, lr, prefactor=pref), iters=10),
+                    plain_ms=loop_ms(torch, lambda: FO.fused_shard_update_plain(
+                        opt, p, g, st, lr, prefactor=pref), iters=3),
+                    library_ms=None, bytes_per_element=per_elem,
+                    bound_ms=bms, bound_by=by)
+                del kp, ks
+            del p, g, st
+            free_cuda(torch)
+    return out
+
+
+RULE_STEPS = 3
+
+
+def rules_phase(torch):
+    """Three default-route TrainSteps per rule at gpt_1p3b's width with 2
+    layers, each rule from the same seeded weights, in GPTConfig's default
+    configuration (hidden and attention dropout 0.1; L = 512 takes the
+    BHLD flash route), bf16 params with fp32 masters and states,
+    ClipGradByGlobalNorm(1.0)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import _build
+
+    cfg = gpt_1p3b(use_flash_attention=True)
+    cfg.num_layers = 2
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512))).cuda()
+    labels = torch.roll(ids, -1, 1)
+    results = {}
+    for name, opt in rule_optimizers(
+            grad_clip=ClipGradByGlobalNorm(1.0)).items():
+        gen = torch.Generator(device='cuda').manual_seed(31)
+        model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
+                               generator=gen)
+        step = TrainStep(model, _train_loss, opt, seed=7)
+        if not step.use_buckets:
+            raise AssertionError(f'{name}: TrainStep did not bucket')
+        nb = len(step.layout.buckets)
+        _build.reset_launches()
+        losses = [float(step(ids, labels)) for _ in range(RULE_STEPS)]
+        launches = _build.routes_snapshot()
+        want = {'optimizer_step': nb * RULE_STEPS,
+                'grad_stats': 2 * nb * RULE_STEPS,
+                **{k: cfg.num_layers * RULE_STEPS for k in BHLD_KERNELS}}
+        wrong = {k: (launches[k], v) for k, v in want.items()
+                 if launches[k] != v}
+        if wrong or not all(np.isfinite(losses)):
+            raise AssertionError(f'{name}: launches (got, want) {wrong}, '
+                                 f'losses {losses}')
+        results[name] = dict(losses=losses, falls=losses[-1] < losses[0],
+                             buckets=nb,
+                             optimizer_step=launches['optimizer_step'])
+        del step, model
+        free_cuda(torch)
+    emit({'phase': 'rules', 'model': 'gpt_1p3b width, 2 layers',
+          'batch': 2, 'seq_len': 512, 'steps': RULE_STEPS,
+          'states': 'fp32, bf16 params with fp32 masters',
+          'results': results})
+    return results
+
+
 BUCKETED_KERNELS = ('grad_stats', 'optimizer_step', 'dropout_add',
                     'dropout_add_bwd')
+# the kernels train_bucketed's path launches: GPTConfig's default dropouts
+# take the BHLD flash route
+BUCKETED_PATH = TRAIN_KERNELS[3:] + BHLD_KERNELS + BUCKETED_KERNELS
 LR_PEAK = 2e-4                 # GPT-3 1.3B (GPT-3 paper, Table 2.1)
 WARMUP_STEPS, T_MAX = 2, 100
 
@@ -992,8 +1322,9 @@ def pretrain_optimizer(sched_mod, AdamW, clip, **kw):
 
 
 def train_bucketed_phase(torch, card):
-    """gpt_1p3b pretraining through TrainStep's default (bucketed) route,
-    hidden dropout 0.1, on the card."""
+    """gpt_1p3b pretraining through TrainStep's default (bucketed) route
+    in GPTConfig's default configuration (hidden and attention dropout
+    0.1), on the card."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -1001,8 +1332,9 @@ def train_bucketed_phase(torch, card):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer import lr as sched_mod
 
-    cfg = gpt_1p3b(hidden_dropout=DROPOUT_P, attn_dropout=0.0,
-                   use_flash_attention=True)
+    cfg = gpt_1p3b(use_flash_attention=True)     # dropouts: the defaults
+    if (cfg.hidden_dropout, cfg.attn_dropout) != (DROPOUT_P, DROPOUT_P):
+        raise AssertionError('GPTConfig\'s default dropouts changed')
     B, L = 8, cfg.max_seq_len
     gen = torch.Generator(device='cuda').manual_seed(4321)
     t0 = time.perf_counter()
@@ -1050,19 +1382,19 @@ def train_bucketed_phase(torch, card):
     if not losses[-1] < losses[0]:
         raise AssertionError(f'loss did not fall over the timed steps: '
                              f'{losses}')
-    idle = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    idle = [k for k in BUCKETED_PATH if launches[k] <= 0]
     if idle:
         raise AssertionError(f'training kernels never launched: {idle}')
     want = {'grad_stats': 2 * n_buckets * TIMED_STEPS,
             'optimizer_step': n_buckets * TIMED_STEPS,
             'dropout_add': 2 * cfg.num_layers * TIMED_STEPS,
-            'dropout_add_bwd': 2 * cfg.num_layers * TIMED_STEPS}
+            'dropout_add_bwd': 2 * cfg.num_layers * TIMED_STEPS,
+            **{k: cfg.num_layers * TIMED_STEPS for k in BHLD_KERNELS},
+            **dict.fromkeys(PACKED_FLASH + ('paged_attention',), 0)}
     wrong = {k: (launches[k], v) for k, v in want.items()
              if launches[k] != v}
     if wrong:
         raise AssertionError(f'launches (got, want): {wrong}')
-    if launches['paged_attention']:
-        raise AssertionError('the paged kernel launched during training')
     if any(got != w for got, w in fed):
         raise AssertionError(f'fed lr != the schedule: {fed}')
     tokens = B * L
@@ -1073,7 +1405,11 @@ def train_bucketed_phase(torch, card):
     emit({'phase': 'train_bucketed', 'card': card, 'model': 'gpt_1p3b',
           'layers': cfg.num_layers, 'hidden': cfg.hidden_size,
           'params': n_params, 'batch': B, 'seq_len': L,
-          'hidden_dropout': DROPOUT_P, 'attn_dropout': 0.0,
+          'hidden_dropout': cfg.hidden_dropout,
+          'attn_dropout': cfg.attn_dropout,
+          'attention_mask_bytes_per_layer': B * cfg.num_heads * L * L,
+          'attention_mask_bytes_saved': B * cfg.num_heads * L * L
+          * cfg.num_layers,
           'optimizer': f'AdamW wd 0.01 bf16 moments, no master, '
                        f'ClipGradByGlobalNorm(1.0), LinearWarmup('
                        f'{WARMUP_STEPS} steps, 0 -> {LR_PEAK}) into '
@@ -1091,7 +1427,7 @@ def train_bucketed_phase(torch, card):
           'peak_memory_bytes': peak,
           'launches': launches,
           'launches_per_step': {k: launches[k] / TIMED_STEPS
-                                for k in TRAIN_KERNELS + BUCKETED_KERNELS},
+                                for k in BUCKETED_PATH},
           **prof})
     return launches
 
@@ -1193,8 +1529,8 @@ def whole_path_check(torch):
     """One per-parameter TrainStep (SGD) of a 2-layer fp32 model at
     gpt_1p3b's width on the card and on the CPU from the same weights
     (L=512: the flash route); then two default (bucketed) TrainSteps of
-    the pretraining recipe with hidden dropout, the card's masks replayed
-    on the CPU."""
+    the pretraining recipe with hidden and attention dropout (the BHLD
+    flash route), the card's masks replayed on the CPU."""
     from paddle_tpu_torch.core import rng as port_rng
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import gpt_1p3b
@@ -1231,9 +1567,9 @@ def whole_path_check(torch):
     del card_model, cpu_model, card_step, cpu_step
     free_cuda(torch)
 
-    # the default (bucketed) route, hidden dropout on the card's masks
-    cfg = gpt_1p3b(hidden_dropout=DROPOUT_P, attn_dropout=0.0,
-                   use_flash_attention=True)
+    # the default (bucketed) route, GPTConfig's default dropouts (hidden
+    # and attention) on the card's masks
+    cfg = gpt_1p3b(use_flash_attention=True)
     cfg.num_layers = 2
     card_model, cpu_model = _card_and_cpu_models(torch, cfg, 98)
     draw = port_rng.keep_mask
@@ -1272,7 +1608,7 @@ def whole_path_check(torch):
                 n_buckets = len(step.layout.buckets)
     finally:
         port_rng.keep_mask = draw
-    idle = [k for k in TRAIN_KERNELS + BUCKETED_KERNELS if launches[k] <= 0]
+    idle = [k for k in BUCKETED_PATH if launches[k] <= 0]
     if idle:
         raise AssertionError(f'whole-path check (bucketed): kernels not '
                              f'launched: {idle}')
@@ -1281,9 +1617,10 @@ def whole_path_check(torch):
                              f'{len(replayed)} replayed on the CPU')
     emit({'phase': 'check', 'what': 'two fp32 TrainSteps on the default '
           '(bucketed) route: AdamW, ClipGradByGlobalNorm(1.0), warm-up '
-          f'into cosine, hidden dropout {DROPOUT_P} (the card\'s masks '
-          'replayed on the CPU), 2 layers at gpt_1p3b width, B=1 L=512, '
-          'card vs CPU', 'buckets': n_buckets, 'masks': len(recorded),
+          f'into cosine, hidden and attention dropout {DROPOUT_P} (the '
+          'card\'s masks replayed on the CPU), 2 layers at gpt_1p3b width, '
+          'B=1 L=512, card vs CPU', 'buckets': n_buckets,
+          'masks': len(recorded),
           'launches': launches,
           **_compare(card_model, cpu_model, losses['card'], losses['cpu'],
                      adam=True)})
@@ -1300,6 +1637,9 @@ KERNEL_NAMES = {'paged_attention': 'ragged_paged_attention_kernel',
                 'flash_fwd': 'flash_fwd_kernel',
                 'flash_bwd_dq': 'flash_bwd_dq_kernel',
                 'flash_bwd_dkv': 'flash_bwd_dkv_kernel',
+                'flash_bhld_fwd': 'flash_bhld_fwd_kernel',
+                'flash_bhld_bwd_dq': 'flash_bhld_bwd_dq_kernel',
+                'flash_bhld_bwd_dkv': 'flash_bhld_bwd_dkv_kernel',
                 'dropout_add': 'dropout_add_fwd_kernel',
                 'dropout_add_bwd': 'dropout_add_bwd_kernel',
                 'grad_stats': 'grad_stats_kernel',
@@ -1379,6 +1719,12 @@ SOURCES = {
                      'paddle_tpu/ops/pallas/flash_attention.py:336'),
     'flash_bwd_dkv': ('paddle_tpu_torch/csrc/flash_attention.cu',
                       'paddle_tpu/ops/pallas/flash_attention.py:390'),
+    'flash_bhld_fwd': ('paddle_tpu_torch/csrc/flash_attention.cu',
+                       'paddle_tpu/ops/pallas/flash_attention.py:68'),
+    'flash_bhld_bwd_dq': ('paddle_tpu_torch/csrc/flash_attention.cu',
+                          'paddle_tpu/ops/pallas/flash_attention.py:137'),
+    'flash_bhld_bwd_dkv': ('paddle_tpu_torch/csrc/flash_attention.cu',
+                           'paddle_tpu/ops/pallas/flash_attention.py:191'),
     'dropout_add': ('paddle_tpu_torch/csrc/fused_elementwise.cu',
                     'paddle_tpu/ops/pallas/fused_elementwise.py:149'),
     'dropout_add_bwd': ('paddle_tpu_torch/csrc/fused_elementwise.cu',
@@ -1424,6 +1770,7 @@ def main():
     results = kernel_phase(torch, F)
     train_rows = train_kernel_phase(torch, F)
     free_cuda(torch)
+    bhld_rows = bhld_kernel_phase(torch, F)
     kernel_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     serve_launches = serve_phase(torch, card)
@@ -1438,6 +1785,10 @@ def main():
     free_cuda(torch)
     opt_kernel_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    rules_phase(torch)
+    free_cuda(torch)
+    rules_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     bucketed_launches = train_bucketed_phase(torch, card)
     free_cuda(torch)
     bucketed_s = time.perf_counter() - t0
@@ -1445,7 +1796,8 @@ def main():
     whole_path_check(torch)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'train': train_s, 'optimizer_kernels': opt_kernel_s,
-          'train_bucketed': bucketed_s, 'check': time.perf_counter() - t0})
+          'rules': rules_s, 'train_bucketed': bucketed_s,
+          'check': time.perf_counter() - t0})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -1460,6 +1812,9 @@ def main():
             launches = serve_launches[name]
         elif name in BUCKETED_KERNELS:
             row = opt_rows[name]
+            launches = bucketed_launches[name]
+        elif name in BHLD_KERNELS:
+            row = bhld_rows[name]
             launches = bucketed_launches[name]
         else:
             row = train_rows[name]
@@ -1480,6 +1835,8 @@ def main():
                 'library_ms')}
         if name in TRAIN_KERNELS:
             entry['launches_train_bucketed'] = bucketed_launches[name]
+        if name == 'optimizer_step':
+            entry['rules'] = row['rules']
         kernels.append(entry)
     emit({'kernels': kernels})
     print(smi, flush=True)

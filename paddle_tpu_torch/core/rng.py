@@ -42,7 +42,10 @@ def current_generator():
 
 def keep_mask(shape, keep_prob, device):
     """A bool keep mask of `shape` on `device`: each element is kept
-    with probability `keep_prob` (uniform [0, 1) < keep_prob, drawn from
-    the bound generator, as jax.random.bernoulli draws its mask)."""
-    gen = current_generator()
-    return torch.rand(shape, generator=gen, device=device) < keep_prob
+    with probability `keep_prob`, drawn from the bound generator as
+    jax.random.bernoulli draws its mask. The draw writes the one-byte
+    mask directly, so no fp32 uniforms of the mask's size (2 GiB for an
+    attention mask at gpt_1p3b's training shape) are ever held."""
+    return torch.empty(tuple(shape), dtype=torch.bool,
+                       device=device).bernoulli_(keep_prob,
+                                                 generator=current_generator())

@@ -27,12 +27,18 @@
 // (16- or 32-byte vector loads and stores of every operand), in the
 // reference's operation order: the prefactor multiply, decay into the
 // gradient, the rule in fp32, the found-inf no-op, and the parameter write in
-// its dtype beside the fp32 master write. The scalars that change per step
-// (lr, prefactor, found_inf, Adam's beta powers) come through a pointer to a
-// small fp32 device block, as the Pallas body's `sc_ref` does, so no step
-// reads them back to the host. Every CTA reads the OLD beta powers from that
-// block; the new powers go to a separate two-float output written by one
-// thread, never over the block the other CTAs are still reading. Vector
+// its dtype beside the fp32 master write. The Pallas body traces any
+// elementwise `optimizer.update` into itself; here each rule is written out
+// (`apply_rule`): SGD, Momentum (with Nesterov), Adam/AdamW, Adagrad, RMSProp
+// (centered or not, with momentum), Adamax, Adadelta and DecayedAdagrad
+// (paddle_tpu/optimizer/optimizer.py :398, :415, :546, :589, :489, :511, :626,
+// :699, :730), with up to three vector states (centered RMSProp's mean
+// square, momentum and mean gradient). The scalars that change per step
+// (lr, prefactor, found_inf, Adam's and Adamax's beta powers) come through a
+// pointer to a small fp32 device block, as the Pallas body's `sc_ref` does, so
+// no step reads them back to the host. Every CTA reads the OLD beta powers
+// from that block; the new powers go to a separate two-float output written
+// by one thread, never over the block the other CTAs are still reading. Vector
 // states are updated IN PLACE (each thread reads and writes only its own
 // elements), where the JAX step donates its buffers. The found-inf no-op is a
 // select: a skipped step writes nothing, so every output stays bit-equal to
@@ -49,19 +55,38 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kVec = 8;  // elements a thread takes per step
 
-enum Rule : int { kSGD = 0, kMomentum = 1, kAdam = 2 };
+// rule codes shared with ops/kernels/fused_optimizer.py
+enum Rule : int {
+  kSGD = 0, kMomentum = 1, kAdam = 2, kAdagrad = 3, kRMSProp = 4,
+  kAdamax = 5, kAdadelta = 6, kDecayedAdagrad = 7
+};
 
 // Constants of the rule (fixed for a run, so passed by value); the scalars
 // that change per step are in the device block `sc`:
 //   sc[0] lr, sc[1] prefactor, sc[2] found_inf (> 0.5: skip),
-//   sc[3] beta1_pow, sc[4] beta2_pow (Adam).
+//   sc[3] beta1_pow (Adam, Adamax), sc[4] beta2_pow (Adam).
+// Each 1 - x constant is the Python double 1 - x rounded once to fp32, as a
+// weakly typed scalar is in jnp.
 struct Hyper {
   float wd;        // decay folded into the gradient (0: none)
   float coeff;     // AdamW's decoupled decay coefficient
   float b1, b2, omb1, omb2, eps;
   float momentum;
-  int nesterov, decoupled, use_pref, use_fi;
+  float rho, omr;  // RMSProp's and Adadelta's rho, DecayedAdagrad's decay
+  int nesterov, decoupled, centered, use_pref, use_fi;
 };
+
+// jnp.maximum: NaN if either side is NaN (fmaxf would drop it)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+// lr * g / (sqrt(m) + eps): the Adagrad family's step
+__device__ __forceinline__ float adagrad_step(float p32, float g32, float m,
+                                              float lr, float eps) {
+  return __fsub_rn(p32, __fdiv_rn(__fmul_rn(lr, g32),
+                                  __fadd_rn(__fsqrt_rn(m), eps)));
+}
 
 template <typename T>
 __device__ __forceinline__ void load8(const T* __restrict__ p, float (&out)[kVec]) {
@@ -161,13 +186,17 @@ int launch_stats(const void* x, float* part, float* out, long long n,
 // ---------------------------------------------------------------------------
 // the update
 // ---------------------------------------------------------------------------
-// The rule on one element, in fp32, op for op as optimizer.py's `update`:
-// m1 is Momentum's velocity or Adam's first moment, m2 Adam's second.
+// The rule on one element, in fp32, op for op as optimizer.py's `update`.
+// The vector states m1, m2, m3 are, by rule: Momentum's velocity; Adam's
+// moment1 and moment2; Adagrad's and DecayedAdagrad's moment; RMSProp's
+// mean_square, momentum and (centered) mean_grad; Adamax's moment and
+// inf_norm; Adadelta's avg_squared_grad and avg_squared_update. lr_t is
+// Adam's bias-corrected lr or Adamax's lr / (1 - beta1_pow).
 template <int kRule>
 __device__ __forceinline__ float apply_rule(float p32, float g32, float& m1,
-                                            float& m2, const Hyper& h,
-                                            float lr, float lr_t,
-                                            float decay) {
+                                            float& m2, float& m3,
+                                            const Hyper& h, float lr,
+                                            float lr_t, float decay) {
   if constexpr (kRule == kSGD) {
     return __fsub_rn(p32, __fmul_rn(lr, g32));
   } else if constexpr (kRule == kMomentum) {
@@ -177,6 +206,41 @@ __device__ __forceinline__ float apply_rule(float p32, float g32, float& m1,
       return __fsub_rn(p32,
                        __fmul_rn(lr, __fadd_rn(g32, __fmul_rn(h.momentum, v))));
     return __fsub_rn(p32, __fmul_rn(lr, v));
+  } else if constexpr (kRule == kAdagrad) {
+    m1 = __fadd_rn(m1, __fmul_rn(g32, g32));
+    return adagrad_step(p32, g32, m1, lr, h.eps);
+  } else if constexpr (kRule == kDecayedAdagrad) {
+    // decay * m + (1 - decay) * g * g
+    m1 = __fadd_rn(__fmul_rn(h.rho, m1), __fmul_rn(__fmul_rn(h.omr, g32), g32));
+    return adagrad_step(p32, g32, m1, lr, h.eps);
+  } else if constexpr (kRule == kRMSProp) {
+    m1 = __fadd_rn(__fmul_rn(h.rho, m1), __fmul_rn(__fmul_rn(h.omr, g32), g32));
+    float denom;
+    if (h.centered) {
+      m3 = __fadd_rn(__fmul_rn(h.rho, m3), __fmul_rn(h.omr, g32));
+      // sqrt(ms - mg * mg + eps)
+      denom = __fsqrt_rn(__fadd_rn(__fsub_rn(m1, __fmul_rn(m3, m3)), h.eps));
+    } else {
+      denom = __fsqrt_rn(__fadd_rn(m1, h.eps));
+    }
+    // momentum * mom + lr * g / denom; param - mom
+    m2 = __fadd_rn(__fmul_rn(h.momentum, m2),
+                   __fdiv_rn(__fmul_rn(lr, g32), denom));
+    return __fsub_rn(p32, m2);
+  } else if constexpr (kRule == kAdamax) {
+    m1 = __fadd_rn(__fmul_rn(h.b1, m1), __fmul_rn(h.omb1, g32));
+    m2 = nan_max(__fmul_rn(h.b2, m2), fabsf(g32));
+    // param - lr / (1 - b1p) * m / (u + eps)
+    return __fsub_rn(p32, __fdiv_rn(__fmul_rn(lr_t, m1), __fadd_rn(m2, h.eps)));
+  } else if constexpr (kRule == kAdadelta) {
+    m1 = __fadd_rn(__fmul_rn(h.rho, m1), __fmul_rn(__fmul_rn(h.omr, g32), g32));
+    // g * sqrt(avg_squared_update + eps) / sqrt(g2 + eps), with the OLD
+    // avg_squared_update
+    const float upd =
+        __fdiv_rn(__fmul_rn(g32, __fsqrt_rn(__fadd_rn(m2, h.eps))),
+                  __fsqrt_rn(__fadd_rn(m1, h.eps)));
+    m2 = __fadd_rn(__fmul_rn(h.rho, m2), __fmul_rn(__fmul_rn(h.omr, upd), upd));
+    return __fsub_rn(p32, __fmul_rn(lr, upd));
   } else {
     // AdamW decays the param before the Adam rule: param * (1 - lr * coeff)
     const float pp = h.decoupled ? __fmul_rn(p32, decay) : p32;
@@ -201,10 +265,13 @@ template <int kRule, typename T, typename G, typename M, bool kMaster>
 __global__ void __launch_bounds__(kThreads)
     update_kernel(T* __restrict__ p, const G* __restrict__ g,
                   float* __restrict__ master, M* __restrict__ s1,
-                  M* __restrict__ s2, const float* __restrict__ sc,
-                  float* __restrict__ sc_out, long long n, Hyper h,
-                  bool vec) {
-  constexpr bool kS1 = kRule != kSGD, kS2 = kRule == kAdam;
+                  M* __restrict__ s2, M* __restrict__ s3,
+                  const float* __restrict__ sc, float* __restrict__ sc_out,
+                  long long n, Hyper h, bool vec) {
+  constexpr bool kS1 = kRule != kSGD;
+  constexpr bool kS2 = kRule == kAdam || kRule == kRMSProp ||
+                       kRule == kAdamax || kRule == kAdadelta;
+  const bool s3_on = kRule == kRMSProp && h.centered;
   const float lr = sc[0];
   const float pref = sc[1];
   const bool skip = h.use_fi && sc[2] > 0.5f;
@@ -219,6 +286,10 @@ __global__ void __launch_bounds__(kThreads)
       sc_out[0] = skip ? sc[3] : b1p;
       sc_out[1] = skip ? sc[4] : b2p;
     }
+  } else if constexpr (kRule == kAdamax) {
+    const float b1p = __fmul_rn(sc[3], h.b1);
+    lr_t = __fdiv_rn(lr, __fsub_rn(1.f, b1p));
+    if (blockIdx.x == 0 && threadIdx.x == 0) sc_out[0] = skip ? sc[3] : b1p;
   }
   if (skip) return;  // found_inf: every vector output keeps its input's bits
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -228,7 +299,7 @@ __global__ void __launch_bounds__(kThreads)
   if (vec) {
     for (long long c = first; c < n / kVec; c += stride) {
       const long long i = c * kVec;
-      float pv[kVec], gv[kVec], m1[kVec], m2[kVec], out[kVec];
+      float pv[kVec], gv[kVec], m1[kVec], m2[kVec], m3[kVec], out[kVec];
       if constexpr (kMaster) {
         load8(master + i, pv);
       } else {
@@ -237,35 +308,40 @@ __global__ void __launch_bounds__(kThreads)
       load8(g + i, gv);
       if constexpr (kS1) load8(s1 + i, m1);
       if constexpr (kS2) load8(s2 + i, m2);
+      if (s3_on) load8(s3 + i, m3);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
         const float g32 = prep_grad(gv[j], pv[j], pref, h);
-        out[j] = apply_rule<kRule>(pv[j], g32, m1[j], m2[j], h, lr, lr_t,
-                                   decay);
+        out[j] = apply_rule<kRule>(pv[j], g32, m1[j], m2[j], m3[j], h, lr,
+                                   lr_t, decay);
       }
       store8(p + i, out);
       if constexpr (kMaster) store8(master + i, out);
       if constexpr (kS1) store8(s1 + i, m1);
       if constexpr (kS2) store8(s2 + i, m2);
+      if (s3_on) store8(s3 + i, m3);
     }
     done = n / kVec * kVec;
   }
   for (long long i = done + first; i < n; i += stride) {
     const float p32 = kMaster ? master[i] : ptt::to_f32(p[i]);
     const float g32 = prep_grad(ptt::to_f32(g[i]), p32, pref, h);
-    float m1 = 0.f, m2 = 0.f;
+    float m1 = 0.f, m2 = 0.f, m3 = 0.f;
     if constexpr (kS1) m1 = ptt::to_f32(s1[i]);
     if constexpr (kS2) m2 = ptt::to_f32(s2[i]);
-    const float out = apply_rule<kRule>(p32, g32, m1, m2, h, lr, lr_t, decay);
+    if (s3_on) m3 = ptt::to_f32(s3[i]);
+    const float out =
+        apply_rule<kRule>(p32, g32, m1, m2, m3, h, lr, lr_t, decay);
     p[i] = ptt::from_f32<T>(out);
     if constexpr (kMaster) master[i] = out;
     if constexpr (kS1) s1[i] = ptt::from_f32<M>(m1);
     if constexpr (kS2) s2[i] = ptt::from_f32<M>(m2);
+    if (s3_on) s3[i] = ptt::from_f32<M>(m3);
   }
 }
 
 struct UpdateArgs {
-  void *p, *master, *s1, *s2;
+  void *p, *master, *s1, *s2, *s3;
   const void* g;
   const float* sc;
   float* sc_out;
@@ -279,7 +355,8 @@ int launch_update(const UpdateArgs& a) {
   const bool vec = ptt::aligned16(a.p) && ptt::aligned16(a.g) &&
                    (!kMaster || ptt::aligned16(a.master)) &&
                    (a.s1 == nullptr || ptt::aligned16(a.s1)) &&
-                   (a.s2 == nullptr || ptt::aligned16(a.s2));
+                   (a.s2 == nullptr || ptt::aligned16(a.s2)) &&
+                   (a.s3 == nullptr || ptt::aligned16(a.s3));
   const long long work = vec ? (a.n + kVec - 1) / kVec : a.n;
   const long long want = (work + kThreads - 1) / kThreads;
   const int grid = static_cast<int>(want < 132 * 8 ? (want > 0 ? want : 1)
@@ -287,7 +364,8 @@ int launch_update(const UpdateArgs& a) {
   update_kernel<R, T, G, M, kMaster><<<grid, kThreads, 0, a.stream>>>(
       static_cast<T*>(a.p), static_cast<const G*>(a.g),
       static_cast<float*>(a.master), static_cast<M*>(a.s1),
-      static_cast<M*>(a.s2), a.sc, a.sc_out, a.n, a.h, vec);
+      static_cast<M*>(a.s2), static_cast<M*>(a.s3), a.sc, a.sc_out, a.n, a.h,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,16 +375,16 @@ int launch_master(const UpdateArgs& a) {
                              : launch_update<R, T, G, M, false>(a);
 }
 
+// vector states in fp32, or in bf16 for Momentum and Adam (moment_dtype); the
+// other rules' states are fp32, as the reference's are
 template <int R, typename T, typename G>
 int launch_moments(const UpdateArgs& a, int m_dtype) {
-  switch (m_dtype) {
-    case ptt::kFloat32:
-      return launch_master<R, T, G, float>(a);
-    case ptt::kBFloat16:
+  if (m_dtype == ptt::kFloat32) return launch_master<R, T, G, float>(a);
+  if constexpr (R == kMomentum || R == kAdam) {
+    if (m_dtype == ptt::kBFloat16)
       return launch_master<R, T, G, __nv_bfloat16>(a);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // (param dtype, gradient dtype): the bucket's own dtype for both, or a bf16
@@ -342,16 +420,18 @@ extern "C" int ptt_grad_stats(const void* x, void* part, void* out,
 }
 
 // One bucket's update, in place. p: [n] params; g: [n] gradients; master:
-// [n] fp32 or null; s1, s2: [n] vector states or null (Momentum: s1 the
-// fp32 velocity; Adam: s1, s2 the moments, fp32 or bf16). sc: the fp32
-// scalar block above; sc_out: [2] fp32, Adam's new beta powers.
+// [n] fp32 or null; s1, s2, s3: [n] vector states or null, as apply_rule
+// names them (m_dtype: fp32, or bf16 for Momentum's and Adam's). sc: the
+// fp32 scalar block above; sc_out: [2] fp32, the new beta powers (Adam:
+// both, Adamax: beta1_pow).
 extern "C" int ptt_fused_update(void* p, const void* g, void* master,
-                                void* s1, void* s2, const void* sc,
+                                void* s1, void* s2, void* s3, const void* sc,
                                 void* sc_out, long long n, int rule,
                                 int p_dtype, int g_dtype, int m_dtype,
                                 float wd, float coeff, float b1, float b2,
                                 float omb1, float omb2, float eps,
-                                float momentum, int nesterov, int decoupled,
+                                float momentum, float rho, float omr,
+                                int nesterov, int decoupled, int centered,
                                 int use_pref, int use_fi, int device,
                                 void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -363,11 +443,13 @@ extern "C" int ptt_fused_update(void* p, const void* g, void* master,
   a.master = master;
   a.s1 = s1;
   a.s2 = s2;
+  a.s3 = s3;
   a.sc = static_cast<const float*>(sc);
   a.sc_out = static_cast<float*>(sc_out);
   a.n = n;
-  a.h = Hyper{wd,   coeff,    b1,        b2,        omb1,     omb2,
-              eps,  momentum, nesterov,  decoupled, use_pref, use_fi};
+  a.h = Hyper{wd,  coeff,    b1,       b2,        omb1,     omb2,
+              eps, momentum, rho,      omr,       nesterov, decoupled,
+              centered, use_pref, use_fi};
   a.stream = static_cast<cudaStream_t>(stream);
   switch (rule) {
     case kSGD:
@@ -376,6 +458,16 @@ extern "C" int ptt_fused_update(void* p, const void* g, void* master,
       return launch_rule<kMomentum>(a, p_dtype, g_dtype, m_dtype);
     case kAdam:
       return launch_rule<kAdam>(a, p_dtype, g_dtype, m_dtype);
+    case kAdagrad:
+      return launch_rule<kAdagrad>(a, p_dtype, g_dtype, m_dtype);
+    case kRMSProp:
+      return launch_rule<kRMSProp>(a, p_dtype, g_dtype, m_dtype);
+    case kAdamax:
+      return launch_rule<kAdamax>(a, p_dtype, g_dtype, m_dtype);
+    case kAdadelta:
+      return launch_rule<kAdadelta>(a, p_dtype, g_dtype, m_dtype);
+    case kDecayedAdagrad:
+      return launch_rule<kDecayedAdagrad>(a, p_dtype, g_dtype, m_dtype);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

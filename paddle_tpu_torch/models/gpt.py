@@ -8,11 +8,14 @@ uncached forward takes the flash route (the packed flash kernels) when
 `use_flash_attention` and L >= 512, the dense route otherwise
 (gpt.py:173-213). In training, hidden dropout runs in the embeddings
 (gpt.py:105-117) and in both residual joins of each decoder layer (the
-fused dropout+residual kernels, gpt.py:378), its masks drawn in the
-reference's order: the embedding first, then per layer the attention
-join and the MLP join. Attention dropout > 0 in training raises (its
-kernels come with the next slice). The dense-cache decode forward (`forward(caches=...)`)
-is not ported and raises NotImplementedError.
+fused dropout+residual kernels, gpt.py:378), and attention dropout on
+the attention probabilities (gpt.py:168-171, 185-189): on the flash
+route through the dropout-fused BHLD flash kernels, on the dense route
+on the probabilities in the activations' dtype. The masks are drawn in
+the reference's order: the embedding first, then per layer the
+attention probabilities, the attention join and the MLP join. The
+dense-cache decode forward (`forward(caches=...)`) is not ported and
+raises NotImplementedError.
 
 Parameter names and layouts are paddle's, so `models/convert.py` copies
 the JAX package's weights without renaming: Linear weights are [in,
@@ -26,11 +29,13 @@ import torch
 from torch import nn
 
 from .. import nn as pnn
+from ..core import rng
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding)
 from ..ops import nn_ops as F
 from ..ops.kernels import flash_attention as fa
+from ..ops.kernels.fused_elementwise import keep_scale
 from ..ops.kernels import paged_attention as pa
 
 
@@ -75,13 +80,6 @@ def _dense_cache_forward():
     return NotImplementedError(
         'the dense-cache GPT decode forward is not ported yet (serving '
         'runs forward_paged over the paged KV pool)')
-
-
-def _no_attention_dropout():
-    return NotImplementedError(
-        'attention dropout > 0 in training is not ported yet (the '
-        'dropout-fused BHLD flash kernels come with the next slice, '
-        'slice 4); hidden dropout trains')
 
 
 def _normal_(w, std, generator):
@@ -139,7 +137,9 @@ class GPTAttention(nn.Module):
     def forward(self, x, cache=None, cache_len=None):
         """Uncached causal self-attention over x [B, L, H] (gpt.py:151):
         the flash route at L >= 512 when use_flash_attention, the dense
-        route otherwise."""
+        route otherwise. In training with attention dropout > 0 the
+        flash route is the dropout-fused BHLD one, its keep mask drawn
+        from the bound generator; at eval or dropout 0 the packed one."""
         if cache is not None:
             raise _dense_cache_forward()
         qkv = self.qkv_proj(x)
@@ -147,19 +147,20 @@ class GPTAttention(nn.Module):
         hd = self.head_dim
         nh = qkv.shape[-1] // (3 * hd)
         dropout = self.attn_dropout_p if self.training else 0.0
-        if dropout > 0.0:
-            raise _no_attention_dropout()
         if self.use_flash and L >= 512:
-            ctx = fa.causal_attention(qkv, nh, hd)
+            ctx = fa.causal_attention(qkv, nh, hd, dropout=dropout)
         else:
-            ctx = self._dense_attention(qkv, B, L, nh, hd)
+            ctx = self._dense_attention(qkv, B, L, nh, hd, dropout)
         return self.out_proj(ctx)
 
     @staticmethod
-    def _dense_attention(qkv, B, L, nh, hd):
+    def _dense_attention(qkv, B, L, nh, hd, dropout=0.0):
         """gpt.py:173-191: fp32 scores, causal mask at -1e9 (this
         route's own constant; the flash kernels use -1e30), softmax in
-        fp32, probabilities cast to the activations' dtype."""
+        fp32, probabilities cast to the activations' dtype; with
+        dropout, the kept probabilities divided by 1 - p rounded to that
+        dtype (as jnp divides a bf16 array by a Python float), the rest
+        zeroed."""
         x5 = qkv.reshape(B, L, nh, 3, hd)
         q, k, v = (t.transpose(1, 2) for t in x5.unbind(3))  # B, nh, L, hd
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -168,6 +169,12 @@ class GPTAttention(nn.Module):
         scores = torch.where(causal, scores,
                              torch.full_like(scores, -1e9))
         probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+        if dropout > 0.0:
+            keep = rng.keep_mask(tuple(probs.shape), 1.0 - dropout,
+                                 qkv.device)
+            probs = torch.where(keep, probs / keep_scale(probs, dropout),
+                                torch.zeros((), dtype=probs.dtype,
+                                            device=probs.device))
         out = torch.matmul(probs, v)
         return out.transpose(1, 2).reshape(B, L, nh * hd)
 

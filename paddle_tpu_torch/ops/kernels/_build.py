@@ -166,18 +166,30 @@ _SIGNATURES = {
     # dtype, device, stream
     'ptt_flash_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _F, _I, _I, _I, _P),
+    # q, k, v, bias (or None), mask (or None), o, lse, B, L, H, D, scale,
+    # inv_keep, causal, dtype, device, stream
+    'ptt_flash_bhld_fwd': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                           _F, _I, _I, _I, _P),
+    # q, k, v, bias, mask, dout, lse, delta, dq, B, L, H, D, scale,
+    # inv_keep, causal, dtype, device, stream
+    'ptt_flash_bhld_bwd_dq': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _F, _F, _I, _I, _I, _P),
+    # q, k, v, bias, mask, dout, lse, delta, dk, dv, B, L, H, D, scale,
+    # inv_keep, causal, dtype, device, stream
+    'ptt_flash_bhld_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _F, _F, _I, _I, _I, _P),
     # x, residual, keep, y, n, keep_prob, dtype, device, stream
     'ptt_dropout_add_fwd': (_P, _P, _P, _P, _L, _F, _I, _I, _P),
     # keep, dy, dx, n, keep_prob, dtype, device, stream
     'ptt_dropout_add_bwd': (_P, _P, _P, _L, _F, _I, _I, _P),
     # x, part, out, n, parts, dtype, device, stream
     'ptt_grad_stats': (_P, _P, _P, _L, _I, _I, _I, _P),
-    # p, g, master, s1, s2, sc, sc_out, n, rule, p_dtype, g_dtype, m_dtype,
-    # wd, coeff, b1, b2, omb1, omb2, eps, momentum, nesterov, decoupled,
-    # use_pref, use_fi, device, stream
-    'ptt_fused_update': (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I,
-                         _I, _P),
+    # p, g, master, s1, s2, s3, sc, sc_out, n, rule, p_dtype, g_dtype,
+    # m_dtype, wd, coeff, b1, b2, omb1, omb2, eps, momentum, rho, omr,
+    # nesterov, decoupled, centered, use_pref, use_fi, device, stream
+    'ptt_fused_update': (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I,
+                         _I, _I, _I, _P),
 }
 
 

@@ -15,18 +15,19 @@ when `_decay_into_grad()`, the optimizer's rule in fp32, the found-inf
 no-op (a select, so NaN gradients leave every output bit-equal to its
 input), and the parameter write in its dtype beside the fp32 master
 write where the state has a master. It updates IN PLACE where the JAX
-step donates: `p` and every vector state (master, moments, velocity)
-are overwritten and returned; the scalar states (Adam's beta powers)
-come back as new fp32 0-dim tensors. `lr`, `prefactor`, `found_inf`
-and the beta powers reach the kernel through one small fp32 device
-block, never by value, so no step reads a device value back to the
-host. The gradient may be the bucket's dtype or fp32.
+step donates: `p` and every vector state (master, moments, velocity,
+accumulators) are overwritten and returned; the scalar states (Adam's
+and Adamax's beta powers) come back as new fp32 0-dim tensors. `lr`,
+`prefactor`, `found_inf` and the beta powers reach the kernel through
+one small fp32 device block, never by value, so no step reads a device
+value back to the host. The gradient may be the bucket's dtype or fp32.
 
-The kernel (`csrc/fused_optimizer.cu`) implements the rules of SGD,
-Momentum (with Nesterov), Adam and AdamW, with moments in fp32 or bf16;
-each must be written out in CUDA, where Pallas traced `update` into its
-body. The reference's other `_pallas_fusible` rules (RMSProp, Adamax,
-Adagrad, Adadelta, DecayedAdagrad) come with their optimizer classes.
+The kernel (`csrc/fused_optimizer.cu`) implements every `_pallas_fusible`
+rule of the reference: SGD, Momentum (with Nesterov), Adam and AdamW
+(moments in fp32 or bf16), Adagrad, RMSProp (centered or not, with
+momentum: up to three vector states), Adamax, Adadelta and
+DecayedAdagrad (fp32 states); each is written out in CUDA, where Pallas
+traced `update` into its body.
 
 Plain versions: `grad_stats_plain` and `fused_shard_update_plain` (the
 reference `shard_update`'s op chain, functional). CPU tensors run the
@@ -44,7 +45,8 @@ _build.register(STATS)
 _build.register(STEP)
 
 # csrc/fused_optimizer.cu: Rule
-_SGD, _MOMENTUM, _ADAM = 0, 1, 2
+(_SGD, _MOMENTUM, _ADAM, _ADAGRAD, _RMSPROP, _ADAMAX, _ADADELTA,
+ _DECAYED_ADAGRAD) = range(8)
 
 
 def fusible(optimizer):
@@ -127,32 +129,62 @@ def fused_shard_update_plain(optimizer, p, g, st, lr, prefactor=None,
 
 
 def _rule(optimizer):
-    """(rule code, the rule's constants) for the kernel."""
-    from ...optimizer.optimizer import SGD, Adam, AdamW, Momentum
+    """(rule code, the rule's constants) for the kernel. Each 1 - x is
+    the Python double, rounded once to fp32 by ctypes, as jnp rounds a
+    weakly typed scalar."""
+    from ...optimizer import optimizer as O
     h = dict(wd=_decay_into_grad(optimizer), coeff=0.0, b1=0.0, b2=0.0,
-             omb1=0.0, omb2=0.0, eps=0.0, momentum=0.0, nesterov=0,
-             decoupled=0)
-    if isinstance(optimizer, Adam):
+             omb1=0.0, omb2=0.0, eps=0.0, momentum=0.0, rho=0.0, omr=0.0,
+             nesterov=0, decoupled=0, centered=0)
+    kind = type(optimizer)
+    if kind in (O.Adagrad, O.DecayedAdagrad):
+        h.update(eps=optimizer._epsilon)
+        if kind is O.Adagrad:
+            return _ADAGRAD, h
+        h.update(rho=optimizer._decay, omr=1 - optimizer._decay)
+        return _DECAYED_ADAGRAD, h
+    if kind is O.RMSProp:
+        h.update(rho=optimizer._rho, omr=1 - optimizer._rho,
+                 eps=optimizer._epsilon, momentum=optimizer._momentum,
+                 centered=int(bool(optimizer._centered)))
+        return _RMSPROP, h
+    if kind is O.Adamax:
+        b1 = optimizer._beta1
+        h.update(b1=b1, b2=optimizer._beta2, omb1=1 - b1,
+                 eps=optimizer._epsilon)
+        return _ADAMAX, h
+    if kind is O.Adadelta:
+        h.update(rho=optimizer._rho, omr=1 - optimizer._rho,
+                 eps=optimizer._epsilon)
+        return _ADADELTA, h
+    if isinstance(optimizer, O.Adam):
         b1, b2 = optimizer._beta1, optimizer._beta2
         h.update(b1=b1, b2=b2, omb1=1 - b1, omb2=1 - b2,
                  eps=optimizer._epsilon)
-        if isinstance(optimizer, AdamW):
+        if isinstance(optimizer, O.AdamW):
             h.update(coeff=optimizer._coeff, decoupled=1)
         return _ADAM, h
-    if isinstance(optimizer, Momentum):
+    if isinstance(optimizer, O.Momentum):
         h.update(momentum=optimizer._momentum,
                  nesterov=int(bool(optimizer._use_nesterov)))
         return _MOMENTUM, h
-    if type(optimizer) is SGD:
+    if kind is O.SGD:
         return _SGD, h
     raise NotImplementedError(
-        f'fused_shard_update: no kernel rule for {type(optimizer).__name__} '
-        f'(the port has SGD, Momentum, Adam and AdamW)')
+        f'fused_shard_update: no kernel rule for {kind.__name__}')
 
 
+# the kernel's vector states s1, s2, s3 and its scalar block's states, by
+# rule (RMSProp's mean_grad only when centered)
 _VEC_KEYS = {_SGD: (), _MOMENTUM: ('velocity',),
-             _ADAM: ('moment1', 'moment2')}
-_SCALAR_KEYS = {_SGD: (), _MOMENTUM: (), _ADAM: ('beta1_pow', 'beta2_pow')}
+             _ADAM: ('moment1', 'moment2'), _ADAGRAD: ('moment',),
+             _RMSPROP: ('mean_square', 'momentum', 'mean_grad'),
+             _ADAMAX: ('moment', 'inf_norm'),
+             _ADADELTA: ('avg_squared_grad', 'avg_squared_update'),
+             _DECAYED_ADAGRAD: ('moment',)}
+_SCALAR_KEYS = {_ADAM: ('beta1_pow', 'beta2_pow'), _ADAMAX: ('beta1_pow',)}
+# rules whose vector states may be bf16 (moment_dtype); the others' are fp32
+_LOW_PRECISION_STATES = (_MOMENTUM, _ADAM)
 
 
 def _update_kernel(optimizer, p, g, st, lr, prefactor, found_inf):
@@ -162,43 +194,52 @@ def _update_kernel(optimizer, p, g, st, lr, prefactor, found_inf):
     if master is None and p.dtype != torch.float32 and \
             getattr(optimizer, '_multi_precision', True):
         master = st['master'] = p.float()       # seeded from the param
-    vecs = [st[k] for k in _VEC_KEYS[rule]]
+    if rule == _RMSPROP and h['centered'] != ('mean_grad' in st):
+        raise ValueError('fused_shard_update: a centered RMSProp state has '
+                         'mean_grad, an uncentered one has not')
+    keys = [k for k in _VEC_KEYS[rule] if k != 'mean_grad' or h['centered']]
+    vecs = [st[k] for k in keys]
     n = p.numel()
-    for name, t in [('g', g), ('master', master)] + list(
-            zip(_VEC_KEYS[rule], vecs)):
+    for name, t in [('g', g), ('master', master)] + list(zip(keys, vecs)):
         if t is not None and t.numel() != n:
             raise ValueError(f'fused_shard_update: {name} has {t.numel()} '
                              f'elements, p has {n}')
     if master is not None and master.dtype != torch.float32:
         raise TypeError('fused_shard_update: the master must be fp32')
-    if rule == _ADAM and vecs[0].dtype != vecs[1].dtype:
-        raise TypeError('fused_shard_update: the moments must share a dtype')
+    if len({t.dtype for t in vecs}) > 1:
+        raise TypeError('fused_shard_update: the vector states must share a '
+                        'dtype')
+    if vecs and vecs[0].dtype != torch.float32 and \
+            rule not in _LOW_PRECISION_STATES:
+        raise TypeError(f'fused_shard_update: {type(optimizer).__name__}\'s '
+                        f'states must be fp32')
     _build.require_contiguous(STEP, p=p, g=g, **({} if master is None
                                                   else {'master': master}),
-                              **dict(zip(_VEC_KEYS[rule], vecs)))
+                              **dict(zip(keys, vecs)))
     dev = p.device
     one = torch.ones((), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     scalars = [lr, one if prefactor is None else prefactor,
                zero if found_inf is None else found_inf]
-    scalars += [st[k] for k in _SCALAR_KEYS[rule]]
+    scalar_keys = _SCALAR_KEYS.get(rule, ())
+    scalars += [st[k] for k in scalar_keys]
     sc = torch.stack([s.to(device=dev, dtype=torch.float32).reshape(())
                       for s in scalars])
-    sc_out = torch.empty(max(len(_SCALAR_KEYS[rule]), 1),
-                         dtype=torch.float32, device=dev)
-    s1 = vecs[0] if vecs else None
-    s2 = vecs[1] if len(vecs) > 1 else None
+    sc_out = torch.empty(max(len(scalar_keys), 1), dtype=torch.float32,
+                         device=dev)
+    s1, s2, s3 = (vecs + [None] * 3)[:3]
     m_code = _build.dtype_code(s1, STEP) if s1 is not None else 0
     if n:
         _build.launch(
             'ptt_fused_update', STEP, dev, p.data_ptr(), g.data_ptr(),
             _build.ptr(master), _build.ptr(s1), _build.ptr(s2),
-            sc.data_ptr(), sc_out.data_ptr(), n, rule,
+            _build.ptr(s3), sc.data_ptr(), sc_out.data_ptr(), n, rule,
             _build.dtype_code(p, STEP), _build.dtype_code(g, STEP), m_code,
             h['wd'], h['coeff'], h['b1'], h['b2'], h['omb1'], h['omb2'],
-            h['eps'], h['momentum'], h['nesterov'], h['decoupled'],
-            int(prefactor is not None), int(found_inf is not None))
-    for j, k in enumerate(_SCALAR_KEYS[rule]):
+            h['eps'], h['momentum'], h['rho'], h['omr'], h['nesterov'],
+            h['decoupled'], h['centered'], int(prefactor is not None),
+            int(found_inf is not None))
+    for j, k in enumerate(scalar_keys):
         st[k] = sc_out[j]
     return p, st
 

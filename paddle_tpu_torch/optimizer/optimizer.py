@@ -1,7 +1,8 @@
 """Optimizers' functional update — counterpart of
 `paddle_tpu/optimizer/optimizer.py`: the base class's `functional_apply`
-(:103-158) and the SGD (:398), Momentum (:415), Adam (:546) and AdamW
-(:589) rules.
+(:103-158) and eager `step()` (:161-230), and the SGD (:398), Momentum
+(:415), Adagrad (:489), RMSProp (:511), Adam (:546), AdamW (:589),
+Adamax (:626), Adadelta (:699) and DecayedAdagrad (:730) rules.
 
 `functional_apply(params, grads, states, lr)` maps {name: tensor} dicts
 to new ones, as the JAX package's pure update does: for a low-precision
@@ -24,8 +25,18 @@ gradient is scaled in bf16.
 The `_elementwise` tag (:31) says the rule is strictly per element, so
 `jit.TrainStep` may run it over flat buckets (`core/bucketing.py`); the
 `_pallas_fusible` tag (:37) says the fused update kernel
-(`ops/kernels/fused_optimizer.py`) implements it. SGD, Momentum, Adam
-and AdamW carry both.
+(`ops/kernels/fused_optimizer.py`) implements it. Every rule here carries
+both. Each rule is written op for op in the reference's order (a Python
+float constant multiplies as an fp32 scalar, as a weakly typed one does
+in jnp), so the kernel, which rounds the same ops in the same order, is
+bit-equal to it. The states of Adagrad, RMSProp, Adamax, Adadelta and
+DecayedAdagrad are fp32, as the reference's are; like the reference's,
+these five take no `multi_precision` argument (one passed lands in
+`**kwargs`), so their bf16 params always carry an fp32 master.
+
+`step()` is the eager update of the `parameters` the optimizer was built
+with: each parameter with a `.grad` takes `functional_apply`'s update in
+place, its state (and fp32 master) kept in the optimizer.
 
 AdamW's `apply_decay_param_fun` and `lr_ratio` raise
 NotImplementedError: the reference's functional routes decay every
@@ -61,8 +72,9 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=True):
-        """`parameters` and `name` are accepted for the JAX package's
-        signature; the functional update takes its params per call."""
+        """`parameters` are what `step()` updates (the functional update
+        takes its params per call); `name` is accepted for the JAX
+        package's signature."""
         if not isinstance(learning_rate, LRScheduler):
             if isinstance(learning_rate, bool) or \
                     not isinstance(learning_rate, (int, float)):
@@ -84,6 +96,9 @@ class Optimizer:
         self._weight_decay = None if weight_decay is None \
             else float(weight_decay)
         self._multi_precision = multi_precision
+        self._parameter_list = None if parameters is None \
+            else list(parameters)
+        self._accumulators = {}           # id(param) -> state
 
     def get_lr(self):
         if isinstance(self._learning_rate, LRScheduler):
@@ -142,6 +157,30 @@ class Optimizer:
             new_states[n] = ns
         return new_params, new_states
 
+    @torch.no_grad()
+    def step(self):
+        """The eager update (:161-230) of every parameter of the list that
+        requires a gradient and has one, in place: grad_clip over them
+        all, decay, the rule at `get_lr()`."""
+        if self._parameter_list is None:
+            raise ValueError('optimizer created without a parameter list')
+        live = {id(p): p for p in self._parameter_list
+                if p.requires_grad and p.grad is not None}
+        if not live:
+            return
+        dev = next(iter(live.values())).device
+        lr = torch.tensor(self.get_lr(), dtype=torch.float32, device=dev)
+        new_params, new_states = self.functional_apply(
+            {k: p.detach() for k, p in live.items()},
+            {k: p.grad for k, p in live.items()},
+            {k: self._accumulators.get(k, {}) for k in live}, lr)
+        for k, p in live.items():
+            p.copy_(new_params[k])
+        self._accumulators.update(new_states)
+
+    def clear_grad(self, set_to_zero=True):
+        for p in self._parameter_list or ():
+            p.grad = None
 
     def _clip(self, grads):
         """grad_clip on {name: grad}, as functional_apply (:108-129)
@@ -274,3 +313,151 @@ class AdamW(Adam):
     def update(self, param, grad, state, lr):
         decayed = param * (1.0 - lr * self._coeff)
         return super().update(decayed, grad, state, lr)
+
+
+def _zeros(param):
+    return torch.zeros(param.shape, dtype=torch.float32, device=param.device)
+
+
+class Adagrad(Optimizer):
+    """Parity: operators/optimizers/adagrad_op; the accumulator starts at
+    `initial_accumulator_value`."""
+
+    _elementwise = True
+    _pallas_fusible = True
+
+    def __init__(self, learning_rate, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None, **kwargs):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def init_state(self, param):
+        return {'moment': torch.full(param.shape, float(self._init_acc),
+                                     dtype=torch.float32,
+                                     device=param.device)}
+
+    def update(self, param, grad, state, lr):
+        m = state['moment'] + grad * grad
+        new_p = param - lr * grad / (torch.sqrt(m) + self._epsilon)
+        return new_p, {'moment': m}
+
+
+class RMSProp(Optimizer):
+    """Parity: operators/optimizers/rmsprop_op, centered or not, with
+    momentum."""
+
+    _elementwise = True
+    _pallas_fusible = True
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-06, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, **kwargs):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def init_state(self, param):
+        s = {'mean_square': _zeros(param), 'momentum': _zeros(param)}
+        if self._centered:
+            s['mean_grad'] = _zeros(param)
+        return s
+
+    def update(self, param, grad, state, lr):
+        rho = self._rho
+        ms = rho * state['mean_square'] + (1 - rho) * grad * grad
+        new_state = {'mean_square': ms}
+        if self._centered:
+            mg = rho * state['mean_grad'] + (1 - rho) * grad
+            denom = torch.sqrt(ms - mg * mg + self._epsilon)
+            new_state['mean_grad'] = mg
+        else:
+            denom = torch.sqrt(ms + self._epsilon)
+        mom = self._momentum * state['momentum'] + lr * grad / denom
+        new_state['momentum'] = mom
+        return param - mom, new_state
+
+
+class Adamax(Optimizer):
+    """Parity: operators/optimizers/adamax_op, with a beta1-power state
+    (an fp32 0-dim tensor)."""
+
+    _elementwise = True
+    _pallas_fusible = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, **kwargs):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def init_state(self, param):
+        return {'moment': _zeros(param), 'inf_norm': _zeros(param),
+                'beta1_pow': torch.ones((), dtype=torch.float32,
+                                        device=param.device)}
+
+    def update(self, param, grad, state, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m = b1 * state['moment'] + (1 - b1) * grad
+        u = torch.maximum(b2 * state['inf_norm'], grad.abs())
+        b1p = state['beta1_pow'] * b1
+        new_p = param - lr / (1 - b1p) * m / (u + eps)
+        return new_p, {'moment': m, 'inf_norm': u, 'beta1_pow': b1p}
+
+
+class Adadelta(Optimizer):
+    """Parity: operators/optimizers/adadelta_op — the accumulated
+    gradient / accumulated update RMS ratio rule."""
+
+    _elementwise = True
+    _pallas_fusible = True
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, **kwargs):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def init_state(self, param):
+        return {'avg_squared_grad': _zeros(param),
+                'avg_squared_update': _zeros(param)}
+
+    def update(self, param, grad, state, lr):
+        rho, eps = self._rho, self._epsilon
+        g2 = rho * state['avg_squared_grad'] + (1 - rho) * grad * grad
+        upd = grad * torch.sqrt(state['avg_squared_update'] + eps) \
+            / torch.sqrt(g2 + eps)
+        u2 = rho * state['avg_squared_update'] + (1 - rho) * upd * upd
+        return param - lr * upd, {'avg_squared_grad': g2,
+                                  'avg_squared_update': u2}
+
+
+class DecayedAdagrad(Optimizer):
+    """Parity: operators/optimizers/decayed_adagrad_op."""
+
+    _elementwise = True
+    _pallas_fusible = True
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-06,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, **kwargs):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def init_state(self, param):
+        return {'moment': _zeros(param)}
+
+    def update(self, param, grad, state, lr):
+        m = self._decay * state['moment'] + (1 - self._decay) * grad * grad
+        return param - lr * grad / (torch.sqrt(m) + self._epsilon), \
+            {'moment': m}

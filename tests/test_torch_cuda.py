@@ -20,8 +20,12 @@ intermediates of magnitude ~10, so they differ by a few 1e-6 relative
 rtol 2e-6 / atol 5e-7 (the reference test's bar: the same op order,
 each op rounded), bf16 outputs 99.9 % bit-equal and the rest within one
 bf16 ulp; the gradient sum of squares at rtol 1e-5 (summation order),
-its nonfinite count exact; dropout+residual bit-equal. The bucketed
-step on the card vs the CPU: fp32, one clipped SGD step, rtol 1e-4.
+its nonfinite count exact; dropout+residual bit-equal. The update's
+Adagrad, RMSProp, Adamax, Adadelta and DecayedAdagrad rules bit-equal to
+the plain chain (each op rounded in the same order on both sides). The
+BHLD flash kernels (key bias, keep mask) at the flash bars above. The
+bucketed step on the card vs the CPU: fp32, one clipped SGD step, rtol
+1e-4; with attention dropout, two steps at rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -196,6 +200,79 @@ class TestOnCard:
         for got, want in zip((dq, dk, dv), grads_p):
             torch.testing.assert_close(got.float(), want.float(), **tol)
 
+    @pytest.mark.parametrize('L', [256, 200])
+    @pytest.mark.parametrize('head_dim', [32, 64, 128])
+    @pytest.mark.parametrize('case', ['causal', 'causal_mask', 'full_bias',
+                                      'causal_bias_mask'])
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_bhld_flash_kernels(self, cuda, dtype, case, head_dim, L):
+        g = torch.Generator(device=cuda).manual_seed(17)
+        B, H = 2, 3
+        q, k, v, do = (torch.randn(B * H, L, head_dim, generator=g,
+                                   device=cuda).to(dtype) for _ in range(4))
+        bias = mask = None
+        if 'bias' in case:
+            bias = torch.where(torch.rand(B, L, generator=g, device=cuda)
+                               > 0.2, 0.0, -1e4)
+        if 'mask' in case:
+            mask = torch.rand(B * H, L, L, generator=g, device=cuda) >= 0.1
+        kw = dict(bias=bias, num_heads=H, causal=case.startswith('causal'),
+                  dropout_mask=mask, dropout=0.1 if mask is not None else 0.0)
+        _build.reset_launches()
+        o, lse = tfa._flash_forward(q, k, v, **kw)
+        dq, dk, dv = tfa._flash_backward(q, k, v, o, lse, do, **kw)
+        snap = _build.routes_snapshot()
+        assert (snap['flash_bhld_fwd'], snap['flash_bhld_bwd_dq'],
+                snap['flash_bhld_bwd_dkv']) == (1, 1, 1)
+        assert snap['flash_fwd'] == snap['flash_bwd_dq'] == 0
+        o_p, lse_p = tfa.flash_forward_plain(q, k, v, **kw)
+        grads_p = tfa.flash_backward_plain(q, k, v, o_p, lse_p, do, **kw)
+        tol = FP32_SUMS if dtype == torch.float32 else BF16_ATTENTION
+        torch.testing.assert_close(o.float(), o_p.float(), **tol)
+        torch.testing.assert_close(lse, lse_p, **FP32_SUMS)
+        for got, want in zip((dq, dk, dv), grads_p):
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_gradients_flow_through_the_bhld_functions(self, cuda, dtype):
+        """flash_attention_bhld, _flash_attn_dropout and _flash_attn_biased
+        on the card: grad_fns, the BHLD kernels launched, gradients as the
+        CPU's plain route gives them, the bias gradient zeros."""
+        g = torch.Generator(device=cuda).manual_seed(18)
+        B, H, L, D = 2, 2, 160, 64
+
+        def leaf(*shape):
+            return torch.randn(*shape, generator=g, device=cuda).to(
+                dtype).requires_grad_()
+
+        q, k, v = leaf(B * H, L, D), leaf(B * H, L, D), leaf(B * H, L, D)
+        bias = torch.where(torch.rand(B, L, generator=g, device=cuda) > 0.2,
+                           0.0, -1e4).requires_grad_()
+        mask = torch.rand(B * H, L, L, generator=g, device=cuda) >= 0.1
+
+        def outs(q, k, v, bias, mask):
+            return [tfa.flash_attention_bhld(q, k, v),
+                    tfa._flash_attn_dropout(0.1, q, k, v, mask),
+                    tfa._flash_attn_biased(False, H, q, k, v, bias)]
+
+        _build.reset_launches()
+        got = outs(q, k, v, bias, mask)
+        for o in got:
+            assert o.grad_fn is not None
+        sum(o.float().square().sum() for o in got).backward()
+        snap = _build.routes_snapshot()
+        assert (snap['flash_bhld_fwd'], snap['flash_bhld_bwd_dq'],
+                snap['flash_bhld_bwd_dkv']) == (3, 3, 3)
+        assert bias.grad is not None and not bias.grad.any()
+        cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v, bias)]
+        want = outs(*cpu, mask.cpu())
+        sum(o.float().square().sum() for o in want).backward()
+        tol = FP32_SUMS if dtype == torch.float32 else BF16_ATTENTION
+        for t, c in zip((q, k, v), cpu):
+            assert t.grad.dtype == dtype
+            torch.testing.assert_close(t.grad.float().cpu(), c.grad.float(),
+                                       **tol)
+
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize('shape', [(3, 5, 64), (300, 2048), (2, 37)])
     def test_layer_norm_bwd_kernel(self, cuda, dtype, shape):
@@ -308,7 +385,10 @@ class TestOnCard:
         (torch.bfloat16, True), (torch.bfloat16, False)],
         ids=['fp32', 'fp32-master', 'bf16-master', 'bf16'])
     @pytest.mark.parametrize('rule', ['sgd', 'momentum', 'nesterov', 'adam',
-                                      'adamw', 'adamw_bf16_moments'])
+                                      'adamw', 'adamw_bf16_moments',
+                                      'adagrad', 'rmsprop',
+                                      'rmsprop_centered', 'adamax',
+                                      'adadelta', 'decayed_adagrad'])
     def test_fused_update_kernel(self, cuda, rule, storage, n):
         dtype, master = storage
         mk = {'sgd': lambda: topt.SGD(0.1, weight_decay=0.01,
@@ -321,13 +401,30 @@ class TestOnCard:
                                         multi_precision=master),
               'adamw': lambda: topt.AdamW(0.01, multi_precision=master),
               'adamw_bf16_moments': lambda: topt.AdamW(
-                  0.01, moment_dtype='bfloat16', multi_precision=master)}
+                  0.01, moment_dtype='bfloat16', multi_precision=master),
+              'adagrad': lambda: topt.Adagrad(
+                  0.1, initial_accumulator_value=0.1, weight_decay=0.01),
+              'rmsprop': lambda: topt.RMSProp(0.01, momentum=0.9),
+              'rmsprop_centered': lambda: topt.RMSProp(
+                  0.01, momentum=0.9, centered=True, weight_decay=1e-4),
+              'adamax': lambda: topt.Adamax(0.01),
+              'adadelta': lambda: topt.Adadelta(0.5),
+              'decayed_adagrad': lambda: topt.DecayedAdagrad(0.05)}
+        # the rules added with their optimizer classes must be bit-equal
+        exact = rule in ('adagrad', 'rmsprop', 'rmsprop_centered', 'adamax',
+                         'adadelta', 'decayed_adagrad')
         opt = mk[rule]()
+        # the five newer classes, as the reference's, take no
+        # multi_precision argument; the no-master case is set directly
+        opt._multi_precision = master
         gen = torch.Generator(device=cuda).manual_seed(9)
         p = torch.randn(n, generator=gen, device=cuda).to(dtype)
         st = opt.init_state(torch.zeros(n, device=cuda))
         for k, v in st.items():
-            if v.dim():
+            if k == 'mean_grad':       # |mean_grad| <= sqrt(mean_square)/2
+                v.copy_((torch.rand(n, generator=gen, device=cuda) - 0.5)
+                        * st['mean_square'].sqrt())
+            elif v.dim():
                 v.copy_(0.1 * torch.rand(n, generator=gen, device=cuda))
             else:
                 v.fill_(0.9 ** 3 if k == 'beta1_pow' else 0.999 ** 3)
@@ -350,7 +447,9 @@ class TestOnCard:
                 for got, want in [(out_p, want_p)] + [
                         (out_s[k], want_s[k]) for k in want_s]:
                     assert got.dtype == want.dtype
-                    if got.dtype == torch.float32:
+                    if exact:
+                        assert torch.equal(got, want), rule
+                    elif got.dtype == torch.float32:
                         torch.testing.assert_close(got, want, rtol=2e-6,
                                                    atol=5e-7)
                     else:
@@ -362,10 +461,15 @@ class TestOnCard:
                         same = (got == want).float().mean()
                         assert float(same) >= 0.999
 
-    @pytest.mark.parametrize('rule', ['momentum', 'adamw_bf16_moments'])
+    @pytest.mark.parametrize('rule', ['momentum', 'adamw_bf16_moments',
+                                      'rmsprop_centered', 'adamax'])
     def test_fused_update_found_inf_is_an_exact_noop(self, cuda, rule):
-        opt = (topt.Momentum(0.05) if rule == 'momentum' else topt.AdamW(
-            0.01, moment_dtype='bfloat16', multi_precision=False))
+        opt = {'momentum': lambda: topt.Momentum(0.05),
+               'adamw_bf16_moments': lambda: topt.AdamW(
+                   0.01, moment_dtype='bfloat16', multi_precision=False),
+               'rmsprop_centered': lambda: topt.RMSProp(
+                   0.01, momentum=0.9, centered=True),
+               'adamax': lambda: topt.Adamax(0.01)}[rule]()
         n = 5000
         p = torch.randn(n, device=cuda).to(torch.bfloat16)
         st = opt.init_state(torch.zeros(n, device=cuda))
@@ -475,6 +579,63 @@ class TestOnCard:
         finally:
             trng.keep_mask = orig
         assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+        cpu = dict(cpu_model.named_parameters())
+        for n, p in card_model.named_parameters():
+            torch.testing.assert_close(p.detach().cpu(), cpu[n].detach(),
+                                       rtol=1e-4, atol=1e-5)
+
+    def test_attention_dropout_train_step_on_card(self, cuda):
+        """GPTConfig's default dropouts (hidden and attention 0.1) at
+        L = 512 on the card: the BHLD flash kernels launch once a layer a
+        step each, and two default TrainSteps match the CPU's from the
+        same weights and masks (fp32, SGD, rtol 1e-4)."""
+        from paddle_tpu_torch import jit as tjit
+        from paddle_tpu_torch.core import rng as trng
+        from paddle_tpu_torch.models import gpt as tgpt
+
+        cfg = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
+                   max_seq_len=512, hidden_dropout=0.1, attn_dropout=0.1)
+        gen = torch.Generator().manual_seed(1)
+        cpu_model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg), generator=gen)
+        card_model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg))
+        card_model.load_state_dict(cpu_model.state_dict())
+        recorded, replayed = [], []
+        draw = trng.keep_mask
+
+        def record(shape, keep_prob, device):
+            m = draw(shape, keep_prob, device)
+            recorded.append(m.cpu())
+            return m
+
+        def replay(shape, keep_prob, device):
+            replayed.append(recorded[len(replayed)])
+            return replayed[-1].to(device)
+
+        def loss(model, ids, labels):
+            return tgpt.GPTPretrainingCriterion()(model(ids), labels)
+
+        ids = torch.randint(0, 128, (2, 512), generator=gen)
+        labels = torch.roll(ids, -1, 1)
+        losses = {}
+        try:
+            for model, dev, fn in ((card_model, None, record),
+                                   (cpu_model, 'cpu', replay)):
+                trng.keep_mask = fn
+                step = tjit.TrainStep(model, loss, topt.SGD(0.1), device=dev)
+                _build.reset_launches()
+                losses[dev] = [float(step(ids, labels)) for _ in range(2)]
+                if dev is None:
+                    snap = _build.routes_snapshot()
+                    for name in ('flash_bhld_fwd', 'flash_bhld_bwd_dq',
+                                 'flash_bhld_bwd_dkv'):
+                        assert snap[name] == 2 * 2, name
+                    assert snap['flash_fwd'] == 0
+        finally:
+            trng.keep_mask = draw
+        assert len(replayed) == len(recorded) == 2 * (1 + 3 * 2)
+        torch.testing.assert_close(torch.tensor(losses[None]),
+                                   torch.tensor(losses['cpu']), rtol=1e-4,
+                                   atol=0)
         cpu = dict(cpu_model.named_parameters())
         for n, p in card_model.named_parameters():
             torch.testing.assert_close(p.detach().cpu(), cpu[n].detach(),

@@ -1,17 +1,30 @@
-"""paddle_tpu_torch's packed flash attention vs the JAX package's.
+"""paddle_tpu_torch's flash attention vs the JAX package's, on both
+layouts.
 
-The port's plain forward (o and lse) and its autograd Function's
-gradients on the CPU — the same Function and backward formulas the card
-runs, with the plain versions in place of the kernels — against the
-Pallas packed bodies under interpret mode (`_flash_forward_packed`,
-`flash_attention_packed`'s custom VJP) and against the jnp oracle
-`_reference_attention`, on the same seeded numpy inputs.
+Packed [B, L, H*D]: the port's plain forward (o and lse) and its
+autograd Function's gradients on the CPU — the same Function and
+backward formulas the card runs, with the plain versions in place of
+the kernels — against the Pallas packed bodies under interpret mode
+(`_flash_forward_packed`, `flash_attention_packed`'s custom VJP) and
+against the jnp oracle `_reference_attention`, on the same seeded numpy
+inputs.
+
+BHLD [B*H, L, D]: the port's `_flash_forward`/`_flash_backward` (their
+plain versions here) against the Pallas `_flash_forward`/
+`_flash_backward` bodies in interpret mode, causal, causal with a keep
+mask, full with a key bias, and causal with both; the autograd
+Function's gradients against the custom VJPs `flash_attention_bhld`,
+`_flash_attn_dropout` and `_flash_attn_biased`; and the entries
+`causal_attention(dropout)`, `flash_attention` and `mha_flash_attention`
+against the reference's, the keep masks replayed from numpy on both
+sides.
 
 Tolerances: forward at the fp32 bars, rtol 2e-4 / atol 2e-5 (the online
-softmax sums keys in blocks, the plain version in one pass). Gradients
-at rtol 5e-4 / atol 5e-5, the bar tests/test_flash_attention.py holds
-the Pallas backward to against its own oracle: the backward sums over
-every key and every query in two passes.
+softmax sums keys in blocks, the plain version in one pass); the BHLD
+backward at the same bars. The packed gradients at rtol 5e-4 / atol
+5e-5, the bar tests/test_flash_attention.py holds the Pallas backward to
+against its own oracle: the backward sums over every key and every query
+in two passes.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +32,9 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
@@ -123,7 +138,8 @@ def test_causal_attention_unpacks_megatron_qkv_like_jax():
     want = jfa._flash_forward_packed(_j(q), _j(k), _j(v), num_heads=H,
                                      head_dim=D, causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
-    with pytest.raises(NotImplementedError, match='dropout'):
+    # attention dropout draws its mask from the bound generator
+    with pytest.raises(RuntimeError, match='bound generator'):
         tfa.causal_attention(torch.from_numpy(qkv), H, D, dropout=0.1)
 
 
@@ -140,3 +156,190 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match='no kernel for dtype'):
         tfa._check(q.half(), q.half(), q.half(), None, 2, 64,
                    tfa.FWD_KERNEL)
+
+
+# ---------------------------------------------------------------------------
+# BHLD [B*H, L, D]
+# ---------------------------------------------------------------------------
+RATE = 0.1
+BHLD_CASES = {'causal': (True, False, False),
+              'causal_mask': (True, False, True),
+              'full_bias': (False, True, False),
+              'causal_bias_mask': (True, True, True)}   # causal, bias, mask
+
+
+def _bhld_case(name, L, D, seed):
+    causal, with_bias, with_mask = BHLD_CASES[name]
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(B * H, L, D).astype(np.float32)
+                   for _ in range(4))
+    bias = mask = None
+    if with_bias:
+        bias = np.where(rng.rand(B, L) > 0.25, 0.0, -1e9).astype(np.float32)
+    if with_mask:
+        mask = (rng.rand(B * H, L, L) >= RATE).astype(np.int8)
+    kw = dict(causal=causal, num_heads=H)
+    return (q, k, v, do, bias, mask), kw, (RATE if with_mask else 0.0)
+
+
+@pytest.mark.parametrize('D', [32, 64])
+@pytest.mark.parametrize('L', [128, 512])
+@pytest.mark.parametrize('case', list(BHLD_CASES))
+def test_bhld_forward_and_backward_match_pallas(case, L, D):
+    (q, k, v, do, bias, mask), kw, rate = _bhld_case(case, L, D, seed=L + D)
+    o, lse = tfa._flash_forward(_t(q), _t(k), _t(v), bias=_t(bias),
+                                dropout_mask=_t(mask), dropout=rate, **kw)
+    jo, jlse = jfa._flash_forward(_j(q), _j(k), _j(v), bias=_j(bias),
+                                  dropout_mask=_j(mask), dropout=rate,
+                                  with_lse=True, **kw)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **FP32)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0], **FP32)
+    got = tfa._flash_backward(_t(q), _t(k), _t(v), o, lse, _t(do),
+                              bias=_t(bias), dropout_mask=_t(mask),
+                              dropout=rate, **kw)
+    want = jfa._flash_backward(_j(q), _j(k), _j(v), jo, jlse, _j(do),
+                               bias=_j(bias), dropout_mask=_j(mask),
+                               dropout=rate, **kw)
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **FP32)
+
+
+@pytest.mark.parametrize('case', ['causal', 'causal_mask', 'full_bias'])
+def test_bhld_function_gradients_match_custom_vjps(case):
+    """The port's autograd Function under each entry against jax.grad
+    through the reference's custom VJP of the same case (no custom VJP
+    takes both a bias and a mask; the test above holds the bodies on
+    that case)."""
+    (q, k, v, _do, bias, mask), kw, rate = _bhld_case(case, 128, 32, seed=4)
+    causal = kw['causal']
+
+    def entry(mod, qa, ka, va, bias_a, mask_a):
+        if mask_a is not None:
+            return mod._flash_attn_dropout(rate, qa, ka, va, mask_a)
+        if bias_a is not None:
+            return mod._flash_attn_biased(causal, H, qa, ka, va, bias_a)
+        return mod.flash_attention_bhld(qa, ka, va)
+
+    jl, jg = jax.value_and_grad(
+        lambda qa, ka, va: jnp.sum(entry(jfa, qa, ka, va, _j(bias),
+                                         _j(mask)) ** 2),
+        argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    tb = None if bias is None else _t(bias).requires_grad_()
+    loss = (entry(tfa, *leaves, tb, _t(mask)) ** 2).sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=2e-5)
+    for got, want in zip(leaves, jg):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), **FP32)
+    if tb is not None:                      # the key bias gets zeros (:788)
+        assert tb.grad is not None and not tb.grad.any()
+
+
+def test_causal_attention_with_dropout_matches_jax_on_one_mask(monkeypatch):
+    L = 128
+    rng = np.random.RandomState(9)
+    qkv = rng.randn(B, L, H * 3 * D).astype(np.float32)
+    keep = rng.rand(B, H, L, L) >= RATE
+    drawn = []
+
+    def jax_bernoulli(key, p, shape):
+        assert tuple(shape) == keep.shape and abs(p - (1 - RATE)) < 1e-12
+        return jnp.asarray(keep)
+
+    def torch_keep(shape, keep_prob, device):
+        drawn.append(tuple(shape))
+        assert abs(keep_prob - (1 - RATE)) < 1e-12
+        return torch.from_numpy(keep).to(device)
+
+    monkeypatch.setattr(jax.random, 'bernoulli', jax_bernoulli)
+    monkeypatch.setattr(trng, 'keep_mask', torch_keep)
+    want = jfa.causal_attention(Tensor(jnp.asarray(qkv)), H, D,
+                                dropout=RATE, dropout_key=jax.random.key(0))
+    tq = torch.from_numpy(qkv).requires_grad_()
+    got = tfa.causal_attention(tq, H, D, dropout=RATE)
+    assert drawn == [(B, H, L, L)]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want.data),
+                               **FP32)
+    assert got.grad_fn is not None
+    got.square().sum().backward()
+    assert tq.grad is not None and bool(tq.grad.abs().sum() > 0)
+
+
+def test_causal_attention_dropout_errors_match_the_reference():
+    qkv = np.zeros((1, 64, H * 3 * D), np.float32)
+    tq, jq = torch.from_numpy(qkv), Tensor(jnp.asarray(qkv))
+    for rate in (1.5, -0.1, 1.0):
+        with pytest.raises(ValueError, match='rate'):
+            tfa.causal_attention(tq, H, D, dropout=rate)
+        with pytest.raises(ValueError, match='rate'):
+            jfa.causal_attention(jq, H, D, dropout=rate,
+                                 dropout_key=jax.random.key(0))
+    # no bound generator: the counterpart of the reference's missing key
+    with pytest.raises(RuntimeError, match='bound generator'):
+        tfa.causal_attention(tq, H, D, dropout=0.1)
+    with pytest.raises(ValueError, match='dropout_key'):
+        jfa.causal_attention(jq, H, D, dropout=0.1)
+    with trng.rng_guard(torch.Generator().manual_seed(0)):
+        out = tfa.causal_attention(tq, H, D, dropout=0.1)
+    assert out.shape == (1, 64, H * D)
+
+
+@pytest.mark.parametrize('with_bias,causal', [(False, True), (False, False),
+                                              (True, False), (True, True)],
+                         ids=['causal', 'full', 'full_bias', 'causal_bias'])
+def test_flash_attention_matches_the_reference(with_bias, causal):
+    L = 128
+    (q, k, v, _do, bias, _m), _kw, _r = _bhld_case(
+        'full_bias' if with_bias else 'causal', L, 64, seed=6)
+
+    def loss_j(qa, ka, va):
+        return jnp.sum(jfa.flash_attention(qa, ka, va, bias=_j(bias),
+                                           num_heads=H, causal=causal) ** 2)
+
+    jl, jg = jax.value_and_grad(loss_j, argnums=(0, 1, 2))(
+        _j(q), _j(k), _j(v))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*leaves, bias=_t(bias), num_heads=H,
+                              causal=causal)
+    loss = (out ** 2).sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=2e-5)
+    for got, want in zip(leaves, jg):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), **FP32)
+
+
+@pytest.mark.parametrize('with_bias,causal', [(True, False), (False, True)],
+                         ids=['full_bias', 'causal'])
+def test_mha_flash_attention_matches_the_reference(with_bias, causal):
+    L = 128
+    rng = np.random.RandomState(12)
+    q, k, v = (rng.randn(B, H, L, D).astype(np.float32) for _ in range(3))
+    bias = np.where(rng.rand(B, L) > 0.3, 0.0, -1e9).astype(np.float32) \
+        if with_bias else None
+    want = jfa.mha_flash_attention(*(Tensor(jnp.asarray(a))
+                                     for a in (q, k, v)),
+                                   key_bias=bias, causal=causal)
+    got = tfa.mha_flash_attention(_t(q), _t(k), _t(v), key_bias=_t(bias),
+                                  causal=causal)
+    assert got.shape == (B, H, L, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.data), **FP32)
+
+
+def test_bhld_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros(4, 64, 64)
+    with pytest.raises(ValueError, match='head_dim 48'):
+        tfa._check_bhld(q[..., :48], q[..., :48], q[..., :48], None, None, 2,
+                        tfa.BHLD_FWD_KERNEL)
+    with pytest.raises(ValueError, match='multiple of 3 heads'):
+        tfa._check_bhld(q, q, q, None, None, 3, tfa.BHLD_FWD_KERNEL)
+    with pytest.raises(ValueError, match='bias'):
+        tfa._check_bhld(q, q, q, torch.zeros(4, 64), None, 2,
+                        tfa.BHLD_FWD_KERNEL)
+    with pytest.raises(ValueError, match='keep mask'):
+        tfa._check_bhld(q, q, q, None, torch.ones(4, 64, 64), 2,
+                        tfa.BHLD_FWD_KERNEL)
+    for dt in tfa.MASK_DTYPES:
+        tfa._check_bhld(q, q, q, torch.zeros(2, 64),
+                        torch.ones(4, 64, 64, dtype=dt), 2,
+                        tfa.BHLD_FWD_KERNEL)

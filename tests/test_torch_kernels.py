@@ -403,8 +403,10 @@ def test_cpu_tensors_take_plain_route_and_count_no_launch():
     snap = _build.routes_snapshot()
     assert set(snap) == {'layer_norm', 'layer_norm_bwd', 'bias_gelu',
                          'bias_gelu_bwd', 'paged_attention', 'flash_fwd',
-                         'flash_bwd_dq', 'flash_bwd_dkv', 'dropout_add',
-                         'dropout_add_bwd', 'grad_stats', 'optimizer_step'}
+                         'flash_bwd_dq', 'flash_bwd_dkv', 'flash_bhld_fwd',
+                         'flash_bhld_bwd_dq', 'flash_bhld_bwd_dkv',
+                         'dropout_add', 'dropout_add_bwd', 'grad_stats',
+                         'optimizer_step'}
     assert all(n == 0 for n in snap.values())
 
 

@@ -13,7 +13,15 @@ JAX package:
   tests/test_fused_primitives.py:145-204 does;
 - `BucketLayout`, the checkpoint conversion, `flat_functional_apply`
   under each clip, the per-parameter `functional_apply` with clipping,
-  and every schedule of `optimizer/lr.py`.
+  and every schedule of `optimizer/lr.py`;
+- every `_pallas_fusible` rule (SGD, Momentum, Adam, AdamW, Adagrad with
+  its initial accumulator, RMSProp plain and centered with momentum,
+  Adamax with its beta power over three steps, Adadelta and
+  DecayedAdagrad): the fused update above, the bucket state and its
+  checkpoint form, the eager `step()` against the reference's, and three
+  steps of a tiny GPT through `jit.TrainStep` on both routes against
+  `paddle_tpu.jit.TrainStep` (fp32 losses and params at rtol 2e-4 / atol
+  2e-5, the bars of tests/test_torch_train.py).
 
 Tolerances: fp32 update outputs at rtol 2e-6 / atol 5e-7 (the reference
 test's bar: the same op order, fp32 rounding); bf16 outputs within one
@@ -132,7 +140,31 @@ RULES = {
                                        parameters=[]),
         lambda **kw: topt.AdamW(learning_rate=0.01, weight_decay=0.01,
                                 **kw)),
+    'adagrad_init': (
+        lambda: paddle.optimizer.Adagrad(0.1, parameters=[],
+                                         initial_accumulator_value=0.1),
+        lambda **kw: topt.Adagrad(0.1, initial_accumulator_value=0.1, **kw)),
+    'rmsprop_momentum': (
+        lambda: paddle.optimizer.RMSProp(0.01, momentum=0.9, parameters=[]),
+        lambda **kw: topt.RMSProp(0.01, momentum=0.9, **kw)),
+    'rmsprop_centered': (
+        lambda: paddle.optimizer.RMSProp(0.01, momentum=0.9, centered=True,
+                                         weight_decay=1e-4, parameters=[]),
+        lambda **kw: topt.RMSProp(0.01, momentum=0.9, centered=True,
+                                  weight_decay=1e-4, **kw)),
+    'adamax': (
+        lambda: paddle.optimizer.Adamax(learning_rate=0.01, parameters=[]),
+        lambda **kw: topt.Adamax(learning_rate=0.01, **kw)),
+    'adadelta': (
+        lambda: paddle.optimizer.Adadelta(learning_rate=0.5, parameters=[]),
+        lambda **kw: topt.Adadelta(learning_rate=0.5, **kw)),
+    'decayed_adagrad': (
+        lambda: paddle.optimizer.DecayedAdagrad(0.05, weight_decay=1e-4,
+                                                parameters=[]),
+        lambda **kw: topt.DecayedAdagrad(0.05, weight_decay=1e-4, **kw)),
 }
+NEW_RULES = ['adagrad_init', 'rmsprop_momentum', 'rmsprop_centered',
+             'adamax', 'adadelta', 'decayed_adagrad']
 # (param dtype, master in the state)
 STORAGE = [('float32', False), ('float32', True), ('bfloat16', True),
            ('bfloat16', False)]
@@ -140,8 +172,8 @@ STORAGE = [('float32', False), ('float32', True), ('bfloat16', True),
 
 def _update_case(name, dtype, master, seed=0, nan=False):
     jmk, tmk = RULES[name]
-    jopt, topt_ = jmk(), tmk(multi_precision=master)
-    jopt._multi_precision = master
+    jopt, topt_ = jmk(), tmk()
+    jopt._multi_precision = topt_._multi_precision = master
     assert JFO.fusible(jopt) and TFO.fusible(topt_)
     rng = np.random.RandomState(seed)
     jdt = jnp.dtype(dtype)
@@ -153,7 +185,14 @@ def _update_case(name, dtype, master, seed=0, nan=False):
         Tensor(jnp.zeros((L,), jnp.float32))).items()}
     # a few steps' worth of state, so the moments are not zero
     for k in jst:
-        if jst[k].ndim:
+        if k == 'mean_grad':
+            # |mean_grad| <= sqrt(mean_square) / 2: centered RMSProp's
+            # ms - mg^2 stays >= 3/4 ms, away from the cancellation where
+            # an FMA that XLA contracts would decide the last bits
+            jst[k] = jnp.asarray(np.sign(rng.randn(L)) * rng.rand(L) * 0.5
+                                 * np.sqrt(np.asarray(jst['mean_square'])),
+                                 jnp.float32)
+        elif jst[k].ndim:
             jst[k] = jnp.asarray(np.abs(rng.randn(L)) * 0.1,
                                  jnp.float32).astype(jst[k].dtype)
         else:
@@ -222,7 +261,8 @@ def test_fused_shard_update_matches_pallas_body_and_jnp_chain(name, storage):
 @pytest.mark.parametrize('storage', STORAGE,
                          ids=[f'{d}-{"master" if m else "nomaster"}'
                               for d, m in STORAGE])
-@pytest.mark.parametrize('name', ['sgd', 'momentum_nesterov', 'adamw'])
+@pytest.mark.parametrize('name', ['sgd', 'momentum_nesterov', 'adamw',
+                                  'rmsprop_centered', 'adamax'])
 def test_found_inf_on_nan_gradients_is_an_exact_noop(name, storage):
     dtype, master = storage
     jopt, opt, p, g, jst, tp, tg, tst = _update_case(name, dtype, master,
@@ -250,12 +290,200 @@ def test_found_inf_on_nan_gradients_is_an_exact_noop(name, storage):
 
 
 def test_fusible_tags():
-    for mk in (topt.SGD, topt.Momentum, topt.Adam, topt.AdamW):
+    for mk in (topt.SGD, topt.Momentum, topt.Adam, topt.AdamW,
+               lambda: topt.Adagrad(0.1), lambda: topt.RMSProp(0.1),
+               topt.Adamax, topt.Adadelta, lambda: topt.DecayedAdagrad(0.1)):
         assert TFO.fusible(mk()) and TB.elementwise(mk())
     assert not TFO.fusible(topt.Optimizer())
     with pytest.raises(NotImplementedError, match='fusible'):
         TFO.fused_shard_update(topt.Optimizer(), torch.zeros(4),
                                torch.zeros(4), {}, torch.tensor(0.1))
+
+
+@pytest.mark.parametrize('name', NEW_RULES)
+def test_new_rules_keep_a_master_whatever_multi_precision_says(name):
+    """The reference's five newer classes take no `multi_precision`: one
+    passed lands in **kwargs and a bf16 param still gets an fp32 master.
+    The port's classes do the same."""
+    jmk, tmk = RULES[name]
+    jcls, tcls = type(jmk()), type(tmk())
+    jopt = jcls(0.1, parameters=[], multi_precision=False)
+    opt = tcls(0.1, multi_precision=False)
+    assert jopt._multi_precision is True and opt._multi_precision is True
+    p = torch.full((4,), 0.5, dtype=torch.bfloat16)
+    _new, st = opt.functional_apply({'w': p}, {'w': torch.ones_like(p)}, {},
+                                    torch.tensor(0.1))
+    assert st['w']['master'].dtype == torch.float32
+
+
+def test_adamax_beta_power_over_three_steps():
+    """Adamax's beta1_pow rides through the scalar block: three chained
+    steps of the in-place CPU route against the jnp chain and the Pallas
+    body, each step's power and param."""
+    jopt, opt, p, g, jst, tp, tg, tst = _update_case('adamax', 'float32',
+                                                     False, seed=2)
+    jst['beta1_pow'] = jnp.asarray(1.0, jnp.float32)
+    tst['beta1_pow'] = torch.tensor(1.0)
+    lr = 0.01
+    flags.set_flags({'FLAGS_fused_optimizer': False})
+    ref = (p, dict(jst))
+    pal = (p, dict(jst))
+    for step in range(3):
+        ref = JB.shard_update(jopt, ref[0], g, ref[1],
+                              jnp.asarray(lr, jnp.float32))
+        pal = JFO.fused_shard_update(jopt, pal[0], g, pal[1],
+                                     jnp.asarray(lr, jnp.float32))
+        _p, tst = TFO.fused_shard_update(opt, tp, tg, tst, torch.tensor(lr))
+        want = np.float32(1.0)
+        for _ in range(step + 1):
+            want = np.float32(want * np.float32(0.9))
+        assert tst['beta1_pow'].dim() == 0
+        for w in (ref, pal):
+            assert float(tst['beta1_pow']) == float(w[1]['beta1_pow']) \
+                == float(want)
+            _close(tp, w[0], False, f'step {step} param')
+            for k in ('moment', 'inf_norm'):
+                _close(tst[k], w[1][k], False, f'step {step} {k}')
+
+
+def _opt_pair(name):
+    jmk, tmk = RULES[name]
+    return jmk(), tmk()
+
+
+@pytest.mark.parametrize('name', NEW_RULES)
+def test_bucket_state_and_checkpoint_of_the_new_rules(name):
+    """init_bucket_state (Adagrad's fill over the padding too, Adamax's
+    scalar) and the checkpoint conversion equal the reference's."""
+    jopt, opt = _opt_pair(name)
+    jl = JB.BucketLayout.build(SHAPES, bucket_bytes=1024, pad_to=8)
+    tl = TB.BucketLayout.build(SHAPES, bucket_bytes=1024, pad_to=8)
+    rng = np.random.RandomState(7)
+    jst, tst = [], []
+    for jb, tb in zip(jl.buckets, tl.buckets):
+        flat32 = rng.randn(jb.size).astype(np.float32)
+        js = JB.init_bucket_state(jopt, jb, flat32)
+        ts = TB.init_bucket_state(opt, tb, torch.from_numpy(flat32))
+        assert set(ts) == set(js)
+        for k in js:
+            assert str(ts[k].dtype).split('.')[-1] == str(js[k].dtype), k
+            assert tuple(ts[k].shape) == js[k].shape, k
+            np.testing.assert_array_equal(_np(ts[k]), js[k], err_msg=k)
+            if js[k].ndim and k != 'master':     # a trained state
+                js[k] = rng.randn(jb.size).astype(np.float32)
+                ts[k] = torch.from_numpy(js[k].copy())
+        jst.append(js)
+        tst.append(ts)
+    jn, tn = JB.flat_states_to_named(jl, jst), TB.flat_states_to_named(tl,
+                                                                       tst)
+    assert set(jn) == set(tn)
+    for n in jn:
+        assert set(jn[n]) == set(tn[n])
+        for k in jn[n]:
+            np.testing.assert_array_equal(_np(tn[n][k]), jn[n][k])
+    back = TB.flat_states_to_named(tl, TB.named_states_to_flat(tl, tn, tst))
+    for n in tn:
+        for k in tn[n]:
+            assert torch.equal(back[n][k], tn[n][k]), (n, k)
+
+
+@pytest.mark.parametrize('name', NEW_RULES)
+def test_eager_step_matches_the_reference(name):
+    """Three eager `step()` calls on two fp32 params with a global-norm
+    clip against the reference's eager step."""
+    jmk, tmk = RULES[name]
+    rng = np.random.RandomState(8)
+    vals = [rng.randn(6, 4).astype(np.float32),
+            rng.randn(5).astype(np.float32)]
+    jps = [Tensor(jnp.asarray(v)) for v in vals]
+    tps = [torch.from_numpy(v.copy()).requires_grad_() for v in vals]
+    for t in jps:
+        t.stop_gradient = False
+    jopt, opt = jmk(), tmk()
+    jopt._parameter_list = jps
+    jopt._grad_clip = jnn.ClipGradByGlobalNorm(1.0)
+    opt._parameter_list = tps
+    opt._grad_clip = tnn.ClipGradByGlobalNorm(1.0)
+    for _ in range(3):
+        for jp_, tp_ in zip(jps, tps):
+            gv = rng.randn(*tp_.shape).astype(np.float32)
+            jp_.grad = Tensor(jnp.asarray(gv))
+            tp_.grad = torch.from_numpy(gv)
+        jopt.step()
+        opt.step()
+    for jp_, tp_ in zip(jps, tps):
+        np.testing.assert_allclose(_np(tp_), np.asarray(jp_.data),
+                                   rtol=2e-4, atol=2e-5)
+    opt.clear_grad()
+    assert all(t.grad is None for t in tps)
+    with pytest.raises(ValueError, match='parameter list'):
+        tmk().step()
+
+
+# ---------------------------------------------------------------------------
+# three TrainStep steps per rule on both routes
+# ---------------------------------------------------------------------------
+GPT_CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
+               max_seq_len=64, hidden_dropout=0.0, attn_dropout=0.0)
+# a learning rate under which each rule lowers the loss in three steps
+TRAIN_LR = {'adagrad_init': 1e-2, 'rmsprop_momentum': 1e-3,
+            'rmsprop_centered': 1e-3, 'adamax': 2e-3, 'adadelta': 1.0,
+            'decayed_adagrad': 1e-3}
+
+
+def _gpt_loss(crit):
+    return lambda model, ids, labels: crit()(model(ids), labels)
+
+
+@pytest.mark.parametrize('use_buckets', [None, False],
+                         ids=['bucketed', 'per_param'])
+@pytest.mark.parametrize('name', NEW_RULES)
+def test_train_step_with_rule_matches_jax(name, use_buckets):
+    from paddle_tpu import jit as jjit
+    from paddle_tpu.models import gpt as jgpt
+    from paddle_tpu_torch import jit as tjit
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.models import load_jax_params
+    paddle.seed(21)
+    jm = jgpt.GPTForCausalLM(jgpt.GPTConfig(**GPT_CFG))
+    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**GPT_CFG))
+    load_jax_params(tm, {n: np.asarray(p.data)
+                         for n, p in jm.named_parameters()})
+    jopt, opt = _opt_pair(name)
+    jopt.set_lr(TRAIN_LR[name])
+    opt.set_lr(TRAIN_LR[name])
+    kw = {} if use_buckets is None else dict(use_buckets=False)
+    jstep = jjit.TrainStep(jm, _gpt_loss(jgpt.GPTPretrainingCriterion), jopt,
+                           **kw)
+    tstep = tjit.TrainStep(tm, _gpt_loss(tgpt.GPTPretrainingCriterion), opt,
+                           device='cpu', **kw)
+    assert tstep.use_buckets == (use_buckets is None) == jstep._use_buckets
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, 128, (2, 32)).astype(np.int32)
+    labels = np.roll(ids, -1, 1)
+    jl, tl = [], []
+    for _ in range(3):
+        jl.append(float(jstep(paddle.to_tensor(ids),
+                              paddle.to_tensor(labels)).numpy()))
+        tl.append(float(tstep(ids, labels)))
+    assert tl[-1] < tl[0]
+    np.testing.assert_allclose(tl, jl, rtol=2e-4, atol=2e-5)
+    jp = {n: np.asarray(a, np.float32) for n, a in jstep._params.items()}
+    if name != 'adamax':
+        for n, p_ in tm.named_parameters():
+            np.testing.assert_allclose(_np(p_), jp[n], rtol=2e-4, atol=2e-5,
+                                       err_msg=n)
+        return
+    # Adamax divides each gradient by its own running magnitude: an
+    # element whose gradient is rounding noise moves by up to lr a step in
+    # a direction the noise picks (test_torch_train.py's Adam bars)
+    close = total = 0
+    for n, p_ in tm.named_parameters():
+        np.testing.assert_allclose(_np(p_), jp[n], rtol=0,
+                                   atol=2 * TRAIN_LR[name] * 3, err_msg=n)
+        close += int((np.abs(_np(p_) - jp[n]) <= 1e-5).sum())
+        total += p_.numel()
+    assert close / total >= 0.999
 
 
 # ---------------------------------------------------------------------------

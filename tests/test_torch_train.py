@@ -1,5 +1,5 @@
 """paddle_tpu_torch's TrainStep vs `paddle_tpu.jit.TrainStep`, and what
-the training slice refuses.
+the training slices refuse.
 
 A tiny GPT (vocab 128, hidden 64, 2 layers, 2 heads, dropout 0) is
 bridged into the port; both packages then take 3 steps of
@@ -214,28 +214,34 @@ BATCH = (2, 32)
 
 
 class _ReplayMasks:
-    """The same numpy keep masks on both sides, in call order: the
-    embedding's, then per layer the attention join's and the MLP join's.
-    The jitted JAX step traces its forward once, so it replays the same
-    masks every step; the port's draw cycles through them the same way."""
+    """The same numpy keep masks on both sides, per mask shape in call
+    order: the hidden masks [B, L, H] (the embedding's, then per layer the
+    attention join's and the MLP join's) and the attention masks
+    [B, nh, L, L] (one a layer). The jitted JAX step traces its forward
+    once, so it replays the same masks every step; the port's draw
+    cycles through them the same way."""
 
-    def __init__(self, n, seed=9):
+    def __init__(self, counts, seed=9):
         rng = np.random.RandomState(seed)
-        shape = BATCH + (DROPOUT['hidden_size'],)
-        self.masks = [rng.rand(*shape) < 0.9 for _ in range(n)]
-        self.j = self.t = 0
+        self.masks = {shape: [rng.rand(*shape) < 0.9 for _ in range(n)]
+                      for shape, n in counts.items()}
+        self.j = dict.fromkeys(counts, 0)
+        self.t = dict.fromkeys(counts, 0)
+
+    def _next(self, seen, shape):
+        shape = tuple(shape)
+        masks = self.masks[shape]
+        m = masks[seen[shape] % len(masks)]
+        seen[shape] += 1
+        return m
 
     def jax_bernoulli(self, key, p, shape):
-        m = self.masks[self.j % len(self.masks)]
-        self.j += 1
-        assert tuple(shape) == m.shape and abs(p - 0.9) < 1e-12
-        return jnp.asarray(m)
+        assert abs(p - 0.9) < 1e-12
+        return jnp.asarray(self._next(self.j, shape))
 
     def torch_keep(self, shape, keep_prob, device):
-        m = self.masks[self.t % len(self.masks)]
-        self.t += 1
-        assert tuple(shape) == m.shape and abs(keep_prob - 0.9) < 1e-12
-        return torch.from_numpy(m).to(device)
+        assert abs(keep_prob - 0.9) < 1e-12
+        return torch.from_numpy(self._next(self.t, shape)).to(device)
 
 
 def _schedule(mod):
@@ -267,18 +273,22 @@ def _default_optimizers(kind, jparams):
                    **kw), js, ts)
 
 
-def _run_default_both(kind, monkeypatch):
-    masks = _ReplayMasks(1 + 2 * DROPOUT['num_layers'])
+def _run_default_both(kind, monkeypatch, cfg=DROPOUT, batch=BATCH):
+    counts = {batch + (cfg['hidden_size'],): 1 + 2 * cfg['num_layers']}
+    if cfg['attn_dropout']:
+        counts[(batch[0], cfg['num_heads'], batch[1], batch[1])] = \
+            cfg['num_layers']
+    masks = _ReplayMasks(counts)
     monkeypatch.setattr(jax.random, 'bernoulli', masks.jax_bernoulli)
     monkeypatch.setattr(trng, 'keep_mask', masks.torch_keep)
     paddle.seed(21)
-    jm = jgpt.GPTForCausalLM(jgpt.GPTConfig(**DROPOUT))
+    jm = jgpt.GPTForCausalLM(jgpt.GPTConfig(**cfg))
     bf16 = kind == 'adamw_bf16'
     if bf16:
         for p in jm.parameters():
             p.data = p.data.astype(jnp.bfloat16)
     named = {n: np.asarray(p.data) for n, p in jm.named_parameters()}
-    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**DROPOUT),
+    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg),
                              dtype=torch.bfloat16 if bf16 else None)
     load_jax_params(tm, named)
     jopt, opt, jsched, tsched = _default_optimizers(kind, jm.parameters())
@@ -286,7 +296,7 @@ def _run_default_both(kind, monkeypatch):
     tstep = tjit.TrainStep(tm, _torch_loss, opt, device='cpu')
     assert jstep._use_buckets and tstep.use_buckets
     rng = np.random.RandomState(5)
-    ids = rng.randint(0, 128, BATCH).astype(np.int32)
+    ids = rng.randint(0, 128, batch).astype(np.int32)
     labels = np.roll(ids, -1, 1)
     jl, tl, fed = [], [], []
     for _ in range(STEPS):
@@ -298,8 +308,9 @@ def _run_default_both(kind, monkeypatch):
         for sched in (jsched, tsched):
             if sched is not None:
                 sched.step()
-    assert masks.t == STEPS * len(masks.masks)
-    assert masks.j >= len(masks.masks)         # the JAX trace drew them all
+    for shape, n in counts.items():
+        assert masks.t[shape] == STEPS * n, shape
+        assert masks.j[shape] >= n, shape      # the JAX trace drew them all
     assert all(a == b for a, b in fed), fed
     # each param's .grad is a view of its gradient bucket
     for n, p in tm.named_parameters():
@@ -349,6 +360,39 @@ def test_default_train_step_matches_jax_with_hidden_dropout(kind,
     _check_bf16_update(jp, tp, before, *states)
 
 
+# GPTConfig's defaults: hidden and attention dropout 0.1; L = 512 takes the
+# flash route (the dropout-fused BHLD flash), L = 32 the dense one
+ATTN = dict(DROPOUT, attn_dropout=0.1, max_seq_len=512)
+ROUTE_BATCH = {'flash': (2, 512), 'dense': BATCH}
+
+
+@pytest.mark.parametrize('route,kind', [('flash', 'sgd'), ('dense', 'sgd'),
+                                        ('dense', 'adamw_bf16')])
+def test_default_train_step_matches_jax_with_attention_dropout(route, kind,
+                                                               monkeypatch):
+    """3 steps of the port's default TrainStep against
+    `paddle_tpu.jit.TrainStep` with hidden and attention dropout 0.1 on
+    replayed masks, on each attention route: fp32 SGD at the fp32 bars;
+    AdamW with bf16 params and moments, clipping and the schedule at the
+    bf16 AdamW bars above."""
+    calls = []
+    flash = tfa._flash_attn_dropout
+    monkeypatch.setattr(tfa, '_flash_attn_dropout',
+                        lambda *a: calls.append(1) or flash(*a))
+    jl, tl, jp, tp, before, states = _run_default_both(
+        kind, monkeypatch, cfg=ATTN, batch=ROUTE_BATCH[route])
+    assert len(calls) == (STEPS * ATTN['num_layers'] if route == 'flash'
+                          else 0)
+    assert tl[-1] < tl[0]
+    if kind == 'sgd':
+        np.testing.assert_allclose(tl, jl, **FP32)
+        for n in tp:
+            np.testing.assert_allclose(tp[n], jp[n], err_msg=n, **FP32)
+        return
+    np.testing.assert_allclose(tl, jl, rtol=2.0 ** -8)
+    _check_bf16_update(jp, tp, before, *states)
+
+
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
@@ -393,28 +437,32 @@ def test_optimizer_takes_a_schedule_and_a_clip():
 
 
 def test_dropout_in_training_raises():
-    """Hidden dropout trains (its masks from the bound generator);
-    attention dropout in training still raises, naming slice 4."""
+    """Hidden and attention dropout train, each drawing its masks from
+    the bound generator (same seed, same output; eval is inert); with no
+    generator bound a training forward raises, on both attention routes,
+    and a rate outside (0, 1) raises."""
     ids = torch.zeros(1, 8, dtype=torch.long)
-    m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**dict(TINY, hidden_dropout=0.1)))
-    with pytest.raises(RuntimeError, match='bound generator'):
-        m(ids)
-    with trng.rng_guard(torch.Generator().manual_seed(0)):
-        a = m(ids)
-    with trng.rng_guard(torch.Generator().manual_seed(0)):
-        b = m(ids)
-    assert torch.equal(a, b)
-    m.eval()
-    assert not torch.equal(m(ids), a)            # eval: dropout is inert
-    m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**dict(TINY, attn_dropout=0.1)))
-    with pytest.raises(NotImplementedError, match='slice 4'):
+    for drop in (dict(hidden_dropout=0.1), dict(attn_dropout=0.1),
+                 dict(attn_dropout=0.1, max_seq_len=512)):
+        m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**dict(TINY, **drop)))
+        x = ids if drop.get('max_seq_len') is None else \
+            torch.zeros(1, 512, dtype=torch.long)  # L = 512: the flash route
+        with pytest.raises(RuntimeError, match='bound generator'):
+            m(x)
         with trng.rng_guard(torch.Generator().manual_seed(0)):
-            m(ids)
-    m.eval()
-    m(ids)
+            a = m(x)
+        with trng.rng_guard(torch.Generator().manual_seed(0)):
+            b = m(x)
+        with trng.rng_guard(torch.Generator().manual_seed(1)):
+            c = m(x)
+        assert torch.equal(a, b) and not torch.equal(a, c), drop
+        m.eval()
+        assert not torch.equal(m(x), a), drop    # eval: dropout is inert
     qkv = torch.zeros(1, 16, 2 * 3 * 32)
-    with pytest.raises(NotImplementedError, match='slice 4'):
+    with pytest.raises(RuntimeError, match='bound generator'):
         tfa.causal_attention(qkv, 2, 32, dropout=0.1)
+    with pytest.raises(ValueError, match='rate'):
+        tfa.causal_attention(qkv, 2, 32, dropout=1.0)
 
 
 def test_train_step_without_device_needs_the_card(tiny, monkeypatch):
