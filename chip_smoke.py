@@ -29,15 +29,32 @@ Phases, one JSON line each on stdout:
              bias, full and causal, at B=8 H=12 L=512 D=64, each through
              its autograd Function against the plain versions; the
              attention keep mask's draw (core.rng.keep_mask) at the train
-             step's [B, H, L, L], its keep share and time.
+             step's [B, H, L, L], its keep share and time. The paged
+             attention over int8 pages (row 1q) at the serve's decode
+             and prefill shapes on the same queries and contexts, against
+             its plain version at the flash bf16 bar, beside the dense
+             kernel's time on bf16 pages.
 4. serve   — gpt_1p3b at full width and depth (random weights from a
              fixed torch.Generator seed, bf16 weights and KV) serves 16
              greedy requests of 32-384 prompt tokens and 64 new tokens
              through ServingEngine; every request must complete, the
              pool must drain, every serving kernel's launch counter must
-             rise during the serve, and the engine's prefill logits for
-             two short prompts must match the port's CPU fp32 run on the
-             same weights. Then a profiled serve.
+             rise during the serve (the int8 kernel's must not), and the
+             engine's prefill logits for two short prompts must match the
+             port's CPU fp32 run on the same weights. Then a profiled
+             serve.
+   serve_int8 — the same stream over an int8 KV pool: completes,
+             drains, attention only on the int8 kernel, 101,376 bytes a
+             token against bf16's 196,608, prefill logits within
+             LOGITS_RTOL of the CPU fp32 engine over an int8 pool.
+   serve_modes — (a) int8 weights and int8 KV: the stream completes, 96
+             weights quantized, logits against the CPU fp32 engine with
+             the same quantized weights; (b) greedy and (c) sampled
+             (top_k 40, temperature 0.8) fused windows of 8 against 1 on
+             4 requests: tokens identical, one host fetch a window;
+             (d) spec_k 4 against 0 on a shared-prefix stream (8
+             requests, 256-token system prompt): acceptance rate, decode
+             tok/s, the share of equal tokens.
 5. train   — gpt_1p3b at full width and depth (bf16, dropout 0, flash
              attention) trains through jit.TrainStep(use_buckets=False)
              with AdamW (lr 1e-4, decay 0.01, bf16 moments, no master
@@ -90,7 +107,7 @@ Phases, one JSON line each on stdout:
              losses, every parameter's gradient and every updated
              parameter must agree within WHOLE_PATH_RTOL (relative L2
              error per tensor).
-10. summary — the `kernels` line (all 15 kernels), the nvidia-smi line,
+10. summary — the `kernels` line (all 16 kernels), the nvidia-smi line,
              and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
@@ -288,7 +305,8 @@ def kernel_phase(torch, F):
     bf16 = torch.bfloat16
     aten = torch.ops.aten
 
-    results = {'layer_norm': [], 'bias_gelu': [], 'paged_attention': []}
+    results = {'layer_norm': [], 'bias_gelu': [], 'paged_attention': [],
+               'paged_attention_int8': []}
     for rows, n in ROW_SHAPES:
         train = rows == TRAIN_ROWS
         iters = 20 if train else ITERS
@@ -343,12 +361,22 @@ def kernel_phase(torch, F):
         del x, w, b
 
     # paged attention at the serve's shapes: gpt_1p3b heads, page_size
-    # 16, 28 pages a row, a pool of 8 x 28 pages
+    # 16, 28 pages a row, a pool of 8 x 28 pages; the int8 pools hold
+    # the same kind of rows quantized as the engine writes them
     H, D, ps, P = 16, 128, 16, 28
     N, HD = 8 * P, H * D
     rng = np.random.RandomState(0)
     pools = [(randn(N, ps, HD), randn(N, ps, HD))
              for _ in range(COLD_COPIES)]
+
+    def quantized(pages):
+        codes, scales = pa.quantize_kv_rows(pages.reshape(1, N * ps, HD), H)
+        return codes.reshape(N, ps, HD), scales.reshape(N, ps, H)
+
+    pools8 = []
+    for kp, vp in pools:
+        (kq, ks), (vq, vs) = quantized(kp), quantized(vp)
+        pools8.append((kq, vq, ks, vs))
     cases = []
     seq = rng.randint(32, 449, 8)
     cases.append(('decode', seq, np.ones(8, np.int64), 1,
@@ -404,14 +432,43 @@ def kernel_phase(torch, F):
         io_bytes = 2 * B * T * HD * 2 + tables.size * 4 + 2 * B * 4
         bms, by = bound_ms(kv_bytes + io_bytes, 4 * sum(visible) * HD,
                            BF16_FLOPS)
+        shape = (f'{label}: B={B} T={T} H={H} D={D} ps={ps} '
+                 f'context={[int(s) for s in seq_lens]}')
+        dense_ms = device_ms(torch, run_kernel)
         results['paged_attention'].append(dict(
-            shape=(f'{label}: B={B} T={T} H={H} D={D} ps={ps} '
-                   f'context={[int(s) for s in seq_lens]}'),
-            path='decode' if label == 'decode' else None,
-            max_abs_err=err, ms=device_ms(torch, run_kernel),
+            shape=shape, path='decode' if label == 'decode' else None,
+            max_abs_err=err, ms=dense_ms,
             plain_ms=device_ms(torch, run_plain),
             library_ms=device_ms(torch, run_library),
             bound_ms=bms, bound_by=by))
+
+        # row 1q: the same queries and contexts over int8 pages
+        kq0, vq0, ks0, vs0 = pools8[0]
+        kw8 = dict(kw, k_scales=ks0, v_scales=vs0)
+        err8 = check_close(
+            'flash_bf16',
+            pa.ragged_paged_attention(q, kq0, vq0, pt, sl, ql, **kw8),
+            pa.ragged_paged_attention_plain(q, kq0, vq0, pt, sl, ql, **kw8))
+
+        def run_int8(plain=False):
+            kq, vq, ks, vs = pools8[rot('plain8' if plain else 'int8')]
+            fn = (pa.ragged_paged_attention_plain if plain
+                  else pa.ragged_paged_attention)
+            return fn(q, kq, vq, pt, sl, ql, num_heads=H, head_dim=D,
+                      k_scales=ks, v_scales=vs)
+
+        step.update(int8=0, plain8=0)
+        # K and V rows of H*D codes and H fp32 scales, each read once
+        kv8_bytes = int(sum(seq_lens)) * (HD + 4 * H) * 2
+        bms8, by8 = bound_ms(kv8_bytes + io_bytes, 4 * sum(visible) * HD,
+                             BF16_FLOPS)
+        results['paged_attention_int8'].append(dict(
+            shape=shape + ' int8 pages', path=label, max_abs_err=err8,
+            ms=device_ms(torch, run_int8),
+            plain_ms=device_ms(torch, lambda: run_int8(plain=True)),
+            library_ms=None,
+            library_note='no single PyTorch call attends over int8 pages',
+            dense_ms=dense_ms, bound_ms=bms8, bound_by=by8))
     for name, rows in results.items():
         for r in rows:
             emit({'phase': 'kernel', 'name': name, **r})
@@ -749,68 +806,63 @@ def bhld_kernel_phase(torch, F):
     return rows
 
 
-def serve_phase(torch, card):
-    """gpt_1p3b through the port's serving engine on the card."""
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
-    from paddle_tpu_torch.ops.kernels import _build
-    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+SERVE_PAGES = dict(page_size=16, max_batch_size=8, prefill_chunk=128,
+                   max_pages_per_seq=28)
+SERVE_MAX_NEW = 64
 
-    cfg = gpt_1p3b()
-    gen = torch.Generator(device='cuda').manual_seed(1234)
-    t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
-                           generator=gen)
-    eng = ServingEngine(model, ServingConfig(
-        page_size=16, max_batch_size=8, prefill_chunk=128,
-        max_pages_per_seq=28), device='cuda')
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    # the stream of the JAX package's bench_gpt_serve (bench.py:632-636,
-    # 675-685) on gpt_1p3b: 16 prompts of 32-384 tokens, 64 new tokens
-    rng = np.random.RandomState(0)
-    lens = rng.randint(32, 384 + 1, 16)
-    prompts = [list(rng.randint(1, cfg.vocab_size, int(n))) for n in lens]
-    max_new = 64
-    eng.generate([prompts[0]], max_new_tokens=2)        # warm-up
+
+def timed_stream(torch, eng, prompts, max_new, before=None, **gen):
+    """A warm-up request, then `prompts` through `eng` with every launch
+    counter set to 0 just before and read just after (and `before()`
+    called just before). Returns (outputs, wall seconds, launches,
+    stats)."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    eng.generate([prompts[0]], max_new_tokens=2, **gen)      # warm-up
     eng.reset_stats()
+    torch.cuda.synchronize()
     _build.reset_launches()
+    if before is not None:
+        before()
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, max_new_tokens=max_new)
+    outs = eng.generate(prompts, max_new_tokens=max_new, **gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _build.routes_snapshot()
-    st = eng.stats()
+    return outs, wall, launches, eng.stats()
+
+
+def check_served(eng, prompts, outs, max_new, vocab):
+    """Every request completed with max_new in-vocabulary tokens after
+    its prompt, and the pool drained."""
     for p, o in zip(prompts, outs):
         if len(o) != len(p) + max_new or o[:len(p)] != p:
             raise AssertionError(f'request of {len(p)} tokens returned '
                                  f'{len(o)} tokens')
-        if not all(0 <= t < cfg.vocab_size for t in o[len(p):]):
+        if not all(0 <= t < vocab for t in o[len(p):]):
             raise AssertionError('generated token id out of range')
     if eng.pool.pages_in_use != 0:
         raise AssertionError(f'pool did not drain: '
                              f'{eng.pool.pages_in_use} pages in use')
-    idle = [k for k in SERVE_KERNELS if launches[k] <= 0]
+
+
+def check_launches(launches, used, unused=()):
+    idle = [k for k in used if launches[k] <= 0]
     if idle:
         raise AssertionError(f'kernels never launched by the serve: {idle}')
-    trained = [k for k in TRAIN_KERNELS + BHLD_KERNELS + BUCKETED_KERNELS
-               if k not in SERVE_KERNELS and launches[k]]
-    if trained:
-        raise AssertionError(f'training kernels launched by the serve: '
-                             f'{trained}')
+    stray = [k for k in TRAIN_KERNELS + BHLD_KERNELS + BUCKETED_KERNELS
+             + tuple(unused) if k not in used and launches[k]]
+    if stray:
+        raise AssertionError(f'kernels the serve must not launch: {stray}')
 
-    # the engine's prefill logits vs the port's CPU fp32 run
-    short = [list(rng.randint(1, cfg.vocab_size, n)) for n in (7, 19)]
-    got = [eng.prompt_logits(p) for p in short]
-    with torch.device('meta'):
-        cpu_model = GPTForCausalLM(cfg)
-    cpu_model = cpu_model.to_empty(device='cpu')
-    cpu_model.load_state_dict({k: v.float().cpu()
-                               for k, v in model.state_dict().items()})
-    cpu_eng = ServingEngine(cpu_model, ServingConfig(
-        page_size=16, max_batch_size=1, prefill_chunk=32,
-        max_pages_per_seq=28, num_pages=4), device='cpu')
-    logit_checks = []
-    for p, g in zip(short, got):
+
+def logits_check(torch, eng, cpu_eng, prompts):
+    """The engine's prefill logits on the card against the CPU fp32
+    engine's: max |diff| over the vocab within LOGITS_RTOL of the
+    largest fp32 logit."""
+    checks = []
+    for p in prompts:
+        g = eng.prompt_logits(p)
         ref = cpu_eng.prompt_logits(p)
         diff = float((g - ref).abs().max())
         scale = float(ref.abs().max())
@@ -820,25 +872,259 @@ def serve_phase(torch, card):
                 f'prefill logits of a {len(p)}-token prompt: max |diff| '
                 f'{diff:.4g} vs fp32 max |logit| {scale:.4g} '
                 f'(rtol {LOGITS_RTOL})')
-        logit_checks.append(dict(
+        checks.append(dict(
             prompt_tokens=len(p), max_abs_diff=diff, max_abs_logit=scale,
             argmax_equal=bool(int(g.argmax()) == int(ref.argmax()))))
+    return checks
+
+
+def stream_line(st, wall):
+    return {'wall_s': wall,
+            'decode_tokens_per_sec': st['decode_tokens_per_sec'],
+            'decode_step_ms': (1e3 * st['decode_seconds_total']
+                               / max(st['decode_steps_total'], 1)),
+            'ttft_ms_p50': st['ttft_ms_p50'],
+            'ttft_ms_p99': st['ttft_ms_p99'],
+            'decode_steps': st['decode_steps_total'],
+            'prefill_chunks': st['prefill_chunks_total'],
+            'preemptions': st['preemptions_total'],
+            'prefix_hits': st['prefix_hits_total']}
+
+
+def serve_phase(torch, card):
+    """gpt_1p3b through the port's serving engine on the card. Returns
+    the serve's launches and what the later serve phases reuse: the
+    model, its fp32 copy on the CPU, the stream and two short prompts."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = gpt_1p3b()
+    gen = torch.Generator(device='cuda').manual_seed(1234)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
+                           generator=gen)
+    eng = ServingEngine(model, ServingConfig(**SERVE_PAGES), device='cuda')
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the stream of the JAX package's bench_gpt_serve (bench.py:632-636,
+    # 675-685) on gpt_1p3b: 16 prompts of 32-384 tokens, 64 new tokens
+    rng = np.random.RandomState(0)
+    lens = rng.randint(32, 384 + 1, 16)
+    prompts = [list(rng.randint(1, cfg.vocab_size, int(n))) for n in lens]
+    outs, wall, launches, st = timed_stream(torch, eng, prompts,
+                                            SERVE_MAX_NEW)
+    check_served(eng, prompts, outs, SERVE_MAX_NEW, cfg.vocab_size)
+    check_launches(launches, SERVE_KERNELS, ('paged_attention_int8',))
+
+    # the engine's prefill logits vs the port's CPU fp32 run
+    short = [list(rng.randint(1, cfg.vocab_size, n)) for n in (7, 19)]
+    with torch.device('meta'):
+        cpu_model = GPTForCausalLM(cfg)
+    cpu_model = cpu_model.to_empty(device='cpu')
+    cpu_model.load_state_dict({k: v.float().cpu()
+                               for k, v in model.state_dict().items()})
+    cpu_eng = ServingEngine(cpu_model, ServingConfig(
+        page_size=16, max_batch_size=1, prefill_chunk=32,
+        max_pages_per_seq=28, num_pages=4), device='cpu')
+    logit_checks = logits_check(torch, eng, cpu_eng, short)
     emit({'phase': 'serve', 'card': card, 'model': 'gpt_1p3b',
           'layers': cfg.num_layers, 'hidden': cfg.hidden_size,
-          'requests': len(prompts), 'max_new_tokens': max_new,
-          'wall_s': wall, 'model_build_s': build_s,
-          'decode_tokens_per_sec': st['decode_tokens_per_sec'],
-          'decode_step_ms': (1e3 * st['decode_seconds_total']
-                             / max(st['decode_steps_total'], 1)),
-          'ttft_ms_p50': st['ttft_ms_p50'], 'ttft_ms_p99': st['ttft_ms_p99'],
-          'decode_steps': st['decode_steps_total'],
-          'prefill_chunks': st['prefill_chunks_total'],
-          'preemptions': st['preemptions_total'],
-          'prefix_hits': st['prefix_hits_total'],
+          'requests': len(prompts), 'max_new_tokens': SERVE_MAX_NEW,
+          'model_build_s': build_s, **stream_line(st, wall),
+          'bytes_per_token': st['pool']['bytes_per_token'],
           'launches': launches, 'logits_vs_cpu_fp32': logit_checks,
           'logits_rtol': LOGITS_RTOL})
     profile_phase(torch, eng, prompts[:8])
+    served = dict(cfg=cfg, model=model, cpu_model=cpu_model, prompts=prompts,
+                  outs=outs, short=short,
+                  bytes_per_token=st['pool']['bytes_per_token'])
+    eng.shutdown()
+    return launches, served
+
+
+INT8_BYTES_PER_TOKEN = 2 * (2048 + 4 * 16) * 24     # 101,376
+BF16_BYTES_PER_TOKEN = 2 * 2048 * 2 * 24            # 196,608
+
+
+def serve_int8_phase(torch, card, served):
+    """The serve's stream with bf16 weights over an int8 KV pool: every
+    request completes, the pool drains, attention runs on the int8
+    paged kernel only, the pool costs 101,376 bytes a token against the
+    bf16 pool's 196,608, and the prefill logits agree with the CPU fp32
+    engine's over an int8 pool on the same weights."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg, prompts = served['cfg'], served['prompts']
+    eng = ServingEngine(served['model'], ServingConfig(
+        kv_dtype='int8', **SERVE_PAGES), device='cuda')
+    outs, wall, launches, st = timed_stream(torch, eng, prompts,
+                                            SERVE_MAX_NEW)
+    check_served(eng, prompts, outs, SERVE_MAX_NEW, cfg.vocab_size)
+    check_launches(launches, ('paged_attention_int8', 'layer_norm',
+                              'bias_gelu'), ('paged_attention',))
+    if (st['pool']['bytes_per_token'], served['bytes_per_token']) != (
+            INT8_BYTES_PER_TOKEN, BF16_BYTES_PER_TOKEN):
+        raise AssertionError(
+            f"bytes per token: int8 {st['pool']['bytes_per_token']}, bf16 "
+            f"{served['bytes_per_token']}; want {INT8_BYTES_PER_TOKEN}, "
+            f"{BF16_BYTES_PER_TOKEN}")
+    cpu_eng = ServingEngine(served['cpu_model'], ServingConfig(
+        page_size=16, max_batch_size=1, prefill_chunk=32,
+        max_pages_per_seq=28, num_pages=4, kv_dtype='int8'), device='cpu')
+    checks = logits_check(torch, eng, cpu_eng, served['short'])
+    same = token_share(outs, served['outs'], prompts)
+    emit({'phase': 'serve_int8', 'card': card, 'model': 'gpt_1p3b',
+          'kv_dtype': 'int8', 'requests': len(prompts),
+          'max_new_tokens': SERVE_MAX_NEW, **stream_line(st, wall),
+          'bytes_per_token': st['pool']['bytes_per_token'],
+          'bf16_bytes_per_token': served['bytes_per_token'],
+          'tokens_equal_to_bf16_serve': same, 'launches': launches,
+          'logits_vs_cpu_fp32_int8_kv': checks, 'logits_rtol': LOGITS_RTOL})
+    eng.shutdown()
     return launches
+
+
+def token_share(outs, ref, prompts):
+    """The share of generated tokens equal to the reference run's, token
+    by token."""
+    pairs = [(a, b) for o, r, p in zip(outs, ref, prompts)
+             for a, b in zip(o[len(p):], r[len(p):])]
+    return sum(a == b for a, b in pairs) / max(len(pairs), 1)
+
+
+def counted_stream(torch, eng, prompts, max_new, **gen):
+    """timed_stream with every fetch of chosen ids from the card during
+    the stream counted (the engine's _host_fetch): one per prefill
+    chunk, per serial decode step and per fused window, and no other."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    real = engine_mod._host_fetch
+    count = [0]
+
+    def counting(x):
+        count[0] += 1
+        return real(x)
+    engine_mod._host_fetch = counting
+    try:
+        outs, wall, launches, st = timed_stream(
+            torch, eng, prompts, max_new,
+            before=lambda: count.__setitem__(0, 0), **gen)
+    finally:
+        engine_mod._host_fetch = real
+    want = (st['prefill_chunks_total'] + st['decode_steps_total']
+            - st['fused_iterations_total'] + st['fused_windows_total'])
+    if count[0] != want:
+        raise AssertionError(f'{count[0]} host fetches, want {want}')
+    return outs, wall, launches, st, count[0]
+
+
+def serve_modes_phase(torch, card, served):
+    """The other serving modes at gpt_1p3b's full width and depth:
+    (a) int8 weights over an int8 KV pool: the stream completes, 96
+        weights quantized, the prefill logits within LOGITS_RTOL of the
+        CPU fp32 engine with the same quantized weights;
+    (b) greedy fused windows of 8 against 1 on the serve's first 4
+        requests (bench.py:797-803): identical tokens, decode tok/s,
+        host fetches;
+    (c) the same sampled (top_k 40, temperature 0.8, seed 5): identical;
+    (d) spec_k 4 on bench.py's shared-prefix stream (8 requests, a
+        256-token system prompt; bench.py:727-795) against spec_k 0:
+        acceptance rate, decode tok/s, the share of equal tokens.
+    (b), (c) and (d) run their two engines in turns (k, k', k', k), so
+    the two are compared within one call on one card."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg, model, prompts = served['cfg'], served['model'], served['prompts']
+    line = {'phase': 'serve_modes', 'card': card, 'model': 'gpt_1p3b'}
+
+    # (a)
+    eng = ServingEngine(model, ServingConfig(
+        kv_dtype='int8', weight_dtype='int8', **SERVE_PAGES), device='cuda')
+    outs, wall, launches, st = timed_stream(torch, eng, prompts,
+                                            SERVE_MAX_NEW)
+    check_served(eng, prompts, outs, SERVE_MAX_NEW, cfg.vocab_size)
+    check_launches(launches, ('paged_attention_int8', 'layer_norm',
+                              'bias_gelu'), ('paged_attention',))
+    if st['quantized_params'] != 4 * cfg.num_layers:
+        raise AssertionError(f"quantized_params {st['quantized_params']}")
+    cpu_eng = ServingEngine(served['cpu_model'], ServingConfig(
+        page_size=16, max_batch_size=1, prefill_chunk=32,
+        max_pages_per_seq=28, num_pages=4, kv_dtype='int8',
+        weight_dtype='int8'), device='cpu')
+    line['a_int8_weights_int8_kv'] = dict(
+        stream_line(st, wall), quantized_params=st['quantized_params'],
+        tokens_equal_to_bf16_serve=token_share(outs, served['outs'],
+                                               prompts),
+        logits_vs_cpu_fp32_same_quantized_weights=logits_check(
+            torch, eng, cpu_eng, served['short']))
+    eng.shutdown()
+    del cpu_eng
+
+    # (b), (c): each pair in turns, k, k', k', k (one card, one call)
+    sb = prompts[:4]
+    sb_pages = -(-(384 + SERVE_MAX_NEW) // 16)
+    for key, gen in (('b_fused_greedy', {}),
+                     ('c_fused_sampled', dict(top_k=40, temperature=0.8))):
+        runs = {1: [], 8: []}
+        for k in (1, 8, 8, 1):
+            eng = ServingEngine(model, ServingConfig(
+                page_size=16, max_batch_size=4, prefill_chunk=128,
+                max_pages_per_seq=sb_pages, fused_k=k, seed=5),
+                device='cuda')
+            outs, wall, _l, st, fetches = counted_stream(
+                torch, eng, sb, SERVE_MAX_NEW, **gen)
+            check_served(eng, sb, outs, SERVE_MAX_NEW, cfg.vocab_size)
+            if k > 1 and not st['fused_windows_total']:
+                raise AssertionError(f'{key}: no fused window ran')
+            runs[k].append((outs, dict(
+                stream_line(st, wall), fused_windows=st['fused_windows_total'],
+                fused_iterations=st['fused_iterations_total'],
+                host_fetches=fetches, tokens_generated=sum(
+                    len(o) - len(p) for o, p in zip(outs, sb)))))
+            eng.shutdown()
+        ref = runs[1][0][0]
+        for k, turns in runs.items():
+            for outs, _rec in turns:
+                if outs != ref:
+                    raise AssertionError(
+                        f'{key}: fused_k={k} tokens differ from fused_k=1 '
+                        f'(equal share {token_share(outs, ref, sb)})')
+        line[key] = {'requests': len(sb), 'identical': True,
+                     'order': [1, 8, 8, 1],
+                     'fused_k_1': [r for _o, r in runs[1]],
+                     'fused_k_8': [r for _o, r in runs[8]]}
+
+    # (d), in turns as well
+    rng = np.random.RandomState(1)
+    system = list(rng.randint(1, cfg.vocab_size, 256))
+    shared = [system + list(rng.randint(1, cfg.vocab_size, int(n)))
+              for n in rng.randint(32, 384 + 1, 8)]
+    pages = -(-(256 + 384 + SERVE_MAX_NEW) // 16)
+    runs = {0: [], 4: []}
+    for k in (0, 4, 4, 0):
+        eng = ServingEngine(model, ServingConfig(
+            page_size=16, max_batch_size=8, prefill_chunk=128,
+            max_pages_per_seq=pages, spec_k=k), device='cuda')
+        if k:
+            # the verify step's shape, on a prompt the proposer fires on
+            eng.generate([[7, 8, 9] * 4], max_new_tokens=4)
+        outs, wall, _l, st = timed_stream(torch, eng, shared, SERVE_MAX_NEW)
+        check_served(eng, shared, outs, SERVE_MAX_NEW, cfg.vocab_size)
+        runs[k].append((outs, dict(
+            stream_line(st, wall),
+            spec_proposed=st['spec_proposed_tokens_total'],
+            spec_accepted=st['spec_accepted_tokens_total'],
+            spec_acceptance_rate=st['spec_acceptance_rate'],
+            decode_tokens=st['decode_tokens_total'])))
+        eng.shutdown()
+    line['d_spec_shared_prefix'] = {
+        'requests': len(shared), 'system_prompt_tokens': 256, 'spec_k': 4,
+        'order': [0, 4, 4, 0],
+        'spec_k_0': [r for _o, r in runs[0]],
+        'spec_k_4': [r for _o, r in runs[4]],
+        'tokens_equal_to_spec_k_0': token_share(runs[4][0][0], runs[0][0][0],
+                                                shared)}
+    emit(line)
 
 
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'layer_norm',
@@ -1628,7 +1914,9 @@ def whole_path_check(torch):
 
 # the port's kernels by the device-side names the profiler shows; the
 # column sum is the second pass of both backward reductions
-KERNEL_NAMES = {'paged_attention': 'ragged_paged_attention_kernel',
+KERNEL_NAMES = {'paged_attention_int8':
+                    'ragged_paged_attention_kernel<__nv_bfloat16, signed char',
+                'paged_attention': 'ragged_paged_attention_kernel',
                 'layer_norm': 'layer_norm_fwd_kernel',
                 'bias_gelu': 'bias_gelu_fwd_kernel',
                 'layer_norm_bwd': 'layer_norm_bwd_kernel',
@@ -1705,6 +1993,8 @@ def profile_phase(torch, eng, prompts):
 SOURCES = {
     'paged_attention': ('paddle_tpu_torch/csrc/paged_attention.cu',
                         'paddle_tpu/ops/pallas/paged_attention.py:78'),
+    'paged_attention_int8': ('paddle_tpu_torch/csrc/paged_attention.cu',
+                             'paddle_tpu/ops/pallas/paged_attention.py:93'),
     'layer_norm': ('paddle_tpu_torch/csrc/fused_norm.cu',
                    'paddle_tpu/ops/pallas/fused_norm.py:52'),
     'bias_gelu': ('paddle_tpu_torch/csrc/fused_elementwise.cu',
@@ -1773,9 +2063,16 @@ def main():
     bhld_rows = bhld_kernel_phase(torch, F)
     kernel_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    serve_launches = serve_phase(torch, card)
-    free_cuda(torch)
+    serve_launches, served = serve_phase(torch, card)
     serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int8_launches = serve_int8_phase(torch, card, served)
+    serve_int8_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_modes_phase(torch, card, served)
+    del served
+    free_cuda(torch)
+    serve_modes_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_launches = train_phase(torch, card)
     free_cuda(torch)
@@ -1795,6 +2092,7 @@ def main():
     t0 = time.perf_counter()
     whole_path_check(torch)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
+          'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'train': train_s, 'optimizer_kernels': opt_kernel_s,
           'rules': rules_s, 'train_bucketed': bucketed_s,
           'check': time.perf_counter() - t0})
@@ -1810,6 +2108,10 @@ def main():
             # over hidden 2048, bias+GELU over ffn 8192, attention at B=8
             row = row_of(name, 'decode')
             launches = serve_launches[name]
+        elif name == 'paged_attention_int8':
+            # the serve over int8 pages (serve_int8), at its decode shape
+            row = row_of(name, 'decode')
+            launches = int8_launches[name]
         elif name in BUCKETED_KERNELS:
             row = opt_rows[name]
             launches = bucketed_launches[name]
@@ -1837,6 +2139,14 @@ def main():
             entry['launches_train_bucketed'] = bucketed_launches[name]
         if name == 'optimizer_step':
             entry['rules'] = row['rules']
+        if name == 'paged_attention_int8':
+            prefill = row_of(name, 'prefill')
+            entry.update(
+                library_note=row['library_note'], dense_ms=row['dense_ms'],
+                launches_bf16_serve=serve_launches[name],
+                prefill_shape={k: prefill[k] for k in (
+                    'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                    'dense_ms')})
         kernels.append(entry)
     emit({'kernels': kernels})
     print(smi, flush=True)

@@ -22,6 +22,11 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// int8_t is `signed char`: the conversion sign-extends, so -127..127 stay
+// what they are (a plain `char` may be unsigned and must not reach here)
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
 // round-to-nearest-even, the rounding torch and XLA use for a cast
 template <typename T>

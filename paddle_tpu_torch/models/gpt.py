@@ -182,10 +182,13 @@ class GPTAttention(nn.Module):
                       write_index=None):
         """Serving path: x [B, T, H] (T new tokens a row, right-padded to
         q_lens); kv = (k_pages, v_pages) [num_pages, page_size,
-        heads*hd] from the shared pool. Writes the new tokens' K/V into
-        the rows' pages IN PLACE and runs ragged paged attention over
-        each row's page table. `write_index` is the forward's shared
-        `pa.kv_write_index`. Returns (out, kv)."""
+        heads*hd] from the shared pool, or the int8 pool's 4-tuple
+        (k_pages, v_pages, k_scales, v_scales): the arity selects the
+        route, as gpt.py:282-299. Writes the new tokens' K/V into the
+        rows' pages IN PLACE (quantized per (token, head) for an int8
+        pool) and runs ragged paged attention over each row's page
+        table (dequantizing int8 pages inside). `write_index` is the
+        forward's shared `pa.kv_write_index`. Returns (out, kv)."""
         B, T, _ = x.shape
         qkv = self.qkv_proj(x)
         hd = self.head_dim
@@ -195,12 +198,19 @@ class GPTAttention(nn.Module):
         q = x5[:, :, :, 0].reshape(B, T, nh * hd)
         k = x5[:, :, :, 1].reshape(B, T, nh * hd)
         v = x5[:, :, :, 2].reshape(B, T, nh * hd)
-        k_pages, v_pages = kv
-        pa.write_kv_pages(k_pages, v_pages, k, v, page_tables, seq_lens,
-                          q_lens, index=write_index)
+        if len(kv) == 4:
+            k_pages, v_pages, k_scales, v_scales = kv
+            pa.write_kv_pages_quantized(
+                k_pages, v_pages, k_scales, v_scales, k, v, page_tables,
+                seq_lens, q_lens, num_heads=nh, index=write_index)
+        else:
+            k_pages, v_pages = kv
+            k_scales = v_scales = None
+            pa.write_kv_pages(k_pages, v_pages, k, v, page_tables, seq_lens,
+                              q_lens, index=write_index)
         ctx = pa.ragged_paged_attention(
             q, k_pages, v_pages, page_tables, seq_lens, q_lens,
-            num_heads=nh, head_dim=hd)
+            num_heads=nh, head_dim=hd, k_scales=k_scales, v_scales=v_scales)
         return self.out_proj(ctx), kv
 
 
@@ -290,11 +300,12 @@ class GPTModel(nn.Module):
     def forward_paged(self, input_ids, position_ids, kv_list, page_tables,
                       seq_lens, q_lens):
         """Serving forward over the paged KV pool: kv_list holds each
-        layer's (k_pages, v_pages), updated in place. page_tables /
-        seq_lens / q_lens may live on the host (the engine passes them
-        there): the K/V write index is computed from them once for all
-        layers, and the kernel gets device copies. Returns (hidden,
-        kv_list)."""
+        layer's (k_pages, v_pages), or the int8 pool's 4-tuple, updated
+        in place. page_tables / seq_lens / q_lens may live on the host
+        (the engine's one-dispatch steps pass them there) or on the card
+        (its fused decode windows): the K/V write index is computed from
+        them once for all layers, and the kernel gets device copies.
+        Returns (hidden, kv_list)."""
         dev = self.final_norm.weight.device
         T = input_ids.shape[1]
         N, ps, _ = kv_list[0][0].shape

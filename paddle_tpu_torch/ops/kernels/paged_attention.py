@@ -1,6 +1,6 @@
 """Ragged paged attention for the serving engine — counterpart of
 `paddle_tpu/ops/pallas/paged_attention.py` (its `_ragged_paged_kernel`,
-:78), dense pages only; the int8 `quantized` branch waits.
+:78), over dense pages and over int8 pages (its `quantized` branch).
 
 One call serves a MIXED batch: decode rows (one new token) and chunked-
 prefill rows (a window of new tokens) whose K/V history lives in the
@@ -13,15 +13,22 @@ block-paged pool (`serving/kv_pool.py`). Layouts, as in the JAX module:
                                           hold any id; clamped to [0, N))
   seq_lens    int  [B]  context length INCLUDING this step's new tokens
   q_lens      int  [B]  valid new tokens this step (<= T)
+  k_scales    fp32 [N_pages, page_size, H]   int8 pages only: one
+  v_scales    fp32 [N_pages, page_size, H]   abs-max scale per (slot, head)
 
 Query t of row b sits at global position seq_lens[b] - q_lens[b] + t and
 attends keys at positions <= its own and < seq_lens[b].
 
 `ragged_paged_attention` launches the CUDA kernel (`csrc/
-paged_attention.cu`) on CUDA tensors and runs
-`ragged_paged_attention_plain` on CPU tensors. The plain version
-computes exactly what the Pallas body computes, including its edge
-semantics: only pages whose start lies below seq_len take part, a masked
+paged_attention.cu`) on CUDA tensors — `paged_attention` over pages in
+q's dtype, `paged_attention_int8` over int8 pages, each with its own
+launch counter — and runs `ragged_paged_attention_plain` on CPU
+tensors. With int8 pages both dequantize each K/V row by its (slot,
+head) scale before it meets q or the probabilities, so the attention
+math stays fp32, as the Pallas body does (:126-128) and the dense JAX
+route does after its gather (`_dequant_gathered`, :208). The plain
+version computes exactly what the Pallas body computes, including its
+edge semantics: only pages whose start lies below seq_len take part, a masked
 score is -1e30, and the normaliser is max(l, 1e-30). So a query with no
 visible key averages the V rows of the pages it visits (a seq_len-0 row
 writes zeros), where the dense JAX route (`ragged_paged_attention_dense`)
@@ -38,8 +45,16 @@ gradient.
 
 `write_kv_pages` scatters the step's new K/V rows into the pool IN PLACE
 (`index_copy_` on the flattened pool), where the JAX function returns
-new arrays; padded tokens (t >= q_len) are filtered out before the
-scatter, as the JAX scatter drops them through an out-of-range index.
+new arrays. The page tensors end in one sink page, which no page table
+maps and so no read ever sees (the serving pool allocates it, kv_pool.py):
+padded tokens (t >= q_len) are written there, where the JAX scatter drops
+them through an out-of-range index, so they never reach slot 0 of page 0
+and the write index needs no filtering, hence no host sync, whichever
+device the metadata lives on. `write_kv_pages_quantized` is its twin for
+int8 pools: each new row is quantized per (token, head) by
+`quantize_kv_rows` (symmetric abs-max, scale = max(amax, 1e-30) / 127,
+codes round(x / scale) clipped to ±127, half to even as `jnp.round`) and
+its codes and scales land in the same flat slots.
 """
 import math
 
@@ -48,13 +63,27 @@ import torch
 from . import _build
 
 KERNEL = 'paged_attention'
+KERNEL_INT8 = 'paged_attention_int8'
 _build.register(KERNEL)
+_build.register(KERNEL_INT8)
 
 NEG_INF = -1e30
 
 
+def _gathered(pages, scales, pt, H, D):
+    """A row's pages gathered dense, [B, P*ps, H, D] fp32; int8 pages
+    dequantized by their (slot, head) scales (`_dequant_gathered`)."""
+    B, P = pt.shape
+    ps = pages.shape[1]
+    x = pages[pt].float().reshape(B, P * ps, H, D)
+    if scales is not None:
+        x = x * scales[pt].float().reshape(B, P * ps, H)[..., None]
+    return x
+
+
 def ragged_paged_attention_plain(q, k_pages, v_pages, page_tables,
-                                 seq_lens, q_lens, *, num_heads, head_dim):
+                                 seq_lens, q_lens, *, num_heads, head_dim,
+                                 k_scales=None, v_scales=None):
     """Plain PyTorch version of the kernel (gathers each row's pages into
     a dense [B, P*ps, H*D] context)."""
     B, T, HD = q.shape
@@ -65,8 +94,8 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, page_tables,
     pt = page_tables.to(dev, torch.long).clamp(0, N - 1)
     seq = seq_lens.to(dev, torch.long)
     ql = q_lens.to(dev, torch.long)
-    k = k_pages[pt].reshape(B, P * ps, H, D).float()
-    v = v_pages[pt].reshape(B, P * ps, H, D).float()
+    k = _gathered(k_pages, k_scales, pt, H, D)
+    v = _gathered(v_pages, v_scales, pt, H, D)
     qf = q.reshape(B, T, H, D).float() * (1.0 / math.sqrt(D))
     s = torch.einsum('bthd,bkhd->bhtk', qf, k)
     key = torch.arange(P * ps, device=dev)
@@ -85,20 +114,50 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, page_tables,
     return o.transpose(1, 2).reshape(B, T, HD).to(q.dtype)
 
 
+def _check_scales(k_pages, v_pages, k_scales, v_scales, num_heads):
+    """int8 pages come with both scales, fp32 contiguous [N, ps, H], and
+    scales come with int8 pages only."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError('paged_attention: pass both k_scales and '
+                         'v_scales, or neither')
+    int8 = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
+    if k_scales is None:
+        if int8:
+            raise TypeError('paged_attention: int8 pages need their '
+                            'k_scales and v_scales')
+        return
+    if not (k_pages.dtype == v_pages.dtype == torch.int8):
+        raise TypeError('paged_attention: k_scales/v_scales come with '
+                        'int8 pages only')
+    want = (k_pages.shape[0], k_pages.shape[1], num_heads)
+    for name, t in (('k_scales', k_scales), ('v_scales', v_scales)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want \
+                or not t.is_contiguous():
+            raise ValueError(
+                f'paged_attention: {name} must be contiguous float32 '
+                f'{list(want)}, got {t.dtype} {list(t.shape)}')
+
+
 def ragged_paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
-                           q_lens, *, num_heads, head_dim):
-    """Attention of each row's new queries over its pages; see the
-    module docstring for layouts and semantics."""
+                           q_lens, *, num_heads, head_dim, k_scales=None,
+                           v_scales=None):
+    """Attention of each row's new queries over its pages; int8 pages
+    with their k_scales/v_scales. See the module docstring for layouts
+    and semantics."""
     if torch.is_grad_enabled() and (q.requires_grad or k_pages.requires_grad
                                     or v_pages.requires_grad):
         raise RuntimeError(
             'ragged_paged_attention has no backward (nor has the JAX '
             'kernel): call it under torch.no_grad() or '
             'torch.inference_mode(), as the serving engine does')
-    if _build.on_cpu(q, k_pages, v_pages):
+    _check_scales(k_pages, v_pages, k_scales, v_scales, num_heads)
+    quantized = k_scales is not None
+    scales = (k_scales, v_scales) if quantized else ()
+    if _build.on_cpu(q, k_pages, v_pages, *scales):
         return ragged_paged_attention_plain(
             q, k_pages, v_pages, page_tables, seq_lens, q_lens,
-            num_heads=num_heads, head_dim=head_dim)
+            num_heads=num_heads, head_dim=head_dim, k_scales=k_scales,
+            v_scales=v_scales)
     B, T, HD = q.shape
     N, ps, HD2 = k_pages.shape
     P = page_tables.shape[1]
@@ -109,7 +168,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
             f'{num_heads} heads x {head_dim}')
     if head_dim > 256:
         raise ValueError('paged_attention: head_dim > 256 has no kernel')
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+    if not quantized and not (q.dtype == k_pages.dtype == v_pages.dtype):
         raise TypeError('paged_attention: q and pages must share a dtype')
     if page_tables.shape[0] != B or seq_lens.shape != (B,) \
             or q_lens.shape != (B,):
@@ -123,10 +182,19 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
     sl = seq_lens.to(q.device, torch.int32).contiguous()
     qlen = q_lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
-    _build.launch('ptt_ragged_paged_attention', KERNEL, q.device,
-                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                  pt.data_ptr(), sl.data_ptr(), qlen.data_ptr(),
-                  out.data_ptr(), B, T, num_heads, head_dim, N, ps, P, code)
+    if quantized:
+        _build.launch('ptt_ragged_paged_attention_int8', KERNEL_INT8,
+                      q.device, q.data_ptr(), k_pages.data_ptr(),
+                      v_pages.data_ptr(), k_scales.data_ptr(),
+                      v_scales.data_ptr(), pt.data_ptr(), sl.data_ptr(),
+                      qlen.data_ptr(), out.data_ptr(), B, T, num_heads,
+                      head_dim, N, ps, P, code)
+    else:
+        _build.launch('ptt_ragged_paged_attention', KERNEL, q.device,
+                      q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      pt.data_ptr(), sl.data_ptr(), qlen.data_ptr(),
+                      out.data_ptr(), B, T, num_heads, head_dim, N, ps, P,
+                      code)
     return out
 
 
@@ -152,34 +220,68 @@ def _flat_slots(page_tables, seq_lens, q_lens, T, N, ps):
 
 
 def kv_write_index(page_tables, seq_lens, q_lens, T, N, ps, device=None):
-    """(src, dst): rows of the flattened [B*T, H*D] new K/V that are real
-    tokens, and their flat pool slots — padding already filtered out, so
-    an idle slot (q_len 0, page row of zeros) never reaches page 0.
-    Computed once per forward on the metadata's device (the host, in the
-    engine) and moved to `device`."""
-    flat = _flat_slots(page_tables, seq_lens, q_lens, T, N, ps)
-    src = torch.nonzero(flat < N * ps).reshape(-1)
-    dst = flat[src]
-    if device is not None:
-        src, dst = src.to(device), dst.to(device)
-    return src, dst
+    """[B*T] flat pool slot of each row of the flattened [B*T, H*D] new
+    K/V, for page tensors of N pages whose last one (N - 1) is the sink
+    (see the module docstring): padding goes to the sink's first slot.
+    Computed once per forward on the metadata's device (the host, in
+    the engine's one-dispatch steps; the card, in its fused decode
+    windows) and moved to `device`."""
+    dst = _flat_slots(page_tables, seq_lens, q_lens, T, N - 1, ps)
+    return dst if device is None else dst.to(device)
 
 
 def write_kv_pages(k_pages, v_pages, k_new, v_new, page_tables, seq_lens,
                    q_lens, index=None):
     """Scatter this step's new K/V rows into the pool in place.
 
-    k_new/v_new: [B, T, H*D] right-padded like q. `index` is a
-    precomputed `kv_write_index` (the model computes it once per forward
-    and shares it across layers). Returns the (same) page tensors."""
+    k_new/v_new: [B, T, H*D] right-padded like q; the pages end in the
+    sink page. `index` is a precomputed `kv_write_index` (the model
+    computes it once per forward and shares it across layers). Returns
+    the (same) page tensors."""
     N, ps, HD = k_pages.shape
     B, T, _ = k_new.shape
     if index is None:
         index = kv_write_index(page_tables, seq_lens, q_lens, T, N, ps,
                                device=k_pages.device)
-    src, dst = index
     k_pages.view(N * ps, HD).index_copy_(
-        0, dst, k_new.reshape(B * T, HD)[src].to(k_pages.dtype))
+        0, index, k_new.reshape(B * T, HD).to(k_pages.dtype))
     v_pages.view(N * ps, HD).index_copy_(
-        0, dst, v_new.reshape(B * T, HD)[src].to(v_pages.dtype))
+        0, index, v_new.reshape(B * T, HD).to(v_pages.dtype))
     return k_pages, v_pages
+
+
+def quantize_kv_rows(x, num_heads):
+    """[B, T, H*D] float -> (int8 [B, T, H*D], fp32 scales [B, T, H]):
+    symmetric abs-max per (token, head), `quantize_kv_rows` (:316) of
+    the JAX module op for op (fp32 division, round half to even), so a
+    token's scales are final the moment it is written. Both divisions
+    are tensor by tensor: torch may compute a division by a Python
+    scalar as a multiply by its reciprocal, which rounds differently."""
+    B, T, HD = x.shape
+    D = HD // num_heads
+    xf = x.float().reshape(B, T, num_heads, D)
+    amax = xf.abs().amax(-1)                                   # [B, T, H]
+    scale = amax.clamp_min(1e-30) / torch.full_like(amax, 127.0)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q.reshape(B, T, HD), scale
+
+
+def write_kv_pages_quantized(k_pages, v_pages, k_scales, v_scales, k_new,
+                             v_new, page_tables, seq_lens, q_lens, *,
+                             num_heads, index=None):
+    """Quantizing twin of write_kv_pages for int8 pools (JAX :331): each
+    new token's K/V row is quantized per head and its codes and fp32
+    scales scattered in place into the same flat slots. Returns the
+    (same) four tensors."""
+    N, ps, HD = k_pages.shape
+    B, T, _ = k_new.shape
+    H = num_heads
+    if index is None:
+        index = kv_write_index(page_tables, seq_lens, q_lens, T, N, ps,
+                               device=k_pages.device)
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        codes, sc = quantize_kv_rows(new, H)
+        pages.view(N * ps, HD).index_copy_(0, index, codes.reshape(B * T, HD))
+        scales.view(N * ps, H).index_copy_(0, index, sc.reshape(B * T, H))
+    return k_pages, v_pages, k_scales, v_scales

@@ -1,7 +1,10 @@
 """Block-paged KV-cache pool — counterpart of `paddle_tpu/serving/kv_pool.py`.
 
 One tensor pair per decoder layer — `[num_pages, page_size, heads *
-head_dim]` — shared by every in-flight request. Sequences own pages
+head_dim]` — shared by every in-flight request; with `dtype='int8'` a
+4-tuple per layer, int8 (k_pages, v_pages) and their fp32 (k_scales,
+v_scales) `[num_pages, page_size, heads]`, one abs-max scale per (slot,
+head) (kv_pool.py:192-248 in the JAX package). Sequences own pages
 through per-sequence page tables; a host-side free-list allocator hands
 pages out and takes them back, so KV memory is O(pages in use) rather
 than O(batch * max_seq_len). The ragged paged-attention kernel reads a
@@ -26,7 +29,14 @@ by tests/test_serving.py):
   * free + cached + mapped partitions the pool at all times;
   * release drops every page of a sequence exactly once.
 
-Not ported yet: the host-RAM tier, int8 pages and mp sharding.
+Each device tensor holds one page more than the allocator hands out:
+page `num_pages`, the sink. No page table maps it, so no read ever sees
+it; every step's padded K/V rows are written there
+(`ops/kernels/paged_attention.py`), so the write index needs no host
+sync, not even in the engine's fused decode windows, whose done mask
+never leaves the card.
+
+Not ported yet: the host-RAM tier and mp sharding.
 """
 import collections
 import hashlib
@@ -69,9 +79,6 @@ def _torch_dtype(dtype):
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
     name = str(dtype).replace('torch.', '')
-    if name == 'int8':
-        raise NotImplementedError(
-            "int8 KV pages (kv_dtype='int8') are not ported yet")
     dt = getattr(torch, name, None)
     if not isinstance(dt, torch.dtype):
         raise ValueError(f'unknown KV dtype {dtype!r}')
@@ -83,7 +90,8 @@ class KVPagePool:
 
     The tensors are created by `materialize(device, dtype)`, so pure
     allocator tests never allocate them. `kv[l]` is layer l's (k_pages,
-    v_pages) pair.
+    v_pages) pair, or (k_pages, v_pages, k_scales, v_scales) for an
+    int8 pool.
     """
 
     def __init__(self, num_pages, page_size, num_layers=0, num_heads=0,
@@ -97,7 +105,7 @@ class KVPagePool:
         self.head_dim = int(head_dim)
         self.dtype = _torch_dtype(dtype)
         self.prefix_cache = bool(prefix_cache)
-        self.kv = None                      # [(k_pages, v_pages)] per layer
+        self.kv = None                      # per layer (k, v[, ks, vs])
         self._free = list(range(self.num_pages - 1, -1, -1))
         self._ref = {}                      # page id -> mapper count
         self._owners = {}                   # page id -> set of seq ids
@@ -119,23 +127,45 @@ class KVPagePool:
         self.prefix_evictions = 0
 
     # -- device tensors ------------------------------------------------------
+    @property
+    def quantized(self):
+        """True when pages store int8 + per-(slot, head) fp32 scales."""
+        return self.dtype == torch.int8
+
     def materialize(self, device, dtype=None):
-        """Create each layer's zeroed (k_pages, v_pages) on `device`."""
+        """Create each layer's zeroed pages on `device` (and, for an int8
+        pool, zeroed scales), with the sink page past the last one."""
         if self.kv is not None:
             return self.kv
         self.dtype = _torch_dtype(dtype) or self.dtype or torch.float32
-        shape = (self.num_pages, self.page_size,
+        shape = (self.num_pages + 1, self.page_size,
                  self.num_heads * self.head_dim)
-        self.kv = [(torch.zeros(shape, dtype=self.dtype, device=device),
-                    torch.zeros(shape, dtype=self.dtype, device=device))
-                   for _ in range(self.num_layers)]
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        if self.quantized:
+            sshape = shape[:2] + (self.num_heads,)
+            self.kv = [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                        zeros(sshape, torch.float32),
+                        zeros(sshape, torch.float32))
+                       for _ in range(self.num_layers)]
+        else:
+            self.kv = [(zeros(shape, self.dtype), zeros(shape, self.dtype))
+                       for _ in range(self.num_layers)]
         return self.kv
 
     def bytes_per_token(self):
-        """Device bytes one token's K+V occupies across all layers."""
-        item = (torch.tensor([], dtype=self.dtype).element_size()
-                if self.dtype is not None else 4)
-        return 2 * self.num_heads * self.head_dim * item * self.num_layers
+        """Device bytes one token's K+V occupies across all layers: int8
+        pages cost heads*head_dim + 4*heads (the scales) per K and per V,
+        dense pages heads*head_dim*itemsize (kv_pool.py:232-248)."""
+        hd = self.num_heads * self.head_dim
+        if self.quantized:
+            per = hd + 4 * self.num_heads
+        else:
+            per = hd * (torch.tensor([], dtype=self.dtype).element_size()
+                        if self.dtype is not None else 4)
+        return 2 * per * self.num_layers
 
     def pool_bytes(self):
         return self.num_pages * self.page_size * self.bytes_per_token()
@@ -232,6 +262,29 @@ class KVPagePool:
         while len(self._seq_pages.get(seq_id, ())) < need:
             self._take_page(seq_id)
         return self._seq_pages[seq_id]
+
+    def try_reserve(self, seq_id, n_tokens):
+        """Grow seq_id's page list to hold n_tokens, or change nothing:
+        the fused decode window's all-or-nothing reservation
+        (kv_pool.py:596). A failed reservation hands its own fresh pages
+        straight back (private and unindexed, as trim's are); returns
+        True when the pages are held."""
+        need = self.pages_for(n_tokens)
+        grown = 0
+        try:
+            while len(self._seq_pages.get(seq_id, ())) < need:
+                self._take_page(seq_id)
+                grown += 1
+        except PoolExhausted:
+            pages = self._seq_pages.get(seq_id, [])
+            for _ in range(grown):
+                page = pages.pop()
+                del self._ref[page]
+                del self._owners[page]
+                self._free.append(page)
+                self.free_total += 1
+            return False
+        return True
 
     def release(self, seq_id):
         """Drop seq_id's mapping of every page it holds, exactly once per

@@ -30,15 +30,22 @@ _ids = itertools.count()
 class Request:
     """One generation request. `tokens` is the full context (prompt +
     generated so far); `prefilled` counts how many already sit in KV
-    pages."""
+    pages. `top_k` > 0 samples from the temperature-scaled top-k set,
+    0 decodes greedily; `sample_ord` is the engine-local ordinal its
+    engine assigns at submit, folded with the token position into the
+    sampling draw (scheduler.py:321-363 in the JAX package)."""
 
-    def __init__(self, prompt_ids, max_new_tokens=32, eos_token_id=None):
+    def __init__(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
+                 temperature=0.0, top_k=0):
         self.id = next(_ids)
         self.prompt = [int(t) for t in prompt_ids]
         if not self.prompt:
             raise ValueError("empty prompt")
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.sample_ord = None
         self.generated = []
         self.prefilled = 0
         self.state = RequestState.WAITING
@@ -92,6 +99,19 @@ class Scheduler:
     @property
     def has_work(self):
         return bool(self.waiting or self.running())
+
+    def quiescent(self):
+        """True when a multi-iteration decode window can run with no
+        scheduling decision falling due inside it (scheduler.py:421):
+        nothing waiting to admit, at least one occupied slot, and every
+        occupied slot a RUNNING decoder. Rows that finish inside the
+        window idle on the card and retire at its end; page growth is
+        reserved for the window up front by the engine."""
+        if self.waiting:
+            return False
+        occupied = [r for r in self.slots if r is not None]
+        return bool(occupied) and all(r.state == RequestState.RUNNING
+                                      for r in occupied)
 
     def admission_order(self):
         """The queue in admission order: arrival order, preempted

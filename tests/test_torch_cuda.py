@@ -25,13 +25,22 @@ Adagrad, RMSProp, Adamax, Adadelta and DecayedAdagrad rules bit-equal to
 the plain chain (each op rounded in the same order on both sides). The
 BHLD flash kernels (key bias, keep mask) at the flash bars above. The
 bucketed step on the card vs the CPU: fp32, one clipped SGD step, rtol
-1e-4; with attention dropout, two steps at rtol 1e-4.
+1e-4; with attention dropout, two steps at rtol 1e-4. The int8 paged
+attention: fp32 q at rtol 1e-3 / atol 1e-4 (the K scale applied to the
+dot's sum and the V scale to the probability, where the plain version
+scales each element, over up to 29 keys of magnitude up to 127 x
+scale); bf16 q at the flash bar, atol 2^-6 of the plain output's RMS,
+rtol 2^-7, relative L2 error under 1e-2 (one bf16 rounding of the
+output). The serving engine on the card: fused and serial windows
+token-identical, greedy and sampled (the same shapes run in both).
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch.models import gpt as tgpt_serve
+from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import fused_optimizer as tfo
@@ -67,6 +76,20 @@ def _paged_case(head_dim, seed=3):
     page_tables = np.concatenate([page_tables, np.zeros((1, P), np.int64)])
     lens = np.asarray([[13, 1], [4, 4], [29, 2], [1, 0]])
     return q, k_pages, v_pages, page_tables, lens[:, 0], lens[:, 1], H
+
+
+def _int8_pool(N, ps, H, D, seed=0):
+    """int8 K/V pages with fp32 scales [N, ps, H]: codes over the whole
+    range -127..127, and page 0's slots left as a fresh pool holds them
+    (code 0, scale 0)."""
+    g = torch.Generator().manual_seed(seed)
+    kp, vp = (torch.randint(-127, 128, (N, ps, H * D), generator=g,
+                            dtype=torch.int64).to(torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand(N, ps, H, generator=g) * 0.05 for _ in range(2))
+    for t in (kp, vp, ks, vs):
+        t[0] = 0
+    return kp, vp, ks, vs
 
 
 @pytest.mark.cuda
@@ -135,16 +158,145 @@ class TestOnCard:
     def test_write_kv_pages_on_card_spares_page_0(self, cuda):
         ps, H, D, N = 4, 2, 32, 5
         HD = H * D
-        kp = torch.zeros(N, ps, HD, device=cuda)
-        vp = torch.zeros(N, ps, HD, device=cuda)
+        # the pages end in the sink page (index N), where padding lands
+        kp = torch.zeros(N + 1, ps, HD, device=cuda)
+        vp = torch.zeros(N + 1, ps, HD, device=cuda)
         new = torch.randn(2, 3, HD, device=cuda)
         pt = torch.tensor([[3, 1, 0, 0], [0, 0, 0, 0]])
         sl = torch.tensor([7, 1])
         ql = torch.tensor([2, 0])
         tpa.write_kv_pages(kp, vp, new, new, pt, sl, ql)
         assert not kp[0].any()
+        assert int((kp[:N].abs().sum(-1) > 0).sum()) == 2
+        assert kp[N, 0].any() and not kp[N, 1:].any()
         torch.testing.assert_close(kp[1, 1], new[0, 0])
         torch.testing.assert_close(kp[1, 2], new[0, 1])
+
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize('head_dim', [8, 32, 64, 128, 256])
+    def test_paged_attention_int8_kernel(self, cuda, dtype, head_dim):
+        q, _kp, _vp, pt, sl, ql, H = _paged_case(head_dim, seed=4)
+        kp, vp, ks, vs = _int8_pool(pt.size + 3, 8, H, head_dim, seed=4)
+        args = [torch.from_numpy(q).to(cuda, dtype)]
+        args += [t.to(cuda) for t in (kp, vp)]
+        args += [torch.from_numpy(a).to(cuda) for a in (pt, sl, ql)]
+        scales = dict(k_scales=ks.to(cuda), v_scales=vs.to(cuda))
+        _build.reset_launches()
+        got = tpa.ragged_paged_attention(*args, num_heads=H,
+                                         head_dim=head_dim, **scales)
+        snap = _build.routes_snapshot()
+        assert (snap['paged_attention_int8'], snap['paged_attention']) \
+            == (1, 0)
+        want = tpa.ragged_paged_attention_plain(*args, num_heads=H,
+                                                head_dim=head_dim, **scales)
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+        else:
+            g, w = got.float(), want.float()
+            rms = float(w.norm()) / w.numel() ** 0.5
+            assert float((g - w).norm() / w.norm()) < 1e-2
+            torch.testing.assert_close(g, w, rtol=2.0 ** -7,
+                                       atol=2.0 ** -6 * rms)
+
+    def test_paged_attention_int8_signs_and_no_visible_key(self, cuda):
+        # codes of -127 and 127 only (a sign-extension fault would turn
+        # -127 into 129); a seq_len-0 row writes zeros, and a query
+        # before every key averages the visited page's dequantized V
+        H, D, ps, N, T = 1, 128, 4, 3, 3
+        g = torch.Generator().manual_seed(6)
+        codes = torch.where(torch.rand(N, ps, H * D, generator=g) < 0.5,
+                            -127, 127).to(torch.int8)
+        vcodes = codes.flip(-1).contiguous()
+        ks = torch.rand(N, ps, H, generator=g) * 0.05
+        vs = torch.rand(N, ps, H, generator=g)
+        q = torch.randn(2, T, H * D, generator=g)
+        meta = [torch.tensor(a) for a in ([[1, 2], [2, 1]], [0, 2], [1, 3])]
+        args = [t.to(cuda) for t in (q, codes, vcodes, *meta)]
+        scales = dict(k_scales=ks.to(cuda), v_scales=vs.to(cuda))
+        got = tpa.ragged_paged_attention(*args, num_heads=H, head_dim=D,
+                                         **scales)
+        want = tpa.ragged_paged_attention_plain(*args, num_heads=H,
+                                                head_dim=D, **scales)
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+        assert not got[0].any()
+        deq = vcodes[2].float() * vs[2]
+        torch.testing.assert_close(got[1, 0].cpu(), deq.mean(0), rtol=1e-4,
+                                   atol=1e-4)
+
+    def test_paged_attention_int8_refusals(self, cuda):
+        H, D = 2, 32
+        kp, vp, ks, vs = (t.to(cuda) for t in _int8_pool(4, 8, H, D))
+        q = torch.randn(1, 1, H * D, device=cuda)
+        meta = [torch.zeros(1, 2, dtype=torch.int32, device=cuda),
+                torch.ones(1, dtype=torch.int32, device=cuda),
+                torch.ones(1, dtype=torch.int32, device=cuda)]
+        kw = dict(num_heads=H, head_dim=D)
+        _build.reset_launches()
+        with pytest.raises(ValueError, match='both k_scales and v_scales'):
+            tpa.ragged_paged_attention(q, kp, vp, *meta, k_scales=ks, **kw)
+        with pytest.raises(TypeError, match='int8 pages need'):
+            tpa.ragged_paged_attention(q, kp, vp, *meta, **kw)
+        with pytest.raises(ValueError, match='contiguous float32'):
+            tpa.ragged_paged_attention(q, kp, vp, *meta, k_scales=ks.half(),
+                                       v_scales=vs, **kw)
+        with pytest.raises(ValueError, match='contiguous float32'):
+            tpa.ragged_paged_attention(q, kp, vp, *meta, k_scales=ks[:, :4],
+                                       v_scales=vs, **kw)
+        with pytest.raises(TypeError, match='int8 pages only'):
+            tpa.ragged_paged_attention(q, kp.float(), vp.float(), *meta,
+                                       k_scales=ks, v_scales=vs, **kw)
+        assert _build.routes_snapshot()['paged_attention_int8'] == 0
+
+    def test_quantizers_and_sampling_bits_match_the_cpu(self, cuda):
+        # the KV and weight quantizers divide tensor by tensor and the
+        # draw's uniforms are integer hashes: bit-equal on both devices
+        from paddle_tpu_torch.quantization import quantize_to_int8
+        from paddle_tpu_torch.serving import engine as teng
+        g = torch.Generator().manual_seed(8)
+        x = torch.randn(4, 9, 256, generator=g) * torch.rand(4, 9, 1,
+                                                            generator=g) * 9
+        for got, want in zip(tpa.quantize_kv_rows(x.to(cuda), 2),
+                             tpa.quantize_kv_rows(x, 2)):
+            assert torch.equal(got.cpu(), want)
+        w = torch.randn(256, 96, generator=g).to(torch.bfloat16)
+        for got, want in zip(quantize_to_int8(w.to(cuda), quant_axis=1),
+                             quantize_to_int8(w, quant_axis=1)):
+            assert torch.equal(got.cpu(), want)
+        ords, pos = torch.arange(5), torch.arange(5) * 37 + 3
+        assert torch.equal(
+            teng.sample_uniforms(11, ords.to(cuda), pos.to(cuda),
+                                 50304).cpu(),
+            teng.sample_uniforms(11, ords, pos, 50304))
+
+    @pytest.mark.parametrize('top_k', [0, 5], ids=['greedy', 'sampled'])
+    def test_engine_fused_windows_on_card(self, cuda, top_k):
+        # an int8 KV pool and int8 weights on the card: fused windows of
+        # 4 emit the serial engine's tokens, attention only on the int8
+        # kernel, and a window fetches once
+        cfg = tgpt_serve.GPTConfig(
+            vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
+            max_seq_len=128, hidden_dropout=0.0, attn_dropout=0.0)
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        model = tgpt_serve.GPTForCausalLM(cfg, device=cuda, generator=gen)
+        rng = np.random.RandomState(3)
+        prompts = [list(rng.randint(1, 128, n)) for n in (5, 11, 3, 17)]
+        outs = {}
+        for k in (1, 4):
+            eng = ServingEngine(model, ServingConfig(
+                page_size=8, max_batch_size=3, prefill_chunk=8,
+                kv_dtype='int8', weight_dtype='int8', fused_k=k, seed=3),
+                device=cuda)
+            _build.reset_launches()
+            outs[k] = eng.generate(prompts, max_new_tokens=9, top_k=top_k,
+                                   temperature=0.8)
+            snap = _build.routes_snapshot()
+            assert snap['paged_attention_int8'] > 0
+            assert snap['paged_attention'] == 0
+            assert (eng.stats()['fused_windows_total'] > 0) == (k > 1)
+            assert eng.pool.pages_in_use == 0
+            eng.shutdown()
+        assert outs[4] == outs[1]
 
     def test_kernel_refuses_what_it_does_not_take(self, cuda):
         x = torch.randn(4, 16, device=cuda, dtype=torch.float16)

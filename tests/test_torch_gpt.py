@@ -101,13 +101,13 @@ def _run_both(jm, tm, jkv, tkv, inputs):
     with no_grad():
         jh, jkv = jm.gpt.forward_paged(
             Tensor(jnp.asarray(tokens)), Tensor(jnp.asarray(pos)),
-            [(Tensor(k), Tensor(v)) for k, v in jkv], jnp.asarray(pt),
-            jnp.asarray(sl), jnp.asarray(ql))
+            [tuple(Tensor(a) for a in layer) for layer in jkv],
+            jnp.asarray(pt), jnp.asarray(sl), jnp.asarray(ql))
     with torch.inference_mode():
         th, tkv = tm.gpt.forward_paged(
             *(torch.from_numpy(a) for a in (tokens, pos)), tkv,
             *(torch.from_numpy(a) for a in (pt, sl, ql)))
-    jkv = [(k.data, v.data) for k, v in jkv]
+    jkv = [tuple(a.data for a in layer) for layer in jkv]
     return np.asarray(jh.data), th.numpy(), jkv, tkv
 
 
@@ -117,7 +117,8 @@ def test_forward_paged_prefill_then_decode_matches_jax(bridged):
     N, ps, HD = 12, 4, 64
     jkv = [(jnp.zeros((N, ps, HD)), jnp.zeros((N, ps, HD)))
            for _ in range(2)]
-    tkv = [(torch.zeros(N, ps, HD), torch.zeros(N, ps, HD))
+    # the port's pool tensors end in the sink page (index N)
+    tkv = [(torch.zeros(N + 1, ps, HD), torch.zeros(N + 1, ps, HD))
            for _ in range(2)]
     rng = np.random.RandomState(0)
     # chunked prefill, T=8: a fresh 8-token row, a 5-token row (padded),
@@ -129,8 +130,8 @@ def test_forward_paged_prefill_then_decode_matches_jax(bridged):
     jh, th, jkv, tkv = _run_both(jm, tm, jkv, tkv, inputs)
     np.testing.assert_allclose(th, jh, atol=1e-4, rtol=1e-4)
     for (jk, jv), (tk, tv) in zip(jkv, tkv):
-        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-5)
-        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5)
+        np.testing.assert_allclose(tk[:N].numpy(), np.asarray(jk), atol=1e-5)
+        np.testing.assert_allclose(tv[:N].numpy(), np.asarray(jv), atol=1e-5)
     assert not tkv[0][0][0].any()           # the idle slot wrote nothing
     # one decode step on the pages just written (T=1, seq_len + 1)
     tokens = rng.randint(1, 128, (3, 1)).astype(np.int32)
@@ -139,8 +140,54 @@ def test_forward_paged_prefill_then_decode_matches_jax(bridged):
     jh, th, jkv, tkv = _run_both(jm, tm, jkv, tkv, inputs)
     np.testing.assert_allclose(th, jh, atol=1e-4, rtol=1e-4)
     for (jk, jv), (tk, tv) in zip(jkv, tkv):
-        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-5)
-        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5)
+        np.testing.assert_allclose(tk[:N].numpy(), np.asarray(jk), atol=1e-5)
+        np.testing.assert_allclose(tv[:N].numpy(), np.asarray(jv), atol=1e-5)
+
+
+def test_forward_paged_int8_pool_matches_jax(bridged):
+    # the 4-tuple route (gpt.py:282-299): new K/V quantized per (token,
+    # head) as it is written, attention over the dequantized pages. The
+    # idle slot and padding write into the sink page (index N), which
+    # the JAX pool has not, and nothing else changes
+    jm, tm, _named = bridged
+    tm.eval()
+    N, ps, HD, H = 12, 4, 64, 2
+    jkv = [(jnp.zeros((N, ps, HD), jnp.int8), jnp.zeros((N, ps, HD), jnp.int8),
+            jnp.zeros((N, ps, H)), jnp.zeros((N, ps, H))) for _ in range(2)]
+    tkv = [(torch.zeros(N + 1, ps, HD, dtype=torch.int8),
+            torch.zeros(N + 1, ps, HD, dtype=torch.int8),
+            torch.zeros(N + 1, ps, H), torch.zeros(N + 1, ps, H))
+           for _ in range(2)]
+    rng = np.random.RandomState(1)
+    pt = np.asarray([[3, 1, 0, 0], [5, 7, 2, 0], [0, 0, 0, 0]], np.int32)
+    steps = [(rng.randint(1, 128, (3, 8)).astype(np.int32), [8, 5, 1],
+              [8, 5, 0]),
+             (rng.randint(1, 128, (3, 1)).astype(np.int32), [9, 6, 1],
+              [1, 1, 0])]
+    for tokens, sl, ql in steps:
+        inputs = _step_inputs(tokens, pt, np.asarray(sl, np.int32),
+                              np.asarray(ql, np.int32))
+        jh, th, jkv, tkv = _run_both(jm, tm, jkv, tkv, inputs)
+        np.testing.assert_allclose(th, jh, atol=1e-4, rtol=1e-4)
+        for jl, tl in zip(jkv, tkv):
+            for jc, js, tc, ts in ((jl[0], jl[2], tl[0], tl[2]),
+                                   (jl[1], jl[3], tl[1], tl[3])):
+                # the projections agree to fp32 rounding, so a code may
+                # sit one off where a value lies on a rounding boundary:
+                # dequantized rows within one step of the scale
+                js, ts = np.asarray(js), ts[:N].numpy()
+                np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-7)
+                deq_j = np.asarray(jc, np.float32).reshape(N, ps, H, -1) \
+                    * js[..., None]
+                deq_t = tc[:N].float().numpy().reshape(N, ps, H, -1) \
+                    * ts[..., None]
+                assert (np.abs(deq_t - deq_j)
+                        <= js[..., None] * 1.001 + 1e-7).all()
+                assert (np.asarray(jc) != tc[:N].numpy()).mean() < 0.01
+        # the idle slot (position 1 of page 0) never writes; page 0's
+        # slot 0 is row 0's position 8, written by the decode step
+        assert not tkv[0][0][0, 1:].any() and not tkv[0][2][0, 1:].any()
+    assert tkv[0][0][N].any() and tkv[0][2][N].any()
 
 
 def test_presets_match_jax():

@@ -355,6 +355,9 @@ def test_flat_slots_match_jax():
 
 
 def test_write_kv_pages_drops_padding_and_spares_page_0():
+    # the port's pages end in the sink page (index N), where padding
+    # lands; the N pages a table maps are the JAX scatter's, which drops
+    # padding through an out-of-range index
     ps, HD, N = 4, 6, 5
     k_new = np.arange(3 * 3 * HD, dtype=np.float32).reshape(3, 3, HD) + 1.0
     # row 0: 2 valid tokens at positions 5, 6 (page_table[1] slots 1, 2);
@@ -363,8 +366,8 @@ def test_write_kv_pages_drops_padding_and_spares_page_0():
     pt = np.asarray([[3, 1, 0, 0], [2, 2, 2, 2], [0, 0, 0, 0]], np.int32)
     sl = np.asarray([7, 1, 1], np.int32)
     ql = np.asarray([2, 0, 0], np.int32)
-    kp = torch.zeros(N, ps, HD)
-    vp = torch.zeros(N, ps, HD)
+    kp = torch.zeros(N + 1, ps, HD)
+    vp = torch.zeros(N + 1, ps, HD)
     out = tpa.write_kv_pages(kp, vp, torch.from_numpy(k_new),
                              torch.from_numpy(2 * k_new),
                              torch.from_numpy(pt), torch.from_numpy(sl),
@@ -372,15 +375,172 @@ def test_write_kv_pages_drops_padding_and_spares_page_0():
     assert out[0] is kp and out[1] is vp            # updated in place
     np.testing.assert_array_equal(kp[1, 1].numpy(), k_new[0, 0])
     np.testing.assert_array_equal(kp[1, 2].numpy(), k_new[0, 1])
-    assert int((kp.abs().sum(-1) > 0).sum()) == 2
+    assert int((kp[:N].abs().sum(-1) > 0).sum()) == 2
     assert not kp[0].any() and not vp[0].any()
+    assert kp[N, 0].any() and not kp[N, 1:].any()   # the sink's slot 0
     np.testing.assert_array_equal(vp[1, 1].numpy(), 2 * k_new[0, 0])
     jk, jv = jpa.write_kv_pages(jnp.zeros((N, ps, HD)), jnp.zeros((N, ps, HD)),
                                 jnp.asarray(k_new), jnp.asarray(2 * k_new),
                                 jnp.asarray(pt), jnp.asarray(sl),
                                 jnp.asarray(ql))
-    np.testing.assert_array_equal(kp.numpy(), np.asarray(jk))
-    np.testing.assert_array_equal(vp.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(kp[:N].numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(vp[:N].numpy(), np.asarray(jv))
+
+
+# ---------------------------------------------------------------------------
+# int8 pages: the quantized branch of the Pallas body
+# ---------------------------------------------------------------------------
+def _int8_pages(N, ps, H, D, seed=0):
+    """int8 K/V pages and fp32 scales [N, ps, H] as the pool holds them:
+    rows quantized by the JAX package's own quantize_kv_rows from
+    values of spread magnitudes, and page 0 left as a fresh pool leaves
+    it (codes 0, scales 0)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        x = rng.randn(1, N * ps, H * D) * np.exp(rng.randn(1, N * ps, 1))
+        codes, sc = jpa.quantize_kv_rows(jnp.asarray(x, jnp.float32), H)
+        codes = np.array(codes).reshape(N, ps, H * D)
+        sc = np.array(sc).reshape(N, ps, H)
+        codes[0], sc[0] = 0, 0.0
+        out += [codes, sc]
+    return out[0], out[2], out[1], out[3]
+
+
+def _int8_case(head_dim, seed=0):
+    """Ragged rows over int8 pages: a decode row crossing into its second
+    page, a pure-prefill row, a prefill window that crosses a page
+    boundary (positions 6..9, page_size 8), a long multi-page row with
+    padding, and the engine's idle slot (seq_len 1, q_len 0, page row of
+    zeros); page tables shuffled."""
+    rng = np.random.RandomState(seed)
+    H, T, ps, P = 2, 4, 8, 4
+    B = 4
+    N = B * P + 2
+    q = rng.randn(B + 1, T, H * head_dim).astype(np.float32)
+    kp, vp, ks, vs = _int8_pages(N, ps, H, head_dim, seed)
+    pt = (rng.permutation(N - 1)[:B * P] + 1).reshape(B, P)
+    pt = np.concatenate([pt, np.zeros((1, P), np.int64)]).astype(np.int32)
+    lens = np.asarray([[9, 1], [4, 4], [10, 4], [29, 2], [1, 0]], np.int32)
+    return q, kp, vp, ks, vs, pt, lens[:, 0], lens[:, 1], H
+
+
+@pytest.mark.parametrize('head_dim', [8, 32, 128])
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_int8_paged_attention_plain_matches_jax_routes(dtype, head_dim):
+    _ndt, jdt, tdt, tol = DTYPES[dtype]
+    q, kp, vp, ks, vs, pt, sl, ql, H = _int8_case(head_dim, seed=head_dim)
+    got = _np(tpa.ragged_paged_attention_plain(
+        _t(q, tdt), *(torch.from_numpy(a) for a in (kp, vp, pt, sl, ql)),
+        num_heads=H, head_dim=head_dim, k_scales=torch.from_numpy(ks),
+        v_scales=torch.from_numpy(vs)))
+    jargs = (_j(q, jdt), *(jnp.asarray(a) for a in (kp, vp, pt, sl, ql)))
+    kw = dict(num_heads=H, head_dim=head_dim, k_scales=jnp.asarray(ks),
+              v_scales=jnp.asarray(vs))
+    # the quantized Pallas body, every row and query, padding included
+    pallas = _np(jpa.ragged_paged_attention_pallas(*jargs, interpret=True,
+                                                   **kw))
+    np.testing.assert_allclose(got, pallas, **tol)
+    dense = _np(jpa.ragged_paged_attention_dense(*jargs, **kw))
+    for b in range(q.shape[0]):
+        np.testing.assert_allclose(got[b, :ql[b]], dense[b, :ql[b]], **tol)
+    # the idle slot sees key 0 of page 0, never written: zeros
+    assert not got[4].any()
+
+
+def test_int8_paged_attention_no_visible_key_semantics():
+    # on int8 pages as on dense ones: a seq_len-0 row writes zeros, a
+    # query before every key averages the visited page's dequantized V
+    H, D, ps, N, T = 1, 4, 4, 3, 3
+    rng = np.random.RandomState(8)
+    q = rng.randn(2, T, H * D).astype(np.float32)
+    kp, vp, ks, vs = _int8_pages(N, ps, H, D, seed=8)
+    pt = np.asarray([[1, 2], [2, 1]], np.int32)
+    sl = np.asarray([0, 2], np.int32)
+    ql = np.asarray([1, 3], np.int32)
+    got = _np(tpa.ragged_paged_attention_plain(
+        *(torch.from_numpy(a) for a in (q, kp, vp, pt, sl, ql)),
+        num_heads=H, head_dim=D, k_scales=torch.from_numpy(ks),
+        v_scales=torch.from_numpy(vs)))
+    pallas = _np(jpa.ragged_paged_attention_pallas(
+        *(jnp.asarray(a) for a in (q, kp, vp, pt, sl, ql)), num_heads=H,
+        head_dim=D, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs),
+        interpret=True))
+    np.testing.assert_allclose(got, pallas, **FP32)
+    assert not got[0].any()
+    np.testing.assert_allclose(
+        got[1, 0], (vp[2].astype(np.float32) * vs[2]).mean(0), **FP32)
+
+
+def test_quantize_kv_rows_bit_equal_to_jax():
+    # spread magnitudes, an all-zero row (scale 1e-30/127, codes 0),
+    # values on the +-127 clip edge and exact half-code ties (x / scale
+    # = n + 0.5 rounds half to even on both sides)
+    rng = np.random.RandomState(9)
+    H, D = 4, 32
+    x = (rng.randn(3, 6, H * D) * np.exp(2 * rng.randn(3, 6, 1)))
+    x = x.astype(np.float32)
+    x[0, 0] = 0.0
+    x[1, 1, :D] = np.linspace(-127, 127, D) / 127 * 3.0
+    x[2, 2, :D] = (np.arange(D) - 16 + 0.5) * 2.0
+    x[2, 2, 0] = 127 * 2.0        # amax: scale 2.0, so k + 0.5 are ties
+    codes, sc = tpa.quantize_kv_rows(torch.from_numpy(x), H)
+    jcodes, jsc = jpa.quantize_kv_rows(jnp.asarray(x), H)
+    off = int((codes.numpy().astype(np.int32)
+               != np.asarray(jcodes).astype(np.int32)).sum())
+    assert off == 0, f'{off} codes differ from the JAX function'
+    assert codes.dtype == torch.int8 and sc.dtype == torch.float32
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
+    assert codes.abs().max() == 127
+
+
+def test_write_kv_pages_quantized_matches_jax_scatter():
+    # tests/test_serving.py:844 on the port: row 0 writes positions 5, 6
+    # (page_table[1] slots 1, 2), row 1 is idle and the JAX scatter drops
+    # it; here its writes land in the sink page (index N) and every
+    # mapped slot is the JAX scatter's
+    ps, H, D, N = 4, 2, 3, 5
+    HD = H * D
+    k_new = np.arange(2 * 3 * HD, dtype=np.float32).reshape(2, 3, HD) + 1.0
+    pt = np.asarray([[3, 1, 0, 0], [0, 0, 0, 0]], np.int32)
+    sl = np.asarray([7, 1], np.int32)
+    ql = np.asarray([2, 0], np.int32)
+    kp = torch.zeros(N + 1, ps, HD, dtype=torch.int8)
+    vp = torch.zeros(N + 1, ps, HD, dtype=torch.int8)
+    ks = torch.zeros(N + 1, ps, H)
+    vs = torch.zeros(N + 1, ps, H)
+    meta = [torch.from_numpy(a) for a in (pt, sl, ql)]
+    out = tpa.write_kv_pages_quantized(
+        kp, vp, ks, vs, torch.from_numpy(k_new), torch.from_numpy(2 * k_new),
+        *meta, num_heads=H)
+    assert all(a is b for a, b in zip(out, (kp, vp, ks, vs)))   # in place
+    want = jpa.write_kv_pages_quantized(
+        jnp.zeros((N, ps, HD), jnp.int8), jnp.zeros((N, ps, HD), jnp.int8),
+        jnp.zeros((N, ps, H)), jnp.zeros((N, ps, H)), jnp.asarray(k_new),
+        jnp.asarray(2 * k_new), *(jnp.asarray(a) for a in (pt, sl, ql)),
+        num_heads=H)
+    for got, w in zip((kp, vp, ks, vs), want):
+        np.testing.assert_array_equal(got[:N].numpy(), np.asarray(w))
+    assert int((kp[:N].abs().sum(-1) > 0).sum()) == 2
+    assert int((ks[:N] > 0).sum()) == 2 * H
+    assert not kp[0].any() and not ks[0].any()
+    assert kp[N].any() and ks[N].any()
+
+
+def test_kv_write_index_sends_padding_to_sink_page():
+    # every row of the flattened new K/V gets a slot (no filtering, so
+    # no host sync): a valid token its JAX flat slot, padding the first
+    # slot of the sink page, the last of the N + 1 pages
+    _q, _kp, _vp, pt, sl, ql, _H, _D = _mixed_case_with_idle_row(seed=2)
+    T, N, ps = 4, 15, 8
+    meta = [torch.from_numpy(a) for a in (pt, sl, ql)]
+    dst = tpa.kv_write_index(*meta, T, N + 1, ps)
+    ref = np.asarray(jpa._flat_slots(*(jnp.asarray(a) for a in (pt, sl, ql)),
+                                     T, N, ps))
+    assert dst.shape == (pt.shape[0] * T,)
+    pad = ref == N * ps                     # the JAX scatter's dropped rows
+    assert pad.any() and not pad.all()
+    np.testing.assert_array_equal(dst.numpy(), ref)   # sink = N * ps
 
 
 # ---------------------------------------------------------------------------
@@ -400,9 +560,19 @@ def test_cpu_tensors_take_plain_route_and_count_no_launch():
     assert torch.equal(
         tpa.ragged_paged_attention(*args, num_heads=H, head_dim=D),
         tpa.ragged_paged_attention_plain(*args, num_heads=H, head_dim=D))
+    kq, vq, ks, vs = (torch.from_numpy(a) for a in _int8_pages(
+        kp.shape[0], kp.shape[1], H, D, seed=1))
+    int8_args = (args[0], kq, vq) + args[3:]
+    assert torch.equal(
+        tpa.ragged_paged_attention(*int8_args, num_heads=H, head_dim=D,
+                                   k_scales=ks, v_scales=vs),
+        tpa.ragged_paged_attention_plain(*int8_args, num_heads=H,
+                                         head_dim=D, k_scales=ks,
+                                         v_scales=vs))
     snap = _build.routes_snapshot()
     assert set(snap) == {'layer_norm', 'layer_norm_bwd', 'bias_gelu',
-                         'bias_gelu_bwd', 'paged_attention', 'flash_fwd',
+                         'bias_gelu_bwd', 'paged_attention',
+                         'paged_attention_int8', 'flash_fwd',
                          'flash_bwd_dq', 'flash_bwd_dkv', 'flash_bhld_fwd',
                          'flash_bhld_bwd_dq', 'flash_bhld_bwd_dkv',
                          'dropout_add', 'dropout_add_bwd', 'grad_stats',
