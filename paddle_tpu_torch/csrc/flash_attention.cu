@@ -16,37 +16,70 @@
 // `flash_attention` :852 and `mha_flash_attention` :933).
 //
 // What bounds them on this card: operations. At GPT's shapes (L = 2048,
-// D = 128) the forward does 4 L^2 D / 2 multiply-adds per head under the
-// causal mask and reads only 3 L D elements (and L^2 / 2 mask bytes):
-// hundreds of operations per byte. These first kernels run the products on
-// the CUDA cores in fp32 FMAs (67 TFLOP/s peak), not on the tensor cores
-// (989 TFLOP/s bf16), so they sit far above their bound; wgmma and TMA come
-// in a later change.
+// D = 128) each pass does two to four products of L^2 D / 2 multiply-adds
+// per head under the causal mask and reads only a few L D elements (and
+// L^2 / 2 mask bytes): hundreds of operations per byte, so the tensor
+// cores' rate (989 TFLOP/s bf16) is the bound.
 //
-// Design: one CTA of 256 threads per (64-query block, head, batch row) for
-// the forward and dQ, per (64-key block, head, batch row) for dK/dV. A grid of
-// independent heads replaces the packed Pallas body's unrolled head loop
-// (:294) and the BHLD body's (batch*head) grid axis; a loop inside the CTA
-// over 64-row tiles of the other operand replaces the `fori_loop` over key
-// (or query) blocks and stops at the diagonal when causal (:290-292, :404;
-// :97-99, :212). Packed against BHLD is only where a head's rows start and
-// how far apart they lie (`Geom`); the bodies are shared, each layout has its
-// own __global__ entry (so a profile tells them apart). Tiles are staged in
-// shared memory as fp32, transposed and padded to a row of 65 floats
-// ([d][row]), so both the row-wise and the column-wise reads of every product
-// are free of bank conflicts. A thread owns 4 rows x 4 columns of each 64 x 64
-// score tile (rows ty + 16 i, columns tx + 16 j) and 4 rows x D/16 columns of
-// each 64 x D accumulator; the running max, sum and accumulators stay in fp32
-// registers. A ragged L is masked here, where JAX shrinks its blocks to divide
-// L instead (scaffold.fit_block): keys past L get probability 0, rows past L
-// are never written.
+// The bf16 backward (dQ and dK/dV; the `tc` namespace below) runs its
+// products on the tensor cores with mma.sync.m16n8k16 (bf16 operands, fp32
+// sums). One CTA of 4 warps per (64-row block of its output, head, batch
+// row); warp w owns rows 16w..16w+15, the M dimension of every product it
+// issues:
+//   dQ:    S = Q K^T, dP = dO V^T, then dQ += dS K;
+//   dK/dV: S^T = K Q^T, dP^T = V dO^T, then dV += (P keep)^T dO and
+//          dK += dS^T Q.
+// The first two products of a tile leave S and dP in accumulator fragments
+// (fp32, 16 x 64 a warp); P, the keep factor and dS are formed there,
+// rounded to bf16 and repacked in registers as the A operand of the next
+// products (the C fragments of two neighbouring n8 tiles are the A fragment
+// of one k16 tile), so no score tile goes through shared memory. Every other
+// operand comes from bf16 tiles in shared memory through ldmatrix (.trans
+// where a product sums over the tile's rows), each row padded by 16 bytes so
+// the eight rows of an 8 x 8 matrix fall in distinct banks. The streamed
+// operand (K and V in dQ; Q, dO, lse and delta in dK/dV) and the keep mask's
+// 64 x 64 bytes are double-buffered and loaded with cp.async (16 bytes a
+// thread, zero-filled past L), so the next tile loads while this one is
+// multiplied. Shared memory at D = 128: 104,448 B of tiles (+1,024 of lse
+// and delta in dK/dV, +8,192 with a mask), so two CTAs fit on an SM, as
+// do their registers (at most 255 a thread at 128 threads), which hold
+// dK/dV's two 16 x 128 fp32 accumulators and the S and dP fragments. The
+// keep bytes a thread needs in a tile are read into one 32-bit mask before
+// the products, so they hold one register while S and dP are live.
+//
+// The forward (rows 8 and 11) and the fp32 backward run on the CUDA-core
+// bodies (fp32 FMAs, 67 TFLOP/s peak). The fp32 backward stays there on
+// purpose: the tensor cores take fp32 only as TF32 (10 mantissa bits), which
+// would not hold the fp32 bars (1e-3 elementwise, 1e-3 relative L2 on the
+// whole training path); the forward moves to the tensor cores next.
+//
+// CUDA-core design: one CTA of 256 threads per (64-query block, head, batch
+// row) for the forward and dQ, per (64-key block, head, batch row) for dK/dV.
+// A grid of independent heads replaces the packed Pallas body's unrolled head
+// loop (:294) and the BHLD body's (batch*head) grid axis; a loop inside the
+// CTA over 64-row tiles of the other operand replaces the `fori_loop` over
+// key (or query) blocks and stops at the diagonal when causal (:290-292,
+// :404; :97-99, :212); the tensor-core bodies share that grid. Packed against
+// BHLD is only where a head's rows start and how far apart they lie
+// (`Geom`); the bodies are shared, each layout has its own __global__ entry
+// (so a profile tells them apart). Tiles are staged in shared memory as fp32,
+// transposed and padded to a row of 65 floats ([d][row]), so both the
+// row-wise and the column-wise reads of every product are free of bank
+// conflicts. A thread owns 4 rows x 4 columns of each 64 x 64 score tile
+// (rows ty + 16 i, columns tx + 16 j) and 4 rows x D/16 columns of each
+// 64 x D accumulator; the running max, sum and accumulators stay in fp32
+// registers. A ragged L is masked here, where JAX shrinks its blocks to
+// divide L instead (scaffold.fit_block): keys past L get probability 0, rows
+// past L are never written.
 //
 // The keep mask ([B*H, L, L], nonzero = kept, the caller's draw): the forward
 // reads it straight from device memory (16 lanes of a half-warp read 16
 // neighbouring bytes of one query row); dQ and dK/dV first stage each 64 x 64
-// tile in shared memory as keep factors, neighbouring threads on neighbouring
-// bytes, beside the tiles of K and V (dQ) or Q and dO (dK/dV), so no byte
-// load waits inside the score loop.
+// tile in shared memory beside the tiles of K and V (dQ) or Q and dO (dK/dV),
+// so no byte load waits inside the score loop: the CUDA-core bodies as fp32
+// keep factors, the tensor-core bodies as the bytes themselves (16-byte
+// chunks XOR-swizzled by row, so both passes read them without bank
+// conflicts), expanded to inv_keep or 0 in the fragment's own positions.
 //
 // Numerics, as in the Pallas bodies:
 //   forward: q is upcast and multiplied by the scale BEFORE the dot (:295,
@@ -62,7 +95,14 @@
 //     the bodies do per block. delta = rowsum(dO O) per head (which already
 //     carries the dropped probabilities) is computed outside the kernels, as
 //     in JAX (:560-561, :631-632).
+//   bf16 backward on the tensor cores: S and dP are exact products of the
+//     bf16 inputs summed in fp32; P keep and dS are rounded to bf16 before
+//     the products that consume them (the only rounding the CUDA-core bodies
+//     do not do; chip_smoke.py holds it at `flash_bf16_tc`), and the scale
+//     multiplies dQ and dK once, after the last tile (the same value up to
+//     fp32 rounding).
 #include <math.h>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -546,22 +586,537 @@ __device__ __forceinline__ void flash_dkv_body(PTT_FLASH_PARAMS) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores (see the note at the top)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kThreads = 128;        // 4 warps, 16 output rows each
+constexpr int kMaskRow = kBlock;     // a staged keep-mask row: 64 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+// a bf16 tile row in shared memory: D elements and 16 bytes of pad
+template <int D>
+__host__ __device__ constexpr int row_of() { return D + 8; }
+template <int D>
+__host__ __device__ constexpr int tile_of() { return kBlock * row_of<D>(); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared without the registers; zero-filled (no global read)
+// when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), c 16 x 8 fp32
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to nearest-even bf16, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The fp32 accumulator fragments of a 16 x 64 tile (n8 tiles 0..7) as the
+// bf16 A fragments of its four k16 tiles.
+__device__ __forceinline__ void to_a_frags(const float (&c)[8][4],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// Rows [row0, row0 + 64) of one head into dst[r * (D + 8) + d], 16 bytes a
+// cp.async; rows past L are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst,
+                                          const bf16* __restrict__ src,
+                                          long long base, int row0, int L,
+                                          int row_stride) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < L;
+    const bf16* g =
+        src + base +
+        static_cast<long long>(valid ? row0 + r : 0) * row_stride + c * 8;
+    cp_async16(dst + r * row_of<D>() + c * 8, g, valid);
+  }
+}
+
+// Where byte (query r, key c) of a staged 64 x 64 keep tile lies: 64-byte
+// rows whose 16-byte chunks are XOR-swizzled by (r / 2) % 4, so the dQ
+// body's reads (8 rows, one chunk) and the dK/dV body's (4 rows of one
+// parity, one chunk) fall in distinct banks.
+__device__ __forceinline__ int keep_at(int r, int c) {
+  return r * kMaskRow + ((((c >> 4) ^ (r >> 1)) & 3) << 4) + (c & 15);
+}
+
+// The keep bytes of queries [q0, q0 + 64) x keys [k0, k0 + 64); bytes past
+// L are 0. 16 bytes a cp.async where every mask row starts 16-byte aligned
+// (`vec`: L % 16 == 0 and an aligned mask), else one byte load each.
+__device__ __forceinline__ void load_keep(
+    unsigned char* dst, const unsigned char* __restrict__ mask,
+    long long mrow0, int q0, int k0, int L, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < kBlock * 4; i += kThreads) {
+      const int r = i >> 2, c = (i & 3) << 4;
+      const bool valid = q0 + r < L && k0 + c < L;
+      const long long off =
+          valid ? static_cast<long long>(q0 + r) * L + k0 + c : 0;
+      cp_async16(dst + keep_at(r, c), mask + mrow0 + off, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBlock * kBlock; i += kThreads) {
+      const int r = i >> 6, c = i & (kBlock - 1);
+      const bool valid = q0 + r < L && k0 + c < L;
+      dst[keep_at(r, c)] =
+          valid ? mask[mrow0 + static_cast<long long>(q0 + r) * L + k0 + c]
+                : 0;
+    }
+  }
+}
+
+// The keep bytes of this thread's 32 fragment positions of a staged tile
+// as bits: bit 4 j + e for element e of n8 tile j, whose (row, column) in
+// the fragment is (r_local + 8 (e / 2), 8 j + 2 t + e % 2). `kTransposed`:
+// the tile's rows are the fragment's columns (dK/dV: fragments are
+// [key][query], the tile [query][key]).
+template <bool kTransposed>
+__device__ __forceinline__ uint32_t keep_bits(const unsigned char* tile,
+                                              int r_local, int t) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r_local + 8 * (e >> 1), c = j * 8 + 2 * t + (e & 1);
+      const int at = kTransposed ? keep_at(c, r) : keep_at(r, c);
+      bits |= static_cast<uint32_t>(tile[at] != 0) << (4 * j + e);
+    }
+  return bits;
+}
+
+__device__ __forceinline__ bool vec_mask(const unsigned char* mask, int L) {
+  return L % 16 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15u) == 0;
+}
+
+template <int D, bool kMask>
+constexpr size_t dq_smem() {
+  return 6 * tile_of<D>() * sizeof(bf16) +
+         (kMask ? 2 * kBlock * kMaskRow : 0);
+}
+template <int D, bool kMask>
+constexpr size_t dkv_smem() {
+  return 6 * tile_of<D>() * sizeof(bf16) + 4 * kBlock * sizeof(float) +
+         (kMask ? 2 * kBlock * kMaskRow : 0);
+}
+
+// dQ for one (64-query block, head, batch row): streams K/V tiles.
+template <typename T, int D, bool kBHLD, bool kMask>
+__device__ __forceinline__ void flash_dq_tc(PTT_FLASH_PARAMS) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core body is bf16");
+  constexpr int kRow = row_of<D>(), kTile = tile_of<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [64][kRow]
+  bf16* dos = qs + kTile;                        // [64][kRow]
+  bf16* ks = dos + kTile;                        // [2][64][kRow]
+  bf16* vs = ks + 2 * kTile;                     // [2][64][kRow]
+  unsigned char* keep_s =
+      reinterpret_cast<unsigned char*>(vs + 2 * kTile);  // [2][64][64]
+  // heaviest causal blocks (the last queries) start first
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qb * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const Geom gm = geom<kBHLD, D>(b, h, L, H);
+  const float* bias_row =
+      bias != nullptr ? bias + static_cast<long long>(b) * L : nullptr;
+  const bool vec = kMask && vec_mask(mask, L);
+  const int n_tiles = causal ? qb + 1 : (L + kBlock - 1) / kBlock;
+
+  auto load_kv = [&](int kt, int buf) {
+    load_tile<D>(ks + buf * kTile, k, gm.base, kt * kBlock, L,
+                 gm.row_stride);
+    load_tile<D>(vs + buf * kTile, v, gm.base, kt * kBlock, L,
+                 gm.row_stride);
+    if constexpr (kMask)
+      load_keep(keep_s + buf * kBlock * kMaskRow, mask, gm.mask, q0,
+                kt * kBlock, L, vec);
+  };
+  load_tile<D>(qs, q, gm.base, q0, L, gm.row_stride);
+  load_tile<D>(dos, dout, gm.base, q0, L, gm.row_stride);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this thread's rows of the block: r_local and r_local + 8
+  const int r_local = warp * 16 + (lane >> 2);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = q0 + r_local + 8 * hi;
+    const long long st =
+        gm.stat + static_cast<long long>(row) * gm.stat_stride;
+    lse_r[hi] = row < L ? lse_in[st] : 0.f;
+    delta_r[hi] = row < L ? delta[st] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // each lane's ldmatrix row address within a tile: A fragments (16 rows
+  // x 16), B fragments of two n8 tiles (rows = n), and the same transposed
+  // (rows = k)
+  const int a_off = (warp * 16 + (lane & 15)) * kRow + ((lane >> 4) << 3);
+  const int b_off =
+      ((lane & 7) + ((lane >> 4) << 3)) * kRow + (((lane >> 3) & 1) << 3);
+  const int bt_off =
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * kRow + ((lane >> 4) << 3);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_tiles) {
+      load_kv(kt + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kst = ks + buf * kTile;
+    const bf16* vst = vs + buf * kTile;
+    uint32_t keep = 0;
+    if constexpr (kMask)
+      keep = keep_bits<false>(keep_s + buf * kBlock * kMaskRow, r_local, t);
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, qs + a_off + kk * 16);
+      ldsm_x4(ado, dos + a_off + kk * 16);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, kst + b_off + jn * 16 * kRow + kk * 16);
+        ldsm_x4(bv, vst + b_off + jn * 16 * kRow + kk * 16);
+        mma(s[2 * jn], aq, bk[0], bk[1]);
+        mma(s[2 * jn + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * jn], ado, bv[0], bv[1]);
+        mma(dp[2 * jn + 1], ado, bv[2], bv[3]);
+      }
+    }
+    // P and dS in the fragments' own positions: element e of n8 tile j is
+    // (query r_local + 8 (e / 2), key 8 j + 2 t + e % 2) of the tile
+    const int k0 = kt * kBlock;
+    const bool edge = (causal && kt == qb) || k0 + kBlock > L;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int col = k0 + c;
+        float x = s[j][e] * scale;
+        if (bias_row != nullptr) x += col < L ? bias_row[col] : 0.f;
+        if (edge) {
+          if (col >= L) x = -INFINITY;     // ragged edge: probability 0
+          else if (causal && q0 + r_local + 8 * hi < col) x = kNegInf;
+        }
+        const float p = exp2f((x - lse_r[hi]) * kLog2e);
+        float dpk = dp[j][e];
+        if constexpr (kMask)
+          dpk *= (keep >> (4 * j + e)) & 1u ? inv_keep : 0.f;
+        s[j][e] = p * (dpk - delta_r[hi]);   // dS
+      }
+    }
+    uint32_t ads[4][4];
+    to_a_frags(s, ads);
+    // dQ += dS K: the product sums over K's rows, so its B fragments come
+    // transposed
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, kst + bt_off + kk * 16 * kRow + nd * 16);
+        mma(acc[2 * nd], ads[kk], bk[0], bk[1]);
+        mma(acc[2 * nd + 1], ads[kk], bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile kt + 2
+  }
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = q0 + r_local + 8 * hi;
+    if (row >= L) continue;
+    bf16* out = dq + gm.base + static_cast<long long>(row) * gm.row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t) =
+          pack_bf16(scale * acc[n][2 * hi], scale * acc[n][2 * hi + 1]);
+  }
+}
+
+// dK and dV for one (64-key block, head, batch row): streams Q/dO tiles.
+template <typename T, int D, bool kBHLD, bool kMask>
+__device__ __forceinline__ void flash_dkv_tc(PTT_FLASH_PARAMS) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core body is bf16");
+  constexpr int kRow = row_of<D>(), kTile = tile_of<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // [64][kRow]
+  bf16* vs = ks + kTile;                         // [64][kRow]
+  bf16* qs = vs + kTile;                         // [2][64][kRow]
+  bf16* dos = qs + 2 * kTile;                    // [2][64][kRow]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTile);  // [2][64]
+  float* delta_s = lse_s + 2 * kBlock;                       // [2][64]
+  unsigned char* keep_s =
+      reinterpret_cast<unsigned char*>(delta_s + 2 * kBlock);  // [2][64][64]
+  // blockIdx.x = 0 (the first keys) meets the most causal queries
+  const int kb = blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kb * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const Geom gm = geom<kBHLD, D>(b, h, L, H);
+  const bool vec = kMask && vec_mask(mask, L);
+  const int first = causal ? kb : 0;
+  const int n_q = (L + kBlock - 1) / kBlock;
+
+  auto load_q = [&](int qt, int buf) {
+    const int q0 = qt * kBlock;
+    load_tile<D>(qs + buf * kTile, q, gm.base, q0, L, gm.row_stride);
+    load_tile<D>(dos + buf * kTile, dout, gm.base, q0, L, gm.row_stride);
+    // threads 0-63 stage lse, 64-127 delta
+    const int r = threadIdx.x & (kBlock - 1);
+    const bool valid = q0 + r < L;
+    const long long st =
+        gm.stat + static_cast<long long>(valid ? q0 + r : 0) * gm.stat_stride;
+    if (threadIdx.x < kBlock)
+      cp_async4(lse_s + buf * kBlock + r, lse_in + st, valid);
+    else
+      cp_async4(delta_s + buf * kBlock + r, delta + st, valid);
+    if constexpr (kMask)
+      load_keep(keep_s + buf * kBlock * kMaskRow, mask, gm.mask, q0, k0, L,
+                vec);
+  };
+  load_tile<D>(ks, k, gm.base, k0, L, gm.row_stride);
+  load_tile<D>(vs, v, gm.base, k0, L, gm.row_stride);
+  load_q(first, 0);
+  cp_async_commit();
+
+  // this thread's keys of the block: r_local and r_local + 8
+  const int r_local = warp * 16 + (lane >> 2);
+  float bias_k[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int key = k0 + r_local + 8 * hi;
+    bias_k[hi] = bias != nullptr && key < L
+                     ? bias[static_cast<long long>(b) * L + key]
+                     : 0.f;
+  }
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int a_off = (warp * 16 + (lane & 15)) * kRow + ((lane >> 4) << 3);
+  const int b_off =
+      ((lane & 7) + ((lane >> 4) << 3)) * kRow + (((lane >> 3) & 1) << 3);
+  const int bt_off =
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * kRow + ((lane >> 4) << 3);
+
+  for (int qt = first; qt < n_q; ++qt) {
+    const int buf = (qt - first) & 1;
+    if (qt + 1 < n_q) {
+      load_q(qt + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qst = qs + buf * kTile;
+    const bf16* dost = dos + buf * kTile;
+    uint32_t keep = 0;
+    if constexpr (kMask)
+      keep = keep_bits<true>(keep_s + buf * kBlock * kMaskRow, r_local, t);
+    float s[8][4], dp[8][4];  // S^T and dP^T: [key][query]
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, ks + a_off + kk * 16);
+      ldsm_x4(av, vs + a_off + kk * 16);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        uint32_t bq[4], bd[4];
+        ldsm_x4(bq, qst + b_off + jn * 16 * kRow + kk * 16);
+        ldsm_x4(bd, dost + b_off + jn * 16 * kRow + kk * 16);
+        mma(s[2 * jn], ak, bq[0], bq[1]);
+        mma(s[2 * jn + 1], ak, bq[2], bq[3]);
+        mma(dp[2 * jn], av, bd[0], bd[1]);
+        mma(dp[2 * jn + 1], av, bd[2], bd[3]);
+      }
+    }
+    // element e of n8 tile j is (key r_local + 8 (e / 2), query
+    // 8 j + 2 t + e % 2) of the tile
+    const int q0 = qt * kBlock;
+    const bool edge =
+        (causal && qt == kb) || q0 + kBlock > L || k0 + kBlock > L;
+    const float* lse_t = lse_s + buf * kBlock;
+    const float* delta_t = delta_s + buf * kBlock;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lse2 =
+          *reinterpret_cast<const float2*>(lse_t + j * 8 + 2 * t);
+      const float2 delta2 =
+          *reinterpret_cast<const float2*>(delta_t + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int key = k0 + r_local + 8 * hi;
+        float x = s[j][e] * scale + bias_k[hi];
+        if (edge) {
+          if (key >= L || q0 + c >= L) x = -INFINITY;
+          else if (causal && q0 + c < key) x = kNegInf;
+        }
+        const float p = exp2f((x - ((e & 1) ? lse2.y : lse2.x)) * kLog2e);
+        const float dl = (e & 1) ? delta2.y : delta2.x;
+        if constexpr (kMask) {
+          const float kf = (keep >> (4 * j + e)) & 1u ? inv_keep : 0.f;
+          s[j][e] = p * kf;                      // P keep
+          dp[j][e] = p * (dp[j][e] * kf - dl);   // dS
+        } else {
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl);
+        }
+      }
+    }
+    uint32_t ap[4][4], ads[4][4];
+    to_a_frags(s, ap);
+    to_a_frags(dp, ads);
+    // dV += (P keep)^T dO and dK += dS^T Q sum over the tile's queries
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bd[4], bq[4];
+        ldsm_x4_t(bd, dost + bt_off + kk * 16 * kRow + nd * 16);
+        ldsm_x4_t(bq, qst + bt_off + kk * 16 * kRow + nd * 16);
+        mma(dva[2 * nd], ap[kk], bd[0], bd[1]);
+        mma(dva[2 * nd + 1], ap[kk], bd[2], bd[3]);
+        mma(dka[2 * nd], ads[kk], bq[0], bq[1]);
+        mma(dka[2 * nd + 1], ads[kk], bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile qt + 2
+  }
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int key = k0 + r_local + 8 * hi;
+    if (key >= L) continue;
+    const long long off =
+        gm.base + static_cast<long long>(key) * gm.row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t) =
+          pack_bf16(scale * dka[n][2 * hi], scale * dka[n][2 * hi + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t) =
+          pack_bf16(dva[n][2 * hi], dva[n][2 * hi + 1]);
+    }
+  }
+}
+
+}  // namespace tc
+
 // The __global__ entries: the packed layout's (rows 8-10 of PERF.md's kernel
-// table) and the BHLD layout's (rows 11-13), one name each.
+// table) and the BHLD layout's (rows 11-13), one name each. The backward
+// entries run the tensor-core bodies for bf16 and the CUDA-core bodies for
+// fp32 (on purpose: see the note at the top), each at its own block size.
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+template <typename T>
+constexpr int kBwdThreads = kTensorCores<T> ? tc::kThreads : kThreads;
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(PTT_FLASH_PARAMS) {
   flash_fwd_body<T, D, false, false>(PTT_FLASH_ARGS);
 }
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads<T>)
     flash_bwd_dq_kernel(PTT_FLASH_PARAMS) {
-  flash_dq_body<T, D, false, false>(PTT_FLASH_ARGS);
+  if constexpr (kTensorCores<T>)
+    tc::flash_dq_tc<T, D, false, false>(PTT_FLASH_ARGS);
+  else
+    flash_dq_body<T, D, false, false>(PTT_FLASH_ARGS);
 }
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads<T>)
     flash_bwd_dkv_kernel(PTT_FLASH_PARAMS) {
-  flash_dkv_body<T, D, false, false>(PTT_FLASH_ARGS);
+  if constexpr (kTensorCores<T>)
+    tc::flash_dkv_tc<T, D, false, false>(PTT_FLASH_ARGS);
+  else
+    flash_dkv_body<T, D, false, false>(PTT_FLASH_ARGS);
 }
 template <typename T, int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
@@ -569,14 +1124,20 @@ __global__ void __launch_bounds__(kThreads)
   flash_fwd_body<T, D, true, kMask>(PTT_FLASH_ARGS);
 }
 template <typename T, int D, bool kMask>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads<T>)
     flash_bhld_bwd_dq_kernel(PTT_FLASH_PARAMS) {
-  flash_dq_body<T, D, true, kMask>(PTT_FLASH_ARGS);
+  if constexpr (kTensorCores<T>)
+    tc::flash_dq_tc<T, D, true, kMask>(PTT_FLASH_ARGS);
+  else
+    flash_dq_body<T, D, true, kMask>(PTT_FLASH_ARGS);
 }
 template <typename T, int D, bool kMask>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads<T>)
     flash_bhld_bwd_dkv_kernel(PTT_FLASH_PARAMS) {
-  flash_dkv_body<T, D, true, kMask>(PTT_FLASH_ARGS);
+  if constexpr (kTensorCores<T>)
+    tc::flash_dkv_tc<T, D, true, kMask>(PTT_FLASH_ARGS);
+  else
+    flash_dkv_body<T, D, true, kMask>(PTT_FLASH_ARGS);
 }
 
 enum Pass : int { kFwd = 0, kDQ = 1, kDKV = 2 };
@@ -618,11 +1179,25 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
 template <int kPass, typename T, int D, bool kBHLD, bool kMask>
 int launch(const FlashArgs& a) {
   const auto kernel = kernel_of<kPass, T, D, kBHLD, kMask>();
-  constexpr size_t smem = smem_of<kPass, D, kMask>();
+  constexpr bool kTC = kPass != kFwd && kTensorCores<T>;
+  constexpr size_t smem =
+      !kTC ? smem_of<kPass, D, kMask>()
+           : (kPass == kDQ ? tc::dq_smem<D, kMask>()
+                           : tc::dkv_smem<D, kMask>());
+  if constexpr (kTC) {
+    // cp.async moves 16 bytes a thread: every row must start aligned
+    for (const void* p : {a.q, a.k, a.v, a.dout})
+      if (!ptt::aligned16(p))
+        return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   cudaError_t err = allow_smem(kernel, smem);
+  if (kTC && err == cudaSuccess)  // room for two CTAs an SM
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.L + kBlock - 1) / kBlock, a.H, a.B);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<grid, kTC ? tc::kThreads : kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.bias,
       a.mask, a.lse_in, a.delta, static_cast<T*>(a.o), static_cast<T*>(a.dq),

@@ -28,7 +28,10 @@ dropout, its keep mask drawn from the bound generator
 (`core.rng.keep_mask`) where the reference draws it.
 
 Every entry dispatches by device: CUDA tensors launch the hand-written
-kernels in `csrc/flash_attention.cu`, CPU tensors run the plain versions
+kernels in `csrc/flash_attention.cu` (bf16 dQ and dK/dV on the tensor
+cores, which round P keep and dS to bf16 before the products that
+consume them; the forward and every fp32 pass on the CUDA cores), CPU
+tensors run the plain versions
 (`flash_attention_packed_plain`/`_bwd_plain`, `flash_forward_plain`/
 `flash_backward_plain`), which materialise the scores and compute the
 same function in one step (the online softmax's exact-arithmetic
@@ -198,6 +201,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned16(t):
+    """t, or a copy of it at a 16-byte aligned address: the bf16 backward
+    kernels load their rows 16 bytes a thread (a view that starts inside
+    its storage may not be aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fwd_kernel(q, k, v, bias, num_heads, head_dim, causal):
     code = _check(q, k, v, bias, num_heads, head_dim, FWD_KERNEL)
     B, L, _ = q.shape
@@ -245,7 +255,7 @@ def _bwd_kernels(q, k, v, o, lse, do, num_heads, head_dim, bias, causal):
     args = _bwd_args(q, k, v, do, num_heads, head_dim, bias, causal)
     if q.shape[0] * q.shape[1] == 0:
         return tuple(torch.empty_like(t) for t in (q, k, v))
-    do = do.contiguous()
+    q, k, v, do = (_aligned16(t.contiguous()) for t in (q, k, v, do))
     delta = attention_delta(o, do, num_heads, head_dim).contiguous()
     dq = _dq_kernel(q, k, v, bias, do, lse, delta, args)
     return (dq,) + _dkv_kernel(q, k, v, bias, do, lse, delta, args)
@@ -393,7 +403,7 @@ def _bhld_bwd_kernels(q, k, v, o, lse, do, bias, mask, num_heads, causal,
                           dropout)
     if q.shape[0] * q.shape[1] == 0:
         return tuple(torch.empty_like(t) for t in (q, k, v))
-    do = do.contiguous()
+    q, k, v, do = (_aligned16(t.contiguous()) for t in (q, k, v, do))
     delta = bhld_delta(o, do)
     dq = _bhld_dq_kernel(q, k, v, bias, mask, do, lse, delta, args)
     return (dq,) + _bhld_dkv_kernel(q, k, v, bias, mask, do, lse, delta,

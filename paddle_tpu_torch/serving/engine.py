@@ -64,10 +64,12 @@ on the same weights.
 The engine runs on `device`: the card unless the caller passes
 device='cpu'; without a card and without device='cpu' it raises.
 
-Not ported yet — a knob for one of these raises NotImplementedError:
-tenancy and the degradation ladder, disaggregation, the host-RAM tier,
-request tracing and the stalled-request watchdog. Also not ported:
-metrics publication and the serving ledger.
+Not ported yet: tenancy and the degradation ladder, disaggregation, the
+host-RAM tier, request tracing and the stalled-request watchdog. Their
+knobs are accepted at the reference's defaults (trace only as False), so
+a config written for the reference builds; a value that would turn one
+on or tune it raises NotImplementedError. Also not ported: metrics
+publication and the serving ledger.
 """
 import contextlib
 import math
@@ -82,12 +84,32 @@ from ..quantization import dequantize_weight, quantize_to_int8
 from .kv_pool import KVPagePool, PoolExhausted
 from .scheduler import Request, RequestState, Scheduler
 
-# JAX ServingConfig knobs the port does not serve, with the value
-# meaning "off"; any other value raises NotImplementedError
+# Every JAX ServingConfig knob the port does not serve
+# (paddle_tpu/serving/engine.py:181-191), with the values it accepts: the
+# reference's default, or the value that turns the feature off. Any other
+# value would turn on (or tune) an unported feature and raises
+# NotImplementedError. `trace` is the exception to "accepts the
+# default": the reference journals requests by default (trace=True), the
+# port has no journal yet, so only trace=False is accepted.
 _UNSERVED = {
-    'tenants': None, 'degrade': (None, False), 'disaggregate': False,
-    'host_tier_pages': 0, 'trace': False, 'request_deadline_s': None,
+    'trace': (False,), 'trace_events_per_request': (512,),
+    'trace_requests': (512,), 'timeline_capacity': (2048,),
+    'request_deadline_s': (None,), 'deadline_action': ('report',),
+    'report_dir': (None,), 'clock': (None,), 'disaggregate': (False,),
+    'prefill_slots': (2,), 'stream_chunk_pages': (0,), 'tenants': (None,),
+    'degrade': (None, False), 'degrade_window': (8,),
+    'degrade_up': ((0.85, 0.92, 0.97),),
+    'degrade_down': ((0.60, 0.70, 0.80),), 'degrade_hold': (4,),
+    'host_tier_pages': (0,), 'spill_watermark': (0.92,),
+    'spill_chunk_pages': (0,), 'spill_window': (2,),
 }
+
+
+def _equal(value, ok):
+    try:
+        return value is ok or bool(value == ok)
+    except (TypeError, ValueError):     # e.g. an array of several values
+        return False
 
 
 def _host_fetch(x):
@@ -127,8 +149,7 @@ class ServingConfig:
         for knob, value in unserved.items():
             if knob not in _UNSERVED:
                 raise TypeError(f'ServingConfig: unknown knob {knob!r}')
-            off = _UNSERVED[knob]
-            if value not in (off if isinstance(off, tuple) else (off,)):
+            if not any(_equal(value, ok) for ok in _UNSERVED[knob]):
                 raise NotImplementedError(
                     f'ServingConfig({knob}={value!r}) is not ported yet')
         if page_size <= 0 or max_batch_size <= 0 or prefill_chunk <= 0:

@@ -24,6 +24,10 @@ its nonfinite count exact; dropout+residual bit-equal. The update's
 Adagrad, RMSProp, Adamax, Adadelta and DecayedAdagrad rules bit-equal to
 the plain chain (each op rounded in the same order on both sides). The
 BHLD flash kernels (key bias, keep mask) at the flash bars above. The
+bf16 flash gradients (the tensor-core backward, which rounds P keep and
+dS to bf16 before the products that consume them) at FLASH_BF16_TC:
+atol 2^-3 of the plain gradient's RMS, rtol 2^-7, relative L2 error
+under 1e-2 (chip_smoke.py's flash_bf16_tc). The
 bucketed step on the card vs the CPU: fp32, one clipped SGD step, rtol
 1e-4; with attention dropout, two steps at rtol 1e-4. The int8 paged
 attention: fp32 q at rtol 1e-3 / atol 1e-4 (the K scale applied to the
@@ -52,6 +56,25 @@ FP32 = dict(rtol=2e-4, atol=2e-5)
 FP32_SUMS = dict(rtol=1e-3, atol=1e-4)
 BF16_ELEMENTWISE = dict(rtol=1e-2, atol=2e-2)
 BF16_ATTENTION = dict(rtol=2e-2, atol=1e-2)
+# chip_smoke.py's flash_bf16_tc: the bf16 flash backward on the tensor
+# cores rounds P keep and dS to bf16 before the products that consume
+# them; atol is a multiple of the plain gradient's RMS (see
+# assert_flash_bf16_tc), grounded on the CPU in tests/test_torch_flash.py
+FLASH_BF16_TC = dict(atol_x_rms=2.0 ** -3, rtol=2.0 ** -7, rel_l2=1e-2)
+
+
+def assert_flash_bf16_tc(got, want):
+    """|got - want| <= atol_x_rms * RMS(want) + rtol * |want| per element,
+    and the relative L2 error under rel_l2."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    norm = float(w.norm())
+    rel = float(err.norm()) / norm if norm else float(err.norm())
+    assert rel <= FLASH_BF16_TC['rel_l2'], f'relative L2 error {rel:.3g}'
+    atol = FLASH_BF16_TC['atol_x_rms'] * norm / w.numel() ** 0.5
+    bad = err > atol + FLASH_BF16_TC['rtol'] * w.abs()
+    assert not bool(bad.any()), (f'{int(bad.sum())} elements outside; '
+                                 f'max |diff| {float(err.max()):.3g}')
 
 
 @pytest.fixture
@@ -318,8 +341,8 @@ class TestOnCard:
     # -----------------------------------------------------------------
     # the training slice's kernels
     # -----------------------------------------------------------------
-    @pytest.mark.parametrize('L', [256, 200])
-    @pytest.mark.parametrize('head_dim', [64, 128])
+    @pytest.mark.parametrize('L', [256, 200, 129])
+    @pytest.mark.parametrize('head_dim', [32, 64, 128])
     @pytest.mark.parametrize('with_bias', [False, True],
                              ids=['nobias', 'bias'])
     @pytest.mark.parametrize('causal', [True, False],
@@ -350,7 +373,10 @@ class TestOnCard:
         torch.testing.assert_close(o.float(), o_p.float(), **tol)
         torch.testing.assert_close(lse, lse_p, **FP32_SUMS)
         for got, want in zip((dq, dk, dv), grads_p):
-            torch.testing.assert_close(got.float(), want.float(), **tol)
+            if dtype == torch.bfloat16:
+                assert_flash_bf16_tc(got, want)
+            else:
+                torch.testing.assert_close(got.float(), want.float(), **tol)
 
     @pytest.mark.parametrize('L', [256, 200])
     @pytest.mark.parametrize('head_dim', [32, 64, 128])
@@ -383,7 +409,10 @@ class TestOnCard:
         torch.testing.assert_close(o.float(), o_p.float(), **tol)
         torch.testing.assert_close(lse, lse_p, **FP32_SUMS)
         for got, want in zip((dq, dk, dv), grads_p):
-            torch.testing.assert_close(got.float(), want.float(), **tol)
+            if dtype == torch.bfloat16:
+                assert_flash_bf16_tc(got, want)
+            else:
+                torch.testing.assert_close(got.float(), want.float(), **tol)
 
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
     def test_gradients_flow_through_the_bhld_functions(self, cuda, dtype):
@@ -419,11 +448,13 @@ class TestOnCard:
         cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v, bias)]
         want = outs(*cpu, mask.cpu())
         sum(o.float().square().sum() for o in want).backward()
-        tol = FP32_SUMS if dtype == torch.float32 else BF16_ATTENTION
         for t, c in zip((q, k, v), cpu):
             assert t.grad.dtype == dtype
-            torch.testing.assert_close(t.grad.float().cpu(), c.grad.float(),
-                                       **tol)
+            if dtype == torch.bfloat16:     # the tensor-core backward
+                assert_flash_bf16_tc(t.grad.cpu(), c.grad)
+            else:
+                torch.testing.assert_close(t.grad.float().cpu(),
+                                           c.grad.float(), **FP32_SUMS)
 
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize('shape', [(3, 5, 64), (300, 2048), (2, 37)])
@@ -497,9 +528,12 @@ class TestOnCard:
                   tfa.flash_attention_packed(qc, kc, vc, H, D, causal=True)]
         sum(o.float().square().sum() for o in outs_c).backward()
         tol = FP32_SUMS if dtype == torch.float32 else BF16_ATTENTION
-        for t, c in zip((x, w, b, fb, q, k, v), cpu):
-            torch.testing.assert_close(t.grad.float().cpu(), c.grad.float(),
-                                       **tol)
+        for i, (t, c) in enumerate(zip((x, w, b, fb, q, k, v), cpu)):
+            if dtype == torch.bfloat16 and i >= 4:  # q, k, v: tensor cores
+                assert_flash_bf16_tc(t.grad.cpu(), c.grad)
+            else:
+                torch.testing.assert_close(t.grad.float().cpu(),
+                                           c.grad.float(), **tol)
 
     def test_paged_attention_refuses_grad_on_card(self, cuda):
         q, kp, vp, pt, sl, ql, H = _paged_case(32)

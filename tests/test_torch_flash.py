@@ -343,3 +343,110 @@ def test_bhld_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         tfa._check_bhld(q, q, q, torch.zeros(2, 64),
                         torch.ones(4, 64, 64, dtype=dt), 2,
                         tfa.BHLD_FWD_KERNEL)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward's rounding on the tensor cores, grounded on the CPU
+# ---------------------------------------------------------------------------
+# chip_smoke.py's `flash_bf16_tc` (and tests/test_torch_cuda.py's
+# FLASH_BF16_TC): per element |got - want| <= ATOL_X_RMS * RMS(want) +
+# RTOL * |want|, and relative L2 error <= REL_L2. The CPU emulation below
+# must hold it with a margin of TC_MARGIN (ATOL_X_RMS and REL_L2 divided
+# by it; RTOL covers the output's own bf16 rounding and stays), since the
+# card's gradients are larger samples of the same rounding. Why the atol
+# is 2^-3 of the RMS, not flash_bf16's 2^-6: each row of dS sums to zero
+# (sum_j p (dP - delta) = 0), so dQ, dK and dV are sums with cancellation,
+# and each term's bf16 rounding (2^-9 of the term) can be a few percent of
+# the RMS where the sum is small beside its terms (measured here up to
+# 0.041 of the RMS at L=256, 0.055 at L=2048; relative L2 2.4e-3 to
+# 2.7e-3 everywhere).
+TC_BAR = dict(atol_x_rms=2.0 ** -3, rtol=2.0 ** -7, rel_l2=1e-2)
+TC_MARGIN = 2.0
+
+
+def _tc_backward(q, k, v, o, lse, do, bias=None, num_heads=1, causal=True,
+                 dropout_mask=None, dropout=0.0):
+    """The bf16 tensor-core backward's arithmetic in PyTorch on BHLD
+    [B*H, L, D] tensors: the plain backward (fp32 products of the bf16
+    inputs), with P keep and dS rounded to bf16 before the P·dO, dS·K and
+    dS·Q products, and the results rounded to q's dtype."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = tfa._masked(torch.matmul(qf, kf.transpose(-1, -2)) * scale, bias,
+                    num_heads, causal)
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    pk = p
+    if dropout_mask is not None:
+        keep = tfa._keep_factor(dropout_mask, dropout)
+        dp, pk = dp * keep, p * keep
+    ds = p * (dp - tfa.bhld_delta(o, do)[..., None])
+    ds, pk = (x.to(torch.bfloat16).float() for x in (ds, pk))
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(pk.transpose(-1, -2), dof)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+def _assert_tc_bar(got, want, name):
+    g, w = got.float(), torch.from_numpy(np.array(want, np.float32))
+    err = (g - w).abs()
+    norm = float(w.norm())
+    rel = float(err.norm()) / norm
+    assert rel <= TC_BAR['rel_l2'] / TC_MARGIN, f'{name}: rel L2 {rel:.3g}'
+    atol = TC_BAR['atol_x_rms'] / TC_MARGIN * norm / w.numel() ** 0.5
+    bad = err > atol + TC_BAR['rtol'] * w.abs()
+    assert not bool(bad.any()), (
+        f'{name}: {int(bad.sum())} elements outside; max |diff| '
+        f'{float(err.max()):.3g}')
+
+
+def _bf16(a):
+    """The same seeded numpy values rounded to bf16 on both sides."""
+    return (torch.from_numpy(a).to(torch.bfloat16),
+            jnp.asarray(a, dtype=jnp.bfloat16))
+
+
+@pytest.mark.parametrize('D', [32, 64])
+def test_tc_rounding_holds_its_bar_against_the_pallas_packed_backward(D):
+    L = 256
+    rng = np.random.RandomState(40 + D)
+    (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = (
+        _bf16(rng.randn(B, L, H * D).astype(np.float32)) for _ in range(4))
+    jo, jlse = jfa._flash_forward_packed(jq, jk, jv, num_heads=H,
+                                         head_dim=D, causal=True,
+                                         with_lse=True)
+    want = jfa._flash_backward_packed(jq, jk, jv, jo, jlse, jdo,
+                                      num_heads=H, head_dim=D, causal=True)
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).bfloat16()
+    lse = torch.from_numpy(np.array(jlse))            # [B, L, H] fp32
+
+    def bhld(t):
+        return t.reshape(B, L, H, D).transpose(1, 2).reshape(B * H, L, D)
+
+    got = _tc_backward(bhld(tq), bhld(tk), bhld(tv), bhld(o),
+                       lse.transpose(1, 2).reshape(B * H, L), bhld(tdo))
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        w = w.reshape(B, L, H, D).transpose(0, 2, 1, 3).reshape(B * H, L, D)
+        _assert_tc_bar(g, w, name)
+
+
+@pytest.mark.parametrize('case', ['causal_mask', 'full_bias',
+                                  'causal_bias_mask'])
+def test_tc_rounding_holds_its_bar_against_the_pallas_bhld_backward(case):
+    L, D = 256, 64
+    (q, k, v, do, bias, mask), kw, rate = _bhld_case(case, L, D, seed=50)
+    (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = (_bf16(a)
+                                                for a in (q, k, v, do))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, bias=_j(bias),
+                                  dropout_mask=_j(mask), dropout=rate,
+                                  with_lse=True, **kw)
+    want = jfa._flash_backward(jq, jk, jv, jo, jlse, jdo, bias=_j(bias),
+                               dropout_mask=_j(mask), dropout=rate, **kw)
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).bfloat16()
+    lse = torch.from_numpy(np.array(jlse))[..., 0]
+    got = _tc_backward(tq, tk, tv, o, lse, tdo, bias=_t(bias),
+                       dropout_mask=_t(mask), dropout=rate, **kw)
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        _assert_tc_bar(g, np.asarray(w.astype(jnp.float32)), name)

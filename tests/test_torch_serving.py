@@ -22,6 +22,8 @@ every token lies in its row's top-k set, another seed gives another
 stream, and the top-k mask is the JAX function's own on the same
 logits.
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -302,6 +304,29 @@ def test_prompt_logits_is_the_prefill_step(models):
 def test_unserved_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match='not ported'):
         ServingConfig(**knob)
+
+
+def test_config_takes_every_reference_knob_at_its_default():
+    """A config written for the reference builds in the port: every
+    parameter of the JAX ServingConfig.__init__ at its default. All but
+    `trace`: the reference journals requests by default (trace=True) and
+    the port has no request journal yet, so it refuses trace=True (held
+    by test_unserved_knobs_raise) and takes trace=False."""
+    params = inspect.signature(JConfig.__init__).parameters
+    defaults = {name: p.default for name, p in params.items()
+                if name != 'self'}
+    assert all(d is not inspect.Parameter.empty for d in defaults.values())
+    assert defaults.pop('trace') is True
+    cfg = ServingConfig(trace=False, **defaults)
+    assert (cfg.page_size, cfg.max_batch_size, cfg.prefill_chunk) == (
+        defaults['page_size'], defaults['max_batch_size'],
+        defaults['prefill_chunk'])
+    # a knob that would tune an unported feature still raises
+    for knob, value in (('trace_requests', 1024), ('degrade_window', 16),
+                        ('deadline_action', 'cancel'),
+                        ('spill_watermark', 0.5), ('prefill_slots', 4)):
+        with pytest.raises(NotImplementedError, match='not ported'):
+            ServingConfig(**{knob: value})
 
 
 def test_unserved_sampling_and_unknown_knobs_raise(models):

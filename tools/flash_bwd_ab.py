@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Times paddle_tpu_torch's bf16 flash backward kernels on the card.
+
+At the gpt_1p3b train step's shapes (B=8, L=2048, H=16, D=128, causal):
+the packed dQ and dK/dV kernels (rows 9, 10 of PERF.md's kernel table)
+and the BHLD ones with a keep mask at p = 0.1 (rows 12, 13), each pair
+against SDPA's one backward call (dropout_p=0.1 for BHLD) and the pair's
+gradients against the plain fp32 backward (relative L2 error and max
+|diff| over the RMS). One JSON line per tree.
+
+    python3 tools/flash_bwd_ab.py                  # this checkout
+    python3 tools/flash_bwd_ab.py A B B A          # trees in turns
+
+Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
+own process and builds its kernels into <tree>/build/paddle_tpu_torch.
+Needs one CUDA card and nvcc.
+"""
+import json
+import os
+import subprocess
+import sys
+
+
+def loop_ms(torch, fn, iters=5):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def errors(got, want):
+    out = []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        rms = float(w.norm()) / w.numel() ** 0.5
+        out.append(dict(rel_l2=float((g - w).norm() / w.norm()),
+                        max_err_over_rms=float((g - w).abs().max()) / rms))
+    return out
+
+
+def measure(tree):
+    sys.path.insert(0, tree)
+    import torch
+    from torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    B, L, H, D = 8, 2048, 16, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda').bfloat16()
+
+    def sdpa_bwd_ms(q, k, v, do, **kw):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, **kw)
+        return loop_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), iters=10)
+
+    res = {'tree': tree}
+    q, k, v, do = (randn(B, L, H * D) for _ in range(4))
+    kw = dict(num_heads=H, head_dim=D, bias=None, causal=True)
+    o, lse = fa.flash_attention_packed_fwd(q, k, v, **kw)
+    args = fa._bwd_args(q, k, v, do, H, D, None, True)
+    delta = fa.attention_delta(o, do, H, D).contiguous()
+    dq = lambda: fa._dq_kernel(q, k, v, None, do, lse, delta, args)
+    dkv = lambda: fa._dkv_kernel(q, k, v, None, do, lse, delta, args)
+    res['packed_errors'] = errors((dq(),) + dkv(),
+                                  fa.flash_attention_packed_bwd_plain(
+                                      q, k, v, o, lse, do, **kw))
+    res['packed_ms'] = [loop_ms(torch, dq), loop_ms(torch, dkv)]
+    heads = (t.reshape(B, L, H, D).transpose(1, 2).contiguous()
+             for t in (q, k, v, do))
+    res['packed_sdpa_bwd_ms'] = sdpa_bwd_ms(*heads)
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+
+    q, k, v, do = (randn(B * H, L, D) for _ in range(4))
+    mask = torch.rand(B * H, L, L, generator=gen, device='cuda') >= 0.1
+    kw = dict(num_heads=1, causal=True, dropout_mask=mask, dropout=0.1)
+    o, lse = fa._flash_forward(q, k, v, **kw)
+    args = fa._bhld_bwd_args(q, k, v, do, None, mask, 1, True, 0.1)
+    delta = fa.bhld_delta(o, do)
+    dq = lambda: fa._bhld_dq_kernel(q, k, v, None, mask, do, lse, delta,
+                                    args)
+    dkv = lambda: fa._bhld_dkv_kernel(q, k, v, None, mask, do, lse, delta,
+                                      args)
+    res['bhld_errors'] = errors((dq(),) + dkv(), fa.flash_backward_plain(
+        q, k, v, o, lse, do, **kw))
+    res['bhld_ms'] = [loop_ms(torch, dq), loop_ms(torch, dkv)]
+    res['bhld_sdpa_bwd_ms'] = sdpa_bwd_ms(
+        *(t.view(B, H, L, D) for t in (q, k, v, do)), dropout_p=0.1)
+    for lay in ('packed', 'bhld'):
+        res[f'{lay}_pair_over_sdpa'] = (sum(res[f'{lay}_ms'])
+                                        / res[f'{lay}_sdpa_bwd_ms'])
+    res['card'] = torch.cuda.get_device_name(0)
+    return res
+
+
+def main(argv):
+    if argv[:1] == ['--child']:
+        print(json.dumps(measure(os.path.abspath(argv[1]))), flush=True)
+        return 0
+    trees = argv or [os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))]
+    for tree in trees:
+        env = dict(os.environ, PADDLE_TPU_TORCH_BUILD_DIR=os.path.join(
+            os.path.abspath(tree), 'build', 'paddle_tpu_torch'))
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        '--child', tree], env=env, check=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))
