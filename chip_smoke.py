@@ -23,21 +23,25 @@ Phases, one JSON line each on stdout:
              library call. The flash wrapper, forward and backward
              through its autograd Function, is held against the plain
              versions at the train shape in bf16 and fp32, and at a
-             ragged L=1000 (bf16 gradients, from the tensor-core
-             backward, at flash_bf16_tc); each pair of backward rows
-             also carries its two kernels' time over SDPA's one backward
-             call (pair_over_library). The BHLD flash forward, dQ and
-             dK/dV (the attention-dropout route) at the train step's
-             [B*H, L, D] = [128, 2048, 128] with a keep mask at p = 0.1,
-             and with a key bias, full and causal, at B=8 H=12 L=512
-             D=64, each through its autograd Function against the plain
-             versions; the
+             ragged L=1000 and L=129 (bf16 outputs from the tensor-core
+             forward at flash_bf16, gradients from the tensor-core
+             backward at flash_bf16_tc); each forward row
+             carries its time over SDPA's forward (over_library), each
+             pair of backward rows its two kernels' time over SDPA's one
+             backward call (pair_over_library). The BHLD flash forward,
+             dQ and dK/dV (the attention-dropout route) at the train
+             step's [B*H, L, D] = [128, 2048, 128] and at L=129 with a
+             keep mask at p = 0.1, and with a key bias, full and causal,
+             at B=8 H=12 L=512 D=64, each through its autograd Function
+             against the plain versions; the
              attention keep mask's draw (core.rng.keep_mask) at the train
              step's [B, H, L, L], its keep share and time. The paged
-             attention over int8 pages (row 1q) at the serve's decode
-             and prefill shapes on the same queries and contexts, against
-             its plain version at the flash bf16 bar, beside the dense
-             kernel's time on bf16 pages.
+             attention over bf16 pages (row 1) and over int8 pages (row
+             1q) on the same queries and contexts, at the serve's decode
+             and prefill shapes and at a decode over 8 rows of 1024-4096
+             tokens whose keys span several splits, each against its
+             plain version at the paged_attention bar (row 1q at the
+             flash bf16 bar too), timed cold.
 4. serve   — gpt_1p3b at full width and depth (random weights from a
              fixed torch.Generator seed, bf16 weights and KV) serves 16
              greedy requests of 32-384 prompt tokens and 64 new tokens
@@ -158,7 +162,9 @@ COLD_COPIES = 4
 #    scale) and round once to bf16, which differs by at most one bf16
 #    spacing, 2^-7 of the value; atol 2^-6 of the RMS then catches a
 #    kernel that drops or misplaces even a few keys of a row (the
-#    forwards, rows 8 and 11);
+#    forwards, rows 8 and 11: the bf16 forward on the tensor cores takes
+#    P keep as two bf16 terms, 16 significant bits, so its o stays within
+#    this bar; grounded on the CPU in tests/test_torch_flash.py);
 #  flash_bf16_tc: the bf16 backward on the tensor cores (rows 9, 10, 12,
 #    13) rounds P keep and dS to bf16 before the products that consume
 #    them (2^-9 of each term). Each row of dS sums to zero, so dQ, dK and
@@ -307,6 +313,148 @@ ROW_PATHS = {'layer_norm': {(8, 2048): 'decode', (TRAIN_ROWS, 2048): 'train'},
              'bias_gelu': {(8, 8192): 'decode', (TRAIN_ROWS, 8192): 'train'}}
 
 
+# the paged attention's cases: gpt_1p3b heads, page_size 16; the serve's
+# decode (8 rows of 32-448 tokens, 28 pages a row) and prefill (a 128-token
+# window at position 256) shapes, and a decode over long contexts (8 rows
+# of 1024-4096 tokens, 256 pages a row) that spans several splits
+PAGED_H, PAGED_D, PAGED_PS = 16, 128, 16
+
+
+def paged_cases(rng):
+    """(label, seq_lens, q_lens, T, pages a row) of each timed case."""
+    return (('decode', rng.randint(32, 449, 8), np.ones(8, np.int64), 1, 28),
+            ('prefill', np.asarray([384]), np.asarray([128]), 128, 28),
+            ('long', rng.randint(1024, 4097, 8), np.ones(8, np.int64), 1,
+             256))
+
+
+def paged_rows(torch, F, randn):
+    """Rows 1 and 1q at each paged case: the kernel over bf16 pages and
+    over int8 pages (the same rows quantized as the engine writes them)
+    on the same queries and contexts, each held against its plain
+    version at the paged_attention bar (the int8 kernel at flash_bf16
+    too), and timed cold: each call reads the next of COLD_COPIES pools
+    (more than the 50 MB L2 holds), as a decode step finds each layer's
+    pages. Returns {label: (dense row, int8 row)}."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    H, D, ps = PAGED_H, PAGED_D, PAGED_PS
+    HD = H * D
+    rng = np.random.RandomState(0)
+    out = {}
+    for label, seq_lens, q_lens, T, P in paged_cases(rng):
+        B = len(seq_lens)
+        N = B * P
+        pools = [(randn(N, ps, HD), randn(N, ps, HD))
+                 for _ in range(COLD_COPIES)]
+
+        def quantized(pages):
+            codes, scales = pa.quantize_kv_rows(
+                pages.reshape(1, N * ps, HD), H)
+            return codes.reshape(N, ps, HD), scales.reshape(N, ps, H)
+
+        pools8 = []
+        for kp, vp in pools:
+            (kq, ks), (vq, vs) = quantized(kp), quantized(vp)
+            pools8.append((kq, vq, ks, vs))
+        tables = rng.permutation(N)[:B * P].reshape(B, P)
+        q = randn(B, T, HD)
+        pt = torch.as_tensor(tables, dtype=torch.int32, device='cuda')
+        sl = torch.as_tensor(seq_lens, dtype=torch.int32, device='cuda')
+        ql = torch.as_tensor(q_lens, dtype=torch.int32, device='cuda')
+        kw = dict(num_heads=H, head_dim=D)
+        k0, v0 = pools[0]
+        err = check_close(
+            'paged_attention',
+            pa.ragged_paged_attention(q, k0, v0, pt, sl, ql, **kw),
+            pa.ragged_paged_attention_plain(q, k0, v0, pt, sl, ql, **kw))
+        # library yardstick: SDPA over the pages gathered dense (the
+        # gather itself is not timed), causal-ragged boolean mask
+        key = torch.arange(P * ps, device='cuda')
+        qpos = (sl - ql)[:, None] + torch.arange(T, device='cuda')[None]
+        mask = ((key[None, None] < sl[:, None, None].long())
+                & (key[None, None] <= qpos[:, :, None]))[:, None]
+        dense = [tuple(p[pt.long()].reshape(B, P * ps, H, D).transpose(1, 2)
+                       .contiguous() for p in kv) for kv in pools]
+        qh = q.reshape(B, T, H, D).transpose(1, 2).contiguous()
+        step = dict.fromkeys(('kernel', 'plain', 'library', 'int8',
+                              'plain8'), 0)
+
+        def rot(which):
+            i = step[which] % COLD_COPIES
+            step[which] += 1
+            return i
+
+        def run_kernel():
+            kp, vp = pools[rot('kernel')]
+            return pa.ragged_paged_attention(q, kp, vp, pt, sl, ql, **kw)
+
+        def run_plain():
+            kp, vp = pools[rot('plain')]
+            return pa.ragged_paged_attention_plain(q, kp, vp, pt, sl, ql,
+                                                   **kw)
+
+        def run_library():
+            kd, vd = dense[rot('library')]
+            return F.scaled_dot_product_attention(qh, kd, vd,
+                                                  attn_mask=mask)
+
+        def run_int8(plain=False):
+            kq, vq, ks, vs = pools8[rot('plain8' if plain else 'int8')]
+            fn = (pa.ragged_paged_attention_plain if plain
+                  else pa.ragged_paged_attention)
+            return fn(q, kq, vq, pt, sl, ql, k_scales=ks, v_scales=vs, **kw)
+
+        visible = [int(min(s, s - qlen + t + 1))
+                   for s, qlen in zip(seq_lens, q_lens)
+                   for t in range(int(qlen))]
+        kv_bytes = int(sum(seq_lens)) * HD * 2 * 2
+        io_bytes = 2 * B * T * HD * 2 + tables.size * 4 + 2 * B * 4
+        bms, by = bound_ms(kv_bytes + io_bytes, 4 * sum(visible) * HD,
+                           BF16_FLOPS)
+        shape = (f'{label}: B={B} T={T} H={H} D={D} ps={ps} P={P} '
+                 f'context={[int(s) for s in seq_lens]}')
+        # (tools/flash_bwd_ab.py also runs this on trees whose kernel
+        # did not split)
+        splits = list(pa.paged_splits(
+            B, T, H, P, ps,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        ) if hasattr(pa, 'paged_splits') else None
+        dense_ms = device_ms(torch, run_kernel)
+        dense_row = dict(
+            shape=shape, path=label, max_abs_err=err, ms=dense_ms,
+            plain_ms=device_ms(torch, run_plain),
+            library_ms=device_ms(torch, run_library),
+            bound_ms=bms, bound_by=by,
+            qb_splits_tiles_per_split=splits)
+        over_library(dense_row)
+
+        # row 1q: the same queries and contexts over int8 pages
+        kq0, vq0, ks0, vs0 = pools8[0]
+        kw8 = dict(kw, k_scales=ks0, v_scales=vs0)
+        got8 = pa.ragged_paged_attention(q, kq0, vq0, pt, sl, ql, **kw8)
+        want8 = pa.ragged_paged_attention_plain(q, kq0, vq0, pt, sl, ql,
+                                                **kw8)
+        err8 = max(check_close('paged_attention', got8, want8),
+                   check_close('flash_bf16', got8, want8))
+        # K and V rows of H*D codes and H fp32 scales, each read once
+        kv8_bytes = int(sum(seq_lens)) * (HD + 4 * H) * 2
+        bms8, by8 = bound_ms(kv8_bytes + io_bytes, 4 * sum(visible) * HD,
+                             BF16_FLOPS)
+        int8_row = dict(
+            shape=shape + ' int8 pages', path=label, max_abs_err=err8,
+            ms=device_ms(torch, run_int8),
+            plain_ms=device_ms(torch, lambda: run_int8(plain=True)),
+            library_ms=None,
+            library_note='no single PyTorch call attends over int8 pages',
+            dense_ms=dense_ms, bound_ms=bms8, bound_by=by8,
+            qb_splits_tiles_per_split=splits)
+        out[label] = (dense_row, int8_row)
+        del pools, pools8, dense
+        free_cuda(torch)
+    return out
+
+
 def kernel_phase(torch, F):
     """The paged attention at the serve's shapes, and the LayerNorm and
     bias+GELU forwards at the serve's and the train step's shapes, each
@@ -378,115 +526,9 @@ def kernel_phase(torch, F):
             bound_ms=bms, bound_by=by))
         del x, w, b
 
-    # paged attention at the serve's shapes: gpt_1p3b heads, page_size
-    # 16, 28 pages a row, a pool of 8 x 28 pages; the int8 pools hold
-    # the same kind of rows quantized as the engine writes them
-    H, D, ps, P = 16, 128, 16, 28
-    N, HD = 8 * P, H * D
-    rng = np.random.RandomState(0)
-    pools = [(randn(N, ps, HD), randn(N, ps, HD))
-             for _ in range(COLD_COPIES)]
-
-    def quantized(pages):
-        codes, scales = pa.quantize_kv_rows(pages.reshape(1, N * ps, HD), H)
-        return codes.reshape(N, ps, HD), scales.reshape(N, ps, H)
-
-    pools8 = []
-    for kp, vp in pools:
-        (kq, ks), (vq, vs) = quantized(kp), quantized(vp)
-        pools8.append((kq, vq, ks, vs))
-    cases = []
-    seq = rng.randint(32, 449, 8)
-    cases.append(('decode', seq, np.ones(8, np.int64), 1,
-                  rng.permutation(N).reshape(8, P)))
-    cases.append(('prefill', np.asarray([384]), np.asarray([128]), 128,
-                  rng.permutation(N)[:P].reshape(1, P)))
-    for label, seq_lens, q_lens, T, tables in cases:
-        B = len(seq_lens)
-        q = randn(B, T, HD)
-        pt = torch.as_tensor(tables, dtype=torch.int32, device='cuda')
-        sl = torch.as_tensor(seq_lens, dtype=torch.int32, device='cuda')
-        ql = torch.as_tensor(q_lens, dtype=torch.int32, device='cuda')
-        kw = dict(num_heads=H, head_dim=D)
-        k0, v0 = pools[0]
-        err = check_close(
-            'paged_attention',
-            pa.ragged_paged_attention(q, k0, v0, pt, sl, ql, **kw),
-            pa.ragged_paged_attention_plain(q, k0, v0, pt, sl, ql, **kw))
-        # library yardstick: SDPA over the pages gathered dense (the
-        # gather itself is not timed), causal-ragged boolean mask
-        key = torch.arange(P * ps, device='cuda')
-        qpos = (sl - ql)[:, None] + torch.arange(T, device='cuda')[None]
-        mask = ((key[None, None] < sl[:, None, None].long())
-                & (key[None, None] <= qpos[:, :, None]))[:, None]
-        dense = [tuple(p[pt.long()].reshape(B, P * ps, H, D).transpose(1, 2)
-                       .contiguous() for p in kv) for kv in pools]
-        qh = q.reshape(B, T, H, D).transpose(1, 2).contiguous()
-        step = {'kernel': 0, 'plain': 0, 'library': 0}
-
-        def rot(which):
-            i = step[which] % COLD_COPIES
-            step[which] += 1
-            return i
-
-        def run_kernel():
-            kp, vp = pools[rot('kernel')]
-            return pa.ragged_paged_attention(q, kp, vp, pt, sl, ql, **kw)
-
-        def run_plain():
-            kp, vp = pools[rot('plain')]
-            return pa.ragged_paged_attention_plain(q, kp, vp, pt, sl, ql,
-                                                   **kw)
-
-        def run_library():
-            kd, vd = dense[rot('library')]
-            return F.scaled_dot_product_attention(qh, kd, vd,
-                                                  attn_mask=mask)
-
-        visible = [int(min(s, s - qlen + t + 1))
-                   for s, qlen in zip(seq_lens, q_lens)
-                   for t in range(int(qlen))]
-        kv_bytes = int(sum(seq_lens)) * HD * 2 * 2
-        io_bytes = 2 * B * T * HD * 2 + tables.size * 4 + 2 * B * 4
-        bms, by = bound_ms(kv_bytes + io_bytes, 4 * sum(visible) * HD,
-                           BF16_FLOPS)
-        shape = (f'{label}: B={B} T={T} H={H} D={D} ps={ps} '
-                 f'context={[int(s) for s in seq_lens]}')
-        dense_ms = device_ms(torch, run_kernel)
-        results['paged_attention'].append(dict(
-            shape=shape, path='decode' if label == 'decode' else None,
-            max_abs_err=err, ms=dense_ms,
-            plain_ms=device_ms(torch, run_plain),
-            library_ms=device_ms(torch, run_library),
-            bound_ms=bms, bound_by=by))
-
-        # row 1q: the same queries and contexts over int8 pages
-        kq0, vq0, ks0, vs0 = pools8[0]
-        kw8 = dict(kw, k_scales=ks0, v_scales=vs0)
-        err8 = check_close(
-            'flash_bf16',
-            pa.ragged_paged_attention(q, kq0, vq0, pt, sl, ql, **kw8),
-            pa.ragged_paged_attention_plain(q, kq0, vq0, pt, sl, ql, **kw8))
-
-        def run_int8(plain=False):
-            kq, vq, ks, vs = pools8[rot('plain8' if plain else 'int8')]
-            fn = (pa.ragged_paged_attention_plain if plain
-                  else pa.ragged_paged_attention)
-            return fn(q, kq, vq, pt, sl, ql, num_heads=H, head_dim=D,
-                      k_scales=ks, v_scales=vs)
-
-        step.update(int8=0, plain8=0)
-        # K and V rows of H*D codes and H fp32 scales, each read once
-        kv8_bytes = int(sum(seq_lens)) * (HD + 4 * H) * 2
-        bms8, by8 = bound_ms(kv8_bytes + io_bytes, 4 * sum(visible) * HD,
-                             BF16_FLOPS)
-        results['paged_attention_int8'].append(dict(
-            shape=shape + ' int8 pages', path=label, max_abs_err=err8,
-            ms=device_ms(torch, run_int8),
-            plain_ms=device_ms(torch, lambda: run_int8(plain=True)),
-            library_ms=None,
-            library_note='no single PyTorch call attends over int8 pages',
-            dense_ms=dense_ms, bound_ms=bms8, bound_by=by8))
+    for dense, int8 in paged_rows(torch, F, randn).values():
+        results['paged_attention'].append(dense)
+        results['paged_attention_int8'].append(int8)
     for name, rows in results.items():
         for r in rows:
             emit({'phase': 'kernel', 'name': name, **r})
@@ -495,8 +537,13 @@ def kernel_phase(torch, F):
 
 def grad_tol(tol):
     """The flash gradients' bar: bf16 ones come from the tensor-core
-    backward (flash_bf16_tc), fp32 ones at the forward's bar."""
+    backward (flash_bf16_tc), fp32 ones at flash_fp32."""
     return 'flash_bf16_tc' if tol == 'flash_bf16' else tol
+
+
+def over_library(row):
+    """A row's kernel time over its library call's in the same run."""
+    row['over_library'] = row['ms'] / row['library_ms']
 
 
 def pair_over_library(rows, dq, dkv):
@@ -609,6 +656,7 @@ def train_kernel_phase(torch, F):
     for dtype, tol, shape in ((torch.bfloat16, 'flash_bf16', (B, L)),
                               (torch.float32, 'flash_fp32', (B, L)),
                               (torch.bfloat16, 'flash_bf16', (1, 1000)),
+                              (torch.bfloat16, 'flash_bf16', (1, 129)),
                               (torch.float32, 'flash_fp32', (1, 1000))):
         label = f'{str(dtype).split(".")[-1]} B={shape[0]} L={shape[1]}'
         checks[label] = flash_check(torch, fa, randn, *shape, dtype, tol)
@@ -633,6 +681,7 @@ def train_kernel_phase(torch, F):
             qh, kh, vh, is_causal=True), iters=10),
         library='SDPA is_causal on [B,H,L,D] copies',
         bound_ms=bms, bound_by=by)
+    over_library(rows_out['flash_fwd'])
     # the two backward kernels timed apart (the Function's backward runs
     # both, after delta)
     args = fa._bwd_args(q, k, v, do, H, D, None, True)
@@ -773,7 +822,9 @@ def bhld_kernel_phase(torch, F):
             ('mha: causal, key bias, bf16', small, torch.bfloat16,
              'flash_bf16', True, True, 0.0),
             ('mha: causal, mask p=0.1, fp32', small, torch.float32,
-             'flash_fp32', True, False, DROPOUT_P)):
+             'flash_fp32', True, False, DROPOUT_P),
+            ('ragged: causal, mask p=0.1, L=129, bf16', (2, 3, 129, HEAD_DIM),
+             torch.bfloat16, 'flash_bf16', True, False, DROPOUT_P)):
         checks[label] = bhld_check(torch, fa, randn, gen, *shape, dtype, tol,
                                    causal, with_bias, mask_p)
         free_cuda(torch)
@@ -803,6 +854,7 @@ def bhld_kernel_phase(torch, F):
             qh, kh, vh, dropout_p=DROPOUT_P, is_causal=True), iters=10),
         library='SDPA dropout_p=0.1 is_causal (its own mask): timing only',
         bound_ms=bms, bound_by=by, mask_bytes=BH * L * L)
+    over_library(rows['flash_bhld_fwd'])
     args = fa._bhld_bwd_args(q, k, v, do, None, mask, 1, True, DROPOUT_P)
     delta = fa.bhld_delta(o, do)
     plain_bwd_ms = loop_ms(torch, lambda: fa.flash_backward_plain(
@@ -1955,26 +2007,30 @@ def whole_path_check(torch):
                      adam=True)})
 
 
-# the port's kernels by the device-side names the profiler shows; the
-# column sum is the second pass of both backward reductions
-KERNEL_NAMES = {'paged_attention_int8':
+# the port's kernels by the device-side names the profiler shows (a name
+# holds one of the row's strings); the column sum is the second pass of
+# both backward reductions, the merge kernel the paged attention's
+KERNEL_NAMES = {'paged_attention_int8': (
                     'ragged_paged_attention_kernel<__nv_bfloat16, signed char',
-                'paged_attention': 'ragged_paged_attention_kernel',
-                'layer_norm': 'layer_norm_fwd_kernel',
-                'bias_gelu': 'bias_gelu_fwd_kernel',
-                'layer_norm_bwd': 'layer_norm_bwd_kernel',
-                'bias_gelu_bwd': 'bias_gelu_bwd_kernel',
-                'column_sum': 'column_sum_kernel',
-                'flash_fwd': 'flash_fwd_kernel',
-                'flash_bwd_dq': 'flash_bwd_dq_kernel',
-                'flash_bwd_dkv': 'flash_bwd_dkv_kernel',
-                'flash_bhld_fwd': 'flash_bhld_fwd_kernel',
-                'flash_bhld_bwd_dq': 'flash_bhld_bwd_dq_kernel',
-                'flash_bhld_bwd_dkv': 'flash_bhld_bwd_dkv_kernel',
-                'dropout_add': 'dropout_add_fwd_kernel',
-                'dropout_add_bwd': 'dropout_add_bwd_kernel',
-                'grad_stats': 'grad_stats_kernel',
-                'optimizer_step': 'update_kernel'}
+                    'ragged_paged_attention_merge_kernel<__nv_bfloat16, '
+                    'signed char'),
+                'paged_attention': ('ragged_paged_attention_kernel',
+                                    'ragged_paged_attention_merge_kernel'),
+                'layer_norm': ('layer_norm_fwd_kernel',),
+                'bias_gelu': ('bias_gelu_fwd_kernel',),
+                'layer_norm_bwd': ('layer_norm_bwd_kernel',),
+                'bias_gelu_bwd': ('bias_gelu_bwd_kernel',),
+                'column_sum': ('column_sum_kernel',),
+                'flash_fwd': ('flash_fwd_kernel',),
+                'flash_bwd_dq': ('flash_bwd_dq_kernel',),
+                'flash_bwd_dkv': ('flash_bwd_dkv_kernel',),
+                'flash_bhld_fwd': ('flash_bhld_fwd_kernel',),
+                'flash_bhld_bwd_dq': ('flash_bhld_bwd_dq_kernel',),
+                'flash_bhld_bwd_dkv': ('flash_bhld_bwd_dkv_kernel',),
+                'dropout_add': ('dropout_add_fwd_kernel',),
+                'dropout_add_bwd': ('dropout_add_bwd_kernel',),
+                'grad_stats': ('grad_stats_kernel',),
+                'optimizer_step': ('update_kernel',)}
 
 
 def _group_device_time(kernels):
@@ -1984,7 +2040,8 @@ def _group_device_time(kernels):
     port = {}
     for e in kernels:
         t = e.self_device_time_total / 1e6
-        name = next((n for n, k in KERNEL_NAMES.items() if k in e.key), None)
+        name = next((n for n, parts in KERNEL_NAMES.items()
+                     if any(part in e.key for part in parts)), None)
         if name is not None:
             groups['port_kernels'] += t
             port[name] = port.get(name, 0.0) + t
@@ -2019,7 +2076,7 @@ def profile_phase(torch, eng, prompts):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    groups, _port = _group_device_time(kernels)
+    groups, port = _group_device_time(kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit({'phase': 'profile', 'requests': len(prompts), 'max_new_tokens': 16,
           'wall_s': wall_plain, 'wall_profiled_s': wall_prof,
@@ -2027,7 +2084,7 @@ def profile_phase(torch, eng, prompts):
           'busy_share_of_wall': busy / wall_plain if kernels else None,
           'busy_share_of_profiled_wall':
               busy / wall_prof if kernels else None,
-          'device_s_by_group': groups,
+          'device_s_by_group': groups, 'device_s_by_port_kernel': port,
           'top_kernels': [dict(name=e.key[:90],
                                device_ms=e.self_device_time_total / 1e3,
                                calls=e.count) for e in top]})
@@ -2068,6 +2125,7 @@ SOURCES = {
                        'paddle_tpu/ops/pallas/fused_optimizer.py:117'),
 }
 SERVE_KERNELS = ('paged_attention', 'layer_norm', 'bias_gelu')
+PAGED_KERNELS = ('paged_attention', 'paged_attention_int8')
 
 
 def free_cuda(torch):
@@ -2182,16 +2240,23 @@ def main():
             entry['launches_train_bucketed'] = bucketed_launches[name]
         if name == 'optimizer_step':
             entry['rules'] = row['rules']
-        if 'pair_over_library' in row:
-            entry['pair_over_library'] = row['pair_over_library']
+        for key in ('pair_over_library', 'over_library'):
+            if key in row:
+                entry[key] = row[key]
+        if name in PAGED_KERNELS:
+            # the serve's prefill window and the long-context decode
+            entry['qb_splits_tiles_per_split'] = row[
+                'qb_splits_tiles_per_split']
+            for label in ('prefill', 'long'):
+                other = row_of(name, label)
+                entry[f'{label}_shape'] = {k: other.get(k) for k in (
+                    'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                    'library_ms', 'dense_ms', 'qb_splits_tiles_per_split')
+                    if k in other}
         if name == 'paged_attention_int8':
-            prefill = row_of(name, 'prefill')
             entry.update(
                 library_note=row['library_note'], dense_ms=row['dense_ms'],
-                launches_bf16_serve=serve_launches[name],
-                prefill_shape={k: prefill[k] for k in (
-                    'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-                    'dense_ms')})
+                launches_bf16_serve=serve_launches[name])
         kernels.append(entry)
     emit({'kernels': kernels})
     print(smi, flush=True)

@@ -21,37 +21,43 @@
 // L^2 / 2 mask bytes): hundreds of operations per byte, so the tensor
 // cores' rate (989 TFLOP/s bf16) is the bound.
 //
-// The bf16 backward (dQ and dK/dV; the `tc` namespace below) runs its
-// products on the tensor cores with mma.sync.m16n8k16 (bf16 operands, fp32
-// sums). One CTA of 4 warps per (64-row block of its output, head, batch
-// row); warp w owns rows 16w..16w+15, the M dimension of every product it
-// issues:
-//   dQ:    S = Q K^T, dP = dO V^T, then dQ += dS K;
-//   dK/dV: S^T = K Q^T, dP^T = V dO^T, then dV += (P keep)^T dO and
-//          dK += dS^T Q.
-// The first two products of a tile leave S and dP in accumulator fragments
+// The bf16 passes (forward, dQ and dK/dV; the `tc` namespace below) run
+// their products on the tensor cores with mma.sync.m16n8k16 (bf16 operands,
+// fp32 sums). One CTA of 4 warps per (64-row block of its output, head,
+// batch row); warp w owns rows 16w..16w+15, the M dimension of every product
+// it issues:
+//   forward: S = Q K^T, then O += (P keep) V, P keep as hi + lo;
+//   dQ:      S = Q K^T, dP = dO V^T, then dQ += dS K;
+//   dK/dV:   S^T = K Q^T, dP^T = V dO^T, then dV += (P keep)^T dO and
+//            dK += dS^T Q.
+// The first products of a tile leave S (and dP) in accumulator fragments
 // (fp32, 16 x 64 a warp); P, the keep factor and dS are formed there,
 // rounded to bf16 and repacked in registers as the A operand of the next
 // products (the C fragments of two neighbouring n8 tiles are the A fragment
-// of one k16 tile), so no score tile goes through shared memory. Every other
+// of one k16 tile), so no score tile goes through shared memory. The forward
+// keeps its Q tile in registers as A fragments (read once through ldmatrix)
+// and runs the online softmax in the fragments: a row's 16 scores a thread
+// holds, then the four lanes of its quad (two shuffles). Every other
 // operand comes from bf16 tiles in shared memory through ldmatrix (.trans
 // where a product sums over the tile's rows), each row padded by 16 bytes so
 // the eight rows of an 8 x 8 matrix fall in distinct banks. The streamed
-// operand (K and V in dQ; Q, dO, lse and delta in dK/dV) and the keep mask's
-// 64 x 64 bytes are double-buffered and loaded with cp.async (16 bytes a
-// thread, zero-filled past L), so the next tile loads while this one is
-// multiplied. Shared memory at D = 128: 104,448 B of tiles (+1,024 of lse
-// and delta in dK/dV, +8,192 with a mask), so two CTAs fit on an SM, as
-// do their registers (at most 255 a thread at 128 threads), which hold
-// dK/dV's two 16 x 128 fp32 accumulators and the S and dP fragments. The
-// keep bytes a thread needs in a tile are read into one 32-bit mask before
-// the products, so they hold one register while S and dP are live.
+// operand (K and V, and the forward's 64 key-bias floats, in the forward and
+// dQ; Q, dO, lse and delta in dK/dV) and the keep mask's 64 x 64 bytes are
+// double-buffered and loaded with cp.async (16 bytes a thread, zero-filled
+// past L), so the next tile loads while this one is multiplied. Shared memory
+// at D = 128: 87,040 B of tiles in the forward, 104,448 B in dQ and dK/dV
+// (+1,024 of lse and delta in dK/dV, +512 of bias in the forward, +8,192
+// with a mask), so two CTAs fit on an SM, as do their registers (at most 255
+// a thread at 128 threads), which hold the forward's 16 x 128 fp32 output
+// accumulator, Q's fragments and S, or dK/dV's two 16 x 128 accumulators
+// and the S and dP fragments. The keep bytes a thread needs in a tile are
+// read into one 32-bit mask before the products, so they hold one register
+// while S (and dP) are live.
 //
-// The forward (rows 8 and 11) and the fp32 backward run on the CUDA-core
-// bodies (fp32 FMAs, 67 TFLOP/s peak). The fp32 backward stays there on
-// purpose: the tensor cores take fp32 only as TF32 (10 mantissa bits), which
-// would not hold the fp32 bars (1e-3 elementwise, 1e-3 relative L2 on the
-// whole training path); the forward moves to the tensor cores next.
+// The fp32 passes run on the CUDA-core bodies (fp32 FMAs, 67 TFLOP/s peak),
+// on purpose: the tensor cores take fp32 only as TF32 (10 mantissa bits),
+// which would not hold the fp32 bars (1e-3 elementwise, 1e-3 relative L2 on
+// the whole training path).
 //
 // CUDA-core design: one CTA of 256 threads per (64-query block, head, batch
 // row) for the forward and dQ, per (64-key block, head, batch row) for dK/dV.
@@ -72,14 +78,15 @@
 // divide L instead (scaffold.fit_block): keys past L get probability 0, rows
 // past L are never written.
 //
-// The keep mask ([B*H, L, L], nonzero = kept, the caller's draw): the forward
-// reads it straight from device memory (16 lanes of a half-warp read 16
-// neighbouring bytes of one query row); dQ and dK/dV first stage each 64 x 64
-// tile in shared memory beside the tiles of K and V (dQ) or Q and dO (dK/dV),
-// so no byte load waits inside the score loop: the CUDA-core bodies as fp32
-// keep factors, the tensor-core bodies as the bytes themselves (16-byte
-// chunks XOR-swizzled by row, so both passes read them without bank
-// conflicts), expanded to inv_keep or 0 in the fragment's own positions.
+// The keep mask ([B*H, L, L], nonzero = kept, the caller's draw): the
+// CUDA-core forward reads it straight from device memory (16 lanes of a
+// half-warp read 16 neighbouring bytes of one query row); the CUDA-core dQ
+// and dK/dV first stage each 64 x 64 tile in shared memory beside the tiles
+// of K and V (dQ) or Q and dO (dK/dV), so no byte load waits inside the score
+// loop, as fp32 keep factors; the tensor-core bodies stage the bytes
+// themselves (16-byte chunks XOR-swizzled by row, so the row-wise and the
+// column-wise reads are both free of bank conflicts), expanded to inv_keep
+// or 0 in the fragment's own positions.
 //
 // Numerics, as in the Pallas bodies:
 //   forward: q is upcast and multiplied by the scale BEFORE the dot (:295,
@@ -95,12 +102,22 @@
 //     the bodies do per block. delta = rowsum(dO O) per head (which already
 //     carries the dropped probabilities) is computed outside the kernels, as
 //     in JAX (:560-561, :631-632).
-//   bf16 backward on the tensor cores: S and dP are exact products of the
-//     bf16 inputs summed in fp32; P keep and dS are rounded to bf16 before
+//   bf16 on the tensor cores: S and dP are exact products of the bf16
+//     inputs summed in fp32. The backward rounds P keep and dS to bf16 before
 //     the products that consume them (the only rounding the CUDA-core bodies
-//     do not do; chip_smoke.py holds it at `flash_bf16_tc`), and the scale
-//     multiplies dQ and dK once, after the last tile (the same value up to
-//     fp32 rounding).
+//     do not do; chip_smoke.py holds the gradients at `flash_bf16_tc`). The
+//     forward does not round P keep once: it splits it into hi = P keep
+//     rounded to bf16 and lo = the rest rounded, and adds hi V + lo V (16
+//     significant bits, at the price of a third product a tile). One
+//     rounding (2^-9 of each term) moved o by up to 0.025 of its RMS, and
+//     through delta = rowsum(dO O) it doubled the worst dQ error of the
+//     backward at the train shape (0.05 -> 0.105 of the RMS) and took one
+//     element past flash_bf16_tc; with the split, o keeps the CUDA-core
+//     forward's bar, `flash_bf16` (tests/test_torch_flash.py grounds both
+//     on the CPU). The normalizer l sums the fp32 p. The forward's scale
+//     multiplies S after the dot, where the Pallas bodies scale q before it
+//     (:90, :295): the same value up to fp32 rounding. The backward's scale
+//     multiplies dQ and dK once, after the last tile (likewise).
 #include <math.h>
 #include <type_traits>
 
@@ -660,6 +677,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// two fp32 values as the sums hi + lo of two bf16 pairs: hi rounded to
+// nearest-even, lo the rest rounded (16 significant bits between them)
+__device__ __forceinline__ void pack_bf16_split(float x, float y,
+                                                uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The fp32 accumulator fragments of n8 tiles 2 kk and 2 kk + 1 as the A
+// fragment of k16 tile kk, split into hi + lo.
+__device__ __forceinline__ void to_a_frag_split(const float (&c)[8][4],
+                                                int kk, uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+  pack_bf16_split(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
+  pack_bf16_split(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
+  pack_bf16_split(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
+  pack_bf16_split(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
+}
+
 // The fp32 accumulator fragments of a 16 x 64 tile (n8 tiles 0..7) as the
 // bf16 A fragments of its four k16 tiles.
 __device__ __forceinline__ void to_a_frags(const float (&c)[8][4],
@@ -748,6 +787,11 @@ __device__ __forceinline__ bool vec_mask(const unsigned char* mask, int L) {
   return L % 16 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15u) == 0;
 }
 
+template <int D, bool kMask>
+constexpr size_t fwd_smem() {
+  return 5 * tile_of<D>() * sizeof(bf16) + 2 * kBlock * sizeof(float) +
+         (kMask ? 2 * kBlock * kMaskRow : 0);
+}
 template <int D, bool kMask>
 constexpr size_t dq_smem() {
   return 6 * tile_of<D>() * sizeof(bf16) +
@@ -1086,24 +1130,218 @@ __device__ __forceinline__ void flash_dkv_tc(PTT_FLASH_PARAMS) {
   }
 }
 
+// The forward for one (64-query block, head, batch row): Q held in
+// registers as A fragments, K/V tiles (and the key bias and keep-mask
+// tiles) streamed; S and P never leave the registers.
+template <typename T, int D, bool kBHLD, bool kMask>
+__device__ __forceinline__ void flash_fwd_tc(PTT_FLASH_PARAMS) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core body is bf16");
+  constexpr int kRow = row_of<D>(), kTile = tile_of<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [64][kRow]
+  bf16* ks = qs + kTile;                         // [2][64][kRow]
+  bf16* vs = ks + 2 * kTile;                     // [2][64][kRow]
+  float* bias_s = reinterpret_cast<float*>(vs + 2 * kTile);  // [2][64]
+  unsigned char* keep_s =
+      reinterpret_cast<unsigned char*>(bias_s + 2 * kBlock);  // [2][64][64]
+  // heaviest causal blocks (the last queries) start first
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qb * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const Geom gm = geom<kBHLD, D>(b, h, L, H);
+  const float* bias_row =
+      bias != nullptr ? bias + static_cast<long long>(b) * L : nullptr;
+  const bool vec = kMask && vec_mask(mask, L);
+  const int n_tiles = causal ? qb + 1 : (L + kBlock - 1) / kBlock;
+
+  auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * kBlock;
+    load_tile<D>(ks + buf * kTile, k, gm.base, k0, L, gm.row_stride);
+    load_tile<D>(vs + buf * kTile, v, gm.base, k0, L, gm.row_stride);
+    if (bias_row != nullptr && threadIdx.x < kBlock) {
+      const int c = threadIdx.x;
+      const bool valid = k0 + c < L;
+      cp_async4(bias_s + buf * kBlock + c, bias_row + (valid ? k0 + c : 0),
+                valid);
+    }
+    if constexpr (kMask)
+      load_keep(keep_s + buf * kBlock * kMaskRow, mask, gm.mask, q0, k0, L,
+                vec);
+  };
+  load_tile<D>(qs, q, gm.base, q0, L, gm.row_stride);
+  cp_async_commit();
+  load_kv(0, 0);
+  cp_async_commit();
+
+  const int a_off = (warp * 16 + (lane & 15)) * kRow + ((lane >> 4) << 3);
+  const int b_off =
+      ((lane & 7) + ((lane >> 4) << 3)) * kRow + (((lane >> 3) & 1) << 3);
+  const int bt_off =
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * kRow + ((lane >> 4) << 3);
+
+  // this warp's 16 query rows of Q as the A fragments of every k16 step,
+  // read once
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t aq[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(aq[kk], qs + a_off + kk * 16);
+
+  // this thread's rows of the block: r_local and r_local + 8
+  const int r_local = warp * 16 + (lane >> 2);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_tiles) {
+      load_kv(kt + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kst = ks + buf * kTile;
+    const bf16* vst = vs + buf * kTile;
+    const float* bias_t = bias_s + buf * kBlock;
+    uint32_t keep = 0;
+    if constexpr (kMask)
+      keep = keep_bits<false>(keep_s + buf * kBlock * kMaskRow, r_local, t);
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kst + b_off + jn * 16 * kRow + kk * 16);
+        mma(s[2 * jn], aq[kk], bk[0], bk[1]);
+        mma(s[2 * jn + 1], aq[kk], bk[2], bk[3]);
+      }
+    }
+    // element e of n8 tile j is (query r_local + 8 (e / 2), key
+    // 8 j + 2 t + e % 2) of the tile: the scale, the key bias, the masks
+    const int k0 = kt * kBlock;
+    const bool edge = (causal && kt == qb) || k0 + kBlock > L;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int col = k0 + c;
+        float x = s[j][e] * scale;
+        if (bias_row != nullptr) x += bias_t[c];
+        if (edge) {
+          if (col >= L) x = -INFINITY;     // ragged edge: probability 0
+          else if (causal && q0 + r_local + 8 * hi < col) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[hi] = fmaxf(mx[hi], x);
+      }
+    }
+    // the online softmax; the four lanes of a quad share a row
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 1));
+      mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
+      const float m_new = fmaxf(m[hi], mx[hi]);
+      alpha[hi] = exp2f((m[hi] - m_new) * kLog2e);
+      m[hi] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        const float p = exp2f((s[j][e] - m[hi]) * kLog2e);
+        rs[hi] += p;                       // the normalizer: undropped p
+        if constexpr (kMask)
+          s[j][e] = (keep >> (4 * j + e)) & 1u ? p * inv_keep : 0.f;
+        else
+          s[j][e] = p;
+      }
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      rs[hi] += __shfl_xor_sync(0xffffffffu, rs[hi], 1);
+      rs[hi] += __shfl_xor_sync(0xffffffffu, rs[hi], 2);
+      l[hi] = alpha[hi] * l[hi] + rs[hi];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    // O += (P keep) V, with P keep as hi + lo (see the note at the top):
+    // the product sums over V's rows, so its B fragments come transposed
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t hi[4], lo[4];
+      to_a_frag_split(s, kk, hi, lo);
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vst + bt_off + kk * 16 * kRow + nd * 16);
+        mma(acc[2 * nd], hi, bv[0], bv[1]);
+        mma(acc[2 * nd + 1], hi, bv[2], bv[3]);
+        mma(acc[2 * nd], lo, bv[0], bv[1]);
+        mma(acc[2 * nd + 1], lo, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile kt + 2
+  }
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = q0 + r_local + 8 * hi;
+    if (row >= L) continue;
+    const float l_safe = fmaxf(l[hi], 1e-30f);
+    bf16* out = o + gm.base + static_cast<long long>(row) * gm.row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t) = pack_bf16(
+          acc[n][2 * hi] / l_safe, acc[n][2 * hi + 1] / l_safe);
+    if (t == 0)
+      lse[gm.stat + static_cast<long long>(row) * gm.stat_stride] =
+          m[hi] + logf(l_safe);
+  }
+}
+
 }  // namespace tc
 
 // The __global__ entries: the packed layout's (rows 8-10 of PERF.md's kernel
-// table) and the BHLD layout's (rows 11-13), one name each. The backward
-// entries run the tensor-core bodies for bf16 and the CUDA-core bodies for
-// fp32 (on purpose: see the note at the top), each at its own block size.
+// table) and the BHLD layout's (rows 11-13), one name each. Every entry runs
+// the tensor-core body for bf16 and the CUDA-core body for fp32 (on purpose:
+// see the note at the top), each at its own block size.
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 template <typename T>
-constexpr int kBwdThreads = kTensorCores<T> ? tc::kThreads : kThreads;
+constexpr int kEntryThreads = kTensorCores<T> ? tc::kThreads : kThreads;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kEntryThreads<T>)
     flash_fwd_kernel(PTT_FLASH_PARAMS) {
-  flash_fwd_body<T, D, false, false>(PTT_FLASH_ARGS);
+  if constexpr (kTensorCores<T>)
+    tc::flash_fwd_tc<T, D, false, false>(PTT_FLASH_ARGS);
+  else
+    flash_fwd_body<T, D, false, false>(PTT_FLASH_ARGS);
 }
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads<T>)
+__global__ void __launch_bounds__(kEntryThreads<T>)
     flash_bwd_dq_kernel(PTT_FLASH_PARAMS) {
   if constexpr (kTensorCores<T>)
     tc::flash_dq_tc<T, D, false, false>(PTT_FLASH_ARGS);
@@ -1111,7 +1349,7 @@ __global__ void __launch_bounds__(kBwdThreads<T>)
     flash_dq_body<T, D, false, false>(PTT_FLASH_ARGS);
 }
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads<T>)
+__global__ void __launch_bounds__(kEntryThreads<T>)
     flash_bwd_dkv_kernel(PTT_FLASH_PARAMS) {
   if constexpr (kTensorCores<T>)
     tc::flash_dkv_tc<T, D, false, false>(PTT_FLASH_ARGS);
@@ -1119,12 +1357,15 @@ __global__ void __launch_bounds__(kBwdThreads<T>)
     flash_dkv_body<T, D, false, false>(PTT_FLASH_ARGS);
 }
 template <typename T, int D, bool kMask>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kEntryThreads<T>)
     flash_bhld_fwd_kernel(PTT_FLASH_PARAMS) {
-  flash_fwd_body<T, D, true, kMask>(PTT_FLASH_ARGS);
+  if constexpr (kTensorCores<T>)
+    tc::flash_fwd_tc<T, D, true, kMask>(PTT_FLASH_ARGS);
+  else
+    flash_fwd_body<T, D, true, kMask>(PTT_FLASH_ARGS);
 }
 template <typename T, int D, bool kMask>
-__global__ void __launch_bounds__(kBwdThreads<T>)
+__global__ void __launch_bounds__(kEntryThreads<T>)
     flash_bhld_bwd_dq_kernel(PTT_FLASH_PARAMS) {
   if constexpr (kTensorCores<T>)
     tc::flash_dq_tc<T, D, true, kMask>(PTT_FLASH_ARGS);
@@ -1132,7 +1373,7 @@ __global__ void __launch_bounds__(kBwdThreads<T>)
     flash_dq_body<T, D, true, kMask>(PTT_FLASH_ARGS);
 }
 template <typename T, int D, bool kMask>
-__global__ void __launch_bounds__(kBwdThreads<T>)
+__global__ void __launch_bounds__(kEntryThreads<T>)
     flash_bhld_bwd_dkv_kernel(PTT_FLASH_PARAMS) {
   if constexpr (kTensorCores<T>)
     tc::flash_dkv_tc<T, D, true, kMask>(PTT_FLASH_ARGS);
@@ -1179,13 +1420,15 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
 template <int kPass, typename T, int D, bool kBHLD, bool kMask>
 int launch(const FlashArgs& a) {
   const auto kernel = kernel_of<kPass, T, D, kBHLD, kMask>();
-  constexpr bool kTC = kPass != kFwd && kTensorCores<T>;
+  constexpr bool kTC = kTensorCores<T>;
   constexpr size_t smem =
       !kTC ? smem_of<kPass, D, kMask>()
-           : (kPass == kDQ ? tc::dq_smem<D, kMask>()
-                           : tc::dkv_smem<D, kMask>());
+           : (kPass == kFwd ? tc::fwd_smem<D, kMask>()
+              : kPass == kDQ ? tc::dq_smem<D, kMask>()
+                             : tc::dkv_smem<D, kMask>());
   if constexpr (kTC) {
-    // cp.async moves 16 bytes a thread: every row must start aligned
+    // cp.async moves 16 bytes a thread: every row must start aligned (the
+    // forward has no dout)
     for (const void* p : {a.q, a.k, a.v, a.dout})
       if (!ptt::aligned16(p))
         return static_cast<int>(cudaErrorMisalignedAddress);

@@ -150,16 +150,19 @@ _SIGNATURES = {
     # stream
     'ptt_bias_gelu_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P),
-    # q, k_pages, v_pages, page_tables, seq_lens, q_lens, out,
-    # B, T, H, D, N, page_size, pages_per_seq, dtype, device, stream
-    'ptt_ragged_paged_attention': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _P),
+    # q, k_pages, v_pages, page_tables, seq_lens, q_lens, out, part (or
+    # None), B, T, H, D, N, page_size, pages_per_seq, qb, splits,
+    # tiles_per_split, dtype, device, stream
+    'ptt_ragged_paged_attention': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _P),
     # q, k_pages, v_pages (int8), k_scales, v_scales, page_tables,
-    # seq_lens, q_lens, out, B, T, H, D, N, page_size, pages_per_seq,
-    # dtype (q's), device, stream
+    # seq_lens, q_lens, out, part (or None), B, T, H, D, N, page_size,
+    # pages_per_seq, qb, splits, tiles_per_split, dtype (q's), device,
+    # stream
     'ptt_ragged_paged_attention_int8': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                        _P),
+                                        _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _P),
     # q, k, v, bias (or None), o, lse, B, L, H, D, scale, causal, dtype,
     # device, stream
     'ptt_flash_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,

@@ -28,10 +28,10 @@ dropout, its keep mask drawn from the bound generator
 (`core.rng.keep_mask`) where the reference draws it.
 
 Every entry dispatches by device: CUDA tensors launch the hand-written
-kernels in `csrc/flash_attention.cu` (bf16 dQ and dK/dV on the tensor
-cores, which round P keep and dS to bf16 before the products that
-consume them; the forward and every fp32 pass on the CUDA cores), CPU
-tensors run the plain versions
+kernels in `csrc/flash_attention.cu` (bf16 forward, dQ and dK/dV on
+the tensor cores, which round P keep and dS to bf16 before the products
+that consume them; every fp32 pass on the CUDA cores), CPU tensors run
+the plain versions
 (`flash_attention_packed_plain`/`_bwd_plain`, `flash_forward_plain`/
 `flash_backward_plain`), which materialise the scores and compute the
 same function in one step (the online softmax's exact-arithmetic
@@ -202,9 +202,9 @@ def _ptr(t):
 
 
 def _aligned16(t):
-    """t, or a copy of it at a 16-byte aligned address: the bf16 backward
-    kernels load their rows 16 bytes a thread (a view that starts inside
-    its storage may not be aligned)."""
+    """t, or a copy of it at a 16-byte aligned address: the bf16 kernels
+    load their rows 16 bytes a thread (a view that starts inside its
+    storage may not be aligned)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -215,6 +215,7 @@ def _fwd_kernel(q, k, v, bias, num_heads, head_dim, causal):
     lse = torch.empty(B, L, num_heads, dtype=torch.float32, device=q.device)
     if B * L == 0:
         return o, lse
+    q, k, v = (_aligned16(t) for t in (q, k, v))
     _build.launch('ptt_flash_fwd', FWD_KERNEL, q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
                   lse.data_ptr(), B, L, num_heads, head_dim,
@@ -362,6 +363,7 @@ def _bhld_fwd_kernel(q, k, v, bias, mask, num_heads, causal, dropout):
     lse = torch.empty(BH, L, dtype=torch.float32, device=q.device)
     if BH * L == 0:
         return o, lse
+    q, k, v = (_aligned16(t) for t in (q, k, v))
     _build.launch('ptt_flash_bhld_fwd', BHLD_FWD_KERNEL, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                   _ptr(mask), o.data_ptr(), lse.data_ptr(),

@@ -22,11 +22,15 @@ attends keys at positions <= its own and < seq_lens[b].
 `ragged_paged_attention` launches the CUDA kernel (`csrc/
 paged_attention.cu`) on CUDA tensors — `paged_attention` over pages in
 q's dtype, `paged_attention_int8` over int8 pages, each with its own
-launch counter — and runs `ragged_paged_attention_plain` on CPU
-tensors. With int8 pages both dequantize each K/V row by its (slot,
-head) scale before it meets q or the probabilities, so the attention
-math stays fp32, as the Pallas body does (:126-128) and the dense JAX
-route does after its gather (`_dequant_gathered`, :208). The plain
+launch counter, one count a call — and runs
+`ragged_paged_attention_plain` on CPU tensors. The kernel splits each
+row's keys over several CTAs (`paged_splits` chooses how many, from the
+shapes alone) and merges their partial softmax states in fp32 in a
+second pass, through a scratch tensor the wrapper allocates. With int8
+pages both dequantize each K/V row by its (slot, head) scale before it
+meets q or the probabilities, so the attention math stays fp32, as the
+Pallas body does (:126-128) and the dense JAX route does after its
+gather (`_dequant_gathered`, :208). The plain
 version computes exactly what the Pallas body computes, including its
 edge semantics: only pages whose start lies below seq_len take part, a masked
 score is -1e30, and the normaliser is max(l, 1e-30). So a query with no
@@ -68,6 +72,23 @@ _build.register(KERNEL)
 _build.register(KERNEL_INT8)
 
 NEG_INF = -1e30
+TILE_KEYS = 64          # keys of a staged tile (csrc/paged_attention.cu)
+CTAS_PER_SM = 8         # the grid the splits aim at
+
+
+def paged_splits(B, T, H, P, page_size, sms):
+    """(qb, splits, tiles_per_split) of a launch: qb queries a CTA (1 at
+    decode, 8 for wider blocks), and the keys of the longest row a table
+    maps (P x page_size) cut into `splits` splits of `tiles_per_split`
+    tiles of TILE_KEYS keys, as many splits as give about CTAS_PER_SM
+    CTAs an SM. Shapes only: the lengths live on the device, and reading
+    them would cost a host sync."""
+    qb = 1 if T == 1 else 8
+    blocks = B * H * -(-T // qb)
+    tiles = -(-P * page_size // TILE_KEYS)
+    splits = max(1, min(tiles, -(-CTAS_PER_SM * sms // blocks)))
+    per_split = -(-tiles // splits)
+    return qb, -(-tiles // per_split), per_split
 
 
 def _gathered(pages, scales, pt, H, D):
@@ -182,19 +203,24 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
     sl = seq_lens.to(q.device, torch.int32).contiguous()
     qlen = q_lens.to(q.device, torch.int32).contiguous()
     out = torch.empty_like(q)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split = paged_splits(B, T, num_heads, P, ps, sms)
+    # the splits' (m, l, acc) in fp32, merged by the kernel's second pass
+    part = None if split[1] == 1 else torch.empty(
+        B * T * num_heads * split[1] * (head_dim + 2), dtype=torch.float32,
+        device=q.device)
+    tail = (out.data_ptr(), _build.ptr(part), B, T, num_heads, head_dim, N,
+            ps, P, *split, code)
     if quantized:
         _build.launch('ptt_ragged_paged_attention_int8', KERNEL_INT8,
                       q.device, q.data_ptr(), k_pages.data_ptr(),
                       v_pages.data_ptr(), k_scales.data_ptr(),
                       v_scales.data_ptr(), pt.data_ptr(), sl.data_ptr(),
-                      qlen.data_ptr(), out.data_ptr(), B, T, num_heads,
-                      head_dim, N, ps, P, code)
+                      qlen.data_ptr(), *tail)
     else:
         _build.launch('ptt_ragged_paged_attention', KERNEL, q.device,
                       q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                      pt.data_ptr(), sl.data_ptr(), qlen.data_ptr(),
-                      out.data_ptr(), B, T, num_heads, head_dim, N, ps, P,
-                      code)
+                      pt.data_ptr(), sl.data_ptr(), qlen.data_ptr(), *tail)
     return out
 
 

@@ -61,18 +61,21 @@ BF16_ATTENTION = dict(rtol=2e-2, atol=1e-2)
 # them; atol is a multiple of the plain gradient's RMS (see
 # assert_flash_bf16_tc), grounded on the CPU in tests/test_torch_flash.py
 FLASH_BF16_TC = dict(atol_x_rms=2.0 ** -3, rtol=2.0 ** -7, rel_l2=1e-2)
+# chip_smoke.py's flash_bf16: the bf16 forward on the tensor cores (P keep
+# as two bf16 terms) against the plain fp32 version, one bf16 rounding of o
+FLASH_BF16 = dict(atol_x_rms=2.0 ** -6, rtol=2.0 ** -7, rel_l2=1e-2)
 
 
-def assert_flash_bf16_tc(got, want):
+def assert_flash_bf16_tc(got, want, bar=FLASH_BF16_TC):
     """|got - want| <= atol_x_rms * RMS(want) + rtol * |want| per element,
     and the relative L2 error under rel_l2."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     norm = float(w.norm())
     rel = float(err.norm()) / norm if norm else float(err.norm())
-    assert rel <= FLASH_BF16_TC['rel_l2'], f'relative L2 error {rel:.3g}'
-    atol = FLASH_BF16_TC['atol_x_rms'] * norm / w.numel() ** 0.5
-    bad = err > atol + FLASH_BF16_TC['rtol'] * w.abs()
+    assert rel <= bar['rel_l2'], f'relative L2 error {rel:.3g}'
+    atol = bar['atol_x_rms'] * norm / w.numel() ** 0.5
+    bad = err > atol + bar['rtol'] * w.abs()
     assert not bool(bad.any()), (f'{int(bad.sum())} elements outside; '
                                  f'max |diff| {float(err.max()):.3g}')
 
@@ -99,6 +102,27 @@ def _paged_case(head_dim, seed=3):
     page_tables = np.concatenate([page_tables, np.zeros((1, P), np.int64)])
     lens = np.asarray([[13, 1], [4, 4], [29, 2], [1, 0]])
     return q, k_pages, v_pages, page_tables, lens[:, 0], lens[:, 1], H
+
+
+def _split_case(T, seed=8):
+    """Rows over a pool of page_size 16, 40 pages a row, gpt_1p3b's heads:
+    contexts that cross 64-key tiles and split boundaries (600, 257, 129
+    keys), a row with fewer keys than new tokens when T > 1 (its first
+    queries see no key), a seq_len-0 slot, the engine's idle slot, and a
+    table with repeated and out-of-range entries (clamped)."""
+    rng = np.random.RandomState(seed)
+    H, D, ps, P, N = 16, 128, 16, 40, 300
+    lens = np.asarray([[600, 1], [129, 3], [2, 4], [0, 1], [1, 0],
+                       [257, 5]])
+    lens[:, 1] = np.minimum(lens[:, 1], T)
+    B = len(lens)
+    q = rng.randn(B, T, H * D)
+    k_pages = rng.randn(N, ps, H * D)
+    v_pages = rng.randn(N, ps, H * D)
+    pt = rng.randint(0, N, (B, P))
+    pt[4] = 0
+    pt[5, :6] = [3, 3, 7, -2, N + 5, 3]
+    return q, k_pages, v_pages, pt, lens[:, 0], lens[:, 1], H, D
 
 
 def _int8_pool(N, ps, H, D, seed=0):
@@ -246,6 +270,46 @@ class TestOnCard:
         deq = vcodes[2].float() * vs[2]
         torch.testing.assert_close(got[1, 0].cpu(), deq.mean(0), rtol=1e-4,
                                    atol=1e-4)
+
+    @pytest.mark.parametrize('ctas_per_sm', [8, 1])
+    @pytest.mark.parametrize('pages', ['dense', 'int8'])
+    @pytest.mark.parametrize('T', [1, 5])
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    def test_paged_attention_splits(self, cuda, dtype, T, pages,
+                                    ctas_per_sm, monkeypatch):
+        """Contexts over several splits (ctas_per_sm 1: fewer splits of
+        several tiles, double-buffered in bf16, one buffer in fp32), both
+        page types, against the plain version; the seq_len-0 slot writes
+        zeros."""
+        monkeypatch.setattr(tpa, 'CTAS_PER_SM', ctas_per_sm)
+        q, kp, vp, pt, sl, ql, H, D = _split_case(T)
+        args = [torch.from_numpy(q).to(cuda, dtype)]
+        kw = dict(num_heads=H, head_dim=D)
+        if pages == 'int8':
+            kq, vq, ks, vs = _int8_pool(kp.shape[0], kp.shape[1], H, D,
+                                        seed=9)
+            args += [kq.to(cuda), vq.to(cuda)]
+            kw.update(k_scales=ks.to(cuda), v_scales=vs.to(cuda))
+        else:
+            args += [torch.from_numpy(a).to(cuda, dtype) for a in (kp, vp)]
+        args += [torch.from_numpy(a).to(cuda) for a in (pt, sl, ql)]
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        _qb, splits, per_split = tpa.paged_splits(
+            len(sl), T, H, pt.shape[1], kp.shape[1], sms)
+        assert splits > 1 and (per_split > 1) == (ctas_per_sm == 1)
+        name = 'paged_attention_int8' if pages == 'int8' else \
+            'paged_attention'
+        _build.reset_launches()
+        got = tpa.ragged_paged_attention(*args, **kw)
+        assert _build.routes_snapshot()[name] == 1
+        want = tpa.ragged_paged_attention_plain(*args, **kw)
+        assert not got[3].any()
+        if dtype == torch.float32:
+            tol = FP32 if pages == 'dense' else dict(rtol=1e-3, atol=1e-4)
+            torch.testing.assert_close(got, want, **tol)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **BF16_ATTENTION)
 
     def test_paged_attention_int8_refusals(self, cuda):
         H, D = 2, 32
@@ -413,6 +477,47 @@ class TestOnCard:
                 assert_flash_bf16_tc(got, want)
             else:
                 torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    @pytest.mark.parametrize('L', [129, 200, 2048])
+    @pytest.mark.parametrize('head_dim', [32, 64, 128])
+    @pytest.mark.parametrize('layout', ['packed', 'bhld_mask'])
+    def test_bf16_forward_on_the_tensor_cores(self, cuda, layout, head_dim,
+                                              L):
+        """The tensor-core forward on inputs that start 2 bytes past a
+        16-byte boundary (the wrapper copies them aligned), causal; BHLD
+        with a keep mask at p = 0.1, staged a byte at a time where
+        L % 16 != 0."""
+        g = torch.Generator(device=cuda).manual_seed(19)
+        B, H = (1 if L == 2048 else 2), 2
+
+        def misaligned(*shape):
+            n = int(np.prod(shape))
+            x = torch.randn(n + 1, generator=g, device=cuda).bfloat16()
+            return x[1:].view(*shape)
+
+        mask = None
+        if layout == 'packed':
+            q, k, v = (misaligned(B, L, H * head_dim) for _ in range(3))
+            kw = dict(num_heads=H, head_dim=head_dim, bias=None,
+                      causal=True)
+            _build.reset_launches()
+            o, lse = tfa.flash_attention_packed_fwd(q, k, v, **kw)
+            assert _build.routes_snapshot()['flash_fwd'] == 1
+            o_p, lse_p = tfa.flash_attention_packed_plain(
+                q.float(), k.float(), v.float(), **kw)
+        else:
+            q, k, v = (misaligned(B * H, L, head_dim) for _ in range(3))
+            mask = torch.rand(B * H, L, L, generator=g, device=cuda) >= 0.1
+            kw = dict(num_heads=H, causal=True, dropout_mask=mask,
+                      dropout=0.1)
+            _build.reset_launches()
+            o, lse = tfa._flash_forward(q, k, v, **kw)
+            assert _build.routes_snapshot()['flash_bhld_fwd'] == 1
+            o_p, lse_p = tfa.flash_forward_plain(q.float(), k.float(),
+                                                 v.float(), **kw)
+        assert q.data_ptr() % 16 and o.dtype == torch.bfloat16
+        assert_flash_bf16_tc(o, o_p, FLASH_BF16)
+        torch.testing.assert_close(lse, lse_p, **FP32_SUMS)
 
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
     def test_gradients_flow_through_the_bhld_functions(self, cuda, dtype):

@@ -388,14 +388,15 @@ def _tc_backward(q, k, v, o, lse, do, bias=None, num_heads=1, causal=True,
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
-def _assert_tc_bar(got, want, name):
+def _assert_tc_bar(got, want, name, bar=TC_BAR):
+    """`bar` with the margin: ATOL_X_RMS and REL_L2 over TC_MARGIN."""
     g, w = got.float(), torch.from_numpy(np.array(want, np.float32))
     err = (g - w).abs()
     norm = float(w.norm())
     rel = float(err.norm()) / norm
-    assert rel <= TC_BAR['rel_l2'] / TC_MARGIN, f'{name}: rel L2 {rel:.3g}'
-    atol = TC_BAR['atol_x_rms'] / TC_MARGIN * norm / w.numel() ** 0.5
-    bad = err > atol + TC_BAR['rtol'] * w.abs()
+    assert rel <= bar['rel_l2'] / TC_MARGIN, f'{name}: rel L2 {rel:.3g}'
+    atol = bar['atol_x_rms'] / TC_MARGIN * norm / w.numel() ** 0.5
+    bad = err > atol + bar['rtol'] * w.abs()
     assert not bool(bad.any()), (
         f'{name}: {int(bad.sum())} elements outside; max |diff| '
         f'{float(err.max()):.3g}')
@@ -450,3 +451,96 @@ def test_tc_rounding_holds_its_bar_against_the_pallas_bhld_backward(case):
                        dropout_mask=_t(mask), dropout=rate, **kw)
     for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
         _assert_tc_bar(g, np.asarray(w.astype(jnp.float32)), name)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward's rounding on the tensor cores, grounded on the CPU
+# ---------------------------------------------------------------------------
+# The tensor-core forward takes P keep as two bf16 terms, hi = P keep
+# rounded and lo = the rest rounded, and adds hi·V + lo·V (16 significant
+# bits); everything else is fp32. Its o is held at chip_smoke.py's
+# `flash_bf16` (atol 2^-6 of the RMS, rtol 2^-7, relative L2 1e-2) and its
+# lse at `flash_fp32` (atol 1e-3 of the RMS, rtol 1e-3, relative L2 1e-4),
+# the bars of the CUDA-core forward; the emulation below must hold both
+# against the Pallas forward bodies with the margin TC_MARGIN. (P keep
+# rounded once to bf16, 2^-9 of each term, would not: o is a weighted mean
+# of V rows of magnitude ~1 whose RMS falls to 0.08-0.3 as they cancel,
+# and the rounding reached 0.019 of o's RMS beyond rtol here, at L=512
+# with a keep mask.)
+FWD_BAR = dict(atol_x_rms=2.0 ** -6, rtol=2.0 ** -7, rel_l2=1e-2)
+LSE_BAR = dict(atol_x_rms=1e-3, rtol=1e-3, rel_l2=1e-4)
+TC_TILE = 64            # the kernel's key tile (csrc/flash_attention.cu)
+
+
+def _tc_forward(q, k, v, bias=None, num_heads=1, causal=True,
+                dropout_mask=None, dropout=0.0):
+    """The bf16 tensor-core forward's arithmetic in PyTorch on BHLD
+    [B*H, L, D] tensors: S = (q k^T) * scale in fp32 from the bf16
+    inputs (the scale after the dot), the key bias, the causal mask, an
+    online softmax over tiles of TC_TILE keys whose fp32 normalizer sums
+    the undropped p, P keep split into two bf16 terms before P·V; o in
+    q's dtype, lse fp32."""
+    scale = np.float32(1.0 / np.sqrt(q.shape[-1]))
+    s = tfa._masked(torch.matmul(q.float(), k.float().transpose(-1, -2))
+                    * scale, bias, num_heads, causal)
+    keep = (None if dropout_mask is None
+            else tfa._keep_factor(dropout_mask, dropout))
+    BH, L, D = q.shape
+    m = torch.full((BH, L, 1), tfa.NEG_INF)
+    l = torch.zeros(BH, L, 1)
+    acc = torch.zeros(BH, L, D)
+    for k0 in range(0, L, TC_TILE):
+        blk = s[..., k0:k0 + TC_TILE]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        p = torch.exp(blk - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = p * keep[..., k0:k0 + TC_TILE]
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        vt = v[:, k0:k0 + TC_TILE].float()
+        acc = alpha * acc + (torch.matmul(lo, vt) + torch.matmul(hi, vt))
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    return (acc / l_safe).to(q.dtype), (m + torch.log(l_safe))[..., 0]
+
+
+@pytest.mark.parametrize('L', [129, 200, 512])
+@pytest.mark.parametrize('D', [64, 128])
+@pytest.mark.parametrize('causal', [True, False], ids=['causal', 'full'])
+def test_tc_forward_rounding_holds_its_bar_against_the_pallas_packed_forward(
+        causal, D, L):
+    rng = np.random.RandomState(60 + D + L)
+    (tq, jq), (tk, jk), (tv, jv) = (
+        _bf16(rng.randn(B, L, H * D).astype(np.float32)) for _ in range(3))
+    jo, jlse = jfa._flash_forward_packed(jq, jk, jv, num_heads=H,
+                                         head_dim=D, causal=causal,
+                                         with_lse=True)
+
+    def bhld(t):
+        return t.reshape(B, L, H, D).transpose(1, 2).reshape(B * H, L, D)
+
+    o, lse = _tc_forward(bhld(tq), bhld(tk), bhld(tv), causal=causal)
+    want_o = bhld(torch.from_numpy(np.array(jo.astype(jnp.float32))))
+    want_lse = np.array(jlse).transpose(0, 2, 1).reshape(B * H, L)
+    _assert_tc_bar(o, want_o.numpy(), 'o', FWD_BAR)
+    _assert_tc_bar(lse, want_lse, 'lse', LSE_BAR)
+
+
+@pytest.mark.parametrize('L', [129, 200, 512])
+@pytest.mark.parametrize('D', [64, 128])
+@pytest.mark.parametrize('case', ['causal_mask', 'full_bias',
+                                  'causal_bias_mask'])
+def test_tc_forward_rounding_holds_its_bar_against_the_pallas_bhld_forward(
+        case, D, L):
+    (q, k, v, _do, bias, mask), kw, rate = _bhld_case(case, L, D,
+                                                      seed=70 + D + L)
+    (tq, jq), (tk, jk), (tv, jv) = (_bf16(a) for a in (q, k, v))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, bias=_j(bias),
+                                  dropout_mask=_j(mask), dropout=rate,
+                                  with_lse=True, **kw)
+    o, lse = _tc_forward(tq, tk, tv, bias=_t(bias), dropout_mask=_t(mask),
+                         dropout=rate, **kw)
+    _assert_tc_bar(o, np.asarray(jo.astype(jnp.float32)), 'o', FWD_BAR)
+    _assert_tc_bar(lse, np.asarray(jlse)[..., 0], 'lse', LSE_BAR)

@@ -544,6 +544,165 @@ def test_kv_write_index_sends_padding_to_sink_page():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's split-and-merge order, grounded on the CPU
+# ---------------------------------------------------------------------------
+# chip_smoke.py's `paged_attention` bar: |got - want| <= atol + rtol |want|
+PAGED_BAR = dict(atol=1e-2, rtol=2e-2)
+
+
+def _block_keys(seq_len, qpos0, nq, ps, P):
+    """The keys a block of queries visits (csrc/paged_attention.cu
+    block_keys): the pages whose start is below seq_len, trimmed to the
+    block's last position when every query of the block sees key 0."""
+    npages = min(-(-seq_len // ps), P) if seq_len > 0 else 0
+    nkeys = npages * ps
+    return min(nkeys, qpos0 + nq) if qpos0 >= 0 else nkeys
+
+
+def _split_merge(q, kp, vp, pt, sl, ql, H, D, qb, splits, tiles_per_split,
+                 k_scales=None, v_scales=None, tile_keys=tpa.TILE_KEYS):
+    """The new kernel's order in fp32 PyTorch: per (row, block of qb
+    queries, head), the visited keys cut into `splits` splits of
+    tiles_per_split tiles of tile_keys keys; in each split two warps take
+    the two halves of each tile, each with its own online softmax (a
+    masked key -1e30, a key past the split -inf, the K scale on the
+    dot's sum, the V scale on the probability); the warps' states merge,
+    a block with one split writes its output, else the splits' (m, l,
+    acc) merge in split order with exp(m_s - M) weights; the normaliser
+    is max(l, 1e-30)."""
+    B, T, HD = q.shape
+    N, ps = kp.shape[:2]
+    P = pt.shape[1]
+    quant = k_scales is not None
+    KS = tiles_per_split * tile_keys
+    half = tile_keys // 2
+    qf = q.float().reshape(B, T, H, D) * np.float32(1.0 / np.sqrt(D))
+    out = torch.zeros(B, T, H, D)
+
+    def merged(states):
+        mx = torch.stack([st[0] for st in states]).amax(0)
+        f = [torch.exp(st[0] - mx) for st in states]
+        return (mx, sum(fi * st[1] for fi, st in zip(f, states)),
+                sum(fi[:, None] * st[2] for fi, st in zip(f, states)))
+
+    for b in range(B):
+        seq, qlen = int(sl[b]), int(ql[b])
+        for t0 in range(0, T, qb):
+            nq = min(qb, T - t0)
+            qpos0 = seq - qlen + t0
+            nkeys = _block_keys(seq, qpos0, nq, ps, P)
+            ns = -(-nkeys // KS)
+            pos = qpos0 + torch.arange(nq)
+            for h in range(H):
+                parts = []
+                for s in range(ns):
+                    kbeg, kend = s * KS, min((s + 1) * KS, nkeys)
+                    warps = [[torch.full((nq,), -1e30), torch.zeros(nq),
+                              torch.zeros(nq, D)] for _ in range(2)]
+                    for k0 in range(kbeg, kend, tile_keys):
+                        for w, st in enumerate(warps):
+                            keys = torch.arange(k0 + w * half,
+                                                k0 + (w + 1) * half)
+                            inside = keys < kend
+                            kk = keys.clamp(max=kend - 1)
+                            slot = (pt[b, kk // ps].long().clamp(0, N - 1)
+                                    * ps + kk % ps)
+                            kr = kp.reshape(N * ps, H, D)[slot, h].float()
+                            vr = vp.reshape(N * ps, H, D)[slot, h].float()
+                            sc = qf[b, t0:t0 + nq, h] @ kr.T   # [nq, half]
+                            vsc = torch.ones(half)
+                            if quant:
+                                sc = sc * k_scales.reshape(N * ps, H)[
+                                    slot, h]
+                                vsc = v_scales.reshape(N * ps, H)[slot, h]
+                            vis = (keys[None] < seq) & \
+                                (keys[None] <= pos[:, None])
+                            sc = torch.where(vis, sc, torch.tensor(-1e30))
+                            sc = torch.where(inside[None], sc,
+                                             torch.tensor(-np.inf))
+                            m_new = torch.maximum(st[0], sc.amax(1))
+                            p = torch.exp(sc - m_new[:, None])
+                            alpha = torch.exp(st[0] - m_new)
+                            st[1] = alpha * st[1] + p.sum(1)
+                            st[2] = alpha[:, None] * st[2] + \
+                                (p * vsc[None]) @ vr
+                            st[0] = m_new
+                    parts.append(merged(warps))
+                if parts:
+                    _m, l, acc = merged(parts)
+                    out[b, t0:t0 + nq, h] = acc / l.clamp_min(1e-30)[:, None]
+    return out.reshape(B, T, HD).to(q.dtype)
+
+
+def _split_case(seed=0):
+    """Rows over a pool of page_size 8: a decode row whose 100 keys cross
+    split boundaries, a prefill window crossing them, a query with no
+    visible key (q_len > seq_len), a seq_len-0 row, the engine's idle
+    slot, and a table with repeated entries and entries out of range
+    (clamped to [0, N - 1])."""
+    rng = np.random.RandomState(seed)
+    H, D, ps, P, T = 2, 8, 8, 16, 5
+    N = 40
+    lens = np.asarray([[100, 1], [70, 5], [2, 4], [0, 1], [1, 0], [37, 3]],
+                      np.int32)
+    B = len(lens)
+    q = rng.randn(B, T, H * D).astype(np.float32)
+    kp = rng.randn(N, ps, H * D).astype(np.float32)
+    vp = rng.randn(N, ps, H * D).astype(np.float32)
+    pt = np.stack([rng.permutation(N)[:P] for _ in range(B)]).astype(np.int32)
+    pt[4] = 0                                # the idle slot's row of zeros
+    pt[5, :6] = [3, 3, 7, -2, N + 5, 3]      # repeated and clamped
+    return q, kp, vp, pt, lens[:, 0], lens[:, 1], H, D
+
+
+@pytest.mark.parametrize('pages', ['dense', 'int8'])
+@pytest.mark.parametrize('tile_keys,tiles_per_split',
+                         [(64, 1), (8, 1), (8, 3), (4, 2)])
+@pytest.mark.parametrize('qb', [1, 8])
+def test_split_merge_order_matches_the_pallas_body(qb, tile_keys,
+                                                   tiles_per_split, pages):
+    q, kp, vp, pt, sl, ql, H, D = _split_case()
+    N, ps = kp.shape[:2]
+    kw = {}
+    if pages == 'int8':
+        kp, vp, ks, vs = _int8_pages(N, ps, H, D, seed=3)
+        kw = dict(k_scales=ks, v_scales=vs)
+    splits = -(-pt.shape[1] * ps // (tiles_per_split * tile_keys))
+    got = _split_merge(*(torch.from_numpy(a) for a in (q, kp, vp, pt, sl,
+                                                       ql)), H, D, qb,
+                       splits, tiles_per_split,
+                       **{k: torch.from_numpy(v) for k, v in kw.items()},
+                       tile_keys=tile_keys).numpy()
+    pallas = _np(jpa.ragged_paged_attention_pallas(
+        *(jnp.asarray(a) for a in (q, kp, vp, pt, sl, ql)), num_heads=H,
+        head_dim=D, interpret=True,
+        **{k: jnp.asarray(v) for k, v in kw.items()}))
+    np.testing.assert_allclose(got, pallas, **PAGED_BAR)
+    np.testing.assert_allclose(got, pallas, **FP32)
+    assert not got[3].any()                  # seq_len 0 writes zeros
+    # the query before every key averages the visited page's V rows
+    vrow = vp[pt[2, 0]].astype(np.float32).reshape(ps, H, D)
+    if pages == 'int8':
+        vrow = vrow * vs[pt[2, 0]][..., None]
+    np.testing.assert_allclose(got[2, 0].reshape(H, D), vrow.mean(0), **FP32)
+
+
+def test_paged_splits_cover_the_table_and_fill_the_card():
+    # decode at the serve's shapes: 7 splits of one tile, 896 CTAs
+    assert tpa.paged_splits(8, 1, 16, 28, 16, 132) == (1, 7, 1)
+    # prefill: 16 blocks of 8 queries a head, 4 splits of 2 tiles
+    assert tpa.paged_splits(1, 128, 16, 28, 16, 132) == (8, 4, 2)
+    # long contexts: 8 splits of 8 tiles
+    assert tpa.paged_splits(8, 1, 16, 256, 16, 132) == (1, 8, 8)
+    for B, T, H, P, ps in ((3, 4, 2, 4, 8), (1, 1, 1, 1, 1),
+                           (8, 128, 16, 28, 16), (2, 7, 3, 33, 5)):
+        qb, splits, per = tpa.paged_splits(B, T, H, P, ps, 132)
+        assert qb == (1 if T == 1 else 8)
+        assert splits * per * tpa.TILE_KEYS >= P * ps
+        assert (splits - 1) * per * tpa.TILE_KEYS < P * ps
+
+
+# ---------------------------------------------------------------------------
 # routing
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_plain_route_and_count_no_launch():

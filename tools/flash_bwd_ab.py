@@ -1,15 +1,30 @@
 #!/usr/bin/env python3
-"""Times paddle_tpu_torch's bf16 flash backward kernels on the card.
+"""Times paddle_tpu_torch's hand-written attention kernels on the card,
+for one tree or several in turns.
 
-At the gpt_1p3b train step's shapes (B=8, L=2048, H=16, D=128, causal):
-the packed dQ and dK/dV kernels (rows 9, 10 of PERF.md's kernel table)
-and the BHLD ones with a keep mask at p = 0.1 (rows 12, 13), each pair
-against SDPA's one backward call (dropout_p=0.1 for BHLD) and the pair's
-gradients against the plain fp32 backward (relative L2 error and max
-|diff| over the RMS). One JSON line per tree.
+Modes (rows of PERF.md's kernel table):
+  (default) the bf16 flash backward at the gpt_1p3b train step's shapes
+            (B=8, L=2048, H=16, D=128, causal): the packed dQ and dK/dV
+            kernels (rows 9, 10) and the BHLD ones with a keep mask at
+            p = 0.1 (rows 12, 13), each pair against SDPA's one backward
+            call (dropout_p=0.1 for BHLD) and the pair's gradients
+            against the plain fp32 backward;
+  --fwd     the bf16 flash forward at the same shapes: packed causal
+            (row 8) and BHLD with the keep mask (row 11), each against
+            SDPA's forward (dropout_p=0.1 for BHLD), o and lse against
+            the plain fp32 forward;
+  --paged   the ragged paged attention over bf16 pages (row 1) and over
+            int8 pages (row 1q) at the serve's decode and prefill shapes
+            and a long-context decode, timed cold beside SDPA over the
+            pages gathered dense, each checked against its plain version
+            (chip_smoke.py's `paged_rows`, from this checkout, drives
+            every tree).
+Errors are the relative L2 error and the max |diff| over the RMS. One
+JSON line per tree.
 
-    python3 tools/flash_bwd_ab.py                  # this checkout
-    python3 tools/flash_bwd_ab.py A B B A          # trees in turns
+    python3 tools/flash_bwd_ab.py                    # this checkout
+    python3 tools/flash_bwd_ab.py --fwd A B B A      # trees in turns
+    python3 tools/flash_bwd_ab.py --paged A B B A
 
 Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
 own process and builds its kernels into <tree>/build/paddle_tpu_torch.
@@ -44,7 +59,7 @@ def errors(got, want):
     return out
 
 
-def measure(tree):
+def measure_bwd(tree):
     sys.path.insert(0, tree)
     import torch
     from torch.nn import functional as F
@@ -102,17 +117,90 @@ def measure(tree):
     return res
 
 
+def measure_fwd(tree):
+    sys.path.insert(0, tree)
+    import torch
+    from torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    B, L, H, D = 8, 2048, 16, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda').bfloat16()
+
+    res = {'tree': tree}
+    q, k, v = (randn(B, L, H * D) for _ in range(3))
+    kw = dict(num_heads=H, head_dim=D, bias=None, causal=True)
+    fwd = lambda: fa.flash_attention_packed_fwd(q, k, v, **kw)
+    res['packed_errors'] = errors(fwd(), fa.flash_attention_packed_plain(
+        q.float(), k.float(), v.float(), **kw))
+    res['packed_ms'] = loop_ms(torch, fwd, iters=10)
+    heads = [t.reshape(B, L, H, D).transpose(1, 2).contiguous()
+             for t in (q, k, v)]
+    res['packed_sdpa_ms'] = loop_ms(torch, lambda: F.scaled_dot_product_attention(
+        *heads, is_causal=True), iters=10)
+    del q, k, v, heads
+    torch.cuda.empty_cache()
+
+    q, k, v = (randn(B * H, L, D) for _ in range(3))
+    mask = torch.rand(B * H, L, L, generator=gen, device='cuda') >= 0.1
+    kw = dict(num_heads=1, causal=True, dropout_mask=mask, dropout=0.1)
+    fwd = lambda: fa._flash_forward(q, k, v, **kw)
+    res['bhld_errors'] = errors(fwd(), fa.flash_forward_plain(
+        q.float(), k.float(), v.float(), **kw))
+    res['bhld_ms'] = loop_ms(torch, fwd, iters=10)
+    res['bhld_sdpa_ms'] = loop_ms(torch, lambda: F.scaled_dot_product_attention(
+        *(t.view(B, H, L, D) for t in (q, k, v)), dropout_p=0.1,
+        is_causal=True), iters=10)
+    for lay in ('packed', 'bhld'):
+        res[f'{lay}_over_sdpa'] = res[f'{lay}_ms'] / res[f'{lay}_sdpa_ms']
+    res['card'] = torch.cuda.get_device_name(0)
+    return res
+
+
+def measure_paged(tree):
+    sys.path.insert(0, tree)
+    import importlib.util
+    import torch
+    from torch.nn import functional as F
+
+    here = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'chip_smoke.py')
+    spec = importlib.util.spec_from_file_location('ab_chip_smoke', here)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = {'tree': tree}
+    rows = smoke.paged_rows(torch, F, smoke.make_randn(torch, 0))
+    for label, (dense, int8) in rows.items():
+        res[label] = dict(
+            dense_ms=dense['ms'], int8_ms=int8['ms'],
+            sdpa_ms=dense['library_ms'], dense_bound_ms=dense['bound_ms'],
+            int8_bound_ms=int8['bound_ms'],
+            dense_max_abs_err=dense['max_abs_err'],
+            int8_max_abs_err=int8['max_abs_err'],
+            qb_splits_tiles_per_split=dense['qb_splits_tiles_per_split'])
+    res['card'] = torch.cuda.get_device_name(0)
+    return res
+
+
+MODES = {'--bwd': measure_bwd, '--fwd': measure_fwd,
+         '--paged': measure_paged}
+
+
 def main(argv):
     if argv[:1] == ['--child']:
-        print(json.dumps(measure(os.path.abspath(argv[1]))), flush=True)
+        mode, tree = argv[1], os.path.abspath(argv[2])
+        print(json.dumps(MODES[mode](tree)), flush=True)
         return 0
-    trees = argv or [os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))]
+    mode = argv[0] if argv[:1] and argv[0] in MODES else '--bwd'
+    trees = [a for a in argv if a not in MODES] or [
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
     for tree in trees:
         env = dict(os.environ, PADDLE_TPU_TORCH_BUILD_DIR=os.path.join(
             os.path.abspath(tree), 'build', 'paddle_tpu_torch'))
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        '--child', tree], env=env, check=True)
+                        '--child', mode, tree], env=env, check=True)
     return 0
 
 
