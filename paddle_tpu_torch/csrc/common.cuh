@@ -74,6 +74,87 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// One 16-byte vector of T at columns c0 .. c0 + kVec16<T> - 1 of a row:
+// a single uint4 access when `vec` (n a multiple of the vector and the row
+// 16-byte aligned), else element by element, columns past n read as 0 and
+// not written (the scalar path: correct, not fast).
+template <typename T>
+__device__ __forceinline__ uint4 load_vec(const T* __restrict__ row, int c0,
+                                          int n, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(row + c0);
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int j = 0; j < kVec16<T>; ++j)
+    if (c0 + j < n) e[j] = row[c0 + j];
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ row, int c0, int n,
+                                          bool vec, uint4 v) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(row + c0) = v;
+    return;
+  }
+  const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int j = 0; j < kVec16<T>; ++j)
+    if (c0 + j < n) row[c0 + j] = e[j];
+}
+
+// a vector's elements as fp32 (bf16 converted in pairs)
+__device__ __forceinline__ void unpack(uint4 v, float (&f)[4], float) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack(uint4 v, float (&f)[8],
+                                       __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 p = __bfloat1622float2(h[j]);
+    f[2 * j] = p.x;
+    f[2 * j + 1] = p.y;
+  }
+}
+
+// fp32 values rounded (to nearest even) into one vector of T
+__device__ __forceinline__ uint4 pack(const float (&f)[4], float) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8], __nv_bfloat16) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+  return v;
+}
+
+// a + b element by element, one rounding to T each: add_t's result. For
+// bf16 the packed add (one add.rn.bf16x2 a pair) rounds the exact sum
+// once, as the fp32 add and the cast do (fp32's 24 bits hold two 8-bit
+// significands' sum closely enough that the second rounding never moves).
+__device__ __forceinline__ uint4 add_vec(uint4 a, uint4 b, float) {
+  return make_uint4(
+      __float_as_uint(__fadd_rn(__uint_as_float(a.x), __uint_as_float(b.x))),
+      __float_as_uint(__fadd_rn(__uint_as_float(a.y), __uint_as_float(b.y))),
+      __float_as_uint(__fadd_rn(__uint_as_float(a.z), __uint_as_float(b.z))),
+      __float_as_uint(__fadd_rn(__uint_as_float(a.w), __uint_as_float(b.w))));
+}
+__device__ __forceinline__ uint4 add_vec(uint4 a, uint4 b, __nv_bfloat16) {
+  uint4 r;
+  const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+  __nv_bfloat162* hr = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) hr[j] = __hadd2(ha[j], hb[j]);
+  return r;
+}
+
 // Makes `device` current for a launch and gives the caller's thread its
 // own current device back afterwards, as torch's device guards do: torch
 // reads the current device from the runtime, so a device left switched
@@ -101,7 +182,8 @@ class DeviceGuard {
 // Second pass of a cross-row reduction: out[c] = sum over p of
 // part[p * n + c], for c < n, summed in p order so the result does not
 // depend on how CTAs were scheduled (no float atomics). The backward
-// kernels write one row of fp32 partials per CTA of their first pass;
+// kernels write one row of fp32 partials per chunk of rows of their first
+// pass (the gradient statistics one per CTA);
 // this pass replaces the Pallas bodies' VMEM accumulation across their
 // sequential row grid. (Internal linkage: every source that includes this
 // header gets its own copy, so the link sees no duplicate symbol.)

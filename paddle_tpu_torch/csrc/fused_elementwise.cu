@@ -6,10 +6,14 @@
 // `_bg_bwd`, :114), reached through `nn_ops.bias_gelu`
 // (paddle_tpu/ops/nn_ops.py:53) from GPTMLP (paddle_tpu/models/gpt.py:339).
 //
-// What bounds them on this card: bytes. The forward reads x and writes y; the
-// backward reads x and dy and writes dx (the bias row stays in L1/L2); both do
-// ~10-25 fp32 operations per element, far below the H100's ~295 operations
-// per byte ridge.
+// What bounds them on this card: bytes, and for the backward instruction
+// issue too. The forward reads x and writes y; the backward reads x and dy
+// and writes dx (6 bytes an element in bf16); the forward does ~25 fp32
+// operations an element, the backward ~50 issued instructions (conversions,
+// the accurate tanhf, a dozen multiplies): at 132 SMs x 128 lanes x 1.755
+// GHz that is ~0.2 ms over the gpt_1p3b step's [16384, 8192], beside a
+// bytes bound of 0.24 ms at 3.35 TB/s. Far below the ~295 operations a byte
+// ridge, so neither is tensor-core work.
 //
 // Forward design: a grid-stride loop over 16-byte vectors of x, one vector a
 // thread per step, so every load and store moves 16 bytes and neighbouring
@@ -19,11 +23,22 @@
 // Backward design: du = dy * gelu'(u) with u = x + b added in x's dtype and
 // upcast (:76), dx = du rounded to x's dtype, and db = the fp32 sum of du over
 // rows. The Pallas body accumulates db over its SEQUENTIAL row grid in VMEM;
-// CTAs have no order, so pass 1 gives each CTA a fixed strided set of rows and
-// a private fp32 [n] accumulator in shared memory (thread tid owns columns
-// tid + 256 k), written as one row of `part` [parts, n]; pass 2
-// (ptt::launch_column_sum, a second launch from the same entry point) sums
-// the partials in CTA order: deterministic, no atomics.
+// CTAs run in no order, so the grid is 2-D: column tiles of one warp's width
+// of 16-byte vectors x chunks of contiguous rows (the wrapper's
+// `bias_gelu_bwd_grid` picks the chunks: about kBwdCtasPerSm CTAs an SM,
+// each resident at once). A thread owns 8 contiguous bf16 (4 fp32) columns,
+// moves them with one 16-byte load or store an array, loads its bias vector
+// once, forms u with packed bf16 adds (the same single rounding as the
+// scalar add) and converts in pairs, keeps its dbias in registers over its
+// rows, and issues the next row's loads before it computes the current one
+// (32 bytes a thread in flight, ~32 KB an SM at 1024 resident threads). The
+// CTA adds its warps' sums in shared memory once, in warp order, into one
+// row of `part` [chunks, n]; pass 2 (ptt::launch_column_sum, a second launch
+// from the same entry point) sums those rows in chunk order: deterministic,
+// no atomics. A row that is not 16-byte aligned, or n not a multiple of the
+// vector, takes the same partition element by element (ptt::load_vec).
+// The partials' order (rows 8 apart within a warp, warps, chunks, then the
+// column sum's groups) is emulated on the CPU in tests/test_torch_reduce.py.
 //
 // Numerics: the bias is cast to x's dtype and added in x's dtype, as in
 // fused_elementwise.py:105 and :143. The GELU and its derivative run in fp32
@@ -119,56 +134,111 @@ __device__ __forceinline__ float gelu_grad(float u) {
   return cdf + u * phi;
 }
 
+// Backward geometry (mirrored by ops/kernels/fused_elementwise.py
+// `bias_gelu_bwd_grid`): a CTA of kThreads takes a column tile of one
+// warp's width of 16-byte vectors (kTileCols: 256 bf16 or 128 fp32
+// columns) over one chunk of rows; its 8 warps walk the chunk's rows 8
+// apart, so a warp reads 512 contiguous bytes of a row.
+constexpr int kBwdWarps = kThreads / 32;
+constexpr int kBwdCtasPerSm = 4;
+
 template <typename T, bool kTanh>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void bias_gelu_bwd_row(uint4 xv, uint4 dv, uint4 bv,
+                                                  T* __restrict__ dx_row,
+                                                  int c0, int n, bool vec,
+                                                  float (&acc)[ptt::kVec16<T>]) {
+  constexpr int V = ptt::kVec16<T>;
+  float u[V], g[V], du[V];
+  ptt::unpack(ptt::add_vec(xv, bv, T{}), u, T{});
+  ptt::unpack(dv, g, T{});
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    du[j] = g[j] * gelu_grad<kTanh>(u[j]);
+    acc[j] += du[j];
+  }
+  ptt::store_vec(dx_row, c0, n, vec, ptt::pack(du, T{}));
+}
+
+// Pass 1: dx for the tile's rows of the chunk, and the chunk's dbias
+// partial. Each thread keeps its 8 (4) columns' sum in registers over the
+// rows it walks, in row order, with the next row's x and dy already in
+// flight; the CTA adds its 8 warps' sums in warp order in shared memory
+// once, at the end, into row blockIdx.y of `part` [chunks, n].
+template <typename T, bool kTanh>
+__global__ void __launch_bounds__(kThreads, kBwdCtasPerSm)
     bias_gelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ b,
                          const T* __restrict__ dy, T* __restrict__ dx,
-                         float* __restrict__ part, int rows, int n) {
-  extern __shared__ float db[];  // n floats
-  for (int c = threadIdx.x; c < n; c += kThreads) db[c] = 0.f;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const long long off = static_cast<long long>(r) * n;
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-      const float u = ptt::to_f32(ptt::add_t(x[off + c], b[c]));
-      const float du = ptt::to_f32(dy[off + c]) * gelu_grad<kTanh>(u);
-      dx[off + c] = ptt::from_f32<T>(du);
-      db[c] += du;
+                         float* __restrict__ part, int rows, int n,
+                         int rows_per_chunk, bool vec) {
+  constexpr int V = ptt::kVec16<T>;
+  constexpr int kTileCols = 32 * V;
+  __shared__ float comb[kBwdWarps][kTileCols];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * kTileCols + lane * V;
+  const int r0 = static_cast<int>(blockIdx.y) * rows_per_chunk;
+  const int r_end = rows - r0 < rows_per_chunk ? rows : r0 + rows_per_chunk;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  int r = r0 + warp;
+  if (c0 < n && r < r_end) {
+    const uint4 bv = ptt::load_vec(b, c0, n, vec);
+    const long long step = static_cast<long long>(kBwdWarps) * n;
+    long long off = static_cast<long long>(r) * n;
+    uint4 xv = ptt::load_vec(x + off, c0, n, vec);
+    uint4 dv = ptt::load_vec(dy + off, c0, n, vec);
+    for (; r < r_end; r += kBwdWarps, off += step) {
+      uint4 xn = xv, dn = dv;
+      if (r + kBwdWarps < r_end) {  // the next row's loads, issued first
+        xn = ptt::load_vec(x + off + step, c0, n, vec);
+        dn = ptt::load_vec(dy + off + step, c0, n, vec);
+      }
+      bias_gelu_bwd_row<T, kTanh>(xv, dv, bv, dx + off, c0, n, vec, acc);
+      xv = xn;
+      dv = dn;
     }
   }
-  float* out = part + static_cast<long long>(blockIdx.x) * n;
-  for (int c = threadIdx.x; c < n; c += kThreads) out[c] = db[c];
+#pragma unroll
+  for (int j = 0; j < V; ++j) comb[warp][lane * V + j] = acc[j];
+  __syncthreads();
+  const int c = blockIdx.x * kTileCols + threadIdx.x;
+  if (threadIdx.x < kTileCols && c < n) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) s += comb[w][threadIdx.x];
+    part[static_cast<long long>(blockIdx.y) * n + c] = s;
+  }
 }
 
 template <typename T, bool kTanh>
 int launch_bwd_t(const void* x, const void* b, const void* dy, void* dx,
-                 float* part, float* db, int rows, int n, int parts,
-                 cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bias_gelu_bwd_kernel<T, kTanh>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  bias_gelu_bwd_kernel<T, kTanh><<<parts, kThreads, smem, stream>>>(
+                 float* part, float* db, int rows, int n, int chunks,
+                 int rows_per_chunk, cudaStream_t stream) {
+  constexpr int kTileCols = 32 * ptt::kVec16<T>;
+  const bool vec = n % ptt::kVec16<T> == 0 && ptt::aligned16(x) &&
+                   ptt::aligned16(b) && ptt::aligned16(dy) &&
+                   ptt::aligned16(dx);
+  const dim3 grid((n + kTileCols - 1) / kTileCols, chunks);
+  bias_gelu_bwd_kernel<T, kTanh><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(b),
-      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, n);
+      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, n,
+      rows_per_chunk, vec);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ptt::launch_column_sum(part, db, parts, n, stream);
+  ptt::launch_column_sum(part, db, chunks, n, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* b, const void* dy, void* dx,
-               float* part, float* db, int rows, int n, int parts,
-               bool approximate, cudaStream_t stream) {
+               float* part, float* db, int rows, int n, int chunks,
+               int rows_per_chunk, bool approximate, cudaStream_t stream) {
   return approximate
-             ? launch_bwd_t<T, true>(x, b, dy, dx, part, db, rows, n, parts,
-                                     stream)
-             : launch_bwd_t<T, false>(x, b, dy, dx, part, db, rows, n, parts,
-                                      stream);
+             ? launch_bwd_t<T, true>(x, b, dy, dx, part, db, rows, n, chunks,
+                                     rows_per_chunk, stream)
+             : launch_bwd_t<T, false>(x, b, dy, dx, part, db, rows, n, chunks,
+                                      rows_per_chunk, stream);
 }
 
 template <typename T>
@@ -359,13 +429,20 @@ extern "C" int ptt_bias_gelu_fwd(const void* x, const void* b, void* y,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x, dy, dx: [rows, n] contiguous; b: [n] in x's dtype. part: [parts, n] fp32
-// scratch; db: [n] fp32 out. Two launches: pass 1, then the column sum.
+// x, dy, dx: [rows, n] contiguous; b: [n] in x's dtype. Rows are cut into
+// `chunks` chunks of `rows_per_chunk` (the last may be shorter, none
+// empty); part: [chunks, n] fp32 scratch; db: [n] fp32 out, every element
+// written. Two launches: pass 1, then the column sum. Any n up to 2^31 - 1
+// (32-bit column index inside a row, 64-bit row offsets).
 extern "C" int ptt_bias_gelu_bwd(const void* x, const void* b, const void* dy,
                                  void* dx, void* part, void* db, int rows,
-                                 int n, int parts, int approximate, int dtype,
-                                 int device, void* stream) {
-  if (rows <= 0 || n <= 0 || parts <= 0)
+                                 int n, int chunks, int rows_per_chunk,
+                                 int approximate, int dtype, int device,
+                                 void* stream) {
+  if (rows <= 0 || n <= 0 || chunks <= 0 || chunks > 65535 ||
+      rows_per_chunk <= 0 ||
+      static_cast<long long>(chunks) * rows_per_chunk < rows ||
+      static_cast<long long>(chunks - 1) * rows_per_chunk >= rows)
     return static_cast<int>(cudaErrorInvalidValue);
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
@@ -373,7 +450,7 @@ extern "C" int ptt_bias_gelu_bwd(const void* x, const void* b, const void* dy,
   PTT_DISPATCH_DTYPE(
       dtype, T,
       return launch_bwd<T>(x, b, dy, dx, static_cast<float*>(part),
-                           static_cast<float*>(db), rows, n, parts,
-                           approximate != 0, s));
+                           static_cast<float*>(db), rows, n, chunks,
+                           rows_per_chunk, approximate != 0, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

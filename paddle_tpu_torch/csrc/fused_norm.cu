@@ -8,7 +8,8 @@
 // backward reads x and dy and writes dx; both do about 10 fp32 operations per
 // element, far below the ~295 operations per byte at which an H100 stops being
 // memory bound. The best either can do is one pass over its rows, with w/b
-// and the per-row statistics from L2.
+// and the per-row statistics from L2. Reaching the bytes rate takes ~20 KB in
+// flight an SM (3.35 TB/s x ~0.8 us of latency / 132 SMs).
 //
 // Forward design: one CTA of 256 threads per row. The row is read once with
 // 16-byte loads into shared memory as fp32, so the two reductions (mean, then
@@ -20,13 +21,24 @@
 // training does, serving does not and pays nothing for them.
 //
 // Backward design: the Pallas body sums dw and db over its SEQUENTIAL row grid
-// in VMEM scratch; CTAs have no order. So pass 1 gives each CTA a fixed,
-// strided set of rows (row r goes to CTA r % parts) and a private fp32 [2, n]
-// accumulator in shared memory (dw, then db; each thread owns the columns
-// c = tid + 256 k, so no two threads touch one slot), writes dx per row, and
-// stores its accumulator as one row of `part` [parts, 2n]. Pass 2
-// (ptt::launch_column_sum, a second launch from the same entry point) sums
-// the partials column by column in CTA order: deterministic, no atomics.
+// in VMEM scratch; CTAs run in no order. A row's two sums span all its
+// columns, so a CTA takes whole rows: the grid is one column tile x chunks
+// of contiguous rows (the wrapper's `layer_norm_bwd_grid` picks them, about
+// as many CTAs as fit on the card at once). Each thread owns 8 contiguous
+// bf16 (4 fp32) columns a vector, moves them with one 16-byte load or store
+// an array, keeps the row in registers between the two row sums and the dx
+// epilogue (one read of each row), reduces Σdxhat and Σdxhat·xhat together
+// as one float2 behind ONE barrier a row, and has the next four rows' x
+// and dy in flight while it waits: each thread copies its own vectors into
+// a ring of row buffers in shared memory with cp.async (64 KB an SM in
+// flight at n = 2048 in bf16). Its dw and db sum in registers over the
+// chunk's rows, in
+// row order, and are stored once as row blockIdx.x of `part` [chunks, 2n];
+// pass 2 (ptt::launch_column_sum, a second launch from the same entry
+// point) sums those rows in chunk order: deterministic, no atomics. A row
+// that is not 16-byte aligned, or n not a multiple of the vector, takes the
+// same partition element by element (ptt::load_vec). Rows wider than the
+// registers hold stream twice through the CTA (see layer_norm_bwd_kernel).
 // dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) with
 // dxhat = dy * w in fp32 (:71-79); dw accumulates dy * xhat with xhat cast to
 // x's dtype and back, as the forward multiplies w by that cast (:82-83).
@@ -124,57 +136,252 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+// A thread owns the 16-byte vectors v = tid + 256 k of every row (8 bf16 or
+// 4 fp32 columns each), k < K. Rows of up to 256 K vectors are held in
+// registers (K = 1, 2, 4: n <= 2048 / 4096 / 8192 in bf16, half that in
+// fp32); the launch bounds cap their registers (K = 1, the gpt_1p3b
+// step's n = 2048 in bf16: 64) and ops/kernels/fused_norm.py
+// `layer_norm_bwd_grid` launches as many CTAs as fit an SM (K = 1: 2). Wider rows take the streaming body (K = 0), which
+// reads each row twice and sums dw and db in the CTA's own row of `part`
+// (each slot owned by one thread): any n below 2^30, where the parent's
+// shared-memory sums stopped at 227 KB / 8 B.
+// Rows of the register body pass through a ring of kStages row buffers in
+// shared memory, each thread copying its own 16-byte vectors of x and dy
+// with cp.async and reading back only those: a thread waits for its own
+// copies (cp.async.wait_group) and no barrier guards the ring. kStages - 1
+// rows are in flight while a row is used: 32 KB a CTA at n = 2048 in
+// bf16, 64 KB an SM at 2 CTAs. Two CTAs an SM with four rows ahead each
+// measured 7 % faster than four with two ahead (one H100 at 700 W,
+// tools/flash_bwd_ab.py --norm): half the partial rows to write and sum.
+constexpr int kStages = 5;
+
+// unlike flash_attention.cu's copy, ordered ("memory") against this
+// thread's earlier reads of the slot it refills
+__device__ __forceinline__ void cp_async16(uint4* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's vectors k of x and dy for row r into ring slot `slot`
+// (stage [kStages][2][K][kThreads] uint4): cp.async when `vec`, else
+// element by element through registers (the scalar path), zeros past n
+template <typename T, int K>
+__device__ __forceinline__ void stage_row(uint4* stage, int slot, const T* x,
+                                          const T* dy, int r, int n,
+                                          bool vec) {
+  constexpr int V = ptt::kVec16<T>;
+  const long long off = static_cast<long long>(r) * n;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c0 = (threadIdx.x + kThreads * k) * V;
+    uint4* sx = stage + ((slot * 2) * K + k) * kThreads + threadIdx.x;
+    uint4* sd = sx + K * kThreads;
+    if (c0 >= n) continue;
+    if (vec) {
+      cp_async16(sx, x + off + c0);
+      cp_async16(sd, dy + off + c0);
+    } else {
+      *sx = ptt::load_vec(x + off, c0, n, false);
+      *sd = ptt::load_vec(dy + off, c0, n, false);
+    }
+  }
+}
+
+// Σ dxhat and Σ dxhat * xhat over the row, as one float2: warp sums, one
+// barrier, then every thread adds the 8 warps' pairs in warp order itself.
+// `red` alternates between two slots by row, so the next row's write never
+// meets this row's reads and one barrier a row suffices.
+__device__ __forceinline__ float2 row_sums(float s1, float s2,
+                                           float2 (*red)[kWarps], int slot) {
+  s1 = ptt::warp_sum(s1);
+  s2 = ptt::warp_sum(s2);
+  if ((threadIdx.x & 31) == 0) red[slot][threadIdx.x >> 5] = make_float2(s1, s2);
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    t.x += red[slot][w].x;
+    t.y += red[slot][w].y;
+  }
+  return t;
+}
+
+// Pass 1 over the rows [r0, r_end) of chunk blockIdx.x: dx for each row, and
+// the chunk's dw and db as one row of `part` [chunks, 2n] (dw, then db).
+// Register body (K > 0): one read of each row, through the ring; the next
+// kStages - 1 rows are in flight while this row's sums cross the barrier;
+// dw and db sum in registers in row order and are stored once. Streaming body (K = 0):
+// the row is read for the sums and again (from L2) for dx.
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads, K == 1 ? 4 : (K == 2 ? 2 : 1))
     layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                           const T* __restrict__ dy,
                           const float* __restrict__ mean,
                           const float* __restrict__ rstd, T* __restrict__ dx,
-                          float* __restrict__ part, int rows, int n) {
-  extern __shared__ float acc[];  // dw [n], then db [n]
-  __shared__ float red[kWarps + 1];
-  float* dw = acc;
-  float* db = acc + n;
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    dw[c] = 0.f;
-    db[c] = 0.f;
-  }
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const long long off = static_cast<long long>(r) * n;
-    const float mu = mean[r];
-    const float rs = rstd[r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-      const float xhat = (ptt::to_f32(x[off + c]) - mu) * rs;
-      const float g = ptt::to_f32(dy[off + c]);
-      const float dxhat = g * ptt::to_f32(w[c]);
-      s1 += dxhat;
-      s2 += dxhat * xhat;
-      dw[c] += g * ptt::to_f32(ptt::from_f32<T>(xhat));
-      db[c] += g;
-    }
-    // jnp.mean divides the sum by n
-    const float m1 = block_sum(s1, red) / static_cast<float>(n);
-    const float m2 = block_sum(s2, red) / static_cast<float>(n);
-    // second sweep over the row: its bytes were just read, so they come
-    // from L1/L2, not device memory
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-      const float xhat = (ptt::to_f32(x[off + c]) - mu) * rs;
-      const float dxhat = ptt::to_f32(dy[off + c]) * ptt::to_f32(w[c]);
-      dx[off + c] = ptt::from_f32<T>(rs * (dxhat - m1 - xhat * m2));
-    }
-  }
+                          float* __restrict__ part, int rows, int n,
+                          int rows_per_chunk, bool vec) {
+  constexpr int V = ptt::kVec16<T>;
+  __shared__ float2 red[2][kWarps];
+  const float nf = static_cast<float>(n);
+  const int r0 = static_cast<int>(blockIdx.x) * rows_per_chunk;
+  const int r_end = rows - r0 < rows_per_chunk ? rows : r0 + rows_per_chunk;
   float* out = part + static_cast<long long>(blockIdx.x) * 2 * n;
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    out[c] = dw[c];
-    out[n + c] = db[c];
+  if constexpr (K > 0) {
+    extern __shared__ uint4 stage[];  // [kStages][2][K][kThreads]
+    uint4 wv[K];  // packed: converted at each use, to spare registers
+    float dw[K][V], db[K][V];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c0 = (threadIdx.x + kThreads * k) * V;
+      wv[k] = c0 < n ? ptt::load_vec(w, c0, n, vec)
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < V; ++j) dw[k][j] = db[k][j] = 0.f;
+    }
+    // one commit group a row, empty past the chunk, so that wait_group
+    // counts rows
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (r0 + i < r_end) stage_row<T, K>(stage, i, x, dy, r0 + i, n, vec);
+      cp_async_commit();
+    }
+    for (int r = r0, slot = 0; r < r_end; ++r) {
+      const int ahead = r + kStages - 1;
+      if (ahead < r_end)
+        stage_row<T, K>(stage, (slot + kStages - 1) % kStages, x, dy, ahead,
+                        n, vec);
+      cp_async_commit();
+      const float mu = mean[r], rs = rstd[r];
+      cp_async_wait<kStages - 1>();  // row r's copies have landed
+      const uint4* sx = stage + (slot * 2) * K * kThreads + threadIdx.x;
+      const uint4* sd = sx + K * kThreads;
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if ((threadIdx.x + kThreads * k) * V >= n) continue;
+        float xf[V], g[V], wf[V];
+        ptt::unpack(sx[k * kThreads], xf, T{});
+        ptt::unpack(sd[k * kThreads], g, T{});
+        ptt::unpack(wv[k], wf, T{});
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = (xf[j] - mu) * rs;
+          const float dxhat = g[j] * wf[j];
+          s1 += dxhat;
+          s2 += dxhat * xhat;
+          dw[k][j] += g[j] * ptt::to_f32(ptt::from_f32<T>(xhat));
+          db[k][j] += g[j];
+        }
+      }
+      // jnp.mean divides the sum by n
+      const float2 t = row_sums(s1, s2, red, r & 1);
+      const float m1 = t.x / nf, m2 = t.y / nf;
+      const long long off = static_cast<long long>(r) * n;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c0 = (threadIdx.x + kThreads * k) * V;
+        if (c0 >= n) continue;
+        float xf[V], g[V], wf[V], o[V];
+        ptt::unpack(sx[k * kThreads], xf, T{});
+        ptt::unpack(sd[k * kThreads], g, T{});
+        ptt::unpack(wv[k], wf, T{});
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = (xf[j] - mu) * rs;
+          o[j] = rs * (g[j] * wf[j] - m1 - xhat * m2);
+        }
+        ptt::store_vec(dx + off, c0, n, vec, ptt::pack(o, T{}));
+      }
+      slot = slot + 1 == kStages ? 0 : slot + 1;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c0 = (threadIdx.x + kThreads * k) * V;
+      if (c0 >= n) continue;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (c0 + j < n) {
+          out[c0 + j] = dw[k][j];
+          out[n + c0 + j] = db[k][j];
+        }
+      }
+    }
+  } else {
+    // dw [n], then db [n] in this CTA's row of `part`: thread tid owns the
+    // slots of its own vectors, so no two threads touch one slot and no
+    // barrier guards them (they stay in L1/L2 between rows)
+    const int nv = (n + V - 1) / V;
+    for (int v = threadIdx.x; v < nv; v += kThreads) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (v * V + j < n) out[v * V + j] = out[n + v * V + j] = 0.f;
+      }
+    }
+    for (int r = r0; r < r_end; ++r) {
+      const long long off = static_cast<long long>(r) * n;
+      const float mu = mean[r], rs = rstd[r];
+      float s1 = 0.f, s2 = 0.f;
+      for (int v = threadIdx.x; v < nv; v += kThreads) {
+        float xf[V], g[V], wf[V];
+        ptt::unpack(ptt::load_vec(x + off, v * V, n, vec), xf, T{});
+        ptt::unpack(ptt::load_vec(dy + off, v * V, n, vec), g, T{});
+        ptt::unpack(ptt::load_vec(w, v * V, n, vec), wf, T{});
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = (xf[j] - mu) * rs;
+          const float dxhat = g[j] * wf[j];
+          s1 += dxhat;
+          s2 += dxhat * xhat;
+          if (v * V + j < n) {
+            out[v * V + j] += g[j] * ptt::to_f32(ptt::from_f32<T>(xhat));
+            out[n + v * V + j] += g[j];
+          }
+        }
+      }
+      const float2 t = row_sums(s1, s2, red, r & 1);
+      const float m1 = t.x / nf, m2 = t.y / nf;
+      for (int v = threadIdx.x; v < nv; v += kThreads) {
+        float xf[V], g[V], wf[V], o[V];
+        ptt::unpack(ptt::load_vec(x + off, v * V, n, vec), xf, T{});
+        ptt::unpack(ptt::load_vec(dy + off, v * V, n, vec), g, T{});
+        ptt::unpack(ptt::load_vec(w, v * V, n, vec), wf, T{});
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = (xf[j] - mu) * rs;
+          o[j] = rs * (g[j] * wf[j] - m1 - xhat * m2);
+        }
+        ptt::store_vec(dx + off, v * V, n, vec, ptt::pack(o, T{}));
+      }
+    }
   }
 }
 
+// Opts `kernel` in to `smem` bytes of dynamic shared memory where its
+// static and dynamic bytes together pass the 48 KB a launch gets without
+// the opt-in; refuses more than the 227 KB a CTA can have.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel* kernel, size_t smem) {
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem <= 46 * 1024) return cudaSuccess;  // these kernels' static < 2 KB
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const size_t total = smem + attr.sharedSizeBytes;
+  if (total > 227 * 1024) return cudaErrorInvalidValue;
+  if (total <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -196,21 +403,48 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int K>
+int launch_bwd_k(const void* x, const void* w, const void* dy,
+                 const float* mean, const float* rstd, void* dx, float* part,
+                 int rows, int n, int chunks, int rows_per_chunk, bool vec,
+                 cudaStream_t stream) {
+  // the register body's ring of row buffers (the streaming body has none)
+  const size_t smem =
+      K > 0 ? static_cast<size_t>(kStages) * 2 * K * kThreads * sizeof(uint4)
+            : 0;
+  const cudaError_t err = allow_smem(layer_norm_bwd_kernel<T, K>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  layer_norm_bwd_kernel<T, K><<<chunks, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), mean, rstd, static_cast<T*>(dx), part, rows,
+      n, rows_per_chunk, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* dy,
                const float* mean, const float* rstd, void* dx, float* part,
-               float* dw_db, int rows, int n, int parts,
+               float* dw_db, int rows, int n, int chunks, int rows_per_chunk,
                cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(n) * sizeof(float);
-  cudaError_t err = allow_smem(layer_norm_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  layer_norm_bwd_kernel<T><<<parts, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(dy), mean, rstd, static_cast<T*>(dx), part, rows,
-      n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ptt::launch_column_sum(part, dw_db, parts, 2 * n, stream);
+  constexpr int V = ptt::kVec16<T>;
+  const bool vec = n % V == 0 && ptt::aligned16(x) && ptt::aligned16(w) &&
+                   ptt::aligned16(dy) && ptt::aligned16(dx);
+  const int per_thread = ((n + V - 1) / V + kThreads - 1) / kThreads;
+  int rc;
+  if (per_thread <= 1)
+    rc = launch_bwd_k<T, 1>(x, w, dy, mean, rstd, dx, part, rows, n, chunks,
+                            rows_per_chunk, vec, stream);
+  else if (per_thread <= 2)
+    rc = launch_bwd_k<T, 2>(x, w, dy, mean, rstd, dx, part, rows, n, chunks,
+                            rows_per_chunk, vec, stream);
+  else if (per_thread <= 4)
+    rc = launch_bwd_k<T, 4>(x, w, dy, mean, rstd, dx, part, rows, n, chunks,
+                            rows_per_chunk, vec, stream);
+  else
+    rc = launch_bwd_k<T, 0>(x, w, dy, mean, rstd, dx, part, rows, n, chunks,
+                            rows_per_chunk, vec, stream);
+  if (rc) return rc;
+  ptt::launch_column_sum(part, dw_db, chunks, 2 * n, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,15 +470,20 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
 }
 
 // x, dy, dx: [rows, n] contiguous, one dtype; w: [n] of that dtype; mean,
-// rstd: [rows] fp32 from the forward. part: [parts, 2n] fp32 scratch;
-// dw_db: [2n] fp32 out (dw, then db). Two launches: pass 1, then the
-// column sum.
+// rstd: [rows] fp32 from the forward. Rows are cut into `chunks` chunks of
+// `rows_per_chunk` (the last may be shorter, none empty); part: [chunks,
+// 2n] fp32 scratch; dw_db: [2n] fp32 out (dw, then db), every element
+// written. n below 2^30 (2n partial columns indexed in 32 bits). Two
+// launches: pass 1, then the column sum.
 extern "C" int ptt_layer_norm_bwd(const void* x, const void* w, const void* dy,
                                   const void* mean, const void* rstd,
                                   void* dx, void* part, void* dw_db, int rows,
-                                  int n, int parts, int dtype, int device,
-                                  void* stream) {
-  if (rows <= 0 || n <= 0 || parts <= 0)
+                                  int n, int chunks, int rows_per_chunk,
+                                  int dtype, int device, void* stream) {
+  if (rows <= 0 || n <= 0 || n >= (1 << 30) || chunks <= 0 ||
+      rows_per_chunk <= 0 ||
+      static_cast<long long>(chunks) * rows_per_chunk < rows ||
+      static_cast<long long>(chunks - 1) * rows_per_chunk >= rows)
     return static_cast<int>(cudaErrorInvalidValue);
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
@@ -254,6 +493,7 @@ extern "C" int ptt_layer_norm_bwd(const void* x, const void* w, const void* dy,
       return launch_bwd<T>(x, w, dy, static_cast<const float*>(mean),
                            static_cast<const float*>(rstd), dx,
                            static_cast<float*>(part),
-                           static_cast<float*>(dw_db), rows, n, parts, s));
+                           static_cast<float*>(dw_db), rows, n, chunks,
+                           rows_per_chunk, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -140,16 +140,16 @@ _SIGNATURES = {
     # x, w, b, y, mean (or None), rstd (or None), rows, n, eps, dtype,
     # device, stream
     'ptt_layer_norm_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
-    # x, w, dy, mean, rstd, dx, part, dw_db, rows, n, parts, dtype, device,
-    # stream
+    # x, w, dy, mean, rstd, dx, part, dw_db, rows, n, chunks,
+    # rows_per_chunk, dtype, device, stream
     'ptt_layer_norm_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _P),
+                           _I, _I, _P),
     # x, b, y, rows, n, approximate, dtype, device, stream
     'ptt_bias_gelu_fwd': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, b, dy, dx, part, db, rows, n, parts, approximate, dtype, device,
-    # stream
+    # x, b, dy, dx, part, db, rows, n, chunks, rows_per_chunk, approximate,
+    # dtype, device, stream
     'ptt_bias_gelu_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P),
+                          _I, _P),
     # q, k_pages, v_pages, page_tables, seq_lens, q_lens, out, part (or
     # None), B, T, H, D, N, page_size, pages_per_seq, qb, splits,
     # tiles_per_split, dtype, device, stream
@@ -253,11 +253,30 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def reduction_parts(device, rows):
-    """CTAs of the first pass of a cross-row reduction (the backward
-    kernels' dw/db partials): two per SM, at most one per row."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(rows, 2 * sms))
+    """CTAs of the first pass of the gradient statistics' reduction: two
+    per SM, at most one per row."""
+    return max(1, min(rows, 2 * sm_count(device)))
+
+
+# fp32 partial bytes a row-chunked reduction may allocate (the backward
+# kernels' [chunks, width] scratch), unless one partial row is larger
+SCRATCH_CAP = 32 << 20
+
+
+def row_chunks(rows, want, row_bytes):
+    """(chunks, rows_per_chunk): `rows` cut into at most `want` chunks of
+    contiguous rows (at least one, at most one a row, and few enough that
+    chunks x row_bytes stays under SCRATCH_CAP), sized so none is empty:
+    chunk i holds rows [i * rows_per_chunk, min(rows, (i+1) *
+    rows_per_chunk))."""
+    chunks = max(1, min(rows, want, SCRATCH_CAP // max(row_bytes, 1)))
+    per = -(-rows // chunks)
+    return -(-rows // per), per
 
 
 def launch(fn_name, kernel, device, *args, launches=1):

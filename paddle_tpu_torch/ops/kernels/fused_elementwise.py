@@ -50,6 +50,24 @@ for _name in (KERNEL, BWD_KERNEL, DA_KERNEL, DA_BWD_KERNEL):
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
+# csrc/fused_elementwise.cu's backward: a CTA takes a column tile of
+# BWD_TILE_VECS 16-byte vectors (one warp wide) over a chunk of rows; its
+# launch bounds promise BWD_CTAS_PER_SM CTAs an SM
+BWD_TILE_VECS = 32
+BWD_CTAS_PER_SM = 4
+
+
+def bias_gelu_bwd_grid(rows, n, dtype, sms):
+    """(column tiles, chunks, rows_per_chunk) of the backward kernel's
+    first pass for [rows, n] of `dtype` on a card of `sms` SMs: about as
+    many CTAs as are resident at once, each over one column tile of a
+    chunk of contiguous rows, the chunk's dbias one row of the [chunks, n]
+    fp32 scratch."""
+    vectors = -(-n // (16 // torch.empty((), dtype=dtype).element_size()))
+    tiles = -(-vectors // BWD_TILE_VECS)
+    want = max(1, BWD_CTAS_PER_SM * sms // tiles)
+    return (tiles, *_build.row_chunks(rows, want, n * 4))
+
 
 def gelu_f32(u, approximate):
     """jax.nn.gelu's two forms on an fp32 tensor, op for op."""
@@ -118,15 +136,16 @@ def _bwd_kernel(x, bias, dy, approximate):
     N = x.shape[-1]
     rows = x.numel() // max(N, 1)
     dx = torch.empty_like(x)
-    db = torch.zeros(N, dtype=torch.float32, device=x.device)
     if rows == 0 or N == 0:
-        return dx, db
-    parts = _build.reduction_parts(x.device, rows)
-    part = torch.empty(parts, N, dtype=torch.float32, device=x.device)
+        return dx, torch.zeros(N, dtype=torch.float32, device=x.device)
+    db = torch.empty(N, dtype=torch.float32, device=x.device)
+    _tiles, chunks, per = bias_gelu_bwd_grid(rows, N, x.dtype,
+                                             _build.sm_count(x.device))
+    part = torch.empty(chunks, N, dtype=torch.float32, device=x.device)
     _build.launch('ptt_bias_gelu_bwd', BWD_KERNEL, x.device, x.data_ptr(),
                   b.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                  db.data_ptr(), rows, N, parts, int(bool(approximate)), code,
-                  launches=2)
+                  db.data_ptr(), rows, N, chunks, per, int(bool(approximate)),
+                  code, launches=2)
     return dx, db
 
 

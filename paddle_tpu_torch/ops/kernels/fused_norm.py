@@ -28,6 +28,30 @@ BWD_KERNEL = 'layer_norm_bwd'
 _build.register(KERNEL)
 _build.register(BWD_KERNEL)
 
+# csrc/fused_norm.cu's backward: a CTA of BWD_THREADS threads takes whole
+# rows, a thread 16-byte vectors tid + BWD_THREADS k of each, k < K; rows
+# of up to 1, 2 or 4 vectors a thread pass through a ring of 5 row buffers
+# in shared memory (40 KB a CTA for each vector a thread), so 2, 2 and 1
+# CTAs an SM; wider rows stream (K = 0), one CTA an SM, for any n below
+# BWD_MAX_N (2n partial columns indexed in 32 bits).
+BWD_THREADS = 256
+BWD_CTAS_PER_SM = {1: 2, 2: 2, 4: 1, 0: 1}
+BWD_MAX_N = 1 << 30
+
+
+def layer_norm_bwd_grid(rows, n, dtype, sms):
+    """(chunks, rows_per_chunk) of the backward kernel's first pass for
+    [rows, n] of `dtype` on a card of `sms` SMs: about as many CTAs as are
+    resident at once, each over a chunk of contiguous rows, its dw and db
+    partial one row of the [chunks, 2n] fp32 scratch."""
+    if n >= BWD_MAX_N:
+        raise ValueError(f'layer_norm_bwd: rows of {n} elements exceed the '
+                         f'kernel\'s limit of {BWD_MAX_N - 1}')
+    vectors = -(-n // (16 // torch.empty((), dtype=dtype).element_size()))
+    per_thread = -(-vectors // BWD_THREADS)
+    k = next((k for k in (1, 2, 4) if per_thread <= k), 0)
+    return _build.row_chunks(rows, BWD_CTAS_PER_SM[k] * sms, 2 * n * 4)
+
 
 def layer_norm_fwd_plain(x, weight, bias, eps):
     """Plain PyTorch LayerNorm over the last axis: (y, mean, rstd), the
@@ -103,13 +127,14 @@ def _bwd_kernel(x, weight, dy, mean, rstd):
     if rows == 0 or N == 0:
         zeros = torch.zeros(N, dtype=torch.float32, device=x.device)
         return dx, zeros, zeros.clone()
-    parts = _build.reduction_parts(x.device, rows)
-    part = torch.empty(parts, 2 * N, dtype=torch.float32, device=x.device)
+    chunks, per = layer_norm_bwd_grid(rows, N, x.dtype,
+                                      _build.sm_count(x.device))
+    part = torch.empty(chunks, 2 * N, dtype=torch.float32, device=x.device)
     dw_db = torch.empty(2 * N, dtype=torch.float32, device=x.device)
     _build.launch('ptt_layer_norm_bwd', BWD_KERNEL, x.device, x.data_ptr(),
                   weight.data_ptr(), dy.data_ptr(), mean.data_ptr(),
                   rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                  dw_db.data_ptr(), rows, N, parts, code, launches=2)
+                  dw_db.data_ptr(), rows, N, chunks, per, code, launches=2)
     return dx, dw_db[:N], dw_db[N:]
 
 

@@ -87,6 +87,32 @@ def cuda():
     return torch.device('cuda')
 
 
+# the backward reductions' shapes: (shape, element offset of x and dy from
+# a 16-byte aligned start). A row, fewer rows than the CTAs of one column
+# tile, a row count no chunk divides, n a multiple of 8 but not of the
+# column tile, n = 37, inputs one element off 16-byte alignment, the
+# gpt_1p3b train step's shapes (the 16384 rows also in fp32); LayerNorm
+# rows held in registers 1, 2 and 4 vectors a thread and wider rows that
+# stream (12288; 40000, past the parent's 29,051).
+BWD_LN_CASES = [((3, 5, 64), 0), ((300, 2048), 0), ((2, 37), 0),
+                ((1, 2048), 0), ((100, 2048), 0), ((16411, 2048), 0),
+                ((300, 2056), 0), ((300, 37), 0), ((300, 2048), 1),
+                ((16384, 2048), 0), ((64, 4096), 0), ((64, 8192), 0),
+                ((64, 12288), 0), ((8, 40000), 0), ((64, 8200), 1)]
+BWD_GELU_CASES = [((3, 5, 64), 0), ((300, 8192), 0), ((2, 37), 0),
+                  ((1, 8192), 0), ((10, 8192), 0), ((16411, 8192), 0),
+                  ((300, 8200), 0), ((300, 2056), 0), ((300, 37), 0),
+                  ((300, 8192), 1), ((16384, 8192), 0), ((8, 40000), 0)]
+
+
+def _offset_randn(shape, offset, gen, device, dtype):
+    """randn of `shape`, contiguous, starting `offset` elements into an
+    allocation (so offset 1 is off 16-byte alignment)."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, generator=gen, device=device).to(dtype)
+    return flat[offset:].view(shape)
+
+
 def _paged_case(head_dim, seed=3):
     """A decode row, a pure-prefill row, a long multi-page row with
     padding (shuffled page tables) and the engine's idle slot (seq_len 1,
@@ -562,13 +588,13 @@ class TestOnCard:
                                            c.grad.float(), **FP32_SUMS)
 
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize('shape', [(3, 5, 64), (300, 2048), (2, 37)])
-    def test_layer_norm_bwd_kernel(self, cuda, dtype, shape):
+    @pytest.mark.parametrize('shape,offset', BWD_LN_CASES)
+    def test_layer_norm_bwd_kernel(self, cuda, dtype, shape, offset):
         g = torch.Generator(device=cuda).manual_seed(2)
-        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        x = _offset_randn(shape, offset, g, cuda, dtype)
         w = torch.randn(shape[-1], generator=g, device=cuda).to(dtype)
         b = torch.randn(shape[-1], generator=g, device=cuda).to(dtype)
-        dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        dy = _offset_randn(shape, offset, g, cuda, dtype)
         _y, mean, rstd = tfn.layer_norm_fwd_plain(x, w, b, 1e-5)
         _build.reset_launches()
         got = tfn.layer_norm_bwd(x, w, dy, mean, rstd)
@@ -581,12 +607,13 @@ class TestOnCard:
 
     @pytest.mark.parametrize('approximate', [True, False])
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize('shape', [(3, 5, 64), (300, 8192), (2, 37)])
-    def test_bias_gelu_bwd_kernel(self, cuda, dtype, shape, approximate):
+    @pytest.mark.parametrize('shape,offset', BWD_GELU_CASES)
+    def test_bias_gelu_bwd_kernel(self, cuda, dtype, shape, offset,
+                                  approximate):
         g = torch.Generator(device=cuda).manual_seed(3)
-        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        x = _offset_randn(shape, offset, g, cuda, dtype)
         b = torch.randn(shape[-1], generator=g, device=cuda)
-        dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        dy = _offset_randn(shape, offset, g, cuda, dtype)
         _build.reset_launches()
         dx, db = tfe.bias_gelu_bwd(x, b, dy, approximate)
         assert _build.routes_snapshot()['bias_gelu_bwd'] == 2
@@ -594,6 +621,27 @@ class TestOnCard:
         tol = FP32 if dtype == torch.float32 else BF16_ELEMENTWISE
         torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
         torch.testing.assert_close(db, db_p, **FP32_SUMS)
+
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize('shape,offset', [((16384, 2048), 0),
+                                              ((16411, 8200), 0),
+                                              ((300, 37), 0),
+                                              ((300, 2048), 1)])
+    def test_backward_reductions_are_deterministic(self, cuda, dtype, shape,
+                                                   offset):
+        """Two calls on the same inputs give the same bits: dx, dw, db of
+        the LayerNorm backward and dx, dbias of the bias+GELU backward
+        (fixed partitions summed in a fixed order, no float atomics)."""
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = _offset_randn(shape, offset, g, cuda, dtype)
+        dy = _offset_randn(shape, offset, g, cuda, dtype)
+        w = torch.randn(shape[-1], generator=g, device=cuda).to(dtype)
+        _y, mean, rstd = tfn.layer_norm_fwd_plain(x, w, w, 1e-5)
+        for fn in (lambda: tfn.layer_norm_bwd(x, w, dy, mean, rstd),
+                   lambda: tfe.bias_gelu_bwd(x, w, dy, True)):
+            first, second = fn(), fn()
+            for a, c in zip(first, second):
+                assert torch.equal(a, c)
 
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
     def test_gradients_flow_through_every_kernel_wrapper(self, cuda, dtype):

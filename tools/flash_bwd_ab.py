@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times paddle_tpu_torch's hand-written attention kernels on the card,
+"""Times paddle_tpu_torch's hand-written kernels on the card,
 for one tree or several in turns.
 
 Modes (rows of PERF.md's kernel table):
@@ -18,13 +18,22 @@ Modes (rows of PERF.md's kernel table):
             and a long-context decode, timed cold beside SDPA over the
             pages gathered dense, each checked against its plain version
             (chip_smoke.py's `paged_rows`, from this checkout, drives
-            every tree).
+            every tree);
+  --norm    the LayerNorm backward at [16384, 2048] (row 4) and the
+            bias+GELU backward at [16384, 8192] (row 5), bf16, the
+            gpt_1p3b train step's shapes, each beside its library call
+            (`native_layer_norm_backward`; `gelu_backward` and the
+            dbias sum) and checked against its plain version at
+            chip_smoke.py's bars; each call is a CUDA-graph replay of
+            back-to-back launches, cold (the 200-800 MB working sets
+            exceed the 50 MB L2).
 Errors are the relative L2 error and the max |diff| over the RMS. One
 JSON line per tree.
 
     python3 tools/flash_bwd_ab.py                    # this checkout
     python3 tools/flash_bwd_ab.py --fwd A B B A      # trees in turns
     python3 tools/flash_bwd_ab.py --paged A B B A
+    python3 tools/flash_bwd_ab.py --norm A B B A
 
 Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
 own process and builds its kernels into <tree>/build/paddle_tpu_torch.
@@ -161,15 +170,10 @@ def measure_fwd(tree):
 
 def measure_paged(tree):
     sys.path.insert(0, tree)
-    import importlib.util
     import torch
     from torch.nn import functional as F
 
-    here = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), 'chip_smoke.py')
-    spec = importlib.util.spec_from_file_location('ab_chip_smoke', here)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     res = {'tree': tree}
     rows = smoke.paged_rows(torch, F, smoke.make_randn(torch, 0))
     for label, (dense, int8) in rows.items():
@@ -184,8 +188,72 @@ def measure_paged(tree):
     return res
 
 
+def _smoke():
+    """chip_smoke.py of this checkout, as a module."""
+    import importlib.util
+    here = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'chip_smoke.py')
+    spec = importlib.util.spec_from_file_location('ab_chip_smoke', here)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def measure_norm(tree):
+    sys.path.insert(0, tree)
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
+    from paddle_tpu_torch.ops.kernels import fused_norm as fn
+
+    smoke = _smoke()
+    randn = smoke.make_randn(torch, 0)
+    aten = torch.ops.aten
+    rows, hidden, ffn = 16384, 2048, 8192
+    res = {'tree': tree}
+
+    x, dy = randn(rows, hidden), randn(rows, hidden)
+    w, b = 1.0 + randn(hidden, scale=0.1), randn(hidden, scale=0.1)
+    _y, mean, rstd = fn.layer_norm_fwd_plain(x, w, b, 1e-5)
+    got = fn.layer_norm_bwd(x, w, dy, mean, rstd)
+    want = fn.layer_norm_bwd_plain(x, w, dy, mean, rstd)
+    res['ln_max_abs_err'] = max(
+        smoke.check_close('layer_norm_bwd', got[0], want[0]),
+        smoke.check_close('fp32_sum', got[1], want[1]),
+        smoke.check_close('fp32_sum', got[2], want[2]))
+    res['ln_ms'] = smoke.device_ms(
+        torch, lambda: fn.layer_norm_bwd(x, w, dy, mean, rstd), iters=20)
+    _y, lmean, lrstd = aten.native_layer_norm(x, [hidden], w, b, 1e-5)
+    res['ln_library_ms'] = smoke.device_ms(
+        torch, lambda: aten.native_layer_norm_backward(
+            dy, x, [hidden], lmean, lrstd, w, b, [True, True, True]),
+        iters=20)
+    del x, dy, got, want, _y
+    torch.cuda.empty_cache()
+
+    x, dy = randn(rows, ffn), randn(rows, ffn)
+    b = randn(ffn, scale=0.1)
+    got = fe.bias_gelu_bwd(x, b, dy, True)
+    want = fe.bias_gelu_bwd_plain(x, b, dy, True)
+    res['gelu_max_abs_err'] = max(
+        smoke.check_close('bias_gelu_bwd', got[0], want[0]),
+        smoke.check_close('fp32_sum', got[1], want[1]))
+    res['gelu_ms'] = smoke.device_ms(
+        torch, lambda: fe.bias_gelu_bwd(x, b, dy, True), iters=20)
+    u = x + b
+
+    def library():
+        du = aten.gelu_backward(dy, u, approximate='tanh')
+        return du, du.sum(0, dtype=torch.float32)
+
+    res['gelu_library_ms'] = smoke.device_ms(torch, library, iters=20)
+    for k in ('ln', 'gelu'):
+        res[f'{k}_over_library'] = res[f'{k}_ms'] / res[f'{k}_library_ms']
+    res['card'] = torch.cuda.get_device_name(0)
+    return res
+
+
 MODES = {'--bwd': measure_bwd, '--fwd': measure_fwd,
-         '--paged': measure_paged}
+         '--paged': measure_paged, '--norm': measure_norm}
 
 
 def main(argv):
