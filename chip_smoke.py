@@ -76,7 +76,9 @@ Phases, one JSON line each on stdout:
              the flash kernels' share of busy time (all, and backward).
 6. optimizer kernels — the fused-optimizer kernels (gradient statistics,
              bucket update) over gpt_1p3b's largest bucket (the word
-             embedding, 103 M elements) and a ragged one, and the
+             embedding, 103 M elements) and a ragged one (the
+             statistics also over the layout's first fc1 bucket, 16.8 M
+             elements, timed cold over COLD_COPIES copies), and the
              dropout+residual kernels forward and backward at the train
              step's [16384, 2048], each against its plain version and
              timed; the update as the path's AdamW (bf16 params and
@@ -105,7 +107,10 @@ Phases, one JSON line each on stdout:
              optimizer kernels once a bucket a step, dropout+residual 48
              times a step, the BHLD flash kernels 24 times a step), the
              packed flash and paged kernels never, and the lr each step
-             fed must equal the schedule's. Then a profiled step.
+             fed must equal the schedule's. Prints the statistics'
+             bound a step (every gradient bucket read once at 3.35
+             TB/s). Then a profiled step, the statistics' device time a
+             group of its own.
 9. check   — the whole path on the card against the CPU, at gpt_1p3b's
              width with 2 layers in fp32 (TF32 off), from the same
              weights: one per-parameter TrainStep (SGD) at B=1, L=512
@@ -1385,6 +1390,7 @@ def optimizer_kernel_phase(torch):
                        multi_precision=True)
 
     # -- grad_stats --------------------------------------------------------
+    fc1 = fc1_bucket_size(torch)
     for n in (BIG_BUCKET, RAGGED_BUCKET):
         gen = torch.Generator(device='cuda').manual_seed(n % 97)
         x = (1e-3 * torch.randn(n, generator=gen, device='cuda')).to(
@@ -1414,7 +1420,8 @@ def optimizer_kernel_phase(torch):
                 library_ms=device_ms(torch, lambda: torch.linalg.vector_norm(
                     x, dtype=torch.float32), iters=20),
                 library='torch.linalg.vector_norm(dtype=float32), no count',
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by,
+                typical_bucket=typical_stats_row(torch, FO, fc1))
         del x
         free_cuda(torch)
 
@@ -1627,6 +1634,48 @@ def rule_kernel_checks(torch, FO, lr, pref, checks):
 RULE_STEPS = 3
 
 
+def fc1_bucket_size(torch):
+    """Elements of the first fc1 bucket of TrainStep's gpt_1p3b layout
+    (the layout built from the parameters' shapes on the meta device)."""
+    from paddle_tpu_torch.core import bucketing as B
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+
+    model = GPTForCausalLM(gpt_1p3b(use_flash_attention=True),
+                           device='meta', dtype=torch.bfloat16)
+    layout = B.BucketLayout.build(
+        {n: (p.shape, p.dtype) for n, p in model.named_parameters()},
+        bucket_bytes=B.DEFAULT_BUCKET_BYTES, pad_to=8)
+    return next(b.size for b in layout.buckets
+                if any('mlp.fc1.weight' in sl.name for sl in b.slots))
+
+
+def typical_stats_row(torch, FO, n):
+    """grad_stats over a typical bucket (n bf16 elements), checked and
+    timed cold: each call reads the next of COLD_COPIES copies (more than
+    the 50 MB L2 holds), as a step finds most buckets."""
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    xs = [(1e-3 * torch.randn(n, generator=gen, device='cuda')).to(
+        torch.bfloat16) for _ in range(COLD_COPIES)]
+    err = check_close('grad_stats', FO.grad_stats(xs[0])[0],
+                      FO.grad_stats_plain(xs[0])[0])
+    turn = [0]
+
+    def cold(fn):
+        def call():
+            turn[0] += 1
+            return fn(xs[turn[0] % COLD_COPIES])
+        return call
+
+    bms, by = bound_ms(2 * n + 8, 3 * n, FP32_FLOPS)
+    return dict(
+        shape=f'flat [{n}] bf16 (the first fc1 bucket), cold',
+        max_abs_err=err, ms=device_ms(torch, cold(FO.grad_stats)),
+        plain_ms=loop_ms(torch, cold(FO.grad_stats_plain)),
+        library_ms=device_ms(torch, cold(lambda x: torch.linalg.vector_norm(
+            x, dtype=torch.float32))),
+        bound_ms=bms, bound_by=by)
+
+
 def rules_phase(torch):
     """Three default-route TrainSteps per rule at gpt_1p3b's width with 2
     layers, each rule from the same seeded weights, in GPTConfig's default
@@ -1657,7 +1706,7 @@ def rules_phase(torch):
         losses = [float(step(ids, labels)) for _ in range(RULE_STEPS)]
         launches = _build.routes_snapshot()
         want = {'optimizer_step': nb * RULE_STEPS,
-                'grad_stats': 2 * nb * RULE_STEPS,
+                'grad_stats': nb * RULE_STEPS,
                 **{k: cfg.num_layers * RULE_STEPS for k in BHLD_KERNELS}}
         wrong = {k: (launches[k], v) for k, v in want.items()
                  if launches[k] != v}
@@ -1759,7 +1808,7 @@ def train_bucketed_phase(torch, card):
     idle = [k for k in BUCKETED_PATH if launches[k] <= 0]
     if idle:
         raise AssertionError(f'training kernels never launched: {idle}')
-    want = {'grad_stats': 2 * n_buckets * TIMED_STEPS,
+    want = {'grad_stats': n_buckets * TIMED_STEPS,
             'optimizer_step': n_buckets * TIMED_STEPS,
             'dropout_add': 2 * cfg.num_layers * TIMED_STEPS,
             'dropout_add_bwd': 2 * cfg.num_layers * TIMED_STEPS,
@@ -1790,6 +1839,10 @@ def train_bucketed_phase(torch, card):
                        f'CosineAnnealingDecay(T_max={T_MAX})',
           'buckets': n_buckets,
           'bucket_sizes': sorted({b.size for b in step.layout.buckets}),
+          # every gradient bucket read once over 3.35 TB/s: the least
+          # device time of a step's grad_stats launches
+          'stats_bound_ms_per_step': 1e3 * step.layout.nbytes()
+                                     / HBM_BYTES_PER_S,
           'model_build_s': build_s, 'warmup_step_s': warm_s,
           'warmup_loss': warm, 'losses': losses, 'step_s': walls,
           'lr_fed': [f for f, _w in fed],
@@ -2008,14 +2061,15 @@ def whole_path_check(torch):
 
 # the port's kernels by the device-side names the profiler shows (a name
 # holds one of the row's strings); the column sum is the second pass of
-# both backward reductions, the merge kernel the paged attention's
+# both backward reductions, the merge kernel the paged attention's; the
+# LayerNorm forward has a register body and a shared-memory one
 KERNEL_NAMES = {'paged_attention_int8': (
                     'ragged_paged_attention_kernel<__nv_bfloat16, signed char',
                     'ragged_paged_attention_merge_kernel<__nv_bfloat16, '
                     'signed char'),
                 'paged_attention': ('ragged_paged_attention_kernel',
                                     'ragged_paged_attention_merge_kernel'),
-                'layer_norm': ('layer_norm_fwd_kernel',),
+                'layer_norm': ('layer_norm_fwd_',),
                 'bias_gelu': ('bias_gelu_fwd_kernel',),
                 'layer_norm_bwd': ('layer_norm_bwd_kernel',),
                 'bias_gelu_bwd': ('bias_gelu_bwd_kernel',),
@@ -2033,16 +2087,19 @@ KERNEL_NAMES = {'paged_attention_int8': (
 
 
 def _group_device_time(kernels):
-    """Device seconds of profiler events by group (port kernels, GEMMs,
-    other) and by port kernel."""
-    groups = {'port_kernels': 0.0, 'gemm': 0.0, 'other': 0.0}
+    """Device seconds of profiler events by group (the port's kernels,
+    the gradient statistics apart from them, GEMMs, other) and by port
+    kernel."""
+    groups = {'port_kernels': 0.0, 'grad_stats': 0.0, 'gemm': 0.0,
+              'other': 0.0}
     port = {}
     for e in kernels:
         t = e.self_device_time_total / 1e6
         name = next((n for n, parts in KERNEL_NAMES.items()
                      if any(part in e.key for part in parts)), None)
         if name is not None:
-            groups['port_kernels'] += t
+            groups['grad_stats' if name == 'grad_stats'
+                   else 'port_kernels'] += t
             port[name] = port.get(name, 0.0) + t
         elif any(k in e.key.lower() for k in ('gemm', 'xmma', 'cutlass',
                                                 'nvjet', 'sm90')):
@@ -2239,6 +2296,8 @@ def main():
             entry['launches_train_bucketed'] = bucketed_launches[name]
         if name == 'optimizer_step':
             entry['rules'] = row['rules']
+        if name == 'grad_stats':
+            entry['typical_bucket'] = row['typical_bucket']
         for key in ('pair_over_library', 'over_library'):
             if key in row:
                 entry[key] = row[key]

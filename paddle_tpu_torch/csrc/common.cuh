@@ -121,6 +121,18 @@ __device__ __forceinline__ void unpack(uint4 v, float (&f)[8],
   }
 }
 
+// Σ of a vector's fp32 values, pairwise: ((f0 + f1) + (f2 + f3)) [+ ((f4 +
+// f5) + (f6 + f7))], each add rounded (the order the reductions' CPU
+// emulations follow)
+__device__ __forceinline__ float pairwise_sum(const float (&f)[4]) {
+  return __fadd_rn(__fadd_rn(f[0], f[1]), __fadd_rn(f[2], f[3]));
+}
+__device__ __forceinline__ float pairwise_sum(const float (&f)[8]) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(f[0], f[1]), __fadd_rn(f[2], f[3])),
+      __fadd_rn(__fadd_rn(f[4], f[5]), __fadd_rn(f[6], f[7])));
+}
+
 // fp32 values rounded (to nearest even) into one vector of T
 __device__ __forceinline__ uint4 pack(const float (&f)[4], float) {
   return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
@@ -183,8 +195,7 @@ class DeviceGuard {
 // part[p * n + c], for c < n, summed in p order so the result does not
 // depend on how CTAs were scheduled (no float atomics). The backward
 // kernels write one row of fp32 partials per chunk of rows of their first
-// pass (the gradient statistics one per CTA);
-// this pass replaces the Pallas bodies' VMEM accumulation across their
+// pass; this pass replaces the Pallas bodies' VMEM accumulation across their
 // sequential row grid. (Internal linkage: every source that includes this
 // header gets its own copy, so the link sees no duplicate symbol.)
 // A CTA of 32 x 8 threads takes 32 neighbouring columns; thread (x, y) sums

@@ -11,14 +11,45 @@
 // and the per-row statistics from L2. Reaching the bytes rate takes ~20 KB in
 // flight an SM (3.35 TB/s x ~0.8 us of latency / 132 SMs).
 //
-// Forward design: one CTA of 256 threads per row. The row is read once with
-// 16-byte loads into shared memory as fp32, so the two reductions (mean, then
-// the mean of squared deviations: the Pallas body's two-pass variance) and the
-// epilogue re-read shared memory, not device memory. Cast points follow
-// fused_norm.py:53-58: normalise in fp32, cast to x's dtype, then `* w` and
-// `+ b` each rounded in x's dtype. mean and rstd ([rows] fp32, the Pallas
-// body's residuals) are written only when the caller passes their pointers:
-// training does, serving does not and pays nothing for them.
+// Forward design: a row's two sums need all its columns, so a row belongs to
+// a group of W warps of a CTA, and the card's width comes from rows in
+// flight. The wrapper's `layer_norm_fwd_plan` picks W (warps a row: 1, 2, 4,
+// 8) and K (16-byte vectors a lane): when the rows give every SM 4 CTAs (a
+// train step), two vectors a lane over the fewest warps that hold the row
+// (4 warps at n = 2048 in bf16); with fewer rows (a decode step's 8), one
+// vector a lane over more warps, so each row finishes sooner; rows wider
+// than 8 warps of two take 8 warps of up to 64 values a lane (n up to
+// 16384). CTAs of 256 threads hold 8 / W groups and walk blocks of 8 / W
+// rows, as many CTAs as stay resident (4 an SM at K = 2, 6 at K = 1) or one
+// a block when there are fewer. Lane l of a row takes the vectors l + 32 W
+// k (k < K), so neighbouring lanes read neighbouring 16 bytes. A CTA issues
+// the loads of its next block before it reduces this one, so its loads
+// stay in flight through its barriers and epilogue: one row a CTA that only
+// loaded, reduced and stored left the memory idle while it reduced. The
+// rows sit in registers as loaded and x is read from device memory once.
+// The two sums (the mean, then Σ(x - mean)²: the Pallas body's two-pass
+// variance) are xor-shuffle trees, with no shared memory or barrier at W =
+// 1; at W > 1 the warp sums cross shared memory behind one barrier a sum.
+// The epilogue comes from the registers, w and b from L1. Measured slower at
+// the train step (PERF.md): 8 warps of one vector a lane (the barriers of
+// twice the rows), a warp of 8 vectors a lane, 2 warps of 4, two blocks of
+// loads ahead, and a per-thread cp.async ring three blocks ahead. Cast
+// points follow fused_norm.py:53-58: normalise in fp32, cast to x's dtype,
+// then `* w` and `+ b` each rounded in x's dtype. Rows wider than 16384
+// keep the shared-memory body (one CTA of 256 threads a row, the row staged
+// in shared memory as fp32; n up to ~58,000). A row that is not 16-byte
+// aligned, or n not a multiple of the vector, takes the same partition
+// element by element (ptt::load_vec). mean and rstd ([rows] fp32, the
+// Pallas body's residuals) are written only when the caller passes their
+// pointers: training does, serving does not and pays nothing for them.
+// Summation order of the register body (tests/test_torch_reduce.py emulates
+// it on the CPU): each lane sums each of its vectors pairwise
+// (ptt::pairwise_sum; for the variance, the rounded squares of the rounded
+// differences) and adds the vector sums in k order from 0, every add and
+// multiply rounded (no FMA); a warp's 32 lane sums by the xor-shuffle tree
+// (offsets 16, 8, 4, 2, 1); at W > 1 the row's W warp sums in warp order
+// from 0. mean = Σx / n; var = Σ(x - mean)² / n; rstd = 1 / sqrt(var +
+// eps), each rounded once.
 //
 // Backward design: the Pallas body sums dw and db over its SEQUENTIAL row grid
 // in VMEM scratch; CTAs run in no order. A row's two sums span all its
@@ -67,13 +98,137 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+// A row's sum over its group of W warps: the xor-shuffle tree, then (W > 1)
+// the warp sums in warp order through `red` [kWarps] behind one barrier.
+// Each of a row's two sums has its own `red`; the next row's write of a slot
+// comes after the barrier of the other sum, which every reader of the slot
+// has passed, so no further barrier guards the reuse.
+template <int W>
+__device__ __forceinline__ float row_total(float v, float* red) {
+  v = ptt::warp_sum(v);
+  if constexpr (W == 1) {
+    return v;
+  } else {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    __syncthreads();
+    const int first = warp / W * W;
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < W; ++j) t = __fadd_rn(t, red[first + j]);
+    return t;
+  }
+}
+
+// CTAs resident an SM that the register body's launch bounds guarantee,
+// by vectors a lane (two rows of them live in registers); the wrapper's
+// plan launches no more CTAs than that times the SMs
+template <int K>
+constexpr int kFwdCtas = K == 1 ? 6 : (K == 2 ? 4 : (K == 4 ? 2 : 1));
+
+// The register body: W warps a row, K vectors a lane (see the header). A CTA
+// of kWarps / W groups walks the blocks of kWarps / W rows blockIdx.x,
+// blockIdx.x + gridDim.x, ..., group g taking row g of each block, and
+// issues the loads of its next block's rows before it reduces this one's.
+// A row past the last runs the sums on zeros (every thread meets the
+// barriers) and writes nothing. w and b are read at the epilogue (L1 and L2
+// hits: every row reads them), so no registers hold them across the walk.
+template <typename T, int W, int K>
+__global__ void __launch_bounds__(kThreads, kFwdCtas<K>)
+    layer_norm_fwd_warp_kernel(const T* __restrict__ x,
+                               const T* __restrict__ w,
+                               const T* __restrict__ b, T* __restrict__ y,
+                               float* __restrict__ mean_out,
+                               float* __restrict__ rstd_out, int rows, int n,
+                               float eps, bool vec) {
+  constexpr int V = ptt::kVec16<T>;
+  constexpr int kLanes = 32 * W;
+  constexpr int kGroups = kWarps / W;
+  __shared__ float red[2][kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = (warp % W) * 32 + (threadIdx.x & 31);
+  const int group = warp / W;
+  const int nv = (n + V - 1) / V;
+  const long long blocks = (static_cast<long long>(rows) + kGroups - 1) /
+                           kGroups;
+  const float nf = static_cast<float>(n);
+
+  auto load = [&](uint4 (&raw)[K], long long blk) {
+    const long long r = blk * kGroups + group;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int v = lane + kLanes * k;
+      raw[k] = r < rows && v < nv ? ptt::load_vec(x + r * n, v * V, n, vec)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  uint4 cur[K], nxt[K];
+  load(cur, blockIdx.x);
+  for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    if (blk + gridDim.x < blocks) load(nxt, blk + gridDim.x);
+    // Σx: zeros past the row add +0, which leaves the sum's bits alone
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float f[V];
+      ptt::unpack(cur[k], f, T{});
+      s = __fadd_rn(s, ptt::pairwise_sum(f));
+    }
+    const float mean = row_total<W>(s, red[0]) / nf;
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c0 = (lane + kLanes * k) * V;
+      float f[V], q[V];
+      ptt::unpack(cur[k], f, T{});
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = c0 + j < n ? __fsub_rn(f[j], mean) : 0.f;
+        q[j] = __fmul_rn(d, d);
+      }
+      ss = __fadd_rn(ss, ptt::pairwise_sum(q));
+    }
+    const float rstd = 1.0f / sqrtf(row_total<W>(ss, red[1]) / nf + eps);
+    const long long r = blk * kGroups + group;
+    if (r < rows) {
+      if (lane == 0 && mean_out != nullptr) {
+        mean_out[r] = mean;
+        rstd_out[r] = rstd;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int v = lane + kLanes * k;
+        if (v >= nv) continue;
+        float f[V], wf[V], bf[V], o[V];
+        ptt::unpack(cur[k], f, T{});
+        ptt::unpack(ptt::load_vec(w, v * V, n, vec), wf, T{});
+        ptt::unpack(ptt::load_vec(b, v * V, n, vec), bf, T{});
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xn = ptt::to_f32(
+              ptt::from_f32<T>(__fmul_rn(__fsub_rn(f[j], mean), rstd)));
+          const float t =
+              ptt::to_f32(ptt::from_f32<T>(__fmul_rn(xn, wf[j])));
+          o[j] = __fadd_rn(t, bf[j]);
+        }
+        ptt::store_vec(y + r * n, v * V, n, vec, ptt::pack(o, T{}));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) cur[k] = nxt[k];
+  }
+}
+
+// The shared-memory body, for rows wider than the register body takes: one
+// CTA a row, the row staged in shared memory as fp32 (n floats)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                          const T* __restrict__ b, T* __restrict__ y,
-                          float* __restrict__ mean_out,
-                          float* __restrict__ rstd_out, int n, float eps,
-                          bool vec) {
+    layer_norm_fwd_smem_kernel(const T* __restrict__ x,
+                               const T* __restrict__ w,
+                               const T* __restrict__ b, T* __restrict__ y,
+                               float* __restrict__ mean_out,
+                               float* __restrict__ rstd_out, int n, float eps,
+                               bool vec) {
   extern __shared__ float row[];  // n floats
   __shared__ float red[kWarps + 1];
   constexpr int V = ptt::kVec16<T>;
@@ -387,20 +542,86 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+template <typename T, int W, int K>
+int launch_fwd_warp(const void* x, const void* w, const void* b, void* y,
+                    float* mean, float* rstd, int rows, int n, float eps,
+                    int ctas, bool vec, cudaStream_t stream) {
+  layer_norm_fwd_warp_kernel<T, W, K><<<ctas, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(b), static_cast<T*>(y), mean, rstd, rows, n, eps,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K vectors a lane at W = 1, 2, 4, 8 warps a row
+template <typename T, int K>
+int launch_fwd_k(const void* x, const void* w, const void* b, void* y,
+                 float* mean, float* rstd, int rows, int n, float eps,
+                 int warps, int ctas, bool vec, cudaStream_t stream) {
+  switch (warps) {
+    case 1:
+      return launch_fwd_warp<T, 1, K>(x, w, b, y, mean, rstd, rows, n, eps,
+                                      ctas, vec, stream);
+    case 2:
+      return launch_fwd_warp<T, 2, K>(x, w, b, y, mean, rstd, rows, n, eps,
+                                      ctas, vec, stream);
+    case 4:
+      return launch_fwd_warp<T, 4, K>(x, w, b, y, mean, rstd, rows, n, eps,
+                                      ctas, vec, stream);
+    case 8:
+      return launch_fwd_warp<T, 8, K>(x, w, b, y, mean, rstd, rows, n, eps,
+                                      ctas, vec, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// W warps a row, K vectors a lane and `ctas` CTAs, as the wrapper's
+// layer_norm_fwd_plan chose them: K = 1 or 2 with W = 1, 2, 4, 8; K = 4, 8
+// (and 16 in fp32: up to 64 values a lane) with W = 8. W = 0 is the
+// shared-memory body. A plan whose lanes do not cover the row is refused.
 template <typename T>
 int launch_fwd(const void* x, const void* w, const void* b, void* y,
                float* mean, float* rstd, int rows, int n, float eps,
-               cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  const cudaError_t err = allow_smem(layer_norm_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = n % ptt::kVec16<T> == 0 && ptt::aligned16(x) &&
-                   ptt::aligned16(w) && ptt::aligned16(b) &&
-                   ptt::aligned16(y);
-  layer_norm_fwd_kernel<T><<<rows, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(y), mean, rstd, n, eps, vec);
-  return static_cast<int>(cudaGetLastError());
+               int warps, int vecs, int ctas, cudaStream_t stream) {
+  constexpr int V = ptt::kVec16<T>;
+  const bool vec = n % V == 0 && ptt::aligned16(x) && ptt::aligned16(w) &&
+                   ptt::aligned16(b) && ptt::aligned16(y);
+  if (warps == 0) {
+    const size_t smem = static_cast<size_t>(n) * sizeof(float);
+    const cudaError_t err = allow_smem(layer_norm_fwd_smem_kernel<T>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    layer_norm_fwd_smem_kernel<T><<<rows, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<const T*>(b), static_cast<T*>(y), mean, rstd, n, eps,
+        vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (ctas <= 0 || static_cast<long long>(vecs) * 32 * warps < (n + V - 1) / V)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vecs == 1)
+    return launch_fwd_k<T, 1>(x, w, b, y, mean, rstd, rows, n, eps, warps,
+                              ctas, vec, stream);
+  if (vecs == 2)
+    return launch_fwd_k<T, 2>(x, w, b, y, mean, rstd, rows, n, eps, warps,
+                              ctas, vec, stream);
+  if (warps != 8) return static_cast<int>(cudaErrorInvalidValue);
+  switch (vecs) {
+    case 4:
+      return launch_fwd_warp<T, 8, 4>(x, w, b, y, mean, rstd, rows, n, eps,
+                                      ctas, vec, stream);
+    case 8:
+      return launch_fwd_warp<T, 8, 8>(x, w, b, y, mean, rstd, rows, n, eps,
+                                      ctas, vec, stream);
+    case 16:  // fp32 only: 64 values a lane
+      if constexpr (sizeof(T) == 4)
+        return launch_fwd_warp<T, 8, 16>(x, w, b, y, mean, rstd, rows, n,
+                                         eps, ctas, vec, stream);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int K>
@@ -451,10 +672,13 @@ int launch_bwd(const void* x, const void* w, const void* dy,
 }  // namespace
 
 // x, y: [rows, n] contiguous; w, b: [n]; all of one dtype. mean, rstd: [rows]
-// fp32, or both null to skip them.
+// fp32, or both null to skip them. warps, vecs, ctas: the wrapper's plan
+// (warps a row, 16-byte vectors a lane, CTAs to launch; warps 0: the
+// shared-memory body, one CTA a row).
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
                                   void* y, void* mean, void* rstd, int rows,
-                                  int n, float eps, int dtype, int device,
+                                  int n, float eps, int warps, int vecs,
+                                  int ctas, int dtype, int device,
                                   void* stream) {
   if (rows <= 0 || n <= 0 || (mean == nullptr) != (rstd == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -465,7 +689,7 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
                      return launch_fwd<T>(x, w, b, y,
                                           static_cast<float*>(mean),
                                           static_cast<float*>(rstd), rows, n,
-                                          eps, s));
+                                          eps, warps, vecs, ctas, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -13,13 +13,35 @@
 // fp32 operations an element, far below the ~295 operations a byte at which
 // the H100's compute would bound them.
 //
-// grad_stats design: each of 2 x SMs CTAs walks a grid-stride range of 8-element
-// vectors (16-byte loads in bf16), summing x^2 in fp32 and counting
-// !isfinite(x) as an integer; the CTA reduces its threads in a fixed order and
-// writes one (sum, count) row of `part`. The Pallas body accumulates across a
-// SEQUENTIAL grid into (1, 1) outputs; CTAs have no order, so a second launch
-// (ptt::launch_column_sum) sums the rows in CTA order: deterministic, no float
-// atomics. The sum is not masked, so a NaN or an inf poisons it as the jnp
+// grad_stats design: ONE launch of `ctas` CTAs of 256 threads (the wrapper's
+// `grad_stats_grid`: up to 8 an SM, fewer when the bucket is small). Bytes
+// in flight are what a streaming read needs on this card (3.35 TB/s x ~1 us
+// / 132 SMs is ~25 KB an SM, more under load): on each trip a thread issues
+// kStatsUnroll = 4 independent 16-byte loads, so an SM has 4 x 16 B x 2048
+// threads = 128 KB in flight (4 CTAs an SM, 64 KB, measured 6 % slower on
+// the largest bucket; a ring of 8 KB cp.async.bulk stages level with it
+// there and slower on a typical bucket: PERF.md). The Pallas body accumulates across a SEQUENTIAL grid into (1, 1)
+// outputs; CTAs have no order, so each CTA writes its (sum, count) partial,
+// fences it (__threadfence) and draws a ticket with one integer atomicAdd;
+// the CTA that draws the last ticket sums every partial in a fixed order,
+// writes `out` and resets the ticket to 0 for the next call. No float
+// atomics: the result is the same bits on every call.
+// Summation order (tests/test_torch_reduce.py emulates it on the CPU). With
+// S = ctas x 256 threads, g a thread's global index, V = 16 bytes of
+// elements (8 bf16, 4 fp32) and nvec = n / V vectors when x is 16-byte
+// aligned (else 0):
+//   1. thread g adds, from s = 0, the vectors g + (4 i + k) S (i = 0, 1, ...;
+//      k = 0..3; each below nvec) in that order, each vector's squares summed
+//      pairwise first, ((q0 + q1) + (q2 + q3)) [+ ((q4 + q5) + (q6 + q7))];
+//      then the elements nvec V + g + j S, one square at a time;
+//   2. a warp's 32 sums by the xor-shuffle tree (offsets 16, 8, 4, 2, 1);
+//   3. a CTA's 8 warp sums in warp order, from 0: the CTA's partial;
+//   4. the last CTA: thread t adds the partials t, t + 256, ... in order from
+//      0, then steps 2 and 3 again, into out[0].
+// Nonfinite counts are integers, exact in any order; out[1] is their total
+// as fp32. Every multiply and add is an explicitly rounded intrinsic, so
+// nvcc contracts nothing and the emulation's fp32 ops round where these do.
+// The sum is not masked, so a NaN or an inf poisons it as the jnp
 // reference's jnp.sum(g * g) does; that needs IEEE semantics, so this file is
 // never built with fast math.
 //
@@ -113,73 +135,130 @@ __device__ __forceinline__ void store8(T* __restrict__ p, const float (&in)[kVec
 // ---------------------------------------------------------------------------
 // grad_stats
 // ---------------------------------------------------------------------------
+constexpr int kWarps = kThreads / 32;
+constexpr int kStatsUnroll = 4;  // independent 16-byte loads a thread a trip
+
+// Σ x² over one 16-byte vector, pairwise (see the order above), and its
+// nonfinite elements added to `cnt`
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    grad_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
-                      long long n, bool vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  float s = 0.f;
-  int cnt = 0;
-  long long done = 0;
-  if (vec) {
-    for (long long c = first; c < n / kVec; c += stride) {
-      float v[kVec];
-      load8(x + c * kVec, v);
-      float q[kVec];
+__device__ __forceinline__ float vec_sq_sum(uint4 raw, unsigned& cnt) {
+  constexpr int V = ptt::kVec16<T>;
+  float f[V], q[V];
+  ptt::unpack(raw, f, T{});
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        q[j] = __fmul_rn(v[j], v[j]);
-        cnt += !isfinite(v[j]);
-      }
-      // pairwise within the vector, then into the running sum
-      const float a = __fadd_rn(__fadd_rn(q[0], q[1]), __fadd_rn(q[2], q[3]));
-      const float b = __fadd_rn(__fadd_rn(q[4], q[5]), __fadd_rn(q[6], q[7]));
-      s = __fadd_rn(s, __fadd_rn(a, b));
-    }
-    done = n / kVec * kVec;
+  for (int j = 0; j < V; ++j) {
+    q[j] = __fmul_rn(f[j], f[j]);
+    cnt += !isfinite(f[j]);
   }
-  for (long long i = done + first; i < n; i += stride) {
+  return ptt::pairwise_sum(q);
+}
+
+__device__ __forceinline__ unsigned long long warp_sum_u64(
+    unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// steps 2 and 3 of the order: the CTA's (sum, count), valid in thread 0.
+// `ws`/`wc` are the CTA's 8-slot scratch; the caller keeps a barrier between
+// two calls' reads and writes of it.
+__device__ __forceinline__ void cta_sum(float s, unsigned long long c,
+                                        float* ws, unsigned long long* wc,
+                                        float& t, unsigned long long& ct) {
+  s = ptt::warp_sum(s);
+  c = warp_sum_u64(c);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    ws[warp] = s;
+    wc[warp] = c;
+  }
+  __syncthreads();
+  t = 0.f;
+  ct = 0;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      t = __fadd_rn(t, ws[w]);
+      ct += wc[w];
+    }
+  }
+}
+
+// part: [ctas] fp32 sums, then [ctas] uint32 counts; ticket: a zeroed
+// uint32 that the last CTA resets
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 8)  // 8 CTAs an SM: 32 registers
+    grad_stats_kernel(const T* __restrict__ x, float* __restrict__ part_sum,
+                      unsigned* __restrict__ part_cnt,
+                      unsigned* __restrict__ ticket, float* __restrict__ out,
+                      long long n, bool vec) {
+  constexpr int V = ptt::kVec16<T>;
+  __shared__ float ws[kWarps];
+  __shared__ unsigned long long wc[kWarps];
+  __shared__ bool last;
+  const long long S = static_cast<long long>(gridDim.x) * kThreads;
+  const long long g =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long nvec = vec ? n / V : 0;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  float s = 0.f;
+  unsigned cnt = 0;
+  for (long long base = g; base < nvec; base += kStatsUnroll * S) {
+    uint4 raw[kStatsUnroll];
+#pragma unroll
+    for (int k = 0; k < kStatsUnroll; ++k) {
+      const long long c = base + k * S;
+      // a vector past the end adds +0 to s (s >= +0 or NaN): the same bits
+      // as skipping it
+      raw[k] = c < nvec ? __ldg(xv + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < kStatsUnroll; ++k)
+      s = __fadd_rn(s, vec_sq_sum<T>(raw[k], cnt));
+  }
+  for (long long i = nvec * V + g; i < n; i += S) {
     const float v = ptt::to_f32(x[i]);
     s = __fadd_rn(s, __fmul_rn(v, v));
     cnt += !isfinite(v);
   }
-  // the CTA's threads in a fixed order: warps by shuffle, then warp 0
-  __shared__ float ws[kThreads / 32];
-  __shared__ int wc[kThreads / 32];
-  s = ptt::warp_sum(s);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    ws[warp] = s;
-    wc[warp] = cnt;
+  float t;
+  unsigned long long ct;
+  cta_sum(s, cnt, ws, wc, t, ct);
+  if (threadIdx.x == 0) {
+    part_sum[blockIdx.x] = t;
+    part_cnt[blockIdx.x] = static_cast<unsigned>(ct);
+    __threadfence();  // the partial is visible before the ticket is drawn
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
   __syncthreads();
+  if (!last) return;
+  // the last CTA: every other CTA fenced its partial before its ticket;
+  // read them from L2 (__ldcg), past this SM's L1
+  __threadfence();
+  s = 0.f;
+  unsigned long long c = 0;
+  for (int p = threadIdx.x; p < static_cast<int>(gridDim.x); p += kThreads) {
+    s = __fadd_rn(s, __ldcg(part_sum + p));
+    c += __ldcg(part_cnt + p);
+  }
+  cta_sum(s, c, ws, wc, t, ct);
   if (threadIdx.x == 0) {
-    float t = 0.f;
-    long long c = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      t = __fadd_rn(t, ws[w]);
-      c += wc[w];
-    }
-    part[2 * blockIdx.x] = t;
-    part[2 * blockIdx.x + 1] = static_cast<float>(c);
+    out[0] = t;
+    out[1] = static_cast<float>(ct);
+    *ticket = 0u;  // calls on one device are ordered on its stream
   }
 }
 
 template <typename T>
-int launch_stats(const void* x, float* part, float* out, long long n,
-                 int parts, cudaStream_t stream) {
+int launch_stats(const void* x, void* part, void* ticket, float* out,
+                 long long n, int ctas, cudaStream_t stream) {
   const bool vec = ptt::aligned16(x);
-  grad_stats_kernel<T><<<parts, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), part, n, vec);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // out[0] = sum of the CTAs' sums, out[1] = sum of their counts, CTA order
-  ptt::launch_column_sum(part, out, parts, 2, stream);
+  float* part_sum = static_cast<float*>(part);
+  grad_stats_kernel<T><<<ctas, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), part_sum,
+      reinterpret_cast<unsigned*>(part_sum + ctas),
+      static_cast<unsigned*>(ticket), out, n, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -402,20 +481,22 @@ int launch_rule(const UpdateArgs& a, int p_dtype, int g_dtype, int m_dtype) {
 
 }  // namespace
 
-// x: [n] contiguous gradient bucket (fp32 or bf16). part: [parts, 2] fp32
-// scratch; out: [2] fp32 (sum of squares, nonfinite count). Two launches:
-// the per-CTA pass, then the ordered sum of the CTAs' rows.
-extern "C" int ptt_grad_stats(const void* x, void* part, void* out,
-                              long long n, int parts, int dtype, int device,
-                              void* stream) {
-  if (n <= 0 || parts <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// x: [n] contiguous gradient bucket (fp32 or bf16). part: [2 ctas] 32-bit
+// scratch (the CTAs' fp32 sums, then their uint32 counts); ticket: one
+// uint32 on the device, 0 before the call and reset to 0 by it (the caller
+// keeps one a device and orders the calls on one stream); out: [2] fp32
+// (sum of squares, nonfinite count). One launch.
+extern "C" int ptt_grad_stats(const void* x, void* part, void* ticket,
+                              void* out, long long n, int ctas, int dtype,
+                              int device, void* stream) {
+  if (n <= 0 || ctas <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   PTT_DISPATCH_DTYPE(dtype, T,
-                     return launch_stats<T>(x, static_cast<float*>(part),
-                                            static_cast<float*>(out), n,
-                                            parts, s));
+                     return launch_stats<T>(x, part, ticket,
+                                            static_cast<float*>(out), n, ctas,
+                                            s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

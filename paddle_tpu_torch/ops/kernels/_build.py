@@ -137,9 +137,10 @@ def build():
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 _SIGNATURES = {
-    # x, w, b, y, mean (or None), rstd (or None), rows, n, eps, dtype,
-    # device, stream
-    'ptt_layer_norm_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, w, b, y, mean (or None), rstd (or None), rows, n, eps, warps,
+    # vecs, ctas, dtype, device, stream
+    'ptt_layer_norm_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
+                           _I, _I, _P),
     # x, w, dy, mean, rstd, dx, part, dw_db, rows, n, chunks,
     # rows_per_chunk, dtype, device, stream
     'ptt_layer_norm_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -191,8 +192,8 @@ _SIGNATURES = {
     'ptt_dropout_add_fwd': (_P, _P, _P, _P, _L, _F, _I, _I, _P),
     # keep, dy, dx, n, keep_prob, dtype, device, stream
     'ptt_dropout_add_bwd': (_P, _P, _P, _L, _F, _I, _I, _P),
-    # x, part, out, n, parts, dtype, device, stream
-    'ptt_grad_stats': (_P, _P, _P, _L, _I, _I, _I, _P),
+    # x, part, ticket, out, n, ctas, dtype, device, stream
+    'ptt_grad_stats': (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     # p, g, master, s1, s2, s3, sc, sc_out, n, rule, p_dtype, g_dtype,
     # m_dtype, wd, coeff, b1, b2, omb1, omb2, eps, momentum, rho, omr,
     # nesterov, decoupled, centered, use_pref, use_fi, device, stream
@@ -255,12 +256,6 @@ def ptr(t):
 
 def sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def reduction_parts(device, rows):
-    """CTAs of the first pass of the gradient statistics' reduction: two
-    per SM, at most one per row."""
-    return max(1, min(rows, 2 * sm_count(device)))
 
 
 # fp32 partial bytes a row-chunked reduction may allocate (the backward

@@ -53,6 +53,49 @@ def layer_norm_bwd_grid(rows, n, dtype, sms):
     return _build.row_chunks(rows, BWD_CTAS_PER_SM[k] * sms, 2 * n * 4)
 
 
+# csrc/fused_norm.cu's forward register body: CTAs of FWD_THREADS threads;
+# a row takes W warps (1, 2, 4 or 8) and each lane K 16-byte vectors of it
+# (up to FWD_LANE_VALUES values a lane, so rows up to n = 16384); a CTA
+# walks blocks of 8 / W rows, at most FWD_CTAS_PER_SM[K] CTAs an SM (what
+# its launch bounds keep resident); wider rows take the shared-memory body
+# (W = 0), one CTA a row.
+FWD_THREADS = 256
+FWD_LANE_VALUES = 64
+FWD_WARPS = (1, 2, 4, 8)
+FWD_CTAS_PER_SM = {1: 6, 2: 4, 4: 2, 8: 1, 16: 1}
+
+
+def layer_norm_fwd_plan(rows, n, dtype, sms):
+    """(warps_per_row W, vecs_per_lane K, rows_per_block, ctas) of the
+    forward kernel for [rows, n] of `dtype` on a card of `sms` SMs. When
+    the rows give every SM FWD_CTAS_PER_SM[2] CTAs (a train step), two
+    vectors a lane over the fewest warps that hold the row (4 warps at
+    n = 2048 in bf16); with fewer rows (a decode step), one vector a lane
+    over more warps, so each row's few lanes finish sooner. Rows wider
+    than 8 warps of two vectors take 8 warps of the fewest vectors that
+    hold them. CTAs: as many as stay resident, or one a block of rows.
+    Lane l of a row takes the vectors l + 32 W k, k < K; CTA c takes the
+    blocks c, c + ctas, ..., of rows_per_block rows each (group g of its
+    warps row g of a block). W = 0 is the shared-memory body (one CTA a
+    row)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    vectors = -(-n // vec)
+    if vectors > 32 * FWD_WARPS[-1] * (FWD_LANE_VALUES // vec):
+        return 0, 0, 1, rows
+
+    def fewest(k):
+        return next((w for w in FWD_WARPS if vectors <= 32 * w * k),
+                    FWD_WARPS[-1])
+
+    w = fewest(2)
+    if vectors <= 32 or -(-rows * w // (FWD_THREADS // 32)) < \
+            FWD_CTAS_PER_SM[2] * sms:
+        w = fewest(1)
+    k = next(k for k in (1, 2, 4, 8, 16) if vectors <= 32 * w * k)
+    per = FWD_THREADS // 32 // w
+    return w, k, per, min(-(-rows // per), FWD_CTAS_PER_SM[k] * sms)
+
+
 def layer_norm_fwd_plain(x, weight, bias, eps):
     """Plain PyTorch LayerNorm over the last axis: (y, mean, rstd), the
     statistics fp32 [rows] (the kernel's reference, and the CPU
@@ -108,11 +151,13 @@ def _fwd_kernel(x, weight, bias, eps, with_stats):
         rstd = torch.empty_like(mean)
     if rows == 0 or N == 0:
         return y, mean, rstd
+    warps, vecs, _per, ctas = layer_norm_fwd_plan(
+        rows, N, x.dtype, _build.sm_count(x.device))
     _build.launch('ptt_layer_norm_fwd', KERNEL, x.device, x.data_ptr(),
                   weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
                   mean.data_ptr() if with_stats else None,
                   rstd.data_ptr() if with_stats else None, rows, N,
-                  float(eps), code)
+                  float(eps), warps, vecs, ctas, code)
     return y, mean, rstd
 
 

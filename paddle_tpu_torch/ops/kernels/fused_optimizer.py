@@ -65,24 +65,59 @@ def grad_stats_plain(flat):
     return (x * x).sum(), (~torch.isfinite(x)).float().sum()
 
 
+# csrc/fused_optimizer.cu's statistics kernel: CTAs of STATS_THREADS
+# threads, each issuing STATS_UNROLL 16-byte loads a trip, up to
+# STATS_CTAS_PER_SM CTAs an SM
+STATS_THREADS = 256
+STATS_UNROLL = 4
+STATS_CTAS_PER_SM = 8
+# one zeroed uint32 ticket a device, which the kernel's last CTA resets:
+# calls on one device must be ordered on one stream (the caller's current
+# stream), as every call of the training step is
+_TICKETS = {}
+
+
+def grad_stats_grid(n, dtype, sms):
+    """CTAs of the statistics kernel for `n` elements of `dtype` on a card
+    of `sms` SMs: up to STATS_CTAS_PER_SM an SM, and no more than give
+    each thread one trip of STATS_UNROLL 16-byte vectors."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    trips = -(-n // (vec * STATS_THREADS * STATS_UNROLL))
+    return max(1, min(STATS_CTAS_PER_SM * sms, trips))
+
+
+def _ticket(device):
+    t = _TICKETS.get(device.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f'{STATS}: call it once on {device} before '
+                               'capturing a CUDA graph (its ticket is '
+                               'allocated and zeroed at the first call)')
+        t = _TICKETS[device.index] = torch.zeros(1, dtype=torch.int32,
+                                                 device=device)
+    return t
+
+
 def _stats_kernel(flat):
     code = _build.dtype_code(flat, STATS)
     x = flat.reshape(-1)
     _build.require_contiguous(STATS, flat=x)
-    out = torch.zeros(2, dtype=torch.float32, device=x.device)
-    if x.numel():
-        parts = _build.reduction_parts(x.device, -(-x.numel() // 2048))
-        part = torch.empty(parts, 2, dtype=torch.float32, device=x.device)
-        _build.launch('ptt_grad_stats', STATS, x.device, x.data_ptr(),
-                      part.data_ptr(), out.data_ptr(), x.numel(), parts,
-                      code, launches=2)
+    if not x.numel():
+        return (torch.zeros((), dtype=torch.float32, device=x.device),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    out = torch.empty(2, dtype=torch.float32, device=x.device)
+    ctas = grad_stats_grid(x.numel(), x.dtype, _build.sm_count(x.device))
+    part = torch.empty(2 * ctas, dtype=torch.float32, device=x.device)
+    _build.launch('ptt_grad_stats', STATS, x.device, x.data_ptr(),
+                  part.data_ptr(), _ticket(x.device).data_ptr(),
+                  out.data_ptr(), x.numel(), ctas, code)
     return out[0], out[1]
 
 
 def grad_stats(flat):
     """(sum of squares, nonfinite count) as fp32 0-dim tensors: the
-    kernel (a per-CTA pass and an ordered sum of the CTAs' partials, two
-    launches) on a CUDA tensor, its plain version on a CPU tensor."""
+    kernel (one launch: per-CTA partials, summed by the last CTA) on a
+    CUDA tensor, its plain version on a CPU tensor."""
     if _build.on_cpu(flat):
         return grad_stats_plain(flat)
     return _stats_kernel(flat)

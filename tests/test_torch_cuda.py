@@ -181,6 +181,38 @@ class TestOnCard:
         torch.testing.assert_close(
             got.float(), tfn.layer_norm_plain(x, w, b, 1e-5).float(), **tol)
 
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize('rows,n,offset', [
+        (300, 64, 0), (300, 768, 0), (16411, 2048, 0), (8, 2048, 0),
+        (2000, 768, 1), (2000, 37, 0), (16411, 768, 1), (300, 512, 0),
+        (20000, 256, 0), (16411, 512, 1),
+        (300, 2048, 1), (300, 2056, 0), (300, 4096, 0), (64, 8192, 0),
+        (64, 8192, 1), (64, 12288, 0), (9, 16384, 0), (8, 20000, 0),
+        (8, 20000, 1)])
+    def test_layer_norm_fwd_paths(self, cuda, dtype, rows, n, offset):
+        """The forward's register body at 1, 2, 4 and 8 warps a row with
+        one vector a lane (few rows) or two (rows that fill the card: n =
+        512, 768, 2048 at 16411 rows), 8 warps of up to 16 vectors a lane
+        (n up to 16384), CTAs that walk several blocks of rows (a partial
+        last block) or one each, and the shared-memory body (wider),
+        aligned and one element off 16-byte alignment, with and without
+        mean and rstd, against the plain version."""
+        g = torch.Generator(device=cuda).manual_seed(6)
+        flat = torch.randn(rows * n + offset, generator=g, device=cuda)
+        x = (2 * flat + 0.5).to(dtype)[offset:].view(rows, n)
+        w = 1 + 0.1 * torch.randn(n, generator=g, device=cuda).to(dtype)
+        b = 0.1 * torch.randn(n, generator=g, device=cuda).to(dtype)
+        _build.reset_launches()
+        y, mean, rstd = tfn._fwd_kernel(x, w, b, 1e-5, True)
+        y2 = tfn._fwd_kernel(x, w, b, 1e-5, False)[0]
+        assert _build.routes_snapshot()['layer_norm'] == 2
+        y_p, mean_p, rstd_p = tfn.layer_norm_fwd_plain(x, w, b, 1e-5)
+        tol = FP32 if dtype == torch.float32 else BF16_ELEMENTWISE
+        torch.testing.assert_close(y.float(), y_p.float(), **tol)
+        assert torch.equal(y, y2)
+        for a, e in ((mean, mean_p), (rstd, rstd_p)):
+            torch.testing.assert_close(a, e, **FP32)
+
     @pytest.mark.parametrize('approximate', [True, False])
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize('shape', [(3, 5, 64), (8, 8192), (2, 37)])
@@ -709,14 +741,33 @@ class TestOnCard:
         x = torch.randn(n, generator=g, device=cuda).to(dtype)
         _build.reset_launches()
         s, c = tfo.grad_stats(x)
-        assert _build.routes_snapshot()['grad_stats'] == 2
+        assert _build.routes_snapshot()['grad_stats'] == 1   # one launch
         ps, pc = tfo.grad_stats_plain(x)
         torch.testing.assert_close(s, ps, rtol=1e-5, atol=0)
         assert float(c) == float(pc) == 0.0
+        s2, c2 = tfo.grad_stats(x)                 # the same bits again
+        assert torch.equal(s, s2) and torch.equal(c, c2)
         x[n // 2] = float('nan')
         x[0] = float('inf')
         s, c = tfo.grad_stats(x)
         assert not bool(torch.isfinite(s)) and float(c) == 2.0
+
+    def test_grad_stats_ticket_resets_between_calls(self, cuda):
+        """50 calls over three sizes in turn (one CTA, a few, the whole
+        card; one off 16-byte alignment), queued back to back on one
+        stream: each matches the plain version, so the last CTA of every
+        call found the ticket at 0 and left it there."""
+        g = torch.Generator(device=cuda).manual_seed(9)
+        base = torch.randn((1 << 22) + 1, generator=g, device=cuda)
+        xs = [base[:8].bfloat16(), base[1:7778], base[:1 << 22].bfloat16()]
+        got = [tfo.grad_stats(xs[i % 3]) for i in range(50)]
+        want = [tfo.grad_stats_plain(x) for x in xs]
+        for i, (s, c) in enumerate(got):
+            ps, pc = want[i % 3]
+            torch.testing.assert_close(s, ps, rtol=1e-5, atol=0)
+            assert float(c) == float(pc) == 0.0
+            assert torch.equal(s, got[i % 3][0])
+        assert int(tfo._TICKETS[cuda.index or 0].item()) == 0
 
     @pytest.mark.parametrize('n', [1000, 4096 + 3])
     @pytest.mark.parametrize('storage', [
@@ -904,7 +955,7 @@ class TestOnCard:
                 snap = _build.routes_snapshot()
                 nb = len(step.layout.buckets)
                 if dev is None:
-                    assert snap['grad_stats'] == 2 * nb
+                    assert snap['grad_stats'] == nb
                     assert snap['optimizer_step'] == nb
                     assert snap['dropout_add'] == snap['dropout_add_bwd'] == 4
                     for n, p in model.named_parameters():

@@ -26,7 +26,18 @@ Modes (rows of PERF.md's kernel table):
             dbias sum) and checked against its plain version at
             chip_smoke.py's bars; each call is a CUDA-graph replay of
             back-to-back launches, cold (the 200-800 MB working sets
-            exceed the 50 MB L2).
+            exceed the 50 MB L2);
+  --stats   the gradient statistics (row 14) over gpt_1p3b's word-
+            embedding bucket (103 M bf16, 206 MB: cold by size) and its
+            first fc1 bucket (16.8 M bf16, cold over chip_smoke.py's
+            COLD_COPIES copies), each beside `torch.linalg.vector_norm`
+            (dtype float32, which counts no nonfinite values) and checked
+            against its plain version;
+  --norm-fwd the LayerNorm forward (row 2) with mean and rstd at the
+            train step's [16384, 2048] bf16 (134 MB of x and y: cold) and
+            without them at the serve's decode [8, 2048], beside
+            `native_layer_norm` and `F.layer_norm`, checked against its
+            plain version at chip_smoke.py's bars.
 Errors are the relative L2 error and the max |diff| over the RMS. One
 JSON line per tree.
 
@@ -34,6 +45,8 @@ JSON line per tree.
     python3 tools/flash_bwd_ab.py --fwd A B B A      # trees in turns
     python3 tools/flash_bwd_ab.py --paged A B B A
     python3 tools/flash_bwd_ab.py --norm A B B A
+    python3 tools/flash_bwd_ab.py --stats A B B A
+    python3 tools/flash_bwd_ab.py --norm-fwd A B B A
 
 Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
 own process and builds its kernels into <tree>/build/paddle_tpu_torch.
@@ -252,8 +265,78 @@ def measure_norm(tree):
     return res
 
 
+def measure_stats(tree):
+    sys.path.insert(0, tree)
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+
+    smoke = _smoke()
+    n = smoke.BIG_BUCKET
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    x = (1e-3 * torch.randn(n, generator=gen, device='cuda')).to(
+        torch.bfloat16)
+    res = {'tree': tree, 'n': n}
+    res['max_abs_err'] = smoke.check_close(
+        'grad_stats', FO.grad_stats(x)[0], FO.grad_stats_plain(x)[0])
+    res['ms'] = smoke.device_ms(torch, lambda: FO.grad_stats(x), iters=20)
+    res['library_ms'] = smoke.device_ms(
+        torch, lambda: torch.linalg.vector_norm(x, dtype=torch.float32),
+        iters=20)
+    res['bound_ms'] = smoke.bound_ms(2 * n + 8, 3 * n, smoke.FP32_FLOPS)[0]
+    del x
+    torch.cuda.empty_cache()
+    fc1 = smoke.typical_stats_row(torch, FO, smoke.fc1_bucket_size(torch))
+    res['fc1'] = {k: fc1[k] for k in ('shape', 'max_abs_err', 'ms',
+                                      'library_ms', 'bound_ms')}
+    for row in (res, res['fc1']):
+        row['over_library'] = row['ms'] / row['library_ms']
+        row['share_of_bound'] = row['bound_ms'] / row['ms']
+    res['card'] = torch.cuda.get_device_name(0)
+    return res
+
+
+def measure_norm_fwd(tree):
+    sys.path.insert(0, tree)
+    import torch
+    from torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import fused_norm as fn
+
+    smoke = _smoke()
+    randn = smoke.make_randn(torch, 0)
+    aten = torch.ops.aten
+    res = {'tree': tree}
+    for label, rows, stats in (('train', 16384, True), ('decode', 8, False)):
+        n = 2048
+        x = randn(rows, n)
+        w, b = 1.0 + randn(n, scale=0.1), randn(n, scale=0.1)
+        y, mean, rstd = fn._fwd_kernel(x, w, b, 1e-5, stats)
+        y_p, mean_p, rstd_p = fn.layer_norm_fwd_plain(x, w, b, 1e-5)
+        err = smoke.check_close('layer_norm', y, y_p)
+        if stats:
+            err = max(err, smoke.check_close('fp32_sum', mean, mean_p),
+                      smoke.check_close('fp32_sum', rstd, rstd_p))
+            library = lambda: aten.native_layer_norm(x, [n], w, b, 1e-5)
+        else:
+            library = lambda: F.layer_norm(x, (n,), w, b, 1e-5)
+        iters = 20 if stats else smoke.ITERS
+        ms = smoke.device_ms(
+            torch, lambda: fn._fwd_kernel(x, w, b, 1e-5, stats), iters=iters)
+        lib_ms = smoke.device_ms(torch, library, iters=iters)
+        bound = smoke.bound_ms(2 * rows * n * 2 + 2 * n * 2
+                               + (rows * 8 if stats else 0),
+                               8 * rows * n, smoke.FP32_FLOPS)[0]
+        res[label] = dict(shape=[rows, n], stats=stats, max_abs_err=err,
+                          ms=ms, library_ms=lib_ms, bound_ms=bound,
+                          over_library=ms / lib_ms, share_of_bound=bound / ms)
+        del x, y, y_p
+        torch.cuda.empty_cache()
+    res['card'] = torch.cuda.get_device_name(0)
+    return res
+
+
 MODES = {'--bwd': measure_bwd, '--fwd': measure_fwd,
-         '--paged': measure_paged, '--norm': measure_norm}
+         '--paged': measure_paged, '--norm': measure_norm,
+         '--stats': measure_stats, '--norm-fwd': measure_norm_fwd}
 
 
 def main(argv):
