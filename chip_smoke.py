@@ -139,6 +139,12 @@ and SDPA (each a millisecond or more at the train shape) are timed with
 CUDA events around a loop of launches. bound_ms is the larger of the
 bytes the function must move over 3.35 TB/s and its operations over the
 peak rate for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
+Each decode-shape line (rows 1, 1q, 2, 3) carries floor_ms, a
+one-element in-place add timed the same way: what any launch costs in a
+graph replay. A decode step is host bound, so row 3's decode line also
+carries host_us and library_host_us: host microseconds a call of the
+wrapper and of F.gelu(x + b) under no_grad (a host clock around 1000
+calls, then a synchronize).
 """
 import gc
 import json
@@ -248,6 +254,26 @@ def device_ms(torch, fn, iters=ITERS):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, calls=1000):
+    """Host microseconds per call of fn: a host clock around `calls`
+    calls, then a synchronize (for calls whose host time exceeds their
+    device time, as a decode step's small kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def floor_ms(torch):
+    """device_ms of a one-element in-place add: what any launch costs in
+    a graph replay, the floor beside a decode-shape kernel's time."""
+    one = torch.zeros(1, device='cuda')
+    return device_ms(torch, lambda: one.add_(1))
 
 
 def bound_ms(nbytes, ops, peak):
@@ -478,6 +504,7 @@ def kernel_phase(torch, F):
 
     results = {'layer_norm': [], 'bias_gelu': [], 'paged_attention': [],
                'paged_attention_int8': []}
+    floor = floor_ms(torch)
     for rows, n in ROW_SHAPES:
         train = rows == TRAIN_ROWS
         iters = 20 if train else ITERS
@@ -518,6 +545,7 @@ def kernel_phase(torch, F):
         plain = lambda: fe.bias_gelu_plain(x, b, True)
         bms, by = bound_ms(2 * rows * n * 2 + n * 2, 12 * rows * n,
                            FP32_FLOPS)
+        library = lambda: F.gelu(x + b, approximate='tanh')
         results['bias_gelu'].append(dict(
             shape=f'x[{rows},{n}] bf16',
             path=ROW_PATHS['bias_gelu'].get((rows, n)), max_abs_err=err,
@@ -525,10 +553,15 @@ def kernel_phase(torch, F):
                          iters=iters),
             plain_ms=(loop_ms(torch, plain) if train
                       else device_ms(torch, plain)),
-            library_ms=device_ms(
-                torch, lambda: F.gelu(x + b, approximate='tanh'),
-                iters=iters),
+            library_ms=device_ms(torch, library, iters=iters),
             bound_ms=bms, bound_by=by))
+        if ROW_PATHS['bias_gelu'].get((rows, n)) == 'decode':
+            # a decode step is host bound: the wrapper's host time a call
+            # beside the library call's, as the serve calls them
+            with torch.no_grad():
+                results['bias_gelu'][-1].update(
+                    host_us=host_us(torch, lambda: fe.bias_gelu(x, b, True)),
+                    library_host_us=host_us(torch, library))
         del x, w, b
 
     for dense, int8 in paged_rows(torch, F, randn).values():
@@ -536,6 +569,8 @@ def kernel_phase(torch, F):
         results['paged_attention_int8'].append(int8)
     for name, rows in results.items():
         for r in rows:
+            if r['path'] == 'decode':
+                r['floor_ms'] = floor
             emit({'phase': 'kernel', 'name': name, **r})
     return results
 
@@ -2298,7 +2333,8 @@ def main():
             entry['rules'] = row['rules']
         if name == 'grad_stats':
             entry['typical_bucket'] = row['typical_bucket']
-        for key in ('pair_over_library', 'over_library'):
+        for key in ('pair_over_library', 'over_library', 'floor_ms',
+                    'host_us', 'library_host_us'):
             if key in row:
                 entry[key] = row[key]
         if name in PAGED_KERNELS:

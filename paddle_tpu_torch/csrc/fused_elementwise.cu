@@ -7,18 +7,35 @@
 // (paddle_tpu/ops/nn_ops.py:53) from GPTMLP (paddle_tpu/models/gpt.py:339).
 //
 // What bounds them on this card: bytes, and for the backward instruction
-// issue too. The forward reads x and writes y; the backward reads x and dy
-// and writes dx (6 bytes an element in bf16); the forward does ~25 fp32
-// operations an element, the backward ~50 issued instructions (conversions,
-// the accurate tanhf, a dozen multiplies): at 132 SMs x 128 lanes x 1.755
-// GHz that is ~0.2 ms over the gpt_1p3b step's [16384, 8192], beside a
-// bytes bound of 0.24 ms at 3.35 TB/s. Far below the ~295 operations a byte
-// ridge, so neither is tensor-core work.
+// issue too. The forward reads x and writes y, the backward reads x and dy
+// and writes dx (4 and 6 bytes an element in bf16): at 3.35 TB/s the gpt_1p3b
+// step's [16384, 8192] is 0.160 ms forward and 0.240 ms backward. The
+// backward issues ~50 instructions an element (conversions, the accurate
+// tanhf, a dozen multiplies), ~0.2 ms at 132 SMs x 128 lanes x 1.755 GHz:
+// close to its bytes bound. Far below the ~295 operations a byte ridge, so
+// neither is tensor-core work. At a decode step's [8, 8192] the forward moves
+// 256 KB, under a tenth of a microsecond at full rate: the launch and one
+// memory round trip bound it there.
 //
-// Forward design: a grid-stride loop over 16-byte vectors of x, one vector a
-// thread per step, so every load and store moves 16 bytes and neighbouring
-// threads touch neighbouring addresses. The TPU's row-block grid becomes a
-// flat index space; there is no cross-row state in the forward.
+// Forward design: a 2-D grid of column tiles x chunks of rows (the
+// wrapper's `bias_gelu_fwd_grid`). A thread owns one 16-byte vector of
+// columns (32-bit index, no modulo) and loads its bias vector once. A chunk
+// is kFwdLoads rows whose loads are all issued before the first is used: one
+// trip, after which the CTA ends, so the CTAs, launched in order, sweep
+// memory as a copy does. At [16384, 8192] bf16 that runs at the rate of a
+// copy of the same bytes (`copy_`, `torch.neg`), 89 % of the bytes bound;
+// CTAs that walked 125- or 16-row chunks with the same body reached 82 % and
+// 87 %, a row a CTA 81 %. Rows too few to fill the card (decode) get a chunk
+// each: one vector a thread, no row loop. The tanh form runs as
+// u / (1 + e^(-2z)), the same function (0.5 (1 + tanh z) = 1 / (1 + e^(-2z)))
+// without the cancellation of 1 + tanh z at negative u, in one `ex2.approx`
+// and one reciprocal where tanhf takes ~20 dependent instructions. Its
+// argument is rounded once in fp32, so its relative error grows with |z| as
+// |2z| 2^-24: on the card, over 2.2 M points (u in [-12, 12] and randn x 3),
+// at most 8.4e-6 relative (outputs above 1e-30) and 5.2e-7 absolute
+// (tools/flash_bwd_ab.py --bias-gelu). The erf form keeps erfcf. A row that
+// is not 16-byte aligned, or n not a multiple of the vector, takes the same
+// partition element by element.
 //
 // Backward design: du = dy * gelu'(u) with u = x + b added in x's dtype and
 // upcast (:76), dx = du rounded to x's dtype, and db = the fp32 sum of du over
@@ -42,10 +59,11 @@
 //
 // Numerics: the bias is cast to x's dtype and added in x's dtype, as in
 // fused_elementwise.py:105 and :143. The GELU and its derivative run in fp32
-// (the derivative op for op as `_gelu_grad`, :48-58). The forward rounds once
-// to x's dtype; JAX evaluates jax.nn.gelu inside bf16 arithmetic instead,
-// rounding after each op, so bf16 outputs may differ from the JAX route by a
-// few bf16 ulps; fp32 agrees to float rounding.
+// (the derivative op for op as `_gelu_grad`, :48-58; the forward's tanh form
+// by the identity above). The forward rounds once to x's dtype; JAX
+// evaluates jax.nn.gelu inside bf16 arithmetic instead, rounding after each
+// op, so bf16 outputs may differ from the JAX route by a few bf16 ulps; fp32
+// agrees to float rounding.
 //
 // Dropout + residual join. Replaces :149 `_da_fwd_kernel` (launched by
 // `_da_fwd_impl`, :184) and :156 `_da_bwd_kernel` (launched by `_da_bwd`,
@@ -78,43 +96,71 @@ constexpr int kThreads = 256;
 template <bool kTanh>
 __device__ __forceinline__ float gelu(float u) {
   if constexpr (kTanh) {
-    // jax.nn.gelu(approximate=True): u * 0.5 * (1 + tanh(sqrt(2/pi) * (u + 0.044715 u^3)))
-    const float inner = 0.7978845608028654f * (u + 0.044715f * (u * u * u));
-    return u * (0.5f * (1.0f + tanhf(inner)));
+    // jax.nn.gelu(approximate=True): u * 0.5 * (1 + tanh z), z = sqrt(2/pi)
+    // (u + 0.044715 u^3), as u / (1 + e^(-2z)) = u / (1 + 2^w), w = -2 z
+    // log2(e): one ex2 and one reciprocal (`__fdividef`) where the accurate
+    // tanhf costs ~20 dependent instructions. z << 0 gives 2^w = +inf and
+    // u * rcp(inf) = -0, not NaN; 2^w in (2^126, 2^128) gives 0 where the
+    // true value is below 1e-36.
+    float w;
+    asm("ex2.approx.ftz.f32 %0, %1;"
+        : "=f"(w)
+        : "f"(u * fmaf(-0.10294324f, u * u, -2.3022082f)));
+    return __fdividef(u, 1.0f + w);
   }
   // jax.nn.gelu(approximate=False): 0.5 * u * erfc(-u * sqrt(1/2))
   return 0.5f * u * erfcf(-u * 0.7071067811865476f);
 }
 
+// Forward geometry (mirrored by ops/kernels/fused_elementwise.py
+// `bias_gelu_fwd_grid`): a CTA's kThreads threads take kThreads neighbouring
+// 16-byte vectors of columns (a column tile, gridDim.x of them) over one
+// chunk of contiguous rows (gridDim.y), kFwdLoads rows at a time with their
+// loads all issued before the first is used: one trip a chunk, but for more
+// rows than 65535 chunks hold; a row a chunk at decode.
+constexpr int kFwdLoads = 4;
+constexpr int kFwdCtasPerSm = 4;
+
+// gelu(x + b) of one 16-byte vector: packed adds in T, fp32 GELU, one
+// rounding to T
 template <typename T, bool kTanh>
-__global__ void __launch_bounds__(kThreads)
-    bias_gelu_fwd_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                         T* __restrict__ y, long long total, int n, bool vec) {
-  constexpr int V = ptt::kVec16<T>;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (vec) {
-    // n % V == 0, so a vector never straddles two rows
-    for (long long i = first; i < total / V; i += stride) {
-      const uint4 rx = reinterpret_cast<const uint4*>(x)[i];
-      const int col = static_cast<int>((i * V) % n);
-      const uint4 rb = *reinterpret_cast<const uint4*>(b + col);
-      const T* ex = reinterpret_cast<const T*>(&rx);
-      const T* eb = reinterpret_cast<const T*>(&rb);
-      uint4 out;
-      T* eo = reinterpret_cast<T*>(&out);
+__device__ __forceinline__ uint4 bias_gelu_vec(uint4 xv, uint4 bv) {
+  float u[ptt::kVec16<T>];
+  ptt::unpack(ptt::add_vec(xv, bv, T{}), u, T{});
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float u = ptt::to_f32(ptt::add_t(ex[j], eb[j]));
-        eo[j] = ptt::from_f32<T>(gelu<kTanh>(u));
-      }
-      reinterpret_cast<uint4*>(y)[i] = out;
-    }
-  } else {
-    for (long long i = first; i < total; i += stride) {
-      const float u = ptt::to_f32(ptt::add_t(x[i], b[i % n]));
-      y[i] = ptt::from_f32<T>(gelu<kTanh>(u));
-    }
+  for (int j = 0; j < ptt::kVec16<T>; ++j) u[j] = gelu<kTanh>(u[j]);
+  return ptt::pack(u, T{});
+}
+
+template <typename T, bool kTanh, bool kVec>
+__global__ void __launch_bounds__(kThreads, kFwdCtasPerSm)
+    bias_gelu_fwd_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                         T* __restrict__ y, int rows, int n,
+                         int rows_per_chunk) {
+  const int c0 = (blockIdx.x * kThreads + threadIdx.x) * ptt::kVec16<T>;
+  if (c0 >= n) return;
+  const int r0 = static_cast<int>(blockIdx.y) * rows_per_chunk;
+  const int r_end = rows - r0 < rows_per_chunk ? rows : r0 + rows_per_chunk;
+  const uint4 bv = ptt::load_vec(b, c0, n, kVec);
+  const long long off = static_cast<long long>(r0) * n;
+  const T* xr = x + off;
+  T* yr = y + off;
+  int r = r0;
+  for (; r_end - r >= kFwdLoads; r += kFwdLoads) {
+    uint4 v[kFwdLoads];
+#pragma unroll
+    for (int k = 0; k < kFwdLoads; ++k)
+      v[k] = ptt::load_vec(xr + static_cast<long long>(k) * n, c0, n, kVec);
+#pragma unroll
+    for (int k = 0; k < kFwdLoads; ++k)
+      ptt::store_vec(yr + static_cast<long long>(k) * n, c0, n, kVec,
+                     bias_gelu_vec<T, kTanh>(v[k], bv));
+    xr += static_cast<long long>(kFwdLoads) * n;
+    yr += static_cast<long long>(kFwdLoads) * n;
+  }
+  for (; r < r_end; ++r, xr += n, yr += n) {
+    const uint4 v = ptt::load_vec(xr, c0, n, kVec);
+    ptt::store_vec(yr, c0, n, kVec, bias_gelu_vec<T, kTanh>(v, bv));
   }
 }
 
@@ -241,27 +287,31 @@ int launch_bwd(const void* x, const void* b, const void* dy, void* dx,
                                       rows_per_chunk, stream);
 }
 
+template <typename T, bool kTanh, bool kVec>
+int launch_fwd_t(const void* x, const void* b, void* y, int rows, int n,
+                 int chunks, int rows_per_chunk, cudaStream_t stream) {
+  constexpr int kTileCols = kThreads * ptt::kVec16<T>;
+  const dim3 grid((n + kTileCols - 1) / kTileCols, chunks);
+  bias_gelu_fwd_kernel<T, kTanh, kVec><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(b), static_cast<T*>(y),
+      rows, n, rows_per_chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int launch(const void* x, const void* b, void* y, int rows, int n,
-           bool approximate, cudaStream_t stream) {
-  const long long total = static_cast<long long>(rows) * n;
+int launch(const void* x, const void* b, void* y, int rows, int n, int chunks,
+           int rows_per_chunk, bool approximate, cudaStream_t stream) {
   const bool vec = n % ptt::kVec16<T> == 0 && ptt::aligned16(x) &&
                    ptt::aligned16(b) && ptt::aligned16(y);
-  const long long work = vec ? total / ptt::kVec16<T> : total;
-  // enough CTAs to fill the 132 SMs several times over, capped so the
-  // grid-stride loop does the rest
-  const long long want = (work + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  if (approximate) {
-    bias_gelu_fwd_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(b),
-        static_cast<T*>(y), total, n, vec);
-  } else {
-    bias_gelu_fwd_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(b),
-        static_cast<T*>(y), total, n, vec);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (approximate)
+    return vec ? launch_fwd_t<T, true, true>(x, b, y, rows, n, chunks,
+                                             rows_per_chunk, stream)
+               : launch_fwd_t<T, true, false>(x, b, y, rows, n, chunks,
+                                              rows_per_chunk, stream);
+  return vec ? launch_fwd_t<T, false, true>(x, b, y, rows, n, chunks,
+                                            rows_per_chunk, stream)
+             : launch_fwd_t<T, false, false>(x, b, y, rows, n, chunks,
+                                             rows_per_chunk, stream);
 }
 
 // the mask bytes that go with one 16-byte vector of T
@@ -416,16 +466,25 @@ extern "C" int ptt_dropout_add_bwd(const void* keep, const void* dy, void* dx,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x, y: [rows, n] contiguous; b: [n] in x's dtype.
+// x, y: [rows, n] contiguous; b: [n] in x's dtype. Rows are cut into
+// `chunks` chunks of `rows_per_chunk` (the last may be shorter, none empty;
+// at most 65535 chunks), each a row of the grid. Any n up to 2^31 - 1 - 2048
+// (32-bit column index inside a row, 64-bit row offsets).
 extern "C" int ptt_bias_gelu_fwd(const void* x, const void* b, void* y,
-                                 int rows, int n, int approximate, int dtype,
-                                 int device, void* stream) {
-  if (rows <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                 int rows, int n, int chunks,
+                                 int rows_per_chunk, int approximate,
+                                 int dtype, int device, void* stream) {
+  if (rows <= 0 || n <= 0 || n > 2147483647 - 2048 || chunks <= 0 ||
+      chunks > 65535 || rows_per_chunk <= 0 ||
+      static_cast<long long>(chunks) * rows_per_chunk < rows ||
+      static_cast<long long>(chunks - 1) * rows_per_chunk >= rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   PTT_DISPATCH_DTYPE(dtype, T,
-                     return launch<T>(x, b, y, rows, n, approximate != 0, s));
+                     return launch<T>(x, b, y, rows, n, chunks, rows_per_chunk,
+                                      approximate != 0, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -25,6 +25,7 @@ all (the counterpart of `scaffold.routes_snapshot`, which counted
 routing decisions).
 """
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -145,8 +146,9 @@ _SIGNATURES = {
     # rows_per_chunk, dtype, device, stream
     'ptt_layer_norm_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _P),
-    # x, b, y, rows, n, approximate, dtype, device, stream
-    'ptt_bias_gelu_fwd': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, b, y, rows, n, chunks, rows_per_chunk, approximate, dtype, device,
+    # stream
+    'ptt_bias_gelu_fwd': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, b, dy, dx, part, db, rows, n, chunks, rows_per_chunk, approximate,
     # dtype, device, stream
     'ptt_bias_gelu_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -254,6 +256,7 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -278,8 +281,10 @@ def launch(fn_name, kernel, device, *args, launches=1):
     """Call C entry `fn_name` on `device`'s current stream, raise on a
     non-zero cudaError, and count `launches` launches of `kernel` (an
     entry point that runs a second reduction pass launches twice)."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib(), fn_name)(*args, device.index or 0, stream)
+    index = device.index or 0
+    # the current stream's handle without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    rc = getattr(lib(), fn_name)(*args, index, stream)
     if rc:
         msg = lib().ptt_error_string(rc).decode(errors='replace')
         raise RuntimeError(f'{kernel}: CUDA error {rc} ({msg})')

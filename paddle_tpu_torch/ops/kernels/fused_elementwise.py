@@ -17,9 +17,13 @@ Numerics: both routes add in x's dtype and evaluate the GELU (tanh form
 with 0.044715 when `approximate`, the erf form otherwise — jax.nn.gelu's
 two forms) and its derivative (`gelu_grad_f32`, the port's copy of
 `_gelu_grad`, :48-58) in fp32; the forward rounds once to x's dtype. The
-JAX route rounds inside bf16 arithmetic instead, so in bf16 the two
-agree to a few bf16 ulps (the tests hold them at 5e-2); in fp32 they
-agree to float rounding.
+plain versions take each tanh, erf, erfc and exp from float64, rounded
+once to fp32 (`_once`: torch's fp32 ones can err on their first call in
+a process); the kernel's tanh form computes u / (1 + e^(-2z)), the same
+function without the cancellation of 1 + tanh z. The JAX route rounds
+inside bf16 arithmetic instead, so in bf16 the two agree to a few bf16
+ulps (the tests hold them at 5e-2); in fp32 they agree to float
+rounding.
 
 `dropout_add(x, residual, keep, p)` computes where(keep, x / (1-p), 0)
 rounded to x's dtype, plus the residual, through `DropoutAddFunction`,
@@ -35,6 +39,7 @@ Python float, the divisor 1-p is rounded to x's dtype first, and the
 quotient is rounded to x's dtype before the residual add; the plain
 versions and the kernels agree bit for bit.
 """
+import functools
 import math
 
 import torch
@@ -55,6 +60,19 @@ _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 # launch bounds promise BWD_CTAS_PER_SM CTAs an SM
 BWD_TILE_VECS = 32
 BWD_CTAS_PER_SM = 4
+# its forward: a CTA's FWD_TILE_VECS threads take one 16-byte vector each of
+# a column tile over FWD_LOADS rows, all loads issued before the first is
+# used (kThreads, kFwdLoads); its launch bounds promise FWD_CTAS_PER_SM CTAs
+# an SM (kFwdCtasPerSm)
+FWD_TILE_VECS = 256
+FWD_LOADS = 4
+FWD_CTAS_PER_SM = 4
+MAX_GRID_Y = 65535
+
+
+def _vectors(n, dtype):
+    """16-byte vectors of `dtype` that a row of n elements spans."""
+    return -(-n // (16 // dtype.itemsize))
 
 
 def bias_gelu_bwd_grid(rows, n, dtype, sms):
@@ -63,31 +81,58 @@ def bias_gelu_bwd_grid(rows, n, dtype, sms):
     many CTAs as are resident at once, each over one column tile of a
     chunk of contiguous rows, the chunk's dbias one row of the [chunks, n]
     fp32 scratch."""
-    vectors = -(-n // (16 // torch.empty((), dtype=dtype).element_size()))
-    tiles = -(-vectors // BWD_TILE_VECS)
+    tiles = -(-_vectors(n, dtype) // BWD_TILE_VECS)
     want = max(1, BWD_CTAS_PER_SM * sms // tiles)
     return (tiles, *_build.row_chunks(rows, want, n * 4))
 
 
+@functools.lru_cache(maxsize=256)
+def bias_gelu_fwd_grid(rows, n, dtype, sms):
+    """(column tiles, chunks, rows_per_chunk) of the forward kernel for
+    [rows, n] of `dtype` on a card of `sms` SMs. A thread owns one 16-byte
+    vector of a row's columns over a chunk of rows. Rows too few to fill
+    the card's resident CTAs one vector a thread (a decode step) take a
+    chunk each: no row loop. Otherwise a chunk is FWD_LOADS rows, one trip
+    of a CTA that then ends, so CTAs launched in order sweep memory as a
+    copy does; more rows than 65535 such chunks hold lengthen the chunks."""
+    tiles = -(-_vectors(n, dtype) // FWD_TILE_VECS)
+    per = 1 if rows * tiles <= FWD_CTAS_PER_SM * sms else FWD_LOADS
+    per = max(per, -(-rows // MAX_GRID_Y))
+    return tiles, -(-rows // per), per
+
+
+def _once(op, z):
+    """op(z) evaluated in float64 and rounded once to z's dtype.
+
+    torch 2.13.0+cpu (MKL) can return the fp32 tanh, erf, erfc and exp of
+    the FIRST such call in a process wrong by up to a few 1e-4 on one
+    intra-op thread's share of the elements (a race at the first call,
+    seen in fresh processes with 4 to 64 threads); later calls, and the
+    float64 ops on every call tried, are right to under an fp32 rounding.
+    """
+    return op(z.double()).to(z.dtype)
+
+
 def gelu_f32(u, approximate):
-    """jax.nn.gelu's two forms on an fp32 tensor, op for op."""
+    """jax.nn.gelu's two forms on an fp32 tensor, op for op, with the tanh
+    and erfc each rounded once from float64 (`_once`)."""
     if approximate:
-        cdf = 0.5 * (1.0 + torch.tanh(
-            _SQRT_2_OVER_PI * (u + 0.044715 * (u * u * u))))
-        return u * cdf
-    return 0.5 * u * torch.erfc(-u * math.sqrt(0.5))
+        inner = _SQRT_2_OVER_PI * (u + 0.044715 * (u * u * u))
+        return u * (0.5 * (1.0 + _once(torch.tanh, inner)))
+    return 0.5 * u * _once(torch.erfc, -u * math.sqrt(0.5))
 
 
 def gelu_grad_f32(u, approximate):
-    """d gelu(u) / du on an fp32 tensor, op for op as `_gelu_grad`."""
+    """d gelu(u) / du on an fp32 tensor, op for op as `_gelu_grad`, with
+    the tanh, exp and erf each rounded once from float64 (`_once`)."""
     if approximate:
         c = _SQRT_2_OVER_PI
         inner = c * (u + 0.044715 * (u * u * u))
-        t = torch.tanh(inner)
+        t = _once(torch.tanh, inner)
         return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * c * \
             (1.0 + 3 * 0.044715 * (u * u))
-    phi = torch.exp(-0.5 * u * u) * (1.0 / math.sqrt(2.0 * math.pi))
-    cdf = 0.5 * (1.0 + torch.erf(u * (1.0 / math.sqrt(2.0))))
+    phi = _once(torch.exp, -0.5 * u * u) * (1.0 / math.sqrt(2.0 * math.pi))
+    cdf = 0.5 * (1.0 + _once(torch.erf, u * (1.0 / math.sqrt(2.0))))
     return cdf + u * phi
 
 
@@ -112,7 +157,9 @@ def _check(x, bias, name):
                          f'{tuple(bias.shape)}')
     code = _build.dtype_code(x, name)
     _build.require_contiguous(name, x=x)
-    return code, bias.to(x.dtype).contiguous()
+    if bias.dtype != x.dtype:
+        bias = bias.to(x.dtype)
+    return code, bias.contiguous()
 
 
 def _fwd_kernel(x, bias, approximate):
@@ -122,10 +169,20 @@ def _fwd_kernel(x, bias, approximate):
     rows = x.numel() // max(N, 1)
     if rows == 0 or N == 0:
         return y
+    _tiles, chunks, per = bias_gelu_fwd_grid(rows, N, x.dtype,
+                                             _build.sm_count(x.device))
     _build.launch('ptt_bias_gelu_fwd', KERNEL, x.device, x.data_ptr(),
-                  b.data_ptr(), y.data_ptr(), rows, N, int(bool(approximate)),
-                  code)
+                  b.data_ptr(), y.data_ptr(), rows, N, chunks, per,
+                  int(bool(approximate)), code)
     return y
+
+
+def bias_gelu_fwd(x, bias, approximate):
+    """y: the forward kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    if _build.on_cpu(x, bias):
+        return bias_gelu_plain(x, bias, approximate)
+    return _fwd_kernel(x, bias, approximate)
 
 
 def _bwd_kernel(x, bias, dy, approximate):
@@ -163,10 +220,7 @@ class BiasGeluFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, bias, approximate):
-        if _build.on_cpu(x, bias):
-            y = bias_gelu_plain(x, bias, approximate)
-        else:
-            y = _fwd_kernel(x, bias, approximate)
+        y = bias_gelu_fwd(x, bias, approximate)
         ctx.save_for_backward(x, bias)
         ctx.approximate = approximate
         return y
@@ -179,8 +233,13 @@ class BiasGeluFunction(torch.autograd.Function):
 
 
 def bias_gelu(x, bias, approximate):
-    """x [..., N], bias [N]. Differentiable in x and bias."""
-    return BiasGeluFunction.apply(x, bias, approximate)
+    """x [..., N], bias [N]. Differentiable in x and bias; when no
+    gradient is recorded (grad mode off, or neither input requires one)
+    the forward runs without the autograd Function, whose bookkeeping
+    costs a decode step more host time than the launch."""
+    if torch.is_grad_enabled() and (x.requires_grad or bias.requires_grad):
+        return BiasGeluFunction.apply(x, bias, approximate)
+    return bias_gelu_fwd(x, bias, approximate)
 
 
 # ---------------------------------------------------------------------------

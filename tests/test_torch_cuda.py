@@ -215,18 +215,50 @@ class TestOnCard:
 
     @pytest.mark.parametrize('approximate', [True, False])
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize('shape', [(3, 5, 64), (8, 8192), (2, 37)])
-    def test_bias_gelu_kernel(self, cuda, dtype, shape, approximate):
+    @pytest.mark.parametrize('shape,offset', [
+        ((3, 5, 64), 0), ((8, 8192), 0), ((2, 37), 0), ((1024, 8192), 0),
+        ((16411, 8192), 0), ((300, 2051), 0), ((64, 8192), 1)])
+    def test_bias_gelu_kernel(self, cuda, dtype, shape, offset, approximate):
+        """The forward at the serve's decode and prefill rows, rows that
+        walk a chunk (16411: a ragged last trip and chunk), n not a
+        multiple of 8, and x one element off 16-byte alignment (the
+        element-by-element route), against the plain version; one launch
+        a call, two calls bit-equal."""
         g = torch.Generator(device=cuda).manual_seed(1)
-        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        x = _offset_randn(shape, offset, g, cuda, dtype)
+        x.mul_(3)
         b = torch.randn(shape[-1], generator=g, device=cuda)
         _build.reset_launches()
         got = tfe.bias_gelu(x, b, approximate)
         assert _build.routes_snapshot()['bias_gelu'] == 1
+        assert torch.equal(got, tfe.bias_gelu(x, b, approximate))
+        assert _build.routes_snapshot()['bias_gelu'] == 2
         tol = FP32 if dtype == torch.float32 else BF16_ELEMENTWISE
         torch.testing.assert_close(
             got.float(), tfe.bias_gelu_plain(x, b, approximate).float(),
             **tol)
+
+    def test_bias_gelu_records_a_gradient_only_when_one_is_needed(self, cuda):
+        """The wrapper skips the autograd Function when no gradient is
+        recorded, and still records one through the kernels when x or the
+        bias requires it."""
+        g = torch.Generator(device=cuda).manual_seed(7)
+        x = torch.randn(8, 8192, generator=g, device=cuda).bfloat16()
+        b = torch.randn(8192, generator=g, device=cuda).bfloat16()
+        _build.reset_launches()
+        assert tfe.bias_gelu(x, b, True).grad_fn is None
+        b.requires_grad_()
+        with torch.no_grad():
+            assert tfe.bias_gelu(x, b, True).grad_fn is None
+        y = tfe.bias_gelu(x, b, True)
+        assert y.grad_fn is not None
+        y.float().sum().backward()
+        snap = _build.routes_snapshot()
+        assert snap['bias_gelu'] == 3 and snap['bias_gelu_bwd'] == 2
+        _dx, db = tfe.bias_gelu_bwd_plain(x, b.detach(), torch.ones_like(x),
+                                          True)
+        torch.testing.assert_close(b.grad.float(), db.bfloat16().float(),
+                                   **BF16_ELEMENTWISE)
 
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize('head_dim', [8, 32, 64, 128, 256])

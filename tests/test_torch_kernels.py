@@ -15,6 +15,8 @@ holds them against the plain versions there, and chip_smoke.py does the
 same at the serving path's shapes.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,6 +130,101 @@ def test_gelu_and_bias_none_match_jax(approximate):
     got = tnn.bias_gelu(_t(x, torch.float32), None, approximate=approximate)
     ref = jnn.gelu(Tensor(jnp.asarray(x)), approximate=approximate)
     np.testing.assert_allclose(_np(got), _np(ref), **FP32)
+
+
+# the forward kernel's grid (csrc/fused_elementwise.cu bias_gelu_fwd_kernel):
+# CTA (tile, chunk), thread t owns vector tile * FWD_TILE_VECS + t of every
+# row of its chunk. The gpt_1p3b shapes (decode, prefill, the train step),
+# ragged widths and row counts, and more rows than one grid row holds chunks.
+FWD_GRID_SHAPES = [(8, 8192), (1024, 8192), (16384, 8192), (16384, 2048),
+                   (1, 1), (2, 37), (7, 2056), (2049, 8200), (300, 40000),
+                   (100_003, 64), (300_001, 64)]
+
+
+def _fwd_coverage(rows, n, dtype, sms):
+    """How many threads of the kernel visit each row and each 16-byte
+    vector of a row under `bias_gelu_fwd_grid`: (row counts, vector
+    counts, the grid)."""
+    vectors = -(-n // (16 // dtype.itemsize))
+    tiles, chunks, per = tfe.bias_gelu_fwd_grid(rows, n, dtype, sms)
+    assert 1 <= chunks <= tfe.MAX_GRID_Y and per >= 1
+    row_count = np.zeros(rows, np.int64)
+    for chunk in range(chunks):          # chunk i: rows [i per, (i+1) per)
+        row_count[chunk * per:(chunk + 1) * per] += 1
+    # thread t of tile i owns vector i * FWD_TILE_VECS + t; threads past
+    # the row's last vector return at once
+    owned = np.arange(tiles * tfe.FWD_TILE_VECS)
+    vec_count = np.bincount(owned[owned < vectors], minlength=vectors)
+    assert owned.size - vectors < tfe.FWD_TILE_VECS
+    return row_count, vec_count, (tiles, chunks, per)
+
+
+@pytest.mark.parametrize('sms', [1, 8, 132])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows,n', FWD_GRID_SHAPES)
+def test_bias_gelu_fwd_grid_covers_every_vector_once(rows, n, dtype, sms):
+    row_count, vec_count, (tiles, chunks, per) = _fwd_coverage(rows, n,
+                                                               dtype, sms)
+    assert (row_count == 1).all() and (vec_count == 1).all()
+    assert (chunks - 1) * per < rows           # no chunk is empty
+    if rows * tiles <= tfe.FWD_CTAS_PER_SM * sms:
+        # a decode step: a row a chunk, one vector a thread, no row loop
+        assert per == 1 and chunks == rows
+    else:
+        # one trip of FWD_LOADS rows a CTA, unless the grid's 65535 rows
+        # of chunks cannot hold them so
+        assert per == max(tfe.FWD_LOADS, -(-rows // tfe.MAX_GRID_Y))
+
+
+def test_bias_gelu_fwd_grid_at_gpt_1p3b_shapes():
+    # decode: 8 rows of ffn 8192 bf16 -> 4 tiles x 8 chunks of one row;
+    # a 128-token prefill of 8 rows and the train step: chunks of 4 rows
+    assert tfe.bias_gelu_fwd_grid(8, 8192, torch.bfloat16, 132) == (4, 8, 1)
+    assert tfe.bias_gelu_fwd_grid(1024, 8192, torch.bfloat16, 132) == (
+        4, 256, 4)
+    assert tfe.bias_gelu_fwd_grid(16384, 8192, torch.bfloat16, 132) == (
+        4, 4096, 4)
+    # past 65535 chunks of 4 rows, chunks lengthen (the kernel's row loop)
+    assert tfe.bias_gelu_fwd_grid(300_000, 64, torch.float32, 132) == (
+        1, 60000, 5)
+
+
+def _kernel_gelu_tanh(x, b):
+    """csrc/fused_elementwise.cu's tanh form, emulated: u = x + b in x's
+    dtype, then in fp32 w = u * fma(K a, u * u, K) (K = -2 log2(e)
+    sqrt(2/pi), a = 0.044715; the fma rounds once), 2^w (ex2.approx, taken
+    here as the correctly rounded 2^w), y = u / (1 + 2^w), rounded once to
+    x's dtype."""
+    u = (x + b.to(x.dtype)).float()
+    k = np.float32(-2 * math.log2(math.e) * math.sqrt(2 / math.pi))
+    ka = np.float32(float(k) * 0.044715)
+    uu = u * u
+    f = (float(ka) * uu.double() + float(k)).float()
+    w = u * f
+    y = u / (1.0 + torch.exp2(w.double()).float())
+    return y.to(x.dtype)
+
+
+# tests/test_torch_cuda.py's bar for the bf16 elementwise kernels
+BF16_ELEMENTWISE = dict(rtol=1e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+@pytest.mark.parametrize('shape', [(8, 8192), (64, 2048), (2, 37)])
+def test_kernel_tanh_form_matches_pallas_body_and_plain(shape, dtype):
+    """The forward kernel computes gelu(u) = u * 0.5 (1 + tanh z) as
+    u / (1 + e^(-2z)); emulated in fp32, it matches the Pallas
+    `_bg_fwd_kernel` (interpret mode) and the plain version."""
+    _ndt, jdt, tdt, _tol = DTYPES[dtype]
+    tol = FP32 if dtype == 'float32' else BF16_ELEMENTWISE
+    rng = np.random.RandomState(23)
+    x = 3 * rng.randn(*shape).astype(np.float32)
+    b = 0.5 * rng.randn(shape[-1]).astype(np.float32)
+    got = _np(_kernel_gelu_tanh(_t(x, tdt), _t(b, torch.float32)))
+    pallas = jfe.bias_gelu(_j(x, jdt), _j(b, jnp.float32), True)
+    np.testing.assert_allclose(got, _np(pallas), **tol)
+    plain = tfe.bias_gelu_plain(_t(x, tdt), _t(b, torch.float32), True)
+    np.testing.assert_allclose(got, _np(plain), **tol)
 
 
 # ---------------------------------------------------------------------------

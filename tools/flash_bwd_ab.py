@@ -37,7 +37,19 @@ Modes (rows of PERF.md's kernel table):
             train step's [16384, 2048] bf16 (134 MB of x and y: cold) and
             without them at the serve's decode [8, 2048], beside
             `native_layer_norm` and `F.layer_norm`, checked against its
-            plain version at chip_smoke.py's bars.
+            plain version at chip_smoke.py's bars;
+  --bias-gelu the bias+GELU forward (row 3, tanh form) at the train step's
+            [16384, 8192] bf16 (537 MB of x and y: cold) and at the serve's
+            decode [8, 8192], beside `F.gelu(x + b, approximate='tanh')`,
+            checked against its plain version at chip_smoke.py's bar, and
+            beside a copy of x (`copy_`) and `torch.neg(x, out=y)` (the
+            same bytes read and written by PyTorch's elementwise
+            kernel); at
+            decode also the host microseconds a call of the wrapper and of
+            the library call under no_grad (chip_smoke.py's `host_us`) and
+            the floor of any launch (`floor_ms`); and the kernel's fp32
+            error against the float64 formula over 2.2 M points (u in
+            [-12, 12] and randn x 3).
 Errors are the relative L2 error and the max |diff| over the RMS. One
 JSON line per tree.
 
@@ -47,6 +59,7 @@ JSON line per tree.
     python3 tools/flash_bwd_ab.py --norm A B B A
     python3 tools/flash_bwd_ab.py --stats A B B A
     python3 tools/flash_bwd_ab.py --norm-fwd A B B A
+    python3 tools/flash_bwd_ab.py --bias-gelu A B B A
 
 Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
 own process and builds its kernels into <tree>/build/paddle_tpu_torch.
@@ -334,9 +347,68 @@ def measure_norm_fwd(tree):
     return res
 
 
+def measure_bias_gelu(tree):
+    sys.path.insert(0, tree)
+    import torch
+    from torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
+
+    smoke = _smoke()
+    randn = smoke.make_randn(torch, 0)
+    res = {'tree': tree, 'floor_ms': smoke.floor_ms(torch)}
+    for label, rows in (('train', 16384), ('decode', 8)):
+        n = 8192
+        x, b = randn(rows, n), randn(n, scale=0.1)
+        run = lambda: fe.bias_gelu(x, b, True)
+        library = lambda: F.gelu(x + b, approximate='tanh')
+        err = smoke.check_close('bias_gelu', run(),
+                                fe.bias_gelu_plain(x, b, True))
+        iters = 20 if label == 'train' else smoke.ITERS
+        ms = smoke.device_ms(torch, run, iters=iters)
+        lib_ms = smoke.device_ms(torch, library, iters=iters)
+        bound = smoke.bound_ms(2 * rows * n * 2 + n * 2, 12 * rows * n,
+                               smoke.FP32_FLOPS)[0]
+        res[label] = dict(shape=[rows, n], max_abs_err=err, ms=ms,
+                          library_ms=lib_ms, bound_ms=bound,
+                          over_library=ms / lib_ms, share_of_bound=bound / ms)
+        if label == 'decode':
+            with torch.no_grad():
+                res[label].update(host_us=smoke.host_us(torch, run),
+                                  library_host_us=smoke.host_us(torch, library))
+        else:
+            # the same bytes read and written by a copy and by PyTorch's
+            # vectorized elementwise kernel (a negation: no bias, no GELU)
+            y = torch.empty_like(x)
+            res[label]['copy_ms'] = smoke.device_ms(
+                torch, lambda: y.copy_(x), iters=iters)
+            res[label]['neg_ms'] = smoke.device_ms(
+                torch, lambda: torch.neg(x, out=y), iters=iters)
+            del y
+        del x, b
+        torch.cuda.empty_cache()
+    # fp32: the kernel against the float64 formula, written without the
+    # cancellation of 1 + tanh z: u / (1 + e^(-2z))
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    u = torch.cat([3 * torch.randn(2_000_000, generator=gen, device='cuda'),
+                   torch.linspace(-12, 12, 200_000, device='cuda')])
+    got = fe.bias_gelu(u.view(1100, 2000), torch.zeros(2000, device='cuda'),
+                       True).double().flatten()
+    ud = u.double()
+    z = (2 / torch.pi) ** 0.5 * (ud + 0.044715 * ud ** 3)
+    want = ud / (1 + torch.exp(-2 * z))
+    err = (got - want).abs()
+    normal = want.abs() > 1e-30
+    res['fp32_vs_float64'] = dict(
+        points=u.numel(), max_abs=float(err.max()),
+        max_rel=float((err[normal] / want[normal].abs()).max()))
+    res['card'] = torch.cuda.get_device_name(0)
+    return res
+
+
 MODES = {'--bwd': measure_bwd, '--fwd': measure_fwd,
          '--paged': measure_paged, '--norm': measure_norm,
-         '--stats': measure_stats, '--norm-fwd': measure_norm_fwd}
+         '--stats': measure_stats, '--norm-fwd': measure_norm_fwd,
+         '--bias-gelu': measure_bias_gelu}
 
 
 def main(argv):
