@@ -121,7 +121,33 @@ Phases, one JSON line each on stdout:
              losses, every parameter's gradient and every updated
              parameter must agree within WHOLE_PATH_RTOL (relative L2
              error per tensor).
-10. summary — the `kernels` line (all 16 kernels), the nvidia-smi line,
+10. pipeline — the bench's headline leg (bench.py:120-149): gpt_1p3b at
+             full width and depth through SpmdPipelineEngine at pp = 1
+             (build_gpt_pipeline: bf16, untied head, dropouts 0, flash
+             on; AdamW lr 1e-4, decay 0.01, bf16 moments, no master; A =
+             4 micro-batches of 2 x 2048, use_remat=True, '1F1B',
+             grad_accum_dtype='param') on the bench's seeded batch: a
+             warm-up and 5 timed train_batch calls. Losses finite and
+             falling; every training kernel's launches exactly
+             `pipeline_launches` a step (the recompute included), every
+             other kernel's 0; the boundary tags counted exactly. Prints
+             ms/step, tokens/s, model TFLOP/s and MFU (bench.py's
+             formula, the untied head counted), peak memory, the remat
+             record, and a profiled step whose "other" device time is
+             split into the per-parameter update, the cross-entropy,
+             casts and copies, and the rest. Then 3 timed steps each
+             under remat_policy 'none' and 'attn_mlp_boundaries'.
+11. pipeline_check — the engine on the card against the CPU at
+             gpt_1p3b's width with 2 layers in fp32 (TF32 off), A = 2 x 1
+             x 512, remat 'full', SGD and AdamW, 2 train_batch calls from
+             the same weights: losses, gradients and parameters within
+             WHOLE_PATH_RTOL; train_step x2 + flush bit-equal to
+             train_batch x2 on the card.
+12. linear_xent — fused_linear_cross_entropy at [4096, 2048] x 50304 bf16
+             against the plain product and hard cross-entropy, forward
+             and backward (XENT_LOSS_RTOL, XENT_GRAD_REL_L2), with both
+             times and peak memories.
+13. summary — the `kernels` line (all 16 kernels), the nvidia-smi line,
              and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
@@ -336,12 +362,20 @@ def make_randn(torch, seed):
 # the gpt_1p3b train step: B=8, L=2048, H=16, D=128, hidden 2048, ffn 8192
 TRAIN_B, TRAIN_L, HEADS, HEAD_DIM = 8, 2048, 16, 128
 TRAIN_ROWS = TRAIN_B * TRAIN_L
+# the bench's headline leg (bench.py:120-149): gpt_1p3b through
+# SpmdPipelineEngine at pp = 1, A = 4 micro-batches of 2 x 2048 tokens
+PIPE_A, PIPE_MB = 4, 2
+PIPE_ROWS = PIPE_MB * TRAIN_L
 # LayerNorm and bias+GELU shapes: (rows, n) -> the path whose step gives
-# that kernel that shape (a decode step, the train step, or neither)
+# that kernel that shape (a decode step, the train step, the pipeline
+# leg's micro-batch, or neither)
 ROW_SHAPES = ((8, 2048), (128, 2048), (8, 8192), (128, 8192),
-              (TRAIN_ROWS, 2048), (TRAIN_ROWS, 8192))
-ROW_PATHS = {'layer_norm': {(8, 2048): 'decode', (TRAIN_ROWS, 2048): 'train'},
-             'bias_gelu': {(8, 8192): 'decode', (TRAIN_ROWS, 8192): 'train'}}
+              (TRAIN_ROWS, 2048), (TRAIN_ROWS, 8192),
+              (PIPE_ROWS, 2048), (PIPE_ROWS, 8192))
+ROW_PATHS = {'layer_norm': {(8, 2048): 'decode', (TRAIN_ROWS, 2048): 'train',
+                            (PIPE_ROWS, 2048): 'pipeline'},
+             'bias_gelu': {(8, 8192): 'decode', (TRAIN_ROWS, 8192): 'train',
+                           (PIPE_ROWS, 8192): 'pipeline'}}
 
 
 # the paged attention's cases: gpt_1p3b heads, page_size 16; the serve's
@@ -488,11 +522,11 @@ def paged_rows(torch, F, randn):
 
 def kernel_phase(torch, F):
     """The paged attention at the serve's shapes, and the LayerNorm and
-    bias+GELU forwards at the serve's and the train step's shapes, each
-    vs its plain version. At the train step's rows the LayerNorm runs the
-    forward that writes mean and rstd, as LayerNormFunction does, and the
-    plain versions (fp32 temporaries of the whole input) are timed with
-    loop_ms, not inside a CUDA graph."""
+    bias+GELU forwards at the serve's, the train step's and the pipeline
+    micro-batch's shapes, each vs its plain version. At the training rows
+    the LayerNorm runs the forward that writes mean and rstd, as
+    LayerNormFunction does, and the plain versions (fp32 temporaries of
+    the whole input) are timed with loop_ms, not inside a CUDA graph."""
     from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
     from paddle_tpu_torch.ops.kernels import fused_norm as fn
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
@@ -506,7 +540,7 @@ def kernel_phase(torch, F):
                'paged_attention_int8': []}
     floor = floor_ms(torch)
     for rows, n in ROW_SHAPES:
-        train = rows == TRAIN_ROWS
+        train = rows in (TRAIN_ROWS, PIPE_ROWS)
         iters = 20 if train else ITERS
         x = randn(rows, n)
         w = (1.0 + 0.1 * torch.randn(n, generator=gen, device='cuda')
@@ -618,26 +652,15 @@ def flash_check(torch, fa, randn, B, L, dtype, tol):
     return errs
 
 
-def train_kernel_phase(torch, F):
-    """Each training kernel not checked in kernel_phase at the gpt_1p3b
-    train step's shapes vs its plain version, timed: the LayerNorm and
-    bias+GELU backwards and the three flash kernels. The flash wrapper is
-    checked forward and backward at that shape in bf16 and in fp32, and
-    at a ragged L=1000. The plain versions, which allocate fp32
-    temporaries of the whole input, are timed with loop_ms, not inside a
-    CUDA graph."""
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+def norm_bwd_rows(torch, randn, rows, hidden, ffn):
+    """The LayerNorm backward over the hidden size and the bias+GELU
+    backward over the ffn size at `rows` bf16 rows, each against its plain
+    version, timed beside its library call."""
     from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
     from paddle_tpu_torch.ops.kernels import fused_norm as fn
 
-    randn = make_randn(torch, 5)
     aten = torch.ops.aten
-    rows_out = {}
-    B, L, H, D = TRAIN_B, TRAIN_L, HEADS, HEAD_DIM
-    HD = H * D
-    rows, hidden, ffn = TRAIN_ROWS, 2048, 8192
-
-    # -- LayerNorm backward over the hidden size --------------------------
+    out = {}
     x, dy = randn(rows, hidden), randn(rows, hidden)
     w = 1.0 + randn(hidden, scale=0.1)
     b = randn(hidden, scale=0.1)
@@ -652,7 +675,7 @@ def train_kernel_phase(torch, F):
     bms, by = bound_ms(3 * rows * hidden * 2 + rows * 8 + hidden * 2
                        + 2 * hidden * 4, 14 * rows * hidden, FP32_FLOPS)
     _y, lmean, lrstd = aten.native_layer_norm(x, [hidden], w, b, 1e-5)
-    rows_out['layer_norm_bwd'] = dict(
+    out['layer_norm_bwd'] = dict(
         shape=f'x, dy [{rows},{hidden}] bf16', max_abs_err=err,
         ms=device_ms(torch, lambda: fn.layer_norm_bwd(x, w, dy, mean, rstd),
                      iters=20),
@@ -664,7 +687,6 @@ def train_kernel_phase(torch, F):
         bound_ms=bms, bound_by=by)
     del x, dy, _y, got, want
 
-    # -- bias + GELU backward over the ffn size ---------------------------
     x, dy = randn(rows, ffn), randn(rows, ffn)
     b = randn(ffn, scale=0.1)
     dx, db = fe.bias_gelu_bwd(x, b, dy, True)
@@ -680,7 +702,7 @@ def train_kernel_phase(torch, F):
         du = aten.gelu_backward(dy, u, approximate='tanh')
         return du, du.sum(0, dtype=torch.float32)
 
-    rows_out['bias_gelu_bwd'] = dict(
+    out['bias_gelu_bwd'] = dict(
         shape=f'x, dy [{rows},{ffn}] bf16', max_abs_err=err,
         ms=device_ms(torch, lambda: fe.bias_gelu_bwd(x, b, dy, True),
                      iters=20),
@@ -689,18 +711,18 @@ def train_kernel_phase(torch, F):
         library_ms=device_ms(torch, library_bias_gelu_bwd, iters=20),
         bound_ms=bms, bound_by=by)
     del x, dy, u, dx, dx_p
+    return out
 
-    # -- flash attention, causal, packed [B, L, H*D] ----------------------
-    checks = {}
-    for dtype, tol, shape in ((torch.bfloat16, 'flash_bf16', (B, L)),
-                              (torch.float32, 'flash_fp32', (B, L)),
-                              (torch.bfloat16, 'flash_bf16', (1, 1000)),
-                              (torch.bfloat16, 'flash_bf16', (1, 129)),
-                              (torch.float32, 'flash_fp32', (1, 1000))):
-        label = f'{str(dtype).split(".")[-1]} B={shape[0]} L={shape[1]}'
-        checks[label] = flash_check(torch, fa, randn, *shape, dtype, tol)
-        free_cuda(torch)
-    main = checks[f'bfloat16 B={B} L={L}']
+
+def flash_rows(torch, F, randn, B, L, errs):
+    """The packed flash forward, dQ and dK/dV kernels at [B, L, H*D] bf16,
+    causal, timed beside their plain versions and SDPA; `errs` is
+    flash_check's result at that shape."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    H, D = HEADS, HEAD_DIM
+    HD = H * D
+    out = {}
     q, k, v, do = (randn(B, L, HD) for _ in range(4))
     kw = dict(num_heads=H, head_dim=D, bias=None, causal=True)
     o, lse = fa.flash_attention_packed_fwd(q, k, v, **kw)
@@ -709,9 +731,9 @@ def train_kernel_phase(torch, F):
     bms, by = bound_ms(io, 4 * causal_mac, BF16_FLOPS)
     qh, kh, vh, doh = (t.reshape(B, L, H, D).transpose(1, 2).contiguous()
                        for t in (q, k, v, do))
-    rows_out['flash_fwd'] = dict(
+    out['flash_fwd'] = dict(
         shape=f'q, k, v [{B},{L},{HD}] bf16, H={H} D={D}, causal',
-        max_abs_err=max(main['o'], main['lse']),
+        max_abs_err=max(errs['o'], errs['lse']),
         ms=loop_ms(torch, lambda: fa.flash_attention_packed_fwd(q, k, v,
                                                                 **kw)),
         plain_ms=loop_ms(torch, lambda: fa.flash_attention_packed_plain(
@@ -720,7 +742,7 @@ def train_kernel_phase(torch, F):
             qh, kh, vh, is_causal=True), iters=10),
         library='SDPA is_causal on [B,H,L,D] copies',
         bound_ms=bms, bound_by=by)
-    over_library(rows_out['flash_fwd'])
+    over_library(out['flash_fwd'])
     # the two backward kernels timed apart (the Function's backward runs
     # both, after delta)
     args = fa._bwd_args(q, k, v, do, H, D, None, True)
@@ -728,17 +750,17 @@ def train_kernel_phase(torch, F):
     plain_bwd_ms = loop_ms(torch, lambda: fa.flash_attention_packed_bwd_plain(
         q, k, v, o, lse, do, **kw), iters=2)
     qs, ks, vs = (t.detach().requires_grad_() for t in (qh, kh, vh))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     sdpa_bwd_ms = loop_ms(torch, lambda: torch.autograd.grad(
-        out, (qs, ks, vs), doh, retain_graph=True), iters=10)
+        sdpa, (qs, ks, vs), doh, retain_graph=True), iters=10)
     for name, err, n_products, fn_ in (
-            ('flash_bwd_dq', main['dq'], 6,
+            ('flash_bwd_dq', errs['dq'], 6,
              lambda: fa._dq_kernel(q, k, v, None, do, lse, delta, args)),
-            ('flash_bwd_dkv', max(main['dk'], main['dv']), 8,
+            ('flash_bwd_dkv', max(errs['dk'], errs['dv']), 8,
              lambda: fa._dkv_kernel(q, k, v, None, do, lse, delta, args))):
         bms, by = bound_ms(io + B * L * HD * 2 + 2 * B * L * H * 4,
                            n_products * causal_mac, BF16_FLOPS)
-        rows_out[name] = dict(
+        out[name] = dict(
             shape=f'q, k, v, dO [{B},{L},{HD}] bf16, H={H} D={D}, causal',
             max_abs_err=err, ms=loop_ms(torch, fn_),
             plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
@@ -746,18 +768,53 @@ def train_kernel_phase(torch, F):
             library='SDPA backward (dQ, dK, dV together): compare with '
                     'the sum of the two kernels',
             bound_ms=bms, bound_by=by)
-    pair_over_library(rows_out, 'flash_bwd_dq', 'flash_bwd_dkv')
-    del q, k, v, do, o, lse, delta, qh, kh, vh, doh, qs, ks, vs, out
+    pair_over_library(out, 'flash_bwd_dq', 'flash_bwd_dkv')
+    del q, k, v, do, o, lse, delta, qh, kh, vh, doh, qs, ks, vs, sdpa
     torch.cuda.synchronize()
-    for name, r in rows_out.items():
-        emit({'phase': 'kernel', 'name': name, 'path': 'train', **r})
+    return out
+
+
+def train_kernel_phase(torch, F):
+    """Each training kernel not checked in kernel_phase, vs its plain
+    version and timed, at the shapes of the gpt_1p3b train step (B = 8)
+    and of the pipeline leg's micro-batch (B = 2): the LayerNorm and
+    bias+GELU backwards and the three flash kernels. The flash wrapper is
+    checked forward and backward at both shapes in bf16, at the train
+    step's in fp32, and at a ragged L=1000. The plain versions, which
+    allocate fp32 temporaries of the whole input, are timed with
+    loop_ms, not inside a CUDA graph. Returns ({kernel: row} at the
+    train step's shapes, the same at the pipeline's)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    randn = make_randn(torch, 5)
+    B, L = TRAIN_B, TRAIN_L
+    checks = {}
+    for dtype, tol, shape in ((torch.bfloat16, 'flash_bf16', (B, L)),
+                              (torch.bfloat16, 'flash_bf16', (PIPE_MB, L)),
+                              (torch.float32, 'flash_fp32', (B, L)),
+                              (torch.bfloat16, 'flash_bf16', (1, 1000)),
+                              (torch.bfloat16, 'flash_bf16', (1, 129)),
+                              (torch.float32, 'flash_fp32', (1, 1000))):
+        label = f'{str(dtype).split(".")[-1]} B={shape[0]} L={shape[1]}'
+        checks[label] = flash_check(torch, fa, randn, *shape, dtype, tol)
+        free_cuda(torch)
+    rows = {}
+    for path, b, n_rows in (('train', B, TRAIN_ROWS),
+                            ('pipeline', PIPE_MB, PIPE_ROWS)):
+        rows[path] = norm_bwd_rows(torch, randn, n_rows, 2048, 8192)
+        free_cuda(torch)
+        rows[path].update(flash_rows(torch, F, randn, b, L,
+                                     checks[f'bfloat16 B={b} L={L}']))
+        free_cuda(torch)
+        for name, r in rows[path].items():
+            emit({'phase': 'kernel', 'name': name, 'path': path, **r})
     emit({'phase': 'kernel', 'name': 'flash_wrapper_checks',
           'tolerances': {t: dict(atol_x_rms=TOLERANCES[t][0],
                                  rtol=TOLERANCES[t][1], rel_l2=REL_L2[t])
                          for t in ('flash_bf16', 'flash_bf16_tc',
                                    'flash_fp32')},
           'max_abs_err': checks})
-    return rows_out
+    return rows['train'], rows['pipeline']
 
 
 # the biased BHLD route's shape: nn.MultiHeadAttention with BERT-base's 12
@@ -1338,7 +1395,46 @@ def train_phase(torch, card):
           'launches_per_step': {k: launches[k] / TIMED_STEPS
                                 for k in TRAIN_KERNELS},
           **prof})
-    return launches
+    return launches, peak
+
+
+def pipeline_launches(A, layers, policy):
+    """Each training kernel's launches in one SpmdPipelineEngine step at
+    pp = 1 (GPT, dropout 0, the flash route), as the wrappers count them.
+    A micro-batch's forward runs 2 LayerNorms, one flash forward and one
+    bias+GELU a block and the head's final LayerNorm; under any remat
+    policy the backward runs each block's kernels forward again (no
+    policy keeps a kernel's output: the kernels are not dispatcher ops,
+    and 'attn_mlp_boundaries' keeps the tagged tensors but re-runs the
+    LayerNorms, the flash forward and the bias+GELU, whose saved outputs
+    are not tagged); the embedding and the head are not checkpointed.
+    The backward runs one dQ, one dK/dV and one bias+GELU backward a
+    block and one LayerNorm backward a LayerNorm; the two row reductions
+    count 2 launches a call (the kernel and its column sum)."""
+    again = layers if policy != 'none' else 0
+    ln_calls = 2 * layers + 1
+    return {'layer_norm': A * (ln_calls + 2 * again),
+            'bias_gelu': A * (layers + again),
+            'flash_fwd': A * (layers + again),
+            'flash_bwd_dq': A * layers, 'flash_bwd_dkv': A * layers,
+            'layer_norm_bwd': 2 * A * ln_calls,
+            'bias_gelu_bwd': 2 * A * layers}
+
+
+def pipeline_tags(A, layers, policy):
+    """Each remat boundary tag's calls in one SpmdPipelineEngine step at
+    pp = 1: embed_out once a micro-batch, a block's five once in its
+    forward. 'full' and 'dots' re-run the block in the backward and tag
+    again up to fc2's product, the last op whose inputs the backward
+    needs, where the checkpoint stops (its early stop), so mlp_out is
+    not tagged again. 'attn_mlp_boundaries' re-runs each stretch between
+    two tags alone, and each stretch stops before its tag (a product, or
+    the flash Function, saves last), so no tag runs again."""
+    again = layers if policy in ('full', 'dots') else 0
+    return {name: A * (1 if name == 'embed_out' else
+                       layers if name == 'mlp_out' else layers + again)
+            for name in ('attn_qkv', 'attn_ctx', 'attn_out', 'mlp_fc1',
+                         'mlp_out', 'embed_out')}
 
 
 # gpt_1p3b's largest bucket: the word embedding, 50304 x 2048, larger than
@@ -1891,13 +1987,17 @@ def train_bucketed_phase(torch, card):
           'launches_per_step': {k: launches[k] / TIMED_STEPS
                                 for k in BUCKETED_PATH},
           **prof})
-    return launches
+    return launches, peak
 
 
-def profile_train_step(torch, step, ids, labels):
+def profile_train_step(torch, step, ids, labels, ranges=()):
     """One train step under torch.profiler: device busy time (the CUDA
     kernels' self time) against the step's wall, and that time by
-    group and by port kernel."""
+    group and by port kernel. `ranges` = (update range, head range), the
+    record_function ranges of SpmdPipelineEngine: the trace shows each
+    as a device-side annotation spanning its kernels, which is left out
+    of the kernels, and the "other" group is split by them
+    (`device_s_other_split`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1908,12 +2008,12 @@ def profile_train_step(torch, step, ids, labels):
         float(step(ids, labels))
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     groups, port = _group_device_time(kernels)
     flash = {k: t for k, t in port.items() if k.startswith('flash')}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    return {'profiled_step_wall_s': wall,
+    out = {'profiled_step_wall_s': wall,
             'device_busy_s': busy if kernels else None,
             'busy_share_of_profiled_wall': busy / wall if kernels else None,
             'device_s_by_group': groups, 'device_s_by_port_kernel': port,
@@ -1925,6 +2025,9 @@ def profile_train_step(torch, step, ids, labels):
             'top_kernels': [dict(name=e.key[:90],
                                  device_ms=e.self_device_time_total / 1e3,
                                  calls=e.count) for e in top]}
+    if ranges:
+        out['device_s_other_split'] = _split_other(prof.events(), *ranges)
+    return out
 
 
 def _card_and_cpu_models(torch, cfg, seed):
@@ -2094,6 +2197,443 @@ def whole_path_check(torch):
                      adam=True)})
 
 
+PIPE_POLICY_STEPS = 3
+# the kernels the pipeline path never launches (dropout 0: the packed
+# flash route and no dropout+residual; dp = 1: the per-parameter update)
+PIPELINE_UNUSED = (('paged_attention', 'paged_attention_int8')
+                   + BHLD_KERNELS + BUCKETED_KERNELS)
+
+
+def check_pipeline_launches(launches, steps, A, layers, policy):
+    """Raises unless every training kernel launched exactly
+    `pipeline_launches` a step and the path's unused kernels never."""
+    want = {k: steps * n
+            for k, n in pipeline_launches(A, layers, policy).items()}
+    wrong = {k: (launches[k], n) for k, n in want.items()
+             if launches[k] != n}
+    stray = {k: launches[k] for k in PIPELINE_UNUSED if launches[k]}
+    if wrong or stray:
+        raise AssertionError(f'pipeline launches (got, want) {wrong}; '
+                             f'kernels off the path launched {stray}')
+    return want
+
+
+def check_pipeline_tags(tags, steps, layers, policy):
+    """Raises unless the boundary tags counted over `steps` steps are
+    `pipeline_tags`'s."""
+    want = {n: steps * c
+            for n, c in pipeline_tags(PIPE_A, layers, policy).items()}
+    if tags != want:
+        raise AssertionError(f'{policy}: boundary tags {tags} != {want}')
+
+
+def windowed_steps(torch, eng, host_batch):
+    """The bench's timed loop (bench.py:185-191): TIMED_STEPS train_step
+    calls on a host (numpy) batch through the engine's dispatch window,
+    then flush. Each call's host time is kept: a call that returns before
+    the card has run its step shows that the batch copy did not block."""
+    eng.flush()
+    torch.cuda.synchronize()
+    calls, results = [], []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        t1 = time.perf_counter()
+        results.append(eng.train_step(host_batch))
+        calls.append(time.perf_counter() - t1)
+    eng.flush()
+    wall = time.perf_counter() - t0
+    losses = [float(r) for r in results]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'train_step: non-finite loss {losses}')
+    return {'ms_per_step': 1e3 * wall / TIMED_STEPS, 'call_s': calls,
+            'losses': losses, 'dispatch_window': eng._inflight.size}
+
+
+def pipeline_phase(torch, card, train_peaks):
+    """gpt_1p3b through SpmdPipelineEngine on the card in the bench's
+    headline configuration (bench.py:120-149): bf16 parameters, untied
+    head, dropouts 0, flash on; AdamW lr 1e-4, decay 0.01, bf16 moments,
+    no master; A = 4 x mb = 2 x L = 2048, use_remat=True ('full' per
+    block at pp = 1), '1F1B', grad_accum_dtype='param'. A warm-up step,
+    5 timed steps with exact launch counts, a profiled step; then 3
+    timed steps each under remat_policy 'none' and
+    'attn_mlp_boundaries'. `train_peaks`: this run's peak bytes of the
+    train and train_bucketed phases, printed beside the leg's."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline as sp)
+    from paddle_tpu_torch.distributed.fleet.utils import recompute as remat
+    from paddle_tpu_torch.models import build_gpt_pipeline, gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    L, layers = cfg.max_seq_len, cfg.num_layers
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    t0 = time.perf_counter()
+    triple = build_gpt_pipeline(cfg, device='cuda', dtype=torch.bfloat16,
+                                generator=gen)
+    modules = [triple[0], triple[2]] + triple[1]
+    n_params = sum(p.numel() for m in modules for p in m.parameters())
+
+    def engine(**kw):
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    multi_precision=False, moment_dtype='bfloat16')
+        return sp.SpmdPipelineEngine(*triple, opt, accumulate_steps=PIPE_A,
+                                     use_remat=True, schedule='1F1B',
+                                     grad_accum_dtype='param', **kw)
+
+    eng = engine()
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (PIPE_A * PIPE_MB, L)).astype(
+        'int32')
+    labels = np.roll(ids, -1, 1).astype('int32')
+    data = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(eng.train_batch(data))
+    warm_s = time.perf_counter() - t0
+    tags_before = remat.boundary_counts()
+    _build.reset_launches()
+    losses, walls = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(data)))     # float() syncs
+        walls.append(time.perf_counter() - t0)
+    launches = _build.routes_snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    tags = {k: v - tags_before.get(k, 0)
+            for k, v in remat.boundary_counts().items()}
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f'non-finite pipeline loss: {[warm] + losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'pipeline loss did not fall: {losses}')
+    want = check_pipeline_launches(launches, TIMED_STEPS, PIPE_A, layers,
+                                   'full')
+    check_pipeline_tags(tags, TIMED_STEPS, layers, 'full')
+    tokens = PIPE_A * PIPE_MB * L
+    flops = 6 * n_params * tokens + \
+        12 * layers * cfg.hidden_size * L * tokens     # bench.py:200-202
+    step_s = float(np.mean(walls))
+    window = windowed_steps(torch, eng, (ids, labels))
+    prof = profile_train_step(
+        torch, lambda i, lab: eng.train_batch((i, lab)), *data,
+        ranges=(sp.UPDATE_RANGE, sp.HEAD_RANGE))
+    eng.shutdown()
+    del eng
+    free_cuda(torch)
+
+    policies = {}
+    for policy in ('none', 'dots', 'attn_mlp_boundaries'):
+        eng = engine(remat_policy=policy)
+        torch.cuda.reset_peak_memory_stats()
+        p_losses = [float(eng.train_batch(data))]            # warm-up
+        _build.reset_launches()
+        tags_before = remat.boundary_counts()
+        p_walls = []
+        for _ in range(PIPE_POLICY_STEPS):
+            t0 = time.perf_counter()
+            p_losses.append(float(eng.train_batch(data)))
+            p_walls.append(time.perf_counter() - t0)
+        p_launches = _build.routes_snapshot()
+        if not all(np.isfinite(p_losses)):
+            raise AssertionError(f'{policy}: non-finite loss {p_losses}')
+        check_pipeline_launches(p_launches, PIPE_POLICY_STEPS, PIPE_A,
+                                layers, policy)
+        check_pipeline_tags(
+            {k: v - tags_before.get(k, 0)
+             for k, v in remat.boundary_counts().items()},
+            PIPE_POLICY_STEPS, layers, policy)
+        peak_p = torch.cuda.max_memory_allocated()
+        # the card's busy time a step apart from the host's: a policy's
+        # recompute costs device time, its checkpoints host time
+        busy = profile_train_step(
+            torch, lambda i, lab: eng.train_batch((i, lab)), *data,
+            ranges=(sp.UPDATE_RANGE, sp.HEAD_RANGE))
+        policies[policy] = {
+            'ms_per_step': 1e3 * float(np.mean(p_walls)), 'step_s': p_walls,
+            'losses': p_losses, 'peak_memory_bytes': peak_p,
+            'device_busy_s': busy['device_busy_s'],
+            'profiled_step_wall_s': busy['profiled_step_wall_s'],
+            'flash_launches_per_step': {
+                k: p_launches[k] / PIPE_POLICY_STEPS for k in PACKED_FLASH}}
+        eng.shutdown()
+        del eng
+        free_cuda(torch)
+    emit({'phase': 'pipeline', 'card': card, 'model': 'gpt_1p3b',
+          'layers': layers, 'hidden': cfg.hidden_size, 'params': n_params,
+          'head': 'untied', 'accumulate_steps': PIPE_A,
+          'micro_batch': PIPE_MB, 'seq_len': L,
+          'engine': "SpmdPipelineEngine pp=1 '1F1B' use_remat=True "
+                    "grad_accum_dtype='param'",
+          'optimizer': 'AdamW lr 1e-4 wd 0.01 bf16 moments, no master',
+          'model_build_s': build_s, 'warmup_step_s': warm_s,
+          'warmup_loss': warm, 'losses': losses, 'step_s': walls,
+          'ms_per_step': 1e3 * step_s, 'tokens_per_sec': tokens / step_s,
+          'model_flops_per_step': flops,
+          'model_tflops': flops / step_s / 1e12,
+          'mfu': flops / step_s / 1e12 / PEAK_BF16_TFLOPS,
+          'peak_memory_bytes': peak,
+          'train_peak_memory_bytes': train_peaks,
+          'remat': {'policy': 'full', 'boundary_counts': tags,
+                    'snapshot': remat.snapshot()},
+          'launches': launches,
+          'launches_per_step': {k: n / TIMED_STEPS for k, n in want.items()},
+          'train_step_window': window, 'policies': policies, **prof})
+    return launches
+
+
+def _pipeline_copies(torch, cfg, seed):
+    """The pipeline triple at `cfg` in fp32 on the card and its copy on
+    the CPU."""
+    from paddle_tpu_torch.models import build_gpt_pipeline
+
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    card = build_gpt_pipeline(cfg, device='cuda', dtype=torch.float32,
+                              generator=gen)
+    with torch.device('meta'):
+        cpu = build_gpt_pipeline(cfg)
+    card_list = torch.nn.ModuleList([card[0], *card[1], card[2]])
+    cpu_list = torch.nn.ModuleList([cpu[0], *cpu[1], cpu[2]]).to_empty(
+        device='cpu')
+    cpu_list.load_state_dict({k: v.cpu()
+                              for k, v in card_list.state_dict().items()})
+    n = len(card[1])
+    return ((card_list[0], list(card_list[1:1 + n]), card_list[-1]),
+            (cpu_list[0], list(cpu_list[1:1 + n]), cpu_list[-1]),
+            card_list, cpu_list)
+
+
+PIPE_CHECK_A, PIPE_CHECK_L = 2, 512
+
+
+def pipeline_check(torch):
+    """SpmdPipelineEngine on the card against the CPU at gpt_1p3b's width
+    with 2 layers in fp32 (TF32 off): A = 2 micro-batches of 1 x 512
+    (the flash route), remat 'full', SGD and AdamW, 2 train_batch calls
+    each from the same weights; losses, gradients and updated parameters
+    within WHOLE_PATH_RTOL. Then train_step + flush on the card against
+    train_batch from the same weights: bit-equal; and the four remat
+    policies against each other (`policy_check`)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.spmd_pipeline \
+        import SpmdPipelineEngine
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    cfg.num_layers = 2
+    rng = np.random.RandomState(2)
+    ids = rng.randint(0, cfg.vocab_size, (PIPE_CHECK_A, PIPE_CHECK_L)
+                      ).astype('int32')
+    labels = np.roll(ids, -1, 1).astype('int32')
+    optimizers = {'sgd': lambda: SGD(learning_rate=1e-3),
+                  'adamw': lambda: AdamW(learning_rate=1e-4,
+                                         weight_decay=0.01)}
+
+    def engine(triple, opt, device=None):
+        return SpmdPipelineEngine(*triple, opt, accumulate_steps=PIPE_CHECK_A,
+                                  use_remat=True, remat_policy='full',
+                                  grad_accum_dtype='param', device=device)
+
+    for seed, (kind, make_opt) in enumerate(optimizers.items(), 95):
+        card, cpu, card_list, cpu_list = _pipeline_copies(torch, cfg, seed)
+        _build.reset_launches()
+        eng = engine(card, make_opt())
+        card_losses = [float(eng.train_batch((ids, labels)))
+                       for _ in range(2)]
+        launches = _build.routes_snapshot()
+        check_pipeline_launches(launches, 2, PIPE_CHECK_A, cfg.num_layers,
+                                'full')
+        eng_cpu = engine(cpu, make_opt(), device='cpu')
+        cpu_losses = [float(eng_cpu.train_batch((ids, labels)))
+                      for _ in range(2)]
+        emit({'phase': 'pipeline_check', 'what': f'two fp32 train_batch '
+              f'calls ({kind}), SpmdPipelineEngine A={PIPE_CHECK_A} mb=1 '
+              f'L={PIPE_CHECK_L}, remat full, 2 layers at gpt_1p3b width, '
+              'card vs CPU', 'launches': launches,
+              **_compare(card_list, cpu_list, card_losses, cpu_losses,
+                         adam=kind == 'adamw')})
+        del eng, eng_cpu, card, cpu, card_list, cpu_list
+        free_cuda(torch)
+
+    runs = {}
+    for how in ('train_batch', 'train_step'):
+        card, _, card_list, _ = _pipeline_copies(torch, cfg, 94)
+        eng = engine(card, optimizers['adamw']())
+        if how == 'train_batch':
+            losses = [eng.train_batch((ids, labels)) for _ in range(2)]
+        else:
+            results = [eng.train_step((ids, labels)) for _ in range(2)]
+            eng.flush()
+            losses = [r.loss for r in results]
+        runs[how] = ([float(x) for x in losses],
+                     [p.detach().clone() for p in card_list.parameters()])
+        del eng, card, card_list
+    (want_l, want_p), (got_l, got_p) = runs['train_batch'], \
+        runs['train_step']
+    equal = got_l == want_l and all(torch.equal(a, b)
+                                    for a, b in zip(got_p, want_p))
+    if not equal:
+        raise AssertionError(f'train_step + flush differs from train_batch: '
+                             f'losses {got_l} vs {want_l}')
+    emit({'phase': 'pipeline_check', 'what': 'train_step x2 + flush vs '
+          'train_batch x2 on the card, AdamW, from the same weights',
+          'losses': want_l, 'bit_equal': equal})
+    del runs, got_p, want_p
+    free_cuda(torch)
+    policy_check(torch, cfg, ids, labels)
+
+
+def _rel_on_card(a, b):
+    """Relative L2 error of a against b, both on the card."""
+    a, b = a.double(), b.double()
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float(a.norm())
+
+
+def policy_check(torch, cfg, ids, labels):
+    """The four remat policies on the card from the same weights (the
+    pipeline_check model, SGD, 2 train_batch calls each): losses, the
+    last step's gradients and the updated parameters against 'none's,
+    within WHOLE_PATH_RTOL (relative L2 a tensor), and whether bit-equal.
+    The kernels run inside the policies' recomputes here, where the CPU
+    tests see only their plain versions."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.spmd_pipeline \
+        import SpmdPipelineEngine
+    from paddle_tpu_torch.distributed.fleet.utils import recompute as remat
+    from paddle_tpu_torch.models import build_gpt_pipeline
+    from paddle_tpu_torch.optimizer import SGD
+
+    want, out = None, {}
+    for policy in remat.POLICY_NAMES:
+        gen = torch.Generator(device='cuda').manual_seed(93)
+        triple = build_gpt_pipeline(cfg, device='cuda', dtype=torch.float32,
+                                    generator=gen)
+        eng = SpmdPipelineEngine(*triple, SGD(learning_rate=1e-3),
+                                 accumulate_steps=PIPE_CHECK_A,
+                                 remat_policy=policy,
+                                 grad_accum_dtype='param')
+        losses = [float(eng.train_batch((ids, labels))) for _ in range(2)]
+        grads = [p.grad.detach().clone() for _, p in eng._named]
+        params = [p.detach().clone() for _, p in eng._named]
+        eng.shutdown()
+        del eng, triple
+        if want is None:
+            want = (losses, grads, params)
+            out[policy] = {'losses': losses}
+            continue
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want[0]))
+        grad_err = max(_rel_on_card(a, b) for a, b in zip(grads, want[1]))
+        param_err = max(_rel_on_card(a, b)
+                        for a, b in zip(params, want[2]))
+        bit_equal = losses == want[0] and all(
+            torch.equal(a, b) for a, b in zip(grads + params,
+                                               want[1] + want[2]))
+        out[policy] = {'losses': losses, 'loss_rel_err': loss_err,
+                       'max_grad_rel_l2': grad_err,
+                       'max_param_rel_l2': param_err,
+                       'bit_equal': bit_equal}
+        if not bit_equal and max(loss_err, grad_err, param_err) > \
+                WHOLE_PATH_RTOL:
+            raise AssertionError(f"remat {policy!r} differs from 'none' on "
+                                 f'the card: {out[policy]}')
+        del grads, params
+        free_cuda(torch)
+    emit({'phase': 'pipeline_check', 'what': 'the four remat policies '
+          "against 'none' on the card, SGD, 2 train_batch calls from the "
+          'same weights, fp32, 2 layers at gpt_1p3b width',
+          'rtol': WHOLE_PATH_RTOL, 'policies': out})
+    del want
+    free_cuda(torch)
+
+
+# the LM head at a micro-batch of 4096 tokens (the headline's mb = 2 at
+# L = 2048) and of 8192 (mb = 4, above GPTLMHead's 2^28-logit switch,
+# where the head takes this route), vocab 50304: the fused chunked
+# projection + cross-entropy against the plain product and hard
+# cross-entropy, both bf16. The plain loss is one bf16 rounding of the
+# mean (2^-8) from bf16 logits, the fused one fp32 from fp32 logits: the
+# loss within 2^-7 relative. Both round dx and dw to bf16 (2^-9 an
+# element, 1.6e-3 relative L2 against float64 on the CPU at [512-1024,
+# 1024-2048] x 8192-16384, where the two agreed to 5e-4): relative L2
+# within 4e-3.
+XENT_SHAPES = ((4096, 2048, 50304), (8192, 2048, 50304))
+XENT_LOSS_RTOL, XENT_GRAD_REL_L2 = 2.0 ** -7, 4e-3
+
+
+def linear_xent_check(torch):
+    """fused_linear_cross_entropy on the card against the plain head,
+    forward and backward, with their times and peak memory, at each of
+    XENT_SHAPES."""
+    for shape in XENT_SHAPES:
+        linear_xent_row(torch, *shape)
+        free_cuda(torch)
+
+
+def linear_xent_row(torch, N, H, V):
+    from paddle_tpu_torch.models.gpt import FUSED_HEAD_MIN_LOGITS
+    from paddle_tpu_torch.ops import nn_ops as F
+
+    randn = make_randn(torch, 77)
+    x, w = randn(N, H), randn(H, V, scale=0.02)
+    gen = torch.Generator(device='cuda').manual_seed(78)
+    labels = torch.randint(0, V, (N,), generator=gen, device='cuda')
+
+    def fused(xx, ww):
+        return F.fused_linear_cross_entropy(xx, ww, labels,
+                                            transpose_y=False)
+
+    def plain(xx, ww):
+        rows = F.softmax_with_cross_entropy(torch.matmul(xx, ww), labels)
+        return rows.float().mean().to(rows.dtype)
+
+    out = {}
+    for name, fn in (('fused', fused), ('plain', plain)):
+        xx, ww = (t.clone().requires_grad_() for t in (x, w))
+        free_cuda(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = fn(xx, ww)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = dict(loss=float(loss.detach()), dx=xx.grad, dw=ww.grad,
+                         peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+        def step(fn=fn, xx=xx, ww=ww):
+            xx.grad = ww.grad = None
+            fn(xx, ww).backward()
+        out[name]['ms'] = loop_ms(torch, step)
+    f, p = out['fused'], out['plain']
+    loss_err = abs(f['loss'] - p['loss']) / abs(p['loss'])
+    dx_err = _rel_on_card(f['dx'], p['dx'])
+    dw_err = _rel_on_card(f['dw'], p['dw'])
+    if not np.isfinite(f['loss']) or loss_err > XENT_LOSS_RTOL or \
+            dx_err > XENT_GRAD_REL_L2 or dw_err > XENT_GRAD_REL_L2:
+        raise AssertionError(f'fused_linear_cross_entropy vs plain at '
+                             f'{(N, H, V)}: loss {loss_err:.3g}, dx '
+                             f'{dx_err:.3g}, dw {dw_err:.3g}')
+    emit({'phase': 'linear_xent', 'shape': [N, H, V],
+          'gpt_lm_head_route': 'fused' if N * V > FUSED_HEAD_MIN_LOGITS
+                               else 'plain',
+          'dtype': 'bfloat16', 'transpose_y': False, 'chunks': 8,
+          'fused_loss': f['loss'], 'plain_loss': p['loss'],
+          'loss_rel_err': loss_err, 'dx_rel_l2': dx_err,
+          'dw_rel_l2': dw_err, 'loss_rtol': XENT_LOSS_RTOL,
+          'grad_rel_l2_bar': XENT_GRAD_REL_L2,
+          'fwd_bwd_ms': f['ms'], 'plain_fwd_bwd_ms': p['ms'],
+          'peak_bytes': f['peak_bytes'],
+          'plain_peak_bytes': p['peak_bytes'],
+          'note': 'bf16 products with fp32 results on the tensor cores; '
+                  'the plain head multiplies in bf16 with bf16 logits'})
+    del out, f, p
+
+
 # the port's kernels by the device-side names the profiler shows (a name
 # holds one of the row's strings); the column sum is the second pass of
 # both backward reductions, the merge kernel the paged attention's; the
@@ -2121,6 +2661,21 @@ KERNEL_NAMES = {'paged_attention_int8': (
                 'optimizer_step': ('update_kernel',)}
 
 
+def _kernel_group(key):
+    """(group, port kernel or None) of a device kernel's name: a port
+    kernel (the gradient statistics a group of their own), a GEMM, or
+    other."""
+    name = next((n for n, parts in KERNEL_NAMES.items()
+                 if any(part in key for part in parts)), None)
+    if name is not None:
+        return ('grad_stats' if name == 'grad_stats' else 'port_kernels',
+                name)
+    if any(k in key.lower() for k in ('gemm', 'xmma', 'cutlass', 'nvjet',
+                                      'sm90')):
+        return 'gemm', None
+    return 'other', None
+
+
 def _group_device_time(kernels):
     """Device seconds of profiler events by group (the port's kernels,
     the gradient statistics apart from them, GEMMs, other) and by port
@@ -2130,18 +2685,40 @@ def _group_device_time(kernels):
     port = {}
     for e in kernels:
         t = e.self_device_time_total / 1e6
-        name = next((n for n, parts in KERNEL_NAMES.items()
-                     if any(part in e.key for part in parts)), None)
+        group, name = _kernel_group(e.key)
+        groups[group] += t
         if name is not None:
-            groups['grad_stats' if name == 'grad_stats'
-                   else 'port_kernels'] += t
             port[name] = port.get(name, 0.0) + t
-        elif any(k in e.key.lower() for k in ('gemm', 'xmma', 'cutlass',
-                                                'nvjet', 'sm90')):
-            groups['gemm'] += t
-        else:
-            groups['other'] += t
     return groups, port
+
+
+def _split_other(events, update_range, head_range):
+    """The "other" group's device seconds split by where each kernel was
+    launched: inside the per-parameter update (optimizer elementwise),
+    the LM head's cross-entropy (its forward, under the head's range
+    less its GEMM and LayerNorm, and its backward `_HardXentBackward`),
+    a copy or cast anywhere else, or the rest. Each CPU op event carries
+    the kernels it launched; its parents name the ranges around it."""
+    split = dict.fromkeys(('optimizer', 'cross_entropy', 'casts_copies',
+                           'rest'), 0.0)
+    for e in events:
+        if not e.kernels:
+            continue
+        names, p = [], e
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        where = 'optimizer' if update_range in names else (
+            'cross_entropy' if head_range in names
+            or any('_HardXentBackward' in n for n in names) else None)
+        for k in e.kernels:
+            if _kernel_group(k.name)[0] != 'other':
+                continue
+            low = k.name.lower()
+            group = where or ('casts_copies' if 'copy' in low
+                              or 'cast' in low else 'rest')
+            split[group] += k.duration / 1e6
+    return split
 
 
 def profile_phase(torch, eng, prompts):
@@ -2250,7 +2827,7 @@ def main():
 
     t0 = time.perf_counter()
     results = kernel_phase(torch, F)
-    train_rows = train_kernel_phase(torch, F)
+    train_rows, pipe_rows = train_kernel_phase(torch, F)
     free_cuda(torch)
     bhld_rows = bhld_kernel_phase(torch, F)
     kernel_s = time.perf_counter() - t0
@@ -2266,7 +2843,7 @@ def main():
     free_cuda(torch)
     serve_modes_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_launches = train_phase(torch, card)
+    train_launches, train_peak = train_phase(torch, card)
     free_cuda(torch)
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2278,16 +2855,29 @@ def main():
     free_cuda(torch)
     rules_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    bucketed_launches = train_bucketed_phase(torch, card)
+    bucketed_launches, bucketed_peak = train_bucketed_phase(torch, card)
     free_cuda(torch)
     bucketed_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     whole_path_check(torch)
+    free_cuda(torch)
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipeline_launches_run = pipeline_phase(
+        torch, card, {'train': train_peak, 'train_bucketed': bucketed_peak})
+    pipeline_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipeline_check(torch)
+    pipeline_check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    linear_xent_check(torch)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'train': train_s, 'optimizer_kernels': opt_kernel_s,
           'rules': rules_s, 'train_bucketed': bucketed_s,
-          'check': time.perf_counter() - t0})
+          'check': check_s, 'pipeline': pipeline_s,
+          'pipeline_check': pipeline_check_s,
+          'linear_xent': time.perf_counter() - t0})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -2329,6 +2919,14 @@ def main():
                 'library_ms')}
         if name in TRAIN_KERNELS:
             entry['launches_train_bucketed'] = bucketed_launches[name]
+            # at the pipeline leg's micro-batch (B = 2): its shape
+            pipe = row_of(name, 'pipeline') if name in ROW_PATHS \
+                else pipe_rows[name]
+            entry['pipeline_shape'] = {k: pipe[k] for k in (
+                'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                'library_ms')}
+        # the pipeline leg's 5 timed steps (0 for the kernels off its path)
+        entry['launches_pipeline'] = pipeline_launches_run[name]
         if name == 'optimizer_step':
             entry['rules'] = row['rules']
         if name == 'grad_stats':

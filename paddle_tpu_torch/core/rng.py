@@ -30,6 +30,11 @@ def rng_guard(generator):
         _BOUND.pop()
 
 
+def bound_generator():
+    """The generator bound last, or None when none is bound."""
+    return _BOUND[-1] if _BOUND else None
+
+
 def current_generator():
     """The generator bound last; raises when none is bound."""
     if not _BOUND:

@@ -23,6 +23,11 @@ donates its buffers and returns new ones, and after a call each
 parameter's `.grad` holds that step's gradient (clipped by norm in
 place on the bucketed route under `ClipGradByNorm`).
 
+`remat_policy` (`distributed/fleet/utils/recompute.py`; the kwarg, then
+`PTPU_REMAT_POLICY`, then 'none') wraps the whole `loss_fn(model,
+*batch)` in its checkpoint, as the reference wraps `loss_of`
+(:113-130, :226-231).
+
 The lr is read from `optimizer.get_lr()` at each call and written into
 a device scalar only when it changed (the host path of the reference's
 `LrFeed`, optimizer/device_lr.py:39-80); the caller steps a scheduler.
@@ -36,13 +41,7 @@ import torch
 from ..core import bucketing as B
 from ..core import rng
 from ..device import resolve_device
-
-
-def _no_remat(policy):
-    return NotImplementedError(
-        f'TrainStep: remat_policy={policy!r} is not ported yet (the remat '
-        f'policies come with the remat slice, as torch selective '
-        f'activation checkpointing); pass no remat policy')
+from ..distributed.fleet.utils import recompute as remat
 
 
 class TrainStep:
@@ -53,8 +52,10 @@ class TrainStep:
 
     def __init__(self, model, loss_fn, optimizer, use_buckets=None,
                  remat_policy=None, device=None, seed=0):
-        if remat_policy not in (None, 'none'):
-            raise _no_remat(remat_policy)
+        self._remat_policy = remat.resolve_policy(remat_policy,
+                                                  default='none')
+        self._loss_of = remat.apply_policy(self._loss, self._remat_policy,
+                                           engine='jit')
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -137,7 +138,7 @@ class TrainStep:
             for p in self._params.values():
                 p.grad = None
         with rng.rng_guard(self.generator):
-            loss = self.loss_fn(self.model, *batch).float()
+            loss = self._loss_of(*batch)
         loss.backward()
         lr = self._feed_lr()
         with torch.no_grad():
@@ -155,6 +156,9 @@ class TrainStep:
                 for n, p in self._params.items():
                     p.copy_(new_params[n])
         return loss.detach()
+
+    def _loss(self, *batch):
+        return self.loss_fn(self.model, *batch).float()
 
     def named_opt_states(self):
         """{param: {state key: CPU tensor}} in the per-parameter schema,

@@ -3,7 +3,11 @@
 Two paths are ported: serving (`GPTModel.forward_paged` over the
 block-paged KV pool and `GPTForCausalLM.generate_batch` on the serving
 engine) and training (the uncached `forward` of every layer and
-`GPTPretrainingCriterion`, run by `jit.TrainStep`). Attention in the
+`GPTPretrainingCriterion`, run by `jit.TrainStep`; and the pipeline
+triple of `build_gpt_pipeline` with `GPTLMHead`, run by
+`SpmdPipelineEngine`). The uncached forward tags the six remat
+boundaries (`embed_out`, `attn_qkv`, `attn_ctx`, `attn_out`, `mlp_fc1`,
+`mlp_out`) where the reference does. Attention in the
 uncached forward takes the flash route (the packed flash kernels) when
 `use_flash_attention` and L >= 512, the dense route otherwise
 (gpt.py:173-213). In training, hidden dropout runs in the embeddings
@@ -21,7 +25,8 @@ Parameter names and layouts are paddle's, so `models/convert.py` copies
 the JAX package's weights without renaming: Linear weights are [in,
 out], the qkv out-dim packs (head, 3, head_dim) (gpt.py:166, `_split`
 at :276), and the LM head is tied to
-`gpt.embeddings.word_embeddings.weight` (gpt.py:495).
+`gpt.embeddings.word_embeddings.weight` (gpt.py:495); GPTLMHead's is
+not.
 """
 import math
 
@@ -33,6 +38,8 @@ from ..core import rng
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding)
+from ..distributed.fleet.utils.recompute import segment as _remat_segment
+from ..distributed.fleet.utils.recompute import tag_tensor as _remat_tag
 from ..ops import nn_ops as F
 from ..ops.kernels import flash_attention as fa
 from ..ops.kernels.fused_elementwise import keep_scale
@@ -109,7 +116,7 @@ class GPTEmbeddings(nn.Module):
                                         device=input_ids.device)
         tok = self.word_embeddings(input_ids)
         pos = self.position_embeddings(position_ids)
-        return self.dropout(tok + pos)
+        return self.dropout(_remat_tag(tok + pos, 'embed_out'))
 
 
 class GPTAttention(nn.Module):
@@ -142,7 +149,15 @@ class GPTAttention(nn.Module):
         from the bound generator; at eval or dropout 0 the packed one."""
         if cache is not None:
             raise _dense_cache_forward()
-        qkv = self.qkv_proj(x)
+        return self.project_out(self.attend(self.project_qkv(x)))
+
+    # the three stretches between the remat boundary tags (gpt.py:159,
+    # :219-220); the decoder layer runs each through `remat.segment`
+
+    def project_qkv(self, x):
+        return _remat_tag(self.qkv_proj(x), 'attn_qkv')
+
+    def attend(self, qkv):
         B, L = qkv.shape[0], qkv.shape[1]
         hd = self.head_dim
         nh = qkv.shape[-1] // (3 * hd)
@@ -151,7 +166,10 @@ class GPTAttention(nn.Module):
             ctx = fa.causal_attention(qkv, nh, hd, dropout=dropout)
         else:
             ctx = self._dense_attention(qkv, B, L, nh, hd, dropout)
-        return self.out_proj(ctx)
+        return _remat_tag(ctx, 'attn_ctx')
+
+    def project_out(self, ctx):
+        return _remat_tag(self.out_proj(ctx), 'attn_out')
 
     @staticmethod
     def _dense_attention(qkv, B, L, nh, hd, dropout=0.0):
@@ -232,12 +250,22 @@ class GPTMLP(nn.Module):
                  / math.sqrt(2 * config.num_layers), generator)
 
     def forward(self, x):
+        return self.contract(self.expand(x))
+
+    # the two stretches between the remat boundary tags (gpt.py:340-346)
+
+    def expand(self, x):
+        """fc1's product, without its bias on the fused bias+GELU route."""
         if self.fc1.bias is not None:
-            h = F.bias_gelu(self.fc1(x, with_bias=False), self.fc1.bias,
-                            approximate=True)
+            return _remat_tag(self.fc1(x, with_bias=False), 'mlp_fc1')
+        return _remat_tag(self.fc1(x), 'mlp_fc1')
+
+    def contract(self, u):
+        if self.fc1.bias is not None:
+            h = F.bias_gelu(u, self.fc1.bias, approximate=True)
         else:
-            h = F.gelu(self.fc1(x), approximate=True)
-        return self.fc2(h)
+            h = F.gelu(u, approximate=True)
+        return _remat_tag(self.fc2(h), 'mlp_out')
 
 
 class GPTDecoderLayer(nn.Module):
@@ -260,10 +288,24 @@ class GPTDecoderLayer(nn.Module):
                              training=self.training)
 
     def forward(self, x, cache=None, cache_len=None):
+        """x + attn(ln1(x)), then + mlp(ln2(.)), cut at the remat boundary
+        tags into stretches run through `remat.segment`: checkpoints of
+        their own under the 'attn_mlp_boundaries' policy, plain calls
+        otherwise."""
         if cache is not None:
             raise _dense_cache_forward()
-        x = self._join(self.attn(self.ln1(x)), x)
-        return self._join(self.mlp(self.ln2(x)), x)
+        seg = _remat_segment
+        qkv = seg(self._attn_in, x)
+        a = seg(self.attn.project_out, seg(self.attn.attend, qkv))
+        x, u = seg(self._mlp_in, a, x)
+        return self._join(seg(self.mlp.contract, u), x)
+
+    def _attn_in(self, x):
+        return self.attn.project_qkv(self.ln1(x))
+
+    def _mlp_in(self, a, x):
+        x = self._join(a, x)
+        return x, self.mlp.expand(self.ln2(x))
 
     def forward_paged(self, x, kv, page_tables, seq_lens, q_lens,
                       write_index=None):
@@ -380,3 +422,50 @@ class GPTPretrainingCriterion(nn.Module):
             return masked.sum() / loss_mask.sum()
         # jnp.mean of a bf16 array sums in fp32 and rounds the mean once
         return loss.float().mean().to(loss.dtype)
+
+
+# GPTLMHead's switch (gpt.py:774): above this many logits in a
+# micro-batch (tokens x vocab) the head runs the chunked
+# fused_linear_cross_entropy, at or below it one product and the fused
+# hard cross-entropy
+FUSED_HEAD_MIN_LOGITS = 2 ** 28
+
+
+class GPTLMHead(nn.Module):
+    """Final norm + untied LM head + criterion, the pipeline's tail
+    (gpt.py:752-786): `forward(hidden, labels)` -> the micro-batch's mean
+    loss. The head weight is [hidden, vocab] (ColumnParallelLinear, no
+    bias)."""
+
+    def __init__(self, config, device=None, dtype=None, generator=None):
+        super().__init__()
+        kw = {'device': device, 'dtype': dtype}
+        self.norm = pnn.LayerNorm(config.hidden_size,
+                                  epsilon=config.layer_norm_eps, **kw)
+        self.out = ColumnParallelLinear(
+            config.hidden_size, config.vocab_size, has_bias=False,
+            gather_output=False, **kw)
+        _normal_(self.out.weight, config.initializer_range, generator)
+        self.ce = ParallelCrossEntropy()
+
+    def forward(self, hidden, labels):
+        h = self.norm(hidden)
+        n_tokens = math.prod(h.shape[:-1])
+        if n_tokens * self.out.out_features > FUSED_HEAD_MIN_LOGITS:
+            # the [tokens, vocab] logits are never materialised
+            return F.fused_linear_cross_entropy(
+                h, self.out.weight, labels, ignore_index=-100,
+                transpose_y=False)
+        loss = self.ce(self.out(h), labels)
+        # jnp.mean of a bf16 array sums in fp32 and rounds the mean once
+        return loss.float().mean().to(loss.dtype)
+
+
+def build_gpt_pipeline(config, device=None, dtype=None, generator=None):
+    """(embed, blocks, head) triple for SpmdPipelineEngine (gpt.py:789)."""
+    kw = {'device': device, 'dtype': dtype, 'generator': generator}
+    embed = GPTEmbeddings(config, **kw)
+    blocks = [GPTDecoderLayer(config, **kw)
+              for _ in range(config.num_layers)]
+    head = GPTLMHead(config, **kw)
+    return embed, blocks, head

@@ -1,9 +1,10 @@
 """Neural-network functional ops — the subset of `paddle_tpu/ops/nn_ops.py`
 the serving and training slices run: `gelu` (:36), `bias_gelu` (:41),
 `dropout_add` (:60-110), `layer_norm` (:217) with its fused-route gate
-(:243-246), `linear` (:402), `dropout` (:703-720), `embedding` (:746)
-and the hard-label `softmax_with_cross_entropy` (:906) on its fused
-route (`_fused_hard_xent`, :768-798).
+(:243-246), `linear` (:402), `dropout` (:703-720), `embedding` (:746),
+the hard-label `softmax_with_cross_entropy` (:906) on its fused route
+(`_fused_hard_xent`, :768-798) and the chunked projection with a hard
+cross-entropy, `fused_linear_cross_entropy` (:801-903).
 
 Dropout in training draws its keep mask from the generator bound by
 `core.rng.rng_guard` (jit.TrainStep binds its own) and raises when none
@@ -15,6 +16,8 @@ with) 1 - p rounded to bf16.
 
 Functions take and return torch tensors.
 """
+import math
+
 import torch
 
 from ..core import rng as _rng
@@ -180,3 +183,102 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     idx = label.reshape(-1).to(device=logits.device, dtype=torch.long)
     out = _HardXent.apply(logits.reshape(-1, C), idx, ignore_index)
     return out.reshape(lead + (1,)).to(logits.dtype)
+
+
+def _reduce_loss(loss, reduction):
+    if reduction == 'mean':
+        return loss.mean()
+    if reduction == 'sum':
+        return loss.sum()
+    return loss
+
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _mm_f32(a, b):
+    """a @ b with an fp32 result, as dot_general with
+    preferred_element_type=float32. A bf16 or fp16 pair on the card is
+    one tensor-core product with fp32 accumulation and output, and no
+    fp32 copy of either operand; otherwise the product of the operands
+    widened to fp32 (exact, so the products are the same)."""
+    if a.is_cuda and a.dtype in _HALF and b.dtype == a.dtype:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _addmm_f32(c, a, b):
+    """c + a @ b for an fp32 c, the product as `_mm_f32`'s."""
+    if a.is_cuda and a.dtype in _HALF and b.dtype == a.dtype:
+        return torch.addmm(c, a, b, out_dtype=torch.float32)
+    return torch.addmm(c, a.float(), b.float())
+
+
+class _LinearXent(torch.autograd.Function):
+    """The custom VJP `_linear_xent` (nn_ops.py:801-874): x [N, H], w
+    [V, H] (transpose_y) or [H, V], idx [N] -> loss [N] fp32. The forward
+    walks `chunks` row chunks of N/chunks and keeps only each row's
+    logsumexp; the backward recomputes each chunk's logits. Products
+    have fp32 results (`_mm_f32`), as the reference's dot_general; dl is
+    rounded to x's dtype before the products of the backward, as the
+    reference rounds it."""
+
+    @staticmethod
+    def forward(ctx, x, w, idx, ignore_index, chunks, transpose_y):
+        wv = w.t() if transpose_y else w                # [H, V]
+        loss, lse = [], []
+        for xc, ic in zip(x.chunk(chunks), idx.chunk(chunks)):
+            lg = _mm_f32(xc, wv)
+            m = lg.amax(-1, keepdim=True)
+            s = m + torch.log(torch.exp(lg - m).sum(-1, keepdim=True))
+            ignored = ic == ignore_index
+            safe = torch.where(ignored, torch.zeros_like(ic), ic)
+            picked = lg.gather(-1, safe[:, None])
+            lc = (s - picked)[:, 0]
+            loss.append(torch.where(ignored, torch.zeros_like(lc), lc))
+            lse.append(s[:, 0])
+        ctx.save_for_backward(x, w, idx, torch.cat(lse))
+        ctx.ignore_index, ctx.chunks = ignore_index, chunks
+        ctx.transpose_y = transpose_y
+        return torch.cat(loss)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, idx, lse = ctx.saved_tensors
+        wv = w.t() if ctx.transpose_y else w            # [H, V]
+        dw = torch.zeros(wv.shape, dtype=torch.float32, device=w.device)
+        dx = []
+        for xc, ic, sc, gc in zip(x.chunk(ctx.chunks), idx.chunk(ctx.chunks),
+                                  lse.chunk(ctx.chunks), g.chunk(ctx.chunks)):
+            p = torch.exp(_mm_f32(xc, wv) - sc[:, None])
+            valid = ic != ctx.ignore_index
+            safe = torch.where(valid, ic, torch.zeros_like(ic))
+            rows = torch.arange(p.shape[0], device=p.device)
+            p[rows, safe] -= 1.0                            # - onehot
+            p.mul_((gc.float() * valid.float())[:, None])
+            dl = p.to(x.dtype)
+            del p
+            dx.append(_mm_f32(dl, wv.t()).to(x.dtype))
+            dw = _addmm_f32(dw, xc.t(), dl)
+        dw = dw.t() if ctx.transpose_y else dw
+        return torch.cat(dx), dw.to(w.dtype), None, None, None, None
+
+
+def fused_linear_cross_entropy(x, weight, label, ignore_index=-100,
+                               reduction='mean', chunks=8,
+                               transpose_y=True):
+    """Projection + hard-label softmax cross-entropy without the [N, V]
+    logits (nn_ops.py:879-903): x [..., H] @ weight^T (weight [V, H],
+    transpose_y=True) or x @ weight (weight [H, V], transpose_y=False)
+    against label [...]. `chunks` steps down until it divides N. Rows
+    whose label is `ignore_index` give 0 (and count in the mean, as in
+    the reference). The loss is fp32."""
+    lead = tuple(x.shape[:-1])
+    N = math.prod(lead)
+    c = chunks
+    while N % c:
+        c -= 1
+    idx = label.reshape(N).to(device=x.device, dtype=torch.long)
+    out = _LinearXent.apply(x.reshape(N, x.shape[-1]), weight, idx,
+                            ignore_index, c, transpose_y)
+    return _reduce_loss(out.reshape(lead), reduction)

@@ -407,11 +407,14 @@ def tiny():
                                 dict(remat_policy='attn_mlp_boundaries')],
                          ids=['buckets-default', 'buckets', 'remat'])
 def test_train_step_refuses_unported_routes(tiny, kw):
-    """The bucketed route is ported (the default, as in the reference);
-    remat still raises, naming its slice."""
+    """The bucketed route is ported (the default, as in the reference),
+    and so is remat: the policy is taken and a step runs under it."""
     if 'remat_policy' in kw:
-        with pytest.raises(NotImplementedError, match='remat'):
-            tjit.TrainStep(tiny, _torch_loss, topt.SGD(), device='cpu', **kw)
+        step = tjit.TrainStep(tiny, _torch_loss, topt.SGD(), device='cpu',
+                              **kw)
+        assert step._remat_policy == 'attn_mlp_boundaries'
+        ids = np.zeros((1, 8), np.int32)
+        assert np.isfinite(float(step(ids, ids)))
         return
     step = tjit.TrainStep(tiny, _torch_loss, topt.SGD(), device='cpu', **kw)
     assert step.use_buckets and step.layout is not None
