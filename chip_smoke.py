@@ -69,7 +69,8 @@ Phases, one JSON line each on stdout:
              weights — bench.py:139-142) on one batch of 8 x 2048 tokens:
              a warm-up step, then 5 timed steps. Every loss must be
              finite, the 5th timed loss below the 1st, every training
-             kernel's counter must rise during the timed steps and the
+             kernel's counter must rise during the timed steps, the
+             update kernel's exactly once a parameter a step, and the
              paged kernel's must not. Prints ms/step, tokens/s, model
              TFLOP/s and MFU (bench.py's FLOP formula), peak memory, and
              one profiled step's device busy share, time by group and
@@ -129,25 +130,42 @@ Phases, one JSON line each on stdout:
              grad_accum_dtype='param') on the bench's seeded batch: a
              warm-up and 5 timed train_batch calls. Losses finite and
              falling; every training kernel's launches exactly
-             `pipeline_launches` a step (the recompute included), every
-             other kernel's 0; the boundary tags counted exactly. Prints
-             ms/step, tokens/s, model TFLOP/s and MFU (bench.py's
-             formula, the untied head counted), peak memory, the remat
-             record, and a profiled step whose "other" device time is
-             split into the per-parameter update, the cross-entropy,
-             casts and copies, and the rest. Then 3 timed steps each
-             under remat_policy 'none' and 'attn_mlp_boundaries'.
+             `pipeline_launches` a step (the recompute included, the
+             update kernel once a parameter), every other kernel's 0;
+             the boundary tags counted exactly. Prints ms/step,
+             tokens/s, model TFLOP/s and MFU (bench.py's formula, the
+             untied head counted), peak memory, the remat record, and a
+             profiled step whose "other" device time is split into the
+             per-parameter update, the cross-entropy, casts and copies,
+             and the rest; the update's device time and span beside its
+             bytes bound, and the whole update timed on copies by its
+             route, its plain chain and `torch._fused_adamw_`. Then 3
+             timed steps each under remat_policy 'none', 'dots' and
+             'attn_mlp_boundaries'.
 11. pipeline_check — the engine on the card against the CPU at
              gpt_1p3b's width with 2 layers in fp32 (TF32 off), A = 2 x 1
              x 512, remat 'full', SGD and AdamW, 2 train_batch calls from
              the same weights: losses, gradients and parameters within
              WHOLE_PATH_RTOL; train_step x2 + flush bit-equal to
              train_batch x2 on the card.
-12. linear_xent — fused_linear_cross_entropy at [4096, 2048] x 50304 bf16
+12. update_route — the per-parameter update route (one update kernel
+             launch a parameter) against its plain chain on the card,
+             bit-equal, over the leg's 29 tensors at 2 layers: AdamW
+             bf16, the same under a loss scale (the unscale rounded back
+             to bf16) and with found_inf set, Adam with a master, SGD
+             fp32.
+13. pipeline_amp — the leg at 4 layers through train_step(scaler=
+             GradScaler(2^15)), 3 steps through the dispatch window
+             against the per-step path (scaler state equal, parameters
+             bit-equal, the statistics and update kernels once a
+             parameter a step), a profiled scaled step, then a step at
+             scale=inf that must leave every parameter and state
+             bit-equal.
+14. linear_xent — fused_linear_cross_entropy at [4096, 2048] x 50304 bf16
              against the plain product and hard cross-entropy, forward
              and backward (XENT_LOSS_RTOL, XENT_GRAD_REL_L2), with both
              times and peak memories.
-13. summary — the `kernels` line (all 16 kernels), the nvidia-smi line,
+15. summary — the `kernels` line (all 16 kernels), the nvidia-smi line,
              and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
@@ -1375,6 +1393,12 @@ def train_phase(torch, card):
         raise AssertionError(f'training kernels never launched: {idle}')
     if launches['paged_attention']:
         raise AssertionError('the paged kernel launched during training')
+    # the per-parameter update: one fused update launch a parameter
+    n_tensors = len(list(model.parameters()))
+    if launches['optimizer_step'] != TIMED_STEPS * n_tensors:
+        raise AssertionError(f'{launches["optimizer_step"]} update launches '
+                             f'in {TIMED_STEPS} steps of {n_tensors} '
+                             f'parameters')
     tokens = B * L
     flops = 6 * n_params * tokens + \
         12 * cfg.num_layers * cfg.hidden_size * L * tokens   # bench.py:200
@@ -1393,14 +1417,16 @@ def train_phase(torch, card):
           'peak_memory_bytes': peak,
           'launches': launches,
           'launches_per_step': {k: launches[k] / TIMED_STEPS
-                                for k in TRAIN_KERNELS},
+                                for k in TRAIN_KERNELS + ('optimizer_step',)},
           **prof})
     return launches, peak
 
 
 def pipeline_launches(A, layers, policy):
     """Each training kernel's launches in one SpmdPipelineEngine step at
-    pp = 1 (GPT, dropout 0, the flash route), as the wrappers count them.
+    pp = 1 (GPT, dropout 0, the flash route, AdamW), as the wrappers
+    count them; the update launches the fused update kernel once a
+    parameter.
     A micro-batch's forward runs 2 LayerNorms, one flash forward and one
     bias+GELU a block and the head's final LayerNorm; under any remat
     policy the backward runs each block's kernels forward again (no
@@ -1418,7 +1444,16 @@ def pipeline_launches(A, layers, policy):
             'flash_fwd': A * (layers + again),
             'flash_bwd_dq': A * layers, 'flash_bwd_dkv': A * layers,
             'layer_norm_bwd': 2 * A * ln_calls,
-            'bias_gelu_bwd': 2 * A * layers}
+            'bias_gelu_bwd': 2 * A * layers,
+            'optimizer_step': pipeline_params(layers)}
+
+
+def pipeline_params(layers):
+    """The pipeline triple's parameter tensors, each one update launch a
+    step: the embedding's 2, a block's 12 (two LayerNorms, qkv, out,
+    fc1 and fc2, each a weight and a bias) and the head's 3 (its
+    LayerNorm and the untied weight)."""
+    return 2 + 12 * layers + 3
 
 
 def pipeline_tags(A, layers, policy):
@@ -2027,6 +2062,11 @@ def profile_train_step(torch, step, ids, labels, ranges=()):
                                  calls=e.count) for e in top]}
     if ranges:
         out['device_s_other_split'] = _split_other(prof.events(), *ranges)
+        # the ranges' device-side annotations: each one's span on the card,
+        # from its first kernel's start to its last one's end
+        out['device_span_s_of_range'] = {
+            e.key: e.device_time_total / 1e6 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key in ranges}
     return out
 
 
@@ -2199,9 +2239,9 @@ def whole_path_check(torch):
 
 PIPE_POLICY_STEPS = 3
 # the kernels the pipeline path never launches (dropout 0: the packed
-# flash route and no dropout+residual; dp = 1: the per-parameter update)
-PIPELINE_UNUSED = (('paged_attention', 'paged_attention_int8')
-                   + BHLD_KERNELS + BUCKETED_KERNELS)
+# flash route and no dropout+residual; no loss scale: no found-inf count)
+PIPELINE_UNUSED = (('paged_attention', 'paged_attention_int8', 'grad_stats',
+                    'dropout_add', 'dropout_add_bwd') + BHLD_KERNELS)
 
 
 def check_pipeline_launches(launches, steps, A, layers, policy):
@@ -2321,6 +2361,19 @@ def pipeline_phase(torch, card, train_peaks):
     prof = profile_train_step(
         torch, lambda i, lab: eng.train_batch((i, lab)), *data,
         ranges=(sp.UPDATE_RANGE, sp.HEAD_RANGE))
+    # the per-parameter update: its device time (the update kernel's, which
+    # only the update launches, and any other kernel under its range)
+    # against the bytes it must move (AdamW, bf16 p, g and moments, no
+    # master: UPDATE_BYTES an element)
+    update_bytes = n_params * UPDATE_BYTES
+    update = {'device_s': update_device_s(prof),
+              'device_span_s': prof['device_span_s_of_range'].get(
+                  sp.UPDATE_RANGE),
+              'bytes': update_bytes,
+              'bound_ms': 1e3 * update_bytes / HBM_BYTES_PER_S,
+              'bound_by': 'bytes',
+              'launches_per_step': pipeline_params(layers),
+              **update_timings(torch, eng)}
     eng.shutdown()
     del eng
     free_cuda(torch)
@@ -2381,7 +2434,8 @@ def pipeline_phase(torch, card, train_peaks):
                     'snapshot': remat.snapshot()},
           'launches': launches,
           'launches_per_step': {k: n / TIMED_STEPS for k, n in want.items()},
-          'train_step_window': window, 'policies': policies, **prof})
+          'train_step_window': window, 'update': update,
+          'policies': policies, **prof})
     return launches
 
 
@@ -2488,6 +2542,296 @@ def pipeline_check(torch):
     del runs, got_p, want_p
     free_cuda(torch)
     policy_check(torch, cfg, ids, labels)
+
+
+def update_timings(torch, eng):
+    """The engine's whole per-parameter update timed on copies of its
+    parameters and states, with the last step's gradients, by CUDA events
+    around repeated calls: `route_ms` the per-parameter route (one update
+    kernel launch a parameter, host launch gaps included), `plain_ms` its
+    plain chain over the same parameters, and `library_ms` one
+    `torch._fused_adamw_` call over all of them (a yardstick only: it
+    adds eps after the bias correction)."""
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+
+    lr = torch.tensor(1e-4, device='cuda')
+    ps = [p.detach().clone() for _, p in eng._named]
+    gs = [p.grad for _, p in eng._named]
+    sts = [{k: v.clone() for k, v in eng._states[n].items()}
+           for n, _ in eng._named]
+    opt = eng.optimizer
+
+    def route():
+        upd = FO.ParamUpdates(opt, lr)
+        for p, g, st in zip(ps, gs, sts):
+            upd(p, g, st)
+
+    def plain():
+        for p, g, st in zip(ps, gs, sts):
+            FO.fused_shard_update_plain(opt, p, g, st, lr)
+
+    m1 = [st['moment1'] for st in sts]
+    m2 = [st['moment2'] for st in sts]
+    steps = [torch.full((), 10.0, device='cuda') for _ in ps]
+
+    def library():
+        torch._fused_adamw_(ps, gs, m1, m2, [], steps, lr=1e-4, beta1=0.9,
+                            beta2=0.999, weight_decay=0.01, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    out = {'route_ms': loop_ms(torch, route),
+           'plain_ms': loop_ms(torch, plain, iters=2),
+           'library_ms': loop_ms(torch, library)}
+    del ps, sts, m1, m2
+    return out
+
+
+def update_device_s(prof):
+    """The pipeline update's device seconds in a profiled step: the update
+    kernel's time (the ctypes launches carry no CPU op of their own to
+    attribute them to a range by) and the other kernels launched under
+    UPDATE_RANGE."""
+    return prof['device_s_by_port_kernel'].get('optimizer_step', 0.0) + \
+        prof['device_s_other_split']['optimizer']
+
+
+def param_route_check(torch):
+    """The per-parameter update route (`ParamUpdates`: one launch of the
+    fused update kernel a parameter) against its plain chain
+    (`fused_shard_update_plain`, the engine's `_update_one` op for op)
+    on the card, on the same inputs: the pipeline leg's 29 parameter
+    tensors at 2 layers of gpt_1p3b (the embedding and the untied head's
+    [2048, 50304] among them). Every parameter and state must be
+    bit-equal: AdamW with bf16 parameters, gradients and moments and no
+    master (the leg's); the same under a loss scale of 2^10 (gradients
+    scaled, unscaled in the kernel and rounded back to bf16) and with
+    found_inf set (every output bit-equal to its input); Adam with an
+    fp32 master, fp32 moments and decay into the gradient; SGD in fp32.
+    Each route launches the kernel once a parameter."""
+    from paddle_tpu_torch.models import build_gpt_pipeline, gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+    from paddle_tpu_torch.optimizer import SGD, Adam, AdamW
+
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0)
+    cfg.num_layers = 2
+    gen = torch.Generator(device='cuda').manual_seed(77)
+    triple = build_gpt_pipeline(cfg, device='cuda', dtype=torch.bfloat16,
+                                generator=gen)
+    params = [p.detach() for m in [triple[0], *triple[1], triple[2]]
+              for p in m.parameters()]
+    lr = torch.tensor(1e-4, device='cuda')
+    cases = {
+        'adamw_bf16': (lambda: AdamW(1e-4, weight_decay=0.01,
+                                     multi_precision=False,
+                                     moment_dtype='bfloat16'),
+                       torch.bfloat16, None, False),
+        'adamw_bf16_scaled': (lambda: AdamW(1e-4, weight_decay=0.01,
+                                            multi_precision=False,
+                                            moment_dtype='bfloat16'),
+                              torch.bfloat16, 2.0 ** 10, False),
+        'adamw_bf16_found_inf': (lambda: AdamW(1e-4, weight_decay=0.01,
+                                               multi_precision=False,
+                                               moment_dtype='bfloat16'),
+                                 torch.bfloat16, 2.0 ** 10, True),
+        'adam_master': (lambda: Adam(1e-4, weight_decay=0.01),
+                        torch.bfloat16, None, False),
+        'sgd_fp32': (lambda: SGD(1e-3, weight_decay=1e-4), torch.float32,
+                     None, False)}
+    out = {}
+    for case, (make, dtype, scale, inf) in cases.items():
+        opt = make()
+        ps = [p.to(dtype) for p in params]
+        states, grads = [], []
+        for p in ps:
+            st = opt.init_state(p)
+            for k, v in st.items():
+                if v.dim():
+                    v.copy_(1e-4 * torch.randn(v.shape, generator=gen,
+                                               device='cuda').abs())
+            if dtype != torch.float32 and opt._multi_precision:
+                st['master'] = p.float()
+            states.append(st)
+            g = 1e-3 * torch.randn(p.shape, generator=gen, device='cuda')
+            grads.append((g * (scale or 1.0)).to(dtype))
+        if inf:
+            grads[3].view(-1)[7] = float('nan')
+        pref = None if scale is None else 1.0 / torch.tensor(
+            scale, device='cuda')
+        found = None
+        if scale is not None:
+            found = torch.stack([FO.grad_stats(g)[1]
+                                 for g in grads]).sum() > 0
+        _build.reset_launches()
+        upd = FO.ParamUpdates(opt, lr, prefactor=pref, found_inf=found)
+        got = []
+        for p, g, st in zip(ps, grads, states):
+            kp = p.clone()
+            ks = {k: v.clone() for k, v in st.items()}
+            _p, ns = upd(kp, g, ks)
+            got.append((kp, ns))
+        launches = _build.routes_snapshot()['optimizer_step']
+        if launches != len(ps):
+            raise AssertionError(f'{case}: {launches} update launches for '
+                                 f'{len(ps)} parameters')
+        equal = True
+        for p, g, st, (kp, ns) in zip(ps, grads, states, got):
+            want_p, want_s = FO.fused_shard_update_plain(
+                opt, p, g, st, lr, prefactor=pref, found_inf=found,
+                round_prefactor=True)
+            equal &= torch.equal(kp, want_p) and set(ns) == set(want_s) \
+                and all(torch.equal(ns[k], want_s[k]) for k in want_s)
+            if inf:
+                equal &= torch.equal(kp, p) and all(
+                    torch.equal(ns[k], st[k]) for k in st)
+        if not equal:
+            raise AssertionError(f'{case}: the per-parameter route differs '
+                                 f'from its plain chain on the card')
+        out[case] = {'bit_equal': equal, 'launches': launches,
+                     'found_inf': None if found is None else bool(found)}
+    emit({'phase': 'update_route', 'what': 'ParamUpdates (one update '
+          'kernel launch a parameter) vs the plain chain on the card, the '
+          'pipeline leg\'s 29 parameter tensors at 2 layers of gpt_1p3b',
+          'cases': out})
+
+
+PIPE_AMP_LAYERS = 4
+PIPE_AMP_STEPS = 3
+
+
+def pipeline_amp_phase(torch, card):
+    """The headline leg's loss-scaling path (bench.py:120-149 at 4 of its
+    24 layers, full width): SpmdPipelineEngine.train_step(scaler=
+    GradScaler(init_loss_scaling=2^15)) for 3 steps through the dispatch
+    window, against the per-step path (train_batch(scale=the scaler's
+    scale), found_inf read and the scaler updated after each step) from
+    the same weights: the scalers' states equal and the parameters
+    bit-equal. Every step launches the statistics kernel and the update
+    kernel once a parameter. A profiled scaled step (the found-inf
+    count's and the update's device time). Then a step at scale=inf:
+    last_found_inf is set and every parameter and state is bit-equal to
+    before it."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline as sp)
+    from paddle_tpu_torch.models import build_gpt_pipeline, gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    cfg.num_layers = PIPE_AMP_LAYERS
+    L = cfg.max_seq_len
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (PIPE_A * PIPE_MB, L)).astype(
+        'int32')
+    labels = np.roll(ids, -1, 1).astype('int32')
+
+    def engine(**kw):
+        gen = torch.Generator(device='cuda').manual_seed(4321)
+        triple = build_gpt_pipeline(cfg, device='cuda', dtype=torch.bfloat16,
+                                    generator=gen)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    multi_precision=False, moment_dtype='bfloat16')
+        return sp.SpmdPipelineEngine(*triple, opt, accumulate_steps=PIPE_A,
+                                     use_remat=True, schedule='1F1B',
+                                     grad_accum_dtype='param', **kw)
+
+    def params_of(eng):
+        return [p.detach().clone() for _, p in eng._named]
+
+    def scaler_state(scaler):
+        return (scaler._scale, scaler._good_steps, scaler._bad_steps)
+
+    eng_s = engine()
+    scaler_s = GradScaler(init_loss_scaling=2.0 ** 15)
+    found_s = []
+    for _ in range(PIPE_AMP_STEPS):
+        eng_s.train_batch((ids, labels), scale=scaler_s._scale)
+        found_s.append(bool(eng_s.last_found_inf))
+        scaler_s._found_inf = found_s[-1]
+        scaler_s._update()
+    want = params_of(eng_s)
+    eng_s.shutdown()
+    del eng_s
+    free_cuda(torch)
+
+    eng = engine(dispatch_window=2)
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15)
+    data = (ids, labels)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    results = [eng.train_step(data, scaler=scaler)
+               for _ in range(PIPE_AMP_STEPS)]
+    eng.flush()
+    wall = time.perf_counter() - t0
+    launches = _build.routes_snapshot()
+    n = pipeline_params(PIPE_AMP_LAYERS)
+    want_launches = {'grad_stats': PIPE_AMP_STEPS * n,
+                     'optimizer_step': PIPE_AMP_STEPS * n}
+    wrong = {k: (launches[k], v) for k, v in want_launches.items()
+             if launches[k] != v}
+    if wrong:
+        raise AssertionError(f'pipeline_amp launches (got, want): {wrong}')
+    found = [bool(r.found_inf) for r in results]
+    losses = [float(r) for r in results]
+    got = params_of(eng)
+    same_params = all(torch.equal(a, b) for a, b in zip(got, want))
+    if found != found_s or scaler_state(scaler) != scaler_state(scaler_s) \
+            or not same_params:
+        raise AssertionError(
+            f'the windowed scaler path differs from the per-step path: '
+            f'found {found} vs {found_s}, scaler {scaler_state(scaler)} vs '
+            f'{scaler_state(scaler_s)}, parameters equal {same_params}')
+    if not all(np.isfinite(losses)) or any(found):
+        raise AssertionError(f'scaled steps: losses {losses}, found_inf '
+                             f'{found}')
+    del want, got
+    # one profiled scaled step: the found-inf count's and the update's
+    # device time
+    ids_t, labels_t = (torch.from_numpy(ids).cuda(),
+                       torch.from_numpy(labels).cuda())
+    prof = profile_train_step(
+        torch, lambda i, lab: eng.train_batch((i, lab), scale=2.0 ** 15),
+        ids_t, labels_t, ranges=(sp.UPDATE_RANGE, sp.HEAD_RANGE))
+    before_p = params_of(eng)
+    before_s = {n_: {k: v.clone() for k, v in st.items()}
+                for n_, st in eng._states.items()}
+    inf_loss = float(eng.train_batch(data, scale=float('inf')))
+    skipped = bool(eng.last_found_inf)
+    kept = all(torch.equal(a, b) for a, b in zip(params_of(eng), before_p))
+    kept_states = all(torch.equal(eng._states[n_][k], v)
+                      for n_, st in before_s.items() for k, v in st.items())
+    if not (skipped and kept and kept_states):
+        raise AssertionError(f'the inf step: found_inf {skipped}, '
+                             f'parameters kept {kept}, states kept '
+                             f'{kept_states}')
+    eng.shutdown()
+    del eng, before_p, before_s
+    free_cuda(torch)
+    emit({'phase': 'pipeline_amp', 'card': card, 'model': 'gpt_1p3b',
+          'layers': PIPE_AMP_LAYERS, 'hidden': cfg.hidden_size,
+          'accumulate_steps': PIPE_A, 'micro_batch': PIPE_MB, 'seq_len': L,
+          'scaler': 'GradScaler(init_loss_scaling=2^15)',
+          'steps': PIPE_AMP_STEPS, 'losses': losses, 'found_inf': found,
+          'ms_per_step': 1e3 * wall / PIPE_AMP_STEPS,
+          'scaler_state': scaler_state(scaler),
+          'per_step_path_scaler_state': scaler_state(scaler_s),
+          'params_bit_equal_to_per_step_path': same_params,
+          'launches': launches, 'launches_want': want_launches,
+          'inf_step': {'loss': inf_loss, 'found_inf': skipped,
+                       'params_bit_equal': kept,
+                       'states_bit_equal': kept_states},
+          'profiled_scaled_step': {
+              'wall_s': prof['profiled_step_wall_s'],
+              'device_busy_s': prof['device_busy_s'],
+              'found_inf_count_device_s': prof['device_s_by_group'][
+                  'grad_stats'],
+              'update_device_s': update_device_s(prof),
+              'update_device_span_s': prof['device_span_s_of_range'].get(
+                  sp.UPDATE_RANGE)}})
+    return launches
 
 
 def _rel_on_card(a, b):
@@ -2870,6 +3214,13 @@ def main():
     pipeline_check(torch)
     pipeline_check_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    param_route_check(torch)
+    free_cuda(torch)
+    update_route_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    amp_launches = pipeline_amp_phase(torch, card)
+    pipeline_amp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     linear_xent_check(torch)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
@@ -2877,6 +3228,7 @@ def main():
           'rules': rules_s, 'train_bucketed': bucketed_s,
           'check': check_s, 'pipeline': pipeline_s,
           'pipeline_check': pipeline_check_s,
+          'update_route': update_route_s, 'pipeline_amp': pipeline_amp_s,
           'linear_xent': time.perf_counter() - t0})
 
     def row_of(name, path):
@@ -2927,6 +3279,11 @@ def main():
                 'library_ms')}
         # the pipeline leg's 5 timed steps (0 for the kernels off its path)
         entry['launches_pipeline'] = pipeline_launches_run[name]
+        if name in BUCKETED_KERNELS[:2]:
+            # the per-parameter routes: the train step's update, and the
+            # loss-scaled pipeline steps' found-inf counts and updates
+            entry['launches_train'] = train_launches[name]
+            entry['launches_pipeline_amp'] = amp_launches[name]
         if name == 'optimizer_step':
             entry['rules'] = row['rules']
         if name == 'grad_stats':

@@ -4,10 +4,13 @@ that the engines' `train_step` needs: `resolve_dispatch_window`
 `DispatchWindow` (:421-483); an engine's `flush` drains its window.
 
 A step's work is queued on the card's stream when `train_step` returns;
-its `AsyncResult` holds the loss as a device tensor and a CUDA event
-recorded after the step's last launch. `wait()` synchronises on that
-event (not a transfer); `result()` is the one host fetch. On the CPU the
-step has finished when it returns, and there is no event.
+its `AsyncResult` holds the loss and the found-inf flag as device
+tensors and a CUDA event recorded after the step's last launch. `wait()`
+synchronises on that event (not a transfer) and then runs the step's
+deferred drain work once (a GradScaler's found-inf accounting, applied
+in drain order, :199-217 of paddle_tpu/amp); `result()` is the one host
+fetch of the loss. On the CPU the step has finished when it returns,
+and there is no event.
 """
 import collections
 import os
@@ -33,14 +36,19 @@ class AsyncResult:
     """One dispatched train step: the fp32 loss on the device, no host
     fetch."""
 
-    __slots__ = ('loss', 'step', '_event', '_drained', '_host_loss',
-                 '_staged')
+    __slots__ = ('loss', 'step', 'found_inf', '_event', '_drained',
+                 '_host_loss', '_staged', '_on_drain')
 
-    def __init__(self, loss, step, staged=()):
+    def __init__(self, loss, step, staged=(), found_inf=None,
+                 on_drain=None):
         """`staged`: host buffers the step's copies read, kept until the
-        step drains."""
+        step drains; `found_inf`: the step's device flag (a nonfinite
+        gradient skipped its update); `on_drain(result)`: run once when
+        the step drains."""
         self.loss = loss
         self.step = step
+        self.found_inf = found_inf
+        self._on_drain = on_drain
         self._event = None
         if loss.is_cuda:
             self._event = torch.cuda.Event()
@@ -60,6 +68,9 @@ class AsyncResult:
                 self._event.synchronize()
             self._drained = True
             self._staged = ()
+            if self._on_drain is not None:
+                drain, self._on_drain = self._on_drain, None
+                drain(self)
         return self
 
     def result(self):

@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from ..amp import uncast
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                        ClipGradByValue, global_factor, norm_factor)
 from ..ops.kernels import fused_optimizer as FO
@@ -206,11 +207,19 @@ def grad_stats(flat):
 
 def shard_update(optimizer, p, g, st, lr, prefactor=None, found_inf=None):
     """One bucket's update in place (bucketing.py:581): the fused
-    update kernel on the card. Returns (p, new state)."""
+    update kernel for a fusible rule; an elementwise rule the kernel
+    does not implement (Ftrl) runs its op chain, as the reference keeps
+    its XLA chain for `_pallas_fusible = False`. Returns (p, new
+    state)."""
+    if not FO.fusible(optimizer):
+        return FO.shard_update_chain(optimizer, p, g, st, lr,
+                                     prefactor=prefactor,
+                                     found_inf=found_inf)
     return FO.fused_shard_update(optimizer, p, g, st, lr,
                                  prefactor=prefactor, found_inf=found_inf)
 
 
+@uncast
 def flat_functional_apply(optimizer, layout, flat_params, flat_grads,
                           flat_states, lr):
     """Whole-model bucketed update for `jit.TrainStep`

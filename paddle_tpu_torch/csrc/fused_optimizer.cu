@@ -56,11 +56,18 @@
 // (paddle_tpu/optimizer/optimizer.py :398, :415, :546, :589, :489, :511, :626,
 // :699, :730), with up to three vector states (centered RMSProp's mean
 // square, momentum and mean gradient). The scalars that change per step
-// (lr, prefactor, found_inf, Adam's and Adamax's beta powers) come through a
-// pointer to a small fp32 device block, as the Pallas body's `sc_ref` does, so
-// no step reads them back to the host. Every CTA reads the OLD beta powers
-// from that block; the new powers go to a separate two-float output written
-// by one thread, never over the block the other CTAs are still reading. Vector
+// come through pointers to small fp32 device blocks, as the Pallas body's
+// `sc_ref` does, so no step reads them back to the host: the step's block
+// (lr, prefactor, found_inf), which one step's per-parameter calls share,
+// and the parameter's own beta powers (Adam's, Adamax's). Every CTA reads
+// the OLD beta powers; the new powers go to a separate two-float output
+// written by one thread, never over the powers the other CTAs are still
+// reading. The same kernel serves the bucketed route (one call a bucket) and
+// the per-parameter route (one call a parameter: the pipeline engine's
+// update and `Optimizer.functional_apply`). Where the reference rounds the
+// unscaled gradient back to its dtype before the update (the pipeline
+// engine's loss-scaling path, spmd_pipeline.py:923-926), `round_pref` rounds
+// the prefactored gradient to the gradient's dtype. Vector
 // states are updated IN PLACE (each thread reads and writes only its own
 // elements), where the JAX step donates its buffers. The found-inf no-op is a
 // select: a skipped step writes nothing, so every output stays bit-equal to
@@ -84,9 +91,9 @@ enum Rule : int {
 };
 
 // Constants of the rule (fixed for a run, so passed by value); the scalars
-// that change per step are in the device block `sc`:
-//   sc[0] lr, sc[1] prefactor, sc[2] found_inf (> 0.5: skip),
-//   sc[3] beta1_pow (Adam, Adamax), sc[4] beta2_pow (Adam).
+// that change per step are in the device blocks `sc` and `pw`:
+//   sc[0] lr, sc[1] prefactor, sc[2] found_inf (> 0.5: skip);
+//   pw[0] beta1_pow (Adam, Adamax), pw[1] beta2_pow (Adam).
 // Each 1 - x constant is the Python double 1 - x rounded once to fp32, as a
 // weakly typed scalar is in jnp.
 struct Hyper {
@@ -95,7 +102,7 @@ struct Hyper {
   float b1, b2, omb1, omb2, eps;
   float momentum;
   float rho, omr;  // RMSProp's and Adadelta's rho, DecayedAdagrad's decay
-  int nesterov, decoupled, centered, use_pref, use_fi;
+  int nesterov, decoupled, centered, use_pref, round_pref, use_fi;
 };
 
 // jnp.maximum: NaN if either side is NaN (fmaxf would drop it)
@@ -332,10 +339,15 @@ __device__ __forceinline__ float apply_rule(float p32, float g32, float& m1,
   }
 }
 
-// the gradient as the rule sees it: prefactor multiply, then decay into it
+// the gradient as the rule sees it: prefactor multiply (rounded to the
+// gradient's dtype under round_pref), then decay into it
+template <typename G>
 __device__ __forceinline__ float prep_grad(float g32, float p32, float pref,
                                            const Hyper& h) {
-  if (h.use_pref) g32 = __fmul_rn(g32, pref);
+  if (h.use_pref) {
+    g32 = __fmul_rn(g32, pref);
+    if (h.round_pref) g32 = ptt::to_f32(ptt::from_f32<G>(g32));
+  }
   if (h.wd != 0.f) g32 = __fadd_rn(g32, __fmul_rn(h.wd, p32));
   return g32;
 }
@@ -345,8 +357,8 @@ __global__ void __launch_bounds__(kThreads)
     update_kernel(T* __restrict__ p, const G* __restrict__ g,
                   float* __restrict__ master, M* __restrict__ s1,
                   M* __restrict__ s2, M* __restrict__ s3,
-                  const float* __restrict__ sc, float* __restrict__ sc_out,
-                  long long n, Hyper h, bool vec) {
+                  const float* __restrict__ sc, const float* __restrict__ pw,
+                  float* __restrict__ sc_out, long long n, Hyper h, bool vec) {
   constexpr bool kS1 = kRule != kSGD;
   constexpr bool kS2 = kRule == kAdam || kRule == kRMSProp ||
                        kRule == kAdamax || kRule == kAdadelta;
@@ -356,19 +368,19 @@ __global__ void __launch_bounds__(kThreads)
   const bool skip = h.use_fi && sc[2] > 0.5f;
   float lr_t = 0.f, decay = 1.f;
   if constexpr (kRule == kAdam) {
-    const float b1p = __fmul_rn(sc[3], h.b1), b2p = __fmul_rn(sc[4], h.b2);
+    const float b1p = __fmul_rn(pw[0], h.b1), b2p = __fmul_rn(pw[1], h.b2);
     // lr * sqrt(1 - b2p) / (1 - b1p)
     lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
                      __fsub_rn(1.f, b1p));
     decay = __fsub_rn(1.f, __fmul_rn(lr, h.coeff));
     if (blockIdx.x == 0 && threadIdx.x == 0) {
-      sc_out[0] = skip ? sc[3] : b1p;
-      sc_out[1] = skip ? sc[4] : b2p;
+      sc_out[0] = skip ? pw[0] : b1p;
+      sc_out[1] = skip ? pw[1] : b2p;
     }
   } else if constexpr (kRule == kAdamax) {
-    const float b1p = __fmul_rn(sc[3], h.b1);
+    const float b1p = __fmul_rn(pw[0], h.b1);
     lr_t = __fdiv_rn(lr, __fsub_rn(1.f, b1p));
-    if (blockIdx.x == 0 && threadIdx.x == 0) sc_out[0] = skip ? sc[3] : b1p;
+    if (blockIdx.x == 0 && threadIdx.x == 0) sc_out[0] = skip ? pw[0] : b1p;
   }
   if (skip) return;  // found_inf: every vector output keeps its input's bits
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -390,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
       if (s3_on) load8(s3 + i, m3);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
-        const float g32 = prep_grad(gv[j], pv[j], pref, h);
+        const float g32 = prep_grad<G>(gv[j], pv[j], pref, h);
         out[j] = apply_rule<kRule>(pv[j], g32, m1[j], m2[j], m3[j], h, lr,
                                    lr_t, decay);
       }
@@ -404,7 +416,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (long long i = done + first; i < n; i += stride) {
     const float p32 = kMaster ? master[i] : ptt::to_f32(p[i]);
-    const float g32 = prep_grad(ptt::to_f32(g[i]), p32, pref, h);
+    const float g32 = prep_grad<G>(ptt::to_f32(g[i]), p32, pref, h);
     float m1 = 0.f, m2 = 0.f, m3 = 0.f;
     if constexpr (kS1) m1 = ptt::to_f32(s1[i]);
     if constexpr (kS2) m2 = ptt::to_f32(s2[i]);
@@ -423,6 +435,7 @@ struct UpdateArgs {
   void *p, *master, *s1, *s2, *s3;
   const void* g;
   const float* sc;
+  const float* pw;
   float* sc_out;
   long long n;
   Hyper h;
@@ -443,8 +456,8 @@ int launch_update(const UpdateArgs& a) {
   update_kernel<R, T, G, M, kMaster><<<grid, kThreads, 0, a.stream>>>(
       static_cast<T*>(a.p), static_cast<const G*>(a.g),
       static_cast<float*>(a.master), static_cast<M*>(a.s1),
-      static_cast<M*>(a.s2), static_cast<M*>(a.s3), a.sc, a.sc_out, a.n, a.h,
-      vec);
+      static_cast<M*>(a.s2), static_cast<M*>(a.s3), a.sc, a.pw, a.sc_out, a.n,
+      a.h, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,21 +513,21 @@ extern "C" int ptt_grad_stats(const void* x, void* part, void* ticket,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One bucket's update, in place. p: [n] params; g: [n] gradients; master:
-// [n] fp32 or null; s1, s2, s3: [n] vector states or null, as apply_rule
-// names them (m_dtype: fp32, or bf16 for Momentum's and Adam's). sc: the
-// fp32 scalar block above; sc_out: [2] fp32, the new beta powers (Adam:
-// both, Adamax: beta1_pow).
+// One bucket's (or one parameter's) update, in place. p: [n] params; g: [n]
+// gradients; master: [n] fp32 or null; s1, s2, s3: [n] vector states or
+// null, as apply_rule names them (m_dtype: fp32, or bf16 for Momentum's and
+// Adam's). sc: the step's fp32 block above; pw: the beta powers ([2] Adam,
+// [1] Adamax, null otherwise); sc_out: [2] fp32, the new beta powers.
 extern "C" int ptt_fused_update(void* p, const void* g, void* master,
                                 void* s1, void* s2, void* s3, const void* sc,
-                                void* sc_out, long long n, int rule,
-                                int p_dtype, int g_dtype, int m_dtype,
-                                float wd, float coeff, float b1, float b2,
-                                float omb1, float omb2, float eps,
+                                const void* pw, void* sc_out, long long n,
+                                int rule, int p_dtype, int g_dtype,
+                                int m_dtype, float wd, float coeff, float b1,
+                                float b2, float omb1, float omb2, float eps,
                                 float momentum, float rho, float omr,
                                 int nesterov, int decoupled, int centered,
-                                int use_pref, int use_fi, int device,
-                                void* stream) {
+                                int use_pref, int round_pref, int use_fi,
+                                int device, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
@@ -526,11 +539,12 @@ extern "C" int ptt_fused_update(void* p, const void* g, void* master,
   a.s2 = s2;
   a.s3 = s3;
   a.sc = static_cast<const float*>(sc);
+  a.pw = static_cast<const float*>(pw);
   a.sc_out = static_cast<float*>(sc_out);
   a.n = n;
   a.h = Hyper{wd,  coeff,    b1,       b2,        omb1,     omb2,
               eps, momentum, rho,      omr,       nesterov, decoupled,
-              centered, use_pref, use_fi};
+              centered, use_pref, round_pref, use_fi};
   a.stream = static_cast<cudaStream_t>(stream);
   switch (rule) {
     case kSGD:

@@ -21,8 +21,27 @@ same eagerly, micro-batch by micro-batch:
     ('float32', the reference's default);
   * the update is the per-parameter `_update_one` (:2113-2127), the
     route the reference takes at dp = 1 (its bucketed route needs
-    `dp_on_init`, :581, :603-605);
+    `dp_on_init`, :581, :603-605), in place: a fusible rule on the fused
+    update kernel, one launch a parameter (where XLA fuses each
+    parameter's chain into one pass); Lamb, Lars, Ftrl and DGCMomentum
+    on the same op chain (`shard_update_chain`);
   * the loss is the sum of the fp32 micro-batch losses over A (:1340).
+
+Loss scaling (the GradScaler path, :2100-2110, :911-961):
+`train_batch(scale=s)` and `train_step(scaler=...)` seed the backward
+with s / A, so the gradients come out scaled. `found_inf` is any
+nonfinite gradient of any parameter, from the gradient-statistics
+kernel's nonfinite count of each gradient; each gradient is unscaled by
+1 / s in fp32 and rounded back to its dtype, as the reference does, in
+the update kernel's prefactor; and a step with `found_inf` set leaves
+every parameter and state bit-equal (the kernel's found-inf select, the
+reference's `where`). `last_found_inf` and each AsyncResult's
+`found_inf` hold the flag on the device; a scaler passed to
+`train_step` gets `update_from_found` when the step drains, in
+submission order. No step reads the flag back to the host.
+
+`device_lr` (the kwarg, then `PTPU_DEVICE_LR`) computes a step-indexed
+schedule's lr on the card (`optimizer/device_lr.py`).
 
 Remat: `remat_policy` (the kwarg, then `PTPU_REMAT_POLICY`) picks one of
 the four policies of `utils/recompute.py`; without one, `use_remat=True`
@@ -42,9 +61,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ....amp import uncast
 from ....core import async_step as A_
 from ....core import rng
 from ....device import resolve_device
+from ....ops.kernels import fused_optimizer as FO
+from ....optimizer import device_lr as dlr
 from ..utils import recompute as remat
 
 
@@ -193,8 +215,6 @@ _UNSERVED = {
     'comm_dtype': ((None,), _MULTI), 'bucket_mb': ((None,), _MULTI),
     'comm_block': ((None,), _MULTI), 'comm_overlap': ((None, False), _MULTI),
     'prefetch_depth': ((None,), _MULTI), 'comm_chunk': ((None,), _MULTI),
-    'device_lr': ((None, False),
-                  'the on-device LR schedule, ROADMAP Queue 1 item 2'),
 }
 
 
@@ -235,8 +255,7 @@ class SpmdPipelineEngine:
         given = dict(use_buckets=use_buckets, comm_dtype=comm_dtype,
                      bucket_mb=bucket_mb, comm_block=comm_block,
                      comm_overlap=comm_overlap,
-                     prefetch_depth=prefetch_depth, comm_chunk=comm_chunk,
-                     device_lr=device_lr)
+                     prefetch_depth=prefetch_depth, comm_chunk=comm_chunk)
         for knob, value in given.items():
             ok, needs = _UNSERVED[knob]
             if not any(value is v for v in ok):
@@ -310,8 +329,9 @@ class SpmdPipelineEngine:
                          for _, p in self._named]
         self._cot = torch.tensor(1.0 / self.A, dtype=torch.float32,
                                  device=self.device)
-        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
-        self._lr_host = None
+        self._lr_feed = dlr.LrFeed(optimizer, device_lr, self.device)
+        self._no_inf = torch.zeros((), dtype=torch.bool, device=self.device)
+        self.last_found_inf = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         self._inflight = A_.DispatchWindow(
@@ -331,30 +351,6 @@ class SpmdPipelineEngine:
         with record_function(HEAD_RANGE):
             return self.head(x, labels).float()
 
-    def _feed_lr(self):
-        v = float(self.optimizer.get_lr())
-        if v != self._lr_host:
-            self._lr.fill_(v)
-            self._lr_host = v
-        return self._lr
-
-    def _update_one(self, p, g, st, lr):
-        """(:2113-2127) the rule on fp32 copies (or the fp32 master),
-        decay into the gradient where the rule takes it there."""
-        opt = self.optimizer
-        low = p.dtype != torch.float32
-        master = st.pop('master', None)
-        p32 = master if master is not None else (p.float() if low else p)
-        g32 = g.float()
-        wd = opt._weight_decay
-        if wd and opt._decay_into_grad():
-            g32 = g32 + wd * p32
-        new_p, ns = opt.update(p32, g32, st, lr)
-        ns = dict(ns)
-        if master is not None:
-            ns['master'] = new_p
-        return new_p.to(p.dtype), ns
-
     def _to_device(self, b, staged):
         """`b` on the engine's device. A host batch bound for the card is
         staged in pinned memory and copied without blocking the host, so
@@ -369,8 +365,10 @@ class SpmdPipelineEngine:
             return b.to(self.device, non_blocking=True)
         return b.to(self.device)
 
-    def _dispatch(self, data):
+    def _dispatch(self, data, scale=None, scaler=None):
         self._ensure_open()
+        if scaler is not None and scale is None and scaler.is_enable():
+            scale = scaler._scale
         input_ids, labels = data
         staged = []
         ids = self._to_device(input_ids, staged)
@@ -392,52 +390,101 @@ class SpmdPipelineEngine:
         if self._acc is not None:
             for a in self._acc:
                 a.zero_()
+        cot, scale_t = self._seed(scale)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         with rng.rng_guard(self.generator):
             for m in range(self.A):
                 rows = slice(m * mb, (m + 1) * mb)
                 loss = self._microbatch_loss(ids[rows], lab[rows])
-                loss.backward(self._cot)
+                loss.backward(cot)
                 loss_sum += loss.detach()
                 if self._acc is not None:
                     for a, (_, p) in zip(self._acc, self._named):
                         if p.grad is not None:
                             a.add_(p.grad)
                             p.grad = None
-        lr = self._feed_lr()
+        lr = self._lr_feed.lr()
         with torch.no_grad(), record_function(UPDATE_RANGE):
-            for i, (n, p) in enumerate(self._named):
-                g = self._acc[i] if self._acc is not None else p.grad
-                if g is None:       # unused: the reference's zero gradient
-                    g = torch.zeros_like(p)
-                new_p, self._states[n] = self._update_one(
-                    p.detach(), g, dict(self._states[n]), lr)
-                p.copy_(new_p)
+            found = self._update(lr, scale_t)
+        self._lr_feed.advance()
         self._step_no += 1
-        return A_.AsyncResult(loss_sum / self.A, self._step_no, staged)
+        self.last_found_inf = found
+        on_drain = None
+        if scaler is not None:
+            def on_drain(res, _scaler=scaler):
+                _scaler.update_from_found(bool(res.found_inf))
+        return A_.AsyncResult(self._mean(loss_sum), self._step_no, staged,
+                              found_inf=found, on_drain=on_drain)
+
+    # the step's own arithmetic is jnp code in the reference, which
+    # amp.auto_cast does not reach
+
+    @uncast
+    def _seed(self, scale):
+        """(the backward's cotangent, the loss scale as a device fp32
+        scalar or None): 1/A, or scale/A in fp32 (:1383-1386). A fill,
+        not a host copy: no step waits on the card."""
+        if scale is None:
+            return self._cot, None
+        scale_t = torch.full((), float(scale), dtype=torch.float32,
+                             device=self.device)
+        return scale_t / self.A, scale_t
+
+    @uncast
+    def _mean(self, loss_sum):
+        return loss_sum / self.A
+
+    def _grads(self):
+        for i, (_, p) in enumerate(self._named):
+            g = self._acc[i] if self._acc is not None else p.grad
+            # unused: the reference's zero gradient
+            yield g if g is not None else torch.zeros_like(p)
+
+    @uncast
+    def _update(self, lr, scale_t):
+        """Every parameter's update; with a loss scale, the found-inf
+        flag from every gradient's nonfinite count (the statistics
+        kernel, one launch a gradient), the unscale and the skip.
+        Returns the flag (a device bool)."""
+        grads = list(self._grads())
+        found, inv = self._no_inf, None
+        if scale_t is not None:
+            counts = [FO.grad_stats(g)[1] for g in grads]
+            found = torch.stack(counts).sum() > 0
+            inv = 1.0 / scale_t
+        opt, fi = self.optimizer, None if inv is None else found
+        if FO.fusible(opt):
+            upd = FO.ParamUpdates(opt, lr, prefactor=inv, found_inf=fi)
+        else:
+            def upd(p, g, st):
+                return FO.shard_update_chain(opt, p, g, st, lr, inv, fi,
+                                             round_prefactor=True)
+        for (n, p), g in zip(self._named, grads):
+            _p, self._states[n] = upd(p.detach(), g, self._states[n])
+        return found
 
     def train_batch(self, data, scale=None):
         """data = (input_ids, labels) of A x micro-batch rows: one step;
-        returns the mean micro-batch loss as an fp32 0-dim tensor."""
-        if scale is not None:
-            raise _not_served('train_batch(scale=...)',
-                              'the GradScaler path comes with amp, ROADMAP '
-                              'Queue 1 item 2')
+        returns the mean micro-batch loss as an fp32 0-dim tensor.
+        `scale`: a loss scale (the GradScaler path): the gradients are
+        unscaled, a nonfinite one skips the update, and
+        `last_found_inf` holds the verdict on the device."""
         if len(self._inflight):
             self.flush()
-        res = self._dispatch(data)
+        res = self._dispatch(data, scale=scale)
         res.wait()
         return res.loss
 
     def train_step(self, data, scaler=None):
         """One step queued without a host fetch: returns an AsyncResult
-        (the loss on the device); the window waits on the oldest step
-        past `dispatch_window`. `flush()` drains it."""
-        if scaler is not None:
-            raise _not_served('train_step(scaler=...)',
-                              'the GradScaler path comes with amp, ROADMAP '
-                              'Queue 1 item 2')
-        return self._inflight.push(self._dispatch(data))
+        (the loss and the found-inf flag on the device); the window waits
+        on the oldest step past `dispatch_window`. `flush()` drains it.
+        A GradScaler passed here scales the step by its current scale
+        and gets that step's `update_from_found` when it drains, in
+        submission order: a scale change reaches the steps dispatched
+        after its drain (up to the window later than the per-step
+        path), as in the reference."""
+        return self._inflight.push(self._dispatch(data, scaler=scaler))
 
     def flush(self):
         """Drain the in-flight window; returns the drained results."""

@@ -16,7 +16,9 @@ the reference chooses them (`use_buckets=None` is the default):
   kernels over the buckets in place. Only the default bucket cap is
   ported; the env and strategy knobs come with the multi-GPU port.
 * **per-parameter** (otherwise): `optimizer.functional_apply` over
-  {name: tensor} dicts, the new values copied into the parameters.
+  {name: tensor} dicts: a fusible rule updates each parameter in place
+  on the fused update kernel, one launch a parameter; another rule's
+  new values are copied into the parameters.
 
 Either way the parameters are updated IN PLACE, where the JAX step
 donates its buffers and returns new ones, and after a call each
@@ -31,6 +33,10 @@ place on the bucketed route under `ClipGradByNorm`).
 The lr is read from `optimizer.get_lr()` at each call and written into
 a device scalar only when it changed (the host path of the reference's
 `LrFeed`, optimizer/device_lr.py:39-80); the caller steps a scheduler.
+With `device_lr` (the kwarg, then `PTPU_DEVICE_LR`) and a schedule that
+is a function of the step, the lr is computed on the card from a step
+counter kept there (`optimizer/device_lr.py`), with no host feed a step;
+other schedules keep the host feed.
 The step owns a `torch.Generator` on its device, seeded from `seed`,
 and binds it around the forward: the dropout ops draw their keep masks
 from it (`core/rng.py`).
@@ -42,6 +48,7 @@ from ..core import bucketing as B
 from ..core import rng
 from ..device import resolve_device
 from ..distributed.fleet.utils import recompute as remat
+from ..optimizer import device_lr as dlr
 
 
 class TrainStep:
@@ -51,7 +58,7 @@ class TrainStep:
     the model to that device."""
 
     def __init__(self, model, loss_fn, optimizer, use_buckets=None,
-                 remat_policy=None, device=None, seed=0):
+                 remat_policy=None, device=None, seed=0, device_lr=None):
         self._remat_policy = remat.resolve_policy(remat_policy,
                                                   default='none')
         self._loss_of = remat.apply_policy(self._loss, self._remat_policy,
@@ -79,8 +86,8 @@ class TrainStep:
                     # step pre-seeds it so its state pytree stays stable
                     st['master'] = p.detach().float()
                 self._opt_states[n] = st
-        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
-        self._lr_host = None
+        self._lr_feed = dlr.LrFeed(optimizer, device_lr, self.device)
+        self._lr = None              # the lr tensor the last step used
         self.last_clip_factor = None
 
     @property
@@ -119,14 +126,6 @@ class TrainStep:
             b = torch.from_numpy(b)
         return b.to(self.device) if isinstance(b, torch.Tensor) else b
 
-    def _feed_lr(self):
-        """The lr as a device scalar, written only when it changed."""
-        v = float(self.optimizer.get_lr())
-        if v != self._lr_host:
-            self._lr.fill_(v)
-            self._lr_host = v
-        return self._lr
-
     def __call__(self, *batch):
         """One step on `batch` (tensors or numpy arrays); returns the
         loss as an fp32 0-dim tensor on the step's device."""
@@ -140,7 +139,7 @@ class TrainStep:
         with rng.rng_guard(self.generator):
             loss = self._loss_of(*batch)
         loss.backward()
-        lr = self._feed_lr()
+        lr = self._lr = self._lr_feed.lr()
         with torch.no_grad():
             if self._use_buckets:
                 self._opt_states, self.last_clip_factor = \
@@ -154,7 +153,9 @@ class TrainStep:
                         {n: p.detach() for n, p in self._params.items()},
                         grads, self._opt_states, lr)
                 for n, p in self._params.items():
-                    p.copy_(new_params[n])
+                    if new_params[n].data_ptr() != p.data_ptr():
+                        p.copy_(new_params[n])
+            self._lr_feed.advance()
         return loss.detach()
 
     def _loss(self, *batch):

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from .. import nn as pnn
+from ..amp import uncast
 from ..core import rng
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
@@ -172,6 +173,7 @@ class GPTAttention(nn.Module):
         return _remat_tag(self.out_proj(ctx), 'attn_out')
 
     @staticmethod
+    @uncast
     def _dense_attention(qkv, B, L, nh, hd, dropout=0.0):
         """gpt.py:173-191: fp32 scores, causal mask at -1e9 (this
         route's own constant; the flash kernels use -1e30), softmax in

@@ -196,12 +196,13 @@ _SIGNATURES = {
     'ptt_dropout_add_bwd': (_P, _P, _P, _L, _F, _I, _I, _P),
     # x, part, ticket, out, n, ctas, dtype, device, stream
     'ptt_grad_stats': (_P, _P, _P, _P, _L, _I, _I, _I, _P),
-    # p, g, master, s1, s2, s3, sc, sc_out, n, rule, p_dtype, g_dtype,
+    # p, g, master, s1, s2, s3, sc, pw, sc_out, n, rule, p_dtype, g_dtype,
     # m_dtype, wd, coeff, b1, b2, omb1, omb2, eps, momentum, rho, omr,
-    # nesterov, decoupled, centered, use_pref, use_fi, device, stream
-    'ptt_fused_update': (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I,
-                         _I, _I, _I, _P),
+    # nesterov, decoupled, centered, use_pref, round_pref, use_fi, device,
+    # stream
+    'ptt_fused_update': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                         _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I,
+                         _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -47,6 +47,7 @@ import math
 
 import torch
 
+from ...amp import uncast
 from ...core import rng as _rng
 from . import _build
 
@@ -307,6 +308,7 @@ class FlashAttnPackedFunction(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None
 
 
+@uncast
 def flash_attention_packed(q, k, v, num_heads, head_dim, bias=None,
                            causal=False):
     """q/k/v [B, L, H*D] -> [B, L, H*D]; bias optional [B, L_k] additive
@@ -460,6 +462,7 @@ class FlashAttnFunction(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None, None
 
 
+@uncast
 def flash_attention_bhld(q, k, v):
     """Causal, no bias, no dropout (:723): q/k/v [B*H, L, D]."""
     return FlashAttnFunction.apply(q, k, v, None, None, 1, True, 0.0)
@@ -477,6 +480,7 @@ def _flash_attn_biased(causal, num_heads, q, k, v, bias):
                                    num_heads, causal, 0.0)
 
 
+@uncast
 def flash_attention(q, k, v, bias=None, num_heads=1, causal=True):
     """Array-level entry (:852): q/k/v [B*H, L, D]; bias optional [B, L_k]
     additive key bias (B*H = B * num_heads). With no bias and not causal
@@ -489,6 +493,7 @@ def flash_attention(q, k, v, bias=None, num_heads=1, causal=True):
     return _flash_attn_biased(causal, num_heads, q, k, v, bias)
 
 
+@uncast
 def mha_flash_attention(q, k, v, key_bias=None, causal=False):
     """Tensor-level entry for multi-head attention (:933): q/k/v
     [B, nh, L, hd]; key_bias optional [B, L_k] additive. Returns
@@ -501,6 +506,7 @@ def mha_flash_attention(q, k, v, key_bias=None, causal=False):
     return o.reshape(B, H, L, D)
 
 
+@uncast
 def causal_attention(qkv, num_heads, head_dim, dropout=0.0):
     """GPTAttention's entry: qkv [B, L, nh*3*hd] in the (head, 3, hd)
     Megatron packing -> context [B, L, nh*hd].

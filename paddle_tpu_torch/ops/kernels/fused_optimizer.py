@@ -29,6 +29,14 @@ momentum: up to three vector states), Adamax, Adadelta and
 DecayedAdagrad (fp32 states); each is written out in CUDA, where Pallas
 traced `update` into its body.
 
+`ParamUpdates` runs the same kernel once a parameter, for the
+per-parameter routes (the pipeline engine's update and
+`Optimizer.functional_apply`): the step's scalar block is built once for
+all of a step's parameters, each parameter's beta powers are read where
+the last call left them, and the engine's loss-scaling path unscales
+with the reference's rounding (the prefactored gradient rounded back to
+its dtype) and skips with the found-inf select.
+
 Plain versions: `grad_stats_plain` and `fused_shard_update_plain` (the
 reference `shard_update`'s op chain, functional). CPU tensors run the
 plain versions (the update's results copied back into its inputs, so
@@ -132,9 +140,13 @@ def _decay_into_grad(optimizer):
 
 
 def fused_shard_update_plain(optimizer, p, g, st, lr, prefactor=None,
-                             found_inf=None):
+                             found_inf=None, round_prefactor=False,
+                             wd=None):
     """The reference `shard_update`'s op chain (bucketing.py:581-627),
-    functional: (new p in its dtype, new state)."""
+    functional: (new p in its dtype, new state). `round_prefactor` rounds
+    the prefactored gradient back to its dtype, as the pipeline engine's
+    unscale does (spmd_pipeline.py:923-926); `wd` replaces the
+    optimizer's decay into the gradient (a parameter's own L2Decay)."""
     low = p.dtype != torch.float32
     st = dict(st)
     master = st.pop('master', None)
@@ -142,7 +154,9 @@ def fused_shard_update_plain(optimizer, p, g, st, lr, prefactor=None,
     g32 = g.float()
     if prefactor is not None:
         g32 = g32 * prefactor
-    wd = _decay_into_grad(optimizer)
+        if round_prefactor:
+            g32 = g32.to(g.dtype).float()
+    wd = _decay_into_grad(optimizer) if wd is None else wd
     if wd:
         g32 = g32 + wd * p32
     new32, ns = optimizer.update(p32, g32, st, lr)
@@ -209,8 +223,8 @@ def _rule(optimizer):
         f'fused_shard_update: no kernel rule for {kind.__name__}')
 
 
-# the kernel's vector states s1, s2, s3 and its scalar block's states, by
-# rule (RMSProp's mean_grad only when centered)
+# the kernel's vector states s1, s2, s3 and its beta powers, by rule
+# (RMSProp's mean_grad only when centered)
 _VEC_KEYS = {_SGD: (), _MOMENTUM: ('velocity',),
              _ADAM: ('moment1', 'moment2'), _ADAGRAD: ('moment',),
              _RMSPROP: ('mean_square', 'momentum', 'mean_grad'),
@@ -222,8 +236,35 @@ _SCALAR_KEYS = {_ADAM: ('beta1_pow', 'beta2_pow'), _ADAMAX: ('beta1_pow',)}
 _LOW_PRECISION_STATES = (_MOMENTUM, _ADAM)
 
 
-def _update_kernel(optimizer, p, g, st, lr, prefactor, found_inf):
-    rule, h = _rule(optimizer)
+def _step_block(lr, prefactor, found_inf, device):
+    """The kernel's per-step fp32 block [lr, prefactor, found_inf]: one
+    launch, shared by every call of a step."""
+    one = torch.ones((), dtype=torch.float32, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    parts = [lr, one if prefactor is None else prefactor,
+             zero if found_inf is None else found_inf]
+    return torch.stack([torch.as_tensor(s).to(device=device,
+                                              dtype=torch.float32).reshape(())
+                        for s in parts])
+
+
+def _powers(st, keys, device):
+    """The beta powers as one contiguous fp32 block: the state's own
+    tensors where they already are one (the views of the last call's
+    output), else a stack of them."""
+    ts = [st[k] for k in keys]
+    first = ts[0]
+    if all(t.dtype == torch.float32 and t.device == device
+           and t.numel() == 1 for t in ts) and all(
+            t.data_ptr() == first.data_ptr() + 4 * j
+            for j, t in enumerate(ts)):
+        return first
+    return torch.stack([t.to(device=device, dtype=torch.float32).reshape(())
+                        for t in ts])
+
+
+def _launch(optimizer, rule, h, p, g, st, block, use_pref, use_fi):
+    """One in-place call of the update kernel: returns (p, new state)."""
     st = dict(st)
     master = st.get('master')
     if master is None and p.dtype != torch.float32 and \
@@ -252,31 +293,52 @@ def _update_kernel(optimizer, p, g, st, lr, prefactor, found_inf):
                                                   else {'master': master}),
                               **dict(zip(keys, vecs)))
     dev = p.device
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    scalars = [lr, one if prefactor is None else prefactor,
-               zero if found_inf is None else found_inf]
     scalar_keys = _SCALAR_KEYS.get(rule, ())
-    scalars += [st[k] for k in scalar_keys]
-    sc = torch.stack([s.to(device=dev, dtype=torch.float32).reshape(())
-                      for s in scalars])
+    pw = _powers(st, scalar_keys, dev) if scalar_keys else None
     sc_out = torch.empty(max(len(scalar_keys), 1), dtype=torch.float32,
-                         device=dev)
+                         device=dev) if scalar_keys else None
     s1, s2, s3 = (vecs + [None] * 3)[:3]
     m_code = _build.dtype_code(s1, STEP) if s1 is not None else 0
     if n:
         _build.launch(
             'ptt_fused_update', STEP, dev, p.data_ptr(), g.data_ptr(),
             _build.ptr(master), _build.ptr(s1), _build.ptr(s2),
-            _build.ptr(s3), sc.data_ptr(), sc_out.data_ptr(), n, rule,
-            _build.dtype_code(p, STEP), _build.dtype_code(g, STEP), m_code,
-            h['wd'], h['coeff'], h['b1'], h['b2'], h['omb1'], h['omb2'],
-            h['eps'], h['momentum'], h['rho'], h['omr'], h['nesterov'],
-            h['decoupled'], h['centered'], int(prefactor is not None),
-            int(found_inf is not None))
-    for j, k in enumerate(scalar_keys):
-        st[k] = sc_out[j]
+            _build.ptr(s3), block.data_ptr(), _build.ptr(pw),
+            _build.ptr(sc_out), n, rule, _build.dtype_code(p, STEP),
+            _build.dtype_code(g, STEP), m_code, h['wd'], h['coeff'],
+            h['b1'], h['b2'], h['omb1'], h['omb2'], h['eps'],
+            h['momentum'], h['rho'], h['omr'], h['nesterov'],
+            h['decoupled'], h['centered'], int(use_pref),
+            int(h.get('round', 0)), int(use_fi))
+        for j, k in enumerate(scalar_keys):
+            st[k] = sc_out[j]
     return p, st
+
+
+def shard_update_chain(optimizer, p, g, st, lr, prefactor=None,
+                       found_inf=None, round_prefactor=False, wd=None):
+    """The op chain with its results copied into the inputs: the plain
+    version of the kernel on CPU tensors, so both routes keep one
+    contract; on any device, the update of an elementwise rule the
+    kernel does not implement (Ftrl)."""
+    new_p, ns = fused_shard_update_plain(optimizer, p, g, st, lr, prefactor,
+                                         found_inf, round_prefactor, wd)
+    p.copy_(new_p)
+    out = {}
+    for k, v in ns.items():
+        old = st.get(k)
+        if old is not None and old.dim() >= 1:
+            old.copy_(v)
+            v = old
+        out[k] = v
+    return p, out
+
+
+def _require_fusible(optimizer):
+    if not fusible(optimizer):
+        raise NotImplementedError(
+            f'fused_shard_update: {type(optimizer).__name__} is not an '
+            f'elementwise, fusible optimizer')
 
 
 def fused_shard_update(optimizer, p, g, st, lr, prefactor=None,
@@ -285,21 +347,55 @@ def fused_shard_update(optimizer, p, g, st, lr, prefactor=None,
     and the state's vector tensors are the ones passed in, overwritten.
     The kernel on CUDA tensors; on CPU tensors the plain version, its
     results copied into the inputs."""
-    if not fusible(optimizer):
-        raise NotImplementedError(
-            f'fused_shard_update: {type(optimizer).__name__} is not an '
-            f'elementwise, fusible optimizer')
+    _require_fusible(optimizer)
     extra = [t for t in (lr, prefactor, found_inf) if t is not None]
     if _build.on_cpu(p, g, *st.values(), *extra):
-        new_p, ns = fused_shard_update_plain(optimizer, p, g, st, lr,
-                                             prefactor, found_inf)
-        p.copy_(new_p)
-        out = {}
-        for k, v in ns.items():
-            old = st.get(k)
-            if old is not None and old.dim() >= 1:
-                old.copy_(v)
-                v = old
-            out[k] = v
-        return p, out
-    return _update_kernel(optimizer, p, g, st, lr, prefactor, found_inf)
+        return shard_update_chain(optimizer, p, g, st, lr, prefactor,
+                               found_inf)
+    rule, h = _rule(optimizer)
+    block = _step_block(lr, prefactor, found_inf, p.device)
+    return _launch(optimizer, rule, h, p, g, st, block,
+                   prefactor is not None, found_inf is not None)
+
+
+class ParamUpdates:
+    """One step's per-parameter updates on the update kernel (the
+    reference's per-parameter `_update_one`, spmd_pipeline.py:2113-2127,
+    and `Optimizer.functional_apply`, optimizer.py:103-158, which XLA
+    fuses into one pass a parameter): one kernel launch a parameter, in
+    place, with what is the same for every parameter of the step (the
+    rule's constants, the [lr, prefactor, found_inf] block) built once.
+
+    `prefactor` multiplies each gradient first and the product is
+    rounded back to the gradient's dtype (the engine's unscale,
+    spmd_pipeline.py:923-926; `fused_shard_update`'s bucketed prefactor
+    is not rounded, as shard_update's is not); `found_inf` (a 0-dim
+    device tensor) turns every call into a no-op
+    that leaves each output bit-equal to its input. Calling the object
+    on (p, g, state) updates p and the state's vector tensors in place
+    and returns (p, new state), as `fused_shard_update` does; `wd`
+    replaces the optimizer's decay into the gradient for that parameter
+    (a parameter's own L2Decay). CPU tensors take the plain version."""
+
+    def __init__(self, optimizer, lr, prefactor=None, found_inf=None):
+        _require_fusible(optimizer)
+        self.optimizer = optimizer
+        self.lr, self.prefactor, self.found_inf = lr, prefactor, found_inf
+        self._rule, self._h = _rule(optimizer)
+        self._h['round'] = 1
+        self._block = None
+
+    def __call__(self, p, g, st, wd=None):
+        extra = [t for t in (self.lr, self.prefactor, self.found_inf)
+                 if isinstance(t, torch.Tensor)]
+        if _build.on_cpu(p, g, *st.values(), *extra):
+            return shard_update_chain(self.optimizer, p, g, st, self.lr,
+                                      self.prefactor, self.found_inf,
+                                      round_prefactor=True, wd=wd)
+        if self._block is None:
+            self._block = _step_block(self.lr, self.prefactor,
+                                      self.found_inf, p.device)
+        h = self._h if wd is None else dict(self._h, wd=float(wd))
+        return _launch(self.optimizer, self._rule, h, p, g, st, self._block,
+                       self.prefactor is not None,
+                       self.found_inf is not None)

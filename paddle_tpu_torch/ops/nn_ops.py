@@ -2,8 +2,9 @@
 the serving and training slices run: `gelu` (:36), `bias_gelu` (:41),
 `dropout_add` (:60-110), `layer_norm` (:217) with its fused-route gate
 (:243-246), `linear` (:402), `dropout` (:703-720), `embedding` (:746),
-the hard-label `softmax_with_cross_entropy` (:906) on its fused route
-(`_fused_hard_xent`, :768-798) and the chunked projection with a hard
+`softmax_with_cross_entropy` (:906), hard labels over the last axis on
+its fused route (`_fused_hard_xent`, :768-798), over another axis, soft
+labels and `return_softmax`, and the chunked projection with a hard
 cross-entropy, `fused_linear_cross_entropy` (:801-903).
 
 Dropout in training draws its keep mask from the generator bound by
@@ -14,22 +15,27 @@ plain PyTorch, as the reference's is plain jnp. As in jnp, a scalar
 operand takes the tensor's dtype: a bf16 x is divided by (or scaled
 with) 1 - p rounded to bf16.
 
-Functions take and return torch tensors.
+Functions take and return torch tensors. Each public op stands for one
+`run_op` of the reference, so `amp.auto_cast` does not reach inside it
+(`@uncast`).
 """
 import math
 
 import torch
 
+from ..amp import uncast
 from ..core import rng as _rng
 from .kernels import fused_elementwise as _fe
 from .kernels import fused_norm as _fln
 
 
+@uncast
 def gelu(x, approximate=False):
     """jax.nn.gelu's forms, evaluated in fp32 and rounded to x's dtype."""
     return _fe.gelu_f32(x.float(), approximate).to(x.dtype)
 
 
+@uncast
 def bias_gelu(x, bias=None, approximate=False):
     """gelu(x + bias): the fused bias+GELU kernel on CUDA tensors, its
     plain version on CPU tensors; bias=None degrades to plain gelu."""
@@ -46,6 +52,7 @@ def _mask_shape(x, axis):
     return tuple(d if i in axes else 1 for i, d in enumerate(x.shape))
 
 
+@uncast
 def dropout(x, p=0.5, axis=None, training=True, mode='upscale_in_train'):
     """Parity: operators/dropout_op (nn_ops.py:703-720). In training the
     keep mask (of x's shape, or broadcast along the dims not in `axis`)
@@ -63,6 +70,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode='upscale_in_train'):
     return torch.where(keep, x, zero)
 
 
+@uncast
 def dropout_add(x, residual, p=0.5, training=True,
                 mode='upscale_in_train'):
     """The residual join `residual + dropout(x)` (nn_ops.py:60-110). In
@@ -80,6 +88,7 @@ def dropout_add(x, residual, p=0.5, training=True,
     return _fe.dropout_add(x, residual, keep, p)
 
 
+@uncast
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
                epsilon=1e-05):
     """Parity: operators/layer_norm_op. The GPT/BERT shape — last-axis
@@ -110,12 +119,14 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     return out
 
 
+@uncast
 def linear(x, weight, bias=None):
     """y = x @ W (+ b), W laid out [in, out] as in paddle."""
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
 
+@uncast
 def embedding(x, weight):
     """Rows of `weight` at integer ids `x` (lookup_table_v2)."""
     return weight[x.to(torch.long)]
@@ -157,32 +168,72 @@ class _HardXent(torch.autograd.Function):
         return p.to(lg.dtype), None, None
 
 
+@uncast
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, axis=-1,
                                return_softmax=False):
-    """Parity: operators/softmax_with_cross_entropy_op, hard labels over
-    the last axis. label holds class ids, shaped like logits without its
-    last axis or with a trailing 1. Returns the per-row loss [..., 1] in
-    the logits' dtype (nn_ops.py:931, :937): computed in fp32, rows whose
-    label is `ignore_index` give 0."""
-    if soft_label or return_softmax:
-        raise NotImplementedError(
-            'softmax_with_cross_entropy: soft labels and return_softmax '
-            'are not ported yet (the GPT criterion uses hard labels)')
-    if axis % logits.dim() != logits.dim() - 1:
-        raise NotImplementedError(
-            'softmax_with_cross_entropy: only the last axis is ported')
-    lead = logits.shape[:-1]
-    if label.shape == lead + (1,):
-        label = label.reshape(lead)
-    if label.shape != lead:
+    """Parity: operators/softmax_with_cross_entropy_op (nn_ops.py:906-943).
+    Hard labels over the last axis (class ids shaped like logits without
+    that axis, or with a trailing 1) take the fused route: the per-row
+    loss [..., 1] computed in fp32 and returned in the logits' dtype,
+    rows whose label is `ignore_index` giving 0. Hard labels over
+    another axis (ids shaped like logits without it, or with a 1 there)
+    take the reference's log-softmax route, in fp32. Soft labels (a
+    distribution of logits' shape) give -sum(label * log_softmax(logits))
+    over `axis`, kept as a size-1 axis, in the logits' dtype. With
+    `return_softmax`, returns (loss, softmax(logits) over `axis`)."""
+    if soft_label:
+        loss = _soft_xent(logits, label, axis)
+    else:
+        loss = _hard_xent(logits, label, ignore_index, axis)
+    if return_softmax:
+        return loss, _softmax(logits, axis)
+    return loss
+
+
+def _softmax(x, axis):
+    """jax.nn.softmax's ops, in x's dtype."""
+    e = torch.exp(x - x.amax(axis, keepdim=True).detach())
+    return e / e.sum(axis, keepdim=True)
+
+
+def _log_softmax(x, axis):
+    """jax.nn.log_softmax's ops, in x's dtype."""
+    shifted = x - x.amax(axis, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(axis, keepdim=True))
+
+
+def _soft_xent(logits, label, axis):
+    if label.shape != logits.shape:
+        raise ValueError(f'softmax_with_cross_entropy: a soft label '
+                         f'{tuple(label.shape)} must have the logits\' shape '
+                         f'{tuple(logits.shape)}')
+    label = label.to(logits.device)
+    return -(label * _log_softmax(logits, axis)).sum(axis, keepdim=True)
+
+
+def _hard_xent(logits, label, ignore_index, axis):
+    nd = axis % logits.dim()
+    lead = logits.shape[:nd] + logits.shape[nd + 1:]
+    kept = logits.shape[:nd] + (1,) + logits.shape[nd + 1:]
+    if label.shape not in (lead, kept):
         raise ValueError(f'softmax_with_cross_entropy: label shape '
                          f'{tuple(label.shape)} does not match logits '
-                         f'{tuple(logits.shape)}')
-    C = logits.shape[-1]
-    idx = label.reshape(-1).to(device=logits.device, dtype=torch.long)
-    out = _HardXent.apply(logits.reshape(-1, C), idx, ignore_index)
-    return out.reshape(lead + (1,)).to(logits.dtype)
+                         f'{tuple(logits.shape)} over axis {axis}')
+    idx = label.to(device=logits.device, dtype=torch.long)
+    if nd == logits.dim() - 1:
+        C = logits.shape[-1]
+        out = _HardXent.apply(logits.reshape(-1, C), idx.reshape(-1),
+                              ignore_index)
+        return out.reshape(lead + (1,)).to(logits.dtype)
+    # nn_ops.py:924-940: log-softmax in fp32, the label's entry picked
+    if idx.shape == lead:
+        idx = idx.unsqueeze(nd)
+    ignored = idx == ignore_index
+    safe = torch.where(ignored, torch.zeros_like(idx), idx)
+    picked = _log_softmax(logits.float(), nd).gather(nd, safe)
+    loss = torch.where(ignored, torch.zeros_like(picked), -picked)
+    return loss.to(logits.dtype)
 
 
 def _reduce_loss(loss, reduction):
@@ -264,6 +315,7 @@ class _LinearXent(torch.autograd.Function):
         return torch.cat(dx), dw.to(w.dtype), None, None, None, None
 
 
+@uncast
 def fused_linear_cross_entropy(x, weight, label, ignore_index=-100,
                                reduction='mean', chunks=8,
                                transpose_y=True):

@@ -34,29 +34,72 @@ DecayedAdagrad are fp32, as the reference's are; like the reference's,
 these five take no `multi_precision` argument (one passed lands in
 `**kwargs`), so their bf16 params always carry an fp32 master.
 
-`step()` is the eager update of the `parameters` the optimizer was built
-with: each parameter with a `.grad` takes `functional_apply`'s update in
-place, its state (and fp32 master) kept in the optimizer.
+The update route is chosen by rule: a fusible rule runs each parameter
+through the fused update kernel (`ops/kernels/fused_optimizer.py`,
+`ParamUpdates`: one launch a parameter, in place, bit-equal to the op
+chain), where the reference's jitted step fuses each parameter's chain
+into one XLA pass; the others (Lamb, Lars, Ftrl, DGCMomentumOptimizer,
+`_pallas_fusible = False` in the reference too) run their op chain. On
+the fused route `functional_apply` updates the params and the vector
+states it is given IN PLACE (where the JAX step donates) and returns
+those tensors.
 
-AdamW's `apply_decay_param_fun` and `lr_ratio` raise
-NotImplementedError: the reference's functional routes decay every
-parameter whatever the argument says (`_cur_decay` is a class attribute
-that is True, :609, :614), and the port does not copy that silently.
+`weight_decay` is a float or an `L2Decay` (its coefficient). A
+parameter's own `regularizer` attribute (`paddle_tpu_torch.regularizer`)
+replaces the optimizer's decay in the eager `step()` (:219-227); the
+functional routes ignore it, as the reference's do.
+
+`step()` is the eager update of the `parameters` the optimizer was built
+with: each parameter with a `.grad` takes the update in place, its state
+(and fp32 master) kept in the optimizer. The updates are jnp code in the
+reference, which `amp.auto_cast` does not reach, so both entries are
+`@uncast`.
+
+Refused with NotImplementedError, rather than copied silently: AdamW's
+`apply_decay_param_fun` and `lr_ratio` (the reference's functional
+routes decay every parameter whatever they say: `_cur_decay` is a class
+attribute that is True, :609, :614), Lamb's
+`exclude_from_weight_decay_fn` (honoured only by the reference's eager
+`step()`, :696-700), Lars's `exclude_from_weight_decay` (ignored by the
+reference everywhere) and `L1Decay` as an optimizer's `weight_decay`
+(taken by the reference as an L2 coefficient, :45-49).
 """
 import torch
 
 
+from ..amp import uncast
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                        ClipGradByValue, global_factor, norm_factor)
+from ..ops.kernels import fused_optimizer as FO
+from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
 
-def _not_ported(what):
+def _not_ported(what, cls='AdamW'):
     return NotImplementedError(
-        f'AdamW({what}=...) is not ported: the reference\'s functional '
-        f'routes (TrainStep) ignore it and decay every parameter at the '
-        f'one learning rate, and the port does not ignore an argument '
-        f'silently')
+        f'{cls}({what}=...) is not ported: the reference\'s functional '
+        f'routes (TrainStep, the engines) ignore it and decay every '
+        f'parameter, and the port does not ignore an argument silently')
+
+
+def weight_decay_coeff(weight_decay):
+    """An optimizer's `weight_decay` as its float coefficient (None for
+    none): a float, or an `L2Decay`'s coefficient. `L1Decay` raises."""
+    if weight_decay is None:
+        return None
+    if isinstance(weight_decay, L2Decay):
+        return weight_decay._coeff
+    if isinstance(weight_decay, L1Decay):
+        raise NotImplementedError(
+            'L1Decay as an optimizer\'s weight_decay is not ported: the '
+            'reference applies it as an L2 coefficient '
+            '(optimizer.py:45-49); set it as the parameters\' own '
+            '`regularizer` (eager step()) or pass an L2Decay or a float')
+    if isinstance(weight_decay, bool) or \
+            not isinstance(weight_decay, (int, float)):
+        raise TypeError(f'weight_decay must be a float or an L2Decay, got '
+                        f'{weight_decay!r}')
+    return float(weight_decay)
 
 
 def _as_dtype(dtype):
@@ -86,15 +129,9 @@ class Optimizer:
                             ClipGradByValue)):
             raise TypeError(f'grad_clip must be a ClipGradBy* of '
                             f'paddle_tpu_torch.nn.clip, got {grad_clip!r}')
-        if weight_decay is not None and not isinstance(weight_decay,
-                                                       (int, float)):
-            raise NotImplementedError(
-                'a regularizer object as weight_decay is not ported yet; '
-                'pass a float')
         self._learning_rate = learning_rate
         self._grad_clip = grad_clip
-        self._weight_decay = None if weight_decay is None \
-            else float(weight_decay)
+        self._weight_decay = weight_decay_coeff(weight_decay)
         self._multi_precision = multi_precision
         self._parameter_list = None if parameters is None \
             else list(parameters)
@@ -125,10 +162,19 @@ class Optimizer:
         """(fp32 param, fp32 grad, state, lr) -> (new param, new state)."""
         raise NotImplementedError
 
+    @uncast
     def functional_apply(self, params, grads, states, lr):
         """One update of every param that has a gradient: returns
-        ({name: new param in its dtype}, {name: new state})."""
-        grads = self._clip(grads)
+        ({name: new param in its dtype}, {name: new state}). On the fused
+        route the params and vector states passed in are updated in
+        place and returned."""
+        return self._apply(params, self._clip(grads), states, lr)
+
+    def _apply(self, params, grads, states, lr, regularizers=None):
+        """The update after the clip; `regularizers` ({name: regularizer},
+        eager `step()` only) replace the optimizer's decay into the
+        gradient for those params."""
+        fused = FO.ParamUpdates(self, lr) if FO.fusible(self) else None
         new_params, new_states = {}, {}
         for n, p in params.items():
             g = grads.get(n)
@@ -137,6 +183,13 @@ class Optimizer:
                 new_states[n] = states.get(n, {})
                 continue
             st = dict(states.get(n) or {})
+            reg = (regularizers or {}).get(n)
+            if fused is not None and (reg is None or type(reg) is L2Decay):
+                if not any(k != 'master' for k in st):
+                    st.update(self.init_state(p))
+                new_params[n], new_states[n] = fused(
+                    p, g, st, wd=None if reg is None else reg._coeff)
+                continue
             low_precision = p.dtype != torch.float32
             if low_precision and self._multi_precision:
                 p32 = st.pop('master', None)
@@ -145,7 +198,9 @@ class Optimizer:
             else:
                 p32 = p.float() if low_precision else p
             g32 = g.float() if g.dtype != torch.float32 else g
-            if self._weight_decay and self._decay_into_grad():
+            if reg is not None:
+                g32 = g32 + reg(p32)
+            elif self._weight_decay and self._decay_into_grad():
                 g32 = g32 + self._weight_decay * p32
             if not st:
                 st = self.init_state(p32)
@@ -158,10 +213,12 @@ class Optimizer:
         return new_params, new_states
 
     @torch.no_grad()
+    @uncast
     def step(self):
         """The eager update (:161-230) of every parameter of the list that
         requires a gradient and has one, in place: grad_clip over them
-        all, decay, the rule at `get_lr()`."""
+        all, each parameter's own `regularizer` or the optimizer's decay,
+        the rule at `get_lr()`."""
         if self._parameter_list is None:
             raise ValueError('optimizer created without a parameter list')
         live = {id(p): p for p in self._parameter_list
@@ -170,12 +227,15 @@ class Optimizer:
             return
         dev = next(iter(live.values())).device
         lr = torch.tensor(self.get_lr(), dtype=torch.float32, device=dev)
-        new_params, new_states = self.functional_apply(
-            {k: p.detach() for k, p in live.items()},
-            {k: p.grad for k, p in live.items()},
-            {k: self._accumulators.get(k, {}) for k in live}, lr)
+        given = {k: p.detach() for k, p in live.items()}
+        regs = {k: p.regularizer for k, p in live.items()
+                if getattr(p, 'regularizer', None) is not None}
+        new_params, new_states = self._apply(
+            given, self._clip({k: p.grad for k, p in live.items()}),
+            {k: self._accumulators.get(k, {}) for k in live}, lr, regs)
         for k, p in live.items():
-            p.copy_(new_params[k])
+            if new_params[k] is not given[k]:
+                p.copy_(new_params[k])
         self._accumulators.update(new_states)
 
     def clear_grad(self, set_to_zero=True):
@@ -305,7 +365,7 @@ class AdamW(Adam):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision, name,
                          moment_dtype=moment_dtype)
-        self._coeff = float(weight_decay)
+        self._coeff = weight_decay_coeff(weight_decay) or 0.0
 
     def _decay_into_grad(self):
         return False
@@ -461,3 +521,172 @@ class DecayedAdagrad(Optimizer):
         m = self._decay * state['moment'] + (1 - self._decay) * grad * grad
         return param - lr * grad / (torch.sqrt(m) + self._epsilon), \
             {'moment': m}
+
+
+class DGCMomentumOptimizer(Momentum):
+    """Parity: fluid.optimizer.DGCMomentumOptimizer + dgc_op.cc (Deep
+    Gradient Compression, optimizer.py:441-486): the momentum-corrected
+    gradient accumulates in `v`; the entries at or above the sparsity
+    quantile of |v| are applied and cleared from `u` and `v`, the rest
+    wait. The sparsity steps through its list once every `rampup_step`
+    steps from `rampup_begin_step`; before it every entry is applied.
+    Per parameter (the quantile), so not elementwise."""
+
+    _elementwise = False
+
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 rampup_begin_step=0, rampup_step=1, sparsity=(0.999,),
+                 parameters=None, use_nesterov=False, weight_decay=None,
+                 grad_clip=None, name=None, **kwargs):
+        super().__init__(learning_rate, momentum, parameters, use_nesterov,
+                         weight_decay, grad_clip, name=name)
+        self._rampup_begin_step = float(rampup_begin_step)
+        self._rampup_step = max(1.0, float(rampup_step))
+        if not isinstance(sparsity, (list, tuple)):
+            sparsity = [sparsity]
+        self._sparsity_schedule = tuple(float(x) for x in sparsity)
+
+    def init_state(self, param):
+        return {'u': _zeros(param), 'v': _zeros(param),
+                'step': torch.zeros((), dtype=torch.float32,
+                                    device=param.device)}
+
+    def update(self, param, grad, state, lr):
+        step = state['step']
+        u = self._momentum * state['u'] + grad
+        corrected = grad + self._momentum * u if self._use_nesterov else u
+        v = state['v'] + corrected
+        sched = torch.tensor(self._sparsity_schedule, dtype=torch.float32,
+                             device=param.device)
+        idx = ((step - self._rampup_begin_step) / self._rampup_step).to(
+            torch.int32).clamp(0, len(self._sparsity_schedule) - 1)
+        thr = _quantile_linear(v.abs().reshape(-1), sched[idx.long()])
+        mask = (v.abs() >= thr).to(v.dtype)
+        ramping = step >= self._rampup_begin_step
+        mask = torch.where(ramping, mask, torch.ones_like(mask))
+        new_p = param - lr * (v * mask)
+        return new_p, {'u': u * (1 - mask), 'v': v * (1 - mask),
+                       'step': step + 1}
+
+
+def _quantile_linear(a, q):
+    """jnp.quantile(a, q) for a 1-D fp32 `a` and a 0-dim fp32 `q`, method
+    'linear', as jax computes it: q * (n - 1) in fp32, the sorted values
+    at its floor and ceiling weighted by (1 - frac, frac); NaN if `a`
+    holds one."""
+    srt = torch.sort(a).values
+    n = torch.tensor(float(a.numel()), dtype=torch.float32, device=a.device)
+    pos = q * (n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1 - hw
+    low = low.clamp(0, n - 1).long()
+    high = high.clamp(0, n - 1).long()
+    out = srt[low] * lw + srt[high] * hw
+    return torch.where(torch.isnan(a).any(),
+                       torch.full_like(out, float('nan')), out)
+
+
+class Lamb(Optimizer):
+    """Parity: operators/optimizers/lamb_op — Adam's moments with a
+    layerwise trust ratio ||w|| / ||r + decay w|| (optimizer.py:651-700);
+    per parameter (the norms), so not elementwise."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None, **kwargs):
+        if exclude_from_weight_decay_fn is not None:
+            raise _not_ported('exclude_from_weight_decay_fn', 'Lamb')
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lamb_decay = lamb_weight_decay
+
+    def init_state(self, param):
+        one = lambda: torch.ones((), dtype=torch.float32,
+                                 device=param.device)
+        return {'moment1': _zeros(param), 'moment2': _zeros(param),
+                'beta1_pow': one(), 'beta2_pow': one()}
+
+    def update(self, param, grad, state, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m1 = b1 * state['moment1'] + (1 - b1) * grad
+        m2 = b2 * state['moment2'] + (1 - b2) * grad * grad
+        b1p = state['beta1_pow'] * b1
+        b2p = state['beta2_pow'] * b2
+        r = (m1 / (1 - b1p)) / (torch.sqrt(m2 / (1 - b2p)) + eps)
+        upd = r + self._lamb_decay * param
+        w_norm = torch.sqrt(torch.sum(param * param))
+        u_norm = torch.sqrt(torch.sum(upd * upd))
+        trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
+                            torch.ones_like(w_norm))
+        new_p = param - lr * trust * upd
+        return new_p, {'moment1': m1, 'moment2': m2, 'beta1_pow': b1p,
+                       'beta2_pow': b2p}
+
+
+class Ftrl(Optimizer):
+    """Parity: operators/optimizers/ftrl_op — follow the regularized
+    leader (optimizer.py:754-782). Elementwise, so `jit.TrainStep` runs
+    it over flat buckets, but it has no update-kernel rule (not
+    `_pallas_fusible` in the reference either): its op chain runs."""
+
+    _elementwise = True
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, **kwargs):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def init_state(self, param):
+        return {'squared': _zeros(param), 'linear': _zeros(param)}
+
+    def update(self, param, grad, state, lr):
+        l1, l2, p = self._l1, self._l2, self._lr_power
+        n, z = state['squared'], state['linear']
+        n_new = n + grad * grad
+        sigma = (torch.pow(n_new, -p) - torch.pow(n, -p)) / lr
+        z_new = z + grad - sigma * param
+        new_p = torch.where(
+            torch.abs(z_new) <= l1, torch.zeros_like(param),
+            (torch.sign(z_new) * l1 - z_new)
+            / (torch.pow(n_new, -p) / lr + 2 * l2))
+        return new_p, {'squared': n_new, 'linear': z_new}
+
+
+class Lars(Momentum):
+    """Parity: operators/optimizers/lars_momentum_op (optimizer.py:785-
+    809): momentum on a layerwise local lr coeff * ||w|| / (||g|| +
+    decay ||w|| + eps); per parameter, so not elementwise."""
+
+    _elementwise = False
+
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 lars_coeff=0.001, lars_weight_decay=0.0005,
+                 parameters=None, grad_clip=None,
+                 exclude_from_weight_decay=None, epsilon=0, name=None,
+                 **kwargs):
+        if exclude_from_weight_decay is not None:
+            raise _not_ported('exclude_from_weight_decay', 'Lars')
+        super().__init__(learning_rate, momentum, parameters, False, None,
+                         grad_clip, name=name)
+        self._lars_coeff = lars_coeff
+        self._lars_decay = lars_weight_decay
+        self._lars_eps = epsilon
+
+    def update(self, param, grad, state, lr):
+        w_norm = torch.sqrt(torch.sum(param * param))
+        g_norm = torch.sqrt(torch.sum(grad * grad))
+        local_lr = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            self._lars_coeff * w_norm
+            / (g_norm + self._lars_decay * w_norm + self._lars_eps),
+            torch.ones_like(w_norm))
+        g = grad + self._lars_decay * param
+        v = self._momentum * state['velocity'] + lr * local_lr * g
+        return param - v, {'velocity': v}
+
+
+LarsMomentum = Lars

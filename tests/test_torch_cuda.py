@@ -22,7 +22,11 @@ each op rounded), bf16 outputs 99.9 % bit-equal and the rest within one
 bf16 ulp; the gradient sum of squares at rtol 1e-5 (summation order),
 its nonfinite count exact; dropout+residual bit-equal. The update's
 Adagrad, RMSProp, Adamax, Adadelta and DecayedAdagrad rules bit-equal to
-the plain chain (each op rounded in the same order on both sides). The
+the plain chain (each op rounded in the same order on both sides); the
+per-parameter route (`ParamUpdates`, every fusible rule, a loss-scale
+prefactor rounded back to the gradient's dtype) bit-equal to the plain
+chain over 3 steps, and the pipeline engine's loss-scaled fp32 steps
+bit-equal to its unscaled ones. The
 BHLD flash kernels (key bias, keep mask) at the flash bars above. The
 bf16 flash gradients (the tensor-core backward, which rounds P keep and
 dS to bf16 before the products that consume them) at FLASH_BF16_TC:
@@ -909,6 +913,98 @@ class TestOnCard:
         assert torch.equal(gp.view(torch.int16), p.view(torch.int16))
         for k, v in st.items():
             assert torch.equal(ns[k], v), k
+
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize('rule', ['sgd', 'momentum', 'adam', 'adamw',
+                                      'adamw_bf16_moments', 'adagrad',
+                                      'rmsprop_centered', 'adamax',
+                                      'adadelta', 'decayed_adagrad'])
+    def test_param_updates_match_the_plain_chain(self, cuda, rule, dtype):
+        """The per-parameter route: one launch a parameter, the step's
+        scalar block shared, the loss-scale prefactor rounded back to the
+        gradient's dtype; bit-equal to the plain chain over 3 steps (the
+        beta powers read where the last call left them)."""
+        mk = {'sgd': lambda: topt.SGD(0.1, weight_decay=0.01),
+              'momentum': lambda: topt.Momentum(0.05, weight_decay=1e-4),
+              'adam': lambda: topt.Adam(0.01, weight_decay=0.01),
+              'adamw': lambda: topt.AdamW(0.01),
+              'adamw_bf16_moments': lambda: topt.AdamW(
+                  0.01, moment_dtype='bfloat16', multi_precision=False),
+              'adagrad': lambda: topt.Adagrad(0.1, weight_decay=0.01),
+              'rmsprop_centered': lambda: topt.RMSProp(
+                  0.01, momentum=0.9, centered=True),
+              'adamax': lambda: topt.Adamax(0.01),
+              'adadelta': lambda: topt.Adadelta(0.5),
+              'decayed_adagrad': lambda: topt.DecayedAdagrad(0.05)}
+        opt = mk[rule]()
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        shapes = [(1000,), (64, 48), (4096 + 3,)]
+        ps = [torch.randn(sh, generator=gen, device=cuda).to(dtype)
+              for sh in shapes]
+        kp = [p.clone() for p in ps]
+        want_s = [{} for _ in ps]
+        got_s = [{} for _ in ps]
+        lr = torch.tensor(0.01, device=cuda)
+        pref = 1.0 / torch.tensor(2.0 ** 10, device=cuda)
+        for _ in range(3):
+            grads = [(2.0 ** 10 * torch.randn(sh, generator=gen,
+                                              device=cuda)).to(dtype)
+                     for sh in shapes]
+            _build.reset_launches()
+            upd = tfo.ParamUpdates(opt, lr, prefactor=pref)
+            for i, (p, g) in enumerate(zip(kp, grads)):
+                st = got_s[i] or opt.init_state(p)
+                _p, got_s[i] = upd(p, g, st)
+            assert _build.routes_snapshot()['optimizer_step'] == len(ps)
+            for i, (p, g) in enumerate(zip(ps, grads)):
+                st = want_s[i] or opt.init_state(p)
+                ps[i], want_s[i] = tfo.fused_shard_update_plain(
+                    opt, p, g, st, lr, prefactor=pref, round_prefactor=True)
+        for i in range(len(ps)):
+            assert torch.equal(kp[i], ps[i]), rule
+            assert set(got_s[i]) == set(want_s[i])
+            for k in want_s[i]:
+                assert torch.equal(got_s[i][k], want_s[i][k]), (rule, k)
+
+    def test_engine_loss_scale_on_card(self, cuda):
+        """SpmdPipelineEngine's loss-scaling path on the card: a scale of
+        2^10 leaves fp32 SGD bit-equal to the unscaled steps; each scaled
+        step launches the statistics and update kernels once a
+        parameter; a step at scale=inf skips the update bit for bit."""
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            spmd_pipeline as tsp)
+        cfg = tgpt_serve.GPTConfig(vocab_size=128, hidden_size=64,
+                                   num_layers=2, num_heads=2,
+                                   max_seq_len=64, hidden_dropout=0.0,
+                                   attn_dropout=0.0)
+        ids = np.random.RandomState(0).randint(0, 128, (4, 64)).astype(
+            'int32')
+        data = (ids, np.roll(ids, -1, 1).astype('int32'))
+
+        def engine():
+            triple = tgpt_serve.build_gpt_pipeline(
+                cfg, generator=torch.Generator().manual_seed(5))
+            return tsp.SpmdPipelineEngine(
+                *triple, topt.SGD(learning_rate=1e-2), accumulate_steps=2,
+                device=cuda)
+
+        plain, scaled = engine(), engine()
+        for _ in range(2):
+            plain.train_batch(data)
+        _build.reset_launches()
+        for _ in range(2):
+            scaled.train_batch(data, scale=1024.0)
+            assert not bool(scaled.last_found_inf)
+        n = len(scaled._named)
+        counts = _build.routes_snapshot()
+        assert counts['grad_stats'] == counts['optimizer_step'] == 2 * n
+        for (_, a), (_, b) in zip(plain._named, scaled._named):
+            assert torch.equal(a, b)
+        before = [p.detach().clone() for _, p in scaled._named]
+        scaled.train_batch(data, scale=float('inf'))
+        assert bool(scaled.last_found_inf)
+        for b, (_, p) in zip(before, scaled._named):
+            assert torch.equal(b, p)
 
     @pytest.mark.parametrize('shape', [(3, 5, 64), (16, 2048), (7, 37)])
     @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

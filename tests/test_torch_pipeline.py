@@ -277,7 +277,6 @@ REFUSED = {
     'comm-overlap': dict(comm_overlap=True),
     'prefetch-depth': dict(prefetch_depth=2),
     'comm-chunk': dict(comm_chunk=1024),
-    'device-lr': dict(device_lr=True),
     'grad-clip': dict(optimizer=topt.AdamW(
         learning_rate=LR, grad_clip=tnn.ClipGradByGlobalNorm(1.0))),
 }
@@ -304,15 +303,6 @@ def test_engine_takes_every_knob_at_its_default():
 def test_engine_rejects_bad_values(kw, match):
     with pytest.raises(ValueError, match=match):
         _port_engine(**kw)
-
-
-def test_engine_refuses_loss_scaling():
-    eng = _port_engine()
-    ids, labels = _batch(64)
-    with pytest.raises(NotImplementedError, match='amp'):
-        eng.train_batch((ids, labels), scale=1024.0)
-    with pytest.raises(NotImplementedError, match='amp'):
-        eng.train_step((ids, labels), scaler=object())
 
 
 @pytest.mark.parametrize('rows,label_rows,match', [

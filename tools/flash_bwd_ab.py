@@ -50,6 +50,15 @@ Modes (rows of PERF.md's kernel table):
             the floor of any launch (`floor_ms`); and the kernel's fp32
             error against the float64 formula over 2.2 M points (u in
             [-12, 12] and randn x 3).
+  --steps   the two per-parameter training legs whole: gpt_1p3b through
+            SpmdPipelineEngine in the bench's headline configuration
+            (chip_smoke.py's `pipeline`: bf16, AdamW with bf16 moments and
+            no master, A = 4 x 2 x 2048, 'full' remat) and through
+            TrainStep(use_buckets=False) at 8 x 2048 (chip_smoke.py's
+            `train`): a warm-up and 5 timed steps each (ms/step, MFU, peak
+            memory), and one profiled pipeline step (device busy, the
+            update's device time under the engine's UPDATE_RANGE beside
+            its 5.93 ms bytes bound, by this checkout's chip_smoke.py).
 Errors are the relative L2 error and the max |diff| over the RMS. One
 JSON line per tree.
 
@@ -60,6 +69,7 @@ JSON line per tree.
     python3 tools/flash_bwd_ab.py --stats A B B A
     python3 tools/flash_bwd_ab.py --norm-fwd A B B A
     python3 tools/flash_bwd_ab.py --bias-gelu A B B A
+    python3 tools/flash_bwd_ab.py --steps A B B A
 
 Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
 own process and builds its kernels into <tree>/build/paddle_tpu_torch.
@@ -405,10 +415,102 @@ def measure_bias_gelu(tree):
     return res
 
 
+def _timed_steps(torch, step, steps=5):
+    """(warm-up seconds, [seconds of each timed step]); each step ends in
+    a host fetch of its loss."""
+    import time
+    t0 = time.perf_counter()
+    float(step())
+    warm = time.perf_counter() - t0
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        float(step())
+        walls.append(time.perf_counter() - t0)
+    return warm, walls
+
+
+def measure_steps(tree):
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline as sp)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         build_gpt_pipeline, gpt_1p3b)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    smoke = _smoke()
+    res = {'tree': tree, 'card': torch.cuda.get_device_name(0)}
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    L, layers, A, mb = cfg.max_seq_len, cfg.num_layers, 4, 2
+
+    def adamw():
+        return AdamW(learning_rate=1e-4, weight_decay=0.01,
+                     multi_precision=False, moment_dtype='bfloat16')
+
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (A * mb, L)).astype('int32')
+    labels = np.roll(ids, -1, 1).astype('int32')
+    ids_t, labels_t = (torch.from_numpy(ids).cuda(),
+                       torch.from_numpy(labels).cuda())
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    triple = build_gpt_pipeline(cfg, device='cuda', dtype=torch.bfloat16,
+                                generator=gen)
+    n = sum(p.numel() for m in [triple[0], triple[2]] + triple[1]
+            for p in m.parameters())
+    eng = sp.SpmdPipelineEngine(*triple, adamw(), accumulate_steps=A,
+                                use_remat=True, schedule='1F1B',
+                                grad_accum_dtype='param')
+    torch.cuda.reset_peak_memory_stats()
+    warm, walls = _timed_steps(
+        torch, lambda: eng.train_batch((ids_t, labels_t)))
+    step_s = float(np.mean(walls))
+    flops = 6 * n * A * mb * L + 12 * layers * cfg.hidden_size * L * A * mb * L
+    prof = smoke.profile_train_step(
+        torch, lambda i, lab: eng.train_batch((i, lab)), ids_t, labels_t,
+        ranges=(sp.UPDATE_RANGE, sp.HEAD_RANGE))
+    res['pipeline'] = dict(
+        warmup_s=warm, step_s=walls, ms_per_step=1e3 * step_s,
+        mfu=flops / step_s / 1e12 / smoke.PEAK_BF16_TFLOPS,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        device_busy_s=prof['device_busy_s'],
+        profiled_step_wall_s=prof['profiled_step_wall_s'],
+        device_s_by_group=prof['device_s_by_group'],
+        device_s_other_split=prof['device_s_other_split'],
+        update_device_s=smoke.update_device_s(prof),
+        update_device_span_s=prof['device_span_s_of_range'].get(
+            sp.UPDATE_RANGE),
+        update_bound_ms=1e3 * n * smoke.UPDATE_BYTES
+        / smoke.HBM_BYTES_PER_S)
+    eng.shutdown()
+    del eng, triple
+    smoke.free_cuda(torch)
+
+    model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
+                           generator=gen)
+    step = TrainStep(model, lambda m, i, lab: GPTPretrainingCriterion()(
+        m(i), lab), adamw(), use_buckets=False)
+    B = A * mb
+    n = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    warm, walls = _timed_steps(torch, lambda: step(ids_t, labels_t))
+    step_s = float(np.mean(walls))
+    flops = 6 * n * B * L + 12 * layers * cfg.hidden_size * L * B * L
+    res['train'] = dict(
+        warmup_s=warm, step_s=walls, ms_per_step=1e3 * step_s,
+        mfu=flops / step_s / 1e12 / smoke.PEAK_BF16_TFLOPS,
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return res
+
+
 MODES = {'--bwd': measure_bwd, '--fwd': measure_fwd,
          '--paged': measure_paged, '--norm': measure_norm,
          '--stats': measure_stats, '--norm-fwd': measure_norm_fwd,
-         '--bias-gelu': measure_bias_gelu}
+         '--bias-gelu': measure_bias_gelu, '--steps': measure_steps}
 
 
 def main(argv):
