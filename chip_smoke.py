@@ -165,7 +165,37 @@ Phases, one JSON line each on stdout:
              against the plain product and hard cross-entropy, forward
              and backward (XENT_LOSS_RTOL, XENT_GRAD_REL_L2), with both
              times and peak memories.
-15. summary — the `kernels` line (all 16 kernels), the nvidia-smi line,
+15. bert    — the bench's BERT leg (bench.py:264-329): BERT-base
+             (vocab 30522, 12 x 768, 12 heads of 64, FFN 3072) at B = 64
+             x L = 512, bf16 with fp32 masters and moments, AdamW lr 1e-4
+             decay 0.01, dropouts 0, FLAGS_flash_min_seq 512, through
+             HybridParallelTrainStep on a ['dp', 'sharding'] = [1, 1]
+             mesh with the fused MLM loss. First the kernels at its
+             shapes (path 'bert'): the LayerNorm forward and backward at
+             [32768, 768], the bias+GELU forward and backward in the erf
+             form at [32768, 3072], the packed flash forward, dQ and
+             dK/dV at [64, 512, 12 x 64] non-causal (checked with and
+             without a key bias). Then a warm-up step and the bench's
+             windowed loop (10 train_step calls and a flush, 2 trials)
+             with exact launch counts a step (`bert_launches`), finite
+             falling losses; ms/step, samples/s, MFU, peak memory, a
+             profiled step's busy time split into GEMMs, port kernels,
+             the update and other, and the update (205 launches) checked
+             bit-equal to its plain chain and timed on copies.
+16. bert_check — the engine on the card against the CPU at BERT-base's
+             width with 2 layers in fp32, B = 2 x L = 512 (the flash
+             route), 3 steps: SGD with a 2-D attention mask (the key-bias
+             route) and AdamW with the global-norm clip; losses,
+             gradients and parameters within WHOLE_PATH_RTOL.
+17. dense_decode — gpt_1p3b at full width and depth in bf16 through
+             generate(use_cache=True): 8 prompts of 64 tokens, 64 greedy
+             tokens, with exact LayerNorm and bias+GELU launch counts at
+             the decode step's shapes; ms a forward step, new tokens/s.
+             At 2 layers in fp32 the cached tokens must equal
+             generate(use_cache=False)'s and generate_scan's.
+18. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
+             with `launches_bert` and their `bert_shape` times, rows 2
+             and 3 with `launches_dense_decode`), the nvidia-smi line,
              and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
@@ -647,17 +677,28 @@ def pair_over_library(rows, dq, dkv):
         rows[name]['pair_over_library'] = ratio
 
 
-def flash_check(torch, fa, randn, B, L, dtype, tol):
+def key_bias(torch, B, L, seed):
+    """A BERT padding mask's key bias [B, L] fp32: 0 on each row's kept
+    tokens, -1e9 on its last 0-127 (the attention_mask route)."""
+    pad = np.random.RandomState(seed).randint(0, 128, B)
+    keep = np.arange(L)[None, :] < (L - pad)[:, None]
+    return torch.from_numpy(np.where(keep, 0.0, -1e9).astype(
+        np.float32)).cuda()
+
+
+def flash_check(torch, fa, randn, B, L, dtype, tol, H=None, D=None,
+                causal=True, bias=None):
     """flash_attention_packed, forward and backward through its autograd
-    Function, causal, on [B, L, H*D] inputs of `dtype`, against the plain
-    forward and backward on the same inputs; the lse through the
+    Function, on [B, L, H*D] inputs of `dtype` (gpt_1p3b's heads unless
+    given; causal, or not with an optional [B, L] key bias), against the
+    plain forward and backward on the same inputs; the lse through the
     forward's dispatching entry. Returns {tensor: max |diff|}."""
-    H, D = HEADS, HEAD_DIM
+    H, D = H or HEADS, D or HEAD_DIM
     q, k, v, do = (randn(B, L, H * D, dtype=dtype) for _ in range(4))
-    kw = dict(num_heads=H, head_dim=D, bias=None, causal=True)
+    kw = dict(num_heads=H, head_dim=D, bias=bias, causal=causal)
     _o, lse = fa.flash_attention_packed_fwd(q, k, v, **kw)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    o = fa.flash_attention_packed(*leaves, H, D, causal=True)
+    o = fa.flash_attention_packed(*leaves, H, D, bias=bias, causal=causal)
     if o.grad_fn is None:
         raise AssertionError('flash_attention_packed: no grad_fn')
     o.backward(do)
@@ -670,9 +711,10 @@ def flash_check(torch, fa, randn, B, L, dtype, tol):
     return errs
 
 
-def norm_bwd_rows(torch, randn, rows, hidden, ffn):
+def norm_bwd_rows(torch, randn, rows, hidden, ffn, approximate=True):
     """The LayerNorm backward over the hidden size and the bias+GELU
-    backward over the ffn size at `rows` bf16 rows, each against its plain
+    backward over the ffn size at `rows` bf16 rows (GELU's tanh form, or
+    its erf form with approximate=False), each against its plain
     version, timed beside its library call."""
     from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
     from paddle_tpu_torch.ops.kernels import fused_norm as fn
@@ -707,8 +749,8 @@ def norm_bwd_rows(torch, randn, rows, hidden, ffn):
 
     x, dy = randn(rows, ffn), randn(rows, ffn)
     b = randn(ffn, scale=0.1)
-    dx, db = fe.bias_gelu_bwd(x, b, dy, True)
-    dx_p, db_p = fe.bias_gelu_bwd_plain(x, b, dy, True)
+    dx, db = fe.bias_gelu_bwd(x, b, dy, approximate)
+    dx_p, db_p = fe.bias_gelu_bwd_plain(x, b, dy, approximate)
     err = max(check_close('bias_gelu_bwd', dx, dx_p),
               check_close('fp32_sum', db, db_p))
     # x, dy read and dx written (bf16), b read, db written (fp32)
@@ -717,58 +759,62 @@ def norm_bwd_rows(torch, randn, rows, hidden, ffn):
     u = x + b
 
     def library_bias_gelu_bwd():
-        du = aten.gelu_backward(dy, u, approximate='tanh')
+        du = aten.gelu_backward(dy, u, approximate=(
+            'tanh' if approximate else 'none'))
         return du, du.sum(0, dtype=torch.float32)
 
     out['bias_gelu_bwd'] = dict(
-        shape=f'x, dy [{rows},{ffn}] bf16', max_abs_err=err,
-        ms=device_ms(torch, lambda: fe.bias_gelu_bwd(x, b, dy, True),
+        shape=f'x, dy [{rows},{ffn}] bf16'
+              + ('' if approximate else ', erf form'), max_abs_err=err,
+        ms=device_ms(torch, lambda: fe.bias_gelu_bwd(x, b, dy, approximate),
                      iters=20),
         plain_ms=loop_ms(torch, lambda: fe.bias_gelu_bwd_plain(
-            x, b, dy, True)),
+            x, b, dy, approximate)),
         library_ms=device_ms(torch, library_bias_gelu_bwd, iters=20),
         bound_ms=bms, bound_by=by)
     del x, dy, u, dx, dx_p
     return out
 
 
-def flash_rows(torch, F, randn, B, L, errs):
-    """The packed flash forward, dQ and dK/dV kernels at [B, L, H*D] bf16,
-    causal, timed beside their plain versions and SDPA; `errs` is
-    flash_check's result at that shape."""
+def flash_rows(torch, F, randn, B, L, errs, H=None, D=None, causal=True):
+    """The packed flash forward, dQ and dK/dV kernels at [B, L, H*D] bf16
+    (gpt_1p3b's heads, causal, unless given), timed beside their plain
+    versions and SDPA; `errs` is flash_check's result at that shape."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    H, D = HEADS, HEAD_DIM
+    H, D = H or HEADS, D or HEAD_DIM
     HD = H * D
     out = {}
     q, k, v, do = (randn(B, L, HD) for _ in range(4))
-    kw = dict(num_heads=H, head_dim=D, bias=None, causal=True)
+    kw = dict(num_heads=H, head_dim=D, bias=None, causal=causal)
     o, lse = fa.flash_attention_packed_fwd(q, k, v, **kw)
-    causal_mac = B * H * L * L * D / 2          # one product, causal half
+    # one product's multiply-adds: the causal half, or all of them
+    mac = B * H * L * L * D / (2 if causal else 1)
     io = 4 * B * L * HD * 2 + B * L * H * 4
-    bms, by = bound_ms(io, 4 * causal_mac, BF16_FLOPS)
+    bms, by = bound_ms(io, 4 * mac, BF16_FLOPS)
     qh, kh, vh, doh = (t.reshape(B, L, H, D).transpose(1, 2).contiguous()
                        for t in (q, k, v, do))
+    form = 'causal' if causal else 'non-causal'
     out['flash_fwd'] = dict(
-        shape=f'q, k, v [{B},{L},{HD}] bf16, H={H} D={D}, causal',
+        shape=f'q, k, v [{B},{L},{HD}] bf16, H={H} D={D}, {form}',
         max_abs_err=max(errs['o'], errs['lse']),
         ms=loop_ms(torch, lambda: fa.flash_attention_packed_fwd(q, k, v,
                                                                 **kw)),
         plain_ms=loop_ms(torch, lambda: fa.flash_attention_packed_plain(
             q, k, v, **kw), iters=2),
         library_ms=loop_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), iters=10),
-        library='SDPA is_causal on [B,H,L,D] copies',
+            qh, kh, vh, is_causal=causal), iters=10),
+        library=f'SDPA is_causal={causal} on [B,H,L,D] copies',
         bound_ms=bms, bound_by=by)
     over_library(out['flash_fwd'])
     # the two backward kernels timed apart (the Function's backward runs
     # both, after delta)
-    args = fa._bwd_args(q, k, v, do, H, D, None, True)
+    args = fa._bwd_args(q, k, v, do, H, D, None, causal)
     delta = fa.attention_delta(o, do, H, D).contiguous()
     plain_bwd_ms = loop_ms(torch, lambda: fa.flash_attention_packed_bwd_plain(
         q, k, v, o, lse, do, **kw), iters=2)
     qs, ks, vs = (t.detach().requires_grad_() for t in (qh, kh, vh))
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
     sdpa_bwd_ms = loop_ms(torch, lambda: torch.autograd.grad(
         sdpa, (qs, ks, vs), doh, retain_graph=True), iters=10)
     for name, err, n_products, fn_ in (
@@ -777,9 +823,9 @@ def flash_rows(torch, F, randn, B, L, errs):
             ('flash_bwd_dkv', max(errs['dk'], errs['dv']), 8,
              lambda: fa._dkv_kernel(q, k, v, None, do, lse, delta, args))):
         bms, by = bound_ms(io + B * L * HD * 2 + 2 * B * L * H * 4,
-                           n_products * causal_mac, BF16_FLOPS)
+                           n_products * mac, BF16_FLOPS)
         out[name] = dict(
-            shape=f'q, k, v, dO [{B},{L},{HD}] bf16, H={H} D={D}, causal',
+            shape=f'q, k, v, dO [{B},{L},{HD}] bf16, H={H} D={D}, {form}',
             max_abs_err=err, ms=loop_ms(torch, fn_),
             plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
             plain='one plain backward computes dQ, dK and dV',
@@ -2094,17 +2140,35 @@ def _rel(a, b, where=None):
     return float((a - b).norm()) / den if den else float(a.norm())
 
 
-def _compare(card_model, cpu_model, card_losses, cpu_losses, adam=False):
+def _compare(card_model, cpu_model, card_losses, cpu_losses, adam=False,
+             zero_grad=()):
     """Per-tensor relative L2 errors of the gradients and the updated
     parameters, card vs CPU. Under Adam every element steps by about lr
     whatever its gradient's size, so an element whose gradient is below
     the gradient check's own bar (WHOLE_PATH_RTOL of its tensor's RMS:
     rounding noise, e.g. the key part of the qkv bias, whose exact
     gradient is 0) may step either way; those elements are left out of
-    the parameter comparison and counted."""
+    the parameter comparison and counted. A tensor named in `zero_grad`
+    has an exact gradient of 0 (nn.MultiHeadAttention's key bias shifts
+    every score of a query alike, which the softmax cancels), so both
+    sides hold rounding noise: its gradient must stay under
+    WHOLE_PATH_RTOL of the largest gradient norm on each side, and it is
+    left out of the relative comparisons."""
     cpu_params = dict(cpu_model.named_parameters())
+    scale = max(float(p.grad.double().norm())
+                for p in cpu_params.values())
+    noise = {}
+    for n, p in card_model.named_parameters():
+        if n in zero_grad:
+            noise[n] = max(float(p.grad.double().norm()),
+                           float(cpu_params[n].grad.double().norm()))
+            if noise[n] > WHOLE_PATH_RTOL * scale:
+                raise AssertionError(f'{n}: gradient {noise[n]:.3g} is no '
+                                     f'rounding noise (scale {scale:.3g})')
     grad_err, param_err, skipped, total = {}, {}, 0, 0
     for n, p in card_model.named_parameters():
+        if n in zero_grad:
+            continue
         g_cpu = cpu_params[n].grad
         grad_err[n] = _rel(p.grad, g_cpu)
         where = None
@@ -2126,6 +2190,9 @@ def _compare(card_model, cpu_model, card_losses, cpu_losses, adam=False):
     if adam:
         out['param_elements_left_out'] = skipped
         out['param_elements'] = total
+    if zero_grad:
+        out['zero_grad_tensors_max_norm'] = max(noise.values())
+        out['largest_grad_norm'] = scale
     if not all(np.isfinite(card_losses)) or loss_err > WHOLE_PATH_RTOL \
             or grad_err[worst_g] > WHOLE_PATH_RTOL \
             or param_err[worst_p] > WHOLE_PATH_RTOL:
@@ -2238,24 +2305,26 @@ def whole_path_check(torch):
 
 
 PIPE_POLICY_STEPS = 3
-# the kernels the pipeline path never launches (dropout 0: the packed
-# flash route and no dropout+residual; no loss scale: no found-inf count)
-PIPELINE_UNUSED = (('paged_attention', 'paged_attention_int8', 'grad_stats',
-                    'dropout_add', 'dropout_add_bwd') + BHLD_KERNELS)
+def check_exact_launches(what, launches, want):
+    """Raises unless each kernel of `want` launched exactly that often
+    and every other kernel never; returns `want`."""
+    wrong = {k: (launches[k], n) for k, n in want.items()
+             if launches[k] != n}
+    stray = {k: n for k, n in launches.items() if k not in want and n}
+    if wrong or stray:
+        raise AssertionError(f'{what} launches (got, want) {wrong}; '
+                             f'kernels off the path launched {stray}')
+    return want
 
 
 def check_pipeline_launches(launches, steps, A, layers, policy):
     """Raises unless every training kernel launched exactly
-    `pipeline_launches` a step and the path's unused kernels never."""
-    want = {k: steps * n
-            for k, n in pipeline_launches(A, layers, policy).items()}
-    wrong = {k: (launches[k], n) for k, n in want.items()
-             if launches[k] != n}
-    stray = {k: launches[k] for k in PIPELINE_UNUSED if launches[k]}
-    if wrong or stray:
-        raise AssertionError(f'pipeline launches (got, want) {wrong}; '
-                             f'kernels off the path launched {stray}')
-    return want
+    `pipeline_launches` a step and every other kernel never (dropout 0:
+    the packed flash route and no dropout+residual; no loss scale: no
+    found-inf count)."""
+    return check_exact_launches('pipeline', launches, {
+        k: steps * n
+        for k, n in pipeline_launches(A, layers, policy).items()})
 
 
 def check_pipeline_tags(tags, steps, layers, policy):
@@ -2560,6 +2629,10 @@ def update_timings(torch, eng):
     sts = [{k: v.clone() for k, v in eng._states[n].items()}
            for n, _ in eng._named]
     opt = eng.optimizer
+    # the library call updates the fp32 masters where the states keep
+    # them (with fp32 copies of the gradients), else the parameters
+    lib_ps = [st.get('master', p) for p, st in zip(ps, sts)]
+    lib_gs = [g.to(p.dtype) for p, g in zip(lib_ps, gs)]
 
     def route():
         upd = FO.ParamUpdates(opt, lr)
@@ -2575,14 +2648,14 @@ def update_timings(torch, eng):
     steps = [torch.full((), 10.0, device='cuda') for _ in ps]
 
     def library():
-        torch._fused_adamw_(ps, gs, m1, m2, [], steps, lr=1e-4, beta1=0.9,
-                            beta2=0.999, weight_decay=0.01, eps=1e-8,
-                            amsgrad=False, maximize=False)
+        torch._fused_adamw_(lib_ps, lib_gs, m1, m2, [], steps, lr=1e-4,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01,
+                            eps=1e-8, amsgrad=False, maximize=False)
 
     out = {'route_ms': loop_ms(torch, route),
            'plain_ms': loop_ms(torch, plain, iters=2),
            'library_ms': loop_ms(torch, library)}
-    del ps, sts, m1, m2
+    del ps, sts, m1, m2, lib_ps, lib_gs
     return out
 
 
@@ -2978,6 +3051,413 @@ def linear_xent_row(torch, N, H, V):
     del out, f, p
 
 
+# ---------------------------------------------------------------------------
+# the BERT leg (bench.py:264-329, `bert_base_zero2_bf16`): BERT-base through
+# HybridParallelTrainStep on a ['dp', 'sharding'] = [1, 1] mesh
+# ---------------------------------------------------------------------------
+BERT_B, BERT_L, BERT_HEADS, BERT_HEAD_DIM = 64, 512, 12, 64
+BERT_HIDDEN, BERT_FFN, BERT_LAYERS, BERT_VOCAB = 768, 3072, 12, 30522
+BERT_ROWS = BERT_B * BERT_L
+BERT_TIMED, BERT_TRIALS = 10, 2          # bench.py:318-323: n = 10
+# the leg's update: bf16 p and g, fp32 master and moments (the kernel
+# reads g, master, m1, m2 and writes p, master, m1, m2)
+BERT_UPDATE_BYTES = 2 + 4 * 3 + 2 + 4 * 3
+BERT_KERNELS = TRAIN_KERNELS + ('optimizer_step',)
+
+
+def bert_params(layers):
+    """BertForPretraining's parameter tensors, each one update launch a
+    step: the embeddings' 5 (three tables and a LayerNorm), a block's 16
+    (q, k, v, out, linear1, linear2, norm1, norm2, each a weight and a
+    bias), the pooler's, the MLM transform's and its LayerNorm's, and the
+    NSP head's 2 each."""
+    return 5 + 16 * layers + 8
+
+
+def bert_launches(layers):
+    """Each kernel's launches in one HybridParallelTrainStep step of
+    BertForPretraining at hidden dropout 0 on the packed flash route
+    (L >= FLAGS_flash_min_seq, no mask), as the wrappers count them: a
+    LayerNorm forward each for the embeddings, two a block and the MLM
+    head's norm, and one backward each (2 launches a call: the kernel and
+    its column sum); a block's attention one packed flash forward, dQ and
+    dK/dV, its FFN one bias+GELU forward (erf form) and backward (2
+    launches a call); the MLM transform's GELU is the plain `F.gelu`, no
+    kernel; no remat; the update one launch a parameter. Every other
+    kernel launches 0 times."""
+    ln_calls = 2 * layers + 2
+    return {'layer_norm': ln_calls, 'bias_gelu': layers,
+            'flash_fwd': layers, 'flash_bwd_dq': layers,
+            'flash_bwd_dkv': layers, 'layer_norm_bwd': 2 * ln_calls,
+            'bias_gelu_bwd': 2 * layers,
+            'optimizer_step': bert_params(layers)}
+
+
+def bert_kernel_rows(torch, F):
+    """Rows 2-5 and 8-10 at the BERT leg's shapes, each against its plain
+    version and timed beside its bound and library call: the LayerNorm
+    forward (with mean and rstd) and backward at [32768, 768], the
+    bias+GELU forward and backward in the erf form at [32768, 3072]
+    (beside F.gelu(x + b) and gelu_backward + the bias sum), and the
+    packed flash forward, dQ and dK/dV at [64, 512, 12 x 64], non-causal,
+    checked with and without a key bias. Returns {kernel: row}."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_elementwise as fe
+    from paddle_tpu_torch.ops.kernels import fused_norm as fn
+
+    randn = make_randn(torch, 13)
+    aten = torch.ops.aten
+    rows = {}
+    n = BERT_HIDDEN
+    x = randn(BERT_ROWS, n)
+    w = 1.0 + randn(n, scale=0.1)
+    b = randn(n, scale=0.1)
+    y, mean, rstd = fn._fwd_kernel(x, w, b, 1e-12, True)
+    y_p, mean_p, rstd_p = fn.layer_norm_fwd_plain(x, w, b, 1e-12)
+    err = max(check_close('layer_norm', y, y_p),
+              check_close('fp32_sum', mean, mean_p),
+              check_close('fp32_sum', rstd, rstd_p))
+    bms, by = bound_ms(2 * BERT_ROWS * n * 2 + 2 * n * 2 + BERT_ROWS * 8,
+                       8 * BERT_ROWS * n, FP32_FLOPS)
+    rows['layer_norm'] = dict(
+        shape=f'x[{BERT_ROWS},{n}] bf16, mean/rstd out', max_abs_err=err,
+        ms=device_ms(torch, lambda: fn._fwd_kernel(x, w, b, 1e-12, True),
+                     iters=20),
+        plain_ms=loop_ms(torch, lambda: fn.layer_norm_fwd_plain(
+            x, w, b, 1e-12)),
+        library_ms=device_ms(torch, lambda: aten.native_layer_norm(
+            x, [n], w, b, 1e-12), iters=20),
+        bound_ms=bms, bound_by=by)
+    del x, y, y_p, mean, rstd, mean_p, rstd_p
+    x = randn(BERT_ROWS, BERT_FFN)
+    b = randn(BERT_FFN, scale=0.1)
+    err = check_close('bias_gelu', fe.bias_gelu(x, b, False),
+                      fe.bias_gelu_plain(x, b, False))
+    bms, by = bound_ms(2 * BERT_ROWS * BERT_FFN * 2 + BERT_FFN * 2,
+                       12 * BERT_ROWS * BERT_FFN, FP32_FLOPS)
+    rows['bias_gelu'] = dict(
+        shape=f'x[{BERT_ROWS},{BERT_FFN}] bf16, erf form', max_abs_err=err,
+        ms=device_ms(torch, lambda: fe.bias_gelu(x, b, False), iters=20),
+        plain_ms=loop_ms(torch, lambda: fe.bias_gelu_plain(x, b, False)),
+        library_ms=device_ms(torch, lambda: F.gelu(x + b), iters=20),
+        library='F.gelu(x + b), erf', bound_ms=bms, bound_by=by)
+    del x, b
+    free_cuda(torch)
+    rows.update(norm_bwd_rows(torch, randn, BERT_ROWS, BERT_HIDDEN,
+                              BERT_FFN, approximate=False))
+    free_cuda(torch)
+    B, L, H, D = BERT_B, BERT_L, BERT_HEADS, BERT_HEAD_DIM
+    checks = {'no bias': flash_check(torch, fa, randn, B, L, torch.bfloat16,
+                                     'flash_bf16', H, D, causal=False),
+              'key bias': flash_check(torch, fa, randn, B, L, torch.bfloat16,
+                                      'flash_bf16', H, D, causal=False,
+                                      bias=key_bias(torch, B, L, 3))}
+    free_cuda(torch)
+    rows.update(flash_rows(torch, F, randn, B, L, checks['no bias'], H, D,
+                           causal=False))
+    for name in PACKED_FLASH:
+        rows[name]['key_bias_check'] = checks['key bias']
+    free_cuda(torch)
+    for name, r in rows.items():
+        emit({'phase': 'kernel', 'name': name, 'path': 'bert', **r})
+    return rows
+
+
+def bert_model(torch, cfg, dtype, seed):
+    from paddle_tpu_torch.models import BertForPretraining
+
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    return BertForPretraining(cfg, device='cuda', dtype=dtype, generator=gen)
+
+
+def bert_loss(model, ids, mlm_labels, nsp_labels, attention_mask=None):
+    """bench.py:295-298: the fused MLM loss and the NSP loss."""
+    return model(ids, attention_mask=attention_mask,
+                 masked_lm_labels=mlm_labels,
+                 next_sentence_label=nsp_labels)
+
+
+def bert_update_check(torch, eng, lr):
+    """The leg's per-parameter update on copies of the engine's 205
+    parameters and states with the last step's gradients: the route
+    (`ParamUpdates`, one launch a parameter) bit-equal to its plain
+    chain on the card."""
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+
+    opt = eng.optimizer
+    differ = []
+    upd = FO.ParamUpdates(opt, lr)
+    for n, p in eng._named:
+        st = eng._states[n]
+        kp = p.detach().clone()
+        _p, ks = upd(kp, p.grad, {k: v.clone() for k, v in st.items()})
+        want_p, want_s = FO.fused_shard_update_plain(
+            opt, p.detach(), p.grad, st, lr, round_prefactor=True)
+        differ += [f'{n}:p'] if not torch.equal(kp, want_p) else []
+        differ += [f'{n}:{k}' for k in want_s
+                   if not torch.equal(ks[k], want_s[k])]
+    if differ:
+        raise AssertionError(f'bert: the per-parameter update differs from '
+                             f'its plain chain on the card: {differ[:8]}')
+    return {'bit_equal': True, 'tensors': len(eng._named)}
+
+
+def bert_phase(torch, card):
+    """BERT-base pretraining in the bench's configuration (bench.py:276-
+    303): vocab 30522, hidden 768, 12 layers of 12 heads, FFN 3072, B = 64
+    x L = 512, bf16 parameters with fp32 masters and moments, AdamW lr
+    1e-4 decay 0.01, dropouts 0, FLAGS_flash_min_seq 512, on a ['dp',
+    'sharding'] = [1, 1] mesh through HybridParallelTrainStep with the
+    fused MLM loss; labels = ids, NSP labels from RandomState(0). A
+    warm-up step, then the bench's windowed loop (train_step x 10, then
+    flush; 2 trials, the best kept) with exact launch counts; a profiled
+    step; the update checked and timed on copies."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.distributed import topology_runtime
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        hybrid_engine as he)
+    from paddle_tpu_torch.models import BertConfig
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW
+
+    min_seq = flags.get_flags('FLAGS_flash_min_seq')
+    flags.set_flags({'FLAGS_flash_min_seq': 512})
+    topology_runtime.build_mesh(['dp', 'sharding'], [1, 1])
+    cfg = BertConfig(vocab_size=BERT_VOCAB, hidden_size=BERT_HIDDEN,
+                     num_layers=BERT_LAYERS, num_heads=BERT_HEADS,
+                     intermediate_size=BERT_FFN, max_seq_len=BERT_L,
+                     hidden_dropout=0.0, attn_dropout=0.0)
+    t0 = time.perf_counter()
+    model = bert_model(torch, cfg, torch.bfloat16, 4321)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+    eng = he.HybridParallelTrainStep(model, bert_loss, opt)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (BERT_B, BERT_L)).astype('int32')
+    mlm = ids.astype('int64')
+    nsp = rng.randint(0, 2, (BERT_B,)).astype('int64')
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(eng(ids, mlm, nsp))
+    warm_s = time.perf_counter() - t0
+    _build.reset_launches()
+    trials, losses = [], []
+    for _ in range(BERT_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = [eng.train_step(ids, mlm, nsp) for _ in range(BERT_TIMED)]
+        eng.flush()
+        trials.append((time.perf_counter() - t0) / BERT_TIMED)
+        losses += [float(r) for r in results]
+    launches = _build.routes_snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f'bert: non-finite loss {[warm] + losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'bert: loss did not fall: {losses}')
+    if n_tensors != bert_params(BERT_LAYERS):
+        raise AssertionError(f'bert: {n_tensors} parameter tensors')
+    want = check_exact_launches('bert', launches, {
+        k: BERT_TIMED * BERT_TRIALS * n
+        for k, n in bert_launches(BERT_LAYERS).items()})
+    step_s = min(trials)
+    tokens = BERT_B * BERT_L
+    flops = 6 * n_params * tokens + \
+        12 * cfg.num_layers * cfg.hidden_size * BERT_L * tokens
+    nsp_t = torch.from_numpy(nsp).cuda()
+    prof = profile_train_step(
+        torch, lambda i, lab: eng(i, lab, nsp_t),
+        torch.from_numpy(ids).cuda(), torch.from_numpy(mlm).cuda(),
+        ranges=(he.UPDATE_RANGE, 'no head range'))
+    update_bytes = n_params * BERT_UPDATE_BYTES
+    update = {'device_s': update_device_s(prof),
+              'device_span_s': prof['device_span_s_of_range'].get(
+                  he.UPDATE_RANGE),
+              'bytes': update_bytes,
+              'bound_ms': 1e3 * update_bytes / HBM_BYTES_PER_S,
+              'bound_by': 'bytes', 'launches_per_step': n_tensors,
+              **bert_update_check(torch, eng, torch.tensor(
+                  1e-4, device='cuda')),
+              **update_timings(torch, eng)}
+    groups = prof['device_s_by_group']
+    emit({'phase': 'bert', 'card': card, 'model': 'BERT-base',
+          'layers': cfg.num_layers, 'hidden': cfg.hidden_size,
+          'heads': cfg.num_heads, 'ffn': cfg.intermediate_size,
+          'vocab': cfg.vocab_size, 'params': n_params,
+          'param_tensors': n_tensors, 'batch': BERT_B, 'seq_len': BERT_L,
+          'engine': "HybridParallelTrainStep, mesh ['dp', 'sharding'] = "
+                    "[1, 1]",
+          'optimizer': 'AdamW lr 1e-4 wd 0.01, fp32 master and moments',
+          'model_build_s': build_s, 'warmup_step_s': warm_s,
+          'warmup_loss': warm, 'losses': losses, 'trial_step_s': trials,
+          'ms_per_step': 1e3 * step_s, 'samples_per_sec': BERT_B / step_s,
+          'tokens_per_sec': tokens / step_s,
+          'model_flops_per_step': flops,
+          'model_tflops': flops / step_s / 1e12,
+          'mfu': flops / step_s / 1e12 / PEAK_BF16_TFLOPS,
+          'peak_memory_bytes': peak, 'launches': launches,
+          'launches_per_step': {k: n / (BERT_TIMED * BERT_TRIALS)
+                                for k, n in want.items()},
+          'busy_split': {
+              'gemm': groups['gemm'], 'port_kernels': groups['port_kernels'],
+              'update': update['device_s'],
+              'other': groups['other'] + groups['grad_stats']
+              - prof['device_s_other_split']['optimizer']},
+          'update': update, **prof})
+    eng.shutdown()
+    flags.set_flags(min_seq)
+    # row 15 at the leg's shapes: its kernels' device time in the
+    # profiled step, bit-equal to the plain chain (max_abs_err 0)
+    row = dict(shape=f'{n_tensors} tensors, {n_params} elements, bf16 p '
+                     f'and g, fp32 master and moments',
+               max_abs_err=0.0, ms=1e3 * update['device_s'],
+               plain_ms=update['plain_ms'], bound_ms=update['bound_ms'],
+               bound_by='bytes', library_ms=update['library_ms'])
+    return launches, row
+
+
+BERT_CHECK_LAYERS, BERT_CHECK_B, BERT_CHECK_STEPS = 2, 2, 3
+
+
+def bert_check(torch):
+    """HybridParallelTrainStep on the card against the CPU: BERT-base's
+    width with 2 layers in fp32 (TF32 off), B = 2 x L = 512 (the flash
+    route at FLAGS_flash_min_seq 512: the fp32 CUDA-core bodies), 3 steps
+    from the same weights: (a) SGD with a 2-D attention_mask that pads
+    each row's last tokens (the key-bias route); (b) AdamW with
+    ClipGradByGlobalNorm(1.0), no mask. Losses, the last step's gradients
+    and the parameters within WHOLE_PATH_RTOL."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.distributed import topology_runtime
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        hybrid_engine as he)
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    min_seq = flags.get_flags('FLAGS_flash_min_seq')
+    flags.set_flags({'FLAGS_flash_min_seq': 512})
+    topology_runtime.build_mesh(['dp', 'sharding'], [1, 1])
+    cfg = BertConfig(vocab_size=BERT_VOCAB, hidden_size=BERT_HIDDEN,
+                     num_layers=BERT_CHECK_LAYERS, num_heads=BERT_HEADS,
+                     intermediate_size=BERT_FFN, max_seq_len=BERT_L,
+                     hidden_dropout=0.0, attn_dropout=0.0)
+    rng = np.random.RandomState(1)
+    B, L = BERT_CHECK_B, BERT_L
+    ids = rng.randint(0, cfg.vocab_size, (B, L)).astype('int64')
+    nsp = rng.randint(0, 2, (B,)).astype('int64')
+    mask = (np.arange(L)[None, :] < np.array([L - 37, L - 100])[:, None]
+            ).astype('int64')
+    out = {}
+    for case, make, with_mask, adam in (
+            ('sgd_attention_mask', lambda: SGD(learning_rate=1e-2), True,
+             False),
+            ('adamw_global_norm_clip', lambda: AdamW(
+                learning_rate=1e-4, weight_decay=0.01,
+                grad_clip=pnn.ClipGradByGlobalNorm(1.0)), False, True)):
+        card_model = bert_model(torch, cfg, torch.float32, 99)
+        with torch.device('meta'):
+            cpu_model = BertForPretraining(cfg)
+        cpu_model = cpu_model.to_empty(device='cpu')
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   card_model.state_dict().items()})
+        batch = (ids, ids, nsp) + ((mask,) if with_mask else ())
+        losses = {}
+        _build.reset_launches()
+        for label, model, dev in (('card', card_model, None),
+                                  ('cpu', cpu_model, 'cpu')):
+            eng = he.HybridParallelTrainStep(model, bert_loss, make(),
+                                             device=dev)
+            losses[label] = [float(eng(*batch))
+                             for _ in range(BERT_CHECK_STEPS)]
+            eng.shutdown()
+        check_exact_launches(f'bert_check {case}',
+                             _build.routes_snapshot(), {
+                                 k: BERT_CHECK_STEPS * n for k, n in
+                                 bert_launches(BERT_CHECK_LAYERS).items()})
+        out[case] = _compare(
+            card_model, cpu_model, losses['card'], losses['cpu'], adam=adam,
+            zero_grad={n for n, _ in card_model.named_parameters()
+                       if n.endswith('self_attn.k_proj.bias')})
+        del card_model, cpu_model
+        free_cuda(torch)
+    flags.set_flags(min_seq)
+    emit({'phase': 'bert_check', 'layers': BERT_CHECK_LAYERS,
+          'hidden': BERT_HIDDEN, 'batch': B, 'seq_len': L,
+          'dtype': 'float32', 'steps': BERT_CHECK_STEPS, 'cases': out})
+
+
+DECODE_B, DECODE_PROMPT, DECODE_NEW = 8, 64, 64
+
+
+def decode_launches(layers, steps):
+    """The LayerNorm and bias+GELU forwards of `steps` dense-cache decode
+    steps of GPT: two LayerNorms a block and the final one, one bias+GELU
+    (tanh form) a block."""
+    return {'layer_norm': steps * (2 * layers + 1),
+            'bias_gelu': steps * layers}
+
+
+def dense_decode_phase(torch, card):
+    """GPT's dense-cache decode. (a) gpt_1p3b at full width and depth,
+    bf16: generate(use_cache=True) of 8 prompts of 64 tokens, 64 greedy
+    tokens, timed, with exact LayerNorm and bias+GELU launch counts at the
+    decode step's shapes ([8, 2048], [8, 8192]). (b) 2 layers at the same
+    width in fp32: the cached tokens equal generate(use_cache=False)'s and
+    generate_scan's."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.ops.kernels import _build
+
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0)
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
+                           generator=gen)
+    prompts = np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (DECODE_B, DECODE_PROMPT))
+    model.generate(prompts[:, :8], max_new_tokens=4)          # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    toks = model.generate(prompts, max_new_tokens=DECODE_NEW)
+    wall = time.perf_counter() - t0
+    launches = _build.routes_snapshot()
+    steps = DECODE_PROMPT + DECODE_NEW            # one forward a position
+    check_exact_launches('dense_decode', launches,
+                         decode_launches(cfg.num_layers, steps))
+    if tuple(toks.shape) != (DECODE_B, DECODE_PROMPT + DECODE_NEW) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f'dense_decode: bad tokens {toks.shape}')
+    del model
+    free_cuda(torch)
+
+    cfg.num_layers = 2
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    small = GPTForCausalLM(cfg, device='cuda', dtype=torch.float32,
+                           generator=gen)
+    cached = small.generate(prompts, max_new_tokens=DECODE_NEW)
+    uncached = small.generate(prompts, max_new_tokens=DECODE_NEW,
+                              use_cache=False)
+    scan = small.generate_scan(prompts, max_new_tokens=DECODE_NEW)
+    same = {'uncached': bool(torch.equal(cached.long(), uncached.long())),
+            'generate_scan': bool(torch.equal(cached.long(), scan.long()))}
+    if not all(same.values()):
+        raise AssertionError(f'dense_decode: cached tokens differ {same}')
+    del small
+    free_cuda(torch)
+    emit({'phase': 'dense_decode', 'card': card, 'model': 'gpt_1p3b',
+          'layers': 24, 'batch': DECODE_B, 'prompt': DECODE_PROMPT,
+          'new_tokens': DECODE_NEW, 'dtype': 'bfloat16', 'wall_s': wall,
+          'forward_steps': steps, 'ms_per_step': 1e3 * wall / steps,
+          'new_tokens_per_sec': DECODE_B * DECODE_NEW / wall,
+          'launches': launches,
+          'fp32_2_layers_tokens_equal': same})
+    return launches
+
+
 # the port's kernels by the device-side names the profiler shows (a name
 # holds one of the row's strings); the column sum is the second pass of
 # both backward reductions, the merge kernel the paged attention's; the
@@ -3054,7 +3534,8 @@ def _split_other(events, update_range, head_range):
             p = p.cpu_parent
         where = 'optimizer' if update_range in names else (
             'cross_entropy' if head_range in names
-            or any('_HardXentBackward' in n for n in names) else None)
+            or any('_HardXentBackward' in n or '_LinearXentBackward' in n
+                   for n in names) else None)
         for k in e.kernels:
             if _kernel_group(k.name)[0] != 'other':
                 continue
@@ -3222,6 +3703,18 @@ def main():
     pipeline_amp_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     linear_xent_check(torch)
+    free_cuda(torch)
+    linear_xent_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bert_rows = bert_kernel_rows(torch, F)
+    bert_launches_run, bert_rows['optimizer_step'] = bert_phase(torch, card)
+    free_cuda(torch)
+    bert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bert_check(torch)
+    bert_check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode_launches_run = dense_decode_phase(torch, card)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'train': train_s, 'optimizer_kernels': opt_kernel_s,
@@ -3229,7 +3722,9 @@ def main():
           'check': check_s, 'pipeline': pipeline_s,
           'pipeline_check': pipeline_check_s,
           'update_route': update_route_s, 'pipeline_amp': pipeline_amp_s,
-          'linear_xent': time.perf_counter() - t0})
+          'linear_xent': linear_xent_s, 'bert': bert_s,
+          'bert_check': bert_check_s,
+          'dense_decode': time.perf_counter() - t0})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -3284,6 +3779,16 @@ def main():
             # loss-scaled pipeline steps' found-inf counts and updates
             entry['launches_train'] = train_launches[name]
             entry['launches_pipeline_amp'] = amp_launches[name]
+        if name in BERT_KERNELS:
+            # the BERT leg's timed steps, and the kernel at its shapes
+            entry['launches_bert'] = bert_launches_run[name]
+            if name in bert_rows:
+                bert = bert_rows[name]
+                entry['bert_shape'] = {k: bert[k] for k in (
+                    'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                    'bound_by', 'library_ms')}
+        if name in ('layer_norm', 'bias_gelu'):
+            entry['launches_dense_decode'] = decode_launches_run[name]
         if name == 'optimizer_step':
             entry['rules'] = row['rules']
         if name == 'grad_stats':

@@ -17,9 +17,20 @@ the attention probabilities (gpt.py:168-171, 185-189): on the flash
 route through the dropout-fused BHLD flash kernels, on the dense route
 on the probabilities in the activations' dtype. The masks are drawn in
 the reference's order: the embedding first, then per layer the
-attention probabilities, the attention join and the MLP join. The
-dense-cache decode forward (`forward(caches=...)`) is not ported and
-raises NotImplementedError.
+attention probabilities, the attention join and the MLP join.
+
+Dense-cache decode (`forward(caches=..., cache_len=...)`, gpt.py:223,
+:416, :459): each layer keeps a fixed-size [B, nh, max_len, hd] K/V
+cache; a step writes its token's K/V at `cache_len` (in place, where the
+reference donates the cache) and attends over the whole cache with
+-1e9 beyond `cache_len`, the scores in fp32 and the probabilities in the
+activations' dtype. `GPTForCausalLM.generate` (:512) decodes greedily or
+by top-k sampling on the host (`_sample_next`, :500), on that cache or,
+for `use_cache=False` or a prompt plus `max_new_tokens` beyond
+`max_seq_len`, by re-running the uncached forward over a sliding window;
+`generate_scan` (:584) runs the prefill and the decode loop on the
+device with one host fetch at the end. The LayerNorm and bias+GELU
+kernels run at the decode step's shapes.
 
 Parameter names and layouts are paddle's, so `models/convert.py` copies
 the JAX package's weights without renaming: Linear weights are [in,
@@ -30,12 +41,14 @@ not.
 """
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import nn as pnn
 from ..amp import uncast
 from ..core import rng
+from ..device import resolve_device
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding)
@@ -82,12 +95,6 @@ def gpt_medium(**kw):  # 350M
 def gpt_1p3b(**kw):  # GPT-3 1.3B
     return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
                      max_seq_len=2048, **kw)
-
-
-def _dense_cache_forward():
-    return NotImplementedError(
-        'the dense-cache GPT decode forward is not ported yet (serving '
-        'runs forward_paged over the paged KV pool)')
 
 
 def _normal_(w, std, generator):
@@ -147,10 +154,45 @@ class GPTAttention(nn.Module):
         the flash route at L >= 512 when use_flash_attention, the dense
         route otherwise. In training with attention dropout > 0 the
         flash route is the dropout-fused BHLD one, its keep mask drawn
-        from the bound generator; at eval or dropout 0 the packed one."""
+        from the bound generator; at eval or dropout 0 the packed one.
+        With a `cache` (k, v) [B, nh, max_len, hd]: one decode step
+        (`_forward_cached`), returning (out, cache)."""
         if cache is not None:
-            raise _dense_cache_forward()
+            return self._forward_cached(x, cache, cache_len)
         return self.project_out(self.attend(self.project_qkv(x)))
+
+    def _forward_cached(self, x, cache, cache_len):
+        """x [B, L, H] at positions cache_len.. (L = 1 in a decode step):
+        writes the tokens' K/V into the cache at `cache_len` and attends
+        over the whole cache, keys beyond `cache_len` at -1e9 (gpt.py:223).
+        Returns (out, (k_cache, v_cache)), the cache updated in place."""
+        B, L, _ = x.shape
+        qkv = self.qkv_proj(x)
+        hd = self.head_dim
+        nh = qkv.shape[-1] // (3 * hd)
+        k_cache, v_cache = cache
+        ctx = self._cached_attention(qkv, k_cache, v_cache, int(cache_len),
+                                     B, L, nh, hd)
+        return self.out_proj(ctx), (k_cache, v_cache)
+
+    @staticmethod
+    @uncast
+    def _cached_attention(qkv, k_cache, v_cache, pos, B, L, nh, hd):
+        """The reference's `cached_attention` op: the cache write, fp32
+        scores over the whole cache, softmax, the probabilities in qkv's
+        dtype against V."""
+        x5 = qkv.reshape(B, L, nh, 3, hd)
+        q, k, v = (t.transpose(1, 2) for t in x5.unbind(3))   # B, nh, L, hd
+        k_cache[:, :, pos:pos + L] = k.to(k_cache.dtype)
+        v_cache[:, :, pos:pos + L] = v.to(v_cache.dtype)
+        scores = torch.matmul(q.float(), k_cache.float().transpose(-1, -2))
+        scores = scores * (1.0 / math.sqrt(hd))
+        idx = torch.arange(k_cache.shape[2], device=qkv.device)
+        scores = torch.where(idx <= pos, scores,
+                             torch.full((), -1e9, device=qkv.device))
+        probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+        o = torch.matmul(probs, v_cache.to(qkv.dtype))
+        return o.transpose(1, 2).reshape(B, L, nh * hd)
 
     # the three stretches between the remat boundary tags (gpt.py:159,
     # :219-220); the decoder layer runs each through `remat.segment`
@@ -293,9 +335,14 @@ class GPTDecoderLayer(nn.Module):
         """x + attn(ln1(x)), then + mlp(ln2(.)), cut at the remat boundary
         tags into stretches run through `remat.segment`: checkpoints of
         their own under the 'attn_mlp_boundaries' policy, plain calls
-        otherwise."""
+        otherwise. With a `cache`: one dense-cache decode step, returning
+        (x, cache)."""
         if cache is not None:
-            raise _dense_cache_forward()
+            a, new_cache = self.attn(self.ln1(x), cache=cache,
+                                     cache_len=cache_len)
+            x = self._join(a, x)
+            x = self._join(self.mlp(self.ln2(x)), x)
+            return x, new_cache
         seg = _remat_segment
         qkv = seg(self._attn_in, x)
         a = seg(self.attn.project_out, seg(self.attn.attend, qkv))
@@ -333,13 +380,32 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_len=None):
         """Hidden states [B, L, H] after the final norm (gpt.py:416-444,
-        without sequence parallelism)."""
-        if caches is not None:
-            raise _dense_cache_forward()
+        without sequence parallelism); with `caches` (one (k, v) a layer,
+        `init_caches`), (hidden, caches) of a decode step at
+        `cache_len`."""
         x = self.embeddings(input_ids, position_ids)
+        if caches is not None:
+            new_caches = []
+            for layer, c in zip(self.layers, caches):
+                x, nc = layer(x, cache=c, cache_len=cache_len)
+                new_caches.append(nc)
+            return self.final_norm(x), new_caches
         for layer in self.layers:
             x = layer(x)
         return self.final_norm(x)
+
+    def init_caches(self, batch, max_len, dtype=None):
+        """One zero (k, v) pair [batch, nh, max_len, hd] a layer, in the
+        word embedding's dtype unless `dtype` is given, on its device
+        (gpt.py:459)."""
+        cfg = self.config
+        hd = cfg.hidden_size // cfg.num_heads
+        nh = self.layers[0].attn.local_heads
+        w = self.embeddings.word_embeddings.weight
+        kw = dict(dtype=dtype or w.dtype, device=w.device)
+        return [(torch.zeros(batch, nh, max_len, hd, **kw),
+                 torch.zeros(batch, nh, max_len, hd, **kw))
+                for _ in range(cfg.num_layers)]
 
     def forward_paged(self, input_ids, position_ids, kv_list, page_tables,
                       seq_lens, q_lens):
@@ -380,6 +446,160 @@ class GPTForCausalLM(nn.Module):
         w = self.gpt.embeddings.word_embeddings.weight
         return torch.matmul(hidden, w.t())
 
+    # -- dense-cache and uncached decode (gpt.py:500-719) --------------------
+    @staticmethod
+    def _sample_next(step_logits, temperature, top_k):
+        """The next token of each row from host logits [B, V] (numpy):
+        the argmax of logits / temperature, or a draw from the top_k
+        largest by numpy's global generator (gpt.py:500)."""
+        step = step_logits / max(temperature, 1e-6)
+        if top_k and top_k > 0:
+            kth = np.sort(step, axis=-1)[:, -top_k][:, None]
+            z = np.where(step < kth, -1e30, step)
+            z = z - z.max(-1, keepdims=True)
+            p = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
+            return np.asarray([np.random.choice(p.shape[-1], p=row)
+                               for row in p])
+        return step.argmax(-1)
+
+    def _decode_step(self, tokens, pos, caches):
+        """Logits [B, V] of `tokens` [B, 1] at position `pos` over the
+        dense caches (updated in place)."""
+        pos_ids = torch.full((1,), pos, dtype=torch.long,
+                             device=tokens.device)
+        h, caches = self.gpt(tokens, pos_ids, caches=caches, cache_len=pos)
+        w = self.gpt.embeddings.word_embeddings.weight
+        return torch.matmul(h, w.t())[:, -1, :]
+
+    def _on(self, device):
+        dev = resolve_device(device)
+        self.to(dev)
+        return dev
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, eos_token_id=None, use_cache=True, device=None):
+        """Greedy (top_k 0) or top-k sampled decode of `input_ids` [B, L0]
+        (gpt.py:512): over the dense K/V caches, or, for use_cache=False
+        or L0 + max_new_tokens beyond max_seq_len, re-running the uncached
+        forward over the last max_seq_len tokens each step. With
+        `eos_token_id` it stops once every row has emitted it (rows that
+        finished keep emitting until then). Returns the [B, L0 + new]
+        token ids as a CPU tensor. Runs on `device`, the card unless the
+        caller passes device='cpu' (the model is moved there)."""
+        dev = self._on(device)
+        ids = np.asarray(input_ids.cpu() if isinstance(
+            input_ids, torch.Tensor) else input_ids)
+        if use_cache and ids.shape[-1] + max_new_tokens \
+                <= self.config.max_seq_len:
+            return self._generate_cached(ids, max_new_tokens, temperature,
+                                         top_k, eos_token_id, dev)
+        done = np.zeros(ids.shape[0], bool)
+        with torch.no_grad():
+            for _ in range(max_new_tokens):
+                window = ids[:, -self.config.max_seq_len:]
+                logits = self(torch.from_numpy(
+                    window.astype('int32')).to(dev))
+                nxt = self._sample_next(_host(logits[:, -1, :]),
+                                        temperature, top_k)
+                ids = np.concatenate([ids, nxt[:, None]], axis=1)
+                if eos_token_id is not None:
+                    done |= (nxt == eos_token_id)
+                    if done.all():
+                        break
+        return torch.from_numpy(ids)
+
+    def _generate_cached(self, ids, max_new_tokens, temperature, top_k,
+                         eos_token_id, dev):
+        """gpt.py:664: the prompt fed token by token through the caches,
+        then one decode step a new token. Greedy rows take the argmax on
+        the device, and only the tokens reach the host (each step with
+        `eos_token_id`, at the end without); a top-k draw fetches the
+        logits each step, as the reference does."""
+        ids = ids.astype('int32')
+        B, L0 = ids.shape
+        max_len = min(self.config.max_seq_len, L0 + max_new_tokens)
+        was_training = self.training
+        self.eval()
+        greedy = not (top_k and top_k > 0)
+        with torch.no_grad():
+            caches = self.gpt.init_caches(B, max_len)
+            prompt = torch.from_numpy(ids).to(dev)
+            last = None
+            for t in range(L0):
+                last = self._decode_step(prompt[:, t:t + 1], t, caches)
+            out = [prompt]
+            done = np.zeros(B, bool)
+            for i in range(max_new_tokens):
+                pos = L0 + i
+                if pos >= max_len:
+                    break
+                if greedy:
+                    nxt = (last / max(temperature, 1e-6)).argmax(-1).to(
+                        torch.int32)
+                else:
+                    nxt = torch.from_numpy(self._sample_next(
+                        _host(last), temperature, top_k).astype('int32')
+                    ).to(dev)
+                out.append(nxt[:, None])
+                if eos_token_id is not None:
+                    done |= (_host(nxt) == eos_token_id)
+                    if done.all():
+                        break
+                last = self._decode_step(nxt[:, None], pos, caches)
+            tokens = torch.cat(out, dim=1).cpu()
+        if was_training:
+            self.train()
+        return tokens
+
+    def generate_scan(self, input_ids, max_new_tokens=32, temperature=1.0,
+                      top_k=0, seed=0, device=None):
+        """The whole generation on the device with one host fetch at the
+        end (gpt.py:584): the prompt through the caches token by token,
+        then max_new_tokens decode steps, greedy (top_k 0) or a top-k
+        draw from a `torch.Generator` seeded from `seed` (JAX's threefry
+        stream cannot be matched). Returns [B, L0 + max_new_tokens] token
+        ids as a CPU tensor; raises ValueError beyond max_seq_len."""
+        dev = self._on(device)
+        ids = np.asarray(input_ids.cpu() if isinstance(
+            input_ids, torch.Tensor) else input_ids).astype('int32')
+        B, L0 = ids.shape
+        max_len = L0 + max_new_tokens
+        if max_len > self.config.max_seq_len:
+            raise ValueError(
+                f'prompt({L0}) + max_new_tokens({max_new_tokens}) exceeds '
+                f'max_seq_len({self.config.max_seq_len})')
+        was_training = self.training
+        self.eval()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        with torch.no_grad():
+            caches = self.gpt.init_caches(B, max_len)
+            prompt = torch.from_numpy(ids).to(dev)
+            for t in range(L0):
+                last = self._decode_step(prompt[:, t:t + 1], t, caches)
+            toks = []
+            for i in range(max_new_tokens):
+                scaled = last / max(temperature, 1e-6)
+                if top_k and top_k > 0:
+                    kth = scaled.sort(-1).values[:, -top_k][:, None]
+                    scaled = torch.where(scaled < kth,
+                                         torch.full_like(scaled, -1e30),
+                                         scaled)
+                    probs = torch.softmax(scaled.float(), dim=-1)
+                    nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+                else:
+                    nxt = scaled.argmax(-1)
+                nxt = nxt.to(torch.int32)
+                toks.append(nxt)
+                if i + 1 < max_new_tokens:
+                    last = self._decode_step(nxt[:, None], L0 + i, caches)
+            new = torch.stack(toks, dim=1) if toks else \
+                prompt.new_zeros((B, 0))
+            tokens = torch.cat([prompt, new], dim=1).cpu()
+        if was_training:
+            self.train()
+        return tokens
+
     def generate_batch(self, prompts, max_new_tokens=32, temperature=1.0,
                        top_k=0, eos_token_id=None, serving_config=None,
                        engine=None, device=None, **engine_kw):
@@ -407,6 +627,12 @@ class GPTForCausalLM(nn.Module):
         return eng.generate(prompts, max_new_tokens=max_new_tokens,
                             eos_token_id=eos_token_id,
                             temperature=temperature, top_k=top_k)
+
+
+def _host(t):
+    """A device tensor as a host numpy array (bf16 widened to fp32)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -4,8 +4,9 @@ on both of its layouts.
 Packed [B, L, H*D]: its forward, dQ and dK/dV bodies
 (`_flash_fwd_kernel_packed`, :278; `_flash_bwd_dq_kernel_packed`, :336;
 `_flash_bwd_dkv_kernel_packed`, :390) under the `_flash_attn_packed`
-custom VJP (:797), and the entries `flash_attention_packed` (:821) and
-`causal_attention` (:865) on its packed route (:909-920).
+custom VJP (:797), and the entries `flash_attention_packed` (:821),
+`mha_flash_attention_blhd` (:833) and `causal_attention` (:865) on its
+packed route (:909-920).
 `FlashAttnPackedFunction` runs the forward (o and the per-row logsumexp
 lse [B, L, H] fp32, saved for the backward) and the two-pass backward
 from lse and delta = rowsum(dO * O) per head (computed here in plain
@@ -504,6 +505,22 @@ def mha_flash_attention(q, k, v, key_bias=None, causal=False):
                         v.reshape(B * H, v.shape[2], D), bias=key_bias,
                         num_heads=H, causal=causal)
     return o.reshape(B, H, L, D)
+
+
+@uncast
+def mha_flash_attention_blhd(q, k, v, key_bias=None, causal=False):
+    """Tensor-level entry for nn.MultiHeadAttention's transpose-free
+    route (:833): q/k/v [B, L, nh, hd] -> [B, L, nh, hd], through the
+    packed [B, L, nh*hd] kernels (both reshapes are views of the
+    projections' outputs; a non-contiguous input is copied by the
+    reshape, a misaligned one by the kernel's wrapper). key_bias
+    optional [B, L_k] additive; None is the reference's zero bias
+    (:826), which adds nothing, so no bias is passed."""
+    B, L, H, D = q.shape
+    o = flash_attention_packed(*(t.reshape(B, t.shape[1], H * D)
+                                 for t in (q, k, v)), H, D, bias=key_bias,
+                               causal=causal)
+    return o.reshape(B, L, H, D)
 
 
 @uncast

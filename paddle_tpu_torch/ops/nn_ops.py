@@ -4,8 +4,10 @@ the serving and training slices run: `gelu` (:36), `bias_gelu` (:41),
 (:243-246), `linear` (:402), `dropout` (:703-720), `embedding` (:746),
 `softmax_with_cross_entropy` (:906), hard labels over the last axis on
 its fused route (`_fused_hard_xent`, :768-798), over another axis, soft
-labels and `return_softmax`, and the chunked projection with a hard
-cross-entropy, `fused_linear_cross_entropy` (:801-903).
+labels and `return_softmax`, `cross_entropy` (:944) on it, the chunked
+projection with a hard cross-entropy, `fused_linear_cross_entropy`
+(:801-903), and the activations `relu`, `tanh` and `softmax` (:191)
+that `nn.Transformer` and BERT use.
 
 Dropout in training draws its keep mask from the generator bound by
 `core.rng.rng_guard` (jit.TrainStep binds its own) and raises when none
@@ -119,17 +121,49 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     return out
 
 
+def _promoted(*ts):
+    """`ts` cast to their common dtype, as jnp promotes mixed operands
+    (a bf16 weight against fp32 activations gives fp32)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t if t.dtype == dt else t.to(dt) for t in ts)
+
+
 @uncast
 def linear(x, weight, bias=None):
     """y = x @ W (+ b), W laid out [in, out] as in paddle."""
-    out = torch.matmul(x, weight)
+    out = torch.matmul(*_promoted(x, weight))
     return out if bias is None else out + bias
 
 
 @uncast
+def relu(x):
+    """max(x, 0) in x's dtype."""
+    return torch.relu(x)
+
+
+@uncast
+def tanh(x):
+    """tanh in x's dtype, rounded once from float64 (torch's fp32 tanh can
+    err on its first call in a process, fused_elementwise._once)."""
+    return _fe._once(torch.tanh, x)
+
+
+@uncast
+def softmax(x, axis=-1):
+    """jax.nn.softmax over `axis`, in x's dtype."""
+    return _softmax(x, axis)
+
+
+@uncast
 def embedding(x, weight):
-    """Rows of `weight` at integer ids `x` (lookup_table_v2)."""
-    return weight[x.to(torch.long)]
+    """Rows of `weight` at integer ids `x` (lookup_table_v2). The
+    gradient is torch's embedding backward, which sums the rows of
+    repeated ids in parallel; advanced indexing's backward serialises
+    them, and BERT-base's token-type table, one id for every token of a
+    64 x 512 batch, took 31.5 ms of a step on an H100 that way."""
+    return torch.nn.functional.embedding(x.to(torch.long), weight)
 
 
 class _HardXent(torch.autograd.Function):
@@ -242,6 +276,28 @@ def _reduce_loss(loss, reduction):
     if reduction == 'sum':
         return loss.sum()
     return loss
+
+
+@uncast
+def cross_entropy(input, label, ignore_index=-100, reduction='mean',
+                  soft_label=False, axis=-1):
+    """Parity: nn_ops.py:944-979 with `use_softmax` and no class weight:
+    a label with a size-1 class axis is squeezed, the per-row loss is
+    `softmax_with_cross_entropy`'s in the input's dtype, and the mean or
+    sum is taken over it (jnp's mean of a bf16 array sums in fp32 and
+    rounds once)."""
+    nd = axis % input.dim()
+    if label.dim() == input.dim() and not soft_label \
+            and label.shape[nd] == 1:
+        label = label.squeeze(nd)
+    loss = softmax_with_cross_entropy(input, label, soft_label=soft_label,
+                                      ignore_index=ignore_index, axis=axis)
+    if reduction == 'none':
+        return loss
+    if loss.dim() > label.dim():
+        loss = loss.squeeze(nd)
+    out = _reduce_loss(loss.float(), reduction)
+    return out.to(loss.dtype)
 
 
 _HALF = (torch.bfloat16, torch.float16)

@@ -1158,3 +1158,130 @@ class TestOnCard:
         for n, p in card_model.named_parameters():
             torch.testing.assert_close(p.detach().cpu(), cpu[n].detach(),
                                        rtol=1e-4, atol=1e-5)
+
+
+# the BERT leg's shapes (bench.py:276-303): 64 x 512 tokens, hidden 768,
+# FFN 3072, 12 heads of 64
+BERT_ROWS, BERT_HIDDEN, BERT_FFN = 64 * 512, 768, 3072
+
+
+@pytest.mark.cuda
+class TestBertOnCard:
+    @pytest.mark.parametrize('with_bias', [False, True],
+                             ids=['no_bias', 'key_bias'])
+    def test_packed_flash_d64_non_causal(self, cuda, with_bias):
+        """Rows 8-10 as the BERT leg runs them: packed [B, L, 12 x 64]
+        bf16, non-causal, with and without a [B, L] key bias, forward
+        (FLASH_BF16) and gradients (FLASH_BF16_TC) against the plain
+        versions; the inputs also as the projections' [B, L, 12, 64]
+        views through `mha_flash_attention_blhd`, and one input a view
+        off 16-byte alignment (the wrapper copies it)."""
+        gen = torch.Generator(device=cuda).manual_seed(21)
+        B, L, H, D = 8, 512, 12, 64
+        q, k, v, do = (torch.randn(B, L, H * D, generator=gen, device=cuda)
+                       .to(torch.bfloat16) for _ in range(4))
+        bias = None
+        if with_bias:
+            keep = torch.arange(L, device=cuda)[None, :] < torch.randint(
+                384, L + 1, (B, 1), generator=gen, device=cuda)
+            bias = torch.where(keep, 0.0, -1e9).float()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = tfa.mha_flash_attention_blhd(
+            *(t.view(B, L, H, D) for t in leaves), key_bias=bias)
+        o.backward(do.view(B, L, H, D))
+        o_p, lse_p = tfa.flash_attention_packed_plain(q, k, v, H, D, bias,
+                                                      False)
+        assert_flash_bf16_tc(o.reshape(B, L, H * D), o_p, FLASH_BF16)
+        want = tfa.flash_attention_packed_bwd_plain(q, k, v, o_p, lse_p, do,
+                                                    H, D, bias, False)
+        for leaf, w in zip(leaves, want):
+            assert_flash_bf16_tc(leaf.grad, w)
+        buf = torch.empty(B * L * H * D + 1, device=cuda,
+                          dtype=torch.bfloat16)
+        q_off = buf[1:].view(B, L, H * D)
+        q_off.copy_(q)
+        assert q_off.data_ptr() % 16
+        o_off = tfa.flash_attention_packed(q_off, k, v, H, D, bias=bias)
+        assert torch.equal(o_off, o.detach().reshape(B, L, H * D))
+
+    def test_erf_bias_gelu_at_bert_shape(self, cuda):
+        gen = torch.Generator(device=cuda).manual_seed(22)
+        x, dy = (torch.randn(BERT_ROWS, BERT_FFN, generator=gen,
+                             device=cuda).to(torch.bfloat16)
+                 for _ in range(2))
+        b = (0.1 * torch.randn(BERT_FFN, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+        torch.testing.assert_close(tfe.bias_gelu(x, b, False).float(),
+                                   tfe.bias_gelu_plain(x, b, False).float(),
+                                   **BF16_ELEMENTWISE)
+        dx, db = tfe.bias_gelu_bwd(x, b, dy, False)
+        dx_p, db_p = tfe.bias_gelu_bwd_plain(x, b, dy, False)
+        torch.testing.assert_close(dx.float(), dx_p.float(),
+                                   **BF16_ELEMENTWISE)
+        torch.testing.assert_close(db.float(), db_p.float(), **FP32_SUMS)
+
+    def test_layer_norm_at_bert_shape(self, cuda):
+        gen = torch.Generator(device=cuda).manual_seed(23)
+        x, dy = (torch.randn(BERT_ROWS, BERT_HIDDEN, generator=gen,
+                             device=cuda).to(torch.bfloat16)
+                 for _ in range(2))
+        w = (1 + 0.1 * torch.randn(BERT_HIDDEN, generator=gen,
+                                   device=cuda)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(BERT_HIDDEN, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+        y, mean, rstd = tfn._fwd_kernel(x, w, b, 1e-12, True)
+        y_p, mean_p, rstd_p = tfn.layer_norm_fwd_plain(x, w, b, 1e-12)
+        torch.testing.assert_close(y.float(), y_p.float(), **BF16_ELEMENTWISE)
+        torch.testing.assert_close(mean, mean_p, **FP32_SUMS)
+        torch.testing.assert_close(rstd, rstd_p, **FP32_SUMS)
+        got = tfn.layer_norm_bwd(x, w, dy, mean, rstd)
+        want = tfn.layer_norm_bwd_plain(x, w, dy, mean, rstd)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   **BF16_ELEMENTWISE)
+        for g, wt in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g.float(), wt.float(), **FP32_SUMS)
+
+    def test_hybrid_engine_update_is_the_plain_chain(self, cuda):
+        """HybridParallelTrainStep's per-parameter update (one update
+        kernel launch a parameter) on bf16 parameters with fp32 masters
+        and moments, under the global-norm clip: bit-equal to the plain
+        chain from the same parameters, states and gradients."""
+        from paddle_tpu_torch import nn as tnn
+        from paddle_tpu_torch.distributed import topology_runtime as ttr
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            hybrid_engine as the)
+        from paddle_tpu_torch.models import bert as tbert
+
+        ttr.build_mesh(['dp', 'sharding'], [1, 1])
+        cfg = tbert.BertConfig(vocab_size=512, hidden_size=128,
+                               num_layers=2, num_heads=2,
+                               intermediate_size=512, max_seq_len=64,
+                               hidden_dropout=0.0, attn_dropout=0.0)
+        gen = torch.Generator(device=cuda).manual_seed(24)
+        model = tbert.BertForPretraining(cfg, device=cuda,
+                                         dtype=torch.bfloat16, generator=gen)
+        opt = topt.AdamW(1e-3, weight_decay=0.01,
+                         grad_clip=tnn.ClipGradByGlobalNorm(0.5))
+
+        def loss(m, ids, nsp):
+            return m(ids, masked_lm_labels=ids, next_sentence_label=nsp)
+        eng = the.HybridParallelTrainStep(model, loss, opt)
+        ids = torch.randint(0, 512, (4, 64), generator=gen, device=cuda)
+        nsp = torch.randint(0, 2, (4,), generator=gen, device=cuda)
+        eng(ids, nsp)                      # states past their first step
+        before = [(p.detach().clone(),
+                   {k: v.clone() for k, v in eng._states[n].items()})
+                  for n, p in eng._named]
+        _build.reset_launches()
+        eng(ids, nsp)
+        assert _build.routes_snapshot()['optimizer_step'] == len(before)
+        grads = [p.grad for _, p in eng._named]
+        factor = eng._clip_factor(grads)
+        lr = torch.tensor(1e-3, device=cuda)
+        for (n, p), (p0, st0), g in zip(eng._named, before, grads):
+            want_p, want_s = tfo.fused_shard_update_plain(
+                opt, p0, g, st0, lr, prefactor=factor, round_prefactor=True)
+            assert 'master' in want_s, n
+            assert torch.equal(p.detach(), want_p), n
+            for k, v in want_s.items():
+                assert torch.equal(eng._states[n][k], v), (n, k)

@@ -196,13 +196,18 @@ def test_presets_match_jax():
 
 
 def test_unported_forwards_raise(bridged):
-    # the uncached forward is ported; the dense-cache decode is not
+    # every forward of the model is ported now: the dense-cache decode
+    # (which raised before) takes caches and returns them written at
+    # cache_len; its values are held in tests/test_torch_gpt_decode.py
     _jm, tm, _named = bridged
-    ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match='not ported'):
-        tm.gpt(ids, caches=[None, None])
-    with pytest.raises(NotImplementedError, match='not ported'):
-        tm.gpt.layers[0].attn(torch.zeros(1, 4, 64), cache=(None, None))
+    ids = torch.zeros(1, 1, dtype=torch.long)
+    caches = tm.gpt.init_caches(1, 8)
+    with torch.no_grad():
+        h, new = tm.gpt(ids, torch.tensor([3]), caches=caches, cache_len=3)
+    assert h.shape == (1, 1, 64) and len(new) == 2
+    assert all(k is c[0] and v is c[1] for (k, v), c in zip(new, caches))
+    assert float(new[0][0][:, :, 3].abs().sum()) > 0
+    assert float(new[0][0][:, :, 4:].abs().sum()) == 0
 
 
 def test_entry_config_logits_match_jax():

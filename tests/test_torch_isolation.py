@@ -91,6 +91,50 @@ def test_engine_without_device_raises_without_cuda(no_cuda, tiny_model):
     assert len(out[0]) == 5
 
 
+# the modules of the BERT leg, the transformer stack and the hybrid engine,
+# which the blocked import above must reach
+BERT_PATH_MODULES = ('paddle_tpu_torch.core.flags',
+                    'paddle_tpu_torch.nn.layer.transformer',
+                    'paddle_tpu_torch.models.bert',
+                    'paddle_tpu_torch.distributed.topology_runtime',
+                    'paddle_tpu_torch.distributed.fleet.meta_parallel.'
+                    'hybrid_engine')
+
+
+@pytest.mark.parametrize('module', BERT_PATH_MODULES)
+def test_new_module_imports_alone_with_jax_blocked(module):
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"import importlib; importlib.import_module({module!r})\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr.decode()
+    path = REPO / (module.replace('.', '/') + '.py')
+    assert path in _port_files()
+
+
+def test_hybrid_engine_and_generate_need_the_card_unless_asked(no_cuda,
+                                                              tiny_model):
+    from paddle_tpu_torch.distributed import topology_runtime as ttr
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        hybrid_engine as the)
+    from paddle_tpu_torch.optimizer import SGD
+
+    ttr.build_mesh(['dp', 'sharding'], [1, 1])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        the.HybridParallelTrainStep(tiny_model, lambda m, x: m(x).sum(),
+                                    SGD())
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        tiny_model.generate(np.zeros((1, 2), np.int64), max_new_tokens=1)
+    eng = the.HybridParallelTrainStep(tiny_model, lambda m, x: m(x).sum(),
+                                      SGD(), device='cpu')
+    assert eng.device.type == 'cpu'
+
+
 def test_seeded_init_is_reproducible_and_follows_paddle_init():
     cfg = tgpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
                          num_heads=2, max_seq_len=64)
