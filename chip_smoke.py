@@ -70,11 +70,13 @@ Phases, one JSON line each on stdout:
              a warm-up step, then 5 timed steps. Every loss must be
              finite, the 5th timed loss below the 1st, every training
              kernel's counter must rise during the timed steps, the
-             update kernel's exactly once a parameter a step, and the
-             paged kernel's must not. Prints ms/step, tokens/s, model
-             TFLOP/s and MFU (bench.py's FLOP formula), peak memory, and
-             one profiled step's device busy share, time by group and
-             the flash kernels' share of busy time (all, and backward).
+             update kernel's exactly once a step (one launch for all the
+             parameters), and the paged kernel's must not. Prints
+             ms/step, tokens/s, model TFLOP/s and MFU (bench.py's FLOP
+             formula), peak memory, one profiled step's device busy
+             share, time by group and the flash kernels' share of busy
+             time (all, and backward), and the update (292 tensors, one
+             launch) timed on copies beside `torch._fused_adamw_`.
 6. optimizer kernels — the fused-optimizer kernels (gradient statistics,
              bucket update) over gpt_1p3b's largest bucket (the word
              embedding, 103 M elements) and a ragged one (the
@@ -88,7 +90,9 @@ Phases, one JSON line each on stdout:
              and DecayedAdagrad over the same bucket (bf16 params with
              the fp32 master those classes always keep, fp32 states) and
              a ragged fp32 bucket with a master, each bit-equal to its
-             plain chain; a found-inf step on NaN
+             plain chain, and each rule's list of the two buckets and a
+             misaligned odd-sized view in one call (one launch a dtype
+             group), bit-equal; a found-inf step on NaN
              gradients must leave every output bit-equal; a NaN must
              poison the statistics and be counted.
 7. rules   — three default-route TrainSteps per rule of the five at
@@ -105,7 +109,8 @@ Phases, one JSON line each on stdout:
              into CosineAnnealingDecay (lr 2e-4, GPT-3 1.3B's), stepped
              once a step; a warm-up step and 5 timed steps. Losses must be
              finite and fall, every kernel of the path must launch (the
-             optimizer kernels once a bucket a step, dropout+residual 48
+             statistics once a bucket a step, the update once a step for
+             all 123 buckets, dropout+residual 48
              times a step, the BHLD flash kernels 24 times a step), the
              packed flash and paged kernels never, and the lr each step
              fed must equal the schedule's. Prints the statistics'
@@ -131,7 +136,7 @@ Phases, one JSON line each on stdout:
              warm-up and 5 timed train_batch calls. Losses finite and
              falling; every training kernel's launches exactly
              `pipeline_launches` a step (the recompute included, the
-             update kernel once a parameter), every other kernel's 0;
+             update kernel once a step), every other kernel's 0;
              the boundary tags counted exactly. Prints ms/step,
              tokens/s, model TFLOP/s and MFU (bench.py's formula, the
              untied head counted), peak memory, the remat record, and a
@@ -139,7 +144,8 @@ Phases, one JSON line each on stdout:
              per-parameter update, the cross-entropy, casts and copies,
              and the rest; the update's device time and span beside its
              bytes bound, and the whole update timed on copies by its
-             route, its plain chain and `torch._fused_adamw_`. Then 3
+             route (one launch), one call a parameter, its plain chain
+             and `torch._fused_adamw_`, with the route's host time. Then 3
              timed steps each under remat_policy 'none', 'dots' and
              'attn_mlp_boundaries'.
 11. pipeline_check — the engine on the card against the CPU at
@@ -149,16 +155,18 @@ Phases, one JSON line each on stdout:
              WHOLE_PATH_RTOL; train_step x2 + flush bit-equal to
              train_batch x2 on the card.
 12. update_route — the per-parameter update route (one update kernel
-             launch a parameter) against its plain chain on the card,
-             bit-equal, over the leg's 29 tensors at 2 layers: AdamW
+             launch for the list of parameters) against its plain chain
+             on the card, bit-equal, over the leg's 29 tensors at 2
+             layers: AdamW
              bf16, the same under a loss scale (the unscale rounded back
              to bf16) and with found_inf set, Adam with a master, SGD
              fp32.
 13. pipeline_amp — the leg at 4 layers through train_step(scaler=
              GradScaler(2^15)), 3 steps through the dispatch window
              against the per-step path (scaler state equal, parameters
-             bit-equal, the statistics and update kernels once a
-             parameter a step), a profiled scaled step, then a step at
+             bit-equal, the statistics kernel once a parameter a step,
+             the update kernel once a step), a profiled scaled step, then
+             a step at
              scale=inf that must leave every parameter and state
              bit-equal.
 14. linear_xent — fused_linear_cross_entropy at [4096, 2048] x 50304 bf16
@@ -180,8 +188,9 @@ Phases, one JSON line each on stdout:
              with exact launch counts a step (`bert_launches`), finite
              falling losses; ms/step, samples/s, MFU, peak memory, a
              profiled step's busy time split into GEMMs, port kernels,
-             the update and other, and the update (205 launches) checked
-             bit-equal to its plain chain and timed on copies.
+             the update and other, and the update (205 tensors, one
+             launch) checked bit-equal to its plain chain and timed on
+             copies.
 16. bert_check — the engine on the card against the CPU at BERT-base's
              width with 2 layers in fp32, B = 2 x L = 512 (the flash
              route), 3 steps: SGD with a 2-D attention mask (the key-bias
@@ -341,6 +350,21 @@ def host_us(torch, fn, calls=1000):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / calls * 1e6
+
+
+def host_call_us(torch, fn, calls=20):
+    """Median host microseconds of one call of fn, no synchronize inside
+    (for calls whose device work outlasts their host work: the host's
+    own cost, the queued launches not waited on)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
 
 
 def floor_ms(torch):
@@ -1439,9 +1463,10 @@ def train_phase(torch, card):
         raise AssertionError(f'training kernels never launched: {idle}')
     if launches['paged_attention']:
         raise AssertionError('the paged kernel launched during training')
-    # the per-parameter update: one fused update launch a parameter
+    # the per-parameter update: one fused update launch a step for all
+    # the parameters (one dtype group: bf16 p, g and moments)
     n_tensors = len(list(model.parameters()))
-    if launches['optimizer_step'] != TIMED_STEPS * n_tensors:
+    if launches['optimizer_step'] != TIMED_STEPS * UPDATE_GROUPS:
         raise AssertionError(f'{launches["optimizer_step"]} update launches '
                              f'in {TIMED_STEPS} steps of {n_tensors} '
                              f'parameters')
@@ -1450,6 +1475,18 @@ def train_phase(torch, card):
         12 * cfg.num_layers * cfg.hidden_size * L * tokens   # bench.py:200
     step_s = float(np.mean(walls))
     prof = profile_train_step(torch, step, ids_t, labels_t)
+    # the update: its kernel's device time in the profiled step against
+    # its bytes bound (AdamW, bf16 p, g and moments, no master) and timed
+    # on copies beside one torch._fused_adamw_ over the same tensors
+    named = list(model.named_parameters())
+    update = {'device_s': prof['device_s_by_port_kernel'].get(
+                  'optimizer_step', 0.0),
+              'bytes': n_params * UPDATE_BYTES,
+              'bound_ms': 1e3 * n_params * UPDATE_BYTES / HBM_BYTES_PER_S,
+              'bound_by': 'bytes', 'tensors': n_tensors,
+              'launches_per_step': UPDATE_GROUPS,
+              **update_timings(torch, opt, named,
+                               [step._opt_states[n] for n, _ in named])}
     emit({'phase': 'train', 'card': card, 'model': 'gpt_1p3b',
           'layers': cfg.num_layers, 'hidden': cfg.hidden_size,
           'params': n_params, 'batch': B, 'seq_len': L,
@@ -1464,15 +1501,15 @@ def train_phase(torch, card):
           'launches': launches,
           'launches_per_step': {k: launches[k] / TIMED_STEPS
                                 for k in TRAIN_KERNELS + ('optimizer_step',)},
-          **prof})
+          'update': update, **prof})
     return launches, peak
 
 
 def pipeline_launches(A, layers, policy):
     """Each training kernel's launches in one SpmdPipelineEngine step at
     pp = 1 (GPT, dropout 0, the flash route, AdamW), as the wrappers
-    count them; the update launches the fused update kernel once a
-    parameter.
+    count them; the update launches the fused update kernel once a step
+    for all the parameters (one dtype group).
     A micro-batch's forward runs 2 LayerNorms, one flash forward and one
     bias+GELU a block and the head's final LayerNorm; under any remat
     policy the backward runs each block's kernels forward again (no
@@ -1491,12 +1528,18 @@ def pipeline_launches(A, layers, policy):
             'flash_bwd_dq': A * layers, 'flash_bwd_dkv': A * layers,
             'layer_norm_bwd': 2 * A * ln_calls,
             'bias_gelu_bwd': 2 * A * layers,
-            'optimizer_step': pipeline_params(layers)}
+            'optimizer_step': UPDATE_GROUPS}
+
+
+# the update kernel's launches a step on every leg: one list of tensors of
+# one dtype group (fewer than TABLE_CAP), one launch
+UPDATE_GROUPS = 1
 
 
 def pipeline_params(layers):
-    """The pipeline triple's parameter tensors, each one update launch a
-    step: the embedding's 2, a block's 12 (two LayerNorms, qkv, out,
+    """The pipeline triple's parameter tensors (each one entry of the
+    step's update list, and one found-inf count when loss-scaled): the
+    embedding's 2, a block's 12 (two LayerNorms, qkv, out,
     fc1 and fc2, each a weight and a bias) and the head's 3 (its
     LayerNorm and the untied weight)."""
     return 2 + 12 * layers + 3
@@ -1840,7 +1883,49 @@ def rule_kernel_checks(torch, FO, lr, pref, checks):
                 del kp, ks
             del p, g, st
             free_cuda(torch)
+    for name, opt in rule_optimizers().items():
+        checks[f'update {name} list'] = rule_list_check(torch, FO, opt, lr,
+                                                        pref)
     return out
+
+
+def rule_list_check(torch, FO, opt, lr, pref):
+    """One rule's list form over three buckets in one call (the bucketed
+    route's `fused_shard_updates`): a ragged fp32 bucket and a bf16
+    bucket of 2^20 + 3 elements, both with the fp32 master, and a bf16
+    view of 1001 elements at an offset of one element (off 16-byte
+    alignment): two dtype groups, two launches, every output bit-equal
+    to the plain chain's."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    ins = [rule_inputs(torch, opt, n, dtype, True, seed=6 + j)
+           for j, (n, dtype) in enumerate((
+               (RAGGED_BUCKET, torch.float32),
+               (2 ** 20 + 3, torch.bfloat16), (1001, torch.bfloat16)))]
+    p, g, st = ins[2]
+    ins[2] = (clone_at_offset(torch, torch.cat([p[:1], p])[1:]), g, st)
+    want = [FO.fused_shard_update_plain(opt, p, g, st, lr, prefactor=pref)
+            for p, g, st in ins]
+    kps = [clone_at_offset(torch, p) for p, _g, _st in ins]
+    kss = [{k: v.clone() for k, v in st.items()} for _p, _g, st in ins]
+    _build.reset_launches()
+    got = FO.fused_shard_updates(opt, kps, [g for _p, g, _st in ins], kss,
+                                 lr, prefactor=pref)
+    launches = _build.routes_snapshot()[FO.STEP]
+    for j, ((kp, ns), (want_p, want_s)) in enumerate(zip(got, want)):
+        for key, w in {'param': want_p, **want_s}.items():
+            v = kp if key == 'param' else ns[key]
+            if v.dtype != w.dtype or not torch.equal(v, w):
+                raise AssertionError(
+                    f'update {type(opt).__name__} list entry {j} {key}: '
+                    f'{int((v != w).sum())} elements differ from the '
+                    f'plain chain')
+    if launches != 2 or kps[2].data_ptr() % 16 == 0:
+        raise AssertionError(f'update {type(opt).__name__} list: '
+                             f'{launches} launches for 2 groups')
+    del ins, want, kps, kss, got
+    free_cuda(torch)
+    return {'bit_equal': True, 'launches': launches}
 
 
 RULE_STEPS = 3
@@ -1917,7 +2002,7 @@ def rules_phase(torch):
         _build.reset_launches()
         losses = [float(step(ids, labels)) for _ in range(RULE_STEPS)]
         launches = _build.routes_snapshot()
-        want = {'optimizer_step': nb * RULE_STEPS,
+        want = {'optimizer_step': UPDATE_GROUPS * RULE_STEPS,
                 'grad_stats': nb * RULE_STEPS,
                 **{k: cfg.num_layers * RULE_STEPS for k in BHLD_KERNELS}}
         wrong = {k: (launches[k], v) for k, v in want.items()
@@ -2021,7 +2106,7 @@ def train_bucketed_phase(torch, card):
     if idle:
         raise AssertionError(f'training kernels never launched: {idle}')
     want = {'grad_stats': n_buckets * TIMED_STEPS,
-            'optimizer_step': n_buckets * TIMED_STEPS,
+            'optimizer_step': UPDATE_GROUPS * TIMED_STEPS,
             'dropout_add': 2 * cfg.num_layers * TIMED_STEPS,
             'dropout_add_bwd': 2 * cfg.num_layers * TIMED_STEPS,
             **{k: cfg.num_layers * TIMED_STEPS for k in BHLD_KERNELS},
@@ -2441,8 +2526,10 @@ def pipeline_phase(torch, card, train_peaks):
               'bytes': update_bytes,
               'bound_ms': 1e3 * update_bytes / HBM_BYTES_PER_S,
               'bound_by': 'bytes',
-              'launches_per_step': pipeline_params(layers),
-              **update_timings(torch, eng)}
+              'tensors': pipeline_params(layers),
+              'launches_per_step': UPDATE_GROUPS,
+              **update_timings(torch, eng.optimizer, eng._named,
+                               [eng._states[n] for n, _ in eng._named])}
     eng.shutdown()
     del eng
     free_cuda(torch)
@@ -2613,31 +2700,40 @@ def pipeline_check(torch):
     policy_check(torch, cfg, ids, labels)
 
 
-def update_timings(torch, eng):
-    """The engine's whole per-parameter update timed on copies of its
-    parameters and states, with the last step's gradients, by CUDA events
-    around repeated calls: `route_ms` the per-parameter route (one update
-    kernel launch a parameter, host launch gaps included), `plain_ms` its
-    plain chain over the same parameters, and `library_ms` one
-    `torch._fused_adamw_` call over all of them (a yardstick only: it
-    adds eps after the bias correction)."""
+def update_timings(torch, opt, named, states):
+    """A step's whole update (`named` [(name, param)] with their `.grad`
+    and `states` in that order, `opt` the optimizer) timed on copies of
+    the parameters and states, with the last step's gradients, by CUDA
+    events around
+    repeated calls: `route_ms` the list form (`ParamUpdates.apply`: one
+    update kernel launch for every parameter, host included),
+    `per_param_ms` one call a parameter (a one-entry launch each, no
+    cached table: the host path of a per-parameter loop),
+    `plain_ms` the plain chain over the same parameters, and `library_ms`
+    one `torch._fused_adamw_` call over all of them (a yardstick only: it
+    adds eps after the bias correction). `host_us`: the list form's host
+    microseconds a call (its Python, the table checks and the launch),
+    and `launches` its launches a call."""
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
 
     lr = torch.tensor(1e-4, device='cuda')
-    ps = [p.detach().clone() for _, p in eng._named]
-    gs = [p.grad for _, p in eng._named]
-    sts = [{k: v.clone() for k, v in eng._states[n].items()}
-           for n, _ in eng._named]
-    opt = eng.optimizer
+    ps = [p.detach().clone() for _, p in named]
+    gs = [p.grad for _, p in named]
+    sts = [{k: v.clone() for k, v in st.items()} for st in states]
     # the library call updates the fp32 masters where the states keep
     # them (with fp32 copies of the gradients), else the parameters
     lib_ps = [st.get('master', p) for p, st in zip(ps, sts)]
     lib_gs = [g.to(p.dtype) for p, g in zip(lib_ps, gs)]
 
     def route():
+        out = FO.ParamUpdates(opt, lr).apply(list(zip(ps, gs, sts)))
+        sts[:] = [st for _p, st in out]
+
+    def per_param():
         upd = FO.ParamUpdates(opt, lr)
-        for p, g, st in zip(ps, gs, sts):
-            upd(p, g, st)
+        for j, (p, g, st) in enumerate(zip(ps, gs, sts)):
+            _p, sts[j] = upd(p, g, st)
 
     def plain():
         for p, g, st in zip(ps, gs, sts):
@@ -2652,9 +2748,16 @@ def update_timings(torch, eng):
                             beta1=0.9, beta2=0.999, weight_decay=0.01,
                             eps=1e-8, amsgrad=False, maximize=False)
 
+    route()
+    _build.reset_launches()
+    route()
+    launches = _build.routes_snapshot()[FO.STEP]
     out = {'route_ms': loop_ms(torch, route),
+           'per_param_ms': loop_ms(torch, per_param),
            'plain_ms': loop_ms(torch, plain, iters=2),
-           'library_ms': loop_ms(torch, library)}
+           'library_ms': loop_ms(torch, library),
+           'host_us': host_call_us(torch, route),
+           'launches': launches}
     del ps, sts, m1, m2, lib_ps, lib_gs
     return out
 
@@ -2668,19 +2771,32 @@ def update_device_s(prof):
         prof['device_s_other_split']['optimizer']
 
 
+def clone_at_offset(torch, t):
+    """A copy of a 1-D or contiguous tensor at its storage offset, so a
+    view off 16-byte alignment stays off it."""
+    off = t.storage_offset()
+    base = torch.empty(off + t.numel(), dtype=t.dtype, device=t.device)
+    view = base[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def param_route_check(torch):
-    """The per-parameter update route (`ParamUpdates`: one launch of the
-    fused update kernel a parameter) against its plain chain
-    (`fused_shard_update_plain`, the engine's `_update_one` op for op)
-    on the card, on the same inputs: the pipeline leg's 29 parameter
-    tensors at 2 layers of gpt_1p3b (the embedding and the untied head's
-    [2048, 50304] among them). Every parameter and state must be
-    bit-equal: AdamW with bf16 parameters, gradients and moments and no
-    master (the leg's); the same under a loss scale of 2^10 (gradients
-    scaled, unscaled in the kernel and rounded back to bf16) and with
-    found_inf set (every output bit-equal to its input); Adam with an
-    fp32 master, fp32 moments and decay into the gradient; SGD in fp32.
-    Each route launches the kernel once a parameter."""
+    """The per-parameter update route (`ParamUpdates.apply`: one launch of
+    the fused update kernel for the list, one a dtype group) against its
+    plain chain (`fused_shard_update_plain`, the engine's `_update_one`
+    op for op) on the card, on the same inputs: the pipeline leg's 29
+    parameter tensors at 2 layers of gpt_1p3b (the embedding and the
+    untied head's [2048, 50304] among them) and a view of 1001 elements
+    at an offset of one element (off 16-byte alignment: the scalar
+    path). Every parameter and state must be bit-equal: AdamW with bf16
+    parameters, gradients and moments and no master (the leg's); the
+    same under a loss scale of 2^10 (gradients scaled, unscaled in the
+    kernel and rounded back to bf16) and with found_inf set (every
+    output bit-equal to its input); Adam with an fp32 master, fp32
+    moments and decay into the gradient, with an fp32 tensor of 4099
+    elements besides (a second dtype group: two launches); SGD in
+    fp32."""
     from paddle_tpu_torch.models import build_gpt_pipeline, gpt_1p3b
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
@@ -2693,28 +2809,31 @@ def param_route_check(torch):
                                 generator=gen)
     params = [p.detach() for m in [triple[0], *triple[1], triple[2]]
               for p in m.parameters()]
+    odd = torch.randn(1002, generator=gen, device='cuda')
     lr = torch.tensor(1e-4, device='cuda')
     cases = {
         'adamw_bf16': (lambda: AdamW(1e-4, weight_decay=0.01,
                                      multi_precision=False,
                                      moment_dtype='bfloat16'),
-                       torch.bfloat16, None, False),
+                       torch.bfloat16, None, False, 1),
         'adamw_bf16_scaled': (lambda: AdamW(1e-4, weight_decay=0.01,
                                             multi_precision=False,
                                             moment_dtype='bfloat16'),
-                              torch.bfloat16, 2.0 ** 10, False),
+                              torch.bfloat16, 2.0 ** 10, False, 1),
         'adamw_bf16_found_inf': (lambda: AdamW(1e-4, weight_decay=0.01,
                                                multi_precision=False,
                                                moment_dtype='bfloat16'),
-                                 torch.bfloat16, 2.0 ** 10, True),
+                                 torch.bfloat16, 2.0 ** 10, True, 1),
         'adam_master': (lambda: Adam(1e-4, weight_decay=0.01),
-                        torch.bfloat16, None, False),
+                        torch.bfloat16, None, False, 2),
         'sgd_fp32': (lambda: SGD(1e-3, weight_decay=1e-4), torch.float32,
-                     None, False)}
+                     None, False, 1)}
     out = {}
-    for case, (make, dtype, scale, inf) in cases.items():
+    for case, (make, dtype, scale, inf, groups) in cases.items():
         opt = make()
-        ps = [p.to(dtype) for p in params]
+        ps = [p.to(dtype) for p in params] + [odd.to(dtype)[1:]]
+        if groups == 2:
+            ps.append(torch.randn(4099, generator=gen, device='cuda'))
         states, grads = [], []
         for p in ps:
             st = opt.init_state(p)
@@ -2722,11 +2841,11 @@ def param_route_check(torch):
                 if v.dim():
                     v.copy_(1e-4 * torch.randn(v.shape, generator=gen,
                                                device='cuda').abs())
-            if dtype != torch.float32 and opt._multi_precision:
+            if p.dtype != torch.float32 and opt._multi_precision:
                 st['master'] = p.float()
             states.append(st)
             g = 1e-3 * torch.randn(p.shape, generator=gen, device='cuda')
-            grads.append((g * (scale or 1.0)).to(dtype))
+            grads.append((g * (scale or 1.0)).to(p.dtype))
         if inf:
             grads[3].view(-1)[7] = float('nan')
         pref = None if scale is None else 1.0 / torch.tensor(
@@ -2735,18 +2854,15 @@ def param_route_check(torch):
         if scale is not None:
             found = torch.stack([FO.grad_stats(g)[1]
                                  for g in grads]).sum() > 0
+        kps = [clone_at_offset(torch, p) for p in ps]
+        kss = [{k: v.clone() for k, v in st.items()} for st in states]
         _build.reset_launches()
-        upd = FO.ParamUpdates(opt, lr, prefactor=pref, found_inf=found)
-        got = []
-        for p, g, st in zip(ps, grads, states):
-            kp = p.clone()
-            ks = {k: v.clone() for k, v in st.items()}
-            _p, ns = upd(kp, g, ks)
-            got.append((kp, ns))
+        got = FO.ParamUpdates(opt, lr, prefactor=pref, found_inf=found
+                              ).apply(list(zip(kps, grads, kss)))
         launches = _build.routes_snapshot()['optimizer_step']
-        if launches != len(ps):
+        if launches != groups:
             raise AssertionError(f'{case}: {launches} update launches for '
-                                 f'{len(ps)} parameters')
+                                 f'{len(ps)} tensors in {groups} groups')
         equal = True
         for p, g, st, (kp, ns) in zip(ps, grads, states, got):
             want_p, want_s = FO.fused_shard_update_plain(
@@ -2758,13 +2874,15 @@ def param_route_check(torch):
                 equal &= torch.equal(kp, p) and all(
                     torch.equal(ns[k], st[k]) for k in st)
         if not equal:
-            raise AssertionError(f'{case}: the per-parameter route differs '
-                                 f'from its plain chain on the card')
+            raise AssertionError(f'{case}: the list form differs from its '
+                                 f'plain chain on the card')
         out[case] = {'bit_equal': equal, 'launches': launches,
+                     'tensors': len(ps),
                      'found_inf': None if found is None else bool(found)}
-    emit({'phase': 'update_route', 'what': 'ParamUpdates (one update '
-          'kernel launch a parameter) vs the plain chain on the card, the '
-          'pipeline leg\'s 29 parameter tensors at 2 layers of gpt_1p3b',
+    emit({'phase': 'update_route', 'what': 'ParamUpdates.apply (one update '
+          'kernel launch a dtype group) vs the plain chain on the card, the '
+          'pipeline leg\'s 29 parameter tensors at 2 layers of gpt_1p3b, a '
+          'misaligned 1001-element view and (adam_master) an fp32 tensor',
           'cases': out})
 
 
@@ -2842,7 +2960,7 @@ def pipeline_amp_phase(torch, card):
     launches = _build.routes_snapshot()
     n = pipeline_params(PIPE_AMP_LAYERS)
     want_launches = {'grad_stats': PIPE_AMP_STEPS * n,
-                     'optimizer_step': PIPE_AMP_STEPS * n}
+                     'optimizer_step': PIPE_AMP_STEPS * UPDATE_GROUPS}
     wrong = {k: (launches[k], v) for k, v in want_launches.items()
              if launches[k] != v}
     if wrong:
@@ -3066,11 +3184,11 @@ BERT_KERNELS = TRAIN_KERNELS + ('optimizer_step',)
 
 
 def bert_params(layers):
-    """BertForPretraining's parameter tensors, each one update launch a
-    step: the embeddings' 5 (three tables and a LayerNorm), a block's 16
-    (q, k, v, out, linear1, linear2, norm1, norm2, each a weight and a
-    bias), the pooler's, the MLM transform's and its LayerNorm's, and the
-    NSP head's 2 each."""
+    """BertForPretraining's parameter tensors, each one entry of the
+    step's update list: the embeddings' 5 (three tables and a
+    LayerNorm), a block's 16 (q, k, v, out, linear1, linear2, norm1,
+    norm2, each a weight and a bias), the pooler's, the MLM transform's
+    and its LayerNorm's, and the NSP head's 2 each."""
     return 5 + 16 * layers + 8
 
 
@@ -3083,14 +3201,15 @@ def bert_launches(layers):
     its column sum); a block's attention one packed flash forward, dQ and
     dK/dV, its FFN one bias+GELU forward (erf form) and backward (2
     launches a call); the MLM transform's GELU is the plain `F.gelu`, no
-    kernel; no remat; the update one launch a parameter. Every other
+    kernel; no remat; the update one launch for all the parameters (one
+    dtype group: bf16 p and g, fp32 masters and moments). Every other
     kernel launches 0 times."""
     ln_calls = 2 * layers + 2
     return {'layer_norm': ln_calls, 'bias_gelu': layers,
             'flash_fwd': layers, 'flash_bwd_dq': layers,
             'flash_bwd_dkv': layers, 'layer_norm_bwd': 2 * ln_calls,
             'bias_gelu_bwd': 2 * layers,
-            'optimizer_step': bert_params(layers)}
+            'optimizer_step': UPDATE_GROUPS}
 
 
 def bert_kernel_rows(torch, F):
@@ -3178,28 +3297,35 @@ def bert_loss(model, ids, mlm_labels, nsp_labels, attention_mask=None):
 
 
 def bert_update_check(torch, eng, lr):
-    """The leg's per-parameter update on copies of the engine's 205
-    parameters and states with the last step's gradients: the route
-    (`ParamUpdates`, one launch a parameter) bit-equal to its plain
-    chain on the card."""
+    """The leg's update on copies of the engine's 205 parameters and
+    states with the last step's gradients: the list form
+    (`ParamUpdates.apply`, one launch for all of them) bit-equal to its
+    plain chain on the card."""
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
 
     opt = eng.optimizer
+    kps = [p.detach().clone() for _, p in eng._named]
+    entries = [(kp, p.grad, {k: v.clone()
+                             for k, v in eng._states[n].items()})
+               for kp, (n, p) in zip(kps, eng._named)]
+    _build.reset_launches()
+    got = FO.ParamUpdates(opt, lr).apply(entries)
+    launches = _build.routes_snapshot()[FO.STEP]
     differ = []
-    upd = FO.ParamUpdates(opt, lr)
-    for n, p in eng._named:
+    for (n, p), kp, (_kp, ks) in zip(eng._named, kps, got):
         st = eng._states[n]
-        kp = p.detach().clone()
-        _p, ks = upd(kp, p.grad, {k: v.clone() for k, v in st.items()})
         want_p, want_s = FO.fused_shard_update_plain(
             opt, p.detach(), p.grad, st, lr, round_prefactor=True)
         differ += [f'{n}:p'] if not torch.equal(kp, want_p) else []
         differ += [f'{n}:{k}' for k in want_s
                    if not torch.equal(ks[k], want_s[k])]
-    if differ:
-        raise AssertionError(f'bert: the per-parameter update differs from '
-                             f'its plain chain on the card: {differ[:8]}')
-    return {'bit_equal': True, 'tensors': len(eng._named)}
+    if differ or launches != UPDATE_GROUPS:
+        raise AssertionError(f'bert: the update ({launches} launches) '
+                             f'differs from its plain chain on the card: '
+                             f'{differ[:8]}')
+    return {'bit_equal': True, 'tensors': len(eng._named),
+            'check_launches': launches}
 
 
 def bert_phase(torch, card):
@@ -3278,10 +3404,12 @@ def bert_phase(torch, card):
                   he.UPDATE_RANGE),
               'bytes': update_bytes,
               'bound_ms': 1e3 * update_bytes / HBM_BYTES_PER_S,
-              'bound_by': 'bytes', 'launches_per_step': n_tensors,
+              'bound_by': 'bytes', 'tensors': n_tensors,
+              'launches_per_step': UPDATE_GROUPS,
               **bert_update_check(torch, eng, torch.tensor(
                   1e-4, device='cuda')),
-              **update_timings(torch, eng)}
+              **update_timings(torch, eng.optimizer, eng._named,
+                               [eng._states[n] for n, _ in eng._named])}
     groups = prof['device_s_by_group']
     emit({'phase': 'bert', 'card': card, 'model': 'BERT-base',
           'layers': cfg.num_layers, 'hidden': cfg.hidden_size,

@@ -1,8 +1,8 @@
 """Flat optimizer buckets — counterpart of `paddle_tpu/core/bucketing.py`:
 the layout (`Bucket`, `Slot`, `BucketLayout`, :249-342), the bucketed
 update of the single-program step (`elementwise`:534,
-`init_bucket_state`:542, `grad_stats`:565, `shard_update`:581,
-`flat_functional_apply`:630) and the checkpoint contract
+`init_bucket_state`:542, `grad_stats`:565, `flat_functional_apply`:630,
+which runs `shard_update`:581 on every bucket) and the checkpoint contract
 (`flat_states_to_named`:684 and its inverse).
 
 The layout is the reference's: an ordered {name: (shape, dtype)} is
@@ -205,20 +205,6 @@ def grad_stats(flat):
     return FO.grad_stats(flat)
 
 
-def shard_update(optimizer, p, g, st, lr, prefactor=None, found_inf=None):
-    """One bucket's update in place (bucketing.py:581): the fused
-    update kernel for a fusible rule; an elementwise rule the kernel
-    does not implement (Ftrl) runs its op chain, as the reference keeps
-    its XLA chain for `_pallas_fusible = False`. Returns (p, new
-    state)."""
-    if not FO.fusible(optimizer):
-        return FO.shard_update_chain(optimizer, p, g, st, lr,
-                                     prefactor=prefactor,
-                                     found_inf=found_inf)
-    return FO.fused_shard_update(optimizer, p, g, st, lr,
-                                 prefactor=prefactor, found_inf=found_inf)
-
-
 @uncast
 def flat_functional_apply(optimizer, layout, flat_params, flat_grads,
                           flat_states, lr):
@@ -245,11 +231,18 @@ def flat_functional_apply(optimizer, layout, flat_params, flat_grads,
             s = grad_stats(g)[0]
             sq = s if sq is None else sq + s
         factor = global_factor(torch.sqrt(sq), clip.clip_norm)
-    new_states = []
-    for p, g, st in zip(flat_params, grads, flat_states):
-        _p, ns = shard_update(optimizer, p, g, st, lr, prefactor=factor)
-        new_states.append(ns)
-    return new_states, factor
+    if FO.fusible(optimizer):
+        # every bucket in one launch of the update kernel
+        out = FO.fused_shard_updates(optimizer, flat_params, grads,
+                                     flat_states, lr, prefactor=factor)
+    else:
+        # an elementwise rule the kernel does not implement (Ftrl) runs its
+        # op chain, as the reference keeps its XLA chain for
+        # `_pallas_fusible = False`
+        out = [FO.shard_update_chain(optimizer, p, g, st, lr,
+                                     prefactor=factor)
+               for p, g, st in zip(flat_params, grads, flat_states)]
+    return [ns for _p, ns in out], factor
 
 
 # ---------------------------------------------------------------------------

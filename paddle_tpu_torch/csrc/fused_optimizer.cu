@@ -1,10 +1,13 @@
-// Fused optimizer step over flat buckets, for Hopper (sm_90a): the gradient
-// statistics pass and the one-pass bucket update.
+// Fused optimizer step, for Hopper (sm_90a): the gradient statistics pass
+// over a flat bucket, and the one-pass update of a list of tensors (buckets
+// or parameters) in one launch.
 //
 // Replaces: paddle_tpu/ops/pallas/fused_optimizer.py:81 `_stats_kernel`
 // (launched by `grad_stats_pallas`, :96, from core/bucketing.grad_stats:565)
 // and :117 `_update_kernel` (launched by `fused_shard_update`, :164, from
-// core/bucketing.shard_update:581), on jit.TrainStep's bucketed route.
+// core/bucketing.shard_update:581) on jit.TrainStep's bucketed route, and
+// the per-parameter updates that XLA fuses into a pass a parameter
+// (spmd_pipeline.py:2113 `_update_one`, optimizer.py:103 `functional_apply`).
 //
 // What bounds them on this card: bytes. grad_stats reads each gradient once
 // (2 bytes an element in bf16) and does 3 operations an element; the update
@@ -45,29 +48,56 @@
 // reference's jnp.sum(g * g) does; that needs IEEE semantics, so this file is
 // never built with fast math.
 //
-// Update design: one pass, each thread taking 8 consecutive elements at a time
-// (16- or 32-byte vector loads and stores of every operand), in the
-// reference's operation order: the prefactor multiply, decay into the
-// gradient, the rule in fp32, the found-inf no-op, and the parameter write in
-// its dtype beside the fp32 master write. The Pallas body traces any
-// elementwise `optimizer.update` into itself; here each rule is written out
-// (`apply_rule`): SGD, Momentum (with Nesterov), Adam/AdamW, Adagrad, RMSProp
-// (centered or not, with momentum), Adamax, Adadelta and DecayedAdagrad
-// (paddle_tpu/optimizer/optimizer.py :398, :415, :546, :589, :489, :511, :626,
-// :699, :730), with up to three vector states (centered RMSProp's mean
-// square, momentum and mean gradient). The scalars that change per step
-// come through pointers to small fp32 device blocks, as the Pallas body's
-// `sc_ref` does, so no step reads them back to the host: the step's block
-// (lr, prefactor, found_inf), which one step's per-parameter calls share,
-// and the parameter's own beta powers (Adam's, Adamax's). Every CTA reads
-// the OLD beta powers; the new powers go to a separate two-float output
-// written by one thread, never over the powers the other CTAs are still
-// reading. The same kernel serves the bucketed route (one call a bucket) and
-// the per-parameter route (one call a parameter: the pipeline engine's
-// update and `Optimizer.functional_apply`). Where the reference rounds the
-// unscaled gradient back to its dtype before the update (the pipeline
-// engine's loss-scaling path, spmd_pipeline.py:923-926), `round_pref` rounds
-// the prefactored gradient to the gradient's dtype. Vector
+// Update design. What bounds it is bytes: the update streams each operand
+// once (AdamW with bf16 p, g and moments and no master: 14 bytes an element;
+// bf16 p and g with an fp32 master and moments: 28) at ~20 fp32 operations an
+// element. A training step updates hundreds of tensors (293 on the GPT-1.3B
+// pipeline, 205 on BERT-base, 123 buckets on the bucketed route), from
+// 768-element LayerNorm biases to a 103 M-element embedding, and one launch a
+// tensor pays a launch, a grid of its own and a tail for each; the small ones
+// are latency-bound, and the host's launches outrun the card. So ONE launch
+// updates a list of tensors (`multi_update_kernel`):
+//   * the list rides in the kernel's parameters as a table (`Table`, by value,
+//     __grid_constant__, up to kTableCap entries: CUDA >= 12.1 takes 32,764
+//     bytes of parameters), one column a field: each entry's pointers (p, g,
+//     master, the vector states, its old beta powers), its element count, its
+//     own decay into the gradient and its first chunk. Nothing is copied to
+//     the device and nothing outlives the launch, so the caller reuses its
+//     host table for the next step while this launch is still queued. A list
+//     longer than the table, or of tensors of other dtypes, takes more
+//     launches (the wrapper splits it in a fixed order);
+//   * the grid is one CTA a chunk of kChunk = 256 threads x 8 elements of one
+//     entry, each thread one 8-element vector (sum over entries of
+//     ceil(n / kChunk) CTAs, at least one an entry; chunks of 1, 2, 4 and 8
+//     such trips were timed over the training legs' lists on the card, and
+//     one trip was the fastest). A CTA finds
+//     its entry by a binary search over the first-chunk column (uniform across
+//     the CTA, read from the parameter bank), takes its slice in one pass
+//     (one-trip CTAs stream at `copy_`'s rate, where resident CTAs walking a
+//     tensor reach 82-84 % of it), 16- or 32-byte vectors of every operand
+//     where the entry is 16-byte aligned, and the scalar path on the entry's
+//     ragged end or where it is not aligned;
+//   * every CTA reads its entry's OLD beta powers (Adam's, Adamax's); the CTA
+//     holding the entry's first chunk writes the new ones (the old ones on a
+//     found-inf skip) into the entry's row of the launch's [entries, 2] fp32
+//     output, never over the powers the other CTAs are still reading.
+// Each element is updated in the reference's operation order: the prefactor
+// multiply, decay into the gradient, the rule in fp32, the found-inf no-op,
+// and the parameter write in its dtype beside the fp32 master write. The
+// Pallas body traces any elementwise `optimizer.update` into itself; here each
+// rule is written out (`apply_rule`): SGD, Momentum (with Nesterov),
+// Adam/AdamW, Adagrad, RMSProp (centered or not, with momentum), Adamax,
+// Adadelta and DecayedAdagrad (paddle_tpu/optimizer/optimizer.py :398, :415,
+// :546, :589, :489, :511, :626, :699, :730), with up to three vector states
+// (centered RMSProp's mean square, momentum and mean gradient). The scalars
+// that change per step come through a pointer to the step's fp32 block (lr,
+// prefactor, found_inf), as the Pallas body's `sc_ref` does, so no step reads
+// them back to the host. The same kernel serves the bucketed route (a list of
+// buckets) and the per-parameter routes (a list of parameters: the pipeline
+// and hybrid engines' updates and `Optimizer.functional_apply`). Where the
+// reference rounds the unscaled gradient back to its dtype before the update
+// (the pipeline engine's loss-scaling path, spmd_pipeline.py:923-926),
+// `round_pref` rounds the prefactored gradient to the gradient's dtype. Vector
 // states are updated IN PLACE (each thread reads and writes only its own
 // elements), where the JAX step donates its buffers. The found-inf no-op is a
 // select: a skipped step writes nothing, so every output stays bit-equal to
@@ -77,12 +107,16 @@
 // rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), so nvcc
 // contracts nothing into an FMA and each fp32 result rounds where the
 // reference's op chain rounds; bf16 gradients widen exactly to fp32.
+#include <cstddef>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 8;  // elements a thread takes per step
+// elements a CTA of the update takes: one vector a thread
+constexpr long long kChunk = static_cast<long long>(kThreads) * kVec;
 
 // rule codes shared with ops/kernels/fused_optimizer.py
 enum Rule : int {
@@ -91,13 +125,14 @@ enum Rule : int {
 };
 
 // Constants of the rule (fixed for a run, so passed by value); the scalars
-// that change per step are in the device blocks `sc` and `pw`:
+// that change per step are in device blocks: the step's `sc` and each
+// entry's beta powers `pw`:
 //   sc[0] lr, sc[1] prefactor, sc[2] found_inf (> 0.5: skip);
 //   pw[0] beta1_pow (Adam, Adamax), pw[1] beta2_pow (Adam).
 // Each 1 - x constant is the Python double 1 - x rounded once to fp32, as a
 // weakly typed scalar is in jnp.
+// (each entry's decay into the gradient is in the table)
 struct Hyper {
-  float wd;        // decay folded into the gradient (0: none)
   float coeff;     // AdamW's decoupled decay coefficient
   float b1, b2, omb1, omb2, eps;
   float momentum;
@@ -115,28 +150,6 @@ __device__ __forceinline__ float adagrad_step(float p32, float g32, float m,
                                               float lr, float eps) {
   return __fsub_rn(p32, __fdiv_rn(__fmul_rn(lr, g32),
                                   __fadd_rn(__fsqrt_rn(m), eps)));
-}
-
-template <typename T>
-__device__ __forceinline__ void load8(const T* __restrict__ p, float (&out)[kVec]) {
-  constexpr int N = kVec * sizeof(T) / 16;
-  uint4 raw[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) raw[k] = reinterpret_cast<const uint4*>(p)[k];
-  const T* e = reinterpret_cast<const T*>(raw);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) out[j] = ptt::to_f32(e[j]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store8(T* __restrict__ p, const float (&in)[kVec]) {
-  constexpr int N = kVec * sizeof(T) / 16;
-  uint4 raw[N];
-  T* e = reinterpret_cast<T*>(raw);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) e[j] = ptt::from_f32<T>(in[j]);
-#pragma unroll
-  for (int k = 0; k < N; ++k) reinterpret_cast<uint4*>(p)[k] = raw[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -343,53 +356,134 @@ __device__ __forceinline__ float apply_rule(float p32, float g32, float& m1,
 // gradient's dtype under round_pref), then decay into it
 template <typename G>
 __device__ __forceinline__ float prep_grad(float g32, float p32, float pref,
-                                           const Hyper& h) {
+                                           float wd, const Hyper& h) {
   if (h.use_pref) {
     g32 = __fmul_rn(g32, pref);
     if (h.round_pref) g32 = ptt::to_f32(ptt::from_f32<G>(g32));
   }
-  if (h.wd != 0.f) g32 = __fadd_rn(g32, __fmul_rn(h.wd, p32));
+  if (wd != 0.f) g32 = __fadd_rn(g32, __fmul_rn(wd, p32));
   return g32;
 }
 
+// A launch's list of tensors, one column a field (the layout that
+// ops/kernels/fused_optimizer.py fills; `ptt_update_table_layout` reports
+// it): entry i updates n[i] elements of p[i] with g[i], its fp32 master
+// (kMaster) and its vector states s1..s3 (as apply_rule names them), reads
+// its old beta powers at pw[i] (Adam's two, Adamax's one; null for the
+// other rules), folds wd[i] * p into its gradient, and owns the chunks
+// start[i] .. start[i + 1] - 1 of the grid (start[0] = 0, start[count] the
+// grid's size).
+constexpr int kTableCap = 384;
+
+struct Table {
+  const void* g[kTableCap];
+  const float* pw[kTableCap];
+  void* p[kTableCap];
+  float* master[kTableCap];
+  void* s1[kTableCap];
+  void* s2[kTableCap];
+  void* s3[kTableCap];
+  long long n[kTableCap];
+  float wd[kTableCap];
+  int start[kTableCap + 1];
+};
+static_assert(sizeof(Table) + 128 <= 32764,
+              "a kernel's parameters: the table, the hypers and the rest");
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// the vector path's loads and stores: global space, the default cache policy
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&out)[kVec]) {
+  constexpr int N = kVec * sizeof(T) / 16;
+  uint4 raw[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    raw[k] = __ldca(reinterpret_cast<const uint4*>(p) + k);
+  const T* e = reinterpret_cast<const T*>(raw);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) out[j] = ptt::to_f32(e[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&in)[kVec]) {
+  constexpr int N = kVec * sizeof(T) / 16;
+  uint4 raw[N];
+  T* e = reinterpret_cast<T*>(raw);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) e[j] = ptt::from_f32<T>(in[j]);
+#pragma unroll
+  for (int k = 0; k < N; ++k) __stwb(reinterpret_cast<uint4*>(p) + k, raw[k]);
+}
+
+// One CTA a chunk of kChunk elements of one entry.
 template <int kRule, typename T, typename G, typename M, bool kMaster>
 __global__ void __launch_bounds__(kThreads)
-    update_kernel(T* __restrict__ p, const G* __restrict__ g,
-                  float* __restrict__ master, M* __restrict__ s1,
-                  M* __restrict__ s2, M* __restrict__ s3,
-                  const float* __restrict__ sc, const float* __restrict__ pw,
-                  float* __restrict__ sc_out, long long n, Hyper h, bool vec) {
+    multi_update_kernel(const __grid_constant__ Table tab, const int count,
+                        const Hyper h, const float* __restrict__ sc,
+                        float* __restrict__ pw_out) {
   constexpr bool kS1 = kRule != kSGD;
   constexpr bool kS2 = kRule == kAdam || kRule == kRMSProp ||
                        kRule == kAdamax || kRule == kAdadelta;
   const bool s3_on = kRule == kRMSProp && h.centered;
+  // the entry: the last whose first chunk is at or before this one
+  const int c = blockIdx.x;
+  int lo = 0, hi = count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tab.start[mid] <= c) lo = mid;
+    else hi = mid - 1;
+  }
+  const int e = lo;
+  const long long n = tab.n[e];
+  const long long first = (c - tab.start[e]) * kChunk;
+  const long long end = first + kChunk < n ? first + kChunk : n;
+  const bool head = c == tab.start[e] && threadIdx.x == 0;
   const float lr = sc[0];
   const float pref = sc[1];
   const bool skip = h.use_fi && sc[2] > 0.5f;
   float lr_t = 0.f, decay = 1.f;
   if constexpr (kRule == kAdam) {
+    const float* pw = tab.pw[e];
     const float b1p = __fmul_rn(pw[0], h.b1), b2p = __fmul_rn(pw[1], h.b2);
     // lr * sqrt(1 - b2p) / (1 - b1p)
     lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
                      __fsub_rn(1.f, b1p));
     decay = __fsub_rn(1.f, __fmul_rn(lr, h.coeff));
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      sc_out[0] = skip ? pw[0] : b1p;
-      sc_out[1] = skip ? pw[1] : b2p;
+    if (head) {
+      pw_out[2 * e] = skip ? pw[0] : b1p;
+      pw_out[2 * e + 1] = skip ? pw[1] : b2p;
     }
   } else if constexpr (kRule == kAdamax) {
+    const float* pw = tab.pw[e];
     const float b1p = __fmul_rn(pw[0], h.b1);
     lr_t = __fdiv_rn(lr, __fsub_rn(1.f, b1p));
-    if (blockIdx.x == 0 && threadIdx.x == 0) sc_out[0] = skip ? pw[0] : b1p;
+    if (head) pw_out[2 * e] = skip ? pw[0] : b1p;
   }
   if (skip) return;  // found_inf: every vector output keeps its input's bits
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  long long done = 0;
+  T* p = static_cast<T*>(tab.p[e]);
+  const G* g = static_cast<const G*>(tab.g[e]);
+  float* master = tab.master[e];
+  M* s1 = static_cast<M*>(tab.s1[e]);
+  M* s2 = static_cast<M*>(tab.s2[e]);
+  M* s3 = static_cast<M*>(tab.s3[e]);
+  const float wd = tab.wd[e];
+  const bool vec = aligned16(p) && aligned16(g) &&
+                   (!kMaster || aligned16(master)) &&
+                   (!kS1 || aligned16(s1)) && (!kS2 || aligned16(s2)) &&
+                   (!s3_on || aligned16(s3));
+  long long tail = first + threadIdx.x;   // this thread's scalar elements
+  long long step = kThreads;
   if (vec) {
-    for (long long c = first; c < n / kVec; c += stride) {
-      const long long i = c * kVec;
+    // this thread's vector; the one that holds the entry's ragged end takes
+    // it on the scalar path
+    const long long i = first + static_cast<long long>(threadIdx.x) * kVec;
+    step = 1;
+    tail = i < end ? i : end;
+    if (i + kVec <= end) {
+      tail = end;
       float pv[kVec], gv[kVec], m1[kVec], m2[kVec], m3[kVec], out[kVec];
       if constexpr (kMaster) {
         load8(master + i, pv);
@@ -402,7 +496,7 @@ __global__ void __launch_bounds__(kThreads)
       if (s3_on) load8(s3 + i, m3);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
-        const float g32 = prep_grad<G>(gv[j], pv[j], pref, h);
+        const float g32 = prep_grad<G>(gv[j], pv[j], pref, wd, h);
         out[j] = apply_rule<kRule>(pv[j], g32, m1[j], m2[j], m3[j], h, lr,
                                    lr_t, decay);
       }
@@ -412,11 +506,10 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kS2) store8(s2 + i, m2);
       if (s3_on) store8(s3 + i, m3);
     }
-    done = n / kVec * kVec;
   }
-  for (long long i = done + first; i < n; i += stride) {
+  for (long long i = tail; i < end; i += step) {
     const float p32 = kMaster ? master[i] : ptt::to_f32(p[i]);
-    const float g32 = prep_grad<G>(ptt::to_f32(g[i]), p32, pref, h);
+    const float g32 = prep_grad<G>(ptt::to_f32(g[i]), p32, pref, wd, h);
     float m1 = 0.f, m2 = 0.f, m3 = 0.f;
     if constexpr (kS1) m1 = ptt::to_f32(s1[i]);
     if constexpr (kS2) m2 = ptt::to_f32(s2[i]);
@@ -432,39 +525,26 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct UpdateArgs {
-  void *p, *master, *s1, *s2, *s3;
-  const void* g;
+  const Table* tab;
+  int count, master;
   const float* sc;
-  const float* pw;
-  float* sc_out;
-  long long n;
+  float* pw_out;
   Hyper h;
   cudaStream_t stream;
 };
 
 template <int R, typename T, typename G, typename M, bool kMaster>
 int launch_update(const UpdateArgs& a) {
-  const bool vec = ptt::aligned16(a.p) && ptt::aligned16(a.g) &&
-                   (!kMaster || ptt::aligned16(a.master)) &&
-                   (a.s1 == nullptr || ptt::aligned16(a.s1)) &&
-                   (a.s2 == nullptr || ptt::aligned16(a.s2)) &&
-                   (a.s3 == nullptr || ptt::aligned16(a.s3));
-  const long long work = vec ? (a.n + kVec - 1) / kVec : a.n;
-  const long long want = (work + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(want < 132 * 8 ? (want > 0 ? want : 1)
-                                                   : 132 * 8);
-  update_kernel<R, T, G, M, kMaster><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<T*>(a.p), static_cast<const G*>(a.g),
-      static_cast<float*>(a.master), static_cast<M*>(a.s1),
-      static_cast<M*>(a.s2), static_cast<M*>(a.s3), a.sc, a.pw, a.sc_out, a.n,
-      a.h, vec);
+  multi_update_kernel<R, T, G, M, kMaster>
+      <<<a.tab->start[a.count], kThreads, 0, a.stream>>>(
+          *a.tab, a.count, a.h, a.sc, a.pw_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int R, typename T, typename G, typename M>
 int launch_master(const UpdateArgs& a) {
-  return a.master != nullptr ? launch_update<R, T, G, M, true>(a)
-                             : launch_update<R, T, G, M, false>(a);
+  return a.master ? launch_update<R, T, G, M, true>(a)
+                  : launch_update<R, T, G, M, false>(a);
 }
 
 // vector states in fp32, or in bf16 for Momentum and Adam (moment_dtype); the
@@ -479,8 +559,8 @@ int launch_moments(const UpdateArgs& a, int m_dtype) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// (param dtype, gradient dtype): the bucket's own dtype for both, or a bf16
-// bucket with fp32 gradients (clipped by value in fp32 before the update)
+// (param dtype, gradient dtype): the tensor's own dtype for both, or a bf16
+// tensor with fp32 gradients (clipped by value in fp32 before the update)
 template <int R>
 int launch_rule(const UpdateArgs& a, int p_dtype, int g_dtype, int m_dtype) {
   if (p_dtype == ptt::kFloat32 && g_dtype == ptt::kFloat32)
@@ -513,38 +593,51 @@ extern "C" int ptt_grad_stats(const void* x, void* part, void* ticket,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One bucket's (or one parameter's) update, in place. p: [n] params; g: [n]
-// gradients; master: [n] fp32 or null; s1, s2, s3: [n] vector states or
-// null, as apply_rule names them (m_dtype: fp32, or bf16 for Momentum's and
-// Adam's). sc: the step's fp32 block above; pw: the beta powers ([2] Adam,
-// [1] Adamax, null otherwise); sc_out: [2] fp32, the new beta powers.
-extern "C" int ptt_fused_update(void* p, const void* g, void* master,
-                                void* s1, void* s2, void* s3, const void* sc,
-                                const void* pw, void* sc_out, long long n,
-                                int rule, int p_dtype, int g_dtype,
-                                int m_dtype, float wd, float coeff, float b1,
-                                float b2, float omb1, float omb2, float eps,
+// The table's layout for the wrapper to check its own against: out[0] its
+// capacity, out[1] its size in bytes, out[2] and out[3] the byte offsets of
+// the wd and start columns, out[4] the elements of a chunk.
+extern "C" int ptt_update_table_layout(int* out) {
+  out[0] = kTableCap;
+  out[1] = static_cast<int>(sizeof(Table));
+  out[2] = static_cast<int>(offsetof(Table, wd));
+  out[3] = static_cast<int>(offsetof(Table, start));
+  out[4] = static_cast<int>(kChunk);
+  return 0;
+}
+
+// One launch updating `count` (1 .. kTableCap) tensors in place, all of one
+// (rule, p dtype, g dtype, moment dtype, master or not) group. table: a host
+// `Table` (copied into the launch's parameters, so the caller may reuse it as
+// soon as this returns); a CTA takes kChunk elements of one entry. sc:
+// the step's fp32 block above; pw_out: [count, 2] fp32, the entries' new beta
+// powers (Adam, Adamax; else null); m_dtype: fp32, or bf16 for Momentum's and
+// Adam's states.
+extern "C" int ptt_multi_update(const void* table, int count,
+                                const void* sc, void* pw_out, int rule,
+                                int p_dtype, int g_dtype, int m_dtype,
+                                int master, float coeff, float b1, float b2,
+                                float omb1, float omb2, float eps,
                                 float momentum, float rho, float omr,
                                 int nesterov, int decoupled, int centered,
                                 int use_pref, int round_pref, int use_fi,
                                 int device, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Table* tab = static_cast<const Table*>(table);
+  if (count <= 0 || count > kTableCap || tab->start[0] != 0 ||
+      tab->start[count] <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((rule == kAdam || rule == kAdamax) && pw_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   UpdateArgs a;
-  a.p = p;
-  a.g = g;
+  a.tab = tab;
+  a.count = count;
   a.master = master;
-  a.s1 = s1;
-  a.s2 = s2;
-  a.s3 = s3;
   a.sc = static_cast<const float*>(sc);
-  a.pw = static_cast<const float*>(pw);
-  a.sc_out = static_cast<float*>(sc_out);
-  a.n = n;
-  a.h = Hyper{wd,  coeff,    b1,       b2,        omb1,     omb2,
-              eps, momentum, rho,      omr,       nesterov, decoupled,
-              centered, use_pref, round_pref, use_fi};
+  a.pw_out = static_cast<float*>(pw_out);
+  a.h = Hyper{coeff,    b1,        b2,       omb1,     omb2,
+              eps,      momentum,  rho,      omr,      nesterov,
+              decoupled, centered, use_pref, round_pref, use_fi};
   a.stream = static_cast<cudaStream_t>(stream);
   switch (rule) {
     case kSGD:

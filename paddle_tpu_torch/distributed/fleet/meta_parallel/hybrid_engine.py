@@ -18,9 +18,9 @@ more than one shard (`_bucketed` is False at `_n_shards == 1`,
     max(||g||, clip_norm) from the fp32 sum of every gradient's squares
     (the reference's `global_norm_sq`, :333, plain sums), each gradient
     scaled in fp32 and rounded back to its dtype;
-  * the update: one launch of the fused update kernel a parameter
-    (`fused_optimizer.ParamUpdates`, in place; the clip rides in as its
-    prefactor), with the fp32 master each low-precision parameter keeps
+  * the update: one launch of the fused update kernel for every
+    parameter (`fused_optimizer.ParamUpdates.apply`, in place; the clip
+    rides in as its prefactor), with the fp32 master each low-precision parameter keeps
     when `multi_precision` is on and the decay into the gradient when
     the rule asks for it; Lamb, Lars, Ftrl and DGCMomentum on their op
     chain.
@@ -206,18 +206,22 @@ class HybridParallelTrainStep:
 
     @uncast
     def _update(self, lr):
-        """Every parameter's `_update_one`, in place."""
+        """Every parameter's `_update_one`, in place: one launch of the
+        update kernel for all of them (their gradients are fresh each
+        step, so only their pointers are read again)."""
         grads = self._grads()
         factor = self._clip_factor(grads)
         opt = self.optimizer
+        entries = [(p.detach(), g, self._states[n])
+                   for (n, p), g in zip(self._named, grads)]
         if FO.fusible(opt):
-            upd = FO.ParamUpdates(opt, lr, prefactor=factor)
+            out = FO.ParamUpdates(opt, lr, prefactor=factor).apply(entries)
         else:
-            def upd(p, g, st):
-                return FO.shard_update_chain(opt, p, g, st, lr, factor,
-                                             round_prefactor=True)
-        for (n, p), g in zip(self._named, grads):
-            _p, self._states[n] = upd(p.detach(), g, self._states[n])
+            out = [FO.shard_update_chain(opt, p, g, st, lr, factor,
+                                         round_prefactor=True)
+                   for p, g, st in entries]
+        for (n, _p), (_new, st) in zip(self._named, out):
+            self._states[n] = st
 
     # -- public --------------------------------------------------------------
     def __call__(self, *batch):

@@ -22,9 +22,9 @@ same eagerly, micro-batch by micro-batch:
   * the update is the per-parameter `_update_one` (:2113-2127), the
     route the reference takes at dp = 1 (its bucketed route needs
     `dp_on_init`, :581, :603-605), in place: a fusible rule on the fused
-    update kernel, one launch a parameter (where XLA fuses each
-    parameter's chain into one pass); Lamb, Lars, Ftrl and DGCMomentum
-    on the same op chain (`shard_update_chain`);
+    update kernel, one launch for every parameter of the step (where XLA
+    fuses each parameter's chain into one pass); Lamb, Lars, Ftrl and
+    DGCMomentum on the same op chain (`shard_update_chain`);
   * the loss is the sum of the fp32 micro-batch losses over A (:1340).
 
 Loss scaling (the GradScaler path, :2100-2110, :911-961):
@@ -442,10 +442,11 @@ class SpmdPipelineEngine:
 
     @uncast
     def _update(self, lr, scale_t):
-        """Every parameter's update; with a loss scale, the found-inf
-        flag from every gradient's nonfinite count (the statistics
-        kernel, one launch a gradient), the unscale and the skip.
-        Returns the flag (a device bool)."""
+        """Every parameter's update (one launch of the update kernel for
+        all of them); with a loss scale, the found-inf flag from every
+        gradient's nonfinite count (the statistics kernel, one launch a
+        gradient), the unscale and the skip. Returns the flag (a device
+        bool)."""
         grads = list(self._grads())
         found, inv = self._no_inf, None
         if scale_t is not None:
@@ -453,14 +454,17 @@ class SpmdPipelineEngine:
             found = torch.stack(counts).sum() > 0
             inv = 1.0 / scale_t
         opt, fi = self.optimizer, None if inv is None else found
+        entries = [(p.detach(), g, self._states[n])
+                   for (n, p), g in zip(self._named, grads)]
         if FO.fusible(opt):
-            upd = FO.ParamUpdates(opt, lr, prefactor=inv, found_inf=fi)
+            out = FO.ParamUpdates(opt, lr, prefactor=inv,
+                                  found_inf=fi).apply(entries)
         else:
-            def upd(p, g, st):
-                return FO.shard_update_chain(opt, p, g, st, lr, inv, fi,
-                                             round_prefactor=True)
-        for (n, p), g in zip(self._named, grads):
-            _p, self._states[n] = upd(p.detach(), g, self._states[n])
+            out = [FO.shard_update_chain(opt, p, g, st, lr, inv, fi,
+                                         round_prefactor=True)
+                   for p, g, st in entries]
+        for (n, _p), (_new, st) in zip(self._named, out):
+            self._states[n] = st
         return found
 
     def train_batch(self, data, scale=None):

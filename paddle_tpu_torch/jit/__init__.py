@@ -12,12 +12,13 @@ the reference chooses them (`use_buckets=None` is the default):
   parameter's `.data` becomes a view into its parameter bucket and its
   `.grad` a view into a gradient bucket of its dtype, which each step
   zeroes and the backward accumulates into. The update
-  (`flat_functional_apply`) then runs the fused stats and update
-  kernels over the buckets in place. Only the default bucket cap is
+  (`flat_functional_apply`) then runs the fused stats kernel over each
+  bucket and the update kernel over all of them in one launch, in
+  place. Only the default bucket cap is
   ported; the env and strategy knobs come with the multi-GPU port.
 * **per-parameter** (otherwise): `optimizer.functional_apply` over
   {name: tensor} dicts: a fusible rule updates each parameter in place
-  on the fused update kernel, one launch a parameter; another rule's
+  on the fused update kernel, one launch for all of them; another rule's
   new values are copied into the parameters.
 
 Either way the parameters are updated IN PLACE, where the JAX step

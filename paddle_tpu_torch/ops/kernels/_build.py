@@ -196,13 +196,16 @@ _SIGNATURES = {
     'ptt_dropout_add_bwd': (_P, _P, _P, _L, _F, _I, _I, _P),
     # x, part, ticket, out, n, ctas, dtype, device, stream
     'ptt_grad_stats': (_P, _P, _P, _P, _L, _I, _I, _I, _P),
-    # p, g, master, s1, s2, s3, sc, pw, sc_out, n, rule, p_dtype, g_dtype,
-    # m_dtype, wd, coeff, b1, b2, omb1, omb2, eps, momentum, rho, omr,
-    # nesterov, decoupled, centered, use_pref, round_pref, use_fi, device,
+    # table, count, sc, pw_out, rule, p_dtype, g_dtype, m_dtype, master,
+    # coeff, b1, b2, omb1, omb2, eps, momentum, rho, omr, nesterov,
+    # decoupled, centered, use_pref, round_pref, use_fi, device, stream
+    'ptt_multi_update': (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                         _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
+    # out: [5] int32 (the update table's capacity, size, wd and start
+    # offsets, and a chunk's elements); called directly, no device or
     # stream
-    'ptt_fused_update': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                         _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I,
-                         _I, _I, _I, _I, _I, _P),
+    'ptt_update_table_layout': (_P,),
 }
 
 

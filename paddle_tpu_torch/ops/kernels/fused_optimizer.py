@@ -17,10 +17,12 @@ input), and the parameter write in its dtype beside the fp32 master
 write where the state has a master. It updates IN PLACE where the JAX
 step donates: `p` and every vector state (master, moments, velocity,
 accumulators) are overwritten and returned; the scalar states (Adam's
-and Adamax's beta powers) come back as new fp32 0-dim tensors. `lr`,
-`prefactor`, `found_inf` and the beta powers reach the kernel through
-one small fp32 device block, never by value, so no step reads a device
-value back to the host. The gradient may be the bucket's dtype or fp32.
+and Adamax's beta powers) come back as fp32 0-dim tensors (on the card,
+views of the launch's powers block: see `ParamUpdates`). `lr`,
+`prefactor` and `found_inf` reach the kernel through one small fp32
+device block and the beta powers by pointer, never by value, so no step
+reads a device value back to the host. The gradient may be the bucket's
+dtype or fp32.
 
 The kernel (`csrc/fused_optimizer.cu`) implements every `_pallas_fusible`
 rule of the reference: SGD, Momentum (with Nesterov), Adam and AdamW
@@ -29,13 +31,21 @@ momentum: up to three vector states), Adamax, Adadelta and
 DecayedAdagrad (fp32 states); each is written out in CUDA, where Pallas
 traced `update` into its body.
 
-`ParamUpdates` runs the same kernel once a parameter, for the
-per-parameter routes (the pipeline engine's update and
-`Optimizer.functional_apply`): the step's scalar block is built once for
-all of a step's parameters, each parameter's beta powers are read where
-the last call left them, and the engine's loss-scaling path unscales
-with the reference's rounding (the prefactored gradient rounded back to
-its dtype) and skips with the found-inf select.
+`ParamUpdates` runs the kernel over a list of tensors in one launch
+(`apply`), for the per-parameter routes (the pipeline and hybrid
+engines' updates and `Optimizer.functional_apply`) and the bucketed one
+(`fused_shard_updates`, all buckets of a step): the list becomes a table
+of pointers and sizes that rides in the launch's parameters
+(`UpdateTable`, cached on the optimizer and rebuilt only when a tensor's
+pointer, dtype or size changes), the step's scalar block is built once,
+each tensor's beta powers are read where the last step left them, and
+the engine's loss-scaling path unscales with the reference's rounding
+(the prefactored gradient rounded back to its dtype) and skips with the
+found-inf select. Tensors of other dtypes go to other launches, and a
+list longer than TABLE_CAP to more (`update_launches`); a CTA takes one
+chunk of one tensor (`chunk_starts`). A one-tensor call (`fused_shard_update`,
+calling a `ParamUpdates`) fills one row of a shared table instead
+(`_update_one`), so a loop of them builds no table.
 
 Plain versions: `grad_stats_plain` and `fused_shard_update_plain` (the
 reference `shard_update`'s op chain, functional). CPU tensors run the
@@ -43,6 +53,10 @@ plain versions (the update's results copied back into its inputs, so
 both routes keep one contract); CUDA tensors launch the kernels or
 raise.
 """
+import ctypes
+import weakref
+
+import numpy as np
 import torch
 
 from . import _build
@@ -248,32 +262,95 @@ def _step_block(lr, prefactor, found_inf, device):
                         for s in parts])
 
 
-def _powers(st, keys, device):
-    """The beta powers as one contiguous fp32 block: the state's own
-    tensors where they already are one (the views of the last call's
-    output), else a stack of them."""
-    ts = [st[k] for k in keys]
-    first = ts[0]
-    if all(t.dtype == torch.float32 and t.device == device
-           and t.numel() == 1 for t in ts) and all(
-            t.data_ptr() == first.data_ptr() + 4 * j
-            for j, t in enumerate(ts)):
-        return first
-    return torch.stack([t.to(device=device, dtype=torch.float32).reshape(())
-                        for t in ts])
+# csrc/fused_optimizer.cu's update table (`Table`): TABLE_CAP entries, one
+# column a field: eight 8-byte columns (the gradient and old-power pointers,
+# which change every step, then the static ones), the fp32 decay column and
+# the int32 first-chunk column (TABLE_CAP + 1 values)
+TABLE_CAP = 384
+_COLUMNS = ('g', 'pw', 'p', 'master', 's1', 's2', 's3', 'n')
+_COL = {name: i for i, name in enumerate(_COLUMNS)}
+# a CTA of the update takes one chunk of one entry, one vector of UPDATE_VEC
+# elements a thread (chunks of 1-8 such trips were timed on the card over the
+# pipeline's and BERT's lists, one the fastest; PERF.md)
+UPDATE_THREADS, UPDATE_VEC = 256, 8
+UPDATE_CHUNK = UPDATE_THREADS * UPDATE_VEC
 
 
-def _launch(optimizer, rule, h, p, g, st, block, use_pref, use_fi):
-    """One in-place call of the update kernel: returns (p, new state)."""
+def table_layout():
+    """(bytes, wd column's byte offset, start column's byte offset) of the
+    table, as the C struct lays it out."""
+    wd = 8 * len(_COLUMNS) * TABLE_CAP
+    start = wd + 4 * TABLE_CAP
+    return -(-(start + 4 * (TABLE_CAP + 1)) // 8) * 8, wd, start
+
+
+def chunk_starts(sizes):
+    """Each entry's first chunk, then the grid's size: entry i owns the
+    CTAs starts[i] .. starts[i + 1] - 1, at least one (a zero-element
+    entry's CTA only writes its beta powers)."""
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + max(1, -(-n // UPDATE_CHUNK)))
+    return starts
+
+
+def update_launches(groups, sizes, cap=TABLE_CAP):
+    """The launches of a list of tensors: entries of one kernel group
+    (`groups[i]`: rule dtypes and master, which the kernel is built for)
+    go together, groups in the order of their first entry and each in the
+    caller's order, cut into runs of at most `cap`; entries of size 0
+    launch nothing (the table passes a zero-element tensor that carries
+    beta powers as size 1). Returns [(group, [entry indices])]."""
+    by = {}
+    for i, (grp, n) in enumerate(zip(groups, sizes)):
+        if n:
+            by.setdefault(grp, []).append(i)
+    return [(grp, idx[j:j + cap]) for grp, idx in by.items()
+            for j in range(0, len(idx), cap)]
+
+
+_LAYOUT_CHECKED = []
+
+
+def _check_layout():
+    """The library's Table and chunk against table_layout() and
+    UPDATE_CHUNK, once a process."""
+    if not _LAYOUT_CHECKED:
+        got = (ctypes.c_int * 5)()
+        _build.lib().ptt_update_table_layout(ctypes.addressof(got))
+        want = (TABLE_CAP, *table_layout(), UPDATE_CHUNK)
+        if tuple(got) != want:
+            raise RuntimeError(f'{STEP}: the kernel\'s update table is '
+                               f'{tuple(got)}, the wrapper\'s {want}')
+        _LAYOUT_CHECKED.append(True)
+
+
+def _host_table():
+    """A zeroed host `Table`: (its buffer, the [column, entry] pointer and
+    size columns, the wd column, the first-chunk column)."""
+    nbytes, wd_at, start_at = table_layout()
+    buf = np.zeros(nbytes // 8, dtype=np.int64)
+    cols = buf[:len(_COLUMNS) * TABLE_CAP].reshape(len(_COLUMNS), TABLE_CAP)
+    wd = buf.view(np.float32)[wd_at // 4:wd_at // 4 + TABLE_CAP]
+    start = buf.view(np.int32)[start_at // 4:start_at // 4 + TABLE_CAP + 1]
+    return buf, cols, wd, start
+
+
+def _checked_entry(optimizer, rule, h, keys, p, g, st, ref=None):
+    """One entry's checks (element counts, dtypes, contiguity, RMSProp's
+    centred state, one device with `ref` unless the caller checked the
+    devices): (its state, with an fp32 master seeded from a low-precision
+    p that had none, the master or None, its vector states `keys`,
+    whether the master was seeded)."""
     st = dict(st)
     master = st.get('master')
-    if master is None and p.dtype != torch.float32 and \
-            getattr(optimizer, '_multi_precision', True):
-        master = st['master'] = p.float()       # seeded from the param
+    seeded = master is None and p.dtype != torch.float32 and \
+        getattr(optimizer, '_multi_precision', True)
+    if seeded:
+        master = st['master'] = p.float()
     if rule == _RMSPROP and h['centered'] != ('mean_grad' in st):
         raise ValueError('fused_shard_update: a centered RMSProp state has '
                          'mean_grad, an uncentered one has not')
-    keys = [k for k in _VEC_KEYS[rule] if k != 'mean_grad' or h['centered']]
     vecs = [st[k] for k in keys]
     n = p.numel()
     for name, t in [('g', g), ('master', master)] + list(zip(keys, vecs)):
@@ -292,27 +369,219 @@ def _launch(optimizer, rule, h, p, g, st, block, use_pref, use_fi):
     _build.require_contiguous(STEP, p=p, g=g, **({} if master is None
                                                   else {'master': master}),
                               **dict(zip(keys, vecs)))
-    dev = p.device
-    scalar_keys = _SCALAR_KEYS.get(rule, ())
-    pw = _powers(st, scalar_keys, dev) if scalar_keys else None
-    sc_out = torch.empty(max(len(scalar_keys), 1), dtype=torch.float32,
-                         device=dev) if scalar_keys else None
-    s1, s2, s3 = (vecs + [None] * 3)[:3]
-    m_code = _build.dtype_code(s1, STEP) if s1 is not None else 0
-    if n:
-        _build.launch(
-            'ptt_fused_update', STEP, dev, p.data_ptr(), g.data_ptr(),
-            _build.ptr(master), _build.ptr(s1), _build.ptr(s2),
-            _build.ptr(s3), block.data_ptr(), _build.ptr(pw),
-            _build.ptr(sc_out), n, rule, _build.dtype_code(p, STEP),
-            _build.dtype_code(g, STEP), m_code, h['wd'], h['coeff'],
-            h['b1'], h['b2'], h['omb1'], h['omb2'], h['eps'],
-            h['momentum'], h['rho'], h['omr'], h['nesterov'],
-            h['decoupled'], h['centered'], int(use_pref),
-            int(h.get('round', 0)), int(use_fi))
-        for j, k in enumerate(scalar_keys):
-            st[k] = sc_out[j]
-    return p, st
+    if ref is not None:
+        _build.on_cpu(ref, p, g, *st.values())
+    return st, master, vecs, seeded
+
+
+def _group(p, g, master, vecs):
+    """The kernel an entry runs on: (p, g and vector-state dtype codes,
+    whether it has a master)."""
+    return (_build.dtype_code(p, STEP), _build.dtype_code(g, STEP),
+            _build.dtype_code(vecs[0], STEP) if vecs else 0,
+            int(master is not None))
+
+
+def _launch_table(rule, h, device, addr, count, group, block, out, use_pref,
+                  use_fi):
+    """One launch of the first `count` entries of the host table at
+    `addr`."""
+    _check_layout()
+    p_code, g_code, m_code, master = group
+    _build.launch(
+        'ptt_multi_update', STEP, device, addr, count,
+        block.data_ptr(), _build.ptr(out), rule, p_code, g_code, m_code,
+        master, h['coeff'], h['b1'], h['b2'], h['omb1'], h['omb2'], h['eps'],
+        h['momentum'], h['rho'], h['omr'], h['nesterov'], h['decoupled'],
+        h['centered'], int(use_pref), int(h['round']), int(use_fi))
+
+
+class _Launch:
+    """One launch of a table: its entries (indices into the caller's
+    list), their kernel group and the host table it passes, with the
+    static columns filled; two [count, 2] fp32 blocks that take the new
+    beta powers in turns, each with its 0-dim views made once
+    ({power key: view} an entry)."""
+
+    def __init__(self, group, idx, cols, wd, sizes, powers, device):
+        self.group, self.idx = group, idx
+        self.buf, self.cols, wds, start = _host_table()
+        self.addr = self.buf.ctypes.data
+        k = len(idx)
+        for name, values in cols.items():
+            self.cols[_COL[name], :k] = values
+        wds[:k] = wd
+        start[:k + 1] = chunk_starts(sizes)
+        self.blocks, self.views, self.turn = [], [], 0
+        if powers:
+            # each launch writes every row of its block before a step reads
+            # it (the first step reads the states' own powers)
+            for _ in range(2):
+                b = torch.empty(k, 2, dtype=torch.float32, device=device)
+                self.blocks.append(b)
+                flat = b.view(-1).unbind(0)
+                self.views.append([dict(zip(powers, flat[2 * j:2 * j + 2]))
+                                   for j in range(k)])
+
+
+class UpdateTable:
+    """A list of tensors as the update kernel's launches. Built once per
+    list (the checks a call made: `_checked_entry`), kept while every
+    entry's static part (p's pointer, dtype and size, the gradient's
+    dtype, size and device, the decay, the state tensors themselves) is
+    unchanged; a step refills only the gradient and old-power columns."""
+
+    def __init__(self, optimizer, rule, h, entries):
+        self.rule, self.centered = rule, h['centered']
+        self.scalar_keys = _SCALAR_KEYS.get(rule, ())
+        self.device = entries[0][0].device
+        self.seeded, self.checks = {}, []
+        self.sizes, self.wds, ptrs, groups = [], [], [], []
+        keys = [k for k in _VEC_KEYS[rule] if k != 'mean_grad' or
+                h['centered']]
+        for i, (p, g, st, wd) in enumerate(entries):
+            st, master, vecs, seeded = _checked_entry(
+                optimizer, rule, h, keys, p, g, st, ref=entries[0][0])
+            if seeded:
+                self.seeded[i] = master
+            n = p.numel()
+            self.wds.append(float(h['wd'] if wd is None else wd))
+            held = tuple(zip(['master'] * (master is not None) + keys,
+                             [master] * (master is not None) + vecs))
+            self.checks.append((p.data_ptr(), p.dtype, n, g.dtype,
+                                g.get_device(), self.wds[-1], len(st), held))
+            self.sizes.append(n)
+            ptrs.append([0 if master is None else master.data_ptr()]
+                        + [t.data_ptr() for t in vecs] + [0] * (3 - len(vecs)))
+            groups.append(_group(p, g, master, vecs))
+        self.launches = []
+        # a zero-element tensor launches only to step its beta powers, as
+        # the op chain does
+        live = [n or len(self.scalar_keys) for n in self.sizes]
+        for group, idx in update_launches(groups, live):
+            cols = {'p': [entries[i][0].data_ptr() for i in idx],
+                    'n': [self.sizes[i] for i in idx]}
+            for c, name in enumerate(('master', 's1', 's2', 's3')):
+                cols[name] = [ptrs[i][c] for i in idx]
+            self.launches.append(_Launch(
+                group, idx, cols, [self.wds[i] for i in idx],
+                [self.sizes[i] for i in idx], self.scalar_keys, self.device))
+            spans = sorted((cols['p'][j], cols['p'][j] + self.sizes[i]
+                            * entries[i][0].element_size(), i)
+                           for j, i in enumerate(idx))
+            for (_a0, a1, i), (b0, _b1, j) in zip(spans, spans[1:]):
+                if b0 < a1:
+                    raise ValueError(f'fused_shard_update: entries {i} and '
+                                     f'{j} share memory')
+
+    def matches(self, entries, h):
+        """True when `entries` have this table's static part: the same p
+        pointers, sizes, dtypes and decays, and the same state tensors
+        (the objects the table was built from; a state whose storage is
+        swapped in place is not seen)."""
+        if len(entries) != len(self.checks) or h['centered'] != self.centered:
+            return False
+        default = float(h['wd'])
+        for (p, g, st, wd), (ptr, p_dtype, n, g_dtype, dev, w, size,
+                             held) in zip(entries, self.checks):
+            if p.data_ptr() != ptr or p.dtype is not p_dtype or \
+                    p.numel() != n or g.dtype is not g_dtype or \
+                    g.numel() != n or g.get_device() != dev or \
+                    not g.is_contiguous() or len(st) != size or \
+                    (default if wd is None else wd) != w:
+                return False
+            for k, t in held:
+                if st.get(k) is not t:
+                    return False
+        return True
+
+    def _old_powers(self, launch, entries, keep):
+        """The old-power pointers of a launch's entries: the rows of the
+        block the last step wrote where the states hold its views, else
+        rows of one fp32 stack of the states' own powers (kept alive in
+        `keep` until the launch is queued; never the block this launch
+        writes)."""
+        keys = self.scalar_keys
+        for i, views in zip(launch.idx, launch.views[1 - launch.turn]):
+            st = entries[i][2]
+            for k, v in views.items():
+                if st[k] is not v:
+                    break
+            else:
+                continue
+            break
+        else:
+            base = launch.blocks[1 - launch.turn].data_ptr()
+            return range(base, base + 8 * len(launch.idx), 8)
+        stack = torch.stack([entries[i][2][k].to(
+            device=self.device, dtype=torch.float32).reshape(())
+            for i in launch.idx for k in keys])
+        keep.append(stack)
+        step = 4 * len(keys)
+        return range(stack.data_ptr(), stack.data_ptr()
+                     + step * len(launch.idx), step)
+
+    def run(self, entries, h, block, use_pref, use_fi):
+        """One step: every launch, in order; returns [(p, new state)]."""
+        new = [None] * len(entries)
+        for launch in self.launches:
+            k = len(launch.idx)
+            launch.cols[_COL['g'], :k] = [entries[i][1].data_ptr()
+                                          for i in launch.idx]
+            keep, out = [], None
+            if self.scalar_keys:
+                launch.cols[_COL['pw'], :k] = self._old_powers(
+                    launch, entries, keep)
+                out = launch.blocks[launch.turn]
+            _launch_table(self.rule, h, self.device, launch.addr, k,
+                          launch.group, block, out, use_pref, use_fi)
+            if out is not None:
+                for i, views in zip(launch.idx, launch.views[launch.turn]):
+                    new[i] = {**entries[i][2], **views}
+                launch.turn = 1 - launch.turn
+        for i, (_p, _g, st, _wd) in enumerate(entries):
+            if new[i] is None:
+                new[i] = st.copy()
+        for i, m in self.seeded.items():
+            new[i]['master'] = m
+        self.seeded = {}
+        return [(e[0], ns) for e, ns in zip(entries, new)]
+
+
+# {optimizer: {list length: UpdateTable}}: a step's table is kept on the
+# optimizer whose states it points into
+_TABLES = weakref.WeakKeyDictionary()
+
+
+def update_table(optimizer, rule, h, entries):
+    """The cached table of `entries` ([(p, g, state, wd)]), rebuilt when
+    an entry's static part changed."""
+    tables = _TABLES.setdefault(optimizer, {})
+    table = tables.get(len(entries))
+    if table is None or not table.matches(entries, h):
+        table = tables[len(entries)] = UpdateTable(optimizer, rule, h,
+                                                   entries)
+    return table
+
+
+def _powers(st, keys, device):
+    """A state's beta powers as one contiguous fp32 pair: its own tensors
+    where they already are one (the views of the last launch's block),
+    else a stack of them."""
+    ts = [st[k] for k in keys]
+    first = ts[0]
+    if all(t.dtype == torch.float32 and t.device == device
+           and t.numel() == 1 for t in ts) and all(
+            t.data_ptr() == first.data_ptr() + 4 * j
+            for j, t in enumerate(ts)):
+        return first
+    return torch.stack([t.to(device=device, dtype=torch.float32).reshape(())
+                        for t in ts])
+
+
+# the host table of one-entry launches, refilled by each (the launch copies
+# it into the kernel's parameters)
+_ONE = []
 
 
 def shard_update_chain(optimizer, p, g, st, lr, prefactor=None,
@@ -341,61 +610,145 @@ def _require_fusible(optimizer):
             f'elementwise, fusible optimizer')
 
 
+class ParamUpdates:
+    """One step's updates on the update kernel, a list of tensors a launch
+    (the reference's per-parameter `_update_one`, spmd_pipeline.py:2113-
+    2127, and `Optimizer.functional_apply`, optimizer.py:103-158, which
+    XLA fuses into one pass a parameter; and the bucketed
+    `shard_update`), in place, with what is the same for every tensor of
+    the step (the rule's constants, the [lr, prefactor, found_inf] block)
+    built once.
+
+    `apply([(p, g, state, wd), ...])` updates every p and its state's
+    vector tensors in place and returns [(p, new state)] in order: one
+    kernel launch for the list (one a group of tensors of the same
+    dtypes, and one per TABLE_CAP of them), from a table kept on the
+    optimizer and rebuilt only when a tensor's static part changed. Each
+    state's new beta powers are 0-dim views of one [entries, 2] fp32
+    block of the launch, which the next step reads in place (the launch
+    writes its other block: a state's powers, like its vector states, are
+    overwritten two steps later). Calling the object on (p, g, state)
+    is `apply` of that one entry: (p, new state), as `fused_shard_update`
+    returns; its launch takes the entry alone, its new powers one fresh
+    fp32 pair. `wd` replaces the optimizer's decay into the gradient for
+    that tensor (a parameter's own L2Decay); None keeps it.
+
+    `prefactor` multiplies each gradient first; with `round_prefactor`
+    (the default) the product is rounded back to the gradient's dtype
+    (the engine's unscale, spmd_pipeline.py:923-926), without it not (the
+    bucketed prefactor, as shard_update's); `found_inf` (a 0-dim device
+    tensor) turns the step into a no-op that leaves each output
+    bit-equal to its input. CPU tensors take the plain version, entry by
+    entry."""
+
+    def __init__(self, optimizer, lr, prefactor=None, found_inf=None,
+                 round_prefactor=True):
+        _require_fusible(optimizer)
+        self.optimizer = optimizer
+        self.lr, self.prefactor, self.found_inf = lr, prefactor, found_inf
+        self.round_prefactor = round_prefactor
+        self._rule, self._h = _rule(optimizer)
+        self._h['round'] = int(round_prefactor)
+        self._keys = [k for k in _VEC_KEYS[self._rule]
+                      if k != 'mean_grad' or self._h['centered']]
+        self._block = None
+
+    def _extra(self):
+        return [t for t in (self.lr, self.prefactor, self.found_inf)
+                if isinstance(t, torch.Tensor)]
+
+    def __call__(self, p, g, st, wd=None):
+        if _build.on_cpu(p, g, *st.values(), *self._extra()):
+            return shard_update_chain(
+                self.optimizer, p, g, st, self.lr, self.prefactor,
+                self.found_inf, round_prefactor=self.round_prefactor, wd=wd)
+        return self._update_one(p, g, st, wd)
+
+    def apply(self, entries):
+        entries = list(entries)
+        if not entries:
+            return []
+        if len(entries[0]) == 3:
+            entries = [(p, g, st, None) for p, g, st in entries]
+        if len(entries) == 1:
+            return [self(*entries[0])]
+        if _build.on_cpu(entries[0][0], *self._extra()):
+            # every tensor of the list on the CPU, or a raise before any
+            # update
+            _build.on_cpu(*(t for p, g, st, _wd in entries
+                            for t in (p, g, *st.values())))
+            out = []
+            for p, g, st, wd in entries:
+                out.append(shard_update_chain(
+                    self.optimizer, p, g, st, self.lr, self.prefactor,
+                    self.found_inf, round_prefactor=self.round_prefactor,
+                    wd=wd))
+            return out
+        return self._kernel_route(entries)
+
+    def _step_block(self, device):
+        if self._block is None:
+            self._block = _step_block(self.lr, self.prefactor,
+                                      self.found_inf, device)
+        return self._block
+
+    def _kernel_route(self, entries):
+        """The launches of `entries` (4-tuples on one CUDA device): one
+        entry on its own, a longer list from its cached table."""
+        if len(entries) == 1:
+            return [self._update_one(*entries[0])]
+        table = update_table(self.optimizer, self._rule, self._h, entries)
+        return table.run(entries, self._h, self._step_block(table.device),
+                         self.prefactor is not None,
+                         self.found_inf is not None)
+
+    def _update_one(self, p, g, st, wd):
+        """One entry without a cached table, which a loop of one-tensor
+        calls would rebuild at every call: the entry's checks, its row in
+        the shared one-entry table, its old powers read where its state
+        holds them and one new fp32 pair; returns (p, new state)."""
+        rule, h = self._rule, self._h
+        st, master, vecs, _seeded = _checked_entry(
+            self.optimizer, rule, h, self._keys, p, g, st)
+        scalar_keys = _SCALAR_KEYS.get(rule, ())
+        n = p.numel()
+        if not (n or scalar_keys):
+            return p, st
+        pw = _powers(st, scalar_keys, p.device) if scalar_keys else None
+        out = torch.empty(2, dtype=torch.float32, device=p.device) \
+            if scalar_keys else None
+        if not _ONE:
+            table = _host_table()
+            _ONE.append((table[0].ctypes.data, *table))
+        addr, _buf, cols, wds, start = _ONE[0]
+        cols[:, 0] = [g.data_ptr(), 0 if pw is None else pw.data_ptr(),
+                      p.data_ptr(), 0 if master is None else master.data_ptr(),
+                      *(t.data_ptr() for t in vecs), *[0] * (3 - len(vecs)),
+                      n]
+        wds[0] = h['wd'] if wd is None else wd
+        start[1] = max(1, -(-n // UPDATE_CHUNK))
+        _launch_table(rule, h, p.device, addr, 1, _group(p, g, master, vecs),
+                      self._step_block(p.device), out,
+                      self.prefactor is not None, self.found_inf is not None)
+        for j, k in enumerate(scalar_keys):
+            st[k] = out[j]
+        return p, st
+
+
 def fused_shard_update(optimizer, p, g, st, lr, prefactor=None,
                        found_inf=None):
     """One bucket's update, in place: returns (p, new state), where p
     and the state's vector tensors are the ones passed in, overwritten.
     The kernel on CUDA tensors; on CPU tensors the plain version, its
     results copied into the inputs."""
-    _require_fusible(optimizer)
-    extra = [t for t in (lr, prefactor, found_inf) if t is not None]
-    if _build.on_cpu(p, g, *st.values(), *extra):
-        return shard_update_chain(optimizer, p, g, st, lr, prefactor,
-                               found_inf)
-    rule, h = _rule(optimizer)
-    block = _step_block(lr, prefactor, found_inf, p.device)
-    return _launch(optimizer, rule, h, p, g, st, block,
-                   prefactor is not None, found_inf is not None)
+    return fused_shard_updates(optimizer, [p], [g], [st], lr, prefactor,
+                               found_inf)[0]
 
 
-class ParamUpdates:
-    """One step's per-parameter updates on the update kernel (the
-    reference's per-parameter `_update_one`, spmd_pipeline.py:2113-2127,
-    and `Optimizer.functional_apply`, optimizer.py:103-158, which XLA
-    fuses into one pass a parameter): one kernel launch a parameter, in
-    place, with what is the same for every parameter of the step (the
-    rule's constants, the [lr, prefactor, found_inf] block) built once.
-
-    `prefactor` multiplies each gradient first and the product is
-    rounded back to the gradient's dtype (the engine's unscale,
-    spmd_pipeline.py:923-926; `fused_shard_update`'s bucketed prefactor
-    is not rounded, as shard_update's is not); `found_inf` (a 0-dim
-    device tensor) turns every call into a no-op
-    that leaves each output bit-equal to its input. Calling the object
-    on (p, g, state) updates p and the state's vector tensors in place
-    and returns (p, new state), as `fused_shard_update` does; `wd`
-    replaces the optimizer's decay into the gradient for that parameter
-    (a parameter's own L2Decay). CPU tensors take the plain version."""
-
-    def __init__(self, optimizer, lr, prefactor=None, found_inf=None):
-        _require_fusible(optimizer)
-        self.optimizer = optimizer
-        self.lr, self.prefactor, self.found_inf = lr, prefactor, found_inf
-        self._rule, self._h = _rule(optimizer)
-        self._h['round'] = 1
-        self._block = None
-
-    def __call__(self, p, g, st, wd=None):
-        extra = [t for t in (self.lr, self.prefactor, self.found_inf)
-                 if isinstance(t, torch.Tensor)]
-        if _build.on_cpu(p, g, *st.values(), *extra):
-            return shard_update_chain(self.optimizer, p, g, st, self.lr,
-                                      self.prefactor, self.found_inf,
-                                      round_prefactor=True, wd=wd)
-        if self._block is None:
-            self._block = _step_block(self.lr, self.prefactor,
-                                      self.found_inf, p.device)
-        h = self._h if wd is None else dict(self._h, wd=float(wd))
-        return _launch(self.optimizer, self._rule, h, p, g, st, self._block,
-                       self.prefactor is not None,
-                       self.found_inf is not None)
+def fused_shard_updates(optimizer, ps, gs, states, lr, prefactor=None,
+                        found_inf=None):
+    """Every bucket's update in one call (`fused_shard_update` of each, in
+    one launch): [(p, new state)] in order."""
+    return ParamUpdates(optimizer, lr, prefactor, found_inf,
+                        round_prefactor=False).apply(
+        list(zip(ps, gs, states)))

@@ -34,10 +34,10 @@ DecayedAdagrad are fp32, as the reference's are; like the reference's,
 these five take no `multi_precision` argument (one passed lands in
 `**kwargs`), so their bf16 params always carry an fp32 master.
 
-The update route is chosen by rule: a fusible rule runs each parameter
+The update route is chosen by rule: a fusible rule runs the parameters
 through the fused update kernel (`ops/kernels/fused_optimizer.py`,
-`ParamUpdates`: one launch a parameter, in place, bit-equal to the op
-chain), where the reference's jitted step fuses each parameter's chain
+`ParamUpdates.apply`: one launch for all of them, in place, bit-equal
+to the op chain), where the reference's jitted step fuses each parameter's chain
 into one XLA pass; the others (Lamb, Lars, Ftrl, DGCMomentumOptimizer,
 `_pallas_fusible = False` in the reference too) run their op chain. On
 the fused route `functional_apply` updates the params and the vector
@@ -175,7 +175,7 @@ class Optimizer:
         eager `step()` only) replace the optimizer's decay into the
         gradient for those params."""
         fused = FO.ParamUpdates(self, lr) if FO.fusible(self) else None
-        new_params, new_states = {}, {}
+        new_params, new_states, entries = {}, {}, {}
         for n, p in params.items():
             g = grads.get(n)
             if g is None:
@@ -187,8 +187,9 @@ class Optimizer:
             if fused is not None and (reg is None or type(reg) is L2Decay):
                 if not any(k != 'master' for k in st):
                     st.update(self.init_state(p))
-                new_params[n], new_states[n] = fused(
-                    p, g, st, wd=None if reg is None else reg._coeff)
+                # the slot keeps the params' order; one launch fills all
+                new_params[n] = new_states[n] = None
+                entries[n] = (p, g, st, None if reg is None else reg._coeff)
                 continue
             low_precision = p.dtype != torch.float32
             if low_precision and self._multi_precision:
@@ -210,6 +211,10 @@ class Optimizer:
                 ns['master'] = np_
             new_params[n] = np_.to(p.dtype)
             new_states[n] = ns
+        if entries:
+            for n, (p, ns) in zip(entries, fused.apply(list(
+                    entries.values()))):
+                new_params[n], new_states[n] = p, ns
         return new_params, new_states
 
     @torch.no_grad()

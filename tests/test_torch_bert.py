@@ -627,8 +627,7 @@ PLAIN = {'layer_norm': (tfln, 'layer_norm_fwd_plain'),
          'bias_gelu': (tfe, 'bias_gelu_plain'),
          'bias_gelu_bwd': (tfe, 'bias_gelu_bwd_plain'),
          'flash_fwd': (tfa, 'flash_attention_packed_plain'),
-         'flash_bwd': (tfa, 'flash_attention_packed_bwd_plain'),
-         'optimizer_step': (tfo, 'shard_update_chain')}
+         'flash_bwd': (tfa, 'flash_attention_packed_bwd_plain')}
 
 
 def test_step_calls_match_the_bert_launch_derivation(flash_flags,
@@ -636,8 +635,9 @@ def test_step_calls_match_the_bert_launch_derivation(flash_flags,
     """Calls of each kernel's plain version in one engine step of BERT at
     2 layers on the packed flash route (L = 256, dropout 0, AdamW with
     masters) equal chip_smoke.py's `bert_launches`, which the card's run
-    asserts, divided by its launches a call; the erf form of the
-    bias+GELU; no other kernel's plain version runs."""
+    asserts, divided by its launches a call; the update one list of
+    every parameter whose table takes `bert_launches`' launches; the erf
+    form of the bias+GELU; no other kernel's plain version runs."""
     calls = dict.fromkeys(PLAIN, 0)
     forms = set()
     for name, (mod, attr) in PLAIN.items():
@@ -649,6 +649,16 @@ def test_step_calls_match_the_bert_launch_derivation(flash_flags,
                 forms.add(a[2] if len(a) > 2 else k.get('approximate'))
             return _fn(*a, **k)
         monkeypatch.setattr(mod, attr, counted)
+    lists = []
+    apply = tfo.ParamUpdates.apply
+
+    def listed(self, entries):
+        # the update's list and the launches its table takes on the card
+        full = [(p, g, st, None) for p, g, st in entries]
+        table = tfo.update_table(self.optimizer, self._rule, self._h, full)
+        lists.append((len(entries), len(table.launches)))
+        return apply(self, entries)
+    monkeypatch.setattr(tfo.ParamUpdates, 'apply', listed)
     others = {n: _spy(monkeypatch, mod, attr) for n, (mod, attr) in {
         'bhld': (tfa, '_flash_forward'),
         'dropout_add': (tfe, 'dropout_add_plain'),
@@ -664,11 +674,14 @@ def test_step_calls_match_the_bert_launch_derivation(flash_flags,
     want = _chip_smoke().bert_launches(BERT['num_layers'])
     per_call = {'layer_norm_bwd': 2, 'bias_gelu_bwd': 2}
     for name in ('layer_norm', 'layer_norm_bwd', 'bias_gelu',
-                 'bias_gelu_bwd', 'flash_fwd', 'optimizer_step'):
+                 'bias_gelu_bwd', 'flash_fwd'):
         assert calls[name] == want[name] // per_call.get(name, 1), name
     assert calls['flash_bwd'] == want['flash_bwd_dq'] == \
         want['flash_bwd_dkv']
-    assert want['optimizer_step'] == len(list(tm.parameters()))
+    # one list of every parameter, one launch (one dtype group)
+    n = _chip_smoke().bert_params(BERT['num_layers'])
+    assert lists == [(n, want['optimizer_step'])]
+    assert n == len(list(tm.parameters()))
     assert _chip_smoke().bert_params(12) == 205
     assert forms == {False}
     assert not any(others.values())

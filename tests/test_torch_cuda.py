@@ -966,11 +966,139 @@ class TestOnCard:
             for k in want_s[i]:
                 assert torch.equal(got_s[i][k], want_s[i][k]), (rule, k)
 
+    @pytest.mark.parametrize('rule', ['sgd', 'momentum', 'nesterov', 'adam',
+                                      'adamw', 'adamw_bf16_moments',
+                                      'adagrad', 'rmsprop',
+                                      'rmsprop_centered', 'adamax',
+                                      'adadelta', 'decayed_adagrad'])
+    def test_list_form_matches_the_plain_chain(self, cuda, rule):
+        """The list form (`ParamUpdates.apply`): one launch a dtype
+        group (fp32; bf16; bf16 with an fp32 master), bit-equal to the
+        plain chain over 2 steps for every rule, with odd sizes, a view
+        one element off 16-byte alignment and an empty tensor among them,
+        under a loss scale rounded back to the gradient's dtype; then a
+        found-inf step on NaN gradients leaves every output's bits."""
+        mk = {'sgd': lambda: topt.SGD(0.1, weight_decay=0.01),
+              'momentum': lambda: topt.Momentum(0.05, weight_decay=1e-4),
+              'nesterov': lambda: topt.Momentum(0.05, use_nesterov=True),
+              'adam': lambda: topt.Adam(0.01, weight_decay=0.01),
+              'adamw': lambda: topt.AdamW(0.01),
+              'adamw_bf16_moments': lambda: topt.AdamW(
+                  0.01, moment_dtype='bfloat16'),
+              'adagrad': lambda: topt.Adagrad(0.1, weight_decay=0.01),
+              'rmsprop': lambda: topt.RMSProp(0.01, momentum=0.9),
+              'rmsprop_centered': lambda: topt.RMSProp(
+                  0.01, momentum=0.9, centered=True, weight_decay=1e-4),
+              'adamax': lambda: topt.Adamax(0.01),
+              'adadelta': lambda: topt.Adadelta(0.5),
+              'decayed_adagrad': lambda: topt.DecayedAdagrad(0.05)}
+        opt = mk[rule]()
+        opt._multi_precision = False      # masters below, where wanted
+        gen = torch.Generator(device=cuda).manual_seed(21)
+        ps = [_offset_randn((n,), off, gen, cuda, dt)
+              for dt in (torch.float32, torch.bfloat16)
+              for n, off in ((1000, 0), (4099, 0), (7, 0), (1001, 1),
+                             (0, 0))]
+        sts = []
+        for i, p in enumerate(ps):
+            st = opt.init_state(p)
+            for k, v in st.items():
+                if k == 'mean_grad':
+                    v.copy_((torch.rand(v.shape, generator=gen, device=cuda)
+                             - 0.5) * st['mean_square'].sqrt())
+                elif v.dim():
+                    v.copy_(0.1 * torch.rand(v.shape, generator=gen,
+                                             device=cuda))
+            if p.dtype == torch.bfloat16 and i % 2:
+                # a third group: bf16 with an fp32 master
+                st['master'] = p.float() + 1e-3 * torch.randn(
+                    p.shape, generator=gen, device=cuda)
+            sts.append(st)
+        groups = len({(p.dtype, 'master' in st) for p, st in zip(ps, sts)
+                      if p.numel() or st.get('beta1_pow') is not None})
+        lr = torch.tensor(0.01, device=cuda)
+        pref = 1.0 / torch.tensor(2.0 ** 10, device=cuda)
+        kp = [p.clone() if not p.storage_offset() else
+              _offset_randn(p.shape, 1, gen, cuda, p.dtype).copy_(p)
+              for p in ps]
+        assert kp[3].data_ptr() % 16 and kp[8].data_ptr() % 16
+        got = [{k: v.clone() for k, v in st.items()} for st in sts]
+        want = sts
+        for step in range(3):
+            fi = torch.tensor(step == 2, device=cuda)
+            grads = [(2.0 ** 10 * torch.randn(p.shape, generator=gen,
+                                              device=cuda)).to(p.dtype)
+                     for p in ps]
+            if step == 2:
+                grads = [torch.full_like(g, float('nan')) for g in grads]
+            before = [(p.clone(), {k: v.clone() for k, v in st.items()})
+                      for p, st in zip(kp, got)]
+            _build.reset_launches()
+            out = tfo.ParamUpdates(opt, lr, prefactor=pref, found_inf=fi
+                                   ).apply(list(zip(kp, grads, got)))
+            assert _build.routes_snapshot()['optimizer_step'] == groups
+            got = [st for _p, st in out]
+            for i, (p, g) in enumerate(zip(ps, grads)):
+                ps[i], want[i] = tfo.fused_shard_update_plain(
+                    opt, p, g, want[i], lr, prefactor=pref, found_inf=fi,
+                    round_prefactor=True)
+            for i in range(len(ps)):
+                assert torch.equal(kp[i], ps[i]), (rule, step, i)
+                assert set(got[i]) == set(want[i])
+                for k in want[i]:
+                    assert torch.equal(got[i][k], want[i][k]), (rule, step,
+                                                                 i, k)
+            if step == 2:
+                for (p0, st0), p, st in zip(before, kp, got):
+                    assert torch.equal(p, p0)
+                    for k, v in st0.items():
+                        assert torch.equal(st[k], v), (rule, k)
+
+    def test_list_above_capacity_splits_on_card(self, cuda):
+        """TABLE_CAP + 16 tensors of one group: two launches, in order,
+        bit-equal to one call a tensor."""
+        opt = topt.AdamW(0.01, weight_decay=0.05, multi_precision=False,
+                         moment_dtype='bfloat16')
+        gen = torch.Generator(device=cuda).manual_seed(22)
+        n = tfo.TABLE_CAP + 16
+        ps = [torch.randn(100 + 37 * i, generator=gen, device=cuda).to(
+            torch.bfloat16) for i in range(n)]
+        gs = [torch.randn(p.shape, generator=gen, device=cuda).to(
+            torch.bfloat16) for p in ps]
+        lr = torch.tensor(0.01, device=cuda)
+        want = [(p.clone(), opt.init_state(p)) for p in ps]
+        upd = tfo.ParamUpdates(opt, lr)
+        for i, ((p, st), g) in enumerate(zip(want, gs)):
+            want[i] = upd(p, g, st)
+        _build.reset_launches()
+        got = tfo.ParamUpdates(opt, lr).apply(
+            [(p, g, opt.init_state(p)) for p, g in zip(ps, gs)])
+        assert _build.routes_snapshot()['optimizer_step'] == 2
+        for (p, st), (wp, ws) in zip(got, want):
+            assert torch.equal(p, wp)
+            for k in ws:
+                assert torch.equal(st[k], ws[k]), k
+
+    def test_a_list_on_two_devices_raises(self, cuda):
+        """CPU and card tensors in one list raise on either route (the
+        CPU tensor first or the card's), under a Python lr, before any
+        tensor is updated: no card tensor reaches the plain chain."""
+        opt = topt.Momentum(0.05)
+        a, b = torch.randn(5), torch.randn(4, device=cuda)
+        on_cpu = (a, torch.randn(5), opt.init_state(a))
+        on_card = (b, torch.randn(4, device=cuda), opt.init_state(b))
+        a0, b0 = a.clone(), b.clone()
+        for entries in ([on_cpu, on_card], [on_card, on_cpu]):
+            with pytest.raises(ValueError, match='different devices'):
+                tfo.ParamUpdates(opt, 0.1).apply(entries)
+        assert torch.equal(a, a0) and torch.equal(b, b0)
+
     def test_engine_loss_scale_on_card(self, cuda):
         """SpmdPipelineEngine's loss-scaling path on the card: a scale of
         2^10 leaves fp32 SGD bit-equal to the unscaled steps; each scaled
-        step launches the statistics and update kernels once a
-        parameter; a step at scale=inf skips the update bit for bit."""
+        step launches the statistics kernel once a parameter and the
+        update kernel once (one list); a step at scale=inf skips the
+        update bit for bit."""
         from paddle_tpu_torch.distributed.fleet.meta_parallel import (
             spmd_pipeline as tsp)
         cfg = tgpt_serve.GPTConfig(vocab_size=128, hidden_size=64,
@@ -997,7 +1125,8 @@ class TestOnCard:
             assert not bool(scaled.last_found_inf)
         n = len(scaled._named)
         counts = _build.routes_snapshot()
-        assert counts['grad_stats'] == counts['optimizer_step'] == 2 * n
+        assert counts['grad_stats'] == 2 * n
+        assert counts['optimizer_step'] == 2
         for (_, a), (_, b) in zip(plain._named, scaled._named):
             assert torch.equal(a, b)
         before = [p.detach().clone() for _, p in scaled._named]
@@ -1084,7 +1213,7 @@ class TestOnCard:
                 nb = len(step.layout.buckets)
                 if dev is None:
                     assert snap['grad_stats'] == nb
-                    assert snap['optimizer_step'] == nb
+                    assert snap['optimizer_step'] == 1     # all nb
                     assert snap['dropout_add'] == snap['dropout_add_bwd'] == 4
                     for n, p in model.named_parameters():
                         s = step.layout.slots[n]
@@ -1243,7 +1372,8 @@ class TestBertOnCard:
 
     def test_hybrid_engine_update_is_the_plain_chain(self, cuda):
         """HybridParallelTrainStep's per-parameter update (one update
-        kernel launch a parameter) on bf16 parameters with fp32 masters
+        kernel launch for all the parameters) on bf16 parameters with
+        fp32 masters
         and moments, under the global-norm clip: bit-equal to the plain
         chain from the same parameters, states and gradients."""
         from paddle_tpu_torch import nn as tnn
@@ -1274,7 +1404,7 @@ class TestBertOnCard:
                   for n, p in eng._named]
         _build.reset_launches()
         eng(ids, nsp)
-        assert _build.routes_snapshot()['optimizer_step'] == len(before)
+        assert _build.routes_snapshot()['optimizer_step'] == 1
         grads = [p.grad for _, p in eng._named]
         factor = eng._clip_factor(grads)
         lr = torch.tensor(1e-3, device=cuda)

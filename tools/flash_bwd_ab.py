@@ -59,6 +59,15 @@ Modes (rows of PERF.md's kernel table):
             memory), and one profiled pipeline step (device busy, the
             update's device time under the engine's UPDATE_RANGE beside
             its 5.93 ms bytes bound, by this checkout's chip_smoke.py).
+  --update  the fused update (row 15) over a whole step's tensors: the
+            pipeline leg's 293 (bf16 p, g and moments) and the BERT
+            leg's 205 (bf16 p and g, fp32 master and moments), at their
+            shapes with random values: the kernels alone (a CUDA graph),
+            the route with its host work, its host microseconds a call
+            and launches, beside one `torch._fused_adamw_` and the bytes
+            bound; with the list form also one call a tensor; and one
+            103 M-element AdamW bucket. A tree without the list form
+            updates one tensor a call.
 Errors are the relative L2 error and the max |diff| over the RMS. One
 JSON line per tree.
 
@@ -70,6 +79,7 @@ JSON line per tree.
     python3 tools/flash_bwd_ab.py --norm-fwd A B B A
     python3 tools/flash_bwd_ab.py --bias-gelu A B B A
     python3 tools/flash_bwd_ab.py --steps A B B A
+    python3 tools/flash_bwd_ab.py --update A B B A
 
 Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
 own process and builds its kernels into <tree>/build/paddle_tpu_torch.
@@ -507,10 +517,133 @@ def measure_steps(tree):
     return res
 
 
+def _update_lists(torch, smoke):
+    """{leg: (optimizer, [(p, g, state)], bytes an element)}: the tensors
+    a step of each per-parameter leg updates, at their shapes (the
+    models built on the meta device), random values on the card: the
+    pipeline's 293 (bf16 p, g and moments, no master) and BERT's 205
+    (bf16 p and g, fp32 master and moments), states a few steps in."""
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         build_gpt_pipeline, gpt_1p3b)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    triple = build_gpt_pipeline(gpt_1p3b(hidden_dropout=0.0,
+                                         attn_dropout=0.0), device='meta')
+    bert = BertForPretraining(BertConfig(
+        vocab_size=smoke.BERT_VOCAB, hidden_size=smoke.BERT_HIDDEN,
+        num_layers=smoke.BERT_LAYERS, num_heads=smoke.BERT_HEADS,
+        intermediate_size=smoke.BERT_FFN, max_seq_len=smoke.BERT_L),
+        device='meta')
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    legs = {'pipeline': ([p.shape for m in [triple[0], *triple[1], triple[2]]
+                          for p in m.parameters()],
+                         AdamW(1e-4, weight_decay=0.01, multi_precision=False,
+                               moment_dtype='bfloat16'), smoke.UPDATE_BYTES),
+            'bert': ([p.shape for p in bert.parameters()],
+                     AdamW(1e-4, weight_decay=0.01), smoke.BERT_UPDATE_BYTES)}
+    out = {}
+    for leg, (shapes, opt, per_elem) in legs.items():
+        entries = []
+        for shape in shapes:
+            p = (0.02 * torch.randn(shape, generator=gen, device='cuda')).to(
+                torch.bfloat16)
+            g = (1e-3 * torch.randn(shape, generator=gen, device='cuda')).to(
+                torch.bfloat16)
+            st = opt.init_state(p)
+            for k, v in st.items():
+                if v.dim():
+                    v.copy_(1e-6 * torch.rand(shape, generator=gen,
+                                              device='cuda'))
+                else:
+                    v.fill_(0.9 ** 10 if k == 'beta1_pow' else 0.999 ** 10)
+            if opt._multi_precision:
+                st['master'] = p.float()
+            entries.append((p, g, st))
+        out[leg] = (opt, entries, per_elem)
+    return out
+
+
+def measure_update(tree):
+    """Row 15 over a whole step's tensors: the pipeline's 293 and BERT's
+    205 (`_update_lists`), and one 103 M-element AdamW bucket. For each
+    list: the update's kernels alone (`kernels_ms`: `device_ms`, a CUDA
+    graph of the calls), the route with its host work (`route_ms`: CUDA
+    events around calls), the host microseconds a call (`host_us`,
+    median, not synchronized), its launches a call, one
+    `torch._fused_adamw_` over the same tensors (`library_ms`) and the
+    bytes bound; with the list form, the route as one call a tensor
+    (`per_param_ms`: one-entry launches, host included). A tree without
+    the list form runs one call a tensor."""
+    sys.path.insert(0, tree)
+    import torch
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+
+    smoke = _smoke()
+    multi = hasattr(FO.ParamUpdates, 'apply')
+    res = {'tree': tree, 'card': torch.cuda.get_device_name(0),
+           'list_form': multi}
+    lr = torch.tensor(1e-4, device='cuda')
+    for leg, (opt, entries, per_elem) in _update_lists(torch, smoke).items():
+        sts = [st for _p, _g, st in entries]
+
+        def route():
+            if multi:
+                out = FO.ParamUpdates(opt, lr).apply(
+                    [(p, g, st) for (p, g, _s), st in zip(entries, sts)])
+                sts[:] = [st for _p, st in out]
+            else:
+                upd = FO.ParamUpdates(opt, lr)
+                for j, (p, g, _s) in enumerate(entries):
+                    _p, sts[j] = upd(p, g, sts[j])
+
+        n = sum(p.numel() for p, _g, _s in entries)
+        route()
+        _build.reset_launches()
+        route()
+        row = {'tensors': len(entries), 'elements': n,
+               'launches': _build.routes_snapshot()[FO.STEP],
+               'bound_ms': 1e3 * n * per_elem / smoke.HBM_BYTES_PER_S,
+               'kernels_ms': smoke.device_ms(torch, route, iters=5),
+               'route_ms': loop_ms(torch, route, iters=10),
+               'host_us': smoke.host_call_us(torch, route)}
+        if multi:
+            def per_param():
+                upd = FO.ParamUpdates(opt, lr)
+                for j, (p, g, _s) in enumerate(entries):
+                    _p, sts[j] = upd(p, g, sts[j])
+            row['per_param_ms'] = loop_ms(torch, per_param, iters=10)
+        ps = [st.get('master', p) for (p, _g, _s), st in zip(entries, sts)]
+        gs = [g.to(p.dtype) for p, (_p, g, _s) in zip(ps, entries)]
+        steps = [torch.full((), 10.0, device='cuda') for _ in ps]
+        row['library_ms'] = loop_ms(torch, lambda: torch._fused_adamw_(
+            ps, gs, [st['moment1'] for st in sts],
+            [st['moment2'] for st in sts], [], steps, lr=1e-4, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False), iters=10)
+        res[leg] = row
+        del entries, sts, ps, gs
+        smoke.free_cuda(torch)
+    from paddle_tpu_torch.optimizer import AdamW
+    opt = AdamW(learning_rate=2e-4, weight_decay=0.01, multi_precision=False,
+                moment_dtype='bfloat16')
+    p, g, st = smoke.update_inputs(torch, opt, smoke.BIG_BUCKET,
+                                   torch.bfloat16, False, seed=3)
+    pref = torch.tensor(0.37, device='cuda')
+    res['bucket'] = {
+        'elements': smoke.BIG_BUCKET,
+        'bound_ms': 1e3 * smoke.BIG_BUCKET * smoke.UPDATE_BYTES
+        / smoke.HBM_BYTES_PER_S,
+        'ms': smoke.device_ms(torch, lambda: FO.fused_shard_update(
+            opt, p, g, st, lr, prefactor=pref), iters=10)}
+    return res
+
+
 MODES = {'--bwd': measure_bwd, '--fwd': measure_fwd,
          '--paged': measure_paged, '--norm': measure_norm,
          '--stats': measure_stats, '--norm-fwd': measure_norm_fwd,
-         '--bias-gelu': measure_bias_gelu, '--steps': measure_steps}
+         '--bias-gelu': measure_bias_gelu, '--steps': measure_steps,
+         '--update': measure_update}
 
 
 def main(argv):
