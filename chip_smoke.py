@@ -41,7 +41,8 @@ Phases, one JSON line each on stdout:
              and prefill shapes and at a decode over 8 rows of 1024-4096
              tokens whose keys span several splits, each against its
              plain version at the paged_attention bar (row 1q at the
-             flash bf16 bar too), timed cold.
+             flash bf16 bar too), timed cold; and row 1 at the
+             degradation ladder's halved 64-token prefill window.
 4. serve   — gpt_1p3b at full width and depth (random weights from a
              fixed torch.Generator seed, bf16 weights and KV) serves 16
              greedy requests of 32-384 prompt tokens and 64 new tokens
@@ -62,7 +63,24 @@ Phases, one JSON line each on stdout:
              4 requests: tokens identical, one host fetch a window;
              (d) spec_k 4 against 0 on a shared-prefix stream (8
              requests, 256-token system prompt): acceptance rate, decode
-             tok/s, the share of equal tokens.
+             tok/s, the share of equal tokens. Every serve phase runs
+             with request tracing, the ledger and the watchdog's sweep
+             on (trace=True, the reference's default).
+   serve_tenants — the gpt_serve_tenants leg: 12 heavy requests (256 +
+             128 tokens) and 12 light ones (24 + 16) 3 steps later, batch
+             8, chunk 128; solo (light only), FCFS and the SLO tenant
+             map. The SLO run's ladder reaches stage 2+, a halved 64-token
+             chunk runs, per-tenant counts, the goodput identity, exact
+             launches and host fetches, and a CPU replay's ladder
+             transitions and preemptions equal the card's; light p99 e2e
+             over solo, aggregate decode over FCFS, the ladder's
+             timeline, the ledger's account, goodput and roofline.
+   serve_tiered — the serve's stream sized to fit (224 pages) and
+             oversubscribed (112 pages over a 448-page pinned host tier):
+             spills and fetches happen, everything completes and drains,
+             bit-exact bf16 and int8 round trips through the pinned tier
+             with their GB/s, and the resurrect-vs-recompute TTFT on a
+             257-token prompt.
 5. train   — gpt_1p3b at full width and depth (bf16, dropout 0, flash
              attention) trains through jit.TrainStep(use_buckets=False)
              with AdamW (lr 1e-4, decay 0.01, bf16 moments, no master
@@ -458,11 +476,14 @@ PAGED_H, PAGED_D, PAGED_PS = 16, 128, 16
 
 
 def paged_cases(rng):
-    """(label, seq_lens, q_lens, T, pages a row) of each timed case."""
+    """(label, seq_lens, q_lens, T, pages a row) of each timed case;
+    'prefill64' is the prefill window at the degradation ladder's stage 2
+    (serve_tenants: the chunk halved to 64, 24 pages a row)."""
     return (('decode', rng.randint(32, 449, 8), np.ones(8, np.int64), 1, 28),
             ('prefill', np.asarray([384]), np.asarray([128]), 128, 28),
             ('long', rng.randint(1024, 4097, 8), np.ones(8, np.int64), 1,
-             256))
+             256),
+            ('prefill64', np.asarray([320]), np.asarray([64]), 64, 24))
 
 
 def paged_rows(torch, F, randn):
@@ -1265,29 +1286,43 @@ def token_share(outs, ref, prompts):
     return sum(a == b for a, b in pairs) / max(len(pairs), 1)
 
 
+class counting_fetches:
+    """Counts every fetch of chosen ids from the card (the engine's
+    _host_fetch) while entered; `count[0]` is the tally."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.serving import engine as engine_mod
+        self.mod, self.real = engine_mod, engine_mod._host_fetch
+        self.count = [0]
+
+        def counting(x):
+            self.count[0] += 1
+            return self.real(x)
+        engine_mod._host_fetch = counting
+        return self.count
+
+    def __exit__(self, *exc):
+        self.mod._host_fetch = self.real
+        return False
+
+
+def want_fetches(st):
+    """The fetches a stream makes: one per prefill chunk, per serial
+    decode step and per fused window, and no other."""
+    return (st['prefill_chunks_total'] + st['decode_steps_total']
+            - st['fused_iterations_total'] + st['fused_windows_total'])
+
+
 def counted_stream(torch, eng, prompts, max_new, **gen):
     """timed_stream with every fetch of chosen ids from the card during
-    the stream counted (the engine's _host_fetch): one per prefill
-    chunk, per serial decode step and per fused window, and no other."""
-    from paddle_tpu_torch.serving import engine as engine_mod
-
-    real = engine_mod._host_fetch
-    count = [0]
-
-    def counting(x):
-        count[0] += 1
-        return real(x)
-    engine_mod._host_fetch = counting
-    try:
+    the stream counted, and held to want_fetches."""
+    with counting_fetches() as count:
         outs, wall, launches, st = timed_stream(
             torch, eng, prompts, max_new,
             before=lambda: count.__setitem__(0, 0), **gen)
-    finally:
-        engine_mod._host_fetch = real
-    want = (st['prefill_chunks_total'] + st['decode_steps_total']
-            - st['fused_iterations_total'] + st['fused_windows_total'])
-    if count[0] != want:
-        raise AssertionError(f'{count[0]} host fetches, want {want}')
+    if count[0] != want_fetches(st):
+        raise AssertionError(f'{count[0]} host fetches, want '
+                             f'{want_fetches(st)}')
     return outs, wall, launches, st, count[0]
 
 
@@ -1398,6 +1433,392 @@ def serve_modes_phase(torch, card, served):
         'tokens_equal_to_spec_k_0': token_share(runs[4][0][0], runs[0][0][0],
                                                 shared)}
     emit(line)
+
+
+# the gpt_serve_tenants leg's stream (bench.py:1230-1240, 1343-1362) on
+# gpt_1p3b: heavy requests flood 8 slots, light ones arrive 3 steps later
+TENANT_PAGES = dict(page_size=16, max_batch_size=8, prefill_chunk=128,
+                    max_pages_per_seq=24)
+HEAVY_N, HEAVY_LEN, HEAVY_NEW = 12, 256, 128
+LIGHT_N, LIGHT_LEN, LIGHT_NEW = 12, 24, 16
+H100_NAME = 'NVIDIA H100 80GB HBM3'
+
+
+def tenant_stream(vocab):
+    rng = np.random.RandomState(0)
+    heavy = [list(rng.randint(1, vocab, HEAVY_LEN)) for _ in range(HEAVY_N)]
+    light = [list(rng.randint(1, vocab, LIGHT_LEN)) for _ in range(LIGHT_N)]
+    return heavy, light
+
+
+def tenant_map():
+    """The leg's SLO map: the heavy quota bills every admit but is sized
+    not to bind (its burst holds the whole heavy bill), so the run
+    compares schedulers, not a rate limit (bench.py:1352-1362)."""
+    bill = float(HEAVY_N * (HEAVY_LEN + HEAVY_NEW))
+    light = {'priority': 1, 'weight': 1.0}
+    return {'heavy': {'priority': 0, 'quota_tokens_per_s': bill,
+                      'burst_tokens': bill, 'weight': 0.2},
+            'light0': light, 'light1': light, 'light2': light}
+
+
+def tenant_engine(model, device, tenants, heavy):
+    """The leg's engine and warm-up: one short request, and with a ladder
+    one more at stage 2 (the halved chunk); the ladder then starts over
+    at stage 0 with no history."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    eng = ServingEngine(model, ServingConfig(**TENANT_PAGES,
+                                             tenants=tenants), device=device)
+    eng.generate([heavy[0][:4]], max_new_tokens=2)
+    lad = eng._ladder
+    if lad is not None:
+        lad.stage = 2
+        eng.generate([heavy[0][:4]], max_new_tokens=2)
+        lad.stage = lad._calm = lad.transitions = 0
+        lad._ring.clear()
+        lad.history.clear()
+        eng.pool.set_eviction_weights(None)
+    eng.reset_stats()
+    return eng
+
+
+def tenant_run(eng, heavy, light):
+    """Heavy requests, 3 steps, then the light ones; drained. Returns
+    (heavy requests, light requests)."""
+    hreqs = [eng.submit(p, max_new_tokens=HEAVY_NEW, tenant_id='heavy')
+             for p in heavy]
+    for _ in range(3):
+        eng.step()
+    lreqs = [eng.submit(p, max_new_tokens=LIGHT_NEW,
+                        tenant_id=f'light{i % 3}')
+             for i, p in enumerate(light)]
+    while eng.scheduler.has_work:
+        eng.step()
+    return hreqs, lreqs
+
+
+def ladder_line(eng):
+    return [(h['from'], h['to'], h['pressure'])
+            for h in eng.ladder_history()]
+
+
+def e2e_p99(reqs):
+    from paddle_tpu_torch.serving.request_trace import percentile_of
+    return percentile_of([r.finish_time - r.submit_time for r in reqs], 99)
+
+
+def halved_chunks(eng):
+    """(non-final prefill chunks of 64 tokens, of any other size than 64
+    or 128): a chunk that is not the last of its prefill always has the
+    chunk's full size, so a 64 proves the ladder's halved chunk ran."""
+    by_req = {}
+    for e in eng.tracer.events():
+        if e['req'] >= 0:
+            by_req.setdefault(e['req'], []).append(e)
+    sizes = []
+    for evs in by_req.values():
+        for e, nxt in zip(evs, evs[1:]):
+            if e['event'] == 'prefill_chunk' and \
+                    nxt['event'] == 'prefill_chunk':
+                sizes.append(e['tokens'])
+    return (sum(1 for n in sizes if n == 64),
+            sorted({n for n in sizes if n not in (64, 128)}))
+
+
+def serve_tenants_phase(torch, card, served):
+    """The gpt_serve_tenants leg (bench.py:1207-1389) on gpt_1p3b at full
+    width and depth: the light stream alone (solo), the adversarial
+    stream under FCFS (no tenants) and under the SLO map, each with the
+    leg's warm-up. Hard checks on the SLO run: every request gets its
+    tokens and the pool drains; the ladder reaches stage 2 or more and a
+    64-token (halved) chunk ran; per-tenant submitted and completed
+    counts are the stream's; delivered + wasted = emitted; only the
+    serve's three kernels launch; host fetches are exact; and a CPU
+    replay (a 2-layer, hidden-64 model, the same stream, knobs and
+    warm-up) makes the same ladder transitions and preemptions, which
+    depend on lengths, pages and slots only. Returns the SLO run's
+    launches."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+
+    cfg, model = served['cfg'], served['model']
+    heavy, light = tenant_stream(cfg.vocab_size)
+    ten = tenant_map()
+    line = {'phase': 'serve_tenants', 'card': card, 'model': 'gpt_1p3b',
+            'heavy': [HEAVY_N, HEAVY_LEN, HEAVY_NEW],
+            'light': [LIGHT_N, LIGHT_LEN, LIGHT_NEW], **TENANT_PAGES}
+
+    solo = tenant_engine(model, 'cuda', None, heavy)
+    torch.cuda.synchronize()
+    sreqs = [solo.submit(p, max_new_tokens=LIGHT_NEW,
+                         tenant_id=f'light{i % 3}')
+             for i, p in enumerate(light)]
+    while solo.scheduler.has_work:
+        solo.step()
+    solo_p99 = e2e_p99(sreqs)
+    solo.shutdown()
+
+    runs = {}
+    for name, tenants in (('fcfs', None), ('slo', ten)):
+        eng = tenant_engine(model, 'cuda', tenants, heavy)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with counting_fetches() as count:
+            t0 = time.perf_counter()
+            hreqs, lreqs = tenant_run(eng, heavy, light)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _build.routes_snapshot()
+        st = eng.stats()
+        check_served(eng, heavy, [r.output_ids() for r in hreqs], HEAVY_NEW,
+                     cfg.vocab_size)
+        check_served(eng, light, [r.output_ids() for r in lreqs], LIGHT_NEW,
+                     cfg.vocab_size)
+        check_launches(launches, SERVE_KERNELS, ('paged_attention_int8',))
+        if count[0] != want_fetches(st):
+            raise AssertionError(f'{name}: {count[0]} host fetches, want '
+                                 f'{want_fetches(st)}')
+        good = eng.ledger.goodput()
+        if good['delivered_tokens'] + good['wasted_tokens'] != \
+                good['emitted_tokens']:
+            raise AssertionError(f'{name}: goodput identity broken {good}')
+        rows = st['tenancy']['tenants']
+        if tenants is not None:
+            want = {'heavy': HEAVY_N, 'light0': LIGHT_N // 3,
+                    'light1': LIGHT_N // 3, 'light2': LIGHT_N // 3}
+            got = {t: (rows[t]['submitted'], rows[t]['completed'])
+                   for t in want}
+            if got != {t: (n, n) for t, n in want.items()}:
+                raise AssertionError(f'per-tenant counts {got}')
+            if max([h['to'] for h in eng.ladder_history()] or [0]) < 2:
+                raise AssertionError(f'ladder {ladder_line(eng)}')
+            n64, odd = halved_chunks(eng)
+            if not n64 or odd:
+                raise AssertionError(f'halved chunks {n64}, other {odd}')
+            line['halved_chunks'] = n64
+        outs = [r.output_ids() for r in hreqs + lreqs]
+        runs[name] = dict(
+            outs=outs, preemptions=[r.preemptions for r in hreqs + lreqs],
+            ladder=ladder_line(eng), launches=launches, rec=dict(
+                stream_line(st, wall), host_fetches=count[0],
+                tokens_per_sec=sum(len(r.generated) for r in hreqs + lreqs)
+                / wall,
+                light_p99_e2e_s=e2e_p99(lreqs), heavy_p99_e2e_s=e2e_p99(hreqs),
+                quota_deferrals=st['quota_deferrals_total'],
+                preemptions_charged=st['preemptions_charged_total'],
+                per_tenant={t: {k: r.get(k) for k in (
+                    'priority', 'submitted', 'completed',
+                    'preemptions_charged', 'charge_tokens', 'tokens_billed')}
+                    for t, r in rows.items()},
+                ladder=[dict(zip(('from', 'to', 'pressure'), h))
+                        for h in ladder_line(eng)],
+                account=eng.ledger.account(), goodput=good,
+                roofline=eng.ledger.roofline()))
+        eng.shutdown()
+        free_cuda(torch)
+
+    # the CPU replay of the SLO run's decisions
+    small = GPTConfig(vocab_size=cfg.vocab_size, hidden_size=64,
+                      num_layers=2, num_heads=2, max_seq_len=512,
+                      hidden_dropout=0.0, attn_dropout=0.0)
+    cpu = tenant_engine(GPTForCausalLM(small, generator=torch.Generator()
+                                       .manual_seed(3)), 'cpu', ten, heavy)
+    ch, cl = tenant_run(cpu, heavy, light)
+    replay = dict(ladder=ladder_line(cpu),
+                  preemptions=[r.preemptions for r in ch + cl])
+    cpu.shutdown()
+    slo, fcfs = runs['slo'], runs['fcfs']
+    if (replay['ladder'], replay['preemptions']) != (slo['ladder'],
+                                                    slo['preemptions']):
+        raise AssertionError(f"CPU replay {replay} vs card "
+                             f"{slo['ladder']}, {slo['preemptions']}")
+    roof = slo['rec']['roofline'] or {}
+    line.update(
+        solo_light_p99_e2e_s=solo_p99,
+        light_p99_vs_solo=slo['rec']['light_p99_e2e_s'] / solo_p99,
+        aggregate_decode_vs_fcfs=(slo['rec']['decode_tokens_per_sec']
+                                  / fcfs['rec']['decode_tokens_per_sec']),
+        light_p99_fcfs_over_slo=(fcfs['rec']['light_p99_e2e_s']
+                                 / slo['rec']['light_p99_e2e_s']),
+        tokens_equal_fcfs_slo=token_share(slo['outs'], fcfs['outs'],
+                                          heavy + light),
+        mbu_peak=(roof.get('peak_hbm_gbps'), H100_NAME),
+        cpu_replay_equal=True, cpu_replay_preemptions=sum(
+            replay['preemptions']),
+        fcfs=fcfs['rec'], slo=slo['rec'])
+    emit(line)
+    return slo['launches']
+
+
+TIERED_HOST_PAGES = 448
+TIERED_DEVICE_PAGES = 112
+
+
+def tier_round_trip(torch, dtype, pages=48):
+    """A bit-exact round trip on the card at gpt_1p3b's layer shapes:
+    `pages` written pages spill to the pinned tier, their device pages
+    are overwritten and taken, and a prefix match fetches the chain back
+    into other pages; every layer's K and V (and an int8 pool's scales)
+    must equal what was spilled. Returns the sizes and the spill and
+    fetch times (synchronised) with their GB/s."""
+    from paddle_tpu_torch.serving import KVPagePool
+    from paddle_tpu_torch.serving.host_tier import HostTier
+
+    pool = KVPagePool(num_pages=3 * pages, page_size=16, num_layers=24,
+                      num_heads=16, head_dim=128, dtype=dtype,
+                      prefix_cache=True)
+    pool.materialize('cuda')
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    for layer in pool.kv:
+        for b in layer:
+            if b.dtype == torch.int8:
+                b.copy_(torch.randint(-128, 128, b.shape, device='cuda',
+                                      generator=gen, dtype=torch.int8))
+            else:
+                b.copy_(torch.randn(b.shape, device='cuda', generator=gen)
+                        .to(b.dtype))
+    pool.attach_host_tier(HostTier(pages))
+    out = {}
+    for rnd, base in enumerate((7000, 9000)):       # the first warms up
+        toks = list(range(base, base + pages * 16))
+        pool.ensure_capacity('w', len(toks))
+        pool.register_prefix('w', toks, written=len(toks))
+        src = pool.page_table('w')
+        want = [[b[src].clone() for b in layer] for layer in pool.kv]
+        pool.release('w')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if pool.spill_lru(sync=True) != pages:
+            raise AssertionError('round trip: spill')
+        spill_s = time.perf_counter() - t0
+        idx = torch.as_tensor(src, device='cuda')
+        for layer in pool.kv:
+            for b in layer:
+                b.index_fill_(0, idx, 0)
+        pool.ensure_capacity('hold', len(toks))     # takes the freed pages
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pool.match_and_map('b', toks + [1], limit=len(toks))
+        torch.cuda.synchronize()
+        fetch_s = time.perf_counter() - t0
+        dst = pool.page_table('b')
+        if got != len(toks) or set(dst) & set(src):
+            raise AssertionError(f'round trip: fetched {got} tokens into '
+                                 f'{len(set(dst) & set(src))} spilled pages')
+        for lw, layer in zip(want, pool.kv):
+            for w, b in zip(lw, layer):
+                if not torch.equal(b[dst], w):
+                    raise AssertionError(f'round trip {dtype}: rows differ')
+        nbytes = pages * sum(b[0].numel() * b.element_size()
+                             for layer in pool.kv for b in layer)
+        out = dict(pages=pages, bytes=nbytes, spill_s=spill_s,
+                   fetch_s=fetch_s, spill_gb_s=nbytes / spill_s / 1e9,
+                   fetch_gb_s=nbytes / fetch_s / 1e9, bit_exact=True,
+                   host_pinned=all(b.is_pinned() for layer in
+                                   pool.host_tier._buffers for b in layer))
+        pool.release('b')
+        pool.release('hold')
+        pool.reset()
+    pool.host_tier.shutdown()
+    pool.drop_arrays()
+    return out
+
+
+def serve_tiered_phase(torch, card, served):
+    """The oversubscribed record of gpt_serve_throughput (bench.py:
+    851-952) on the serve's 16-request stream at gpt_1p3b: sized to fit
+    (224 device pages) and oversubscribed (112 device pages, a 448-page
+    pinned host tier, spill watermark 0.7). Hard checks: pages spilled
+    and fetched back; every request completes, the pool drains and no
+    spill is in flight; only the serve's three kernels launch; host
+    fetches are exact; bit-exact round trips on the card for a bf16 and
+    an int8 pool. Also the resurrect-vs-recompute TTFT on a 257-token
+    prompt, best of 3. Returns the oversubscribed run's launches."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.serving.request_trace import percentile_of
+
+    cfg, model, prompts = served['cfg'], served['model'], served['prompts']
+    line = {'phase': 'serve_tiered', 'card': card, 'model': 'gpt_1p3b',
+            'requests': len(prompts), 'max_new_tokens': SERVE_MAX_NEW}
+    runs = {}
+    for name, num_pages, host in (('sized_to_fit', 224, 0),
+                                  ('oversubscribed', TIERED_DEVICE_PAGES,
+                                   TIERED_HOST_PAGES)):
+        eng = ServingEngine(model, ServingConfig(
+            **SERVE_PAGES, num_pages=num_pages, host_tier_pages=host,
+            spill_watermark=0.7), device='cuda')
+        outs, wall, launches, st, fetches = counted_stream(
+            torch, eng, prompts, SERVE_MAX_NEW)
+        check_served(eng, prompts, outs, SERVE_MAX_NEW, cfg.vocab_size)
+        check_launches(launches, SERVE_KERNELS, ('paged_attention_int8',))
+        pst = st['pool']
+        if host:
+            eng._host_tier.drain()
+            if eng.pool._spilling:
+                raise AssertionError('spills still in flight')
+            if not pst['tier_spilled_pages_total'] or not (
+                    pst['tier_fetched_pages_total']
+                    or pst['tier_resurrected_pages_total']):
+                raise AssertionError(f'tier idle: {pst}')
+        table = eng.request_table()
+        pct = {label: {f'p{q}': percentile_of(
+            [r[key] for r in table.values()], q) for q in (50, 90, 99)}
+            for key, label in (('ttft_s', 'ttft_s'), ('e2e_s', 'e2e_s'))}
+        runs[name] = (outs, launches, dict(
+            device_pages=num_pages, host_pages=host,
+            tokens_per_sec=sum(len(o) - len(p)
+                               for o, p in zip(outs, prompts)) / wall,
+            **stream_line(st, wall), slo=pct, host_fetches=fetches,
+            spilled_pages=pst.get('tier_spilled_pages_total', 0),
+            spilled_gb=pst.get('tier_spilled_bytes_total', 0) / 1e9,
+            fetched_pages=pst.get('tier_fetched_pages_total', 0),
+            fetched_gb=pst.get('tier_fetched_bytes_total', 0) / 1e9,
+            resurrected_pages=pst.get('tier_resurrected_pages_total', 0),
+            page_stream_s=(eng.ledger.account() or {}).get(
+                'components', {}).get('page_stream')))
+        eng.shutdown()
+        free_cuda(torch)
+    fit_outs = runs['sized_to_fit'][0]
+    line.update({name: rec for name, (_o, _l, rec) in runs.items()})
+    line['tokens_equal_to_sized_to_fit'] = token_share(
+        runs['oversubscribed'][0], fit_outs, prompts)
+
+    line['round_trip'] = {'bf16': tier_round_trip(torch, torch.bfloat16),
+                          'int8': tier_round_trip(torch, 'int8')}
+    free_cuda(torch)
+
+    # resurrect vs recompute TTFT (bench.py:904-936): a 16-page prompt
+    rng = np.random.RandomState(2)
+    long_prompt = list(rng.randint(1, cfg.vocab_size, 16 * 16 + 1))
+    eng = ServingEngine(model, ServingConfig(
+        page_size=16, max_batch_size=2, prefill_chunk=128,
+        max_pages_per_seq=20, host_tier_pages=36), device='cuda')
+    eng.generate([long_prompt], max_new_tokens=2)
+    recompute, resurrect, outs = [], [], {}
+    for _ in range(3):
+        eng.pool.reset()
+        eng.reset_stats()
+        outs['recompute'] = eng.generate([long_prompt], max_new_tokens=2)
+        (r,) = eng.request_table().values()
+        recompute.append(r['ttft_s'])
+        if eng.pool.spill_lru(sync=True) < 16:
+            raise AssertionError('the long prompt did not spill')
+        eng.reset_stats()
+        outs['resurrect'] = eng.generate([long_prompt], max_new_tokens=2)
+        (r,) = eng.request_table().values()
+        resurrect.append(r['ttft_s'])
+    if eng.pool.stats()['tier_resurrected_pages_total'] < 3 * 16:
+        raise AssertionError('the resurrect path did not fetch')
+    eng.shutdown()
+    line['resurrect_vs_recompute'] = dict(
+        prompt_tokens=len(long_prompt), recompute_ttft_s=recompute,
+        resurrect_ttft_s=resurrect,
+        speedup=min(recompute) / min(resurrect),
+        outputs_equal=outs['resurrect'] == outs['recompute'])
+    emit(line)
+    return runs['oversubscribed'][1]
 
 
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'layer_norm',
@@ -3694,12 +4115,23 @@ def profile_phase(torch, eng, prompts):
         eng.generate(prompts, max_new_tokens=16)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
+    # the engine's serve::* ranges also show as device-side annotations
+    # spanning their kernels: they are no kernels of their own
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith('serve::')]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     groups, port = _group_device_time(kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # the engine's serve::* RecordEvent ranges, host ms by phase
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith('serve::') and e.device_type == DeviceType.CPU:
+            r = ranges.setdefault(e.name, dict(calls=0, cpu_ms=0.0))
+            r['calls'] += 1
+            r['cpu_ms'] += e.cpu_time_total / 1e3
     emit({'phase': 'profile', 'requests': len(prompts), 'max_new_tokens': 16,
+          'serve_ranges': ranges,
           'wall_s': wall_plain, 'wall_profiled_s': wall_prof,
           'device_busy_s': busy if kernels else None,
           'busy_share_of_wall': busy / wall_plain if kernels else None,
@@ -3792,9 +4224,16 @@ def main():
     serve_int8_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     serve_modes_phase(torch, card, served)
-    del served
     free_cuda(torch)
     serve_modes_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tenants_launches = serve_tenants_phase(torch, card, served)
+    serve_tenants_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiered_launches = serve_tiered_phase(torch, card, served)
+    del served
+    free_cuda(torch)
+    serve_tiered_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_launches, train_peak = train_phase(torch, card)
     free_cuda(torch)
@@ -3845,6 +4284,7 @@ def main():
     decode_launches_run = dense_decode_phase(torch, card)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
+          'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
           'train': train_s, 'optimizer_kernels': opt_kernel_s,
           'rules': rules_s, 'train_bucketed': bucketed_s,
           'check': check_s, 'pipeline': pipeline_s,
@@ -3917,6 +4357,10 @@ def main():
                     'bound_by', 'library_ms')}
         if name in ('layer_norm', 'bias_gelu'):
             entry['launches_dense_decode'] = decode_launches_run[name]
+        if name in SERVE_KERNELS:
+            # the tenants leg's SLO run and the oversubscribed serve
+            entry['launches_serve_tenants'] = tenants_launches[name]
+            entry['launches_serve_tiered'] = tiered_launches[name]
         if name == 'optimizer_step':
             entry['rules'] = row['rules']
         if name == 'grad_stats':
@@ -3929,7 +4373,7 @@ def main():
             # the serve's prefill window and the long-context decode
             entry['qb_splits_tiles_per_split'] = row[
                 'qb_splits_tiles_per_split']
-            for label in ('prefill', 'long'):
+            for label in ('prefill', 'long', 'prefill64'):
                 other = row_of(name, label)
                 entry[f'{label}_shape'] = {k: other.get(k) for k in (
                     'shape', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',

@@ -1415,3 +1415,90 @@ class TestBertOnCard:
             assert torch.equal(p.detach(), want_p), n
             for k, v in want_s.items():
                 assert torch.equal(eng._states[n][k], v), (n, k)
+
+
+def _tier_pool(cuda, dtype, num_pages=64, page_size=16, host_pages=96,
+               **tier_kw):
+    from paddle_tpu_torch.serving import KVPagePool
+    from paddle_tpu_torch.serving.host_tier import HostTier
+    pool = KVPagePool(num_pages=num_pages, page_size=page_size,
+                      num_layers=2, num_heads=4, head_dim=64, dtype=dtype,
+                      prefix_cache=True)
+    pool.materialize(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    for layer in pool.kv:
+        for b in layer:
+            if b.dtype == torch.int8:
+                b.copy_(torch.randint(-128, 128, b.shape, device=cuda,
+                                      generator=gen, dtype=torch.int8))
+            else:
+                b.copy_(torch.randn(b.shape, device=cuda, generator=gen)
+                        .to(b.dtype))
+    pool.attach_host_tier(HostTier(host_pages, **tier_kw))
+    return pool
+
+
+def _park(pool, seq, toks):
+    pool.ensure_capacity(seq, len(toks))
+    pool.register_prefix(seq, toks, written=len(toks))
+    pool.release(seq)
+
+
+@pytest.mark.cuda
+class TestHostTierOnCard:
+    """The pinned host tier on the card: pinned buffers and a copy stream,
+    rows back bit for bit (bf16, and int8 with their fp32 scales)."""
+
+    @pytest.mark.parametrize('dtype', [torch.bfloat16, 'int8'])
+    def test_round_trip_under_concurrent_writes(self, cuda, dtype):
+        # spills run on the copy stream while the compute stream keeps
+        # writing OTHER pages; the fetched rows equal the rows spilled
+        pool = _tier_pool(cuda, dtype, chunk_pages=8)
+        toks = list(range(1000, 1000 + 40 * 16))           # 40 pages
+        _park(pool, 'a', toks)
+        spilled = pool._match_pages(toks)
+        want = [[b[spilled].clone() for b in layer] for layer in pool.kv]
+        pool.ensure_capacity('busy', 8 * 16)
+        busy = torch.as_tensor(pool.page_table('busy'), device=cuda)
+        assert pool.spill_lru(max_pages=40) == 40          # async
+        for i in range(50):
+            for layer in pool.kv:
+                for b in layer:
+                    b.index_fill_(0, busy, i % 7)
+        pool.host_tier.drain()
+        assert all(b.is_pinned() for layer in pool.host_tier._buffers
+                   for b in layer)
+        assert pool.host_tier._copy_stream is not None
+        for layer in pool.kv:                  # the device copies go stale
+            for b in layer:
+                b[:pool.num_pages].index_fill_(
+                    0, torch.as_tensor(spilled, device=cuda), 3)
+        pool.release('busy')
+        got = pool.match_and_map('b', toks + [1], limit=len(toks))
+        assert got == len(toks)
+        pages = pool.page_table('b')
+        for lw, layer in zip(want, pool.kv):
+            for w, b in zip(lw, layer):
+                assert torch.equal(b[pages], w)
+        pool.host_tier.shutdown()
+
+    def test_fetch_races_inflight_spill(self, cuda):
+        # a resurrect of the very slots whose spill is still in flight
+        # waits for it to land, then reads the landed rows
+        pool = _tier_pool(cuda, torch.bfloat16, window=1)
+        toks = list(range(5000, 5000 + 24 * 16))
+        _park(pool, 'a', toks)
+        spilled = pool._match_pages(toks)
+        want = [[b[spilled].clone() for b in layer] for layer in pool.kv]
+        assert pool.spill_lru() == 24                      # async
+        got = pool.match_and_map('b', toks + [1], limit=len(toks))
+        assert got == len(toks)
+        pages = pool.page_table('b')
+        for lw, layer in zip(want, pool.kv):
+            for w, b in zip(lw, layer):
+                assert torch.equal(b[pages], w)
+        st = pool.stats()
+        assert st['tier_spilled_pages_total'] == 24
+        assert st['tier_fetched_pages_total'] == 24
+        pool.release('b')
+        pool.host_tier.shutdown()

@@ -298,35 +298,59 @@ def test_prompt_logits_is_the_prefill_step(models):
 
 
 @pytest.mark.parametrize('knob', [
-    {'tenants': {'a': {}}}, {'trace': True},
-    {'disaggregate': True}, {'host_tier_pages': 8}, {'degrade': True},
-    {'request_deadline_s': 1.0}])
+    {'disaggregate': True}, {'prefill_slots': 4}, {'stream_chunk_pages': 2}])
 def test_unserved_knobs_raise(knob):
+    """The disaggregated engine's knobs raise off their defaults."""
     with pytest.raises(NotImplementedError, match='not ported'):
         ServingConfig(**knob)
 
 
+@pytest.mark.parametrize('knob', [
+    {'tenants': {'a': {'priority': 1}, 'b': {'quota_tokens_per_s': 50.0}}},
+    {'trace': True}, {'host_tier_pages': 8}, {'degrade': True},
+    {'request_deadline_s': 1.0}])
+def test_served_knobs_build(models, knob):
+    """The knobs this port serves build an engine that runs a
+    two-request stream to the end with the pool drained."""
+    _jm, tm = models
+    eng = ServingEngine(tm, ServingConfig(page_size=8, max_batch_size=2,
+                                          prefill_chunk=8, **knob),
+                        device='cpu')
+    prompts = _mixed_prompts()[:2]
+    out = eng.generate(prompts, max_new_tokens=4)
+    assert [len(o) for o in out] == [len(p) + 4 for p in prompts]
+    assert eng.pool.pages_in_use == 0
+    assert eng.stats()['requests_completed_total'] == 2
+    eng.shutdown()
+
+
 def test_config_takes_every_reference_knob_at_its_default():
     """A config written for the reference builds in the port: every
-    parameter of the JAX ServingConfig.__init__ at its default. All but
-    `trace`: the reference journals requests by default (trace=True) and
-    the port has no request journal yet, so it refuses trace=True (held
-    by test_unserved_knobs_raise) and takes trace=False."""
+    parameter of the JAX ServingConfig.__init__ at its default, trace
+    (on by default in both) included."""
     params = inspect.signature(JConfig.__init__).parameters
     defaults = {name: p.default for name, p in params.items()
                 if name != 'self'}
     assert all(d is not inspect.Parameter.empty for d in defaults.values())
-    assert defaults.pop('trace') is True
-    cfg = ServingConfig(trace=False, **defaults)
+    assert defaults['trace'] is True
+    cfg = ServingConfig(**defaults)
+    assert cfg.trace is True and ServingConfig().trace is True
     assert (cfg.page_size, cfg.max_batch_size, cfg.prefill_chunk) == (
         defaults['page_size'], defaults['max_batch_size'],
         defaults['prefill_chunk'])
-    # a knob that would tune an unported feature still raises
-    for knob, value in (('trace_requests', 1024), ('degrade_window', 16),
-                        ('deadline_action', 'cancel'),
-                        ('spill_watermark', 0.5), ('prefill_slots', 4)):
+    # the disaggregated engine's knobs still raise off their defaults
+    for knob, value in (('disaggregate', True), ('prefill_slots', 4),
+                        ('stream_chunk_pages', 2)):
         with pytest.raises(NotImplementedError, match='not ported'):
             ServingConfig(**{knob: value})
+    # and the served knobs validate as the reference's do
+    for knob, value in (('deadline_action', 'cancel'),
+                        ('spill_watermark', 0.0), ('host_tier_pages', -1),
+                        ('degrade', 'yes'), ('tenants', [('a', {})])):
+        with pytest.raises(ValueError):
+            ServingConfig(**{knob: value})
+        with pytest.raises(ValueError):
+            JConfig(**{knob: value})
 
 
 def test_unserved_sampling_and_unknown_knobs_raise(models):
@@ -544,13 +568,13 @@ def _match_is_capped_and_block_granular():
     toks = list(range(50, 58))
     pool.ensure_capacity('a', 8)
     pool.register_prefix('a', toks, written=8)
-    assert pool.peek_prefix(toks, limit=7) == (4, 1, 0)
+    assert pool.peek_prefix(toks, limit=7) == (4, 1, 0, 0)
     assert pool.match_and_map('b', toks, limit=7) == 4
-    assert pool.peek_prefix(toks[:6]) == (4, 1, 0)
+    assert pool.peek_prefix(toks[:6]) == (4, 1, 0, 0)
     off = KVPagePool(num_pages=4, page_size=4)
     off.ensure_capacity('x', 4)
     off.register_prefix('x', [1, 2, 3, 4], written=4)
-    assert off.peek_prefix([1, 2, 3, 4]) == (0, 0, 0)
+    assert off.peek_prefix([1, 2, 3, 4]) == (0, 0, 0, 0)
     assert off.match_and_map('y', [1, 2, 3, 4]) == 0
     assert off.prefix_misses == 0
 

@@ -68,6 +68,11 @@ Modes (rows of PERF.md's kernel table):
             bound; with the list form also one call a tensor; and one
             103 M-element AdamW bucket. A tree without the list form
             updates one tensor a call.
+  --serve   the serve's stream whole (chip_smoke.py's `serve`: gpt_1p3b,
+            16 requests, 64 greedy tokens, batch 8), 3 timed streams with
+            request tracing on and 3 with it off (a tree that refuses
+            trace=True runs off only): decode step ms, decode tok/s,
+            wall.
 Errors are the relative L2 error and the max |diff| over the RMS. One
 JSON line per tree.
 
@@ -80,6 +85,7 @@ JSON line per tree.
     python3 tools/flash_bwd_ab.py --bias-gelu A B B A
     python3 tools/flash_bwd_ab.py --steps A B B A
     python3 tools/flash_bwd_ab.py --update A B B A
+    python3 tools/flash_bwd_ab.py --serve A B B A
 
 Each tree is a checkout root holding paddle_tpu_torch/; it runs in its
 own process and builds its kernels into <tree>/build/paddle_tpu_torch.
@@ -517,6 +523,57 @@ def measure_steps(tree):
     return res
 
 
+def measure_serve(tree):
+    """The serve's stream (chip_smoke.py's `serve`: gpt_1p3b bf16, 16
+    prompts of 32-384 tokens, 64 greedy tokens, batch 8) through the
+    tree's ServingEngine: a warm-up request, then 3 timed streams, with
+    request tracing on and off where the tree takes each (a tree before
+    the journals refuses trace=True). Decode step ms is the engine's
+    decode seconds over its decode steps."""
+    sys.path.insert(0, tree)
+    import time
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    smoke = _smoke()
+    res = {'tree': tree, 'card': torch.cuda.get_device_name(0)}
+    cfg = gpt_1p3b()
+    gen = torch.Generator(device='cuda').manual_seed(1234)
+    model = GPTForCausalLM(cfg, device='cuda', dtype=torch.bfloat16,
+                           generator=gen)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(32, 384 + 1, 16)
+    prompts = [list(rng.randint(1, cfg.vocab_size, int(n))) for n in lens]
+    for trace in (True, False):
+        try:
+            eng = ServingEngine(model, ServingConfig(
+                trace=trace, **smoke.SERVE_PAGES), device='cuda')
+        except NotImplementedError:
+            res[f'trace_{trace}'] = None
+            continue
+        eng.generate([prompts[0]], max_new_tokens=2)
+        runs = []
+        for _ in range(3):
+            eng.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate(prompts, max_new_tokens=smoke.SERVE_MAX_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            runs.append(dict(
+                wall_s=wall, decode_tokens_per_sec=st[
+                    'decode_tokens_per_sec'],
+                decode_step_ms=1e3 * st['decode_seconds_total']
+                / max(st['decode_steps_total'], 1)))
+        res[f'trace_{trace}'] = runs
+        eng.shutdown()
+        smoke.free_cuda(torch)
+    return res
+
+
 def _update_lists(torch, smoke):
     """{leg: (optimizer, [(p, g, state)], bytes an element)}: the tensors
     a step of each per-parameter leg updates, at their shapes (the
@@ -643,7 +700,7 @@ MODES = {'--bwd': measure_bwd, '--fwd': measure_fwd,
          '--paged': measure_paged, '--norm': measure_norm,
          '--stats': measure_stats, '--norm-fwd': measure_norm_fwd,
          '--bias-gelu': measure_bias_gelu, '--steps': measure_steps,
-         '--update': measure_update}
+         '--update': measure_update, '--serve': measure_serve}
 
 
 def main(argv):
