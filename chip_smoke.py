@@ -50,7 +50,10 @@ Phases, one JSON line each on stdout:
              pool must drain, every serving kernel's launch counter must
              rise during the serve (the int8 kernel's must not), and the
              engine's prefill logits for two short prompts must match the
-             port's CPU fp32 run on the same weights. Then a profiled
+             port's CPU fp32 run on the same weights. The stream runs
+             with the metric history and the default alert pack on (as
+             bench.py:676-700 does): its record carries `series` and
+             `alerts`, and no critical rule may fire. Then a profiled
              serve.
    serve_int8 — the same stream over an int8 KV pool: completes,
              drains, attention only on the int8 kernel, 101,376 bytes a
@@ -163,8 +166,24 @@ Phases, one JSON line each on stdout:
              and the rest; the update's device time and span beside its
              bytes bound, and the whole update timed on copies by its
              route (one launch), one call a parameter, its plain chain
-             and `torch._fused_adamw_`, with the route's host time. Then 3
-             timed steps each under remat_policy 'none', 'dots' and
+             and `torch._fused_adamw_`, with the route's host time. The
+             bench's telemetry loop (bench.py:160-197): the step ledger
+             configured and the memory census taken around the warm-up;
+             then, with the metric history and the default alert pack on,
+             the host-gap record (3 synchronous steps twice, then 5 steps
+             through a DeviceLoader in the dispatch window 3 times, one
+             fetch at each trial's end), the ledger's account, the
+             history's export and the alerts' summary, and
+             StepTelemetry's snapshot (`telemetry`, with `comm_overlap`
+             and `remat`) and the memory accountant's sample and phases
+             (`memory`). The windowed gap must fall below the synchronous
+             one, the ledger reconcile within 0.95-1.05 with MFU against
+             989 TFLOP/s, and no critical rule fire. The telemetry's cost
+             (`telemetry_ab`): the windowed loop with history, alerts,
+             ledger account and DeviceLoader on against the same loop
+             with them off, in turns (off, on, on, off, twice), with the
+             loop thread's host syncs a step. Then 3 timed steps each
+             under remat_policy 'none', 'dots' and
              'attn_mlp_boundaries'.
 11. pipeline_check — the engine on the card against the CPU at
              gpt_1p3b's width with 2 layers in fp32 (TF32 off), A = 2 x 1
@@ -187,6 +206,19 @@ Phases, one JSON line each on stdout:
              a step at
              scale=inf that must leave every parameter and state
              bit-equal.
+   telemetry — the numerics, memory and hang diagnostics on the leg at
+             4 layers: under FLAGS_tensor_stats a step publishes the
+             ptpu_num_* gauges with one host fetch for its taps, and its
+             global norm agrees with the global-norm clip's over the same
+             gradients; under FLAGS_check_nan_inf a gradient made
+             non-finite on purpose raises NumericsError naming that
+             parameter; a loss-scaled step whose gradient overflowed is
+             skipped and the next clean one does not raise (the engine,
+             and the eager guard with a GradScaler as the reference's
+             test_amp_skip_step_resets_guard drives it); an allocation
+             of twice the card's memory inside oom_guard raises
+             DeviceOOMError with its report; a HangWatchdog with a short
+             timeout over a stalled heartbeat writes its local dump.
 14. linear_xent — fused_linear_cross_entropy at [4096, 2048] x 50304 bf16
              against the plain product and hard cross-entropy, forward
              and backward (XENT_LOSS_RTOL, XENT_GRAD_REL_L2), with both
@@ -252,6 +284,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1189,6 +1222,8 @@ def serve_phase(torch, card):
     """gpt_1p3b through the port's serving engine on the card. Returns
     the serve's launches and what the later serve phases reuse: the
     model, its fp32 copy on the CPU, the stream and two short prompts."""
+    from paddle_tpu_torch.core import alerts as alerts_mod
+    from paddle_tpu_torch.core import monitor
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_1p3b
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -1205,8 +1240,23 @@ def serve_phase(torch, card):
     rng = np.random.RandomState(0)
     lens = rng.randint(32, 384 + 1, 16)
     prompts = [list(rng.randint(1, cfg.vocab_size, int(n))) for n in lens]
-    outs, wall, launches, st = timed_stream(torch, eng, prompts,
-                                            SERVE_MAX_NEW)
+    # the metric history and the engine alert pack ride the stream
+    # (bench.py:676-700): the publish cadence samples the rings
+    reg = monitor.metrics()
+    hist = reg.enable_history(capacity=240)
+    alerts = alerts_mod.AlertManager(hist, rules=alerts_mod.default_rules(),
+                                     source='chip_smoke')
+    try:
+        outs, wall, launches, st = timed_stream(torch, eng, prompts,
+                                                SERVE_MAX_NEW)
+        eng.publish_metrics()
+        series = hist.export(max_points=24)
+        alerts_rec = alerts.summary()
+    finally:
+        alerts.detach()
+        reg.history = None
+    if alerts_rec['fired_critical']:
+        raise AssertionError(f'serve: critical alert fired: {alerts_rec}')
     check_served(eng, prompts, outs, SERVE_MAX_NEW, cfg.vocab_size)
     check_launches(launches, SERVE_KERNELS, ('paged_attention_int8',))
 
@@ -1227,7 +1277,8 @@ def serve_phase(torch, card):
           'model_build_s': build_s, **stream_line(st, wall),
           'bytes_per_token': st['pool']['bytes_per_token'],
           'launches': launches, 'logits_vs_cpu_fp32': logit_checks,
-          'logits_rtol': LOGITS_RTOL})
+          'logits_rtol': LOGITS_RTOL, 'series': series,
+          'alerts': alerts_rec})
     profile_phase(torch, eng, prompts[:8])
     served = dict(cfg=cfg, model=model, cpu_model=cpu_model, prompts=prompts,
                   outs=outs, short=short,
@@ -1306,10 +1357,12 @@ class counting_fetches:
         return False
 
 
-def want_fetches(st):
-    """The fetches a stream makes: one per prefill chunk, per serial
-    decode step and per fused window, and no other."""
-    return (st['prefill_chunks_total'] + st['decode_steps_total']
+def want_fetches(st, eng):
+    """The fetches a stream makes: one per prefill that completes and
+    samples (its last chunk; the earlier chunks of a long prompt stay
+    queued on the card), per serial decode step and per fused window,
+    and no other."""
+    return (eng.prefill_fetches + st['decode_steps_total']
             - st['fused_iterations_total'] + st['fused_windows_total'])
 
 
@@ -1320,9 +1373,9 @@ def counted_stream(torch, eng, prompts, max_new, **gen):
         outs, wall, launches, st = timed_stream(
             torch, eng, prompts, max_new,
             before=lambda: count.__setitem__(0, 0), **gen)
-    if count[0] != want_fetches(st):
+    if count[0] != want_fetches(st, eng):
         raise AssertionError(f'{count[0]} host fetches, want '
-                             f'{want_fetches(st)}')
+                             f'{want_fetches(st, eng)}')
     return outs, wall, launches, st, count[0]
 
 
@@ -1576,9 +1629,9 @@ def serve_tenants_phase(torch, card, served):
         check_served(eng, light, [r.output_ids() for r in lreqs], LIGHT_NEW,
                      cfg.vocab_size)
         check_launches(launches, SERVE_KERNELS, ('paged_attention_int8',))
-        if count[0] != want_fetches(st):
+        if count[0] != want_fetches(st, eng):
             raise AssertionError(f'{name}: {count[0]} host fetches, want '
-                                 f'{want_fetches(st)}')
+                                 f'{want_fetches(st, eng)}')
         good = eng.ledger.goodput()
         if good['delivered_tokens'] + good['wasted_tokens'] != \
                 good['emitted_tokens']:
@@ -2362,7 +2415,7 @@ def fc1_bucket_size(torch):
                            device='meta', dtype=torch.bfloat16)
     layout = B.BucketLayout.build(
         {n: (p.shape, p.dtype) for n, p in model.named_parameters()},
-        bucket_bytes=B.DEFAULT_BUCKET_BYTES, pad_to=8)
+        bucket_bytes=B.resolve_comm_config()[1], pad_to=8)
     return next(b.size for b in layout.buckets
                 if any('mlp.fc1.weight' in sl.name for sl in b.slots))
 
@@ -2864,6 +2917,222 @@ def windowed_steps(torch, eng, host_batch):
             'losses': losses, 'dispatch_window': eng._inflight.size}
 
 
+class SyncCounter:
+    """Counts the calling thread's host syncs while entered: waits on a
+    CUDA event, a stream or the device, and reads of a card tensor's
+    value to the host. `count[0]` is the tally."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        torch = self.torch
+        me = threading.get_ident()
+        count = self.count = [0]
+        self.saved = []
+
+        def wrap(owner, name, on_cuda_only=False):
+            real = getattr(owner, name)
+            self.saved.append((owner, name, real))
+
+            def counted(*a, **kw):
+                if threading.get_ident() == me and (
+                        not on_cuda_only or a[0].is_cuda):
+                    count[0] += 1
+                return real(*a, **kw)
+            setattr(owner, name, counted)
+        wrap(torch.cuda.Event, 'synchronize')
+        wrap(torch.cuda.Stream, 'synchronize')
+        wrap(torch.cuda, 'synchronize')
+        for name in ('item', '__float__', 'cpu', 'tolist'):
+            wrap(torch.Tensor, name, on_cuda_only=True)
+        return count
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self.saved):
+            setattr(owner, name, real)
+        return False
+
+
+def host_gap_record(torch, eng, ids, labels, n_sync=3, sync_trials=2, n=5,
+                    trials=3):
+    """bench.py's `_host_gap_record` (:53-103) on the port: the
+    synchronous discipline (a train_batch and its loss read, n_sync steps,
+    best of sync_trials) and then the windowed one (n steps through a
+    DeviceLoader into train_step, one fetch at the trial's end, best of
+    trials) on the same engine. Returns (the `host` record, the windowed
+    seconds a step)."""
+    from paddle_tpu_torch.io import DeviceLoader
+    eng.flush()
+    torch.cuda.synchronize()
+    eng._gap.reset()
+    sync_dt = float('inf')
+    for _ in range(sync_trials):
+        t0 = time.perf_counter()
+        for _ in range(n_sync):
+            float(eng.train_batch((ids, labels)))
+        sync_dt = min(sync_dt, (time.perf_counter() - t0) / n_sync)
+    sync_gap = eng.host_gap_snapshot()
+    eng._gap.reset()
+    dt, loader_stats = float('inf'), None
+    for _ in range(trials):
+        loader = DeviceLoader([(ids, labels)] * n, engine=eng)
+        t0 = time.perf_counter()
+        last = None
+        for b in loader:
+            last = eng.train_step(b)
+        eng.flush()
+        last.result()                          # ONE fetch, at trial end
+        dt = min(dt, (time.perf_counter() - t0) / n)
+        loader_stats = loader.stats()
+    win_gap = eng.host_gap_snapshot()
+    host = {
+        'dispatch_window': eng._inflight.size,
+        'prefetch': loader_stats,
+        'device_lr': eng._lr_feed.fn is not None,
+        'windowed': {k: win_gap.get(k) for k in
+                     ('steps', 'host_gap_seconds', 'host_residue_seconds',
+                      'host_bound_fraction', 'dispatch_depth_mean',
+                      'dispatch_depth_max')},
+        'sync_loop': dict(
+            {k: sync_gap.get(k) for k in
+             ('steps', 'host_gap_seconds', 'host_residue_seconds',
+              'host_bound_fraction')},
+            ms_per_step=sync_dt * 1000),
+        'host_gap_reduced':
+            win_gap['host_gap_seconds'] < sync_gap['host_gap_seconds'],
+    }
+    return host, dt
+
+
+def telemetry_record(torch, eng, ids, labels, census):
+    """The bench's telemetry loop around the windowed step on `eng`
+    (bench.py:177-197, :1434-1497): the metric history and the default
+    alert pack on, the host-gap record, the history tick and export, the
+    alerts' summary, the ledger's account; StepTelemetry's snapshot and
+    the memory accountant's sample and phases. Holds the record to the
+    bench's contract."""
+    from paddle_tpu_torch import profiler as prof_mod
+    from paddle_tpu_torch.core import alerts as alerts_mod
+    from paddle_tpu_torch.core import memory as mem
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.distributed.fleet.utils import recompute as remat
+
+    reg = monitor.metrics()
+    hist = reg.enable_history(capacity=240)
+    alerts = alerts_mod.AlertManager(hist, rules=alerts_mod.default_rules(),
+                                     source='chip_smoke')
+    try:
+        host, dt = host_gap_record(torch, eng, ids, labels)
+        ledger = eng._ledger.account()
+        reg.history_tick()
+        series = hist.export(max_points=24)
+        alerts_rec = alerts.summary()
+    finally:
+        alerts.detach()
+        reg.history = None
+    snap = prof_mod.StepTelemetry(publish=False).snapshot()
+    acct = mem.accountant()
+    record = {
+        'windowed_ms_per_step': 1e3 * dt, 'host': host, 'ledger': ledger,
+        'series': series, 'alerts': alerts_rec,
+        'remat': {'policy': 'full', 'boundaries': remat.boundary_counts(),
+                  'census_before': {k: census[0].get(k) for k in (
+                      'bytes_in_use', 'live_bytes', 'live_buffers')},
+                  'census_after': {k: census[1].get(k) for k in (
+                      'bytes_in_use', 'live_bytes', 'live_buffers')},
+                  'activation_bytes': census[1].get('activation_bytes')},
+        'telemetry': {
+            'compile_seconds_total': snap['compile_seconds_total'],
+            'compiles_total': int(snap['compiles_total']),
+            'device_memory': snap['device_memory'],
+            'numerics': snap['numerics'], 'comm': snap['comm'],
+            'comm_overlap': (snap['comm'] or {}).get('comm_overlap'),
+            'pallas': snap['pallas'], 'remat': snap['remat'],
+            'host': snap['host'], 'pipeline': snap['pipeline'],
+            'ledger': snap['ledger']},
+        'memory': {'sample': acct.sample(count_buffers=True),
+                   'phases': {k: {f: v.get(f) for f in
+                                  ('high_water', 'max_delta', 'calls')}
+                              for k, v in acct.phases().items()}},
+    }
+    if not host['host_gap_reduced']:
+        raise AssertionError(f'windowed host gap not below the '
+                             f'synchronous one: {host}')
+    if ledger is None or not 0.95 <= ledger['reconciled_fraction'] <= 1.05:
+        raise AssertionError(f'ledger does not reconcile: {ledger}')
+    if ledger['peak_tflops'] != PEAK_BF16_TFLOPS or ledger['mfu'] is None:
+        raise AssertionError(f'ledger MFU not against the H100 peak: '
+                             f'{ledger}')
+    if alerts_rec['fired_critical']:
+        raise AssertionError(f'critical alert fired: {alerts_rec}')
+    if not record['telemetry']['comm_overlap'] or \
+            not record['telemetry']['remat']:
+        raise AssertionError('telemetry lacks comm_overlap or remat')
+    if 'pipeline.step' not in record['memory']['phases']:
+        raise AssertionError('memory phases lack the step')
+    return record
+
+
+def telemetry_ab(torch, eng, ids, labels, n=5):
+    """The telemetry's cost on the windowed loop, in turns: 'off' is n
+    train_step calls on the host batch, a flush and one fetch; 'on' the
+    same through a DeviceLoader with the metric history and the default
+    alert pack on, and a history tick, export and ledger account after
+    the trial. Order off, on, on, off, twice, each trial after a full
+    garbage collection; each trial's ms a step and the loop thread's host
+    syncs a step."""
+    from paddle_tpu_torch.core import alerts as alerts_mod
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.io import DeviceLoader
+
+    reg = monitor.metrics()
+    trials = {'off': [], 'on': []}
+    syncs = {'off': [], 'on': []}
+    for mode in ('off', 'on', 'on', 'off') * 2:
+        eng.flush()
+        torch.cuda.synchronize()
+        # each trial starts from a full collection: Python's gen-2
+        # collections (0.2-0.3 s on this heap) otherwise fall about every
+        # 4th trial, always on the same arm of this order
+        gc.collect()
+        hist = alerts = None
+        if mode == 'on':
+            hist = reg.enable_history(capacity=240)
+            alerts = alerts_mod.AlertManager(
+                hist, rules=alerts_mod.default_rules(), source='ab')
+        try:
+            with SyncCounter(torch) as count:
+                t0 = time.perf_counter()
+                last = None
+                feed = DeviceLoader([(ids, labels)] * n, engine=eng) \
+                    if mode == 'on' else [(ids, labels)] * n
+                for b in feed:
+                    last = eng.train_step(b)
+                eng.flush()
+                last.result()
+                if mode == 'on':
+                    reg.history_tick()
+                    hist.export(max_points=24)
+                    eng._ledger.account()
+                wall = time.perf_counter() - t0
+        finally:
+            if alerts is not None:
+                alerts.detach()
+            reg.history = None
+        trials[mode].append(1e3 * wall / n)
+        syncs[mode].append(count[0] / n)
+    out = {mode: {'ms_per_step': v, 'median_ms':
+                  float(np.median(v)), 'syncs_per_step': syncs[mode]}
+           for mode, v in trials.items()}
+    out['order'] = "off, on, on, off, twice"
+    out['median_on_minus_off_ms'] = out['on']['median_ms'] - \
+        out['off']['median_ms']
+    if syncs['on'] != syncs['off']:
+        raise AssertionError(f'telemetry changed the host syncs: {syncs}')
+    return out
+
+
 def pipeline_phase(torch, card, train_peaks):
     """gpt_1p3b through SpmdPipelineEngine on the card in the bench's
     headline configuration (bench.py:120-149): bf16 parameters, untied
@@ -2874,6 +3143,8 @@ def pipeline_phase(torch, card, train_peaks):
     timed steps each under remat_policy 'none' and
     'attn_mlp_boundaries'. `train_peaks`: this run's peak bytes of the
     train and train_bucketed phases, printed beside the leg's."""
+    from paddle_tpu_torch.core import ledger as ledger_mod
+    from paddle_tpu_torch.core import memory as mem
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
         spmd_pipeline as sp)
     from paddle_tpu_torch.distributed.fleet.utils import recompute as remat
@@ -2906,10 +3177,16 @@ def pipeline_phase(torch, card, train_peaks):
     data = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    # the ledger's arch hints (bench.py:183-189) and the memory census
+    # around the warm-up (:168-171)
+    ledger_mod.configure('pipeline', layers=layers, hidden=cfg.hidden_size,
+                         seq_len=L, n_params=n_params, arch='gpt')
+    census_before = mem.sample(count_buffers=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     warm = float(eng.train_batch(data))
     warm_s = time.perf_counter() - t0
+    census_after = mem.sample(count_buffers=True)
     tags_before = remat.boundary_counts()
     _build.reset_launches()
     losses, walls = [], []
@@ -2951,6 +3228,11 @@ def pipeline_phase(torch, card, train_peaks):
               'launches_per_step': UPDATE_GROUPS,
               **update_timings(torch, eng.optimizer, eng._named,
                                [eng._states[n] for n, _ in eng._named])}
+    t0 = time.perf_counter()
+    tele = telemetry_record(torch, eng, ids, labels,
+                            (census_before, census_after))
+    tele['telemetry_ab'] = telemetry_ab(torch, eng, ids, labels)
+    tele['seconds'] = time.perf_counter() - t0
     eng.shutdown()
     del eng
     free_cuda(torch)
@@ -3007,12 +3289,12 @@ def pipeline_phase(torch, card, train_peaks):
           'mfu': flops / step_s / 1e12 / PEAK_BF16_TFLOPS,
           'peak_memory_bytes': peak,
           'train_peak_memory_bytes': train_peaks,
-          'remat': {'policy': 'full', 'boundary_counts': tags,
-                    'snapshot': remat.snapshot()},
+          'remat': dict(tele.pop('remat'), boundary_counts=tags,
+                        snapshot=remat.snapshot()),
           'launches': launches,
           'launches_per_step': {k: n / TIMED_STEPS for k, n in want.items()},
           'train_step_window': window, 'update': update,
-          'policies': policies, **prof})
+          'policies': policies, **tele, **prof})
     return launches
 
 
@@ -3444,6 +3726,219 @@ def pipeline_amp_phase(torch, card):
               'update_device_span_s': prof['device_span_s_of_range'].get(
                   sp.UPDATE_RANGE)}})
     return launches
+
+
+def telemetry_phase(torch, card):
+    """The numerics, memory and hang diagnostics on the leg at
+    PIPE_AMP_LAYERS layers (pipeline_amp's engine), each in a few steps:
+    (1) FLAGS_tensor_stats: a step's taps in one host fetch, the
+    ptpu_num_* gauges, its global norm against ClipGradByGlobalNorm's over
+    the step's gradients; (2) FLAGS_check_nan_inf: a gradient made
+    non-finite on purpose raises NumericsError naming its parameter; (3)
+    a loss-scaled step whose gradient overflowed is skipped and the next
+    clean step does not raise, on the engine and through the eager guard
+    with a GradScaler (the reference's test_amp_skip_step_resets_guard
+    on the card); (4) an allocation of twice the card's memory inside
+    oom_guard raises DeviceOOMError with its report; (5) a HangWatchdog
+    with a short timeout over a stalled heartbeat writes its local
+    dump."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core import memory as mem
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.core import numerics as num
+    from paddle_tpu_torch.distributed import flight_recorder as fr
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline as sp)
+    from paddle_tpu_torch.models import build_gpt_pipeline, gpt_1p3b
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    cfg = gpt_1p3b(hidden_dropout=0.0, attn_dropout=0.0,
+                   use_flash_attention=True)
+    cfg.num_layers = PIPE_AMP_LAYERS
+    L = cfg.max_seq_len
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (PIPE_A * PIPE_MB, L)).astype(
+        'int32')
+    data = (ids, np.roll(ids, -1, 1).astype('int32'))
+    report_dir = tempfile.mkdtemp(prefix='chip_smoke_reports_')
+    saved_dir = os.environ.get('FLEET_LOG_DIR')
+    os.environ['FLEET_LOG_DIR'] = report_dir
+
+    def engine():
+        gen = torch.Generator(device='cuda').manual_seed(4321)
+        triple = build_gpt_pipeline(cfg, device='cuda', dtype=torch.bfloat16,
+                                    generator=gen)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    multi_precision=False, moment_dtype='bfloat16')
+        return sp.SpmdPipelineEngine(*triple, opt, accumulate_steps=PIPE_A,
+                                     use_remat=True, schedule='1F1B',
+                                     grad_accum_dtype='param')
+
+    def poison(eng, value):
+        """The step's gradient of the engine's fourth parameter holds one
+        `value`; returns its name."""
+        name = eng._named[3][0]
+        real = eng._grads
+
+        def poisoned():
+            for (n, _p), g in zip(eng._named, real()):
+                if n == name:
+                    g = g.clone()
+                    g.view(-1)[0] = value
+                yield g
+        eng._grads = poisoned
+        return name
+
+    out = {}
+    fetches = [0]
+    real_fetch = num._host_fetch
+
+    def counting(tree):
+        fetches[0] += 1
+        return real_fetch(tree)
+    try:
+        # (1) the stats taps
+        flags.set_flags({'FLAGS_tensor_stats': True})
+        eng = engine()
+        eng.train_batch(data)                          # warm-up
+        num._host_fetch = counting
+        t0 = time.perf_counter()
+        eng.train_batch(data)
+        step_s = time.perf_counter() - t0
+        num._host_fetch = real_fetch
+        gauge = monitor.metrics().get('ptpu_num_grad_norm_global').value()
+        clip_norm = float(pnn.ClipGradByGlobalNorm(1.0).global_norm(
+            [(p, p.grad) for _, p in eng._named]))
+        rel = abs(gauge - clip_norm) / clip_norm
+        if fetches[0] != 1 or rel > 1e-5:
+            raise AssertionError(f'taps: {fetches[0]} fetches, norm '
+                                 f'{gauge} vs the clip\'s {clip_norm}')
+        out['tensor_stats'] = {
+            'fetches_a_step': fetches[0], 'grad_norm_global': gauge,
+            'clip_global_norm': clip_norm, 'rel_diff': rel,
+            'tensors': len(eng.last_numerics['grads']),
+            'step_s_with_taps': step_s,
+            'nonfinite_total': num.snapshot()['nonfinite_total']}
+        eng.shutdown()
+        del eng
+        free_cuda(torch)
+        flags.set_flags({'FLAGS_tensor_stats': False})
+
+        # (2) a planted NaN under FLAGS_check_nan_inf
+        flags.set_flags({'FLAGS_check_nan_inf': True})
+        eng = engine()
+        name = poison(eng, float('nan'))
+        try:
+            eng.train_batch(data)
+            raise AssertionError('a NaN gradient did not raise')
+        except num.NumericsError as e:
+            if e.report.get('first_bad') != name:
+                raise AssertionError(f'NumericsError names '
+                                     f'{e.report.get("first_bad")}, not '
+                                     f'{name}')
+            out['nan_planted'] = {'parameter': name,
+                                  'named': e.report['first_bad'],
+                                  'report_written': bool(e.report_path)}
+        eng.shutdown()
+        del eng
+        free_cuda(torch)
+
+        # (3) a loss-scaled overflow is skipped; the next step is clean
+        eng = engine()
+        poison(eng, float('inf'))
+        scaler = GradScaler(init_loss_scaling=2.0 ** 15,
+                            decr_every_n_nan_or_inf=1)
+        eng.train_step(data, scaler=scaler)
+        eng.flush()
+        skipped = eng.last_numerics is None and scaler._scale == 2.0 ** 14
+        del eng._grads                     # the clean step's gradients
+        eng.train_step(data, scaler=scaler)
+        eng.flush()
+        clean = eng.last_numerics is not None
+        eng.shutdown()
+        del eng
+        free_cuda(torch)
+        flags.set_flags({'FLAGS_check_nan_inf_deferred': True})
+        net = pnn.Linear(2, 2, device='cuda')
+        with torch.no_grad():
+            net.weight.uniform_(0.1, 1.0)
+            net.bias.fill_(0.1)
+        opt = SGD(learning_rate=0.1, parameters=net.parameters())
+        x = torch.ones(2, 2, device='cuda')
+        with num.guard():
+            torch.exp(net(x).sum() * 1e9).backward()
+        eager = GradScaler(init_loss_scaling=2.0, decr_every_n_nan_or_inf=1)
+        eager.step(opt)
+        eager_skipped = eager._found_inf and \
+            num.guard().pending_ops() == 0
+        opt.clear_grad()
+        with num.guard():
+            (net(x) ** 2).mean().backward()
+        eager.step(opt)                    # must not raise
+        if not (skipped and clean and eager_skipped
+                and not eager._found_inf):
+            raise AssertionError(
+                f'overflow skip: engine skipped {skipped}, next clean '
+                f'{clean}; eager skipped {eager_skipped}, next found_inf '
+                f'{eager._found_inf}')
+        out['overflow_skip'] = {'engine_skipped': skipped,
+                                'engine_next_clean': clean,
+                                'eager_skipped_and_reset': eager_skipped,
+                                'eager_next_clean': not eager._found_inf}
+        flags.set_flags({'FLAGS_check_nan_inf': False,
+                         'FLAGS_check_nan_inf_deferred': False})
+
+        # (4) an allocation of twice the card inside oom_guard
+        total = torch.cuda.get_device_properties(0).total_memory
+        try:
+            with mem.oom_guard('chip_smoke.oom'):
+                torch.empty(2 * total, dtype=torch.uint8, device='cuda')
+            raise AssertionError('twice the card allocated')
+        except mem.DeviceOOMError as e:
+            rep = e.report
+            if rep.get('kind') != 'oom_report' or \
+                    rep.get('bytes_limit') != total:
+                raise AssertionError(f'OOM report: {rep}')
+            out['oom'] = {'site': rep['site'], 'bytes_limit': total,
+                          'bytes_in_use': rep['bytes_in_use'],
+                          'suspect_phase': rep['suspect_phase'],
+                          'top_buffers': len(rep['top_buffers']),
+                          'report_written': bool(e.report_path)}
+
+        # (5) a stalled heartbeat under a short watchdog
+        rec = fr.FlightRecorder(capacity=16)
+        rec.heartbeat()
+        dog = fr.HangWatchdog(timeout=0.2, interval=0.05, recorder=rec,
+                              dump_dir=report_dir)
+        t0 = time.perf_counter()
+        with dog:
+            fired = dog.fired.wait(10.0)
+        if not fired or not dog.report_path or \
+                not os.path.exists(dog.report_path):
+            raise AssertionError('the watchdog wrote no dump')
+        with open(dog.report_path) as f:
+            dump = json.load(f)
+        out['watchdog'] = {'fired_after_s': time.perf_counter() - t0,
+                           'reason': dump['reason'],
+                           'stacks': len(dump['ranks']['0']['stacks'])}
+    finally:
+        num._host_fetch = real_fetch
+        flags.set_flags({'FLAGS_tensor_stats': False,
+                         'FLAGS_check_nan_inf': False,
+                         'FLAGS_check_nan_inf_deferred': False})
+        num.reset()
+        if saved_dir is None:
+            os.environ.pop('FLEET_LOG_DIR', None)
+        else:
+            os.environ['FLEET_LOG_DIR'] = saved_dir
+        shutil.rmtree(report_dir, ignore_errors=True)
+    free_cuda(torch)
+    emit({'phase': 'telemetry', 'card': card, 'model': 'gpt_1p3b',
+          'layers': PIPE_AMP_LAYERS, **out})
 
 
 def _rel_on_card(a, b):
@@ -4269,6 +4764,9 @@ def main():
     amp_launches = pipeline_amp_phase(torch, card)
     pipeline_amp_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    telemetry_phase(torch, card)
+    telemetry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     linear_xent_check(torch)
     free_cuda(torch)
     linear_xent_s = time.perf_counter() - t0
@@ -4290,6 +4788,7 @@ def main():
           'check': check_s, 'pipeline': pipeline_s,
           'pipeline_check': pipeline_check_s,
           'update_route': update_route_s, 'pipeline_amp': pipeline_amp_s,
+          'telemetry': telemetry_s,
           'linear_xent': linear_xent_s, 'bert': bert_s,
           'bert_check': bert_check_s,
           'dense_decode': time.perf_counter() - t0})

@@ -24,9 +24,11 @@ rounds each back to its dtype and reads the found-inf verdict with one
 host fetch; `step` skips the optimizer's update on a nonfinite gradient.
 The engines' loss-scaling path takes the scaler through
 `SpmdPipelineEngine.train_step(scaler=...)`, which calls
-`update_from_found` when the step drains. Not ported yet: the
-`ptpu_amp_*` counters and gauge and the eager numerics guard's reset on a
-skipped step (telemetry, ROADMAP Queue 1 item 6).
+`update_from_found` when the step drains. Every step publishes
+`ptpu_amp_steps_total`, `ptpu_amp_skipped_steps_total` and
+`ptpu_amp_loss_scale` (:160-169), and a skipped step resets the eager
+numerics guard (:171-186): its overflow was survived on purpose, so its
+flag and journal must not be blamed on the next clean step.
 
 `decorate`: casts the models' floating parameters to the amp dtype at
 O2; at O1 it returns them as they are, as paddle's does (the reference
@@ -276,7 +278,14 @@ class GradScaler:
             self.unscale_(optimizer)
             if not self._found_inf:
                 optimizer.step()
+            else:
+                # the update is skipped, so optimizer.step's numerics
+                # boundary never flushes: drop the survived overflow's
+                # flag and journal here
+                from ..core import numerics as _numerics
+                _numerics.guard().reset()
             self._update()
+            self._publish_metrics(self._found_inf)
         finally:
             # always re-arm, or a failed step would leave the next one's
             # gradients scaled
@@ -285,6 +294,17 @@ class GradScaler:
     def minimize(self, optimizer, scaled_loss):
         self.step(optimizer)
         return [], []
+
+    def _publish_metrics(self, skipped):
+        from ..core import monitor as _m
+        _m.counter('ptpu_amp_steps_total',
+                   help='GradScaler.step() calls').inc(1)
+        if skipped:
+            _m.counter('ptpu_amp_skipped_steps_total',
+                       help='optimizer updates skipped on nonfinite '
+                            'gradients').inc(1)
+        _m.gauge('ptpu_amp_loss_scale',
+                 help='current dynamic loss scale').set(self._scale)
 
     def update_from_found(self, found):
         """Deferred found-inf accounting for the engines' async path: one
@@ -295,6 +315,7 @@ class GradScaler:
             return
         self._found_inf = bool(found)
         self._update()
+        self._publish_metrics(self._found_inf)
 
     def update(self):
         pass  # folded into step(), as AmpScaler.minimize does

@@ -1,23 +1,28 @@
-"""Asynchronous train steps — the subset of `paddle_tpu/core/async_step.py`
-that the engines' `train_step` needs: `resolve_dispatch_window`
-(:56-62), `AsyncResult` (:328-418), `AsyncDispatchMixin.flush` and
-`DispatchWindow` (:421-483); an engine's `flush` drains its window.
+"""Asynchronous train steps — counterpart of
+`paddle_tpu/core/async_step.py`: `resolve_dispatch_window` and
+`resolve_prefetch_depth` (:56-70), `HostGapMonitor` (:114), the prefetch
+totals and `host_snapshot` (:280-326), `AsyncResult` (:328-418),
+`AsyncDispatchMixin` (:421-447) and `DispatchWindow` (:450-479).
 
 A step's work is queued on the card's stream when `train_step` returns;
 its `AsyncResult` holds the loss and the found-inf flag as device
 tensors and a CUDA event recorded after the step's last launch. `wait()`
-synchronises on that event (not a transfer) and then runs the step's
-deferred drain work once (a GradScaler's found-inf accounting, applied
-in drain order, :199-217 of paddle_tpu/amp); `result()` is the one host
-fetch of the loss. On the CPU the step has finished when it returns,
-and there is no event.
+synchronises on that event (not a transfer), attributes the wait to the
+engine's gap monitor (a wait on the NEWEST dispatched step gates the
+card: host gap; a wait on an older one has queued runway behind it:
+blocked), and then runs the step's deferred drain work (numerics taps,
+a GradScaler's found-inf accounting) once, in drain order; if that work
+raises, a later wait retries it. `result()` is the one host fetch of the
+loss. On the CPU the step has finished when it returns, and there is no
+event.
 
-`HostGapMonitor` (:114 there) keeps rolling per-step dispatch
-timestamps for one engine site and derives the host gap and the
-`host_bound_fraction` (gating wait / step interval) the serving ledger
-reports; the serving engine's gating wait is the time it spends in its
-host fetch of chosen ids. `unregister_monitor` drops a shut-down
-engine's monitor from the site registry.
+`HostGapMonitor` keeps rolling per-step dispatch timestamps for one
+engine site and derives the host gap and the `host_bound_fraction`
+(gating wait / step interval); the serving engine's gating wait is its
+host fetch of chosen ids. `AsyncDispatchMixin.flush` drains an engine's
+window at a deliberate barrier and publishes the monitor's gauges and
+the engine's step ledger there, never in the dispatch loop. A
+`DeviceLoader` (io/device_loader.py) reports its prefetch totals here.
 """
 import collections
 import os
@@ -27,18 +32,33 @@ import time
 import torch
 
 DEFAULT_DISPATCH_WINDOW = 2
+DEFAULT_PREFETCH_DEPTH = 2
+
+
+def _env_int(name, default):
+    v = os.environ.get(name)
+    if v is None or v == '':
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
 
 
 def resolve_dispatch_window(window=None):
     """In-flight dispatch window: the kwarg, then `PTPU_DISPATCH_WINDOW`,
     then 2; clamped to at least 1."""
     if window is None:
-        env = os.environ.get('PTPU_DISPATCH_WINDOW')
-        try:
-            window = int(env) if env else DEFAULT_DISPATCH_WINDOW
-        except ValueError:
-            window = DEFAULT_DISPATCH_WINDOW
+        window = _env_int('PTPU_DISPATCH_WINDOW', DEFAULT_DISPATCH_WINDOW)
     return max(int(window), 1)
+
+
+def resolve_prefetch_depth(depth=None):
+    """DeviceLoader prefetch depth: the kwarg, then
+    `PTPU_DEVICE_PREFETCH`, then 2; clamped to at least 1."""
+    if depth is None:
+        depth = _env_int('PTPU_DEVICE_PREFETCH', DEFAULT_PREFETCH_DEPTH)
+    return max(int(depth), 1)
 
 
 class AsyncResult:
@@ -46,18 +66,28 @@ class AsyncResult:
     fetch."""
 
     __slots__ = ('loss', 'step', 'found_inf', '_event', '_drained',
-                 '_host_loss', '_staged', '_on_drain')
+                 '_host_loss', '_staged', '_on_drain', '_taps',
+                 '_monitor', '_counted', '_seq')
 
     def __init__(self, loss, step, staged=(), found_inf=None,
-                 on_drain=None):
+                 on_drain=None, taps=None, monitor=None):
         """`staged`: host buffers the step's copies read, kept until the
         step drains; `found_inf`: the step's device flag (a nonfinite
         gradient skipped its update); `on_drain(result)`: run once when
-        the step drains."""
+        the step drains; `taps`: the step's numerics taps (device);
+        `monitor`: the engine's HostGapMonitor, which the wait reports
+        to."""
         self.loss = loss
         self.step = step
         self.found_inf = found_inf
         self._on_drain = on_drain
+        self._taps = taps
+        self._monitor = monitor
+        self._counted = False
+        # while this is still the NEWEST dispatched step, a wait on it is
+        # the synchronous discipline (no queued runway): host gap
+        self._seq = monitor.dispatched_total if monitor is not None \
+            else None
         self._event = None
         if loss.is_cuda:
             self._event = torch.cuda.Event()
@@ -66,20 +96,36 @@ class AsyncResult:
         self._host_loss = None
         self._staged = staged
 
+    @property
+    def taps(self):
+        return self._taps
+
     def done(self):
         """Whether the step was drained (waited on), as the reference's."""
         return self._drained
 
     def wait(self):
-        """Block until the card finished this step."""
-        if not self._drained:
-            if self._event is not None:
-                self._event.synchronize()
-            self._drained = True
-            self._staged = ()
-            if self._on_drain is not None:
-                drain, self._on_drain = self._on_drain, None
-                drain(self)
+        """Block until the card finished this step, then run its drain
+        work once (retried by a later wait if it raised)."""
+        if self._drained:
+            return self
+        t0 = time.perf_counter()
+        if self._event is not None:
+            self._event.synchronize()
+        if self._monitor is not None and not self._counted:
+            self._counted = True
+            dt = time.perf_counter() - t0
+            if self._seq != self._monitor.dispatched_total:
+                self._monitor.note_blocked(dt)
+            else:
+                self._monitor.note_gating(dt)
+            self._monitor.step_ready()
+        self._staged = ()
+        cb = self._on_drain
+        if cb is not None:
+            cb(self)
+            self._on_drain = None
+        self._drained = True
         return self
 
     def result(self):
@@ -95,6 +141,31 @@ class AsyncResult:
     def __repr__(self):
         state = 'drained' if self._drained else 'in-flight'
         return f'AsyncResult(step={self.step}, {state})'
+
+
+class AsyncDispatchMixin:
+    """The window-drain surface of the train engines (each owns a
+    `_inflight` DispatchWindow, a `_gap` HostGapMonitor and a `_ledger`
+    StepLedger)."""
+
+    def flush(self):
+        """Drain the in-flight window: the deferred per-step work runs
+        here, then the gap monitor's gauges and the step ledger publish.
+        The flush's waits are a deliberate barrier, excluded from the
+        next dispatch's host-gap sample. Returns the drained results."""
+        drained = self._inflight.flush()
+        self._gap.drain_point()
+        self._gap.publish()
+        led = getattr(self, '_ledger', None)
+        if led is not None:
+            try:
+                led.publish()
+            except Exception:
+                pass
+        return drained
+
+    def host_gap_snapshot(self):
+        return self._gap.snapshot()
 
 
 class DispatchWindow:
@@ -121,6 +192,9 @@ class DispatchWindow:
             self._q[0].wait()
             drained.append(self._q.popleft())
         return drained
+
+    def clear(self):
+        self._q.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +384,42 @@ class HostGapMonitor:
                      labelnames=('site',)).set(
                          snap['host_bound_fraction'], site=self.site)
         return snap
+
+
+# ---------------------------------------------------------------------------
+# prefetch totals (DeviceLoader reports here; StepTelemetry reads)
+# ---------------------------------------------------------------------------
+_prefetch = {'loaders': 0, 'batches': 0, 'stalls': 0, 'h2d_bytes': 0,
+             'depth': None, 'ring_reuses': 0}
+_prefetch_lock = threading.Lock()
+
+
+def note_prefetch(loaders=0, batches=0, stalls=0, h2d_bytes=0,
+                  depth=None, ring_reuses=0):
+    with _prefetch_lock:
+        _prefetch['loaders'] += loaders
+        _prefetch['batches'] += batches
+        _prefetch['stalls'] += stalls
+        _prefetch['h2d_bytes'] += h2d_bytes
+        _prefetch['ring_reuses'] += ring_reuses
+        if depth is not None:
+            _prefetch['depth'] = depth
+
+
+def reset_prefetch_totals():
+    with _prefetch_lock:
+        _prefetch.update(loaders=0, batches=0, stalls=0, h2d_bytes=0,
+                         depth=None, ring_reuses=0)
+
+
+def host_snapshot():
+    """The StepTelemetry.snapshot()['host'] payload: per-site dispatch
+    gap/depth views and the DeviceLoader prefetch totals."""
+    with _monitors_lock:
+        sites = {site: mon.snapshot() for site, mon in _monitors.items()}
+    with _prefetch_lock:
+        prefetch = dict(_prefetch)
+    return {'sites': sites, 'prefetch': prefetch}
 
 
 def unregister_monitor(monitor):

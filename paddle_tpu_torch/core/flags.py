@@ -5,8 +5,12 @@ seeding of the flags it serves (:127-146).
 Served: `FLAGS_use_flash_attention`, `FLAGS_flash_min_seq` and
 `FLAGS_flash_packed_mha`, which choose between the reference's own
 routes of `nn.MultiHeadAttention` (flash, packed or BHLD, against the
-dense matmul + softmax). None of them chooses a kernel's plain version
-on a CUDA tensor: that is chosen by the tensor's device alone.
+dense matmul + softmax); and the numerics observatory's
+`FLAGS_check_nan_inf`, `FLAGS_check_nan_inf_deferred`,
+`FLAGS_check_nan_inf_max_journal` and `FLAGS_tensor_stats`
+(core/numerics.py: the eager guard and the engines' taps). None of them
+chooses a kernel's plain version on a CUDA tensor: that is chosen by the
+tensor's device alone.
 
 A reference flag whose value would turn on a path the port does not
 serve raises NotImplementedError naming what brings it (`_UNSERVED`);
@@ -19,24 +23,22 @@ _FLAGS = {
     'FLAGS_use_flash_attention': True,
     'FLAGS_flash_min_seq': 1024,
     'FLAGS_flash_packed_mha': True,
-    # unserved: recorded at their defaults (see _UNSERVED)
+    # the numerics observatory (core/numerics.py)
     'FLAGS_check_nan_inf': False,
     'FLAGS_check_nan_inf_deferred': False,
+    'FLAGS_check_nan_inf_max_journal': 4096,
     'FLAGS_tensor_stats': False,
+    # unserved: recorded at their defaults (see _UNSERVED)
     'FLAGS_fused_optimizer': None,
     'FLAGS_fused_layer_norm': None,
     'FLAGS_fused_elementwise': None,
     'FLAGS_paged_attention_kernel': None,
 }
 
-_NUMERICS = 'the numerics observatory, ROADMAP Queue 1 item 6'
 _PLAIN = ("the port's routing is by tensor device alone: no flag sends a "
           'CUDA tensor to a plain version (ROADMAP, rules of the round)')
 # flag -> (values accepted, what the others need)
 _UNSERVED = {
-    'FLAGS_check_nan_inf': ((False,), _NUMERICS),
-    'FLAGS_check_nan_inf_deferred': ((False,), _NUMERICS),
-    'FLAGS_tensor_stats': ((False,), _NUMERICS),
     'FLAGS_fused_optimizer': ((None, True), _PLAIN),
     'FLAGS_fused_layer_norm': ((None, True), _PLAIN),
     'FLAGS_fused_elementwise': ((None, True), _PLAIN),
@@ -67,8 +69,8 @@ def _parse(current, text):
 
 def _seed_from_env():
     """Each flag from its env var, as the reference seeds them; an
-    unserved path switched on there is refused where it would run (the
-    engines check the numerics taps), not at import."""
+    unserved path switched on there is refused where it would run, not
+    at import."""
     for k in list(_FLAGS):
         if k in os.environ:
             _FLAGS[k] = _parse(_FLAGS[k], os.environ[k])

@@ -10,9 +10,9 @@ serving engine (`serving/metrics.py`, `serving/ledger.py`) and the host
 tier publish here. Every observation stamps `last_update` from the
 injectable clock `set_time_fn` swaps.
 
-Not ported: the per-series metric history and the alert rules
-(`enable_history`, `history_tick`, the reference's core/timeseries.py);
-they raise NotImplementedError.
+`enable_history` attaches a `core/timeseries.MetricHistory` to the
+registry; `history_tick` is the piggyback hook the publish cadences call
+(serving metrics publish, `StepTelemetry`), a no-op until then.
 """
 import json
 import threading
@@ -349,6 +349,7 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self.epoch = 0      # bumped on reset(); callers caching metric
                             # handles key their cache on this
+        self.history = None     # MetricHistory once enable_history()
 
     def _get_or_create(self, cls, name, help, labelnames, **kwargs):
         with self._lock:
@@ -388,23 +389,34 @@ class MetricsRegistry:
             return sorted(self._metrics.values(), key=lambda m: m.name)
 
     def reset(self):
-        """Drop every metric (staleness stamps die with the children) and
-        bump the epoch so cached handles invalidate."""
+        """Drop every metric (staleness stamps die with the children),
+        bump the epoch so cached handles invalidate, and clear the
+        history rings: old samples must not bleed across an epoch."""
         with self._lock:
             self._metrics.clear()
             self.epoch += 1
+        if self.history is not None:
+            self.history.clear()
 
-    # -- metric history (not ported) ----------------------------------------
+    # -- metric history -------------------------------------------------------
     def enable_history(self, capacity=240, min_interval_s=0.0,
                        clock=None):
-        raise NotImplementedError(
-            'metric history and alerts are not ported yet (ROADMAP '
-            'Queue 1 item 6: the reference core/timeseries.py)')
+        """Opt-in per-series ring-buffer history. Idempotent: returns
+        the existing MetricHistory when already enabled (capacity and
+        clock of the first call win)."""
+        if self.history is None:
+            from . import timeseries
+            self.history = timeseries.MetricHistory(
+                self, capacity=capacity, min_interval_s=min_interval_s,
+                clock=clock)
+        return self.history
 
     def history_tick(self):
-        raise NotImplementedError(
-            'metric history and alerts are not ported yet (ROADMAP '
-            'Queue 1 item 6: the reference core/timeseries.py)')
+        """Piggyback hook for the existing publish cadences: sample the
+        rings and run the attached alert evaluation (host metadata only),
+        a no-op until enable_history()."""
+        if self.history is not None:
+            self.history.tick()
 
     # -- renderers -----------------------------------------------------------
     @staticmethod
@@ -455,7 +467,9 @@ class MetricsRegistry:
 
     def snapshot(self):
         """JSON-ready nested snapshot: {metric: {kind, series: [{labels,
-        value, age_s}]}} plus the legacy stats dict."""
+        value, age_s}]}} plus the legacy stats dict; when history is
+        enabled, a downsampled `series` export of the rings rides
+        along."""
         out = {}
         t = _time_fn()
         with self._lock:
@@ -467,7 +481,10 @@ class MetricsRegistry:
                                'value': child.value(),
                                'age_s': child.age_s(t)})
             out[m.name] = {'kind': m.kind, 'series': series}
-        return {'metrics': out, 'stats': _registry.snapshot()}
+        snap = {'metrics': out, 'stats': _registry.snapshot()}
+        if self.history is not None:
+            snap['series'] = self.history.export()
+        return snap
 
     def snapshot_json(self, **kwargs):
         return json.dumps(self.snapshot(), **kwargs)

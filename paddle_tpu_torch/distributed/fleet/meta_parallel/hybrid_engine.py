@@ -29,10 +29,18 @@ more than one shard (`_bucketed` is False at `_n_shards == 1`,
 `train_step` queues one through the window (`core/async_step.py`);
 `device_lr` computes a step-indexed schedule's lr on the card.
 
+Telemetry (:245-262, :680-800): a `HostGapMonitor('hybrid')` and a
+`StepLedger('hybrid')` as the pipeline engine keeps them, the memory
+phases, the flight recorder's heartbeat, and with `FLAGS_tensor_stats`
+or `FLAGS_check_nan_inf` (latched at the first dispatch) the numerics
+taps: the stats of every pre-clip gradient and updated parameter and
+the global grad-norm^2 the clip uses (one sum of squares for both),
+fetched in one host sync when the step drains.
+
 Not ported, each raising NotImplementedError that names what brings
 it: an axis above 1, the bucketed update and its comm knobs, sequence
-parallelism and `sp_shard_args` (ROADMAP Queue 1 item 7); the numerics
-taps (item 6). `accumulate_steps` is stored by the reference and read
+parallelism and `sp_shard_args` (ROADMAP Queue 1 item 7).
+`accumulate_steps` is stored by the reference and read
 nowhere, so a value above 1 is silently ignored there; the port takes 1
 and refuses any other (ROADMAP Queue 3). A clip other than the global
 norm is dropped by the reference (`clip_factor` returns None); the port
@@ -44,7 +52,9 @@ from torch.profiler import record_function
 
 from ....amp import uncast
 from ....core import async_step as A_
-from ....core import flags
+from ....core import ledger as _led
+from ....core import memory as _mem
+from ....core import numerics as _num
 from ....core import rng
 from ....device import resolve_device
 from ....nn.clip import ClipGradByGlobalNorm, global_factor
@@ -52,6 +62,7 @@ from ....ops.kernels import fused_optimizer as FO
 from ....optimizer import device_lr as dlr
 from ... import topology_runtime
 from ..utils import recompute as remat
+from .meta_parallel_base import EngineTeardown
 
 # the profiler range around the per-parameter update
 UPDATE_RANGE = 'HybridParallelTrainStep::update'
@@ -75,7 +86,7 @@ def _not_served(what, needs):
         f'HybridParallelTrainStep: {what} is not ported yet ({needs})')
 
 
-class HybridParallelTrainStep:
+class HybridParallelTrainStep(A_.AsyncDispatchMixin, EngineTeardown):
     """One train step over the registered degree-1 mesh.
 
     loss_fn(model, *batch) -> scalar loss. The engine trains the model's
@@ -113,12 +124,6 @@ class HybridParallelTrainStep:
                 'the reference stores accumulate_steps (hybrid_engine.py:87) '
                 'and reads it nowhere, so a value above 1 is silently '
                 'ignored there; the port refuses it, ROADMAP Queue 3')
-        if flags.flag('FLAGS_check_nan_inf') or \
-                flags.flag('FLAGS_tensor_stats'):
-            raise _not_served('the numerics taps (FLAGS_check_nan_inf / '
-                              'FLAGS_tensor_stats)',
-                              'the numerics observatory, ROADMAP Queue 1 '
-                              'item 6')
         clip = optimizer._grad_clip
         if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
             raise _not_served(
@@ -139,12 +144,13 @@ class HybridParallelTrainStep:
         self._grad_clip = clip
         self._named = [(n, p) for n, p in self.model.named_parameters()
                        if p.requires_grad]
-        self._states = {}
-        for n, p in self._named:
-            st = optimizer.init_state(p.detach())
-            if p.dtype != torch.float32 and optimizer._multi_precision:
-                st['master'] = p.detach().float()
-            self._states[n] = st
+        with _mem.phase('engine.init'):
+            self._states = {}
+            for n, p in self._named:
+                st = optimizer.init_state(p.detach())
+                if p.dtype != torch.float32 and optimizer._multi_precision:
+                    st['master'] = p.detach().float()
+                self._states[n] = st
         self._lr_feed = dlr.LrFeed(optimizer, device_lr, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
@@ -152,6 +158,14 @@ class HybridParallelTrainStep:
             A_.resolve_dispatch_window(dispatch_window))
         self._step_count = 0
         self._closed = False
+        self._gap = A_.HostGapMonitor('hybrid')
+        self._ledger = _led.StepLedger(
+            'hybrid', gap=self._gap,
+            params_fn=lambda: _led.count_params(
+                [p for _, p in self._named]),
+            remat_policy=self._remat_policy)
+        self._taps_on = None        # latched at the first dispatch
+        self.last_numerics = None
 
     # -- the step ------------------------------------------------------------
     def _loss(self, *batch):
@@ -173,44 +187,90 @@ class HybridParallelTrainStep:
 
     def _dispatch(self, batch):
         self._ensure_open()
+        self._gap.dispatch_begin()
         staged = []
         batch = [self._to_device(b, staged) for b in batch]
-        for _, p in self._named:
-            p.grad = None
-        with rng.rng_guard(self.generator):
-            loss = self._loss_of(*batch)
-        loss.backward()
-        lr = self._lr_feed.lr()
-        with torch.no_grad(), record_function(UPDATE_RANGE):
-            self._update(lr)
-        self._lr_feed.advance()
+        shapes = [tuple(b.shape) for b in batch
+                  if isinstance(b, torch.Tensor)]
+        if shapes:
+            self._ledger.observe_batch(shapes[0])
+        first = self._taps_on is None
+        if first:
+            self._taps_on = _num.taps_enabled()
+        with self._step_guard(first, 'hybrid.train_step', 'hybrid.step'):
+            for _, p in self._named:
+                p.grad = None
+            with rng.rng_guard(self.generator):
+                loss = self._loss_of(*batch)
+            loss.backward()
+            lr = self._lr_feed.lr()
+            with torch.no_grad(), record_function(UPDATE_RANGE):
+                taps = self._update(lr)
+            self._lr_feed.advance()
         self._step_count += 1
-        return A_.AsyncResult(loss.detach(), self._step_count, staged)
+        on_drain = None
+        if taps is not None:
+            def on_drain(res, _t=taps, _s=self._step_count):
+                self._process_taps(_t, 'hybrid', step=_s)
+        self._gap.dispatch_end(depth=len(self._inflight) + 1)
+        # created after dispatch_end: while this is the newest step, a
+        # wait on it is the synchronous discipline's (host gap)
+        return A_.AsyncResult(loss.detach(), self._step_count, staged,
+                              on_drain=on_drain, taps=taps,
+                              monitor=self._gap)
+
+    def _process_taps(self, taps, site, step=None):
+        """One host sync for the step's taps; publishes the ptpu_num_*
+        gauges and raises NumericsError on a nonfinite gradient
+        (FLAGS_check_nan_inf) naming the parameter."""
+        meta = {kind: {n: (tuple(p.shape),
+                           str(p.dtype).replace('torch.', ''))
+                       for n, p in self._named}
+                for kind in ('grads', 'params')}
+        self.last_numerics = _num.process_jit_taps(
+            taps, site=site, step=step, meta=meta)
 
     def _grads(self):
         # an unused parameter: the reference's zero gradient
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for _, p in self._named]
 
-    @uncast
-    def _clip_factor(self, grads):
-        """The global-norm clip's fp32 factor on the device, or None
-        without a clip (:359-374)."""
-        if self._grad_clip is None:
-            return None
+    def _global_norm_sq(self, grads):
+        """The fp32 sum of every gradient's squares (:333)."""
         sq = torch.zeros((), dtype=torch.float32, device=self.device)
         for g in grads:
             g32 = g.float()
             sq = sq + (g32 * g32).sum()
-        return global_factor(torch.sqrt(sq), self._grad_clip.clip_norm)
+        return sq
+
+    @uncast
+    def _clip_factor(self, grads, gn_sq=None):
+        """The global-norm clip's fp32 factor on the device, or None
+        without a clip (:359-374)."""
+        if self._grad_clip is None:
+            return None
+        if gn_sq is None:
+            gn_sq = self._global_norm_sq(grads)
+        return global_factor(torch.sqrt(gn_sq), self._grad_clip.clip_norm)
 
     @uncast
     def _update(self, lr):
         """Every parameter's `_update_one`, in place: one launch of the
         update kernel for all of them (their gradients are fresh each
-        step, so only their pointers are read again)."""
+        step, so only their pointers are read again). The global-norm
+        clip's fp32 factor (:359-374) rides in as the prefactor. Returns
+        the step's taps (pre-clip gradients, updated parameters) when
+        they are on, else None."""
         grads = self._grads()
-        factor = self._clip_factor(grads)
+        gn_sq = None
+        if self._taps_on or self._grad_clip is not None:
+            gn_sq = self._global_norm_sq(grads)
+        factor = self._clip_factor(grads, gn_sq)
+        taps_grads = None
+        if self._taps_on:
+            # the pre-clip gradients' stats before the update reads them
+            taps_grads = {n: _num.stats_vec(g)
+                          for (n, _p), g in zip(self._named, grads)}
         opt = self.optimizer
         entries = [(p.detach(), g, self._states[n])
                    for (n, p), g in zip(self._named, grads)]
@@ -222,6 +282,11 @@ class HybridParallelTrainStep:
                    for p, g, st in entries]
         for (n, _p), (_new, st) in zip(self._named, out):
             self._states[n] = st
+        if taps_grads is None:
+            return None
+        return {'grads': taps_grads,
+                'params': {n: _num.stats_vec(p) for n, p in self._named},
+                'grad_norm_sq': gn_sq}
 
     # -- public --------------------------------------------------------------
     def __call__(self, *batch):
@@ -238,10 +303,6 @@ class HybridParallelTrainStep:
         the loss on the device; the window waits on the oldest step past
         `dispatch_window`. `flush()` drains it."""
         return self._inflight.push(self._dispatch(batch))
-
-    def flush(self):
-        """Drain the in-flight window; returns the drained results."""
-        return self._inflight.flush()
 
     @property
     def params(self):
@@ -303,12 +364,17 @@ class HybridParallelTrainStep:
                 'to keep training')
 
     def shutdown(self):
-        """Drain the window and drop the optimizer state; the engine
-        refuses work afterwards. Idempotent."""
+        """Drain the window, disarm the heartbeat and drop the optimizer
+        state inside an `engine.shutdown` census phase; returns the
+        memory sample after the release. The engine refuses work
+        afterwards. Idempotent."""
         if self._closed:
-            return
+            return _mem.sample(count_buffers=True)
         self.flush()
-        self._states = {}
-        self._closed = True
+
+        def release():
+            self._states = {}
+            self._closed = True
+        return self._teardown(release)
 
     close = shutdown

@@ -43,6 +43,23 @@ submission order. No step reads the flag back to the host.
 `device_lr` (the kwarg, then `PTPU_DEVICE_LR`) computes a step-indexed
 schedule's lr on the card (`optimizer/device_lr.py`).
 
+Telemetry (:537, :678-695, :2137-2302): the engine keeps a
+`HostGapMonitor('pipeline')` (`_gap`) that brackets each dispatch and
+hears each drain's wait, and a `StepLedger('pipeline')` (`_ledger`) fed
+the batch shape at dispatch (host metadata only); `flush()` publishes
+both (`AsyncDispatchMixin`). Memory phases `engine.init`,
+`pipeline.build` (the first dispatch's kernel-library load) and
+`pipeline.step` bracket the engine; every warm step stamps the flight
+recorder's heartbeat and a span. The schedule model (`ptpu_pp_*`) and
+the comm model at dp = 1 (`ptpu_comm_*`, `enabled` 0) are published at
+init. With `FLAGS_tensor_stats` or `FLAGS_check_nan_inf` (latched at the
+first dispatch) each step also builds the numerics taps of every
+gradient (unscaled) and updated parameter on the card; the drain fetches
+them with the found-inf flag in one host sync, skips them on a loss-scale
+overflow, publishes the `ptpu_num_*` gauges, and under
+`FLAGS_check_nan_inf` raises `NumericsError` naming the first nonfinite
+tensor.
+
 Remat: `remat_policy` (the kwarg, then `PTPU_REMAT_POLICY`) picks one of
 the four policies of `utils/recompute.py`; without one, `use_remat=True`
 means 'full' per block, the reference's choice at pp = 1 (`save_dots`
@@ -63,11 +80,17 @@ from torch.profiler import record_function
 
 from ....amp import uncast
 from ....core import async_step as A_
+from ....core import bucketing as B
+from ....core import ledger as _led
+from ....core import memory as _mem
+from ....core import numerics as _num
 from ....core import rng
 from ....device import resolve_device
+from ....ops.kernels import _build
 from ....ops.kernels import fused_optimizer as FO
 from ....optimizer import device_lr as dlr
 from ..utils import recompute as remat
+from .meta_parallel_base import EngineTeardown
 
 
 class PipelineScheduleError(ValueError):
@@ -200,6 +223,81 @@ def schedule_model(schedule, pp, accumulate_steps, virtual_stages=1,
     return model
 
 
+def publish_schedule_gauges(model, engine='pipeline'):
+    """ptpu_pp_* gauges from a schedule_model() dict through
+    core.monitor; StepTelemetry.snapshot()['pipeline'] reads them back."""
+    try:
+        from ....core.monitor import gauge
+    except Exception:
+        return
+    lbl = {'engine': engine}
+    for name, key, help_ in (
+            ('ptpu_pp_ticks', 'ticks', 'pipeline scan ticks per step'),
+            ('ptpu_pp_chunk_ticks', 'chunk_ticks',
+             'executed chunk fwd+bwd sub-steps per device per step'),
+            ('ptpu_pp_useful_chunk_ticks', 'useful_chunk_ticks',
+             'unmasked chunk sub-steps per device per step'),
+            ('ptpu_pp_bubble_fraction', 'bubble_fraction',
+             'modeled masked-work fraction of the schedule'),
+            ('ptpu_pp_inflight_peak', 'inflight_peak',
+             'peak in-flight microbatches per device'),
+            ('ptpu_pp_virtual_stages', 'virtual_stages',
+             'model chunks per physical stage (v)'),
+            ('ptpu_pp_stages', 'pp', 'pipeline-parallel degree'),
+            ('ptpu_pp_accumulate_steps', 'accumulate_steps',
+             'microbatches per step (A)')):
+        gauge(name, help=help_, labelnames=('engine',)).set(
+            float(model[key]), **lbl)
+    g = gauge('ptpu_pp_schedule_info',
+              help='active pipeline schedule (value 1; the schedule '
+                   'rides in the label)',
+              labelnames=('engine', 'schedule'))
+    for other in ('1F1B', 'F-then-B', 'interleaved'):
+        g.set(1 if other == model['schedule'] else 0,
+              engine=engine, schedule=other)
+
+
+def pipeline_snapshot(engine='pipeline'):
+    """StepTelemetry.snapshot()['pipeline'] payload: the published
+    schedule census read back from the ptpu_pp_* gauges (None when no
+    pipeline engine has been built)."""
+    try:
+        from ....core import monitor as _m
+        reg = _m.metrics()
+        if reg.get('ptpu_pp_ticks') is None:
+            return None
+
+        def val(name):
+            m = reg.get(name)
+            if m is None:
+                return None
+            for labels, child in m._series().items():
+                if labels and labels[0] == engine:
+                    return child.value()
+            return None
+
+        snap = {
+            'ticks': int(val('ptpu_pp_ticks') or 0),
+            'chunk_ticks': int(val('ptpu_pp_chunk_ticks') or 0),
+            'useful_chunk_ticks':
+                int(val('ptpu_pp_useful_chunk_ticks') or 0),
+            'bubble_fraction': val('ptpu_pp_bubble_fraction'),
+            'inflight_peak': int(val('ptpu_pp_inflight_peak') or 0),
+            'virtual_stages': int(val('ptpu_pp_virtual_stages') or 1),
+            'pp': int(val('ptpu_pp_stages') or 1),
+            'accumulate_steps':
+                int(val('ptpu_pp_accumulate_steps') or 0),
+        }
+        info = reg.get('ptpu_pp_schedule_info')
+        if info is not None:
+            for labels, child in info._series().items():
+                if labels and labels[0] == engine and child.value():
+                    snap['schedule'] = labels[1]
+        return snap
+    except Exception:
+        return None
+
+
 # the profiler ranges around the per-parameter update and a micro-batch's
 # head (final norm, LM head, cross-entropy)
 UPDATE_RANGE = 'SpmdPipelineEngine::update'
@@ -230,7 +328,7 @@ def _check_mesh(mesh):
         raise _not_served(f'a mesh of {shape}', _MULTI)
 
 
-class SpmdPipelineEngine:
+class SpmdPipelineEngine(A_.AsyncDispatchMixin, EngineTeardown):
     """Pipelined train step at pp = 1 on one device.
 
     Args:
@@ -316,17 +414,18 @@ class SpmdPipelineEngine:
              for n, p in b.named_parameters()] + \
             [(f'head/{n}', p) for n, p in self.head.named_parameters()]
         self._named = [(n, p) for n, p in self._named if p.requires_grad]
-        self._states = {}
-        for n, p in self._named:
-            st = optimizer.init_state(p.detach())
-            if p.dtype != torch.float32 and optimizer._multi_precision:
-                st['master'] = p.detach().float()
-            self._states[n] = st
-        self._acc = None
-        if self.grad_accum_dtype == 'float32':
-            self._acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                     device=self.device)
-                         for _, p in self._named]
+        with _mem.phase('engine.init'):
+            self._states = {}
+            for n, p in self._named:
+                st = optimizer.init_state(p.detach())
+                if p.dtype != torch.float32 and optimizer._multi_precision:
+                    st['master'] = p.detach().float()
+                self._states[n] = st
+            self._acc = None
+            if self.grad_accum_dtype == 'float32':
+                self._acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                         device=self.device)
+                             for _, p in self._named]
         self._cot = torch.tensor(1.0 / self.A, dtype=torch.float32,
                                  device=self.device)
         self._lr_feed = dlr.LrFeed(optimizer, device_lr, self.device)
@@ -338,6 +437,41 @@ class SpmdPipelineEngine:
             A_.resolve_dispatch_window(dispatch_window))
         self._step_no = 0
         self._closed = False
+        self._sched_model = schedule_model('1F1B', 1, self.A)
+        publish_schedule_gauges(self._sched_model, engine='pipeline')
+        self._publish_comm_model(optimizer)
+        self._gap = A_.HostGapMonitor('pipeline')
+        self._ledger = _led.StepLedger(
+            'pipeline', gap=self._gap,
+            params_fn=lambda: _led.count_params(
+                [p for _, p in self._named]),
+            remat_policy=self._remat_policy or (
+                'full' if self.use_remat else 'none'),
+            bubble_fraction_fn=lambda: self._sched_model.get(
+                'bubble_fraction', 0.0))
+        self._taps_on = None        # latched at the first dispatch
+        self.last_numerics = None
+
+    def _publish_comm_model(self, optimizer):
+        """The reference's per-step comm model of the bucketed layout
+        (:581-625) at dp = 1: nothing crosses a link, so it is published
+        with `enabled` 0 (the step's exposed comm is modeled, not run)."""
+        if not B.elementwise(optimizer) or not self._named:
+            return
+        _dtype, bucket_bytes = B.resolve_comm_config()
+        layout = B.BucketLayout.build(
+            {n: (tuple(p.shape), p.dtype) for n, p in self._named},
+            bucket_bytes=bucket_bytes, pad_to=8,
+            group_fn=lambda name, shape, dtype:
+                'blocks' if name.startswith('blocks/') else 'repl')
+        comm = torch.float32 if self.grad_accum_dtype == 'float32' \
+            else None
+        B.publish_comm_gauges(layout, engine='pipeline', n_shards=1,
+                              comm_dtype=comm, enabled=False)
+        _ov, prefetch, chunk = B.resolve_overlap_config()
+        B.publish_overlap_gauges(layout, engine='pipeline', n_shards=1,
+                                 comm_dtype=comm, enabled=False,
+                                 prefetch=prefetch, chunk=chunk)
 
     # -- the step ------------------------------------------------------------
     @staticmethod
@@ -367,12 +501,15 @@ class SpmdPipelineEngine:
 
     def _dispatch(self, data, scale=None, scaler=None):
         self._ensure_open()
+        # the gap bracket opens before any call that can wait on the card
+        self._gap.dispatch_begin()
         if scaler is not None and scale is None and scaler.is_enable():
             scale = scaler._scale
         input_ids, labels = data
         staged = []
         ids = self._to_device(input_ids, staged)
         lab = self._to_device(labels, staged)
+        self._ledger.observe_batch(tuple(ids.shape))
         n = int(ids.shape[0]) if ids.dim() else 0
         if lab.dim() == 0 or int(lab.shape[0]) != n:
             raise PipelineBatchError(
@@ -385,36 +522,85 @@ class SpmdPipelineEngine:
                 "micro_batch_size rows per step (adjust "
                 "accumulate_steps or pipeline_configs)")
         mb = n // self.A
-        for _, p in self._named:
-            p.grad = None
-        if self._acc is not None:
-            for a in self._acc:
-                a.zero_()
-        cot, scale_t = self._seed(scale)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        with rng.rng_guard(self.generator):
-            for m in range(self.A):
-                rows = slice(m * mb, (m + 1) * mb)
-                loss = self._microbatch_loss(ids[rows], lab[rows])
-                loss.backward(cot)
-                loss_sum += loss.detach()
-                if self._acc is not None:
-                    for a, (_, p) in zip(self._acc, self._named):
-                        if p.grad is not None:
-                            a.add_(p.grad)
-                            p.grad = None
-        lr = self._lr_feed.lr()
-        with torch.no_grad(), record_function(UPDATE_RANGE):
-            found = self._update(lr, scale_t)
-        self._lr_feed.advance()
+        first = self._taps_on is None
+        if first:
+            self._taps_on = _num.taps_enabled()
+            with _mem.phase('pipeline.build'):
+                if self.device.type == 'cuda':
+                    _build.lib()
+        with self._step_guard(first, 'pipeline.train_step',
+                              'pipeline.step'):
+            for _, p in self._named:
+                p.grad = None
+            if self._acc is not None:
+                for a in self._acc:
+                    a.zero_()
+            cot, scale_t = self._seed(scale)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            with rng.rng_guard(self.generator):
+                for m in range(self.A):
+                    rows = slice(m * mb, (m + 1) * mb)
+                    loss = self._microbatch_loss(ids[rows], lab[rows])
+                    loss.backward(cot)
+                    loss_sum += loss.detach()
+                    if self._acc is not None:
+                        for a, (_, p) in zip(self._acc, self._named):
+                            if p.grad is not None:
+                                a.add_(p.grad)
+                                p.grad = None
+            lr = self._lr_feed.lr()
+            with torch.no_grad(), record_function(UPDATE_RANGE):
+                found = self._update(lr, scale_t)
+                taps = self._taps(scale_t) if self._taps_on else None
+            self._lr_feed.advance()
+            loss = self._mean(loss_sum)
         self._step_no += 1
         self.last_found_inf = found
         on_drain = None
-        if scaler is not None:
-            def on_drain(res, _scaler=scaler):
-                _scaler.update_from_found(bool(res.found_inf))
-        return A_.AsyncResult(self._mean(loss_sum), self._step_no, staged,
-                              found_inf=found, on_drain=on_drain)
+        if taps is not None or scaler is not None:
+            def on_drain(res, _t=taps, _s=self._step_no, _scaler=scaler):
+                found_host = None
+                if _t is not None:
+                    found_host = self._process_taps(res.found_inf, _t,
+                                                    step=_s)
+                if _scaler is not None:
+                    if found_host is None:
+                        found_host = bool(res.found_inf)
+                    _scaler.update_from_found(bool(found_host))
+        self._gap.dispatch_end(depth=len(self._inflight) + 1)
+        # created after dispatch_end: while this is the newest step, a
+        # wait on it is the synchronous discipline's (host gap)
+        return A_.AsyncResult(loss, self._step_no, staged, found_inf=found,
+                              on_drain=on_drain, taps=taps,
+                              monitor=self._gap)
+
+    @uncast
+    def _taps(self, scale_t):
+        """The step's numerics taps on the card (no host sync): every
+        gradient's stats, unscaled by 1/scale in fp32 on a loss-scaled
+        step, and every updated parameter's."""
+        inv = None if scale_t is None else 1.0 / scale_t
+        return _num.jit_taps(
+            {n: g for (n, _p), g in zip(self._named, self._grads())},
+            {n: p.detach() for n, p in self._named}, scale=inv)
+
+    def _process_taps(self, found, taps, step=None):
+        """found_inf and the taps in ONE host fetch; a loss-scale
+        overflow's taps are skipped (its gradients are nonfinite by
+        design and its update was skipped). Returns the host flag."""
+        found_host, taps_host = _num._host_fetch((found, taps))
+        found_host = bool(found_host)
+        if found_host:
+            self.last_numerics = None
+            return found_host
+        meta = {kind: {n: (tuple(p.shape),
+                           str(p.dtype).replace('torch.', ''))
+                       for n, p in self._named}
+                for kind in ('grads', 'params')}
+        self.last_numerics = _num.process_jit_taps(
+            taps_host, site='pipeline', step=step, meta=meta)
+        return found_host
 
     # the step's own arithmetic is jnp code in the reference, which
     # amp.auto_cast does not reach
@@ -490,10 +676,6 @@ class SpmdPipelineEngine:
         path), as in the reference."""
         return self._inflight.push(self._dispatch(data, scaler=scaler))
 
-    def flush(self):
-        """Drain the in-flight window; returns the drained results."""
-        return self._inflight.flush()
-
     def named_opt_states(self):
         """{'embed/<name>' | 'blocks/<i>/<name>' | 'head/<name>': {state
         key: CPU tensor}}."""
@@ -513,12 +695,17 @@ class SpmdPipelineEngine:
                 'keep training')
 
     def shutdown(self):
-        """Drain the window and drop the optimizer state and the fp32
-        accumulators; the engine refuses work afterwards. Idempotent."""
+        """Drain the window, disarm the heartbeat, and drop the optimizer
+        state and the fp32 accumulators inside an `engine.shutdown`
+        census phase; returns the memory sample after the release. The
+        engine refuses work afterwards. Idempotent."""
         if self._closed:
-            return
+            return _mem.sample(count_buffers=True)
         self.flush()
-        self._states, self._acc = {}, None
-        self._closed = True
+
+        def release():
+            self._states, self._acc = {}, None
+            self._closed = True
+        return self._teardown(release)
 
     close = shutdown

@@ -14,8 +14,8 @@ the reference chooses them (`use_buckets=None` is the default):
   zeroes and the backward accumulates into. The update
   (`flat_functional_apply`) then runs the fused stats kernel over each
   bucket and the update kernel over all of them in one launch, in
-  place. Only the default bucket cap is
-  ported; the env and strategy knobs come with the multi-GPU port.
+  place. The bucket cap is `resolve_comm_config`'s (`PTPU_BUCKET_MB`,
+  32 MiB by default); the strategy knob comes with the multi-GPU port.
 * **per-parameter** (otherwise): `optimizer.functional_apply` over
   {name: tensor} dicts: a fusible rule updates each parameter in place
   on the fused update kernel, one launch for all of them; another rule's
@@ -41,18 +41,33 @@ other schedules keep the host feed.
 The step owns a `torch.Generator` on its device, seeded from `seed`,
 and binds it around the forward: the dropout ops draw their keep masks
 from it (`core/rng.py`).
+
+Telemetry (:186-300): a `HostGapMonitor('jit')` brackets each call, a
+`StepLedger('jit')` takes the batch shape (host metadata only), the
+memory phase `jit.step` and the flight recorder's heartbeat bracket the
+step, and `flush()` publishes both. With `FLAGS_tensor_stats` or
+`FLAGS_check_nan_inf` (latched at construction) each call builds the
+numerics taps (every pre-update gradient's stats and every updated
+parameter's) and fetches them in one host sync at its end, publishing
+the `ptpu_num_*` gauges and, under `FLAGS_check_nan_inf`, raising
+`NumericsError` naming the first nonfinite tensor.
 """
 import numpy as np
 import torch
 
+from ..core import async_step as A_
 from ..core import bucketing as B
+from ..core import ledger as _led
+from ..core import numerics as _num
 from ..core import rng
 from ..device import resolve_device
+from ..distributed.fleet.meta_parallel.meta_parallel_base import (
+    EngineTeardown)
 from ..distributed.fleet.utils import recompute as remat
 from ..optimizer import device_lr as dlr
 
 
-class TrainStep:
+class TrainStep(EngineTeardown):
     """One train step: loss_fn(model, *batch) -> scalar loss; backward;
     optimizer update. Runs on the card unless the caller passes
     device='cpu'; raises when the card is asked for and absent. Moves
@@ -90,6 +105,14 @@ class TrainStep:
         self._lr_feed = dlr.LrFeed(optimizer, device_lr, self.device)
         self._lr = None              # the lr tensor the last step used
         self.last_clip_factor = None
+        self._taps_on = _num.taps_enabled()
+        self.last_numerics = None
+        self._gap = A_.HostGapMonitor('jit')
+        self._ledger = _led.StepLedger(
+            'jit', gap=self._gap,
+            params_fn=lambda: _led.count_params(self._params),
+            remat_policy=self._remat_policy)
+        self._step_i = 0
 
     @property
     def use_buckets(self):
@@ -105,7 +128,7 @@ class TrainStep:
         and give it a .grad view into a gradient bucket of its dtype."""
         self._layout = B.BucketLayout.build(
             {n: (p.shape, p.dtype) for n, p in self._params.items()},
-            bucket_bytes=B.DEFAULT_BUCKET_BYTES, pad_to=8)
+            bucket_bytes=B.resolve_comm_config()[1], pad_to=8)
         self._flat_params, self._flat_grads, self._opt_states = [], [], []
         with torch.no_grad():
             for b in self._layout.buckets:
@@ -130,7 +153,37 @@ class TrainStep:
     def __call__(self, *batch):
         """One step on `batch` (tensors or numpy arrays); returns the
         loss as an fp32 0-dim tensor on the step's device."""
+        self._gap.dispatch_begin()
         batch = [self._to_device(b) for b in batch]
+        shapes = [tuple(b.shape) for b in batch
+                  if isinstance(b, torch.Tensor)]
+        if shapes:
+            self._ledger.observe_batch(shapes[0])
+        with self._step_guard(self._step_i == 0, 'jit.train_step',
+                              'jit.step'):
+            loss, taps = self._step(batch)
+        self._gap.dispatch_end()
+        self._step_i += 1
+        if taps is not None:
+            meta = {kind: {n: (tuple(p.shape),
+                               str(p.dtype).replace('torch.', ''))
+                           for n, p in self._params.items()}
+                    for kind in ('grads', 'params')}
+            self.last_numerics = _num.process_jit_taps(
+                taps, site='jit', step=self._step_i, meta=meta)
+        return loss
+
+    def flush(self):
+        """Publish the gap monitor's and the ledger's gauges (a call
+        has finished its step when it returns: nothing to drain)."""
+        self._gap.drain_point()
+        self._gap.publish()
+        return self._ledger.publish()
+
+    def host_gap_snapshot(self):
+        return self._gap.snapshot()
+
+    def _step(self, batch):
         if self._use_buckets:
             for g in self._flat_grads:
                 g.zero_()
@@ -141,6 +194,17 @@ class TrainStep:
             loss = self._loss_of(*batch)
         loss.backward()
         lr = self._lr = self._lr_feed.lr()
+        taps_grads = gn_sq = None
+        if self._taps_on:
+            # the gradients' stats and squared norm before the update (a
+            # clip rewrites the bucketed route's gradients in place)
+            taps_grads = {}
+            for n, p in self._params.items():
+                if p.grad is None:
+                    continue
+                taps_grads[n] = _num.stats_vec(p.grad)
+                sq = (p.grad.float() ** 2).sum()
+                gn_sq = sq if gn_sq is None else gn_sq + sq
         with torch.no_grad():
             if self._use_buckets:
                 self._opt_states, self.last_clip_factor = \
@@ -157,7 +221,14 @@ class TrainStep:
                     if new_params[n].data_ptr() != p.data_ptr():
                         p.copy_(new_params[n])
             self._lr_feed.advance()
-        return loss.detach()
+        taps = None
+        if taps_grads is not None:
+            taps = {'grads': taps_grads,
+                    'params': {n: _num.stats_vec(p)
+                               for n, p in self._params.items()},
+                    'grad_norm_sq': gn_sq if gn_sq is not None else
+                    torch.zeros((), dtype=torch.float32)}
+        return loss.detach(), taps
 
     def _loss(self, *batch):
         return self.loss_fn(self.model, *batch).float()

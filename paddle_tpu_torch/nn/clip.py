@@ -8,11 +8,36 @@ route, `optimizer/optimizer.py`) or `core.bucketing.flat_functional_apply`
 `__call__` on a list of (param, grad) pairs is the eager form: a grad
 of None, or a param whose `need_clip` is False, passes through.
 
-Every norm is an fp32 sum of squares on the device; nothing here reads
-a device value back to the host. The reference's pre-clip norm gauge
-(`_publish_preclip_norm`) waits for the port's telemetry.
+Every norm is an fp32 sum of squares on the device. The eager global-
+norm clip (`ClipGradByGlobalNorm.__call__`, and the optimizer's eager
+`step()`) publishes the pre-clip norm as `ptpu_num_grad_norm_preclip`
+and `ptpu_num_grad_norm_global` (`_publish_preclip_norm`, :13-38), the
+one host read here, and only when `FLAGS_tensor_stats` or
+`FLAGS_check_nan_inf` asks for it; inside `optimizer.step` under
+`FLAGS_tensor_stats` the step's numerics boundary has already published
+the norm from its own fetch, so the clip stays silent there.
 """
 import torch
+
+
+def _publish_preclip_norm(norm, site):
+    """Publish the pre-clip global gradient norm (the reference's
+    training-health signal) when stats are asked for: one host read."""
+    from ..core.flags import flag
+    if not (flag('FLAGS_tensor_stats') or flag('FLAGS_check_nan_inf')):
+        return None
+    if flag('FLAGS_tensor_stats'):
+        from ..core import memory as _mem
+        if _mem.accountant().current_phase() == 'optimizer.step':
+            return None
+    val = float(norm)       # the one host sync this publication costs
+    from ..core import monitor as _m
+    _m.gauge('ptpu_num_grad_norm_global',
+             help='global (all-parameter) gradient l2 norm').set(val)
+    _m.gauge('ptpu_num_grad_norm_preclip',
+             help='pre-clip global gradient norm per clip site',
+             labelnames=('site',)).set(val, site=site)
+    return val
 
 
 def _sum_sq(g):
@@ -86,8 +111,9 @@ class ClipGradByGlobalNorm(ClipGradBase):
         return torch.sqrt(sq)
 
     def __call__(self, params_grads):
-        factor = global_factor(self.global_norm(params_grads),
-                               self.clip_norm)
+        gn = self.global_norm(params_grads)
+        _publish_preclip_norm(gn, 'global_norm_clip')
+        factor = global_factor(gn, self.clip_norm)
         return [(p, g) if _skip(p, g)
                 else (p, (g.float() * factor).to(g.dtype))
                 for p, g in params_grads]

@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from ...core import flags
+from ...distributed.fleet.utils.recompute import segment as _remat_segment
 from ...distributed.fleet.utils.recompute import tag_tensor as _remat_tag
 from ...ops import nn_ops as F
 from ...ops.kernels import flash_attention as fa
@@ -270,34 +271,62 @@ class TransformerEncoderLayer(nn.Module):
         self.activation = getattr(F, activation)
 
     def forward(self, src, src_mask=None, cache=None):
-        residual = src
+        """The block, cut at its remat boundary tags (attn_out, mlp_fc1,
+        mlp_out) into four stretches run through `remat.segment`: under
+        the 'attn_mlp_boundaries' policy each is a checkpoint of its own
+        that keeps only its inputs (the tagged tensors and the residual
+        stream), elsewhere a plain call. With a `cache`: one incremental
+        step, returning (src, cache)."""
+        if cache is not None:
+            residual = src
+            if self.normalize_before:
+                src = self.norm1(src)
+            a, incremental_cache = self.self_attn(src, src, src, src_mask,
+                                                  cache)
+            x, u = self._mlp_in(_remat_tag(a, 'attn_out'), residual)
+            return self._join_out(self._mlp_out(u), x), incremental_cache
+        seg = _remat_segment
+        a = seg(self._attend, src, src_mask)
+        x, u = seg(self._mlp_in, a, src)
+        return seg(self._join_out, seg(self._mlp_out, u), x)
+
+    def _attend(self, src, src_mask):
         if self.normalize_before:
             src = self.norm1(src)
-        if cache is None:
-            src = self.self_attn(src, src, src, src_mask)
-        else:
-            src, incremental_cache = self.self_attn(src, src, src, src_mask,
-                                                    cache)
-        src = _remat_tag(src, 'attn_out')
-        src = F.dropout_add(src, residual, p=self.dropout1.p,
+        return _remat_tag(self.self_attn(src, src, src, src_mask),
+                          'attn_out')
+
+    def _mlp_in(self, a, residual):
+        """The attention's residual join and norms, then fc1's product
+        (without its bias on the fused bias+GELU route)."""
+        src = F.dropout_add(a, residual, p=self.dropout1.p,
                             training=self.training, mode=self.dropout1.mode)
         if not self.normalize_before:
             src = self.norm1(src)
-
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
-        if self.activation is F.gelu and self.linear1.bias is not None:
-            h = F.bias_gelu(_remat_tag(F.linear(src, self.linear1.weight),
-                                       'mlp_fc1'), self.linear1.bias)
+        if self._fused_gelu():
+            return residual, _remat_tag(F.linear(src, self.linear1.weight),
+                                        'mlp_fc1')
+        return residual, _remat_tag(self.linear1(src), 'mlp_fc1')
+
+    def _mlp_out(self, u):
+        if self._fused_gelu():
+            h = F.bias_gelu(u, self.linear1.bias)
         else:
-            h = self.activation(_remat_tag(self.linear1(src), 'mlp_fc1'))
-        src = _remat_tag(self.linear2(self.dropout(h)), 'mlp_out')
-        src = F.dropout_add(src, residual, p=self.dropout2.p,
+            h = self.activation(u)
+        return _remat_tag(self.linear2(self.dropout(h)), 'mlp_out')
+
+    def _join_out(self, m, residual):
+        src = F.dropout_add(m, residual, p=self.dropout2.p,
                             training=self.training, mode=self.dropout2.mode)
         if not self.normalize_before:
             src = self.norm2(src)
-        return src if cache is None else (src, incremental_cache)
+        return src
+
+    def _fused_gelu(self):
+        return self.activation is F.gelu and self.linear1.bias is not None
 
     def gen_cache(self, src):
         return self.self_attn.gen_cache(src)

@@ -30,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -106,6 +107,7 @@ def build():
     lib_path = out_dir / f'libpaddle_tpu_torch_{_digest()}.so'
     if lib_path.exists():
         return lib_path
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     obj_dir = out_dir / f'obj_{os.getpid()}'
     obj_dir.mkdir(parents=True, exist_ok=True)
@@ -132,7 +134,22 @@ def build():
                            + res.stdout.decode(errors='replace'))
     os.replace(tmp, lib_path)          # atomic: a reader never sees half
     shutil.rmtree(obj_dir, ignore_errors=True)
+    _count_build(time.perf_counter() - t0)
     return lib_path
+
+
+def _count_build(seconds):
+    """The library's nvcc build as the port's one compile:
+    ptpu_compiles_total / ptpu_compile_seconds_total{site='kernels'}
+    (StepTelemetry's compile totals)."""
+    from ...core import monitor as _m
+    _m.counter('ptpu_compile_seconds_total',
+               help='cumulative compile seconds (the kernel library\'s '
+                    'nvcc build)', labelnames=('site',)).inc(
+                        seconds, site='kernels')
+    _m.counter('ptpu_compiles_total',
+               help='compilations (the kernel library\'s nvcc build)',
+               labelnames=('site',)).inc(1, site='kernels')
 
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,

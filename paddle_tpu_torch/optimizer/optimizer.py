@@ -64,12 +64,14 @@ attribute that is True, :609, :614), Lamb's
 reference everywhere) and `L1Decay` as an optimizer's `weight_decay`
 (taken by the reference as an L2 coefficient, :45-49).
 """
-import torch
+import math
 
+import torch
 
 from ..amp import uncast
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
-                       ClipGradByValue, global_factor, norm_factor)
+                       ClipGradByValue, _publish_preclip_norm,
+                       global_factor, norm_factor)
 from ..ops.kernels import fused_optimizer as FO
 from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
@@ -136,6 +138,7 @@ class Optimizer:
         self._parameter_list = None if parameters is None \
             else list(parameters)
         self._accumulators = {}           # id(param) -> state
+        self._step_count = 0              # eager step() calls
 
     def get_lr(self):
         if isinstance(self._learning_rate, LRScheduler):
@@ -226,17 +229,51 @@ class Optimizer:
         the rule at `get_lr()`."""
         if self._parameter_list is None:
             raise ValueError('optimizer created without a parameter list')
-        live = {id(p): p for p in self._parameter_list
-                if p.requires_grad and p.grad is not None}
-        if not live:
-            return
+        from .. import profiler as _prof
+        from ..core import memory as _mem
+        from ..core import monitor as _m
+        from ..core import numerics as _num
+        _m.counter('ptpu_optimizer_steps_total',
+                   help='eager optimizer.step() calls',
+                   labelnames=('optimizer',)).inc(
+                       1, optimizer=type(self).__name__)
+        with _prof.RecordEvent('optimizer::step', event_type='optimizer'), \
+                _mem.oom_guard('optimizer.step'), \
+                _mem.phase('optimizer.step'), _num.paused():
+            live = {id(p): p for p in self._parameter_list
+                    if p.requires_grad and p.grad is not None}
+            self._numerics_boundary(live)
+            if live:
+                self._eager_update(live)
+        self._step_count += 1
+
+    def _numerics_boundary(self, live):
+        """The numerics observatory's step boundary (:187-201): flush
+        the eager NaN/Inf guard (its one deferred host sync, BEFORE the
+        update, so a poisoned gradient is caught before it reaches the
+        parameters) and, with FLAGS_tensor_stats, publish every
+        gradient's stats and the global norm as ptpu_num_* gauges (one
+        batched fetch)."""
+        from ..core import numerics as _num
+        from ..core.flags import flag
+        if _num.guard().has_pending():
+            _num.flush(site='optimizer.step', step=self._step_count)
+        if flag('FLAGS_tensor_stats') and live:
+            named = {getattr(p, 'name', None) or f'param_{i}': p.grad
+                     for i, p in enumerate(live.values())}
+            stats = _num.collect(named)
+            gn = math.sqrt(sum(st.l2_norm ** 2 for st in stats.values()))
+            _num.publish_stats(stats, kind='grad', global_norm=gn)
+
+    def _eager_update(self, live):
         dev = next(iter(live.values())).device
         lr = torch.tensor(self.get_lr(), dtype=torch.float32, device=dev)
         given = {k: p.detach() for k, p in live.items()}
         regs = {k: p.regularizer for k, p in live.items()
                 if getattr(p, 'regularizer', None) is not None}
         new_params, new_states = self._apply(
-            given, self._clip({k: p.grad for k, p in live.items()}),
+            given, self._clip({k: p.grad for k, p in live.items()},
+                              publish=True),
             {k: self._accumulators.get(k, {}) for k in live}, lr, regs)
         for k, p in live.items():
             if new_params[k] is not given[k]:
@@ -247,7 +284,7 @@ class Optimizer:
         for p in self._parameter_list or ():
             p.grad = None
 
-    def _clip(self, grads):
+    def _clip(self, grads, publish=False):
         """grad_clip on {name: grad}, as functional_apply (:108-129)
         applies it."""
         clip = self._grad_clip
@@ -259,7 +296,10 @@ class Optimizer:
                 sq = s if sq is None else sq + s
             if sq is None:
                 return grads
-            factor = global_factor(torch.sqrt(sq), clip.clip_norm)
+            norm = torch.sqrt(sq)
+            if publish:             # the eager step's, as the reference's
+                _publish_preclip_norm(norm, 'global_norm_clip')
+            factor = global_factor(norm, clip.clip_norm)
             live = {n: g * factor.to(g.dtype) for n, g in live.items()}
         elif isinstance(clip, ClipGradByNorm):
             live = {n: g * norm_factor(g, clip.clip_norm).to(g.dtype)

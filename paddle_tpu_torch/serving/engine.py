@@ -27,8 +27,9 @@ in-place K/V scatter) eagerly under `torch.inference_mode()` with the
 model in eval mode, picks the next token ON DEVICE from fp32 logits
 (the LM-head product upcasts the tied weight once a dispatch, as the
 JAX product's `preferred_element_type`), and fetches only the chosen ids
-through `_host_fetch` — one host round-trip per prefill chunk, serial
-decode step or fused window. Idle decode slots ride along with q_len=0:
+through `_host_fetch` — one host round-trip per prefill that completes
+and samples (its last chunk; earlier chunks stay queued on the card),
+per serial decode step and per fused window. Idle decode slots ride along with q_len=0:
 their K/V writes land in the pool's sink page and their outputs are
 ignored.
 
@@ -1021,8 +1022,7 @@ class ServingEngine:
                 np.asarray([_ord_of(req)]), np.asarray([req.temperature]),
                 np.asarray([req.top_k]))
         tc1 = time.perf_counter()
-        nxt = self._fetch(ids)
-        self._prefill_time += time.perf_counter() - tc0
+        self._prefill_time += tc1 - tc0
         self._it_compute += tc1 - tc0
         self._it_prefill_s += tc1 - tc0
         self._it_prefill_tokens += n
@@ -1051,7 +1051,12 @@ class ServingEngine:
             if req.max_new_tokens <= 0:
                 self._retire(req)   # prefill-only request
                 return n
-            req.generated.append(int(nxt[0]))
+            # the sampled-token fetch: only the chunk that completes the
+            # prefill reads its ids back; an earlier chunk stays queued
+            tf0 = time.perf_counter()
+            req.generated.append(int(self._fetch(ids)[0]))
+            self._prefill_time += time.perf_counter() - tf0
+            self.prefill_fetches += 1
             if req.first_token_time is None:
                 req.first_token_time = self._clock()
                 ttft = req.first_token_time - req.submit_time
@@ -1487,6 +1492,7 @@ class ServingEngine:
         self._util_sum = 0.0
         self._prefill_tokens = 0
         self._prefill_chunks = 0
+        self.prefill_fetches = 0     # prefills completed with a sample
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._spec_steps = 0

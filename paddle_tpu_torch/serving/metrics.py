@@ -337,6 +337,9 @@ def publish(stats):
     tl = stats.pop('timeline', None)
     if tl is not None:
         _last_timeline = tl
+    # history sampling piggybacks on the publish cadence: host metadata
+    # only, a no-op unless MetricsRegistry.enable_history() opted in
+    _m.metrics().history_tick()
 
 
 def _histogram_view(h, scale_ms=True):

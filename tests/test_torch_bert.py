@@ -722,11 +722,31 @@ def test_engine_refusals_name_their_item(case):
 
 
 def test_engine_refuses_taps_and_other_clips(monkeypatch):
+    """The engine takes the numerics taps: under FLAGS_tensor_stats a
+    step's drain fetches them once, and the published global norm is the
+    fp32 norm of the step's gradients. A clip other than the global norm
+    is still refused."""
+    from paddle_tpu_torch.core import monitor as tmonitor
+    from paddle_tpu_torch.core import numerics as tnum
     ttr.build_mesh(['dp', 'sharding'], [1, 1])
     tm = tbert.BertForPretraining(tbert.BertConfig(**BERT))
     monkeypatch.setitem(tflags._FLAGS, 'FLAGS_tensor_stats', True)
-    with pytest.raises(NotImplementedError, match='item 6'):
-        the.HybridParallelTrainStep(tm, _torch_loss, topt.SGD(), device='cpu')
+    fetches = []
+    real = tnum._host_fetch
+    monkeypatch.setattr(tnum, '_host_fetch',
+                        lambda tree: fetches.append(1) or real(tree))
+    eng = the.HybridParallelTrainStep(tm, _torch_loss, topt.SGD(),
+                                      device='cpu')
+    eng(*_bert_batch(8)[:3])
+    assert len(fetches) == 1
+    want = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                for _, p in eng._named)))
+    got = eng.last_numerics['grad_norm']
+    assert got == pytest.approx(want, rel=1e-5)
+    assert tmonitor.metrics().get('ptpu_num_grad_norm_global').value() \
+        == got
+    assert set(eng.last_numerics['grads']) == {n for n, _ in eng._named}
+    eng.shutdown()
     monkeypatch.setitem(tflags._FLAGS, 'FLAGS_tensor_stats', False)
     with pytest.raises(NotImplementedError, match='ClipGradByNorm'):
         the.HybridParallelTrainStep(
@@ -756,12 +776,28 @@ def test_mesh_registry_and_its_refusals():
 
 
 def test_flags_registry_serves_the_routes_and_refuses_the_rest():
+    """The routes' flags and the numerics flags are served, with the
+    reference's defaults; a flag that would send a CUDA tensor to a
+    plain version is still refused, and a refused set records nothing."""
     assert tflags.get_flags('FLAGS_flash_packed_mha') == \
         {'FLAGS_flash_packed_mha': True}
     assert tflags.flag('FLAGS_flash_min_seq') == \
         jflags.flag('FLAGS_flash_min_seq') == 1024
-    for name, value in (('FLAGS_check_nan_inf', True),
-                        ('FLAGS_tensor_stats', True),
+    numerics = ('FLAGS_check_nan_inf', 'FLAGS_check_nan_inf_deferred',
+                'FLAGS_check_nan_inf_max_journal', 'FLAGS_tensor_stats')
+    assert tflags.get_flags(list(numerics)) == jflags.get_flags(
+        list(numerics))
+    try:
+        tflags.set_flags({'FLAGS_check_nan_inf': True,
+                          'FLAGS_check_nan_inf_deferred': True,
+                          'FLAGS_tensor_stats': True})
+        assert all(tflags.flag(n) for n in numerics)
+    finally:
+        tflags.set_flags({'FLAGS_check_nan_inf': False,
+                          'FLAGS_check_nan_inf_deferred': False,
+                          'FLAGS_tensor_stats': False})
+    for name, value in (('FLAGS_fused_optimizer', False),
+                        ('FLAGS_fused_elementwise', False),
                         ('FLAGS_fused_layer_norm', False),
                         ('FLAGS_paged_attention_kernel', False)):
         with pytest.raises(NotImplementedError, match='not ported'):

@@ -39,6 +39,7 @@ from paddle_tpu_torch.distributed.fleet.meta_parallel import (
 from paddle_tpu_torch.distributed.fleet.utils import recompute as R
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import load_jax_params
+from paddle_tpu_torch.nn.layer import transformer as ttf
 from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import fused_norm as tfln
@@ -296,6 +297,60 @@ def test_backward_reruns_the_projections_only_under_full(policy, again):
     with _ForwardProducts([p for _, p in eng._named]) as mode:
         loss.backward()
     assert mode.count == again * CFG['num_layers']
+
+
+def _bert_blocks(policy, normalize_before, dropout=0.0):
+    """Two encoder layers (BERT's block) under `policy`, and a loss fn
+    over them run inside the step's generator."""
+    torch.manual_seed(0)
+    blocks = [ttf.TransformerEncoderLayer(
+        32, 2, 64, dropout=dropout, activation='gelu',
+        normalize_before=normalize_before) for _ in range(2)]
+    gen = torch.Generator().manual_seed(5)
+
+    def loss_fn(x):
+        for b in blocks:
+            x = b(x)
+        return (x.float() ** 2).mean()
+    fn = R.apply_policy(loss_fn, policy, engine='bert_test')
+
+    def run(x):
+        with trng.rng_guard(gen):
+            return fn(x)
+    return blocks, run
+
+
+@pytest.mark.parametrize('normalize_before', [False, True])
+@pytest.mark.parametrize('policy,again', [
+    ('none', 0), ('full', 6), ('dots', 0), ('attn_mlp_boundaries', 3)])
+def test_bert_block_backward_reruns(policy, again, normalize_before):
+    """A BERT block's backward under each policy: 'full' re-runs all six
+    projections; 'attn_mlp_boundaries' cuts the block at its three tags
+    into stretches that keep only their inputs, so it re-runs the
+    attention stretch's q, k and v projections (the reference saves only
+    the tagged tensors there) and stops every other stretch before its
+    product; 'none' and 'dots' re-run none."""
+    blocks, run = _bert_blocks(policy, normalize_before)
+    loss = run(torch.randn(2, 8, 32))
+    with _ForwardProducts([p for b in blocks for p in b.parameters()]) \
+            as mode:
+        loss.backward()
+    assert mode.count == again * len(blocks)
+
+
+def test_bert_block_segments_change_no_value(one_thread):
+    """The stretches replay the bound generator: with dropout 0.1 the
+    gradients under 'attn_mlp_boundaries' are bit-equal to 'none'."""
+    grads = {}
+    for policy in ('none', 'attn_mlp_boundaries'):
+        blocks, run = _bert_blocks(policy, False, dropout=0.1)
+        for b in blocks:
+            b.train()
+        run(torch.randn(2, 8, 32, generator=torch.Generator()
+                        .manual_seed(1))).backward()
+        grads[policy] = [p.grad for b in blocks for p in b.parameters()]
+    assert all(torch.equal(a, b) for a, b in
+               zip(grads['none'], grads['attn_mlp_boundaries']))
 
 
 def test_segments_without_the_generator_replay_differ(monkeypatch,

@@ -249,7 +249,7 @@ def test_fused_window_fetches_once_and_spares_page_0(models, monkeypatch):
         monkeypatch.setattr(tengine, '_host_fetch', real)
         st = eng.stats()
         serial_steps = st['decode_steps_total'] - st['fused_iterations_total']
-        assert counts[0] == (st['prefill_chunks_total'] + serial_steps
+        assert counts[0] == (eng.prefill_fetches + serial_steps
                              + st['fused_windows_total'])
         pools[k] = [t.clone() for t in eng.pool.kv[0]]
         if k > 1:

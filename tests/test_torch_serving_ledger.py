@@ -220,7 +220,7 @@ def test_ledger_adds_no_host_fetch(pair, mixed_prompts, monkeypatch):
     eng.ledger.roofline()
     eng.publish_metrics()
     assert count[0] == n
-    assert n == st['prefill_chunks_total'] + st['decode_steps_total']
+    assert n == eng.prefill_fetches + st['decode_steps_total']
     eng.shutdown()
 
 

@@ -294,8 +294,55 @@ def test_metrics_snapshot_percentiles():
     assert snap['ptpu_serve_preemptions_per_request']['p99'] >= 1.0
     assert snap['timeline']['iterations'] == 3
     assert 'ptpu_serve_ttft_ms' not in snap
-    with pytest.raises(NotImplementedError, match='item 6'):
-        tmonitor.metrics().enable_history()
+    # the metric history: enabled, the publish cadence samples it
+    reg = tmonitor.metrics()
+    hist = reg.enable_history(capacity=4, clock=lambda: 1.0)
+    try:
+        assert reg.enable_history() is hist
+        serve_metrics.publish({'pool': {}, '_new_ttfts_s': [0.03]})
+        assert hist.snapshot()['samples'] == 1
+        assert hist.last('ptpu_serve_ttft_seconds_count') == 4.0
+        assert reg.snapshot()['series'][
+            'ptpu_serve_ttft_seconds_count']['last'] == 4.0
+    finally:
+        reg.history = None
+
+
+@pytest.mark.parametrize('prefill_chunk', [4, 8])
+def test_multi_chunk_prompt_fetches_as_the_reference(pair, monkeypatch,
+                                                     prefill_chunk):
+    """A prompt of several prefill chunks is fetched once, after the
+    chunk that completes it, as the JAX engine fetches it
+    (paddle_tpu/serving/engine.py:1643-1649): the same host fetches on
+    the same stream, and the same tokens."""
+    from paddle_tpu import serving as jserving
+    from paddle_tpu.serving import engine as jengine_mod
+    rng = np.random.RandomState(5)
+    prompts = [list(rng.randint(1, 128, n)) for n in (23, 4, 17)]
+    runs = []
+    for mod, make in (
+            (jengine_mod, lambda cfg: jserving.ServingEngine(
+                pair[0], jserving.ServingConfig(**cfg))),
+            (engine_mod, lambda cfg: ServingEngine(
+                pair[1], ServingConfig(**cfg), device='cpu'))):
+        count = [0]
+        real = mod._host_fetch
+
+        def counting(x, count=count, real=real):
+            count[0] += 1
+            return real(x)
+        monkeypatch.setattr(mod, '_host_fetch', counting)
+        eng = make(dict(page_size=8, max_batch_size=3,
+                        prefill_chunk=prefill_chunk))
+        outs = eng.generate(prompts, max_new_tokens=5)
+        st = eng.stats()
+        runs.append((outs, count[0], st['prefill_chunks_total'],
+                     st['decode_steps_total']))
+        eng.shutdown()
+    (j_outs, j_n, j_chunks, j_steps), (t_outs, t_n, t_chunks, t_steps) = runs
+    assert t_outs == j_outs and t_chunks == j_chunks
+    assert t_n == j_n == len(prompts) + t_steps
+    assert t_chunks > len(prompts)       # the stream has multi-chunk ones
 
 
 @pytest.mark.parametrize('fused_k', [1, 4])
@@ -303,8 +350,9 @@ def test_tracing_adds_no_host_fetch(pair, mixed_prompts, monkeypatch,
                                     fused_k):
     """Every fetch of chosen ids funnels through engine._host_fetch; the
     journals, timeline, SLO accounting, ledger and watchdog add none:
-    one fetch per prefill chunk, per serial decode step and per fused
-    window, with trace on or off."""
+    one fetch per prefill that completes and samples (the JAX engine's
+    count), per serial decode step and per fused window, with trace on
+    or off."""
     real = engine_mod._host_fetch
     runs = {}
     for trace in (False, True):
@@ -322,11 +370,11 @@ def test_tracing_adds_no_host_fetch(pair, mixed_prompts, monkeypatch,
         eng.publish_metrics()
         eng.request_table()
         eng.ledger.account()
-        runs[trace] = (outs, count[0], st)
+        runs[trace] = (outs, count[0], st, eng.prefill_fetches)
         eng.shutdown()
     monkeypatch.setattr(engine_mod, '_host_fetch', real)
-    (o_off, n_off, _), (o_on, n_on, st) = runs[False], runs[True]
+    (o_off, n_off, _, _), (o_on, n_on, st, pf) = runs[False], runs[True]
     assert o_on == o_off and n_on == n_off
-    assert n_on == (st['prefill_chunks_total'] + st['decode_steps_total']
+    assert n_on == (pf + st['decode_steps_total']
                     - st['fused_iterations_total']
                     + st['fused_windows_total'])
