@@ -252,10 +252,34 @@ Phases, one JSON line each on stdout:
              the decode step's shapes; ms a forward step, new tokens/s.
              At 2 layers in fp32 the cached tokens must equal
              generate(use_cache=False)'s and generate_scan's.
-18. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
+18. lenet   — the lenet_mnist leg (bench.py:333-360): LeNet(10), Adam at
+             its defaults, TrainStep on its bucketed route, B = 256 random
+             fp32 [256, 1, 28, 28] images made once on the card; a
+             warm-up step, then 3 trials of 20 steps, the best kept:
+             ms/step and images/s; losses finite and falling; row 15
+             exactly once a step and no other kernel.
+19. resnet50 — the resnet50_dp_bf16 leg (bench.py:362-411): a degree-1
+             ['dp'] mesh, resnet50(1000) with every fp32 parameter cast
+             to bf16 (running statistics fp32), Momentum(0.1, 0.9) with
+             fp32 masters, HybridParallelTrainStep, B = 128 random bf16
+             [128, 3, 224, 224]; warm-up, 3 trials of 20 steps: ms/step,
+             images/s, MFU as 3 * 4.1e9 * B / t over 989 TFLOP/s, peak
+             memory; finite losses; row 15 exactly once a step; every
+             batch norm's running statistics moved off (0, 1) and finite;
+             a profiled step's device time by group (convolution, batch
+             norm, GEMM, the update, other) and the card's busy share.
+20. vision_check — a net with ResNet's stem, a basic block and two
+             bottleneck blocks, fp32 with TF32 off, B = 8 at 64 x 64,
+             Momentum(1e-3, 0.9), 3 steps on HybridParallelTrainStep and
+             on TrainStep, on the card and on the CPU from the same
+             weights: losses, the parameters and the running statistics
+             (each set together), then an eval-mode forward, within
+             WHOLE_PATH_RTOL relative L2.
+21. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
              with `launches_bert` and their `bert_shape` times, rows 2
-             and 3 with `launches_dense_decode`), the nvidia-smi line,
-             and as the last line {"ok": true, "device": {...}}.
+             and 3 with `launches_dense_decode`, every row with
+             `launches_lenet` and `launches_resnet50`), the nvidia-smi
+             line, and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
 line; it also fails when torch.cuda.is_available() is false and when
@@ -4502,6 +4526,445 @@ def dense_decode_phase(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the vision legs (bench.py:333-411)
+# ---------------------------------------------------------------------------
+LENET_B, RESNET_B = 256, 128
+VISION_STEPS, VISION_TRIALS = 20, 3
+# bench.py:404-405: ~4.1 GFLOPs a 224 x 224 image forward, training ~3x
+RESNET_FWD_FLOPS = 4.1e9
+# Momentum with an fp32 master, bytes an element: the bf16 gradient and
+# the master and velocity read, the bf16 parameter and both written
+RESNET_UPDATE_BYTES = 2 + 4 * 2 + 2 + 4 * 2
+
+
+def xent_loss(model, x, y):
+    """bench.py:343-344, :387-388."""
+    from paddle_tpu_torch import nn as pnn
+
+    return pnn.functional.cross_entropy(model(x), y)
+
+
+def cudnn_settings(torch):
+    return {'cudnn_benchmark': torch.backends.cudnn.benchmark,
+            'cudnn_allow_tf32': torch.backends.cudnn.allow_tf32,
+            'matmul_allow_tf32': torch.backends.cuda.matmul.allow_tf32}
+
+
+def timed_trials(torch, step, batch):
+    """bench.py:350-357 / :396-403: VISION_TRIALS trials of VISION_STEPS
+    steps, each ended by a host fetch of the last loss; (best s a step,
+    every trial's s a step, the trials' last losses)."""
+    trials, losses = [], []
+    for _ in range(VISION_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VISION_STEPS):
+            loss = step(*batch)
+        losses.append(float(loss))
+        trials.append((time.perf_counter() - t0) / VISION_STEPS)
+    return min(trials), trials, losses
+
+
+def lenet_phase(torch, card):
+    """The lenet_mnist leg (bench.py:333-360): LeNet(10) from a seeded
+    generator on the card, Adam at its defaults, TrainStep on its default
+    (bucketed) route, B = 256 random fp32 images [256, 1, 28, 28] and
+    int64 labels made once on the card; a warm-up step, then 3 trials of
+    20 steps, the best kept. Row 15 launches once a step and nothing
+    else does (no clip: no statistics pass)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+
+    model = LeNet(10, device='cuda',
+                  generator=torch.Generator(device='cuda').manual_seed(0))
+    step = TrainStep(model, xent_loss, Adam())
+    data = torch.Generator(device='cuda').manual_seed(1)
+    imgs = torch.rand(LENET_B, 1, 28, 28, device='cuda', generator=data)
+    labels = torch.randint(0, 10, (LENET_B,), device='cuda', generator=data)
+    warm = float(step(imgs, labels))
+    _build.reset_launches()
+    step_s, trials, losses = timed_trials(torch, step, (imgs, labels))
+    launches = _build.routes_snapshot()
+    check_exact_launches('lenet', launches, {
+        FO.STEP: VISION_STEPS * VISION_TRIALS})
+    if not np.isfinite([warm] + losses).all() or not losses[-1] < warm:
+        raise AssertionError(f'lenet: losses {warm} then {losses}')
+    emit({'phase': 'lenet', 'card': card, 'model': 'LeNet(10)',
+          'batch': LENET_B, 'dtype': 'float32', 'engine': 'TrainStep',
+          'route': 'bucketed' if step.use_buckets else 'per-parameter',
+          'buckets': len(step.layout.buckets), 'optimizer': 'Adam',
+          'params': sum(p.numel() for p in model.parameters()),
+          'warmup_loss': warm, 'trial_last_losses': losses,
+          'trial_step_s': trials, 'ms_per_step': 1e3 * step_s,
+          'images_per_sec': LENET_B / step_s, 'launches': launches,
+          'optimizer_step_launches_per_step':
+              launches[FO.STEP] / (VISION_STEPS * VISION_TRIALS),
+          **cudnn_settings(torch)})
+    return launches
+
+
+def _vision_group(kernel, ops, update_range):
+    """A device kernel's group in a vision step, from the ops around its
+    launch (`ops`: the launching op and its parents' names): the port's
+    update, a convolution (cuDNN's kernels and the GEMMs and layout
+    transforms it runs them as), batch norm (forward or backward), any
+    other GEMM (the classifier), or other."""
+    names = ' '.join(ops).lower()
+    if update_range in ops or any(
+            part in kernel for part in KERNEL_NAMES['optimizer_step']):
+        return 'update'
+    if 'conv' in names:
+        return 'convolution'
+    if 'batch_norm' in names or 'batchnorm' in names:
+        return 'batch_norm'
+    if any(k in kernel.lower() for k in ('gemm', 'xmma', 'cutlass', 'nvjet',
+                                         'sm90')):
+        return 'gemm'
+    return 'other'
+
+
+def profile_vision_step(torch, step, batch, update_range):
+    """One step under torch.profiler: device time by `_vision_group`, the
+    card's busy share of the step's wall (unprofiled and profiled), the
+    update range's device span, and the largest kernels with their
+    groups."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(step(*batch))
+    wall_plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(*batch))
+        wall = time.perf_counter() - t0
+    groups = dict.fromkeys(('convolution', 'batch_norm', 'gemm', 'update',
+                            'other'), 0.0)
+    by_kernel, attributed = {}, {}
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        ops, p = [], e
+        while p is not None:
+            ops.append(p.name)
+            p = p.cpu_parent
+        for k in e.kernels:
+            group = _vision_group(k.name, ops, update_range)
+            groups[group] += k.duration / 1e6
+            attributed[k.name] = attributed.get(k.name, 0.0) + k.duration
+            row = by_kernel.setdefault(k.name[:100], [group, 0.0, 0])
+            row[1] += k.duration / 1e3
+            row[2] += 1
+    averages = prof.key_averages()
+    # kernels no op launched (the port's, through ctypes) by name alone;
+    # a range's device-side annotation bears its CPU range's name
+    ranges = {e.name for e in prof.events()
+              if e.device_type == DeviceType.CPU}
+    for e in averages:
+        if e.device_type != DeviceType.CUDA or e.key in ranges:
+            continue
+        rest = e.self_device_time_total - attributed.get(e.key, 0.0)
+        if rest > 0:
+            group = _vision_group(e.key, (), update_range)
+            groups[group] += rest / 1e6
+            row = by_kernel.setdefault(e.key[:100], [group, 0.0, 0])
+            row[1] += rest / 1e3
+            row[2] += e.count
+    busy = sum(groups.values())
+    if not busy:
+        raise AssertionError('the profiler saw no device kernels')
+    span = [e.device_time_total / 1e6 for e in averages
+            if e.device_type == DeviceType.CUDA and e.key == update_range]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:14]
+    return {'step_wall_s': wall_plain, 'profiled_step_wall_s': wall,
+            'device_busy_s': busy, 'busy_share_of_wall': busy / wall_plain,
+            'busy_share_of_profiled_wall': busy / wall,
+            'device_s_by_group': groups,
+            'share_of_busy': {k: v / busy for k, v in groups.items()},
+            'update_device_span_s': span[0] if span else None,
+            'top_kernels': [dict(name=n, group=g, device_ms=ms, calls=c)
+                            for n, (g, ms, c) in top]}
+
+
+def batch_norm_yardstick(torch, model, x):
+    """The leg's batch norms (their input shapes, from an eval-mode
+    forward) timed forward + backward in training, one shape at a time:
+    the port's `batch_norm` (ATen's native kernels, NCHW, and the
+    running update) against one `F.batch_norm` call without running
+    buffers (the library's own pick, cuDNN where it takes the inputs),
+    on NCHW and on channels-last inputs; ms a step, each shape's time
+    times its count."""
+    import collections
+
+    from torch.nn import functional as TF
+    from paddle_tpu_torch.nn.layer.norm import _BatchNormBase
+    from paddle_tpu_torch.ops import nn_ops
+
+    shapes = collections.Counter()
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.update([tuple(inp[0].shape)]))
+        for m in model.modules() if isinstance(m, _BatchNormBase)]
+    model.eval()
+    with torch.no_grad():
+        model(x)
+    model.train()
+    for h in hooks:
+        h.remove()
+    totals = dict.fromkeys(('port', 'library', 'library_channels_last'),
+                           0.0)
+    rows = []
+    for shape, n in sorted(shapes.items()):
+        c = shape[1]
+        a = torch.randn(shape, device='cuda', dtype=torch.bfloat16)
+        g = torch.randn_like(a)
+        w = torch.ones(c, device='cuda', dtype=torch.bfloat16,
+                       requires_grad=True)
+        b = torch.zeros(c, device='cuda', dtype=torch.bfloat16,
+                        requires_grad=True)
+        rm = torch.zeros(c, device='cuda')
+        rv = torch.ones(c, device='cuda')
+
+        def run(fn, inp):
+            inp = inp.detach().requires_grad_()
+            fn(inp).backward(g)
+        port = loop_ms(torch, lambda: run(lambda t: nn_ops.batch_norm(
+            t, rm, rv, w, b, training=True), a), iters=10)
+        lib = loop_ms(torch, lambda: run(lambda t: TF.batch_norm(
+            t, None, None, w.float(), b.float(), True, 0.1, 1e-5), a),
+            iters=10)
+        cl = a.contiguous(memory_format=torch.channels_last)
+        lib_cl = loop_ms(torch, lambda: run(lambda t: TF.batch_norm(
+            t, None, None, w.float(), b.float(), True, 0.1, 1e-5), cl),
+            iters=10)
+        totals['port'] += n * port
+        totals['library'] += n * lib
+        totals['library_channels_last'] += n * lib_cl
+        rows.append(dict(shape=list(shape), count=n, port_ms=port,
+                         library_ms=lib, library_channels_last_ms=lib_cl))
+    return {'ms_per_step': totals, 'shapes': rows}
+
+
+def running_stats_record(model):
+    """The batch norms' running statistics: all finite, and how many
+    layers' means and variances moved off their initial 0 and 1."""
+    means = [b for n, b in model.named_buffers() if n.endswith('_mean')]
+    variances = [b for n, b in model.named_buffers()
+                 if n.endswith('_variance')]
+    finite = all(bool(b.isfinite().all()) for b in means + variances)
+    return {'layers': len(means), 'finite': finite,
+            'dtypes': sorted({str(b.dtype) for b in means + variances}),
+            'means_moved': sum(bool(b.ne(0).any()) for b in means),
+            'variances_moved': sum(bool(b.ne(1).any()) for b in variances),
+            'first_mean_abs_mean': float(means[0].abs().mean()),
+            'first_variance_mean': float(variances[0].mean())}
+
+
+def resnet50_phase(torch, card):
+    """The resnet50_dp_bf16 leg (bench.py:362-411): a degree-1 ['dp']
+    mesh, resnet50(num_classes=1000) from a seeded generator on the
+    card, every fp32 parameter cast to bf16 (the batch norms' running
+    statistics stay fp32), Momentum(0.1, 0.9) with fp32 masters,
+    HybridParallelTrainStep; B = 128 random bf16 [128, 3, 224, 224] and
+    labels made once on the card; a warm-up step, then 3 trials of 20
+    steps. ms/step, images/s, MFU as 3 * 4.1e9 * B / t over 989 TFLOP/s,
+    peak memory; row 15 once a step and nothing else; the running
+    statistics moved and finite; a profiled step split into convolution,
+    batch norm, GEMM, the update and other."""
+    from paddle_tpu_torch.distributed import topology_runtime
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        hybrid_engine as he)
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    topology_runtime.build_mesh(['dp'], [1])
+    t0 = time.perf_counter()
+    model = resnet50(num_classes=1000, device='cuda',
+                     generator=torch.Generator(device='cuda').manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype == torch.float32:
+                p.data = p.data.to(torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    eng = he.HybridParallelTrainStep(
+        model, xent_loss, Momentum(learning_rate=0.1, momentum=0.9))
+    data = torch.Generator(device='cuda').manual_seed(1)
+    x = torch.rand(RESNET_B, 3, 224, 224, device='cuda',
+                   generator=data).to(torch.bfloat16)
+    y = torch.randint(0, 1000, (RESNET_B,), device='cuda', generator=data)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(eng(x, y))
+    warm_s = time.perf_counter() - t0
+    _build.reset_launches()
+    step_s, trials, losses = timed_trials(torch, eng, (x, y))
+    launches = _build.routes_snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    check_exact_launches('resnet50', launches, {
+        FO.STEP: VISION_STEPS * VISION_TRIALS})
+    if not np.isfinite([warm] + losses).all():
+        raise AssertionError(f'resnet50: losses {warm} then {losses}')
+    stats = running_stats_record(model)
+    if not stats['finite'] or stats['means_moved'] != stats['layers'] \
+            or stats['variances_moved'] != stats['layers'] \
+            or stats['dtypes'] != ['torch.float32']:
+        raise AssertionError(f'resnet50: running statistics {stats}')
+    flops = 3 * RESNET_FWD_FLOPS * RESNET_B
+    prof = profile_vision_step(torch, eng, (x, y), he.UPDATE_RANGE)
+    bn_yard = batch_norm_yardstick(torch, model, x)
+    update_bytes = n_params * RESNET_UPDATE_BYTES
+    emit({'phase': 'resnet50', 'card': card, 'model': 'resnet50(1000)',
+          'params': n_params, 'param_tensors': n_tensors,
+          'batch': RESNET_B, 'image': [3, 224, 224],
+          'dtype': 'bf16 parameters, fp32 running statistics',
+          'engine': "HybridParallelTrainStep, mesh ['dp'] = [1]",
+          'optimizer': 'Momentum(0.1, 0.9), fp32 masters',
+          'model_build_s': build_s, 'warmup_step_s': warm_s,
+          'warmup_loss': warm, 'trial_last_losses': losses,
+          'trial_step_s': trials, 'ms_per_step': 1e3 * step_s,
+          'images_per_sec': RESNET_B / step_s,
+          'model_flops_per_step': flops,
+          'model_tflops': flops / step_s / 1e12,
+          'mfu': flops / step_s / 1e12 / PEAK_BF16_TFLOPS,
+          'peak_memory_bytes': peak, 'launches': launches,
+          'optimizer_step_launches_per_step':
+              launches[FO.STEP] / (VISION_STEPS * VISION_TRIALS),
+          'running_stats': stats,
+          'update': {'device_s': prof['device_s_by_group']['update'],
+                     'device_span_s': prof['update_device_span_s'],
+                     'bytes': update_bytes,
+                     'bound_ms': 1e3 * update_bytes / HBM_BYTES_PER_S,
+                     'bound_by': 'bytes'},
+          'profile': prof, 'batch_norm_yardstick': bn_yard,
+          **cudnn_settings(torch)})
+    eng.shutdown()
+    return launches
+
+
+VISION_CHECK_B, VISION_CHECK_HW, VISION_CHECK_STEPS = 8, 64, 3
+
+
+def block_net(pnn, models, **kw):
+    """ResNet's stem (conv, batch norm, ReLU, 3x3 stride-2 max pool), a
+    basic block, two bottleneck blocks (the first strided, with its
+    downsample), the global pool and a linear."""
+    norm = {k: v for k, v in kw.items() if k != 'generator'}
+    return pnn.Sequential(
+        pnn.Conv2D(3, 64, 7, stride=2, padding=3, bias_attr=False, **kw),
+        pnn.BatchNorm2D(64, **norm), pnn.ReLU(), pnn.MaxPool2D(3, 2, 1),
+        models.BasicBlock(64, 64, **kw),
+        models.BottleneckBlock(64, 32, stride=2, downsample=pnn.Sequential(
+            pnn.Conv2D(64, 128, 1, stride=2, bias_attr=False, **kw),
+            pnn.BatchNorm2D(128, **norm)), **kw),
+        models.BottleneckBlock(128, 32, **kw),
+        pnn.AdaptiveAvgPool2D(1), pnn.Flatten(), pnn.Linear(128, 10, **kw))
+
+
+def vision_check(torch):
+    """The vision path on the card against the CPU: `block_net` (both
+    of ResNet's block kinds) in fp32 with TF32 off, B = 8 at 64 x 64,
+    Momentum(1e-3, 0.9), 3 steps from the same weights and batch on
+    HybridParallelTrainStep and on TrainStep's bucketed route. The
+    losses, all parameters together, all running statistics together
+    and an eval-mode forward must each agree within WHOLE_PATH_RTOL
+    relative L2. Each tensor's own error and the parameters' steps are
+    reported, not held: ReLU and max-pool decisions near a tie flip
+    under any rounding difference, and a batch norm's bias or weight
+    feeding ReLU, a convolution and another batch norm has a gradient
+    that nearly cancels. On the CPU a 1e-6 perturbation of the input
+    moves single such biases by up to 0.9 % and the steps by 0.6 % at lr
+    0.01 (eval logits 9.8e-4), 0.3 % and 0.19 % at lr 1e-3 (losses,
+    parameters, statistics and logits within 3e-5 there). cuDNN picks
+    its algorithms as in the timed phases (`cudnn_benchmark` in the
+    line)."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.distributed import topology_runtime
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        hybrid_engine as he)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    topology_runtime.build_mesh(['dp'], [1])
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.rand(VISION_CHECK_B, 3, VISION_CHECK_HW,
+                                  VISION_CHECK_HW).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (VISION_CHECK_B,)))
+    out = {}
+    for case, engine in (('hybrid', he.HybridParallelTrainStep),
+                         ('trainstep', TrainStep)):
+        card_model = block_net(pnn, models, device='cuda',
+                               generator=torch.Generator(
+                                   device='cuda').manual_seed(11))
+        cpu_model = block_net(pnn, models, device='cpu')
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   card_model.state_dict().items()})
+        init = {n: t.detach().double().cpu().clone()
+                for n, t in cpu_model.named_parameters()}
+        losses = {}
+        for label, model, dev in (('card', card_model, None),
+                                  ('cpu', cpu_model, 'cpu')):
+            eng = engine(model, xent_loss,
+                         Momentum(learning_rate=1e-3, momentum=0.9),
+                         device=dev)
+            losses[label] = [float(eng(x, y))
+                             for _ in range(VISION_CHECK_STEPS)]
+        card_state = card_model.state_dict()
+        cpu_state = {n: t.detach().double()
+                     for n, t in cpu_model.state_dict().items()}
+        diff = {n: card_state[n].detach().double().cpu() - t
+                for n, t in cpu_state.items()}
+        errs = {n: _rel(card_state[n], t) for n, t in cpu_state.items()}
+
+        def together(names, base=None):
+            num = sum(float(diff[n].square().sum()) for n in names)
+            den = sum(float((cpu_state[n] - (0 if base is None else
+                                             base[n])).square().sum())
+                      for n in names)
+            return (num / den) ** 0.5
+        stats = [n for n in cpu_state if n.endswith(('_mean', '_variance'))]
+        card_model.eval()
+        cpu_model.eval()
+        with torch.no_grad():
+            logits = _rel(card_model(x.cuda()), cpu_model(x))
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses['card'], losses['cpu']))
+        worst = max(errs, key=errs.get)
+        out[case] = {'card_losses': losses['card'],
+                     'cpu_losses': losses['cpu'], 'loss_rel_err': loss_err,
+                     'params_rel_l2': together(list(init)),
+                     'running_stats_rel_l2': together(stats),
+                     'eval_logits_rel_l2': logits,
+                     'param_steps_rel_l2': together(list(init), init),
+                     'max_tensor_rel_l2': errs[worst], 'worst_tensor': worst}
+        held = ('loss_rel_err', 'params_rel_l2', 'running_stats_rel_l2',
+                'eval_logits_rel_l2')
+        if not np.isfinite(losses['card']).all() or max(
+                out[case][k] for k in held) > WHOLE_PATH_RTOL:
+            raise AssertionError(f'vision_check {case}: {out[case]}')
+        del card_model, cpu_model
+        free_cuda(torch)
+    torch.backends.cudnn.allow_tf32 = tf32
+    emit({'phase': 'vision_check', 'model': 'block_net', 'batch':
+          VISION_CHECK_B, 'image': [3, VISION_CHECK_HW, VISION_CHECK_HW],
+          'dtype': 'float32', 'optimizer': 'Momentum(1e-3, 0.9)',
+          'steps': VISION_CHECK_STEPS, 'rtol': WHOLE_PATH_RTOL,
+          'cases': out, **cudnn_settings(torch),
+          'cudnn_allow_tf32_in_check': False})
+
+
 # the port's kernels by the device-side names the profiler shows (a name
 # holds one of the row's strings); the column sum is the second pass of
 # both backward reductions, the merge kernel the paged attention's; the
@@ -4780,6 +5243,18 @@ def main():
     bert_check_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     decode_launches_run = dense_decode_phase(torch, card)
+    free_cuda(torch)
+    dense_decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lenet_launches = lenet_phase(torch, card)
+    free_cuda(torch)
+    lenet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resnet50_launches = resnet50_phase(torch, card)
+    free_cuda(torch)
+    resnet50_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vision_check(torch)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
@@ -4790,8 +5265,9 @@ def main():
           'update_route': update_route_s, 'pipeline_amp': pipeline_amp_s,
           'telemetry': telemetry_s,
           'linear_xent': linear_xent_s, 'bert': bert_s,
-          'bert_check': bert_check_s,
-          'dense_decode': time.perf_counter() - t0})
+          'bert_check': bert_check_s, 'dense_decode': dense_decode_s,
+          'lenet': lenet_s, 'resnet50': resnet50_s,
+          'vision_check': time.perf_counter() - t0})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -4856,6 +5332,9 @@ def main():
                     'bound_by', 'library_ms')}
         if name in ('layer_norm', 'bias_gelu'):
             entry['launches_dense_decode'] = decode_launches_run[name]
+        # the vision legs' timed steps (row 15 alone runs there)
+        entry['launches_lenet'] = lenet_launches[name]
+        entry['launches_resnet50'] = resnet50_launches[name]
         if name in SERVE_KERNELS:
             # the tenants leg's SLO run and the oversubscribed serve
             entry['launches_serve_tenants'] = tenants_launches[name]

@@ -25,6 +25,14 @@ more than one shard (`_bucketed` is False at `_n_shards == 1`,
     the rule asks for it; Lamb, Lars, Ftrl and DGCMomentum on their op
     chain.
 
+A model's buffers stay the model's own: batch norm's running statistics
+move in place during each step's forward (once a step under every remat
+policy), as PaddlePaddle's engines and both packages' `TrainStep` move
+them. The reference's engine binds the parameters only and restores
+every buffer on exit (:398-399, `jit/__init__.py:36-58` there), so its
+running statistics never move; the port does not copy that (ROADMAP
+Queue 3).
+
 `__call__` drains the dispatch window, runs one step and waits;
 `train_step` queues one through the window (`core/async_step.py`);
 `device_lr` computes a step-indexed schedule's lr on the card.

@@ -46,6 +46,12 @@ recompute, binds that generator again at that state, so the masks
 replay and the gradients are those of the forward (the reference gets
 the same from its folded keys).
 
+A recompute re-runs the forward, which would update batch norm's
+running statistics a second time; `in_recompute()` is true while any
+checkpoint here re-runs its function, and `ops.nn_ops.batch_norm` leaves
+them alone then, so they move once a step as under the reference's
+functional remat.
+
 Resolution (`resolve_policy`): the kwarg, then `PTPU_REMAT_POLICY`, then
 the caller's default. Remat changes no value: loss and gradients are
 bit-equal under every policy (tests/test_torch_remat.py).
@@ -75,8 +81,16 @@ _RECOMPUTE = _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class _State:
-    """Boundary regions entered: while one is, `segment` checkpoints."""
+    """Boundary regions entered: while one is, `segment` checkpoints.
+    Recomputes running: the backward may run them on autograd's device
+    thread, so the count is global, not per thread."""
     regions = 0
+    recomputing = 0
+
+
+def in_recompute():
+    """True while a checkpoint's backward re-runs its function."""
+    return _State.recomputing > 0
 
 
 _BOUNDARIES = collections.Counter()
@@ -141,6 +155,16 @@ def _replay(gen, state):
 
 
 @contextlib.contextmanager
+def _recomputing():
+    """While it is entered, `in_recompute()` holds."""
+    _State.recomputing += 1
+    try:
+        yield
+    finally:
+        _State.recomputing -= 1
+
+
+@contextlib.contextmanager
 def _boundary_region():
     _State.regions += 1
     try:
@@ -155,13 +179,13 @@ def _both(a, b):
         yield
 
 
-def _contexts(policy_fn):
+def _contexts(policy_fn, replay=True):
     """checkpoint's context_fn: (forward, recompute) contexts. Called
     when the forward starts, so the bound generator's state is the
-    forward's."""
-    gen = _rng.bound_generator()
-    replay = contextlib.nullcontext() if gen is None else \
-        _replay(gen, gen.get_state())
+    forward's; without `replay` the recompute draws where it stands."""
+    gen = _rng.bound_generator() if replay else None
+    replay = _both(_recomputing(), contextlib.nullcontext() if gen is None
+                   else _replay(gen, gen.get_state()))
     if policy_fn is None:
         return contextlib.nullcontext(), replay
     f, r = _ckpt.create_selective_checkpoint_contexts(policy_fn)
@@ -202,11 +226,10 @@ def recompute(function, *args, preserve_rng_state=True, use_reentrant=True):
     checkpoint, which also gives gradients to parameters used inside."""
     if not torch.is_grad_enabled():
         return function(*args)
-    context_fn = functools.partial(_contexts, None) if preserve_rng_state \
-        else _ckpt.noop_context_fn
     return _ckpt.checkpoint(function, *args, use_reentrant=False,
                             preserve_rng_state=preserve_rng_state,
-                            context_fn=context_fn)
+                            context_fn=functools.partial(
+                                _contexts, None, preserve_rng_state))
 
 
 def segment(fn, *args):

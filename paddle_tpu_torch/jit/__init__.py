@@ -26,6 +26,10 @@ donates its buffers and returns new ones, and after a call each
 parameter's `.grad` holds that step's gradient (clipped by norm in
 place on the bucketed route under `ClipGradByNorm`).
 
+A model's buffers stay the model's own: batch norm's running statistics
+move in place during the forward, once a step, where the reference
+threads them through its step (:216-240).
+
 `remat_policy` (`distributed/fleet/utils/recompute.py`; the kwarg, then
 `PTPU_REMAT_POLICY`, then 'none') wraps the whole `loss_fn(model,
 *batch)` in its checkpoint, as the reference wraps `loss_of`

@@ -1,43 +1,48 @@
 """Weight bridge: fill a port module from the JAX package's parameters.
 
-The port keeps paddle's parameter names and layouts, so the bridge is a
-rename-free copy: `named_arrays` maps each name of the JAX model's
-`named_parameters()` to its value as a numpy array (a test builds it
-with `{n: np.asarray(p.data) for n, p in jax_model.named_parameters()}`).
-The port never imports the JAX package; callers hand it plain arrays.
+The port keeps paddle's parameter and buffer names and layouts, so the
+bridge is a rename-free copy: `named_arrays` maps each name of the JAX
+model's `named_parameters()` to its value as a numpy array (a test
+builds it with `{n: np.asarray(p.data) for n, p in
+jax_model.named_parameters()}`), and `named_buffers` each name of its
+`named_buffers()` (batch norm's `_mean` and `_variance`). The port never
+imports the JAX package; callers hand it plain arrays.
 """
 import numpy as np
 import torch
 
 
-def load_jax_params(model, named_arrays):
+def load_jax_params(model, named_arrays, named_buffers=None):
     """Copy `named_arrays` ({name: np.ndarray}) into `model`'s parameters
-    in place, cast to each parameter's dtype and device. Raises on any
-    missing or extra name and on any shape mismatch, before copying
-    anything. Returns the model."""
-    params = dict(model.named_parameters())
-    arrays = _check(model, named_arrays)
+    and, when given, `named_buffers` into its buffers, in place, cast to
+    each tensor's own dtype and device (fp32 running statistics stay
+    fp32 under bf16 parameters). Raises on any missing or extra name and
+    on any shape mismatch, before copying anything. Returns the model."""
+    targets = [(dict(model.named_parameters()), named_arrays)]
+    if named_buffers is not None:
+        targets.append((dict(model.named_buffers()), named_buffers))
+    checked = [_check(tensors, named) for tensors, named in targets]
     with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(torch.from_numpy(np.array(arrays[name], order='C')))
+        for (tensors, _), arrays in zip(targets, checked):
+            for name, t in tensors.items():
+                t.copy_(torch.from_numpy(np.array(arrays[name], order='C')))
     return model
 
 
-def _check(model, named_arrays):
-    """{name: host array} for `model`'s parameters; raises on a missing
-    or extra name or a shape mismatch."""
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(named_arrays))
-    extra = sorted(set(named_arrays) - set(params))
+def _check(tensors, named_arrays):
+    """{name: host array} for `tensors` ({name: tensor}); raises on a
+    missing or extra name or a shape mismatch."""
+    missing = sorted(set(tensors) - set(named_arrays))
+    extra = sorted(set(named_arrays) - set(tensors))
     if missing or extra:
         raise KeyError(f'load_jax_params: missing {missing}, extra {extra}')
     arrays = {}
-    for name, p in params.items():
+    for name, t in tensors.items():
         a = np.asarray(named_arrays[name])
-        if tuple(a.shape) != tuple(p.shape):
+        if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f'load_jax_params: {name} has shape '
                              f'{tuple(a.shape)}, the port expects '
-                             f'{tuple(p.shape)}')
+                             f'{tuple(t.shape)}')
         if a.dtype.kind == 'V' or a.dtype.name == 'bfloat16':
             a = a.astype(np.float32)    # exact: bf16 widens to fp32
         arrays[name] = a
@@ -67,7 +72,7 @@ def load_jax_pipeline_params(embed, blocks, head, arrays):
     pairs = [(embed, arrays['embed'])] + list(zip(blocks, per_block)) + \
         [(head, arrays['head'])]
     for module, named in pairs:
-        _check(module, named)
+        _check(dict(module.named_parameters()), named)
     for module, named in pairs:
         load_jax_params(module, named)
     return embed, blocks, head

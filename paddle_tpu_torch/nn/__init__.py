@@ -1,7 +1,4 @@
-from . import clip  # noqa: F401
+from . import clip, functional, initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
-from .layer import (Dropout, Embedding, LayerList,  # noqa: F401
-                    LayerNorm, Linear, MultiHeadAttention, Transformer,
-                    TransformerDecoder, TransformerDecoderLayer,
-                    TransformerEncoder, TransformerEncoderLayer)
+from .layer import *  # noqa: F401,F403

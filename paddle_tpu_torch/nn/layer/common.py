@@ -1,24 +1,33 @@
-"""Linear, Embedding and Dropout with paddle's parameter names and
-layouts — counterparts of `paddle_tpu/nn/layer/common.py`.
+"""Linear, Embedding, Dropout, Flatten and Identity with paddle's
+parameter names and layouts — counterparts of
+`paddle_tpu/nn/layer/common.py`.
 
 Parameters are created on the given `device`/`dtype` (torch factory
 kwargs) with paddle's default initializers (XavierUniform weights, zero
 bias), drawn from an optional `torch.Generator`.
 """
-import math
-
 import torch
 from torch import nn
 
 from ...ops import nn_ops as F
+from .. import initializer as I
 
 
 def xavier_uniform_(w, generator=None):
     """paddle's XavierUniform on a 2-D weight: fan_in = shape[0],
     fan_out = shape[1] (paddle lays Linear weights out [in, out])."""
-    a = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
-    with torch.no_grad():
-        return w.uniform_(-a, a, generator=generator)
+    return I.XavierUniform()(w, generator)
+
+
+def refuse_param_attr(weight_attr, bias_attr):
+    """Whether the layer has a bias (`bias_attr=False`: none); any other
+    `weight_attr`/`bias_attr` than None is a ParamAttr, which is not
+    ported yet."""
+    if weight_attr is not None or bias_attr not in (None, False):
+        raise NotImplementedError(
+            'a ParamAttr (weight_attr / bias_attr) is not ported yet '
+            '(ROADMAP Queue 1 item 9c); pass None, or bias_attr=False')
+    return bias_attr is not False
 
 
 class Linear(nn.Module):
@@ -78,3 +87,25 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f'p={self.p}'
+
+
+class Flatten(nn.Module):
+    """Flattens axes start_axis..stop_axis into one (common.py:94-101)."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return F.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Identity(nn.Module):
+    """Returns its input; takes and ignores any arguments."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x

@@ -35,7 +35,7 @@ plain dropout-then-add.
 Layers take `device`, `dtype` and an optional `generator` for their
 initializers; a `weight_attr`/`bias_attr` other than None (or
 `bias_attr=False`, no bias) is a ParamAttr, which waits for ROADMAP
-Queue 1 item 9.
+Queue 1 item 9c.
 """
 import collections
 import math
@@ -48,20 +48,9 @@ from ...distributed.fleet.utils.recompute import segment as _remat_segment
 from ...distributed.fleet.utils.recompute import tag_tensor as _remat_tag
 from ...ops import nn_ops as F
 from ...ops.kernels import flash_attention as fa
-from .common import Dropout, Linear
+from .common import Dropout, Linear, refuse_param_attr
+from .container import LayerList
 from .norm import LayerNorm
-
-
-class LayerList(nn.ModuleList):
-    """paddle's LayerList: sublayers named by their index."""
-
-
-def _has_bias(weight_attr, bias_attr):
-    if weight_attr is not None or bias_attr not in (None, False):
-        raise NotImplementedError(
-            'a ParamAttr (weight_attr / bias_attr) is not ported yet '
-            '(ROADMAP Queue 1 item 9); pass None, or bias_attr=False')
-    return bias_attr is not False
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -110,8 +99,8 @@ class MultiHeadAttention(nn.Module):
         self.need_weights = need_weights
         self.head_dim = embed_dim // num_heads
         assert self.head_dim * num_heads == embed_dim
-        kw = dict(bias=_has_bias(weight_attr, bias_attr), device=device,
-                  dtype=dtype, generator=generator)
+        kw = dict(bias=refuse_param_attr(weight_attr, bias_attr),
+                  device=device, dtype=dtype, generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(self.kdim, embed_dim, **kw)
         self.v_proj = Linear(self.vdim, embed_dim, **kw)
@@ -257,7 +246,8 @@ class TransformerEncoderLayer(nn.Module):
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self._factory = dict(device=device, dtype=dtype, generator=generator)
-        kw = dict(bias=_has_bias(weight_attr, bias_attr), **self._factory)
+        kw = dict(bias=refuse_param_attr(weight_attr, bias_attr),
+                  **self._factory)
         self.self_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
             bias_attr=bias_attr, **self._factory)
@@ -398,7 +388,8 @@ class TransformerDecoderLayer(nn.Module):
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self._factory = dict(device=device, dtype=dtype, generator=generator)
-        kw = dict(bias=_has_bias(weight_attr, bias_attr), **self._factory)
+        kw = dict(bias=refuse_param_attr(weight_attr, bias_attr),
+                  **self._factory)
         self.self_attn = MultiHeadAttention(
             d_model, nhead, attn_dropout, weight_attr=weight_attr,
             bias_attr=bias_attr, **self._factory)

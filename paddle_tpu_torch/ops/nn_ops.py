@@ -7,7 +7,9 @@ its fused route (`_fused_hard_xent`, :768-798), over another axis, soft
 labels and `return_softmax`, `cross_entropy` (:944) on it, the chunked
 projection with a hard cross-entropy, `fused_linear_cross_entropy`
 (:801-903), and the activations `relu`, `tanh` and `softmax` (:191)
-that `nn.Transformer` and BERT use.
+that `nn.Transformer` and BERT use. The vision slice adds the rest of
+the activations (:23-215), `batch_norm` (:268-319), `conv1d`/`conv2d`/
+`conv3d` (:412-497) and the 2-D pools (:542-652).
 
 Dropout in training draws its keep mask from the generator bound by
 `core.rng.rng_guard` (jit.TrainStep binds its own) and raises when none
@@ -24,9 +26,11 @@ Functions take and return torch tensors. Each public op stands for one
 import math
 
 import torch
+from torch.nn import functional as _tF
 
 from ..amp import uncast
 from ..core import rng as _rng
+from ..distributed.fleet.utils import recompute as _remat
 from .kernels import fused_elementwise as _fe
 from .kernels import fused_norm as _fln
 
@@ -390,3 +394,410 @@ def fused_linear_cross_entropy(x, weight, label, ignore_index=-100,
     out = _LinearXent.apply(x.reshape(N, x.shape[-1]), weight, idx,
                             ignore_index, c, transpose_y)
     return _reduce_loss(out.reshape(lead), reduction)
+
+
+# ---- the rest of the activations (nn_ops.py:23-215, math.py:60-64) ----------
+@uncast
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+@uncast
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+@uncast
+def elu(x, alpha=1.0):
+    return _tF.elu(x, alpha)
+
+
+@uncast
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+@uncast
+def celu(x, alpha=1.0):
+    return _tF.celu(x, alpha)
+
+
+@uncast
+def silu(x):
+    return _tF.silu(x)
+
+
+swish = silu
+
+
+@uncast
+def mish(x):
+    return x * torch.tanh(_tF.softplus(x))
+
+
+@uncast
+def leaky_relu(x, negative_slope=0.01):
+    return _tF.leaky_relu(x, negative_slope)
+
+
+@uncast
+def prelu(x, weight, data_format='NCHW'):
+    """where(x > 0, x, x * w), a weight of more than one element laid
+    along the channel axis (1 for NC*, the last otherwise)."""
+    if weight.numel() > 1 and x.dim() > 1:
+        shape = [1] * x.dim()
+        shape[1 if data_format.startswith('NC') else -1] = weight.numel()
+        weight = weight.reshape(shape)
+    return torch.where(x > 0, x, x * weight)
+
+
+@uncast
+def softplus(x, beta=1.0, threshold=20.0):
+    scaled = beta * x
+    return torch.where(scaled > threshold, x,
+                       torch.logaddexp(scaled, torch.zeros_like(x)) / beta)
+
+
+@uncast
+def softsign(x):
+    return x / (1 + x.abs())
+
+
+@uncast
+def hardsigmoid(x):
+    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+@uncast
+def hardswish(x):
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+@uncast
+def hardtanh(x, min=-1.0, max=1.0):
+    return torch.clamp(x, min, max)
+
+
+@uncast
+def hardshrink(x, threshold=0.5):
+    return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
+
+
+@uncast
+def softshrink(x, threshold=0.5):
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+@uncast
+def tanhshrink(x):
+    return x - tanh(x)
+
+
+@uncast
+def thresholded_relu(x, threshold=1.0):
+    return torch.where(x > threshold, x, torch.zeros_like(x))
+
+
+@uncast
+def log_sigmoid(x):
+    return _tF.logsigmoid(x)
+
+
+@uncast
+def maxout(x, groups, axis=1):
+    """The max over `groups` consecutive channels of `axis`."""
+    axis %= x.dim()
+    shape = list(x.shape)
+    shape[axis] //= groups
+    shape.insert(axis + 1, groups)
+    return x.reshape(shape).amax(axis + 1)
+
+
+@uncast
+def log_softmax(x, axis=-1):
+    """jax.nn.log_softmax over `axis`, in x's dtype."""
+    return _log_softmax(x, axis)
+
+
+# ---- batch norm (nn_ops.py:268-319) -----------------------------------------
+_CHANNELS_LAST = ('NLC', 'NHWC', 'NDHWC')
+
+
+@uncast
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format='NCHW', use_global_stats=None):
+    """Parity: operators/batch_norm_op. In training (and not
+    `use_global_stats`) x is normalised by its batch statistics over
+    every axis but the channel's, taken in fp32, and the running
+    statistics are updated in place as the reference updates them:
+    running = momentum * running + (1 - momentum) * batch, with the
+    BIASED batch variance (torch's own update takes the unbiased one and
+    `momentum` as the share taken, so it is not used). The recompute of
+    a remat checkpoint leaves them alone, so they move once a step under
+    every policy. Otherwise x is normalised by the running statistics.
+
+    The normalisation is ATen's batch norm, which computes in fp32 and
+    rounds once to x's dtype; the reference normalises a bf16 x in bf16
+    with its fp32 statistics rounded down (:313), so bf16 outputs differ
+    by a few bf16 roundings (tests/test_torch_vision_ops.py states the
+    bar). A low-precision weight and bias are widened to fp32 for it."""
+    last = data_format in _CHANNELS_LAST and x.dim() > 2
+    if last:
+        x = x.movedim(-1, 1)
+    pdt = torch.float32 if x.dtype in _HALF else x.dtype
+    w = None if weight is None else weight.to(pdt)
+    b = None if bias is None else bias.to(pdt)
+    if training and not use_global_stats:
+        out, mean, invstd = torch.native_batch_norm(
+            x, w, b, None, None, True, 0.0, epsilon)
+        if running_mean is not None and not _remat.in_recompute():
+            _update_running(running_mean, running_var, mean, invstd,
+                            momentum, epsilon)
+    else:
+        out = _tF.batch_norm(x, running_mean.to(pdt), running_var.to(pdt),
+                             w, b, False, 0.0, epsilon)
+    return out.movedim(1, -1) if last else out
+
+
+def _update_running(running_mean, running_var, mean, invstd, momentum,
+                    epsilon):
+    """The reference's update (:284-289) from ATen's saved batch mean and
+    1 / sqrt(var + eps); the biased variance is recovered in float64."""
+    with torch.no_grad():
+        var = (invstd.double().pow(-2) - epsilon).to(running_var.dtype)
+        mean = mean.detach().to(running_mean.dtype)
+        running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+        running_var.copy_(momentum * running_var + (1 - momentum) * var)
+
+
+# ---- convolution (nn_ops.py:412-497) ----------------------------------------
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(v)
+    return (v,) * n
+
+
+def _conv_padding(padding, nd=2):
+    """'SAME' / 'VALID', or one (low, high) pair a spatial dimension
+    from an int, a list of nd ints or a list of 2·nd ints (:418-428)."""
+    if isinstance(padding, str):
+        pad = padding.upper()
+        if pad not in ('SAME', 'VALID'):
+            raise ValueError(f'bad padding {padding!r}')
+        return pad
+    if isinstance(padding, int):
+        return [(padding, padding)] * nd
+    padding = list(padding)
+    if len(padding) == nd:
+        return [tuple(p) if isinstance(p, (list, tuple)) else (p, p)
+                for p in padding]
+    if len(padding) == 2 * nd:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(nd)]
+    raise ValueError(f'bad padding {padding}')
+
+
+def _explicit_pads(pad, spatial, k, stride, dilation):
+    """(low, high) a spatial dimension. 'SAME' pads as XLA does: the
+    output is ceil(in / stride) and an odd total puts the extra row at
+    the high end."""
+    if pad == 'VALID':
+        return [(0, 0)] * len(spatial)
+    if pad != 'SAME':
+        return list(pad)
+    pads = []
+    for d, kk, s, dl in zip(spatial, k, stride, dilation):
+        out = -(-d // s)
+        total = max((out - 1) * s + (kk - 1) * dl + 1 - d, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _torch_pad(pads):
+    """`F.pad`'s list: the last dimension first, low then high."""
+    return [p for lo_hi in reversed(pads) for p in lo_hi]
+
+
+def _conv_nd(x, weight, bias, stride, pad, dilation, groups, nd):
+    x, weight = _promoted(x, weight)
+    stride, dilation = _pair(stride, nd), _pair(dilation, nd)
+    pads = _explicit_pads(pad, x.shape[2:], weight.shape[2:], stride,
+                          dilation)
+    conv = (_tF.conv1d, _tF.conv2d, _tF.conv3d)[nd - 1]
+    if all(lo == hi >= 0 for lo, hi in pads):
+        out = conv(x, weight, None, stride, [lo for lo, _ in pads],
+                   dilation, groups)
+    else:
+        out = conv(_tF.pad(x, _torch_pad(pads)), weight, None, stride, 0,
+                   dilation, groups)
+    if bias is not None:
+        # added after the convolution, in its dtype (:454-458)
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _nchw_only(data_format, want):
+    if data_format != want:
+        raise NotImplementedError(
+            f'data_format={data_format!r} is not ported yet (ROADMAP '
+            f'Queue 1 item 9c); the port runs {want}')
+
+
+@uncast
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCHW'):
+    """Parity: operators/conv_op (:431-459): x [N, C, H, W], weight [O,
+    C/groups, kh, kw]. Padding is an int, a per-dimension list, a 2·nd
+    list of (low, high), or 'SAME' / 'VALID'; an asymmetric padding
+    (XLA's 'SAME' at stride > 1 among them) is applied with `F.pad`
+    before the convolution. The output has x's dtype; the bias is added
+    after the convolution."""
+    _nchw_only(data_format, 'NCHW')
+    return _conv_nd(x, weight, bias, stride, _conv_padding(padding), dilation,
+                    groups, 2)
+
+
+@uncast
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCL'):
+    """Parity: :462-474, x [N, C, L]: an int or the first entry of a list
+    pads both ends."""
+    _nchw_only(data_format, 'NCL')
+    if not isinstance(padding, str):
+        p = padding if isinstance(padding, int) else padding[0]
+        padding = [(p, p)]
+    stride = stride if isinstance(stride, int) else stride[0]
+    dilation = dilation if isinstance(dilation, int) else dilation[0]
+    return _conv_nd(x, weight, bias, stride, _conv_padding(padding, 1),
+                    dilation, groups, 1)
+
+
+@uncast
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCDHW'):
+    """Parity: :477-497, x [N, C, D, H, W]."""
+    _nchw_only(data_format, 'NCDHW')
+    return _conv_nd(x, weight, bias, stride, _conv_padding(padding, 3),
+                    dilation, groups, 3)
+
+
+# ---- 2-D pooling (nn_ops.py:542-652) ----------------------------------------
+def _pool_pads(padding, k, s, spatial, ceil_mode):
+    """((low, high) a dimension, 'SAME' or None). With `ceil_mode` the
+    high side grows as the reference's 1-D and 3-D pools grow it
+    (`_pool_nd`, :1400-1437): out = ceil((d + low + high - k) / s) + 1
+    windows, high = max((out - 1)·s + k - d - low, high). PaddlePaddle
+    honours `ceil_mode` in 2-D too; the reference's 2-D pools ignore it
+    (ROADMAP Queue 3)."""
+    pad = _conv_padding(padding)
+    pads = _explicit_pads(pad, spatial, k, s, (1, 1))
+    if ceil_mode and pad != 'SAME':
+        pads = [(lo, max(-(-(d + lo + hi - kk) // st) * st + kk - d - lo, hi))
+                for (lo, hi), d, kk, st in zip(pads, spatial, k, s)]
+    return pads, (pad if isinstance(pad, str) else None)
+
+
+def _native_pads(pads, k):
+    """The symmetric padding torch's pools take (at most half the
+    window), else None."""
+    if all(lo == hi and 0 <= lo <= kk // 2 for (lo, hi), kk in zip(pads, k)):
+        return [lo for lo, _ in pads]
+    return None
+
+
+@uncast
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format='NCHW'):
+    """Parity: :569-615, the padding pads with -inf. With `return_mask`,
+    also the int32 flat index into each channel's H·W map of every
+    window's maximum (the first, in window order, on ties)."""
+    _nchw_only(data_format, 'NCHW')
+    k = _pair(kernel_size)
+    s = _pair(stride) if stride is not None else k
+    pads, named = _pool_pads(padding, k, s, x.shape[2:], ceil_mode)
+    if return_mask and named is not None:
+        raise NotImplementedError(
+            'max_pool2d(return_mask=True) needs explicit padding')
+    native = _native_pads(pads, k)
+    if native is not None:
+        res = _tF.max_pool2d(x, k, s, native, return_indices=return_mask)
+    else:
+        res = _tF.max_pool2d(
+            _tF.pad(x, _torch_pad(pads), value=-math.inf), k, s, 0,
+            return_indices=return_mask)
+    if not return_mask:
+        return res
+    out, idx = res
+    if native is None:
+        # flat indices of the padded map back to the unpadded one
+        wp = x.shape[3] + pads[1][0] + pads[1][1]
+        idx = (idx // wp - pads[0][0]) * x.shape[3] + idx % wp - pads[1][0]
+    return out, idx.to(torch.int32)
+
+
+@uncast
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format='NCHW'):
+    """Parity: :542-566. The padding pads with zeros; `exclusive` divides
+    each window's sum by its count of real (unpadded) cells, except under
+    'SAME', which divides by the window's size as the reference does;
+    `divisor_override` divides every sum by itself."""
+    _nchw_only(data_format, 'NCHW')
+    k = _pair(kernel_size)
+    s = _pair(stride) if stride is not None else k
+    pads, named = _pool_pads(padding, k, s, x.shape[2:], ceil_mode)
+    by_count = exclusive and named != 'SAME' and any(
+        lo or hi for lo, hi in pads)
+    native = _native_pads(pads, k)
+    if native is not None:
+        return _tF.avg_pool2d(x, k, s, native, count_include_pad=not by_count,
+                              divisor_override=divisor_override)
+    flat = _torch_pad(pads)
+    summed = _tF.avg_pool2d(_tF.pad(x, flat), k, s, 0, divisor_override=1)
+    if divisor_override:
+        return summed / divisor_override
+    if not by_count:
+        return summed / (k[0] * k[1])
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    counts = _tF.avg_pool2d(_tF.pad(ones, flat), k, s, 0, divisor_override=1)
+    return summed / counts.clamp(min=1)
+
+
+def _output_hw(output_size, x):
+    oh, ow = _pair(output_size)
+    return (x.shape[2] if oh is None else oh,
+            x.shape[3] if ow is None else ow)
+
+
+@uncast
+def adaptive_avg_pool2d(x, output_size, data_format='NCHW'):
+    """Parity: :618-642: window i of a dimension d covers
+    [floor(i·d / out), ceil((i + 1)·d / out)), as torch's does; a None
+    size keeps the input's."""
+    _nchw_only(data_format, 'NCHW')
+    return _tF.adaptive_avg_pool2d(x, _output_hw(output_size, x))
+
+
+@uncast
+def adaptive_max_pool2d(x, output_size, return_mask=False):
+    """Parity: :645-652, with the mask of `max_pool2d`. The reference
+    raises on a size that does not divide the input; the port takes
+    PaddlePaddle's floor/ceil windows there, as `adaptive_avg_pool2d`
+    and the reference's own 1-D and 3-D adaptive pools do (ROADMAP
+    Queue 3)."""
+    res = _tF.adaptive_max_pool2d(x, _output_hw(output_size, x),
+                                  return_indices=return_mask)
+    if not return_mask:
+        return res
+    return res[0], res[1].to(torch.int32)
+
+
+@uncast
+def flatten(x, start_axis=0, stop_axis=-1):
+    """Parity: manip.py:92-99."""
+    if x.dim() == 0:
+        return x.reshape(1)
+    return torch.flatten(x, start_axis, stop_axis)

@@ -99,9 +99,22 @@ BERT_PATH_MODULES = ('paddle_tpu_torch.core.flags',
                     'paddle_tpu_torch.distributed.topology_runtime',
                     'paddle_tpu_torch.distributed.fleet.meta_parallel.'
                     'hybrid_engine')
+# the vision legs' layers, functional namespace, initializers and models
+VISION_PATH_MODULES = ('paddle_tpu_torch.nn.layer.conv',
+                       'paddle_tpu_torch.nn.layer.pooling',
+                       'paddle_tpu_torch.nn.layer.norm',
+                       'paddle_tpu_torch.nn.layer.activation',
+                       'paddle_tpu_torch.nn.layer.container',
+                       'paddle_tpu_torch.nn.functional',
+                       'paddle_tpu_torch.nn.initializer',
+                       'paddle_tpu_torch.vision.models',
+                       'paddle_tpu_torch.vision.models.lenet',
+                       'paddle_tpu_torch.vision.models.resnet',
+                       'paddle_tpu_torch.vision.models.vgg',
+                       'paddle_tpu_torch.vision.models.mobilenet')
 
 
-@pytest.mark.parametrize('module', BERT_PATH_MODULES)
+@pytest.mark.parametrize('module', BERT_PATH_MODULES + VISION_PATH_MODULES)
 def test_new_module_imports_alone_with_jax_blocked(module):
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -114,7 +127,8 @@ def test_new_module_imports_alone_with_jax_blocked(module):
                          timeout=300)
     assert res.returncode == 0, res.stderr.decode()
     path = REPO / (module.replace('.', '/') + '.py')
-    assert path in _port_files()
+    package = REPO / module.replace('.', '/') / '__init__.py'
+    assert path in _port_files() or package in _port_files()
 
 
 def test_hybrid_engine_and_generate_need_the_card_unless_asked(no_cuda,
@@ -133,6 +147,27 @@ def test_hybrid_engine_and_generate_need_the_card_unless_asked(no_cuda,
     eng = the.HybridParallelTrainStep(tiny_model, lambda m, x: m(x).sum(),
                                       SGD(), device='cpu')
     assert eng.device.type == 'cpu'
+
+
+def test_vision_legs_need_the_card_unless_asked(no_cuda):
+    from paddle_tpu_torch import jit as tjit
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import topology_runtime as ttr
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        hybrid_engine as the)
+    from paddle_tpu_torch.vision.models import LeNet, resnet18
+
+    def loss(m, x, y):
+        return m(x).sum()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        tjit.TrainStep(LeNet(), loss, topt.Adam())
+    ttr.build_mesh(['dp'], [1])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        the.HybridParallelTrainStep(resnet18(num_classes=10), loss,
+                                    topt.Momentum(0.1))
+    step = tjit.TrainStep(LeNet(), loss, topt.Adam(), device='cpu')
+    assert step.device.type == 'cpu'
+    assert all(b.device.type == 'cpu' for b in step.model.buffers())
 
 
 def test_seeded_init_is_reproducible_and_follows_paddle_init():
