@@ -84,6 +84,19 @@ Phases, one JSON line each on stdout:
              bit-exact bf16 and int8 round trips through the pinned tier
              with their GB/s, and the resurrect-vs-recompute TTFT on a
              257-token prompt.
+   serve_cluster — the gpt_serve_cluster leg: 24 requests (two 128-token
+             system prompts in turns, tails of 16-256 tokens, 48 greedy
+             tokens; batch 8, chunk 128) through one engine, then two
+             LocalReplicas on the card behind the prefix-affinity
+             ClusterRouter, the retry-hint probe at max_queue 2, and a
+             second pass with r0 drained mid-stream. Every request
+             completes and the pools drain; both replicas take traffic
+             and affinity beats round-robin; the drained requests finish
+             on r1; the federated scrape holds both replicas; rows 1-3
+             launch exactly once a layer a forward; a CPU replay makes
+             the same placements and its tokens equal its own single
+             engine's. Wall tok/s against the single engine, SLO
+             percentiles per replica, placements, the hint's accuracy.
 5. train   — gpt_1p3b at full width and depth (bf16, dropout 0, flash
              attention) trains through jit.TrainStep(use_buckets=False)
              with AdamW (lr 1e-4, decay 0.01, bf16 moments, no master
@@ -278,7 +291,8 @@ Phases, one JSON line each on stdout:
 21. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
              with `launches_bert` and their `bert_shape` times, rows 2
              and 3 with `launches_dense_decode`, every row with
-             `launches_lenet` and `launches_resnet50`), the nvidia-smi
+             `launches_lenet`, `launches_resnet50` and `launches_cluster`
+             (serve_cluster's cluster pass)), the nvidia-smi
              line, and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
@@ -1897,6 +1911,427 @@ def serve_tiered_phase(torch, card, served):
     emit(line)
     return runs['oversubscribed'][1]
 
+
+# ---------------------------------------------------------------------------
+# the serving cluster on one card (bench.py:1017-1180, gpt_serve_cluster)
+# ---------------------------------------------------------------------------
+CLUSTER_N, CLUSTER_NEW, CLUSTER_SYS, CLUSTER_TAIL = 24, 48, 128, (16, 256)
+CLUSTER_PAGES = dict(page_size=16, max_batch_size=8, prefill_chunk=128,
+                     max_pages_per_seq=27)
+# the routers refresh once a pass: the router's default 0.25 s interval
+# (the leg's, bench.py:1109) ties a refresh, and so the ageing of its
+# optimistic digest overlay, to the wall clock, and the CPU replay must
+# make the card's placements. One more pass at the default interval
+# times the periodic refresh, its placements unchecked.
+CLUSTER_ROUTER = dict(page_size=16, refresh_interval_s=3600.0)
+CLUSTER_DRAIN_PUMPS = 8
+CLUSTER_PASSES = ('single', 'cluster', 'drain', 'live_refresh')
+SLO_KEYS = (('ttft_s', 'ttft_ms'), ('tpot_s', 'tpot_ms'),
+            ('queue_wait_s', 'queue_wait_ms'), ('e2e_s', 'e2e_ms'))
+
+
+def cluster_stream(vocab):
+    """The leg's stream (bench.py:1052-1057): two 128-token system
+    prompts, each request one of them (in turns) and a random tail of
+    16-256 tokens."""
+    rng = np.random.RandomState(0)
+    families = [list(rng.randint(1, vocab, CLUSTER_SYS)) for _ in range(2)]
+    lo, hi = CLUSTER_TAIL
+    return [families[i % 2]
+            + list(rng.randint(1, vocab, int(rng.randint(lo, hi + 1))))
+            for i in range(CLUSTER_N)]
+
+
+def serve_launches(layers, forwards):
+    """The serving kernels' launches over `forwards` forward_paged calls
+    of GPT: one paged attention and one bias+GELU a block, two
+    LayerNorms a block and the final one."""
+    return {'paged_attention': forwards * layers,
+            'layer_norm': forwards * (2 * layers + 1),
+            'bias_gelu': forwards * layers}
+
+
+def engine_forwards(st, fused_k):
+    """forward_paged calls behind an engine's stats: one a prefill chunk,
+    one a serial decode step, fused_k a fused window."""
+    return (st['prefill_chunks_total'] + st['decode_steps_total']
+            - st['fused_iterations_total']
+            + fused_k * st['fused_windows_total'])
+
+
+def slo_of(table):
+    from paddle_tpu_torch.serving.request_trace import percentile_of
+    out = {}
+    for key, label in SLO_KEYS:
+        vals = [r[key] for r in table.values()]
+        out[label] = {f'p{q}': (None if (p := percentile_of(vals, q)) is None
+                                else 1e3 * p) for q in (50, 90, 99)}
+    return out
+
+
+def cluster_passes(torch, model, device, prompts, sync, calls=None):
+    """gpt_serve_cluster on `model`: (1) one engine over the stream; (2)
+    two LocalReplicas behind ClusterRouter(max_queue=48); (3) the retry
+    hint probe over the same replicas (bench.py:1141-1170, max_queue=2);
+    (4) a second pass of the stream with router.drain('r0') after
+    CLUSTER_DRAIN_PUMPS pumps; (5) the cluster pass over two fresh
+    replicas behind a router at its default refresh interval (status,
+    federation and alert evaluation every 0.25 s, as the leg runs it),
+    whose placements follow the wall clock. Every engine gets the leg's
+    warm-up.
+    Returns what each pass decided and measured; with `calls` (a
+    one-element count of forward_paged calls) each pass also records the
+    calls it made."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.serving.cluster import (ClusterRouter,
+                                                  LocalReplica,
+                                                  RouterRejected)
+
+    def engine():
+        eng = ServingEngine(model, ServingConfig(**CLUSTER_PAGES),
+                            device=device)
+        eng.generate([prompts[0]], max_new_tokens=2, top_k=0)   # warm-up
+        eng.reset_stats()
+        return eng
+
+    def forwards(engines):
+        return sum(engine_forwards(e.stats(), e.config.fused_k)
+                   for e in engines)
+
+    def run_pass(fn, engines):
+        sync()
+        _build.reset_launches()
+        before = calls[0] if calls is not None else None
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        made = calls[0] - before if calls is not None else None
+        return out, wall, _build.routes_snapshot(), (forwards(engines), made)
+
+    rec = {}
+    single = engine()
+    outs, wall, launches, fwd = run_pass(
+        lambda: single.generate(prompts, max_new_tokens=CLUSTER_NEW,
+                                top_k=0), [single])
+    rec['single'] = dict(outs=outs, wall=wall, launches=launches,
+                         forwards=fwd, stats=single.stats(),
+                         slo=slo_of(single.request_table()),
+                         drained=single.pool.pages_in_use == 0)
+    single.shutdown()
+
+    reps = [LocalReplica(engine(), rid) for rid in ('r0', 'r1')]
+    engines = [r.engine for r in reps]
+    router = ClusterRouter(reps, max_queue=2 * CLUSTER_N, **CLUSTER_ROUTER)
+    outs, wall, launches, fwd = run_pass(
+        lambda: router.serve(prompts, max_new_tokens=CLUSTER_NEW, top_k=0,
+                             timeout_s=600), engines)
+    router.refresh()
+    tables = {r.replica_id: r.engine.request_table() for r in reps}
+    rec['cluster'] = dict(
+        outs=outs, wall=wall, launches=launches, forwards=fwd,
+        snapshot=router.snapshot(),
+        decisions=route_decisions(router),
+        scrape=router.cluster_prometheus_text(),
+        replicas={r.replica_id: dict(
+            stats=r.engine.stats(), slo=slo_of(tables[r.replica_id]),
+            requests=len(tables[r.replica_id]),
+            drained=r.engine.pool.pages_in_use == 0) for r in reps},
+        slo=slo_of({f'{rid}:{k}': v for rid, t in tables.items()
+                    for k, v in t.items()}))
+
+    # the retry hint against the time a retry actually took
+    hint_router = ClusterRouter(reps, page_size=CLUSTER_ROUTER['page_size'],
+                                max_queue=2, refresh_interval_s=0.0)
+    hinted = actual = None
+    for p in prompts * 4:
+        try:
+            hint_router.submit(p, max_new_tokens=CLUSTER_NEW, top_k=0)
+        except RouterRejected as rej:
+            hinted, t_rej = rej.retry_after_s, time.perf_counter()
+            break
+    pumps = 0
+    while hinted is not None and actual is None:
+        hint_router.pump()
+        pumps += 1
+        try:
+            hint_router.submit(prompts[0], max_new_tokens=CLUSTER_NEW,
+                               top_k=0)
+            actual = time.perf_counter() - t_rej
+        except RouterRejected:
+            if pumps > 4096:
+                raise
+    hint_router.run(timeout_s=600)
+    rec['hint'] = dict(
+        hinted_s=hinted, actual_s=actual, pumps=pumps,
+        hint_over_actual=(hinted / actual if hinted is not None and actual
+                          else None),
+        decisions=route_decisions(hint_router),
+        placements=hint_router.snapshot()['placements'],
+        drain_events=hint_router.snapshot()['drain_events'],
+        rejects=hint_router.rejects)
+
+    # a second pass of the stream with r0 drained mid-stream
+    for e in engines:
+        e.reset_stats()
+    drain_router = ClusterRouter(reps, max_queue=2 * CLUSTER_N,
+                                 **CLUSTER_ROUTER)
+
+    def drained_pass():
+        reqs = [drain_router.submit(p, max_new_tokens=CLUSTER_NEW, top_k=0)
+                for p in prompts]
+        for _ in range(CLUSTER_DRAIN_PUMPS):
+            drain_router.pump()
+        on_r0 = [r for r in reqs if r.replica_id == 'r0' and not r.done]
+        moved = drain_router.drain('r0', reason='operator drain')
+        drain_router.run(timeout_s=600)
+        return reqs, on_r0, moved
+    (reqs, on_r0, moved), wall, launches, fwd = run_pass(drained_pass,
+                                                         engines)
+    drain_router.refresh()
+    rec['drain'] = dict(
+        outs=[r.output_ids() for r in reqs], wall=wall, launches=launches,
+        forwards=fwd, snapshot=drain_router.snapshot(),
+        decisions=[(str(r.replica_id), r.decision, r.resubmits)
+                   for r in reqs],
+        moved=[r.id for r in moved], on_r0=[r.id for r in on_r0],
+        moved_done=[(r.done, str(r.replica_id)) for r in moved],
+        drained=[e.pool.pages_in_use == 0 for e in engines])
+    for r in reps:
+        r.shutdown()
+
+    # the cluster pass at the router's default refresh interval
+    reps = [LocalReplica(engine(), rid) for rid in ('r0', 'r1')]
+    engines = [r.engine for r in reps]
+    status_calls = [0]
+    for r in reps:
+        def counted(real=r.status):
+            status_calls[0] += 1
+            return real()
+        r.status = counted
+    live_router = ClusterRouter(reps, page_size=CLUSTER_ROUTER['page_size'],
+                                max_queue=2 * CLUSTER_N)
+    outs, wall, launches, fwd = run_pass(
+        lambda: live_router.serve(prompts, max_new_tokens=CLUSTER_NEW,
+                                  top_k=0, timeout_s=600), engines)
+    rec['live_refresh'] = dict(
+        outs=outs, wall=wall, launches=launches, forwards=fwd,
+        status_calls=status_calls[0], snapshot=live_router.snapshot(),
+        drained=[e.pool.pages_in_use == 0 for e in engines])
+    for r in reps:
+        r.shutdown()
+    return rec
+
+
+def route_decisions(router):
+    """(replica, decision) of every request the router placed, in
+    submission order."""
+    return [(v['replica_id'], v['router_decision'])
+            for _k, v in sorted(router.request_slo().items())]
+
+
+def check_cluster(rec, prompts, vocab, where):
+    """The hard checks every run of cluster_passes must pass."""
+    def served(outs, what):
+        for p, o in zip(prompts, outs):
+            if len(o) != len(p) + CLUSTER_NEW or o[:len(p)] != p or not all(
+                    0 <= t < vocab for t in o[len(p):]):
+                raise AssertionError(f'{where} {what}: a request of '
+                                     f'{len(p)} tokens returned {len(o)}')
+        if len(outs) != len(prompts):
+            raise AssertionError(f'{where} {what}: {len(outs)} outputs')
+    served(rec['single']['outs'], 'single engine')
+    served(rec['cluster']['outs'], 'cluster')
+    served(rec['drain']['outs'], 'drain pass')
+    served(rec['live_refresh']['outs'], 'default-refresh pass')
+    if not (rec['single']['drained']
+            and all(r['drained'] for r in rec['cluster']['replicas'].values())
+            and all(rec['drain']['drained'])
+            and all(rec['live_refresh']['drained'])):
+        raise AssertionError(f'{where}: a pool did not drain')
+    live = rec['live_refresh']['snapshot']
+    if live['placements']['drain'] or live['drain_events'] or live['rejects']:
+        raise AssertionError(f'{where}: the default-refresh pass drained '
+                             f'or rejected: {live}')
+    snap = rec['cluster']['snapshot']
+    routed = [v['requests_routed'] for v in snap['replicas'].values()]
+    rr = round_robin_hits(prompts, 2, CLUSTER_PAGES['page_size'])
+    pl = snap['placements']
+    if min(routed) <= 0 or pl['affinity'] <= rr:
+        raise AssertionError(f'{where}: routed {routed}, affinity hits '
+                             f"{pl['affinity']} vs round-robin's {rr}")
+    if pl['drain'] or snap['drain_events'] or snap['rejects'] \
+            or pl['prefetch_hint'] != pl['affinity']:
+        raise AssertionError(f'{where}: the cluster pass drained, '
+                             f'rejected or lost a hint: {snap}')
+    for rid in ('r0', 'r1'):
+        if f'ptpu_serve_decode_tokens_total{{replica="{rid}"}}' \
+                not in rec['cluster']['scrape']:
+            raise AssertionError(f'{where}: the federated scrape lacks '
+                                 f'{rid}')
+    dr = rec['drain']
+    dsnap = dr['snapshot']
+    events = [(e['replica_id'], e['reason']) for e in dsnap['drain_events']]
+    if dsnap['placements']['drain'] != 1 or events != [
+            ('r0', 'operator drain')] or not dr['on_r0'] \
+            or sorted(dr['moved']) != sorted(dr['on_r0']) \
+            or dr['moved_done'] != [(True, 'r1')] * len(dr['moved']):
+        raise AssertionError(f'{where}: drain pass {events}, on r0 '
+                             f"{dr['on_r0']}, moved {dr['moved_done']}")
+    if rec['hint']['hinted_s'] is None or rec['hint']['actual_s'] is None:
+        raise AssertionError(f"{where}: no retry hint {rec['hint']}")
+    if rec['hint']['drain_events'] or rec['hint']['placements']['drain']:
+        raise AssertionError(f"{where}: the hint pass drained "
+                             f"{rec['hint']['drain_events']}")
+
+
+def round_robin_hits(prompts, n_replicas, page_size):
+    """Affinity hits pure round-robin placement would get
+    (tests/test_serving_cluster.py `_round_robin_affinity_hits`)."""
+    from paddle_tpu_torch.serving import chain_hashes
+    digests = [set() for _ in range(n_replicas)]
+    hits = 0
+    for i, p in enumerate(prompts):
+        h = chain_hashes(p, page_size, limit=len(p) - 1)
+        if h and h[0] in digests[i % n_replicas]:
+            hits += 1
+        digests[i % n_replicas].update(h)
+    return hits
+
+
+def cluster_replay(torch, vocab, prompts):
+    """cluster_passes on the CPU over a 2-layer, hidden-64 model with the
+    stream's vocabulary, each pass's forward_paged calls counted: the
+    placements to hold the card's against, and the launch formula's
+    input checked against the count."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    small = GPTConfig(vocab_size=vocab, hidden_size=64, num_layers=2,
+                      num_heads=2, max_seq_len=512, hidden_dropout=0.0,
+                      attn_dropout=0.0)
+    model = GPTForCausalLM(small, generator=torch.Generator().manual_seed(3))
+    calls = [0]
+    real = model.gpt.forward_paged
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+    model.gpt.forward_paged = counted
+    rec = cluster_passes(torch, model, 'cpu', prompts, lambda: None, calls)
+    for what in CLUSTER_PASSES:
+        want, made = rec[what]['forwards']
+        if made != want:
+            raise AssertionError(f'CPU replay {what}: {made} forward_paged '
+                                 f'calls, the engines count {want}')
+    return rec
+
+
+def serve_cluster_phase(torch, card, served):
+    """gpt_serve_cluster (bench.py:1017-1180) on gpt_1p3b at full width and
+    depth, bf16, both replicas on the one card: the single engine, the
+    two-replica cluster, the retry-hint probe, the drain pass and the
+    cluster at the default refresh interval (cluster_passes). Hard checks
+    (check_cluster): every request returns its prompt and 48 tokens and
+    every pool drains; both replicas took traffic and the affinity hits
+    beat round-robin's; the drained requests finish on r1 with one drain
+    recorded, and no other pass drains; the federated scrape holds both
+    replicas' decode counters; the single, cluster, drain and
+    default-refresh passes launch rows 1-3 exactly serve_launches times
+    and nothing else; and a CPU replay (cluster_replay) makes the same
+    placement
+    decision for every request of the cluster, hint and drain passes,
+    with outputs token-identical to its own single engine. Recorded:
+    wall tokens/s against the single engine, and the default-refresh
+    pass's against the once-a-pass cluster's, per-replica decode tok/s
+    over each replica's own decode time, TTFT/TPOT/queue/e2e p50/p90/p99
+    per replica and over the cluster, the placements, the hint over the
+    actual retry time, and the share of tokens equal to the single
+    engine's. Returns the cluster pass's launches."""
+    cfg, model = served['cfg'], served['model']
+    prompts = cluster_stream(cfg.vocab_size)
+    rec = cluster_passes(torch, model, 'cuda', prompts,
+                         torch.cuda.synchronize)
+    check_cluster(rec, prompts, cfg.vocab_size, 'card')
+    if rec['live_refresh']['status_calls'] <= 2:        # the first refresh
+        raise AssertionError('serve_cluster: the default-refresh router '
+                             'never refreshed after its first status')
+    for what in CLUSTER_PASSES:
+        check_exact_launches(f'serve_cluster {what}', rec[what]['launches'],
+                             serve_launches(cfg.num_layers,
+                                            rec[what]['forwards'][0]))
+    free_cuda(torch)
+
+    replay = cluster_replay(torch, cfg.vocab_size, prompts)
+    check_cluster(replay, prompts, cfg.vocab_size, 'CPU replay')
+    for what in ('cluster', 'drain'):
+        if replay[what]['outs'] != replay['single']['outs']:
+            raise AssertionError(f'CPU replay: the {what} pass tokens differ '
+                                 f"from the single engine's")
+    for what in ('cluster', 'hint', 'drain'):
+        if replay[what]['decisions'] != rec[what]['decisions']:
+            raise AssertionError(
+                f"CPU replay {what} placements {replay[what]['decisions']} "
+                f"vs card {rec[what]['decisions']}")
+
+    emit(cluster_line(card, nvidia_smi_line(), cfg, rec, replay, prompts))
+    return rec['cluster']['launches']
+
+
+def cluster_line(card, smi, cfg, rec, replay, prompts):
+    """serve_cluster's record from cluster_passes' runs on the card
+    (`rec`) and on the CPU (`replay`). A replica's decode tok/s is over
+    its own decode seconds; wall_s and tokens_per_sec over the pass."""
+    single, cluster, drain = rec['single'], rec['cluster'], rec['drain']
+    live = rec['live_refresh']
+    gen = CLUSTER_N * CLUSTER_NEW
+    snap = cluster['snapshot']
+    per_replica = {rid: dict(
+        requests=r['requests'], **stream_line(r['stats'], cluster['wall']),
+        batch_occupancy=r['stats']['batch_occupancy'], slo=r['slo'])
+        for rid, r in cluster['replicas'].items()}
+    return {
+        'phase': 'serve_cluster', 'card': card, 'nvidia_smi': smi,
+        'model': 'gpt_1p3b', 'layers': cfg.num_layers, 'replicas': 2,
+        'requests': CLUSTER_N, 'max_new_tokens': CLUSTER_NEW,
+        **CLUSTER_PAGES,
+        'single': dict(tokens_per_sec=gen / single['wall'],
+                       **stream_line(single['stats'], single['wall']),
+                       slo=single['slo'], launches=single['launches']),
+        'cluster': dict(
+            wall_s=cluster['wall'], tokens_per_sec=gen / cluster['wall'],
+            tokens_per_sec_over_single=single['wall'] / cluster['wall'],
+            slo=cluster['slo'], launches=cluster['launches'],
+            placements=snap['placements'], rejects=snap['rejects'],
+            affinity_hit_rate=snap['affinity_hit_rate'],
+            round_robin_hits=round_robin_hits(
+                prompts, 2, CLUSTER_PAGES['page_size']),
+            goodput=snap['goodput'],
+            token_share_vs_single=token_share(cluster['outs'],
+                                              single['outs'], prompts),
+            per_replica=per_replica),
+        'retry_hint': {k: rec['hint'][k] for k in (
+            'hinted_s', 'actual_s', 'hint_over_actual', 'pumps',
+            'placements', 'rejects')},
+        'live_refresh': dict(
+            refresh_interval_s=0.25, wall_s=live['wall'],
+            tokens_per_sec=gen / live['wall'],
+            tokens_per_sec_over_cluster=cluster['wall'] / live['wall'],
+            status_calls=live['status_calls'],
+            placements=live['snapshot']['placements'],
+            token_share_vs_single=token_share(live['outs'], single['outs'],
+                                              prompts),
+            launches=live['launches']),
+        'drain': dict(
+            wall_s=drain['wall'], moved=len(drain['moved']),
+            placements=drain['snapshot']['placements'],
+            goodput=drain['snapshot']['goodput'],
+            token_share_vs_single=token_share(drain['outs'], single['outs'],
+                                              prompts),
+            launches=drain['launches']),
+        'cpu_replay': dict(placements_equal=True, tokens_equal=True,
+                           forwards={w: replay[w]['forwards'][0]
+                                     for w in CLUSTER_PASSES})}
 
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'layer_norm',
                  'layer_norm_bwd', 'bias_gelu', 'bias_gelu_bwd')
@@ -5189,9 +5624,13 @@ def main():
     serve_tenants_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tiered_launches = serve_tiered_phase(torch, card, served)
-    del served
     free_cuda(torch)
     serve_tiered_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cluster_launches = serve_cluster_phase(torch, card, served)
+    del served
+    free_cuda(torch)
+    serve_cluster_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_launches, train_peak = train_phase(torch, card)
     free_cuda(torch)
@@ -5258,6 +5697,7 @@ def main():
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
+          'serve_cluster': serve_cluster_s,
           'train': train_s, 'optimizer_kernels': opt_kernel_s,
           'rules': rules_s, 'train_bucketed': bucketed_s,
           'check': check_s, 'pipeline': pipeline_s,
@@ -5335,6 +5775,8 @@ def main():
         # the vision legs' timed steps (row 15 alone runs there)
         entry['launches_lenet'] = lenet_launches[name]
         entry['launches_resnet50'] = resnet50_launches[name]
+        # the serving cluster's pass: both replicas on the one card
+        entry['launches_cluster'] = cluster_launches[name]
         if name in SERVE_KERNELS:
             # the tenants leg's SLO run and the oversubscribed serve
             entry['launches_serve_tenants'] = tenants_launches[name]

@@ -191,7 +191,8 @@ class ServingConfig:
                 raise TypeError(f'ServingConfig: unknown knob {knob!r}')
             if value not in _UNSERVED[knob]:
                 raise NotImplementedError(
-                    f'ServingConfig({knob}={value!r}) is not ported yet')
+                    f'ServingConfig({knob}={value!r}) is not ported yet '
+                    f'(ROADMAP Queue 1 item 8b, disaggregation)')
         if page_size <= 0 or max_batch_size <= 0 or prefill_chunk <= 0:
             raise ValueError("page_size, max_batch_size and "
                              "prefill_chunk must be positive")

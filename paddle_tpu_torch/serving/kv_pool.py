@@ -57,8 +57,13 @@ it; every step's padded K/V rows are written there
 sync, not even in the engine's fused decode windows, whose done mask
 never leaves the card.
 
-Not ported yet: mp sharding, and the cluster router's hooks
-(`warm_prefix`, `prefix_chain_hashes`).
+The cluster router's hooks: `prefix_chain_hashes` publishes the chain
+hash of every indexed chain (the replica's affinity digest, memoized
+until the index gains or loses a chain), and `warm_prefix` fetches the
+host-resident pages of a prompt's chain back into parked device pages
+ahead of the request (the router's prefetch hint; free pages only).
+
+Not ported yet: mp sharding.
 """
 import collections
 import hashlib
@@ -142,6 +147,8 @@ class KVPagePool:
         self._page_key = {}                 # page id -> its index key
         self._children = {}                 # page id -> child page ids
         self._cached = collections.OrderedDict()
+        self._digest_cache = None           # (limit, hashes) memo of
+                                            # prefix_chain_hashes
         self._registered_upto = {}          # seq id -> tokens indexed
         # weighted eviction: indexed page -> the tenant that first
         # registered it; tenant -> weight while the ladder is at stage 3
@@ -272,6 +279,7 @@ class KVPagePool:
         maps is only de-indexed. Iterative: chains grow one node per
         page, deeper than Python's recursion limit at small page
         sizes."""
+        self._digest_cache = None
         stack = [page]
         while stack:
             p = stack.pop()
@@ -317,6 +325,7 @@ class KVPagePool:
         ref), the parent's child set and the tenant tag. Spill (page ->
         marker) and resurrect (marker -> page) are the same
         bookkeeping."""
+        self._digest_cache = None
         key = self._page_key.pop(old)
         del self._index[key]
         self._index[key] = new
@@ -441,8 +450,10 @@ class KVPagePool:
         return r
 
     def _resurrect_locked(self, markers, seq_id):
-        """Fetch host-resident `markers` back into device pages mapped
-        into seq_id's table. Lock held by the caller. Returns the device
+        """Fetch host-resident `markers` back into device pages: mapped
+        into seq_id's table, or parked (cached, ref 0) when seq_id is
+        None (the router's warm hint, which takes free pages only and
+        so never evicts). Lock held by the caller. Returns the device
         pages, aligned with `markers` (shorter when the pool ran out
         mid-chain)."""
         tier = self.host_tier
@@ -450,13 +461,20 @@ class KVPagePool:
         for m in markers:
             if m not in self._page_key:
                 break               # destroyed under us by an eviction
-            try:
-                page = self._take_page(seq_id)
-            except PoolExhausted:
-                break
+            if seq_id is not None:
+                try:
+                    page = self._take_page(seq_id)
+                except PoolExhausted:
+                    break
+            else:
+                if not self._free:
+                    break
+                page = self._free.pop()
             devs.append(page)
             slots.append(-2 - m)
             self._rekey_node(m, page)
+            if seq_id is None:
+                self._cached[page] = None       # parked, LRU newest
         if devs:
             self.kv = tier.fetch(self.kv, slots, devs)
             for s in slots:
@@ -468,6 +486,29 @@ class KVPagePool:
             pend['tokens'] += len(devs) * self.page_size
             self._pending_resurrect = pend
         return devs
+
+    def warm_prefix(self, tokens, limit=None):
+        """The router's prefetch hint: fetch the host-resident pages of
+        the longest indexed chain for `tokens` back into parked device
+        pages, so the request that follows prefix-hits device pages with
+        no transfer of its own. Takes free pages only (a hint never
+        evicts or preempts) and stops at the first page it cannot place.
+        Returns the pages warmed; 0 without a host tier."""
+        if self.host_tier is None or not self.prefix_cache:
+            return 0
+        # wait out in-flight spills of the chain's host pages before
+        # taking the lock, as match_and_map does: the fetch must never
+        # wait under the lock that an earlier spill job's callback needs
+        with self._lock:
+            slots = [-2 - p for p in self._match_pages(tokens, limit)
+                     if p <= -2]
+        if not slots:
+            return 0
+        self.host_tier.wait_landed(slots)
+        with self._lock:
+            refs = self._match_pages(tokens, limit)
+            markers = [m for m in refs if m <= -2]
+            return len(self._resurrect_locked(markers, seq_id=None))
 
     def _take_page(self, seq_id):
         if not self._free and self._cached:
@@ -611,6 +652,7 @@ class KVPagePool:
             self._cached.clear()
             self._registered_upto.clear()
             self._page_tenant.clear()
+            self._digest_cache = None
 
     # -- prefix index --------------------------------------------------------
     def _match_pages(self, tokens, limit=None):
@@ -758,10 +800,41 @@ class KVPagePool:
                     self._page_key[page] = key
                     if owner is not None:
                         self._page_tenant[page] = str(owner)
+                    self._digest_cache = None
                     if parent != -1:
                         self._children.setdefault(parent, set()).add(page)
                 parent = page
             self._registered_upto[seq_id] = blocks * ps
+
+    def prefix_chain_hashes(self, limit=4096):
+        """The chain hash (chain_hash above) of every chain in the prefix
+        index, at most `limit` of them: the affinity digest a replica
+        publishes, so the cluster router can send a prompt to the
+        replica that holds its prefix pages. A hash is present exactly
+        when its token chain would prefix-hit here (match_and_map walks
+        the same links). Memoized until the index gains or loses a
+        chain: a replica's status call reads it on every router
+        refresh, and re-hashing the index under the pool lock would
+        stall the allocator."""
+        if not self.prefix_cache:
+            return []
+        out = []
+        with self._lock:
+            memo = self._digest_cache
+            if memo is not None and memo[0] == limit:
+                return list(memo[1])
+            stack = [(-1, key, page) for key, page in self._index.items()
+                     if key[0] == -1]
+            while stack and len(out) < int(limit):
+                parent_hash, key, page = stack.pop()
+                h = chain_hash(parent_hash, key[1])
+                out.append(h)
+                for child in self._children.get(page, ()):
+                    ckey = self._page_key.get(child)
+                    if ckey is not None:
+                        stack.append((h, ckey, child))
+            self._digest_cache = (limit, list(out))
+        return out
 
     def census(self):
         """{seq_id: pages held} — who sits on the pool right now (the
