@@ -97,6 +97,29 @@ Phases, one JSON line each on stdout:
              the same placements and its tokens equal its own single
              engine's. Wall tok/s against the single engine, SLO
              percentiles per replica, placements, the hint's accuracy.
+   serve_disagg — the same stream through one unified engine, one
+             DisaggregatedEngine (prefill_slots 2: prefill on its own
+             engine, KV pages streamed into the decode pool) and two
+             disaggregated LocalReplicas behind the router. Every request
+             completes and every pool drains; 24 handoffs stream fewer
+             pages than the prompts hold (the decode side shares the
+             system prompts); rows 1-3 launch exactly once a layer a
+             forward of the engines; a bf16 and an int8 arm hold the
+             decode pool's pages byte for byte against the unified
+             engine's (int8 scales too, row 1q exact); a CPU replay's
+             tokens equal its unified engine's and its placements the
+             card's. Wall tok/s, TTFT/TPOT/e2e against the unified
+             engine, the stream's GB/s against its bound.
+   serve_workers — two worker processes (serving.cluster.replica) on the
+             card behind the router, their gpt_1p3b weights from a seeded
+             generator on the card, against a reference engine built the
+             same way: a clean pass (every request done, affinity at or
+             above round-robin's, no drain, the token share) and a
+             forced hang (the watchdog's report, a drain, the moved
+             requests finished on the peer). Both workers exit 0 with
+             rows 1-3 launched exactly for their forwards. Wall and
+             per-replica decode tok/s, TTFT/TPOT beside serve_cluster's
+             in-process replicas.
 5. train   — gpt_1p3b at full width and depth (bf16, dropout 0, flash
              attention) trains through jit.TrainStep(use_buckets=False)
              with AdamW (lr 1e-4, decay 0.01, bf16 moments, no master
@@ -2031,7 +2054,7 @@ def cluster_passes(torch, model, device, prompts, sync, calls=None):
     tables = {r.replica_id: r.engine.request_table() for r in reps}
     rec['cluster'] = dict(
         outs=outs, wall=wall, launches=launches, forwards=fwd,
-        snapshot=router.snapshot(),
+        snapshot=router.snapshot(), router_e2e=router_e2e_ms(router),
         decisions=route_decisions(router),
         scrape=router.cluster_prometheus_text(),
         replicas={r.replica_id: dict(
@@ -2247,7 +2270,7 @@ def serve_cluster_phase(torch, card, served):
     over each replica's own decode time, TTFT/TPOT/queue/e2e p50/p90/p99
     per replica and over the cluster, the placements, the hint over the
     actual retry time, and the share of tokens equal to the single
-    engine's. Returns the cluster pass's launches."""
+    engine's. Returns the cluster pass's launches and the line."""
     cfg, model = served['cfg'], served['model']
     prompts = cluster_stream(cfg.vocab_size)
     rec = cluster_passes(torch, model, 'cuda', prompts,
@@ -2274,8 +2297,9 @@ def serve_cluster_phase(torch, card, served):
                 f"CPU replay {what} placements {replay[what]['decisions']} "
                 f"vs card {rec[what]['decisions']}")
 
-    emit(cluster_line(card, nvidia_smi_line(), cfg, rec, replay, prompts))
-    return rec['cluster']['launches']
+    line = cluster_line(card, nvidia_smi_line(), cfg, rec, replay, prompts)
+    emit(line)
+    return rec['cluster']['launches'], line
 
 
 def cluster_line(card, smi, cfg, rec, replay, prompts):
@@ -2301,7 +2325,8 @@ def cluster_line(card, smi, cfg, rec, replay, prompts):
         'cluster': dict(
             wall_s=cluster['wall'], tokens_per_sec=gen / cluster['wall'],
             tokens_per_sec_over_single=single['wall'] / cluster['wall'],
-            slo=cluster['slo'], launches=cluster['launches'],
+            slo=cluster['slo'], router_e2e_ms=cluster['router_e2e'],
+            launches=cluster['launches'],
             placements=snap['placements'], rejects=snap['rejects'],
             affinity_hit_rate=snap['affinity_hit_rate'],
             round_robin_hits=round_robin_hits(
@@ -2332,6 +2357,573 @@ def cluster_line(card, smi, cfg, rec, replay, prompts):
         'cpu_replay': dict(placements_equal=True, tokens_equal=True,
                            forwards={w: replay[w]['forwards'][0]
                                      for w in CLUSTER_PASSES})}
+
+
+# ---------------------------------------------------------------------------
+# prefill/decode disaggregation and worker replicas on one card
+# ---------------------------------------------------------------------------
+DISAGG_PAGES = dict(CLUSTER_PAGES, disaggregate=True, prefill_slots=2)
+DISAGG_PASSES = ('single', 'disagg', 'cluster')
+DISAGG_PAGE_CHECKS = 3          # requests whose pages are held byte for byte
+# the workers' weights: serve_phase's seed and construction, so the
+# in-process cluster of serve_cluster ran on the same weights
+WORKER_SEED = 1234
+WORKER_HANG_S = 3.0
+WORKER_READY_S = 300.0
+HANG_REQUESTS = 8
+
+
+def engines_of(eng):
+    """The ServingEngines behind an engine: (prefill, decode) for a
+    disaggregated one."""
+    return (eng.prefill, eng.decode) if hasattr(eng, 'decode') else (eng,)
+
+
+def forwards_of(engines):
+    return sum(engine_forwards(e.stats(), e.config.fused_k) for e in engines)
+
+
+def disagg_passes(torch, model, device, prompts, sync, calls=None):
+    """serve_disagg's passes on `model` over the stream: (1) one unified
+    engine; (2) one DisaggregatedEngine (prefill_slots 2); (3) two
+    disaggregated LocalReplicas behind ClusterRouter (refreshed once a
+    pass). Every engine gets the leg's warm-up. Returns what each pass
+    decided and measured; with `calls` (a one-element count of
+    forward_paged calls) each pass also records the calls it made."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.serving.cluster import (ClusterRouter,
+                                                  DisaggregatedEngine,
+                                                  LocalReplica, build_engine)
+
+    def warm(eng):
+        eng.generate([prompts[0]], max_new_tokens=2, top_k=0)
+        eng.reset_stats()
+        return eng
+
+    def run_pass(fn, engines):
+        sync()
+        _build.reset_launches()
+        before = calls[0] if calls is not None else None
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        made = calls[0] - before if calls is not None else None
+        return out, wall, _build.routes_snapshot(), (forwards_of(engines),
+                                                     made)
+
+    def generate(eng):
+        return lambda: eng.generate(prompts, max_new_tokens=CLUSTER_NEW,
+                                    top_k=0)
+    rec = {}
+    uni = warm(ServingEngine(model, ServingConfig(**CLUSTER_PAGES),
+                             device=device))
+    outs, wall, launches, fwd = run_pass(generate(uni), [uni])
+    rec['single'] = dict(outs=outs, wall=wall, launches=launches,
+                         forwards=fwd, stats=uni.stats(),
+                         slo=slo_of(uni.request_table()),
+                         drained=uni.pool.pages_in_use == 0)
+    uni.shutdown()
+
+    dis = warm(DisaggregatedEngine(model, ServingConfig(**DISAGG_PAGES),
+                                   device=device))
+    # the facade's handoff counts are lifetime counts (the warm-up's too)
+    before = dis.stats()
+    outs, wall, launches, fwd = run_pass(generate(dis), engines_of(dis))
+    st = dis.stats()
+    rec['disagg'] = dict(
+        outs=outs, wall=wall, launches=launches, forwards=fwd, stats=st,
+        prefill_stats=dis.prefill.stats(), slo=slo_of(dis.request_table()),
+        handoffs=st['pd_handoffs_total'] - before['pd_handoffs_total'],
+        streamed_pages=(st['pd_streamed_pages_total']
+                        - before['pd_streamed_pages_total']),
+        full_pages=sum(len(p) // CLUSTER_PAGES['page_size']
+                       for p in prompts),
+        drained=all(e.pool.pages_in_use == 0 for e in engines_of(dis)))
+    dis.shutdown()
+
+    reps = [LocalReplica(warm(build_engine(
+        model, ServingConfig(**DISAGG_PAGES), device=device)), rid)
+        for rid in ('d0', 'd1')]
+    engines = [e for r in reps for e in engines_of(r.engine)]
+    router = ClusterRouter(reps, max_queue=2 * CLUSTER_N, **CLUSTER_ROUTER)
+    outs, wall, launches, fwd = run_pass(
+        lambda: router.serve(prompts, max_new_tokens=CLUSTER_NEW, top_k=0,
+                             timeout_s=600), engines)
+    router.refresh()
+    rec['cluster'] = dict(outs=outs, wall=wall, launches=launches,
+                          forwards=fwd, snapshot=router.snapshot(),
+                          decisions=route_decisions(router),
+                          drained=[e.pool.pages_in_use == 0
+                                   for e in engines])
+    router.shutdown()
+    return rec
+
+
+def check_disagg(rec, prompts, vocab, where):
+    """The hard checks every run of disagg_passes must pass."""
+    for what in DISAGG_PASSES:
+        check_served_outs(prompts, rec[what]['outs'], vocab,
+                          f'{where} {what}')
+    if not (rec['single']['drained'] and rec['disagg']['drained']
+            and all(rec['cluster']['drained'])):
+        raise AssertionError(f'{where}: a pool did not drain')
+    dis = rec['disagg']
+    if dis['handoffs'] != CLUSTER_N or not \
+            0 < dis['streamed_pages'] < dis['full_pages']:
+        raise AssertionError(
+            f"{where}: {dis['handoffs']} handoffs, {dis['streamed_pages']} "
+            f"pages streamed of {dis['full_pages']} full prompt pages")
+    snap = rec['cluster']['snapshot']
+    if snap['requests_done'] != CLUSTER_N \
+            or snap['placements']['affinity'] <= 0 \
+            or snap['placements']['drain'] or snap['rejects']:
+        raise AssertionError(f'{where}: the disaggregated cluster pass '
+                             f'{snap}')
+
+
+def disagg_replay(torch, vocab, prompts):
+    """disagg_passes on the CPU over a 2-layer, hidden-64 fp32 model with
+    the stream's vocabulary, each pass's forward_paged calls counted: the
+    launch formula's input checked against the count, the tokens of the
+    disaggregated engine and cluster against the unified engine's, and
+    the placements to hold the card's against."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    small = GPTConfig(vocab_size=vocab, hidden_size=64, num_layers=2,
+                      num_heads=2, max_seq_len=512, hidden_dropout=0.0,
+                      attn_dropout=0.0)
+    model = GPTForCausalLM(small, generator=torch.Generator().manual_seed(3))
+    calls = [0]
+    real = model.gpt.forward_paged
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+    model.gpt.forward_paged = counted
+    rec = disagg_passes(torch, model, 'cpu', prompts, lambda: None, calls)
+    for what in DISAGG_PASSES:
+        want, made = rec[what]['forwards']
+        if made != want:
+            raise AssertionError(f'CPU replay {what}: {made} forward_paged '
+                                 f'calls, the engines count {want}')
+    for what in ('disagg', 'cluster'):
+        if rec[what]['outs'] != rec['single']['outs']:
+            raise AssertionError(f"CPU replay: the {what} pass's tokens "
+                                 f"differ from the unified engine's")
+    return rec
+
+
+def disagg_page_check(torch, model, prompts, kv_dtype, layers):
+    """One unified and one disaggregated engine take the first
+    DISAGG_PAGE_CHECKS requests of the stream (two share a system
+    prompt, so the decode side maps one request's prefix pages where it
+    streams the other's). Once every request decodes on the decode
+    engine, its full prompt pages there equal byte for byte the pages
+    the unified engine wrote: the K/V rows, and for kv_dtype 'int8' the
+    int8 rows and their fp32 scales. Then both drain, and rows 1-3 (1q
+    for the int8 pool) must have launched exactly once a layer a forward
+    of the two engines. Returns the pages compared and the launches."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.serving import (RequestState, ServingConfig,
+                                          ServingEngine)
+    from paddle_tpu_torch.serving.cluster import DisaggregatedEngine
+
+    kw = dict(CLUSTER_PAGES, kv_dtype=kv_dtype)
+    uni = ServingEngine(model, ServingConfig(**kw), device='cuda')
+    dis = DisaggregatedEngine(model, ServingConfig(disaggregate=True, **kw),
+                              device='cuda')
+    picks = prompts[:DISAGG_PAGE_CHECKS]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ru = [uni.submit(p, max_new_tokens=CLUSTER_NEW, top_k=0) for p in picks]
+    rd = [dis.submit(p, max_new_tokens=CLUSTER_NEW, top_k=0) for p in picks]
+    for _ in range(64):
+        if all(r.state == RequestState.RUNNING for r in ru):
+            break
+        uni.step()
+    for _ in range(64):
+        if all(r in dis.decode.scheduler.slots for r in rd):
+            break
+        dis.step()
+    ps = CLUSTER_PAGES['page_size']
+    pages = bufs = 0
+    for p, a, b in zip(picks, ru, rd):
+        n = len(p) // ps
+        upages = uni.pool.page_table(a.id)[:n]
+        dpages = dis.decode.pool.page_table(b.id)[:n]
+        if len(upages) != n or len(dpages) != n:
+            raise AssertionError(f'serve_disagg {kv_dtype}: a request is '
+                                 f'not resident on both sides')
+        ui = torch.tensor(upages, device='cuda')
+        di = torch.tensor(dpages, device='cuda')
+        for lu, ld in zip(uni.pool.kv, dis.decode.pool.kv):
+            for bu, bd in zip(lu, ld):
+                if not torch.equal(bu.index_select(0, ui),
+                                   bd.index_select(0, di)):
+                    raise AssertionError(
+                        f'serve_disagg {kv_dtype}: a decode-pool page '
+                        f'differs from the page the unified engine wrote')
+                bufs += 1
+        pages += n
+    while uni.scheduler.has_work:
+        uni.step()
+    while dis.has_work:
+        dis.step()
+    torch.cuda.synchronize()
+    launches = _build.routes_snapshot()
+    fwd = forwards_of((uni,) + engines_of(dis))
+    want = serve_launches(layers, fwd)
+    if kv_dtype == 'int8':
+        want['paged_attention_int8'] = want.pop('paged_attention')
+    check_exact_launches(f'serve_disagg {kv_dtype} arm', launches, want)
+    uni.shutdown()
+    dis.shutdown()
+    return dict(kv_dtype=kv_dtype or 'bfloat16', requests=len(picks),
+                pages_equal=pages, buffers_compared=bufs, forwards=fwd,
+                launches={k: launches[k] for k in want})
+
+
+def stream_rate(torch, model, n_pages):
+    """stream_kv_pages of `n_pages` pages between two bf16 pools of the
+    serve's shape on the card: device ms a call (CUDA events around a
+    loop), GB/s of the rows moved, and the bound (each moved row read
+    once and written once at 3.35 TB/s)."""
+    from paddle_tpu_torch.serving import KVPagePool
+    from paddle_tpu_torch.serving.cluster import stream_kv_pages
+
+    attn = model.gpt.layers[0].attn
+    pools = []
+    for _ in range(2):
+        pool = KVPagePool(2 * n_pages, CLUSTER_PAGES['page_size'],
+                          num_layers=model.config.num_layers,
+                          num_heads=attn.local_heads,
+                          head_dim=attn.head_dim, dtype=torch.bfloat16)
+        pool.materialize('cuda')
+        pools.append(pool)
+    src = list(range(n_pages))
+    dst = list(range(n_pages, 2 * n_pages))
+    ms = loop_ms(torch, lambda: stream_kv_pages(pools[0].kv, pools[1].kv,
+                                                src, dst), iters=20)
+    moved = n_pages * CLUSTER_PAGES['page_size'] * pools[0].bytes_per_token()
+    bound, _by = bound_ms(2 * moved, 0, 1.0)
+    return dict(pages=n_pages, bytes_moved=moved, ms=ms,
+                gb_per_s=moved / ms / 1e6, bound_ms=bound,
+                share_of_bound=bound / ms)
+
+
+def serve_disagg_phase(torch, card, served):
+    """Prefill/decode disaggregation on the card over serve_cluster's
+    stream at gpt_1p3b full width and depth, bf16 (disagg_passes): the
+    unified engine, one DisaggregatedEngine (prefill_slots 2) and two
+    disaggregated LocalReplicas behind ClusterRouter. Hard checks
+    (check_disagg): every request returns its prompt and 48 tokens and
+    every pool drains; 24 handoffs, and fewer pages streamed than the
+    prompts' full pages (the decode side shares the system prompts); the
+    cluster serves every request with affinity hits and no drain; each
+    pass launches rows 1-3 exactly once a layer a forward of its engines
+    (serve_launches) and nothing else; a CPU replay's tokens of the
+    disaggregated engine and cluster equal its unified engine's, its
+    forward_paged calls equal the engines' count, and its cluster makes
+    the card's placements; the bf16 and int8 arms' decode-pool pages
+    equal the unified engine's byte for byte (disagg_page_check).
+    Recorded: wall tok/s, TTFT/TPOT/e2e p50/p99 against the unified
+    engine, the tokens equal to its, the stream's GB/s against its bound.
+    Returns the disaggregated pass's launches."""
+    cfg, model = served['cfg'], served['model']
+    prompts = cluster_stream(cfg.vocab_size)
+    rec = disagg_passes(torch, model, 'cuda', prompts, torch.cuda.synchronize)
+    check_disagg(rec, prompts, cfg.vocab_size, 'card')
+    for what in DISAGG_PASSES:
+        check_exact_launches(f'serve_disagg {what}', rec[what]['launches'],
+                             serve_launches(cfg.num_layers,
+                                            rec[what]['forwards'][0]))
+    arms = [disagg_page_check(torch, model, prompts, kv, cfg.num_layers)
+            for kv in (None, 'int8')]
+    per_handoff = max(1, round(rec['disagg']['streamed_pages'] / CLUSTER_N))
+    rates = [stream_rate(torch, model, n) for n in (per_handoff, 24)]
+    free_cuda(torch)
+    replay = disagg_replay(torch, cfg.vocab_size, prompts)
+    check_disagg(replay, prompts, cfg.vocab_size, 'CPU replay')
+    if replay['cluster']['decisions'] != rec['cluster']['decisions']:
+        raise AssertionError(
+            f"CPU replay disaggregated cluster placements "
+            f"{replay['cluster']['decisions']} vs card "
+            f"{rec['cluster']['decisions']}")
+    single, dis, clu = rec['single'], rec['disagg'], rec['cluster']
+    gen = CLUSTER_N * CLUSTER_NEW
+    emit({'phase': 'serve_disagg', 'card': card,
+          'nvidia_smi': nvidia_smi_line(), 'model': 'gpt_1p3b',
+          'layers': cfg.num_layers, 'requests': CLUSTER_N,
+          'max_new_tokens': CLUSTER_NEW, **DISAGG_PAGES,
+          'single': dict(tokens_per_sec=gen / single['wall'],
+                         **stream_line(single['stats'], single['wall']),
+                         slo=single['slo'], launches=single['launches']),
+          'disagg': dict(
+              tokens_per_sec=gen / dis['wall'],
+              tokens_per_sec_over_single=single['wall'] / dis['wall'],
+              **stream_line(dis['stats'], dis['wall']),
+              prefill_decode_steps=dis['prefill_stats'][
+                  'decode_steps_total'],
+              handoffs=dis['handoffs'], streamed_pages=dis['streamed_pages'],
+              full_prompt_pages=dis['full_pages'],
+              prefill_pool=dis['stats']['pd_prefill_pool'],
+              slo=dis['slo'],
+              token_share_vs_single=token_share(dis['outs'], single['outs'],
+                                                prompts),
+              launches=dis['launches'], forwards=dis['forwards'][0]),
+          'cluster': dict(
+              tokens_per_sec=gen / clu['wall'],
+              tokens_per_sec_over_single=single['wall'] / clu['wall'],
+              placements=clu['snapshot']['placements'],
+              round_robin_hits=round_robin_hits(
+                  prompts, 2, CLUSTER_PAGES['page_size']),
+              goodput=clu['snapshot']['goodput'],
+              token_share_vs_single=token_share(clu['outs'], single['outs'],
+                                                prompts),
+              launches=clu['launches'], forwards=clu['forwards'][0]),
+          'page_checks': arms, 'stream': rates,
+          'cpu_replay': dict(tokens_equal=True, placements_equal=True,
+                             forwards={w: replay[w]['forwards'][0]
+                                       for w in DISAGG_PASSES})})
+    return dis['launches']
+
+
+def trace_table(remote, path):
+    """A worker's request table, read back from its journal exported over
+    the channel (export_trace)."""
+    from paddle_tpu_torch.serving import load_trace, reconstruct
+    remote.export_trace(path)
+    _header, events = load_trace(path)
+    return reconstruct(events)
+
+
+def spawn_workers(model_config, out_dir, errors):
+    """Start both worker replicas at once (each builds gpt_1p3b from
+    WORKER_SEED on the card and warms up before it reports ready);
+    returns the threads and the {replica id: RemoteReplica} they fill."""
+    from paddle_tpu_torch.serving.cluster import RemoteReplica
+
+    reps = {}
+
+    def spawn(rid):
+        try:
+            reps[rid] = RemoteReplica.spawn(
+                rid, model_config, CLUSTER_PAGES, seed=WORKER_SEED,
+                hang_timeout_s=WORKER_HANG_S, device='cuda',
+                dtype='bfloat16', ready_timeout_s=WORKER_READY_S,
+                env={'PTPU_SERVE_REPORT_DIR': out_dir})
+        except Exception as e:          # re-raised by the caller
+            errors.append(e)
+    threads = [threading.Thread(target=spawn, args=(rid,))
+               for rid in ('w0', 'w1')]
+    for t in threads:
+        t.start()
+    return threads, reps
+
+
+def worker_launch_checks(reps, layers):
+    """Each worker exited with code 0 and reported its launches: rows 1-3
+    exactly once a layer a forward of its engine since its warm-up, on
+    the card, and nothing else."""
+    out = {}
+    for rid, r in sorted(reps.items()):
+        rec = r.exit_record
+        if r.returncode != 0 or rec is None:
+            raise AssertionError(
+                f'worker {rid} exited with {r.returncode}, record {rec}: '
+                + '\n'.join(list(r.output)[-20:]))
+        if not rec['device'].startswith('cuda'):
+            raise AssertionError(f"worker {rid} served on {rec['device']}")
+        fwd = sum(engine_forwards(e, e['fused_k']) for e in rec['engines'])
+        want = check_exact_launches(f'worker {rid}', rec['launches'],
+                                    serve_launches(layers, fwd))
+        if not all(want.values()):
+            raise AssertionError(f'worker {rid} launched no serving kernel')
+        out[rid] = dict(forwards=fwd, launches=want,
+                        engine=rec['engines'][0])
+    return out
+
+
+def serve_workers_phase(torch, card, cluster_line_rec):
+    """Two worker replicas (`python -m
+    paddle_tpu_torch.serving.cluster.replica`, each its own process and
+    host thread) on the one card behind ClusterRouter, over serve_cluster's
+    stream at gpt_1p3b full width and depth, bf16, without MPS. Their
+    weights come from worker_model(WORKER_SEED) on the card, and the
+    reference engine is built by that function from that seed on the
+    card. A clean pass (the router refreshed once a pass): every request
+    done, its tokens against the reference engine's (the share), affinity
+    hits at or above round-robin's, no drain. A forced-hang pass
+    (inject_hang on the worker holding the first request, the router at
+    its 0.25 s refresh): the watchdog's report with `stacks` and
+    `flight_recorder`, a drain, every request finished, the moved ones on
+    the peer. Both workers exit with code 0 and report launches exact to
+    their engines' forwards (worker_launch_checks). Recorded beside the
+    in-process cluster of serve_cluster (one host thread pumping both
+    replicas): wall tok/s, per-replica decode tok/s, TTFT/TPOT p50/p99.
+    Returns the workers' summed launches."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.serving.cluster import ClusterRouter
+    from paddle_tpu_torch.serving.cluster.replica import worker_model
+
+    cfg = gpt_1p3b()
+    model_config = dict(vars(cfg))
+    prompts = cluster_stream(cfg.vocab_size)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'build', 'serve_workers')
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    errors = []
+    t_spawn = time.perf_counter()
+    threads, reps = spawn_workers(model_config, out_dir, errors)
+
+    # the reference engine while the workers build theirs
+    ref_model = worker_model(model_config, WORKER_SEED, device='cuda',
+                             dtype='bfloat16')
+    eng = ServingEngine(ref_model, ServingConfig(**CLUSTER_PAGES),
+                        device='cuda')
+    ref_outs, ref_wall, ref_launches, ref_st = timed_stream(
+        torch, eng, prompts, CLUSTER_NEW, top_k=0)
+    check_exact_launches('serve_workers reference', ref_launches,
+                         serve_launches(cfg.num_layers, engine_forwards(
+                             ref_st, eng.config.fused_k)))
+    ref_slo = slo_of(eng.request_table())
+    eng.shutdown()
+    del eng, ref_model
+    free_cuda(torch)
+    for t in threads:
+        t.join(timeout=WORKER_READY_S + 60)
+    ready_s = time.perf_counter() - t_spawn
+    try:
+        if errors or len(reps) != 2:
+            raise AssertionError(f'serve_workers: workers not ready: '
+                                 f'{errors}')
+        order = [reps['w0'], reps['w1']]
+        router = ClusterRouter(order, max_queue=2 * CLUSTER_N,
+                               **CLUSTER_ROUTER)
+        t0 = time.perf_counter()
+        outs = router.serve(prompts, max_new_tokens=CLUSTER_NEW, top_k=0,
+                            timeout_s=600)
+        wall = time.perf_counter() - t0
+        snap = router.snapshot()
+        router_e2e = router_e2e_ms(router)
+        statuses = {r.replica_id: r.status() for r in order}
+        tables = {r.replica_id: trace_table(r, os.path.join(
+            out_dir, f'trace.{r.replica_id}.jsonl')) for r in order}
+        rr = round_robin_hits(prompts, 2, CLUSTER_PAGES['page_size'])
+        check_served_outs(prompts, outs, cfg.vocab_size, 'serve_workers')
+        if snap['requests_done'] != CLUSTER_N \
+                or snap['placements']['drain'] or snap['drain_events'] \
+                or snap['rejects'] or snap['placements']['affinity'] < rr:
+            raise AssertionError(f'serve_workers clean pass: {snap} '
+                                 f'(round-robin hits {rr})')
+        if any(s['hung'] for s in statuses.values()):
+            raise AssertionError(f'serve_workers: a worker reports hung '
+                                 f'after the clean pass: {statuses}')
+
+        hang_router = ClusterRouter(order, page_size=16,
+                                    max_queue=2 * CLUSTER_N)
+        hprompts = prompts[:HANG_REQUESTS]
+        t0 = time.perf_counter()
+        reqs = [hang_router.submit(p, max_new_tokens=CLUSTER_NEW, top_k=0)
+                for p in hprompts]
+        hung = hang_router._replicas[reqs[0].replica_id]
+        hung.inject_hang()
+        hang_router.run(timeout_s=300)
+        hang_wall = time.perf_counter() - t0
+        hsnap = hang_router.snapshot()
+        hang_outs = [r.output_ids() for r in reqs]
+        check_served_outs(hprompts, hang_outs, cfg.vocab_size,
+                          'serve_workers hang pass')
+        moved = [r for r in reqs if r.resubmits]
+        if hsnap['placements']['drain'] < 1 or not moved or any(
+                str(r.replica_id) == hung.replica_id for r in moved):
+            raise AssertionError(f'serve_workers hang pass: {hsnap}')
+        report = os.path.join(out_dir, f'replica_hang.{hung.replica_id}.json')
+        deadline = time.time() + 30
+        while time.time() < deadline and not os.path.exists(report):
+            time.sleep(0.2)
+        with open(report) as f:
+            doc = json.load(f)
+        if doc.get('kind') != 'replica_hang_report' or not doc.get(
+                'stacks') or doc.get('flight_recorder', {}).get(
+                    'kind') != 'flight_recorder':
+            raise AssertionError(f'serve_workers: hang report {sorted(doc)}')
+        hang_router.shutdown()
+    finally:
+        for r in reps.values():
+            r.shutdown(timeout=60)
+    launches = worker_launch_checks(reps, cfg.num_layers)
+
+    gen = CLUSTER_N * CLUSTER_NEW
+    in_proc = cluster_line_rec['cluster']
+    emit({'phase': 'serve_workers', 'card': card,
+          'nvidia_smi': nvidia_smi_line(), 'model': 'gpt_1p3b',
+          'layers': cfg.num_layers, 'replicas': 2, 'requests': CLUSTER_N,
+          'max_new_tokens': CLUSTER_NEW, **CLUSTER_PAGES,
+          'spawn_to_ready_s': ready_s,
+          'reference': dict(tokens_per_sec=gen / ref_wall,
+                            **stream_line(ref_st, ref_wall), slo=ref_slo),
+          'workers': dict(
+              wall_s=wall, tokens_per_sec=gen / wall,
+              tokens_per_sec_over_reference=ref_wall / wall,
+              placements=snap['placements'], round_robin_hits=rr,
+              token_share_vs_reference=token_share(outs, ref_outs, prompts),
+              # the journals' clocks start at the worker's submit op,
+              # which waits for the worker's step to release its lock;
+              # the router's e2e runs from the router's submit
+              router_e2e_ms=router_e2e,
+              slo=slo_of({f'{rid}:{k}': v for rid, t in tables.items()
+                          for k, v in t.items()}),
+              per_replica={rid: dict(
+                  decode_tokens_per_sec=statuses[rid][
+                      'decode_tokens_per_sec'],
+                  requests=len(tables[rid]), slo=slo_of(tables[rid]))
+                  for rid in tables}),
+          'in_process_cluster': dict(
+              tokens_per_sec=in_proc['tokens_per_sec'],
+              slo=in_proc['slo'], router_e2e_ms=in_proc['router_e2e_ms'],
+              per_replica={rid: dict(
+                  decode_tokens_per_sec=v['decode_tokens_per_sec'],
+                  slo=v['slo']) for rid, v in in_proc['per_replica'].items()}),
+          'hang': dict(
+              requests=HANG_REQUESTS, wall_s=hang_wall,
+              hung=hung.replica_id, moved=len(moved),
+              placements=hsnap['placements'],
+              drain_events=[{k: v for k, v in e.items() if k != 't'}
+                            for e in hsnap['drain_events']],
+              report_keys=sorted(doc), report_reason=doc['reason'],
+              token_share_vs_reference=token_share(
+                  hang_outs, ref_outs[:HANG_REQUESTS], hprompts)),
+          'worker_launches': launches})
+    total = {}
+    for rec in launches.values():
+        for k, n in rec['launches'].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def router_e2e_ms(router):
+    """p50/p90/p99 of the router's own submit-to-finish time."""
+    from paddle_tpu_torch.serving.request_trace import percentile_of
+    vals = [v['e2e_s'] for v in router.request_slo().values()]
+    return {f'p{q}': (None if (p := percentile_of(vals, q)) is None
+                      else 1e3 * p) for q in (50, 90, 99)}
+
+
+def check_served_outs(prompts, outs, vocab, where):
+    if len(outs) != len(prompts):
+        raise AssertionError(f'{where}: {len(outs)} outputs')
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + CLUSTER_NEW or o[:len(p)] != p or not all(
+                0 <= t < vocab for t in o[len(p):]):
+            raise AssertionError(f'{where}: a request of {len(p)} tokens '
+                                 f'returned {len(o)}')
+
 
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'layer_norm',
                  'layer_norm_bwd', 'bias_gelu', 'bias_gelu_bwd')
@@ -5627,10 +6219,18 @@ def main():
     free_cuda(torch)
     serve_tiered_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cluster_launches = serve_cluster_phase(torch, card, served)
-    del served
+    cluster_launches, cluster_rec = serve_cluster_phase(torch, card, served)
     free_cuda(torch)
     serve_cluster_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    disagg_launches = serve_disagg_phase(torch, card, served)
+    del served
+    free_cuda(torch)
+    serve_disagg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    workers_launches = serve_workers_phase(torch, card, cluster_rec)
+    free_cuda(torch)
+    serve_workers_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_launches, train_peak = train_phase(torch, card)
     free_cuda(torch)
@@ -5697,7 +6297,8 @@ def main():
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
-          'serve_cluster': serve_cluster_s,
+          'serve_cluster': serve_cluster_s, 'serve_disagg': serve_disagg_s,
+          'serve_workers': serve_workers_s,
           'train': train_s, 'optimizer_kernels': opt_kernel_s,
           'rules': rules_s, 'train_bucketed': bucketed_s,
           'check': check_s, 'pipeline': pipeline_s,
@@ -5777,6 +6378,10 @@ def main():
         entry['launches_resnet50'] = resnet50_launches[name]
         # the serving cluster's pass: both replicas on the one card
         entry['launches_cluster'] = cluster_launches[name]
+        # one disaggregated engine's pass, and the two worker processes'
+        # launches over their clean and forced-hang passes
+        entry['launches_serve_disagg'] = disagg_launches[name]
+        entry['launches_serve_workers'] = workers_launches.get(name, 0)
         if name in SERVE_KERNELS:
             # the tenants leg's SLO run and the oversubscribed serve
             entry['launches_serve_tenants'] = tenants_launches[name]

@@ -376,6 +376,24 @@ def block_len(n, want):
     return max(b, 1)
 
 
+def _chunk_spans(shard_len, n_shards, chunk):
+    """Split points of a chunked copy (bucketing.py:397 in the JAX
+    package): `chunk` caps the whole copy's elements, so a piece spans
+    chunk // n_shards along the shard dimension. A list of (start,
+    width) spans over [0, shard_len), or None when chunking is off or
+    the copy already fits one chunk."""
+    if not chunk or n_shards < 1:
+        return None
+    w = max(int(chunk) // max(int(n_shards), 1), 1)
+    if shard_len <= w:
+        return None
+    spans, s = [], 0
+    while s < shard_len:
+        spans.append((s, min(w, shard_len - s)))
+        s += spans[-1][1]
+    return spans
+
+
 def _is_int8(comm_dtype):
     return comm_dtype is not None and _torch_dtype(comm_dtype) == torch.int8
 

@@ -114,18 +114,23 @@ class DeviceLoader:
         copied out of the ring."""
         nbytes = sum(buf.numel() * buf.element_size() for buf in staged)
         event = None
+        # This runs on the staging thread. A tuple is built from a list,
+        # never from a generator: CPython resizes the tuple it builds
+        # from a generator in place, and raises SystemError when another
+        # reference to it exists, as a memory census's gc.get_objects()
+        # on the main thread holds one (core/memory.py `_live_tensors`)
         if self._cuda:
             if self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
             with torch.cuda.stream(self._copy_stream):
-                out = tuple(buf.to(self.device, non_blocking=True)
-                            for buf in staged)
+                out = tuple([buf.to(self.device, non_blocking=True)
+                             for buf in staged])
                 event = torch.cuda.Event()
                 event.record(self._copy_stream)
             if slot_idx is not None:
                 self._ring_pending[slot_idx] = event
         else:
-            out = tuple(buf.clone() for buf in staged)
+            out = tuple([buf.clone() for buf in staged])
         self._stats['h2d_bytes'] += nbytes
         self._stats['batches'] += 1
         _async.note_prefetch(batches=1, h2d_bytes=nbytes)

@@ -1,38 +1,31 @@
 """The serving cluster on one host — counterpart of
-`paddle_tpu/serving/cluster`: the prefix-affinity router (`router.py`:
-placement, backpressure, drain, metrics federation) over in-process
-replicas (`replica.py`: `LocalReplica`, each over its own
-`ServingEngine`; several may share one card).
+`paddle_tpu/serving/cluster`:
 
-Not ported yet, each raising NotImplementedError when named:
-  * the worker-process replicas (`ReplicaWorker`, `RemoteReplica` and
-    their TCP control channel): ROADMAP Queue 1 item 8c;
-  * prefill/decode disaggregation (`DisaggregatedEngine`,
-    `build_engine`, `stream_kv_pages`): item 8b.
+  * `router.py`      — the prefix-affinity router: placement,
+    backpressure, drain, metrics federation;
+  * `replica.py`     — replicas behind it, in-process (`LocalReplica`,
+    pumped by the router) or worker processes (`ReplicaWorker`, reached
+    through `RemoteReplica` over the TCP control channel of
+    `channel.py`), with the hang watchdog and its report;
+  * `disagg.py`      — prefill/decode disaggregation
+    (`DisaggregatedEngine`, `build_engine`): prefill on one engine, the
+    finished KV pages streamed into the decode engine's pool
+    (`page_stream.py`, int8 scales with their pages) and the request
+    adopted into a decode slot.
+
+Every replica and both engines of a disaggregated one may share one
+card. The mp-sharded engine is not ported (ROADMAP Queue 1 item 7).
 """
-from .replica import LocalReplica
+from .disagg import DisaggregatedEngine, build_engine
+from .page_stream import stream_kv_pages
+from .replica import LocalReplica, RemoteReplica, ReplicaWorker
 from .router import (ClusterRouter, RouterRejected, RoutedRequest,
                      cluster_snapshot)
 
 # the router's descriptive name; ClusterRouter stays its other name
 PrefixAffinityRouter = ClusterRouter
 
-_NOT_PORTED = {
-    'RemoteReplica': 'item 8c (worker replicas)',
-    'ReplicaWorker': 'item 8c (worker replicas)',
-    'DisaggregatedEngine': 'item 8b (prefill/decode disaggregation)',
-    'build_engine': 'item 8b (prefill/decode disaggregation)',
-    'stream_kv_pages': 'item 8b (prefill/decode disaggregation)',
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f'serving.cluster.{name} is not ported yet (ROADMAP Queue 1 '
-            f'{_NOT_PORTED[name]})')
-    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
-
-
 __all__ = ['ClusterRouter', 'PrefixAffinityRouter', 'RouterRejected',
-           'RoutedRequest', 'cluster_snapshot', 'LocalReplica']
+           'RoutedRequest', 'cluster_snapshot', 'LocalReplica',
+           'RemoteReplica', 'ReplicaWorker', 'DisaggregatedEngine',
+           'build_engine', 'stream_kv_pages']

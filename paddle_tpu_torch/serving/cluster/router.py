@@ -65,10 +65,11 @@ from ..kv_pool import chain_hashes
 from ..scheduler import AdmissionRejected
 
 # What a replica's control channel raises when the replica is gone or
-# slow (ConnectionError and timeouts are OSErrors): the reference's
-# fault model, which drains the replica and moves its work. The worker
-# replicas (ROADMAP Queue 1 item 8c) bring the channel; until then only
-# test doubles raise these.
+# slow: ConnectionError and socket.timeout, both OSErrors (channel.py).
+# These drain the replica and move its work. The channel's other two
+# errors reach the caller: ValueError (a frame over MAX_MSG: the message
+# is at fault, and a peer would refuse it too) and RuntimeError (the
+# worker's engine raised), as an in-process replica's engine error does.
 _CHANNEL_ERRORS = (OSError,)
 
 

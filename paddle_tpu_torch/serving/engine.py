@@ -90,9 +90,11 @@ trace events on the same weights under the same clock.
 The engine runs on `device`: the card unless the caller passes
 device='cpu'; without a card and without device='cpu' it raises.
 
-Not ported yet: disaggregation (`disaggregate`, `prefill_slots`,
-`stream_chunk_pages` raise NotImplementedError off their defaults) and
-the mp-sharded route.
+Prefill/decode disaggregation (`disaggregate`, `prefill_slots`,
+`stream_chunk_pages`) is served by `serving.cluster.DisaggregatedEngine`
+over two of these engines; the hooks it calls are `adopt_request`,
+`deadline_admission`, `_stage3_pools` and the `ledger_site` argument.
+Not ported yet: the mp-sharded route (ROADMAP Queue 1 item 7).
 """
 import contextlib
 import math
@@ -115,14 +117,6 @@ from .request_trace import (ENGINE_REQ, RequestTracer, build_serve_report,
 from .scheduler import (AdmissionRejected, DegradeLadder, Request,
                         RequestState, Scheduler, SchedulerTimeline,
                         TenantTable)
-
-# The JAX ServingConfig knobs the port does not serve
-# (paddle_tpu/serving/engine.py:189-190, the disaggregated engine's), with
-# the value each accepts: its default. Any other value raises
-# NotImplementedError.
-_UNSERVED = {'disaggregate': (False,), 'prefill_slots': (2,),
-             'stream_chunk_pages': (0,)}
-
 
 def _host_fetch(x):
     """Every fetch of chosen token ids from the device funnels through
@@ -162,6 +156,12 @@ class ServingConfig:
                        $PTPU_SERVE_REPORT_DIR, then $FLEET_LOG_DIR)
     clock              the clock for ALL request timing (tests inject a
                        deterministic one)
+    disaggregate       prefill/decode disaggregation: build through
+                       serving.cluster.build_engine, which returns a
+                       DisaggregatedEngine (a plain ServingEngine refuses
+                       the flag)
+    prefill_slots      the prefill engine's slot count
+    stream_chunk_pages pages per KV-page stream copy (0 = one copy)
     tenants            {tenant_id: {priority, quota_tokens_per_s,
                        burst_tokens, weight}} or None
     degrade            the ladder: None = on exactly when tenants are
@@ -181,18 +181,15 @@ class ServingConfig:
                  trace_events_per_request=512, trace_requests=512,
                  timeline_capacity=2048, request_deadline_s=None,
                  deadline_action='report', report_dir=None, clock=None,
+                 disaggregate=False, prefill_slots=2, stream_chunk_pages=0,
                  tenants=None, degrade=None, degrade_window=8,
                  degrade_up=(0.85, 0.92, 0.97),
                  degrade_down=(0.60, 0.70, 0.80), degrade_hold=4,
                  host_tier_pages=0, spill_watermark=0.92,
-                 spill_chunk_pages=0, spill_window=2, **unserved):
-        for knob, value in unserved.items():
-            if knob not in _UNSERVED:
-                raise TypeError(f'ServingConfig: unknown knob {knob!r}')
-            if value not in _UNSERVED[knob]:
-                raise NotImplementedError(
-                    f'ServingConfig({knob}={value!r}) is not ported yet '
-                    f'(ROADMAP Queue 1 item 8b, disaggregation)')
+                 spill_chunk_pages=0, spill_window=2, **unknown):
+        if unknown:
+            raise TypeError(f'ServingConfig: unknown knob '
+                            f'{sorted(unknown)[0]!r}')
         if page_size <= 0 or max_batch_size <= 0 or prefill_chunk <= 0:
             raise ValueError("page_size, max_batch_size and "
                              "prefill_chunk must be positive")
@@ -241,6 +238,9 @@ class ServingConfig:
         self.deadline_action = deadline_action
         self.report_dir = report_dir
         self.clock = clock
+        self.disaggregate = bool(disaggregate)
+        self.prefill_slots = int(prefill_slots)
+        self.stream_chunk_pages = int(stream_chunk_pages)
         self.tenants = dict(tenants) if tenants is not None else None
         self.degrade = degrade
         self.degrade_window = int(degrade_window)
@@ -272,11 +272,19 @@ class ServingEngine:
     # (retire and drain always publish at once)
     PUBLISH_INTERVAL_S = 0.5
 
-    def __init__(self, model, config=None, device=None, **cfg_kw):
+    def __init__(self, model, config=None, device=None, ledger_site=None,
+                 **cfg_kw):
         if config is None:
             config = ServingConfig(**cfg_kw)
         elif cfg_kw:
             raise ValueError("pass either config or knobs, not both")
+        if config.disaggregate:
+            # the flag selects another engine class: serving it unified
+            # would silently ignore it
+            raise ValueError(
+                "config.disaggregate=True needs the disaggregated engine: "
+                "build it with serving.cluster.build_engine(...) or "
+                "serving.cluster.DisaggregatedEngine(...)")
         self.device = resolve_device(device)
         param = model.gpt.embeddings.word_embeddings.weight
         if param.device.type != self.device.type or (
@@ -359,9 +367,20 @@ class ServingEngine:
         self._deadline_rejects = 0
         self._deadline_misses = 0
         self._tenant_stats = {}
+        # pools armed and disarmed with self.pool on stage-3 transitions:
+        # under a ladder shared by a prefill and a decode engine, the
+        # engine that observes the transition arms both pools
+        self._stage3_pools = ()
+        # deadline-aware admission at submit; the disaggregated facade
+        # turns it off on its prefill engine and gates the whole
+        # pipeline's backlog itself
+        self.deadline_admission = True
         # the serving ledger over a host-gap monitor: the chosen-id fetch
-        # is the engine's one host sync, so its wait is the gating time
-        self._gap = HostGapMonitor(site='serve')
+        # is the engine's one host sync, so its wait is the gating time.
+        # Registries are latest-wins per site, so a second engine in the
+        # process (the prefill side) takes a site of its own
+        self.ledger_site = ledger_site or 'serve'
+        self._gap = HostGapMonitor(site=self.ledger_site)
         param_bytes = 0
         n_params = 0
         for name, p in model.named_parameters():
@@ -373,7 +392,7 @@ class ServingEngine:
             else:
                 param_bytes += p.numel() * p.element_size()
         self.ledger = ServeLedger(
-            engine='serve', gap=self._gap, n_params=n_params,
+            engine=self.ledger_site, gap=self._gap, n_params=n_params,
             layers=mcfg.num_layers, hidden=mcfg.hidden_size,
             param_bytes=param_bytes,
             kv_bytes_per_token=self.pool.bytes_per_token(),
@@ -496,7 +515,7 @@ class ServingEngine:
                 f"prompt({len(req.prompt)}) + max_new_tokens"
                 f"({req.max_new_tokens}) exceeds max_seq_len"
                 f"({self.model.config.max_seq_len})")
-        if req.deadline_s is not None:
+        if req.deadline_s is not None and self.deadline_admission:
             est = self._estimate_completion_s(total)
             if est is not None and est > req.deadline_s:
                 self._deadline_rejects += 1
@@ -506,9 +525,11 @@ class ServingEngine:
                     'deadline_unmet', retry_after_s=est - req.deadline_s,
                     estimated_s=est, deadline_s=req.deadline_s)
         # engine-local ordinal in submission order: identically seeded
-        # engines fed the same prompts draw identical tokens
-        req.sample_ord = self._next_sample_ord
-        self._next_sample_ord += 1
+        # engines fed the same prompts draw identical tokens. A request
+        # adopted from a prefill engine keeps the ordinal it got there
+        if req.sample_ord is None:
+            req.sample_ord = self._next_sample_ord
+            self._next_sample_ord += 1
         self.scheduler.submit(req)
         self._submitted += 1
         if req.tenant_id is not None:
@@ -677,9 +698,12 @@ class ServingEngine:
                 stage_name=DegradeLadder.STAGE_NAMES[ev['to']],
                 pressure=ev['pressure'])
         if ev['to'] >= 3 and self._tenants is not None:
-            self.pool.set_eviction_weights(self._tenants.eviction_weights())
+            weights = self._tenants.eviction_weights()
+            for pool in (self.pool, *self._stage3_pools):
+                pool.set_eviction_weights(weights)
         elif ev['from'] >= 3 > ev['to']:
-            self.pool.set_eviction_weights(None)
+            for pool in (self.pool, *self._stage3_pools):
+                pool.set_eviction_weights(None)
 
     def _spill_pressure(self):
         """Host-tier occupancy in [0, 1], the ladder's spill input (0.0
@@ -788,6 +812,28 @@ class ServingEngine:
                         bill_tokens=bill,
                         retry_after_s=bucket.seconds_until(bill))
         return False
+
+    def adopt_request(self, req):
+        """Adopt a request prefilled elsewhere (the disaggregated
+        engine's handoff): its pages are already allocated in this pool
+        under req.id with their rows streamed in, and its first token is
+        in req.generated, so it goes straight to a RUNNING slot. False
+        when no slot is free (the caller keeps it pending). Its pages
+        join this pool's prefix index like locally prefilled ones
+        (engine.py:1059 in the JAX package)."""
+        if self.scheduler.adopt(req) is None:
+            return False
+        req.prefilled = len(req.tokens)
+        self._submitted += 1
+        # every token but the newest has its K/V resident; the next decode
+        # step writes that one
+        self.pool.register_prefix(req.id, req.tokens, req.context_len - 1,
+                                  owner=req.tenant_id)
+        self._trace(req, 'admit', slot=self.scheduler.slot_of(req),
+                    handoff=True, pages=len(self.pool.page_table(req.id)))
+        if req.done:
+            self._retire(req)
+        return True
 
     def _ensure_or_preempt(self, req, n_tokens):
         """Grow req's pages, preempting other requests until the

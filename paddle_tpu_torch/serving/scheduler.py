@@ -35,7 +35,7 @@ tokens, pool occupancy, admissions, preemptions, ladder stage), the
 context a request trace is read against.
 
 All of it is host bookkeeping between the engine's steps; the card never
-sees a dynamic decision. The disaggregated engine's `adopt` is not here.
+sees a dynamic decision.
 """
 import collections
 import itertools
@@ -475,6 +475,20 @@ class Scheduler:
                     request.admit_time = self.clock()
                 self.slots[i] = request
                 return request
+        return None
+
+    def adopt(self, request):
+        """Place a request prefilled by another engine straight into a
+        free slot in RUNNING state (the disaggregated handoff: its pages
+        were streamed into this engine's pool). Returns the slot index,
+        or None when no slot is free."""
+        for i in range(self.num_slots):
+            if self.slots[i] is None:
+                request.state = RequestState.RUNNING
+                if request.admit_time is None:
+                    request.admit_time = self.clock()
+                self.slots[i] = request
+                return i
         return None
 
     def slot_of(self, request):

@@ -1,6 +1,7 @@
 """paddle_tpu_torch stands alone: it imports neither jax nor paddle_tpu,
 and its entry points never drop to the CPU on their own."""
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -194,3 +195,35 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          stderr=subprocess.PIPE, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout.decode()
+
+
+def test_worker_entry_module_holds_no_jax_or_paddle_tpu(tmp_path):
+    """A fresh interpreter that imports the worker replica's entry module
+    and runs what a worker runs (its model and engine, a warm-up, the
+    control server, the watchdog's report and exit record) holds no
+    module of jax or paddle_tpu."""
+    code = (
+        "import json, sys\n"
+        "from paddle_tpu_torch.serving.cluster import replica as r\n"
+        "from paddle_tpu_torch.serving import ServingConfig\n"
+        "m = r.worker_model(dict(vocab_size=64, hidden_size=32,\n"
+        "    num_layers=1, num_heads=2, max_seq_len=64), 0, device='cpu')\n"
+        "e = r.build_engine(m, ServingConfig(page_size=8,\n"
+        "    disaggregate=True), device='cpu')\n"
+        "e.generate([[1, 2, 3]], max_new_tokens=2, top_k=0)\n"
+        f"w = r.ReplicaWorker(e, 'w0', report_dir={str(tmp_path)!r})\n"
+        "w._fire_watchdog('test')\n"
+        "rec = w.exit_record()\n"
+        "w.stop()\n"
+        "bad = sorted(n for n in sys.modules if n in ('jax', 'jaxlib',\n"
+        "    'paddle_tpu') or n.startswith(('jax.', 'jaxlib.',\n"
+        "    'paddle_tpu.')))\n"
+        "print(json.dumps(dict(bad=bad, device=rec['device'])))\n")
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr.decode()
+    out = json.loads(res.stdout.decode().splitlines()[-1])
+    assert out == {'bad': [], 'device': 'cpu'}
+    assert (tmp_path / 'replica_hang.w0.json').exists()

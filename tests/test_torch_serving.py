@@ -297,12 +297,20 @@ def test_prompt_logits_is_the_prefill_step(models):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize('knob', [
-    {'disaggregate': True}, {'prefill_slots': 4}, {'stream_chunk_pages': 2}])
-def test_unserved_knobs_raise(knob):
-    """The disaggregated engine's knobs raise off their defaults."""
-    with pytest.raises(NotImplementedError, match='not ported'):
-        ServingConfig(**knob)
+@pytest.mark.parametrize('knob,value,want', [
+    ('disaggregate', 1, True), ('prefill_slots', '4', 4),
+    ('stream_chunk_pages', 2.0, 2)])
+def test_disaggregation_knobs_validate_as_reference(knob, value, want):
+    """The disaggregated engine's knobs coerce as the reference's do, and
+    refuse what it refuses."""
+    cfg, jcfg = ServingConfig(**{knob: value}), JConfig(**{knob: value})
+    assert getattr(cfg, knob) == getattr(jcfg, knob) == want
+    assert type(getattr(cfg, knob)) is type(getattr(jcfg, knob))
+    if knob != 'disaggregate':
+        with pytest.raises(ValueError):
+            JConfig(**{knob: 'many'})
+        with pytest.raises(ValueError):
+            ServingConfig(**{knob: 'many'})
 
 
 @pytest.mark.parametrize('knob', [
@@ -338,11 +346,10 @@ def test_config_takes_every_reference_knob_at_its_default():
     assert (cfg.page_size, cfg.max_batch_size, cfg.prefill_chunk) == (
         defaults['page_size'], defaults['max_batch_size'],
         defaults['prefill_chunk'])
-    # the disaggregated engine's knobs still raise off their defaults
-    for knob, value in (('disaggregate', True), ('prefill_slots', 4),
-                        ('stream_chunk_pages', 2)):
-        with pytest.raises(NotImplementedError, match='not ported'):
-            ServingConfig(**{knob: value})
+    # every reference knob is kept as the reference keeps it
+    jcfg = JConfig(**defaults)
+    for name in defaults:
+        assert getattr(cfg, name) == getattr(jcfg, name), name
     # and the served knobs validate as the reference's do
     for knob, value in (('deadline_action', 'cancel'),
                         ('spill_watermark', 0.0), ('host_tier_pages', -1),

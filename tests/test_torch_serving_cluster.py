@@ -7,7 +7,9 @@ two-replica clusters over bridged weights (shared prefix, throttle, a
 drain mid-stream, the host-tier hint), whose greedy tokens, placements,
 counters, drain records and goodput equal the reference's and whose
 tokens equal one engine's; federation, tenancy through the router, the
-route trace event, and the refusals of what is not ported yet.
+route trace event, and the package surface and disaggregation knobs
+(tests/test_torch_serving_disagg.py and test_torch_serving_workers.py
+hold the disaggregated engine and the worker replicas).
 
 Routers over engines refresh once a stream (refresh_interval_s=3600):
 the default interval ties a refresh, and so the ageing of the
@@ -1003,22 +1005,47 @@ def test_tenancy_through_router_equals_reference(tenancy, case, key, want):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# the package surface and the disaggregation knobs
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize('name,item', [
-    ('RemoteReplica', 'item 8c'), ('ReplicaWorker', 'item 8c'),
-    ('DisaggregatedEngine', 'item 8b'), ('build_engine', 'item 8b'),
-    ('stream_kv_pages', 'item 8b')])
-def test_not_ported_names_refuse(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(tcluster, name)
+@pytest.mark.parametrize('name,module', [
+    ('RemoteReplica', 'replica'), ('ReplicaWorker', 'replica'),
+    ('DisaggregatedEngine', 'disagg'), ('build_engine', 'disagg'),
+    ('stream_kv_pages', 'page_stream')])
+def test_cluster_names_resolve(name, module):
+    """Each name the reference package exports resolves to the ported
+    object of its module; an unknown name raises AttributeError."""
+    import importlib
+    mod = importlib.import_module(f'paddle_tpu_torch.serving.cluster.'
+                                  f'{module}')
+    obj = getattr(tcluster, name)
+    assert obj is getattr(mod, name) and callable(obj)
+    assert name in tcluster.__all__
     with pytest.raises(AttributeError):
         tcluster.no_such_name
 
 
+def test_cluster_all_equals_reference():
+    import paddle_tpu.serving.cluster as jcluster
+    assert tcluster.__all__ == jcluster.__all__
+    assert all(hasattr(tcluster, n) for n in tcluster.__all__)
+
+
 @pytest.mark.parametrize('knob', [{'disaggregate': True},
-                                  {'prefill_slots': 4},
-                                  {'stream_chunk_pages': 2}])
-def test_disaggregation_knobs_name_their_item(knob):
-    with pytest.raises(NotImplementedError, match='item 8b'):
-        ServingConfig(**knob)
+                                  {'disaggregate': True, 'prefill_slots': 1},
+                                  {'disaggregate': True,
+                                   'stream_chunk_pages': 1}])
+def test_disaggregation_knobs_serve_through_build_engine(pair, knob):
+    """Each knob builds an engine through build_engine that serves two
+    requests to the end with both pools drained."""
+    eng = tcluster.build_engine(pair[1], ServingConfig(**ENGINE_KW, **knob),
+                                device='cpu')
+    assert isinstance(eng, tcluster.DisaggregatedEngine)
+    assert eng.prefill.config.max_batch_size == knob.get('prefill_slots', 2)
+    out = eng.generate([[3, 1, 4, 1, 5, 9, 2, 6, 5, 3], [2, 7, 1, 8]],
+                       max_new_tokens=4, top_k=0)
+    assert [len(o) for o in out] == [14, 8]
+    st = eng.stats()
+    assert st['requests_completed_total'] == 2 and \
+        st['pd_handoffs_total'] == 2
+    assert eng.decode.pool.pages_in_use == eng.prefill.pool.pages_in_use == 0
+    eng.shutdown()

@@ -246,15 +246,17 @@ def test_spills_and_fetches_under_thread_stress():
 def test_preempt_spill_resume_tokens(pair, prompts):
     """A 5-page pool preempts, released pages spill under a low
     watermark and resumes resurrect them: both engines emit the tierless
-    reference's tokens (the spill thread's timing may move a decision,
-    so the counters are compared on the no-spill runs)."""
+    reference's tokens. Each step's spills land before the next step
+    (settle_spills), so the transfer threads' timing under load cannot
+    move one engine's admissions against the other's."""
     ref = Twin(pair, page_size=8, max_batch_size=3, prefill_chunk=8,
                seed=11)
     want = ref.generate(prompts, max_new_tokens=8)
     ref.check()
     ref.shutdown()
     tw = Twin(pair, page_size=8, max_batch_size=3, prefill_chunk=8,
-              seed=11, num_pages=5, host_tier_pages=16, spill_watermark=0.5)
+              seed=11, num_pages=5, host_tier_pages=16, spill_watermark=0.5,
+              settle_spills=True)
     assert tw.generate(prompts, max_new_tokens=8) == want
     assert [r.output_ids() for r, _p in tw.reqs] == want
     st = tw.port.stats()

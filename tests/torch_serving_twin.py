@@ -1,7 +1,8 @@
 """Helpers for the port's serving parity tests
-(tests/test_torch_serving_{tenants,trace,kvtier,ledger}.py): one call
-sequence through the JAX package's ServingEngine and the port's on
-bridged weights, each engine under its own deterministic clock, and the
+(tests/test_torch_serving_{tenants,trace,kvtier,ledger,disagg}.py): one
+call sequence through the JAX package's ServingEngine (or, with
+disaggregate=True, its DisaggregatedEngine) and the port's on bridged
+weights, each engine under its own deterministic clock, and the
 comparison of everything the two decided — tokens, stats counters,
 ladder transitions, per-tenant rows, per-request trace event sequences,
 the timeline and the goodput account. Not a test module itself."""
@@ -11,9 +12,11 @@ import paddle_tpu as paddle
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.serving import ServingConfig as JConfig
 from paddle_tpu.serving import ServingEngine as JEngine
+from paddle_tpu.serving.cluster import DisaggregatedEngine as JDisagg
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import load_jax_params
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+from paddle_tpu_torch.serving.cluster import DisaggregatedEngine
 
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
             max_seq_len=128, hidden_dropout=0.0, attn_dropout=0.0,
@@ -68,16 +71,43 @@ def model_pair(seed=11, **over):
     return jm, tm
 
 
+def has_work(eng):
+    """A ServingEngine's or a DisaggregatedEngine's pending work."""
+    if hasattr(eng, 'decode'):
+        return eng.has_work
+    return eng.scheduler.has_work
+
+
+def engines(eng):
+    """The ServingEngines behind an engine: (prefill, decode) for a
+    disaggregated one."""
+    return (eng.prefill, eng.decode) if hasattr(eng, 'decode') else (eng,)
+
+
 class Twin:
     """The reference engine (`ref`) and the port's (`port`), built from
-    the same config, driven by the same calls."""
+    the same config, driven by the same calls.
 
-    def __init__(self, pair, tick=0.0, **cfg):
+    `settle_spills`: after every step, wait until both engines' host-tier
+    spills have landed. An engine submits its async spills at the end of
+    a step, and the device pages a spill pins count as in use until it
+    lands, so without this a loaded machine's transfer threads decide
+    when pages come free, and the two engines' admissions drift apart."""
+
+    def __init__(self, pair, tick=0.0, settle_spills=False, **cfg):
         jm, tm = pair
+        self.settle_spills = settle_spills
         self.clocks = (FakeClock(tick), FakeClock(tick))
-        self.ref = JEngine(jm, JConfig(clock=self.clocks[0], **cfg))
-        self.port = ServingEngine(
-            tm, ServingConfig(clock=self.clocks[1], **cfg), device='cpu')
+        if cfg.get('disaggregate'):
+            self.ref = JDisagg(jm, JConfig(clock=self.clocks[0], **cfg))
+            self.port = DisaggregatedEngine(
+                tm, ServingConfig(clock=self.clocks[1], **cfg),
+                device='cpu')
+        else:
+            self.ref = JEngine(jm, JConfig(clock=self.clocks[0], **cfg))
+            self.port = ServingEngine(
+                tm, ServingConfig(clock=self.clocks[1], **cfg),
+                device='cpu')
         self.reqs = []                  # [(ref request, port request)]
 
     def submit(self, prompt, **kw):
@@ -104,8 +134,11 @@ class Twin:
         for _ in range(n):
             self.ref.step()
             self.port.step()
-            assert self.ref.scheduler.has_work == \
-                self.port.scheduler.has_work
+            if self.settle_spills:
+                for eng in (self.ref, self.port):
+                    if eng.pool.host_tier is not None:
+                        eng.pool.host_tier.drain()
+            assert has_work(self.ref) == has_work(self.port)
 
     def jump(self, dt):
         for c in self.clocks:
@@ -113,7 +146,7 @@ class Twin:
 
     def drain(self, cap=3000):
         steps = 0
-        while self.ref.scheduler.has_work:
+        while has_work(self.ref):
             self.step()
             steps += 1
             assert steps < cap, 'engines did not drain'
@@ -154,9 +187,9 @@ class Twin:
             assert ps['pool'][k] == rs['pool'][k], (k, ps['pool'][k],
                                                      rs['pool'][k])
         assert [(h['from'], h['to'], h['pressure'])
-                for h in port.ladder_history()] == \
+                for h in engines(port)[-1].ladder_history()] == \
             [(h['from'], h['to'], h['pressure'])
-             for h in ref.ladder_history()]
+             for h in engines(ref)[-1].ladder_history()]
         if ref.tracer is not None:
             assert self._journal(port, 1) == self._journal(ref, 0)
         strip = ('t',)
@@ -164,8 +197,9 @@ class Twin:
                 for e in port.timeline.snapshot()] == \
             [{k: v for k, v in e.items() if k not in strip}
              for e in ref.timeline.snapshot()]
-        rg, pg = ref.ledger.goodput(), port.ledger.goodput()
-        assert pg == rg, (pg, rg)
+        for r, p in zip(engines(ref), engines(port)):
+            rg, pg = r.ledger.goodput(), p.ledger.goodput()
+            assert pg == rg, (pg, rg)
 
     def shutdown(self):
         self.ref.shutdown()
