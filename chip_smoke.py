@@ -311,12 +311,36 @@ Phases, one JSON line each on stdout:
              weights: losses, the parameters and the running statistics
              (each set together), then an eval-mode forward, within
              WHOLE_PATH_RTOL relative L2.
-21. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
+21. deepfm_ps — the deepfm_ps leg (bench.py:412-548), no cut: a
+             PsServer with an adagrad table (dim 8, seed 3) and a PsClient
+             over localhost TCP; 26 fields, B = 512, Pareto ids mod 10^7
+             in 3 distinct chunks of K = 16 steps, warmed, then cycled
+             through 12; the dense chunk (the FM term, a 32-unit ReLU
+             tower, SGD on w1, b1, w2 carried through K batches) on the
+             card in fp32 with torch autograd; the un-overlapped pull,
+             dense and push times a step (best of 2), then the chunks
+             through AsyncCommunicator(depth=2) over the bench's chunk
+             adapter, the push thread reading each chunk's gradients back
+             from the card (best of 2): ms/step, the overlap speedup,
+             rows/s. Then `deepfm_ps_check`: one chunk from a fresh table
+             with the dense step on the card against the CPU (rows within
+             PS_ROWS_ATOL, weights within WHOLE_PATH_RTOL); a device_put
+             through pinned memory on the communicator's copy stream
+             lands the host rows; a card gradient made on a side stream
+             behind a spin and handed to push_async lands bit-equal to
+             the host one.
+22. ps_scale_ssd — the ps_scale_ssd leg (bench.py:550-609), no cut, host
+             only: 2 M rows through the wire into an SSD table with a
+             256 k-row budget (spill logs under build/), then 15 uniform
+             batches of 13,312 ids: the spilled share (at least
+             PS_MIN_SPILLED), build rows/s, pull and push ms.
+23. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
              with `launches_bert` and their `bert_shape` times, rows 2
              and 3 with `launches_dense_decode`, every row with
-             `launches_lenet`, `launches_resnet50` and `launches_cluster`
-             (serve_cluster's cluster pass)), the nvidia-smi
-             line, and as the last line {"ok": true, "device": {...}}.
+             `launches_lenet`, `launches_resnet50`, `launches_cluster`
+             (serve_cluster's cluster pass) and `launches_deepfm_ps`),
+             the nvidia-smi line, and as the last line {"ok": true,
+             "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no final
 line; it also fails when torch.cuda.is_available() is false and when
@@ -5992,6 +6016,342 @@ def vision_check(torch):
           'cudnn_allow_tf32_in_check': False})
 
 
+# ---------------------------------------------------------------------------
+# the parameter-server legs (bench.py:412-609)
+# ---------------------------------------------------------------------------
+# deepfm_ps: fields, embedding dim, batch, merged steps (K) a chunk, the
+# timed chunks, the dense SGD and table lr (bench.py:432, :442, :463)
+PS_FIELDS, PS_DIM, PS_B, PS_K, PS_CHUNKS, PS_LR = 26, 8, 512, 16, 12, 0.05
+# The host table applies the rows of one push on up to 8 threads when
+# they are 1024 or more, so a duplicated id's updates land in a racing
+# order (csrc/sparse_table.cc ParallelOver); the chunk check pushes in
+# pieces below that, in order, so its two tables see the same sequence.
+PS_ORDERED_PUSH = 1000
+# card vs CPU after one chunk, both fp32 (TF32 off): |row diff| over the
+# chunk's distinct ids. Adagrad divides each gradient element by the root
+# of its running sum of squares (+ 1e-8), so an element near 1e-8, where
+# summation order moves it by a few ulps of its terms, moves its row by a
+# sizeable share of lr; a wrong gradient moves rows by about lr = 0.05.
+# On the CPU the leg's first chunk in fp32 against float64 stays under a
+# tenth of this bar (tests/test_torch_ps_wire.py
+# test_deepfm_chunk_fp32_against_fp64).
+PS_ROWS_ATOL = 1e-3
+PS_SCALE = dict(total_rows=2_000_000, mem_budget_rows=1 << 18, dim=8,
+                batch_rows=13312, batches=15)
+PS_MIN_SPILLED = 0.85
+
+
+def deepfm_data(B=PS_B, K=PS_K, fields=PS_FIELDS, dim=PS_DIM,
+                n_chunks=PS_CHUNKS):
+    """The bench's draws, in its order from RandomState(0)
+    (bench.py:432-448): 3 distinct chunks of Pareto ids [K, B * fields]
+    mod 10^7, the stream cycling through them (n_chunks + 1), the dense
+    weights w1 [fields * dim, 32], b1, w2 [32, 1] and the labels."""
+    rng = np.random.RandomState(0)
+    distinct = [(rng.pareto(1.2, (K, B, fields)) * 1000)
+                .astype(np.int64).reshape(K, -1) % (10 ** 7)
+                for _ in range(3)]
+    stream = [distinct[i % 3] for i in range(n_chunks + 1)]
+    w1 = (rng.randn(fields * dim, 32) * 0.05).astype(np.float32)
+    b1 = np.zeros((32,), np.float32)
+    w2 = (rng.randn(32, 1) * 0.05).astype(np.float32)
+    labels = rng.randint(0, 2, (B, 1)).astype(np.float32)
+    return distinct, stream, (w1, b1, w2), labels
+
+
+def deepfm_dense_chunk(torch, embs, params, labels, lr=PS_LR):
+    """K merged DeepFM train steps on embs [K, B * fields, dim] (the
+    device of embs): the FM term over the fields' sum, a 32-unit ReLU
+    tower, the logistic loss, torch autograd, SGD on w1, b1, w2 carried
+    through the K batches (bench.py:450-478). Returns the mean loss, the
+    K row-gradient sets [K, B * fields, dim] and the new weights."""
+    w1, b1, w2 = params
+    K, rows, dim = embs.shape
+    B = labels.shape[0]
+    losses, ges = [], []
+    for k in range(K):
+        emb = embs[k].detach().requires_grad_(True)
+        ws = [t.detach().requires_grad_(True) for t in (w1, b1, w2)]
+        e = emb.reshape(B, rows // B, dim)
+        s = e.sum(1)
+        fm = 0.5 * (s * s - (e * e).sum(1)).sum(-1, keepdim=True)
+        h = torch.relu(e.reshape(B, -1) @ ws[0] + ws[1])
+        logit = h @ ws[2] + fm
+        loss = (logit.clamp(min=0) - logit * labels
+                + torch.log1p(torch.exp(-logit.abs()))).mean()
+        ge, gw1, gb1, gw2 = torch.autograd.grad(loss, [emb, *ws])
+        with torch.no_grad():
+            w1, b1, w2 = w1 - lr * gw1, b1 - lr * gb1, w2 - lr * gw2
+        losses.append(loss.detach())
+        ges.append(ge)
+    return torch.stack(losses).mean(), torch.stack(ges), (w1, b1, w2)
+
+
+def deepfm_chunk(torch, device, ids, params, labels, dtype=None):
+    """One chunk from a fresh table (adagrad, seed 3, as the leg's): pull
+    the K id sets, the dense chunk on `device` (in `dtype`, fp32 by
+    default), push the K row-gradient sets in ordered pieces, pull the
+    chunk's distinct ids back. Returns (rows after, loss, ges, weights)
+    on the host."""
+    from paddle_tpu_torch.distributed.ps.service import PsClient, PsServer
+    dtype = dtype or torch.float32
+    srv = PsServer(host='127.0.0.1')
+    srv.add_table(0, dim=PS_DIM, optimizer='adagrad', seed=3)
+    srv.start()
+    client = PsClient([f'127.0.0.1:{srv.port}'], timeout=60)
+    try:
+        embs = np.stack([client.pull(0, f, PS_DIM) for f in ids])
+        to = dict(device=device, dtype=dtype)
+        loss, ges, ws = deepfm_dense_chunk(
+            torch, torch.from_numpy(embs).to(**to),
+            [torch.from_numpy(p).to(**to) for p in params],
+            torch.from_numpy(labels).to(**to))
+        ges_np = ges.float().cpu().numpy()
+        for f, g in zip(ids, ges_np):
+            for lo in range(0, len(f), PS_ORDERED_PUSH):
+                client.push(0, f[lo:lo + PS_ORDERED_PUSH],
+                            g[lo:lo + PS_ORDERED_PUSH], lr=PS_LR)
+        after = client.pull(0, np.unique(ids), PS_DIM)
+    finally:
+        client.shutdown()
+        client.close()
+    return (after, float(loss), ges_np,
+            [w.float().cpu().numpy() for w in ws])
+
+
+def deepfm_ps_phase(torch, card, smi):
+    """bench.py:412-548 with no cut: DeepFM over the real PS wire
+    (PsServer, PsClient over localhost TCP, the adagrad table of seed 3),
+    the dense chunk of K = 16 merged steps on the card in fp32 with
+    torch autograd, overlapped through AsyncCommunicator(depth=2) over
+    the bench's chunk adapter: 12 chunks cycling through 3 warmed
+    distinct ones, best of 2, beside the un-overlapped pull, dense and
+    push times a step (best of 2). The push thread reads each chunk's
+    row gradients back from the card (the communicator's event path)."""
+    import types
+    from paddle_tpu_torch.distributed.ps.communicator import \
+        AsyncCommunicator
+    from paddle_tpu_torch.distributed.ps.service import PsClient, PsServer
+    from paddle_tpu_torch.ops.kernels import _build
+
+    dev = torch.device('cuda')
+    K, dim = PS_K, PS_DIM
+    distinct, stream, params, labels_np = deepfm_data()
+    labels = torch.from_numpy(labels_np).to(dev)
+    ws = [torch.from_numpy(p).to(dev) for p in params]
+    _build.reset_launches()
+    srv = PsServer().start()
+    srv.add_table(0, dim=dim, optimizer='adagrad', seed=3)
+    client = PsClient([f'127.0.0.1:{srv.port}'])
+
+    def up(rows):
+        return torch.from_numpy(rows).to(dev)
+
+    # warm every distinct chunk's rows, then the un-overlapped parts
+    for ch in distinct:
+        for f in ch:
+            client.pull(0, f, dim)
+    flat0 = stream[-1]
+    loss, ges, ws = deepfm_dense_chunk(
+        torch, up(np.stack([client.pull(0, f, dim) for f in flat0])), ws,
+        labels)
+    ges.cpu()
+    pull_ms = push_ms = dense_ms = float('inf')
+    for _ in range(2):
+        tp = time.perf_counter()
+        pulled = [client.pull(0, f, dim) for f in flat0]
+        pull_ms = min(pull_ms, (time.perf_counter() - tp) * 1e3 / K)
+        td = time.perf_counter()
+        loss, ges, ws = deepfm_dense_chunk(torch, up(np.stack(pulled)), ws,
+                                           labels)
+        ges_np = ges.cpu().numpy()
+        dense_ms = min(dense_ms, (time.perf_counter() - td) * 1e3 / K)
+        tu = time.perf_counter()
+        for f, g in zip(flat0, ges_np):
+            client.push(0, f, g, lr=PS_LR)
+        push_ms = min(push_ms, (time.perf_counter() - tu) * 1e3 / K)
+
+    chunk_client = types.SimpleNamespace(
+        pull=lambda tid, ids, d: np.stack(
+            [client.pull(tid, f, d) for f in ids]),
+        push=lambda tid, ids, grads, lr: [
+            client.push(tid, f, g, lr) for f, g in zip(ids, grads)])
+    dt, losses = float('inf'), []
+    for _ in range(2):
+        comm = AsyncCommunicator(chunk_client, 0, dim, depth=2)
+        batches = comm.pull_ahead(stream[:PS_CHUNKS])
+        ids0, emb0 = next(batches)           # prime the pipeline
+        t0 = time.perf_counter()
+        done = 0
+        for ids_t, emb_t in batches:
+            loss, ges, ws = deepfm_dense_chunk(torch, up(emb0), ws, labels)
+            comm.push_async(ids0, ges, lr=PS_LR)
+            done += K
+            ids0, emb0 = ids_t, emb_t
+        loss, ges, ws = deepfm_dense_chunk(torch, up(emb0), ws, labels)
+        comm.push_async(ids0, ges, lr=PS_LR)
+        done += K
+        comm.flush()
+        losses.append(float(loss))
+        dt = min(dt, (time.perf_counter() - t0) / done)
+        comm.stop()
+    launches = _build.routes_snapshot()
+    rows = PS_B * PS_FIELDS
+    out = {'steps_per_sec': 1.0 / dt, 'ms_per_step': dt * 1e3,
+           'pull_ms': pull_ms, 'push_ms': push_ms, 'dense_ms': dense_ms,
+           'merged_steps': K,
+           'overlap_speedup': (pull_ms + push_ms + dense_ms) / (dt * 1e3),
+           'rows_per_pull': rows,
+           'pull_rows_per_sec': rows / (pull_ms / 1e3),
+           'push_rows_per_sec': rows / (push_ms / 1e3),
+           'table_rows': int(client.table_size(0))}
+    client.shutdown()
+    client.close()
+    if not np.isfinite(losses).all() or out['table_rows'] <= 0:
+        raise AssertionError(f'deepfm_ps: losses {losses}, {out}')
+    emit({'phase': 'deepfm_ps', 'card': card, 'nvidia_smi': smi,
+          'fields': PS_FIELDS, 'dim': dim, 'batch': PS_B,
+          'chunks': PS_CHUNKS, 'depth': 2, 'dense': 'fp32 on the card',
+          'last_losses': losses, **out})
+    return launches
+
+
+def deepfm_ps_check(torch):
+    """What the CPU tests cannot see of deepfm_ps: (1) one chunk (pull,
+    dense chunk, push) from a fresh table with the dense step on the card
+    against the same chunk with it on the CPU, both fp32, over a second
+    fresh table of the same seed: the rows pulled back within
+    PS_ROWS_ATOL, the weights within WHOLE_PATH_RTOL; (2) a device_put
+    through pinned memory on the communicator's copy stream lands rows
+    equal to the host rows; (3) a gradient made on the card on a side
+    stream behind a 20 ms spin, handed to push_async, lands on its table
+    bit-equal to the same gradient pushed from the host."""
+    from paddle_tpu_torch.distributed.ps.communicator import \
+        AsyncCommunicator
+    from paddle_tpu_torch.distributed.ps.service import PsClient, PsServer
+
+    distinct, _stream, params, labels = deepfm_data()
+    ids = distinct[0]
+    card = deepfm_chunk(torch, 'cuda', ids, params, labels)
+    cpu = deepfm_chunk(torch, 'cpu', ids, params, labels)
+    rows_err = float(np.abs(card[0] - cpu[0]).max())
+    w_err = max(_rel_np(a, b) for a, b in zip(card[3], cpu[3]))
+    ges_err = _rel_np(card[2], cpu[2])
+    chunk = {'distinct_ids': int(len(card[0])), 'rows_max_abs_err': rows_err,
+             'rows_atol': PS_ROWS_ATOL, 'weights_rel_l2': w_err,
+             'ges_rel_l2': ges_err, 'loss_card': card[1], 'loss_cpu': cpu[1]}
+    if not (rows_err <= PS_ROWS_ATOL and w_err <= WHOLE_PATH_RTOL):
+        raise AssertionError(f'deepfm_ps_check chunk: {chunk}')
+
+    servers = []
+    for _ in range(2):
+        srv = PsServer(host='127.0.0.1')
+        srv.add_table(0, dim=PS_DIM, optimizer='adagrad', seed=3)
+        servers.append(srv.start())
+    a, b = (PsClient([f'127.0.0.1:{s.port}'], timeout=60) for s in servers)
+    try:
+        comm = AsyncCommunicator(
+            a, 0, PS_DIM, depth=2, device_put=lambda r: torch.from_numpy(
+                r).pin_memory().to('cuda', non_blocking=True))
+        uploads = 0
+        for f, rows in comm.pull_ahead(list(ids[:4])):
+            if not (rows.is_cuda and torch.equal(
+                    (rows * 1).cpu(), torch.from_numpy(a.pull(0, f,
+                                                              PS_DIM)))):
+                raise AssertionError('deepfm_ps_check: device_put rows '
+                                     'differ from the host rows')
+            uploads += 1
+        pieces = ids[:4, :PS_ORDERED_PUSH]
+        g = np.random.RandomState(5).randn(*pieces.shape,
+                                           PS_DIM).astype(np.float32)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            g_dev = torch.empty(g.shape, device='cuda')
+            torch.cuda._sleep(40_000_000)
+            g_dev.copy_(torch.from_numpy(g).to('cuda'))
+            for f, gf in zip(pieces, g_dev):
+                comm.push_async(f, gf, lr=PS_LR)
+        for f, gf in zip(pieces, g):
+            b.push(0, f, gf, lr=PS_LR)
+        comm.flush()
+        comm.stop()
+        flat = np.unique(pieces)
+        pushed_equal = a.pull(0, flat, PS_DIM).tobytes() == b.pull(
+            0, flat, PS_DIM).tobytes()
+    finally:
+        for c in (a, b):
+            c.shutdown()
+            c.close()
+    if not pushed_equal:
+        raise AssertionError('deepfm_ps_check: the card gradient handed to '
+                             'push_async did not land as the host one')
+    emit({'phase': 'deepfm_ps_check', 'chunk': chunk,
+          'device_put_batches_equal': uploads,
+          'cuda_push_rows_equal': int(len(flat))})
+
+
+def _rel_np(a, b):
+    return float(np.linalg.norm((a - b).ravel())
+                 / max(np.linalg.norm(b.ravel()), 1e-30))
+
+
+def ps_scale_ssd_phase(card, smi, total_rows, mem_budget_rows, dim,
+                       batch_rows, batches):
+    """bench.py:550-609 with no cut, host only by design: 2 M distinct
+    rows over the wire against a 256 k-row budget of the SSD table (the
+    spill logs under build/, removed after), then pull and push times of
+    15 uniform batches of 13,312 ids over the whole id space, so most
+    touches hit spilled rows. Fails when less than PS_MIN_SPILLED of the
+    rows spilled."""
+    import tempfile
+    from paddle_tpu_torch.distributed.ps.service import PsClient, PsServer
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix='ps_scale_', dir=root)
+    srv = PsServer().start()
+    srv.add_table(0, dim=dim, optimizer='adagrad', seed=3,
+                  ssd_path=tmp.name, mem_budget_rows=mem_budget_rows)
+    client = PsClient([f'127.0.0.1:{srv.port}'])
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    seen, chunk = 0, 1 << 17
+    while seen < total_rows:       # first-touch pulls insert; budget spills
+        ids = np.arange(seen, min(seen + chunk, total_rows), dtype=np.int64)
+        client.pull(0, ids, dim)
+        seen += len(ids)
+    build_s = time.perf_counter() - t0
+    tbl = srv.tables[0]
+    resident, total = int(tbl.mem_rows()), int(tbl.total_rows())
+    t_pull = t_push = 0.0
+    for _ in range(batches):
+        ids = rng.randint(0, total_rows, batch_rows).astype(np.int64)
+        tp = time.perf_counter()
+        client.pull(0, ids, dim)
+        t_pull += time.perf_counter() - tp
+        g = rng.rand(batch_rows, dim).astype(np.float32) * 0.01
+        tu = time.perf_counter()
+        client.push(0, ids, g, lr=0.05)
+        t_push += time.perf_counter() - tu
+    out = {'table_rows': total, 'resident_rows': resident,
+           'spilled_rows': total - resident,
+           'spilled_frac': round(1 - resident / max(total, 1), 4),
+           'mem_budget_rows': mem_budget_rows,
+           'build_rows_per_sec': total_rows / build_s,
+           'pull_ms': t_pull / batches * 1e3,
+           'push_ms': t_push / batches * 1e3,
+           'rows_per_batch': batch_rows,
+           'pull_rows_per_sec': batch_rows / (t_pull / batches),
+           'push_rows_per_sec': batch_rows / (t_push / batches)}
+    client.shutdown()
+    client.close()
+    tmp.cleanup()
+    if total != total_rows or out['spilled_frac'] < PS_MIN_SPILLED:
+        raise AssertionError(f'ps_scale_ssd: {out}')
+    emit({'phase': 'ps_scale_ssd', 'card': card, 'nvidia_smi': smi,
+          'host_only': True, **out})
+
+
 # the port's kernels by the device-side names the profiler shows (a name
 # holds one of the row's strings); the column sum is the second pass of
 # both backward reductions, the merge kernel the paged attention's; the
@@ -6294,6 +6654,15 @@ def main():
     resnet50_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     vision_check(torch)
+    free_cuda(torch)
+    vision_check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deepfm_launches = deepfm_ps_phase(torch, card, smi)
+    deepfm_ps_check(torch)
+    free_cuda(torch)
+    deepfm_ps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ps_scale_ssd_phase(card, smi, **PS_SCALE)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
@@ -6308,7 +6677,8 @@ def main():
           'linear_xent': linear_xent_s, 'bert': bert_s,
           'bert_check': bert_check_s, 'dense_decode': dense_decode_s,
           'lenet': lenet_s, 'resnet50': resnet50_s,
-          'vision_check': time.perf_counter() - t0})
+          'vision_check': vision_check_s, 'deepfm_ps': deepfm_ps_s,
+          'ps_scale_ssd': time.perf_counter() - t0})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -6382,6 +6752,8 @@ def main():
         # launches over their clean and forced-hang passes
         entry['launches_serve_disagg'] = disagg_launches[name]
         entry['launches_serve_workers'] = workers_launches.get(name, 0)
+        # the DeepFM PS leg's run (its dense step is torch's own ops)
+        entry['launches_deepfm_ps'] = deepfm_launches[name]
         if name in SERVE_KERNELS:
             # the tenants leg's SLO run and the oversubscribed serve
             entry['launches_serve_tenants'] = tenants_launches[name]

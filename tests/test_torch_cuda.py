@@ -1502,3 +1502,55 @@ class TestHostTierOnCard:
         assert st['tier_fetched_pages_total'] == 24
         pool.release('b')
         pool.host_tier.shutdown()
+
+
+class _RecordingClient:
+    """A PS client double: pull gives rows of the ids' values, push keeps
+    what reached it (host arrays)."""
+
+    def __init__(self):
+        self.pushed = []
+
+    def pull(self, tid, ids, dim):
+        return np.repeat(np.asarray(ids, np.float32)[:, None], dim, 1)
+
+    def push(self, tid, ids, grads, lr):
+        self.pushed.append((np.array(ids), np.array(grads)))
+
+
+@pytest.mark.cuda
+class TestPsCommunicatorOnCard:
+    """AsyncCommunicator's two stream hand-offs on the card."""
+
+    def test_device_put_on_the_copy_stream(self, cuda):
+        from paddle_tpu_torch.distributed.ps.communicator import (
+            AsyncCommunicator)
+        comm = AsyncCommunicator(
+            _RecordingClient(), 0, 8, depth=2,
+            device_put=lambda r: torch.from_numpy(r).pin_memory().to(
+                cuda, non_blocking=True))
+        batches = [np.arange(i * 50_000, (i + 1) * 50_000) for i in range(6)]
+        for ids, rows in comm.pull_ahead(batches):
+            assert rows.is_cuda
+            want = torch.from_numpy(ids.astype(np.float32))[:, None]
+            assert torch.equal((rows + 0).cpu(), want.expand(-1, 8))
+        assert comm._copy_stream is not None
+        comm.stop()
+
+    def test_push_async_reads_a_card_gradient_after_its_stream(self, cuda):
+        from paddle_tpu_torch.distributed.ps.communicator import (
+            AsyncCommunicator)
+        client = _RecordingClient()
+        comm = AsyncCommunicator(client, 0, 8, depth=2)
+        g = np.random.RandomState(0).randn(3, 4096, 8).astype(np.float32)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            for k in range(3):
+                g_dev = torch.zeros(4096, 8, device=cuda)
+                torch.cuda._sleep(20_000_000)     # the write lands late
+                g_dev.copy_(torch.from_numpy(g[k]).to(cuda))
+                comm.push_async(np.arange(4096), g_dev, 0.1)
+        comm.flush()
+        assert [p[1].tobytes() for p in client.pushed] == [
+            g[k].tobytes() for k in range(3)]
+        comm.stop()

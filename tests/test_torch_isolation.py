@@ -114,8 +114,16 @@ VISION_PATH_MODULES = ('paddle_tpu_torch.nn.layer.conv',
                        'paddle_tpu_torch.vision.models.vgg',
                        'paddle_tpu_torch.vision.models.mobilenet')
 
+# the parameter server's wire, tables, communicator and runtime
+PS_PATH_MODULES = ('paddle_tpu_torch.core.native',
+                   'paddle_tpu_torch.distributed.ps',
+                   'paddle_tpu_torch.distributed.ps.service',
+                   'paddle_tpu_torch.distributed.ps.communicator',
+                   'paddle_tpu_torch.distributed.ps.ps_runtime')
 
-@pytest.mark.parametrize('module', BERT_PATH_MODULES + VISION_PATH_MODULES)
+
+@pytest.mark.parametrize('module', BERT_PATH_MODULES + VISION_PATH_MODULES
+                         + PS_PATH_MODULES)
 def test_new_module_imports_alone_with_jax_blocked(module):
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -227,3 +235,30 @@ def test_worker_entry_module_holds_no_jax_or_paddle_tpu(tmp_path):
     out = json.loads(res.stdout.decode().splitlines()[-1])
     assert out == {'bad': [], 'device': 'cpu'}
     assert (tmp_path / 'replica_hang.w0.json').exists()
+
+
+@pytest.mark.parametrize('case', ['no_compiler', 'compiler_fails',
+                                  'build_dir_unwritable'])
+def test_native_loader_raises_when_the_build_fails(monkeypatch, tmp_path,
+                                                   case):
+    """The port's table loader raises where the reference's
+    `load_native()` returns None; the real build is left alone (a fresh
+    build directory, and the loaded library's cache put back after)."""
+    from paddle_tpu_torch.core import native
+    build_dir = tmp_path / 'build'
+    if case == 'build_dir_unwritable':
+        (tmp_path / 'file').write_text('')
+        build_dir = tmp_path / 'file' / 'build'      # under a regular file
+    monkeypatch.setenv('PADDLE_TPU_TORCH_BUILD_DIR', str(build_dir))
+    monkeypatch.setenv('CXX', {'no_compiler': str(tmp_path / 'no-g++'),
+                               'compiler_fails': 'false'}.get(case, 'g++'))
+    monkeypatch.setattr(native, '_LIB', None)
+    with pytest.raises((RuntimeError, OSError)) as err:
+        native.load_native()
+    if case != 'build_dir_unwritable':
+        assert 'native build failed' in str(err.value)
+    with pytest.raises((RuntimeError, OSError)):
+        native.NativeSparseTable(4)
+    assert native._LIB is None
+    if build_dir.is_dir():
+        assert not list(build_dir.rglob('*.so'))
