@@ -334,11 +334,34 @@ Phases, one JSON line each on stdout:
              256 k-row budget (spill logs under build/), then 15 uniform
              batches of 13,312 ids: the spilled share (at least
              PS_MIN_SPILLED), build rows/s, pull and push ms.
-23. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
+23. ctr_ps  — the CTR training path through its entry points, at the
+             DeepFM leg's sizes (bench.py:429-441): a
+             MultiSlotDataGenerator script under build/ctr_ps and 4 files
+             of 64 x 512 Criteo-shaped lines (a label, 13 dense floats,
+             26 Pareto(1.2) x 1000 ids mod 10^7) from a seeded numpy
+             generator; QueueDataset (2 threads, batch 512) through that
+             pipe_command into DeepFM(fields=26, embed_dim=8, hidden=(32,
+             16), use_ps=True) on the card with Adam(5e-3): 64 steps in
+             sync mode, then its tables saved and loaded into async
+             layers for 64 more, then flush; Wide&Deep in geo mode
+             (geo_k=10) for 40 steps from an InMemoryDataset of the same
+             files. ms/step split into pull, dense and push, table rows,
+             first and last losses (DeepFM's finite and falling,
+             Wide&Deep's finite), the AUC of
+             metric.Auc's buckets through fleet.metrics.auc, the rows
+             geo synced; exactly one row-15 launch an Adam step and none
+             of any other kernel, or it raises.
+   ctr_ps_check — one DeepFM step (32 rows: 832 ids a push, pushed in
+             order) on the card and on the CPU from the trained dense
+             weights and the same table files (saved once, loaded
+             twice): logits and weights within WHOLE_PATH_RTOL, the
+             pushed rows within PS_ROWS_ATOL.
+24. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
              with `launches_bert` and their `bert_shape` times, rows 2
              and 3 with `launches_dense_decode`, every row with
              `launches_lenet`, `launches_resnet50`, `launches_cluster`
-             (serve_cluster's cluster pass) and `launches_deepfm_ps`),
+             (serve_cluster's cluster pass), `launches_deepfm_ps` and
+             `launches_ctr_ps`),
              the nvidia-smi line, and as the last line {"ok": true,
              "device": {...}}.
 
@@ -6352,6 +6375,304 @@ def ps_scale_ssd_phase(card, smi, total_rows, mem_budget_rows, dim,
           'host_only': True, **out})
 
 
+# ---------------------------------------------------------------------------
+# the CTR training path (ROADMAP Queue 1 item 9b-2)
+# ---------------------------------------------------------------------------
+# the DeepFM leg's sizes (bench.py:429-441): 26 sparse fields, dim 8, batch
+# 512, Pareto(1.2) x 1000 ids mod 10^7; Criteo's 13 dense floats a line;
+# 64 steps a mode from 4 files; Wide&Deep's 40 geo steps
+CTR_FIELDS, CTR_DIM, CTR_DENSE, CTR_B = 26, 8, 13, 512
+CTR_STEPS, CTR_FILES, CTR_WD_STEPS, CTR_LR = 64, 4, 40, 5e-3
+# the card-vs-CPU step: 32 rows, 832 ids a push, under the 1024 at which
+# the table applies a push on 8 threads (PS_ORDERED_PUSH)
+CTR_CHECK_B = 32
+CTR_GEN = """import sys
+sys.path.insert(0, {repo!r})
+from paddle_tpu_torch.distributed.fleet.data_generator import (
+    MultiSlotDataGenerator)
+
+
+class CriteoGen(MultiSlotDataGenerator):
+    def generate_sample(self, line):
+        def it():
+            v = line.split()
+            yield [('dense', [float(x) for x in v[1:{ids}]]),
+                   ('ids', [int(x) for x in v[{ids}:]]),
+                   ('label', [int(v[0])])]
+        return it
+
+
+if __name__ == '__main__':
+    CriteoGen().run_from_stdin()
+"""
+
+
+def ctr_data(root, seed=0):
+    """The generator script and CTR_FILES raw files of CTR_STEPS * CTR_B
+    lines in all under `root`; a label is 1 when 15 or more of the 26
+    ids are below 1000 (about half the lines), so the models can learn
+    it. Returns (script, files, (ids, labels) of the first file)."""
+    os.makedirs(root, exist_ok=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, 'criteo_gen.py')
+    with open(script, 'w') as f:
+        f.write(CTR_GEN.format(repo=repo, ids=1 + CTR_DENSE))
+    rng = np.random.RandomState(seed)
+    n = CTR_STEPS * CTR_B // CTR_FILES
+    fmt = ['%d'] + ['%.6f'] * CTR_DENSE + ['%d'] * CTR_FIELDS
+    files, first = [], None
+    for k in range(CTR_FILES):
+        ids = (rng.pareto(1.2, (n, CTR_FIELDS)) * 1000).astype(
+            np.int64) % (10 ** 7)
+        dense = rng.rand(n, CTR_DENSE)
+        labels = ((ids < 1000).sum(1) >= 15).astype(np.int64)
+        path = os.path.join(root, f'part-{k}.txt')
+        np.savetxt(path, np.column_stack([labels, dense, ids]), fmt=fmt)
+        files.append(path)
+        first = first or (ids, labels)
+    return script, files, first
+
+
+def ctr_slots():
+    import types
+    return [types.SimpleNamespace(shape=[CTR_DENSE], dtype='float32'),
+            types.SimpleNamespace(shape=[CTR_FIELDS], dtype='int64'),
+            types.SimpleNamespace(shape=[1], dtype='int64')]
+
+
+class TimedTable:
+    """A table that adds up the seconds and rows of its pulls and pushes
+    (a push may run on the communicator's thread)."""
+
+    def __init__(self, table):
+        self.table = table
+        self.pull_s = self.push_s = 0.0
+        self.pulled = self.pushed = 0
+
+    def pull(self, ids):
+        t = time.perf_counter()
+        out = self.table.pull(ids)
+        self.pull_s += time.perf_counter() - t
+        self.pulled += len(ids)
+        return out
+
+    def push(self, ids, grads, lr):
+        t = time.perf_counter()
+        self.table.push(ids, grads, lr)
+        self.push_s += time.perf_counter() - t
+        self.pushed += len(ids)
+
+    def save(self, path):
+        self.table.save(path)
+
+    def __len__(self):
+        return len(self.table)
+
+
+def ctr_steps(torch, model, loss_fn, opt, batches, steps, tables, auc,
+              sync_push):
+    """`steps` train steps over `batches` (dense, ids, label host
+    tensors), each timed from its batch in hand to its loss on the host.
+    Returns the losses and the ms a step split into pull, push (on the
+    step's clock when `sync_push`) and the rest (dense)."""
+    losses, wall = [], 0.0
+    marks = [(t.pull_s, t.push_s) for t in tables]
+    for dense, ids, label in batches:
+        t0 = time.perf_counter()
+        logits = model(ids) if dense is None else model(ids, dense)
+        loss = loss_fn(logits, label)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        wall += time.perf_counter() - t0
+        auc.update(torch.sigmoid(logits.detach()).cpu().numpy()[:, 0],
+                   label.numpy())
+        if len(losses) == steps:
+            break
+    if len(losses) != steps:
+        raise AssertionError(f'ctr_ps: {len(losses)} batches, want {steps}')
+    pull = sum(t.pull_s - m[0] for t, m in zip(tables, marks))
+    push = sum(t.push_s - m[1] for t, m in zip(tables, marks))
+    dense_s = wall - pull - (push if sync_push else 0.0)
+    return losses, {'steps': steps, 'ms_per_step': wall * 1e3 / steps,
+                    'pull_ms': pull * 1e3 / steps,
+                    'push_ms': push * 1e3 / steps,
+                    'push_on_step_clock': sync_push,
+                    'dense_ms': dense_s * 1e3 / steps,
+                    'loss_first': losses[0], 'loss_last': losses[-1]}
+
+
+def ctr_ps_phase(torch, card, smi):
+    """The CTR path through its entry points (see the module docstring):
+    DeepFM sync then async from a QueueDataset, Wide&Deep geo from an
+    InMemoryDataset, the AUC, and the exact launch count. Returns (the
+    launches, what ctr_ps_check needs)."""
+    from paddle_tpu_torch import metric
+    from paddle_tpu_torch.distributed import InMemoryDataset, QueueDataset
+    from paddle_tpu_torch.distributed.fleet import metrics as fleet_metrics
+    from paddle_tpu_torch.distributed.ps.embedding import \
+        DistributedEmbedding
+    from paddle_tpu_torch.models import DeepFM, WideDeep, deepfm_loss
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import Adam
+
+    dev = torch.device('cuda')
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                        'ctr_ps')
+    t0 = time.perf_counter()
+    script, files, first = ctr_data(root)
+    data_s = time.perf_counter() - t0
+    pipe = f'{sys.executable} {script}'
+
+    def dataset(cls):
+        ds = cls()
+        ds.init(batch_size=CTR_B, thread_num=2, use_var=ctr_slots(),
+                pipe_command=pipe)
+        ds.set_filelist(files)
+        return ds
+
+    def no_dense(batches):
+        for _dense, ids, label in batches:
+            yield None, ids, label
+
+    def label_loss(logits, label):
+        return deepfm_loss(logits, label.to(dev, non_blocking=True))
+
+    _build.reset_launches()
+    model = DeepFM(fields=CTR_FIELDS, embed_dim=CTR_DIM, hidden=(32, 16),
+                   use_ps=True, generator=torch.Generator(
+                       device='cuda').manual_seed(22))
+    opt = Adam(learning_rate=CTR_LR, parameters=model.parameters())
+    auc = metric.Auc()
+    timed = {}
+    for name in ('embedding', 'linear_embedding'):
+        layer = getattr(model, name)
+        layer.table = timed[name] = TimedTable(layer.table)
+    t0 = time.perf_counter()
+    losses, sync = ctr_steps(torch, model, label_loss, opt,
+                             no_dense(dataset(QueueDataset)), CTR_STEPS,
+                             list(timed.values()), auc, sync_push=True)
+    sync['wall_s'] = time.perf_counter() - t0
+    sync['table_rows'] = {n: len(t) for n, t in timed.items()}
+    # the same tables, saved and loaded into async layers
+    tables = {}
+    for name, table in timed.items():
+        tables[name] = os.path.join(root, f'{name}.table')
+        table.save(tables[name])
+        layer = DistributedEmbedding(getattr(model, name).embedding_dim,
+                                     a_sync=True)
+        layer.load(tables[name])
+        layer.table = timed[name] = TimedTable(layer.table)
+        setattr(model, name, layer)
+    t0 = time.perf_counter()
+    more, a_sync = ctr_steps(torch, model, label_loss, opt,
+                             no_dense(dataset(QueueDataset)), CTR_STEPS,
+                             list(timed.values()), auc, sync_push=False)
+    model.embedding.flush()
+    a_sync['wall_s'] = time.perf_counter() - t0
+    a_sync['table_rows'] = {n: len(t) for n, t in timed.items()}
+    losses += more
+    auc_buckets = fleet_metrics.auc(auc._stat_pos, auc._stat_neg)
+
+    wd = WideDeep(sparse_feature_dim=16, num_sparse_slots=CTR_FIELDS,
+                  dense_dim=CTR_DENSE, hidden_sizes=(64, 32), mode='geo',
+                  geo_k=10, generator=torch.Generator(
+                      device='cuda').manual_seed(23))
+    wd_opt = Adam(learning_rate=CTR_LR, parameters=wd.parameters())
+    t0 = time.perf_counter()
+    mem = dataset(InMemoryDataset)
+    mem.load_into_memory()
+    mem.local_shuffle()
+    load_s = time.perf_counter() - t0
+    geo, remote = [], []
+    for layer in (wd.embedding, wd.wide_embedding):
+        layer.table.remote = TimedTable(layer.table.remote)
+        remote.append(layer.table.remote)
+        layer.table = TimedTable(layer.table)
+        geo.append(layer.table)
+    wd_losses, geo_rec = ctr_steps(
+        torch, wd, lambda lg, y: wd.loss(lg, y.to(dev, non_blocking=True)),
+        wd_opt, iter(mem), CTR_WD_STEPS, geo, metric.Auc(), sync_push=True)
+    geo_rec.update(load_into_memory_s=load_s,
+                   memory_lines=mem.get_memory_data_size(),
+                   rows_synced=[r.pushed for r in remote],
+                   syncs=CTR_WD_STEPS // 10,
+                   base_rows=[len(r) for r in remote])
+    torch.cuda.synchronize()
+    launches = _build.routes_snapshot()
+    adam_steps = 2 * CTR_STEPS + CTR_WD_STEPS
+    want = {n: adam_steps if n == 'optimizer_step' else 0 for n in launches}
+    emit({'phase': 'ctr_ps', 'card': card, 'nvidia_smi': smi,
+          'fields': CTR_FIELDS, 'dim': CTR_DIM, 'dense': CTR_DENSE,
+          'batch': CTR_B, 'files': CTR_FILES,
+          'lines': CTR_STEPS * CTR_B, 'write_data_s': data_s,
+          'deepfm': {'sync': sync, 'async': a_sync,
+                     'auc_fleet_metrics': auc_buckets,
+                     'auc_metric': auc.accumulate()},
+          'wide_deep_geo': geo_rec, 'adam_steps': adam_steps,
+          'launches': {n: c for n, c in launches.items() if c}})
+    check_exact_launches('ctr_ps', launches, want)
+    # DeepFM learns the ids' rule within its 128 steps; Wide&Deep's 40
+    # (sgd wide weights, adagrad rows at the mean loss's small
+    # gradients) barely move its loss, so it is held finite only
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and np.isfinite(wd_losses).all()):
+        raise AssertionError(f'ctr_ps: deepfm losses {losses[0]} .. '
+                             f'{losses[-1]}, wide_deep {wd_losses[0]} .. '
+                             f'{wd_losses[-1]}')
+    if not 0.5 < auc_buckets <= 1.0 or min(sync['table_rows'].values()) <= 0:
+        raise AssertionError(f'ctr_ps: auc {auc_buckets}, {sync}')
+    dense = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return launches, dict(dense=dense, tables=tables, batch=first)
+
+
+def ctr_ps_check(torch, state):
+    """One DeepFM step (CTR_CHECK_B rows of the first file) on the card
+    and on the CPU from ctr_ps's trained dense weights and table files,
+    both fp32 (TF32 off): the logits and the weights after the Adam step
+    within WHOLE_PATH_RTOL relative L2, the pushed rows of both tables
+    within PS_ROWS_ATOL."""
+    from paddle_tpu_torch.models import DeepFM, deepfm_loss
+    from paddle_tpu_torch.optimizer import Adam
+
+    ids, labels = state['batch']
+    ids = torch.from_numpy(ids[:CTR_CHECK_B].copy())
+    labels = torch.from_numpy(labels[:CTR_CHECK_B, None].copy())
+    flat = np.unique(ids.numpy())
+    out = {}
+    for device in ('cuda', 'cpu'):
+        m = DeepFM(fields=CTR_FIELDS, embed_dim=CTR_DIM, hidden=(32, 16),
+                   use_ps=True, device=device)
+        m.load_state_dict(state['dense'])
+        for name, path in state['tables'].items():
+            getattr(m, name).load(path)
+        opt = Adam(learning_rate=CTR_LR, parameters=m.parameters())
+        logits = m(ids)
+        deepfm_loss(logits, labels.to(device)).backward()
+        opt.step()
+        out[device] = dict(
+            logits=logits.detach().cpu().numpy(),
+            weights={k: v.detach().cpu().numpy()
+                     for k, v in m.state_dict().items()},
+            rows={n: getattr(m, n).table.pull(flat)
+                  for n in state['tables']})
+    card, cpu = out['cuda'], out['cpu']
+    rec = {'batch': CTR_CHECK_B, 'distinct_ids': int(len(flat)),
+           'logits_rel_l2': _rel_np(card['logits'], cpu['logits']),
+           'weights_rel_l2': max(_rel_np(card['weights'][k], v)
+                                 for k, v in cpu['weights'].items()),
+           'rows_max_abs_err': {n: float(np.abs(card['rows'][n]
+                                                - cpu['rows'][n]).max())
+                                for n in cpu['rows']},
+           'rtol': WHOLE_PATH_RTOL, 'rows_atol': PS_ROWS_ATOL}
+    if not (rec['logits_rel_l2'] <= WHOLE_PATH_RTOL
+            and rec['weights_rel_l2'] <= WHOLE_PATH_RTOL
+            and max(rec['rows_max_abs_err'].values()) <= PS_ROWS_ATOL):
+        raise AssertionError(f'ctr_ps_check: {rec}')
+    emit({'phase': 'ctr_ps_check', **rec})
+
+
 # the port's kernels by the device-side names the profiler shows (a name
 # holds one of the row's strings); the column sum is the second pass of
 # both backward reductions, the merge kernel the paged attention's; the
@@ -6663,6 +6984,11 @@ def main():
     deepfm_ps_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ps_scale_ssd_phase(card, smi, **PS_SCALE)
+    ps_scale_ssd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctr_launches, ctr_state = ctr_ps_phase(torch, card, smi)
+    ctr_ps_check(torch, ctr_state)
+    free_cuda(torch)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
@@ -6678,7 +7004,8 @@ def main():
           'bert_check': bert_check_s, 'dense_decode': dense_decode_s,
           'lenet': lenet_s, 'resnet50': resnet50_s,
           'vision_check': vision_check_s, 'deepfm_ps': deepfm_ps_s,
-          'ps_scale_ssd': time.perf_counter() - t0})
+          'ps_scale_ssd': ps_scale_ssd_s,
+          'ctr_ps': time.perf_counter() - t0})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -6754,6 +7081,8 @@ def main():
         entry['launches_serve_workers'] = workers_launches.get(name, 0)
         # the DeepFM PS leg's run (its dense step is torch's own ops)
         entry['launches_deepfm_ps'] = deepfm_launches[name]
+        # the CTR path's run: row 15 once an Adam step, 0 elsewhere
+        entry['launches_ctr_ps'] = ctr_launches[name]
         if name in SERVE_KERNELS:
             # the tenants leg's SLO run and the oversubscribed serve
             entry['launches_serve_tenants'] = tenants_launches[name]

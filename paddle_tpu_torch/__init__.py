@@ -9,7 +9,17 @@ the attention, LayerNorm and bias+GELU on that path as hand-written
 CUDA kernels for sm_90a (`csrc/`, built and bound by
 `ops/kernels/_build.py`). Entry points run on the card unless the
 caller passes device='cpu'.
+
+Importing the package imports no torch: a generator script that a
+dataset's pipe_command runs imports `distributed.fleet.data_generator`
+only, once an input file.
 """
-from .device import resolve_device  # noqa: F401
 
 __version__ = '0.1.0'
+
+
+def __getattr__(name):
+    if name == 'resolve_device':
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -1,14 +1,17 @@
-"""The host C++ tables of the parameter server, through ctypes — the
-port's copy of the table subset of `paddle_tpu/core/native.py`.
+"""The host C++ tables of the parameter server and the MultiSlot data
+feed, through ctypes — the port's copy of the table and feed subset of
+`paddle_tpu/core/native.py`.
 
 Build: at first use (never at import) the sparse/SSD/dense table source
-of the repository's host library, `csrc/sparse_table.cc`, is compiled
+and the data feed of the repository's host library,
+`csrc/sparse_table.cc` and `csrc/data_feed.cc`, are compiled
 with `csrc/Makefile`'s flags (`g++ -O2 -std=c++17 -fPIC -Wall -pthread
 -shared`; `$CXX` names another compiler, as in the Makefile) into the
 port's build directory: `native/libpaddle_tpu_native-<digest>.so` under
 `ops/kernels/_build.build_dir()` (`build/paddle_tpu_torch/` at the
 repository root, or `$PADDLE_TPU_TORCH_BUILD_DIR`). The digest covers
-the source and the flags, so an edited source rebuilds. Several
+the sources, the header they include (`csrc/channel.h`) and the flags,
+so an edited source or header rebuilds. Several
 processes may ask at once: the build runs under an `fcntl.flock` on the
 directory's lock file, into a temporary name that `os.replace` makes
 the library. Nothing is written into `csrc/`, where the JAX package
@@ -17,8 +20,8 @@ builds and loads its own copy of the same library.
 There is no fallback: a failed build or `dlopen` raises, where the
 reference's `load_native(required=False)` returns None.
 
-The data feed, the TCP store and the host profiler of the same library
-are not bound here (ROADMAP Queue 1 items 9b-2 and 7).
+The TCP store and the host profiler of the same library are not bound
+here (ROADMAP Queue 1 item 7).
 """
 import ctypes
 import fcntl
@@ -32,7 +35,8 @@ import numpy as np
 from ..ops.kernels import _build
 
 CSRC = _build.REPO / 'csrc'
-SOURCES = ('sparse_table.cc',)
+SOURCES = ('sparse_table.cc', 'data_feed.cc')
+HEADERS = ('channel.h',)          # included by data_feed.cc
 CXXFLAGS = ('-O2', '-std=c++17', '-fPIC', '-Wall', '-pthread', '-shared')
 
 _LIB = None
@@ -41,7 +45,7 @@ _LIB_LOCK = threading.Lock()
 
 def _digest(cxx):
     h = hashlib.sha256(' '.join((cxx,) + CXXFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -77,9 +81,18 @@ def build():
 _P, _I, _I64, _U64, _F, _S = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                               ctypes.c_uint64, ctypes.c_float,
                               ctypes.c_char_p)
-# the table symbols of csrc/sparse_table.cc, each `ptpu_<name>`:
-# name: (restype, argtypes)
+# the symbols of csrc/sparse_table.cc and csrc/data_feed.cc, each
+# `ptpu_<name>`: name: (restype, argtypes)
 _SIGNATURES = {
+    'datafeed_create': (_P, (_P, _P, _I, _I, _I, _I)),
+    'datafeed_set_files': (None, (_P, _P, _I)),
+    'datafeed_start': (None, (_P,)),
+    'datafeed_next': (_I, (_P, _P, _P)),
+    'datafeed_load_shuffle': (None, (_P, _U64)),
+    'datafeed_next_mem': (_I, (_P, _P, _P)),
+    'datafeed_rewind': (None, (_P, _I, _U64)),
+    'datafeed_memory_size': (_I64, (_P,)),
+    'datafeed_destroy': (None, (_P,)),
     'table_create2': (_P, (_I, _I, _I, _F, _U64, _F, _F, _F)),
     'ssd_table_create': (_P, (_I, _I, _I, _F, _U64, _F, _F, _F, _I64, _S)),
     'ssd_mem_rows': (_I64, (_P,)),
@@ -108,7 +121,7 @@ _SIGNATURES = {
 
 
 def load_native():
-    """The table library, built at first use and loaded once; raises
+    """The host library, built at first use and loaded once; raises
     when it cannot be built or loaded."""
     global _LIB
     with _LIB_LOCK:
@@ -282,4 +295,68 @@ class NativeDenseTable:
     def __del__(self):
         if getattr(self, 'h', None) and getattr(self, 'lib', None):
             self.lib.ptpu_dense_destroy(self.h)
+            self.h = None
+
+
+class NativeDataFeed:
+    """Parity: framework/data_feed.cc MultiSlotDataFeed — reader threads
+    parse fixed-width dense lines (`v1 .. vn | u1 .. um`, a slot a
+    field) from the file list into a bounded channel; batches come out
+    as host numpy arrays: the float slots side by side [n, fwidth]
+    float32, the int64 slots [n, iwidth] int64 (None where there are
+    none)."""
+
+    def __init__(self, slots, batch_size, num_threads=2,
+                 channel_capacity=4096):
+        """slots: list of (width, kind) with kind in {'float', 'int64'}."""
+        self.lib = load_native()
+        self._widths = np.asarray([w for w, _ in slots], np.int32)
+        self._is_float = np.asarray([1 if k == 'float' else 0
+                                     for _, k in slots], np.int32)
+        self.h = self.lib.ptpu_datafeed_create(
+            _ptr(self._widths), _ptr(self._is_float), len(slots),
+            batch_size, num_threads, channel_capacity)
+        self.batch_size = batch_size
+        self.fwidth = sum(w for w, k in slots if k == 'float')
+        self.iwidth = sum(w for w, k in slots if k == 'int64')
+
+    def set_filelist(self, files):
+        arr = (ctypes.c_char_p * len(files))(*[str(f).encode()
+                                               for f in files])
+        self.lib.ptpu_datafeed_set_files(self.h, arr, len(files))
+
+    def start(self):
+        self.lib.ptpu_datafeed_start(self.h)
+
+    def _batches(self, next_fn):
+        while True:
+            f = np.empty((self.batch_size, self.fwidth), np.float32) \
+                if self.fwidth else None
+            i = np.empty((self.batch_size, self.iwidth), np.int64) \
+                if self.iwidth else None
+            n = next_fn(self.h, None if f is None else _ptr(f),
+                        None if i is None else _ptr(i))
+            if n == 0:
+                return
+            yield (None if f is None else f[:n],
+                   None if i is None else i[:n])
+
+    def __iter__(self):
+        return self._batches(self.lib.ptpu_datafeed_next)
+
+    def load_into_memory(self, seed=0):
+        self.lib.ptpu_datafeed_load_shuffle(self.h, seed)
+
+    def memory_size(self):
+        return self.lib.ptpu_datafeed_memory_size(self.h)
+
+    def iter_memory(self):
+        return self._batches(self.lib.ptpu_datafeed_next_mem)
+
+    def rewind(self, reshuffle=False, seed=0):
+        self.lib.ptpu_datafeed_rewind(self.h, 1 if reshuffle else 0, seed)
+
+    def __del__(self):
+        if getattr(self, 'h', None) and getattr(self, 'lib', None):
+            self.lib.ptpu_datafeed_destroy(self.h)
             self.h = None

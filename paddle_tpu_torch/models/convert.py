@@ -8,6 +8,8 @@ jax_model.named_parameters()}`), and `named_buffers` each name of its
 `named_buffers()` (batch norm's `_mean` and `_variance`). The port never
 imports the JAX package; callers hand it plain arrays.
 """
+import os
+
 import numpy as np
 import torch
 
@@ -89,3 +91,26 @@ def pipeline_params_as_stacked(embed, blocks, head):
     return {'embed': host(embed),
             'blocks': {n: np.stack([r[n] for r in rows]) for n in rows[0]},
             'head': host(head)}
+
+
+def bridge_ctr_params(port_model, jax_model, tmpdir):
+    """Put a CTR model of the JAX package (DeepFM, WideDeep) into the
+    port's counterpart: the dense parameters through `load_jax_params`
+    (read off `jax_model.named_parameters()` as host arrays), and each
+    host table through the table's own file — the JAX layer of the same
+    name saves it under `tmpdir` and the port's layer loads it (one
+    format: both compile csrc/sparse_table.cc). A geo table syncs before
+    it saves. Returns the port model."""
+    from ..distributed.ps.embedding import DistributedEmbedding
+    load_jax_params(port_model, {n: np.asarray(p.data) for n, p in
+                                 jax_model.named_parameters()})
+    for name, layer in port_model.named_modules():
+        if not isinstance(layer, DistributedEmbedding):
+            continue
+        theirs = jax_model
+        for part in name.split('.'):
+            theirs = getattr(theirs, part)
+        path = os.path.join(str(tmpdir), f'{name}.table')
+        theirs.save(path)
+        layer.load(path)
+    return port_model

@@ -3,7 +3,8 @@
 (`ops/nn_ops.py`), re-exported flat."""
 from ...ops.nn_ops import (adaptive_avg_pool2d,  # noqa: F401
                            adaptive_max_pool2d, avg_pool2d, batch_norm,
-                           bias_gelu, celu, conv1d, conv2d, conv3d,
+                           bias_gelu, binary_cross_entropy,
+                           binary_cross_entropy_with_logits, celu, conv1d, conv2d, conv3d,
                            cross_entropy, dropout, dropout_add, elu,
                            embedding, flatten, fused_linear_cross_entropy,
                            gelu, hardshrink, hardsigmoid, hardswish,

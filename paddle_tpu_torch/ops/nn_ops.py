@@ -9,7 +9,9 @@ projection with a hard cross-entropy, `fused_linear_cross_entropy`
 (:801-903), and the activations `relu`, `tanh` and `softmax` (:191)
 that `nn.Transformer` and BERT use. The vision slice adds the rest of
 the activations (:23-215), `batch_norm` (:268-319), `conv1d`/`conv2d`/
-`conv3d` (:412-497) and the 2-D pools (:542-652).
+`conv3d` (:412-497) and the 2-D pools (:542-652). The CTR slice adds
+`binary_cross_entropy` (:1013) and `binary_cross_entropy_with_logits`
+(:1025), plain torch as the reference's are plain jnp.
 
 Dropout in training draws its keep mask from the generator bound by
 `core.rng.rng_guard` (jit.TrainStep binds its own) and raises when none
@@ -280,6 +282,39 @@ def _reduce_loss(loss, reduction):
     if reduction == 'sum':
         return loss.sum()
     return loss
+
+
+def _loss_label(label, ref):
+    """A label as a tensor of `ref`'s dtype on its device (jnp's
+    promotion of an integer label against a float input)."""
+    return torch.as_tensor(label, device=ref.device).to(ref.dtype)
+
+
+@uncast
+def binary_cross_entropy(input, label, weight=None, reduction='mean'):
+    """bce_loss (:1013): probabilities clipped to [1e-12, 1 - 1e-7]."""
+    a = input.clamp(1e-12, 1.0 - 1e-7)
+    b = _loss_label(label, input)
+    loss = -(b * torch.log(a) + (1 - b) * torch.log(1 - a))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+@uncast
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction='mean', pos_weight=None):
+    """sigmoid_cross_entropy_with_logits (:1025), in its stable form
+    max(a, 0) - a b + log1p(exp(-|a|)); `pos_weight` scales the positive
+    term by (pos_weight - 1) b + 1."""
+    a = logit
+    b = _loss_label(label, logit)
+    loss = a.clamp(min=0) - a * b + torch.log1p(torch.exp(-a.abs()))
+    if pos_weight is not None:
+        loss = loss * ((pos_weight - 1) * b + 1)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
 
 
 @uncast

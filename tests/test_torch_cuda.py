@@ -40,7 +40,10 @@ scales each element, over up to 29 keys of magnitude up to 127 x
 scale); bf16 q at the flash bar, atol 2^-6 of the plain output's RMS,
 rtol 2^-7, relative L2 error under 1e-2 (one bf16 rounding of the
 output). The serving engine on the card: fused and serial windows
-token-identical, greedy and sampled (the same shapes run in both).
+token-identical, greedy and sampled (the same shapes run in both). The
+CTR path: a card DistributedEmbedding's rows and pushed table rows
+bit-equal to a CPU layer's (the gradient of (out * ct).sum() is ct on
+both; pushes of 832 ids, applied in order).
 """
 import numpy as np
 import pytest
@@ -1554,3 +1557,68 @@ class TestPsCommunicatorOnCard:
         assert [p[1].tobytes() for p in client.pushed] == [
             g[k].tobytes() for k in range(3)]
         comm.stop()
+
+
+@pytest.mark.cuda
+class TestCtrOnCard:
+    """The CTR path's two layers a device: rows through pinned memory to
+    the card, row gradients back to the host table (sync: before the
+    backward returns; async: a pinned copy behind an event)."""
+
+    @pytest.mark.parametrize('a_sync', [False, True])
+    def test_embedding_on_card_pushes_as_on_the_cpu(self, cuda, a_sync):
+        from paddle_tpu_torch.distributed.ps.embedding import (
+            DistributedEmbedding, global_communicator)
+        layers = [DistributedEmbedding(8, seed=3, a_sync=a_sync, device=d)
+                  for d in (cuda, 'cpu')]
+        rng = np.random.RandomState(0)
+        for step in range(3):
+            # 832 ids a push: under the 1024 at which the table applies a
+            # push on 8 threads, where a repeated id's updates race
+            ids = rng.randint(0, 5000, (32, 26)).astype(np.int64)
+            ct = rng.randn(32, 26, 8).astype(np.float32)
+            outs = [layer(torch.from_numpy(ids)) for layer in layers]
+            assert outs[0].is_cuda
+            assert torch.equal(outs[0].cpu(), outs[1])
+            for out in outs:
+                (out * torch.from_numpy(ct).to(out.device)).sum().backward()
+            layers[0].flush()
+        flat = np.unique(ids)
+        assert layers[0].table.pull(flat).tobytes() == \
+            layers[1].table.pull(flat).tobytes()
+        if a_sync:
+            global_communicator().stop()
+
+    def test_deepfm_adam_step_is_one_row_15_launch(self, cuda):
+        from paddle_tpu_torch.models import DeepFM, deepfm_loss
+        from paddle_tpu_torch.optimizer import Adam
+        model = DeepFM(fields=26, embed_dim=8, hidden=(32, 16), use_ps=True,
+                       device=cuda)
+        opt = Adam(learning_rate=5e-3, parameters=model.parameters())
+        rng = np.random.RandomState(1)
+        _build.reset_launches()
+        for step in range(3):
+            ids = torch.from_numpy(rng.randint(0, 10 ** 7, (512, 26)))
+            y = torch.from_numpy(rng.randint(0, 2, (512, 1)))
+            deepfm_loss(model(ids), y.to(cuda)).backward()
+            opt.step()
+            opt.clear_grad()
+        torch.cuda.synchronize()
+        counts = _build.routes_snapshot()
+        assert counts['optimizer_step'] == 3
+        assert not any(n for k, n in counts.items() if k != 'optimizer_step')
+
+    def test_dataset_batches_are_pinned(self, cuda, tmp_path):
+        import types
+        from paddle_tpu_torch.distributed import QueueDataset
+        p = tmp_path / 'd.txt'
+        p.write_text(''.join(f'{i}.5 | {i} {i + 1}\n' for i in range(8)))
+        ds = QueueDataset()
+        ds.init(batch_size=4, thread_num=1, use_var=[
+            types.SimpleNamespace(shape=[1], dtype='float32'),
+            types.SimpleNamespace(shape=[2], dtype='int64')])
+        ds.set_filelist([str(p)])
+        batches = list(ds)
+        assert len(batches) == 2
+        assert all(t.is_pinned() and not t.is_cuda for b in batches
+                   for t in b)

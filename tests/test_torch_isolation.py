@@ -122,19 +122,71 @@ PS_PATH_MODULES = ('paddle_tpu_torch.core.native',
                    'paddle_tpu_torch.distributed.ps.ps_runtime')
 
 
-@pytest.mark.parametrize('module', BERT_PATH_MODULES + VISION_PATH_MODULES
-                         + PS_PATH_MODULES)
-def test_new_module_imports_alone_with_jax_blocked(module):
-    code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
-            "    sys.modules[m] = None\n"
-            f"import importlib; importlib.import_module({module!r})\n"
-            "print('ok')\n")
+# the CTR training path: the data feed's generators and datasets, the
+# entry policies, the sparse embedding, the CTR models, metrics and ops
+CTR_PATH_MODULES = ('paddle_tpu_torch.distributed',
+                    'paddle_tpu_torch.distributed.entry_attr',
+                    'paddle_tpu_torch.distributed.fleet',
+                    'paddle_tpu_torch.distributed.fleet.data_generator',
+                    'paddle_tpu_torch.distributed.fleet.data_generator.'
+                    'data_generator',
+                    'paddle_tpu_torch.distributed.fleet.dataset',
+                    'paddle_tpu_torch.distributed.fleet.metrics',
+                    'paddle_tpu_torch.distributed.ps.embedding',
+                    'paddle_tpu_torch.models.deepfm',
+                    'paddle_tpu_torch.models.wide_deep',
+                    'paddle_tpu_torch.metric',
+                    'paddle_tpu_torch.ops.recsys')
+ALONE_MODULES = (BERT_PATH_MODULES + VISION_PATH_MODULES + PS_PATH_MODULES
+                 + CTR_PATH_MODULES)
+
+# One interpreter imports torch and numpy once, blocks jax, jaxlib and
+# paddle_tpu, then forks a child a module: the child imports it alone and
+# reports its exit code and traceback. A fresh interpreter a module spent
+# most of its time importing torch again.
+_IMPORT_ALONE = """
+import json, os, sys, traceback
+import numpy, torch
+for m in ('jax', 'jaxlib', 'paddle_tpu'):
+    sys.modules[m] = None
+import importlib
+out = {}
+for mod in json.loads(sys.argv[1]):
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        rc, msg = 0, ''
+        try:
+            importlib.import_module(mod)
+        except BaseException:
+            rc, msg = 1, traceback.format_exc()
+        os.write(w, msg.encode())
+        os._exit(rc)
+    os.close(w)
+    with os.fdopen(r, 'rb') as f:
+        msg = f.read().decode()
+    _, status = os.waitpid(pid, 0)
+    out[mod] = {'rc': os.waitstatus_to_exitcode(status), 'traceback': msg}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope='module')
+def imported_alone():
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
-    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                         timeout=300)
+    res = subprocess.run(
+        [sys.executable, '-c', _IMPORT_ALONE, json.dumps(ALONE_MODULES)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        timeout=300)
     assert res.returncode == 0, res.stderr.decode()
+    return json.loads(res.stdout.decode().splitlines()[-1])
+
+
+@pytest.mark.parametrize('module', ALONE_MODULES)
+def test_new_module_imports_alone_with_jax_blocked(module, imported_alone):
+    got = imported_alone[module]
+    assert got['rc'] == 0, got['traceback']
     path = REPO / (module.replace('.', '/') + '.py')
     package = REPO / module.replace('.', '/') / '__init__.py'
     assert path in _port_files() or package in _port_files()
