@@ -356,12 +356,46 @@ Phases, one JSON line each on stdout:
              weights and the same table files (saved once, loaded
              twice): logits and weights within WHOLE_PATH_RTOL, the
              pushed rows within PS_ROWS_ATOL.
-24. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
+24. surface — the op surface (ops/{creation,math,manip,linalg,fft}.py,
+             the losses, ParamAttr, the convolution layouts), in three
+             parts. surface_sweep: every function of the port's registry
+             (ops/common.py OP_REGISTRY; it fails if one has no case)
+             and every loss on the card, forward and, where
+             differentiable, the VJP with a seeded cotangent, against
+             the same op on CPU copies of the same inputs at
+             SWEEP_BARS: elementwise, comparison, reduction, cumulative
+             and sorting ops at [8, 2048, 2048] in fp32 and bf16 (the
+             CPU recomputes a row block, listed in the record), gather
+             and index_select over the [50304, 2048] vocabulary with
+             16384 ids, linalg at [64, 512, 512] (two matrices on the
+             CPU; decompositions held by reconstruction), fft at
+             [16384, 2048], cross-entropy and nll_loss at [4096, 50304]
+             with ignored rows, the other losses at [16384, 2048],
+             ctc_loss at T=256, B=64, 32 classes, labels up to 64; every
+             result on the card; the random ops' moments over 2^24
+             draws, reproducibility under seed() and a generator, and
+             torch's default CUDA generator untouched. surface_train:
+             resnet50 in fp32, its fc a Linear with ParamAttrs (Normal
+             init, learning rate x10, L2Decay; the bias x10 and out of
+             the clip), CrossEntropyLoss, Momentum(0.01, 0.9) with a
+             global-norm clip, 8 eager steps at B = 128, 224² from
+             randn/randint after seed(2021): the loss falls, row 15
+             launches exactly twice a step and nothing else launches,
+             the first step moves the head's bias by its unclipped
+             gradient and the rest by the clipped one, and one step at
+             B = 4, 64² matches the CPU within 1e-3 relative L2 on every
+             parameter; ms/step, images/s, peak memory. conv_layouts:
+             ResNet-50's 3x3 64->64 and 1x1 256->64 convolutions, its
+             3x3/2 max pool and a 4x4/2 grouped transposed convolution,
+             bf16 and fp32 (TF32 off), forward and backward in NHWC
+             against NCHW (relative L2 CONV_LAYOUT_BARS) and the device
+             ms of both layouts.
+25. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
              with `launches_bert` and their `bert_shape` times, rows 2
              and 3 with `launches_dense_decode`, every row with
              `launches_lenet`, `launches_resnet50`, `launches_cluster`
-             (serve_cluster's cluster pass), `launches_deepfm_ps` and
-             `launches_ctr_ps`),
+             (serve_cluster's cluster pass), `launches_deepfm_ps`,
+             `launches_ctr_ps` and `launches_surface`),
              the nvidia-smi line, and as the last line {"ok": true,
              "device": {...}}.
 
@@ -387,6 +421,7 @@ carries host_us and library_host_us: host microseconds a call of the
 wrapper and of F.gelu(x + b) under no_grad (a host clock around 1000
 calls, then a synchronize).
 """
+import functools
 import gc
 import json
 import os
@@ -6809,6 +6844,1257 @@ def profile_phase(torch, eng, prompts):
                                calls=e.count) for e in top]})
 
 
+# ---------------------------------------------------------------------------
+# the op surface: the registry sweep, surface_train and
+# conv_layouts
+# ---------------------------------------------------------------------------
+# the sweep's bars: |card - cpu| <= atol + rtol * |cpu| per element, atol a
+# multiple of the CPU block's largest |value| (sums and products of
+# thousands of terms have no fixed magnitude). fp32: the round's bar
+# (summation order); bf16: the card's bf16 result against the CPU's fp32
+# op on the same bf16 inputs (rounded once on the card, a few times in a
+# bf16 backward); linalg: fp32 factorisations of 512 x 512 matrices, whose
+# conditioning sets the error. torch's bf16 scans (cumsum, cumprod,
+# logcumsumexp) round every partial result to bf16: over a row of 2048 that
+# is a random walk of 2048 roundings of 2^-9 (3.8 % of a row's largest
+# |sum|, 25 % of a product on an H100), so in bf16 they scan the 8-long
+# axis, bf16_scan bounding 8 roundings; bf16_exp: a bf16 backward that
+# takes exp of a bf16-rounded difference x - lse (logsumexp,
+# logcumsumexp), 2^-9 of |x - lse| up to ~8 in the exponent
+SWEEP_BARS = {'fp32': (2e-4, 2e-5), 'bf16': (2.0 ** -6, 2.0 ** -6),
+              'linalg': (2e-3, 2e-4), 'fft': (2e-4, 2e-5),
+              'bf16_scan': (2.0 ** -4, 2.0 ** -4),
+              'bf16_exp': (2.0 ** -4, 2.0 ** -4)}
+SWEEP_BIG = (8, 2048, 2048)          # one gpt_1p3b activation, B=8 L=2048
+SWEEP_BLOCK = 64                     # rows of the CPU's row block
+SWEEP_VOCAB, SWEEP_IDS = (50304, 2048), 16384
+SWEEP_LINALG = (64, 512, 512)
+SWEEP_FFT = (16384, 2048)
+SWEEP_XENT = (4096, 50304)
+SWEEP_LOSS = (16384, 2048)
+SWEEP_CTC = dict(T=256, B=64, C=32, S=64)
+# where the sweep's "card" side runs: the card; a CPU dry run of the sweep
+# at small shapes (a throwaway driver) sets 'cpu'
+SURFACE_DEVICE = 'cuda'
+SURFACE_TRAIN = dict(B=128, hw=224, steps=8, check_B=4, check_hw=64,
+                     check_rtol=1e-3, check_zero_rtol=1e-3)
+# the conv_layouts shapes: ResNet-50's first-stage 3x3 and 1x1 convolutions,
+# its stem pool, and a grouped 4x4/2 transposed convolution
+CONV_LAYOUTS = {
+    'conv3x3_64': dict(x=(128, 64, 56, 56), w=(64, 64, 3, 3), stride=1,
+                       padding=1),
+    'conv1x1_256_64': dict(x=(128, 256, 56, 56), w=(64, 256, 1, 1),
+                           stride=1, padding=0),
+    'max_pool_3x3_s2': dict(x=(128, 64, 112, 112), kernel=3, stride=2,
+                            padding=1),
+    'conv_transpose_4x4_s2_g2': dict(x=(128, 64, 28, 28), w=(64, 32, 4, 4),
+                                     stride=2, padding=1, groups=2),
+}
+CONV_LAYOUT_BARS = {'bf16': 1e-2, 'fp32': 1e-5}
+
+
+def _flat_tensors(torch, out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat_tensors(torch, o)]
+    return []
+
+
+def _sweep_close(torch, got, want, bar, what):
+    """Max |got - want| over (atol·max|want| + rtol·|want|), exact for
+    bool and integer results; raises when a result is off the bar."""
+    if got.shape != want.shape:
+        raise AssertionError(f'surface {what}: shape {tuple(got.shape)} '
+                             f'against {tuple(want.shape)}')
+    if not (got.is_floating_point() or got.is_complex()):
+        if not torch.equal(got, want.to(got.dtype)):
+            raise AssertionError(f'surface {what}: not equal')
+        return 0.0
+    got = got.to(torch.complex128 if got.is_complex() else torch.float64)
+    want = want.to(got.dtype)
+    if not want.numel():
+        return 0.0
+    rtol, atol = bar
+    scale = float(want.abs().max()) or 1.0
+    err = (got - want).abs()
+    ratio = float((err / (atol * scale + rtol * want.abs())).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f'surface {what}: max err {float(err.max())} '
+                             f'beyond the bar ({ratio:.3g} of it)')
+    return float(err.max()) / scale
+
+
+class SurfaceCase:
+    """One registry op on the card against the CPU: `make(gen)` builds
+    the card inputs (positional, any kind) from a card generator; `grad`
+    lists the inputs the VJP differentiates; `block` cuts a row block of
+    every tensor (inputs, outputs, gradients) for a row-wise op, which
+    the CPU then recomputes alone (None: the CPU runs the whole op);
+    `dtypes` the float dtypes it runs in; `compare` picks the results
+    compared (all by default; a decomposition compares reconstructions)."""
+
+    def __init__(self, name, fn, make, kw=None, grad=(), block=None,
+                 dtypes=('fp32',), family='elementwise', compare=None,
+                 bar=None, values_only_bf16=False):
+        self.name, self.fn, self.make, self.kw = name, fn, make, kw or {}
+        self.grad, self.block, self.dtypes = tuple(grad), block, dtypes
+        self.family, self.compare, self.bar = family, compare, bar
+        self.values_only_bf16 = values_only_bf16
+
+
+def _rows(t):
+    """The CPU's row block of a [8, L, N] tensor (or of a result that
+    keeps its two leading axes): the first sequence's first rows."""
+    return t[:1, :SWEEP_BLOCK] if t.dim() >= 2 else t
+
+
+def _cols(t):
+    """The row block of a [8, L, N] tensor across all 8 sequences (for a
+    scan along the first axis)."""
+    return t[:, :SWEEP_BLOCK] if t.dim() >= 2 else t
+
+
+def _lead_rows(t):
+    return t[:SWEEP_BLOCK] if t.dim() >= 1 else t
+
+
+def _two(t):
+    """The first two matrices of the linalg batch (and of every result
+    that keeps its batch axis)."""
+    return t[:2] if t.dim() >= 1 and t.shape[0] == SWEEP_LINALG[0] else t
+
+
+def _cut(torch, v, block):
+    if isinstance(v, torch.Tensor):
+        return block(v)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_cut(torch, x, block) for x in v)
+    return v
+
+
+def _to(torch, v, dev, dtype=None):
+    if isinstance(v, torch.Tensor):
+        out = v.detach().to(dev)
+        if dtype is not None and out.is_floating_point():
+            out = out.to(dtype)
+        return out
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to(torch, x, dev, dtype) for x in v)
+    return v
+
+
+def run_surface_case(torch, case, dtype_name, gen):
+    """The case's forward and VJP on the card, the same on CPU copies
+    (of its row block when it has one); returns the largest relative
+    error."""
+    dtype = torch.bfloat16 if dtype_name == 'bf16' else torch.float32
+    inputs = _to(torch, case.make(gen), SURFACE_DEVICE, dtype)
+    grads = case.grad
+    if grads == ('all',):
+        grads = tuple(i for i, t in enumerate(inputs)
+                      if isinstance(t, torch.Tensor) and t.is_floating_point())
+    if dtype_name == 'bf16' and case.values_only_bf16:
+        grads = ()      # ties: the two sides may pick different elements
+    for i in grads:
+        inputs[i] = inputs[i].detach().requires_grad_(True)
+    out = case.fn(*inputs, **case.kw)
+    outs = _flat_tensors(torch, out)
+    for t in outs:
+        if t.device.type != torch.device(SURFACE_DEVICE).type:
+            raise AssertionError(f'surface {case.name}: a result on '
+                                 f'{t.device}')
+    cot = None
+    if grads:
+        cot = torch.randn(outs[0].shape, device=SURFACE_DEVICE, generator=gen,
+                          dtype=torch.float32).to(outs[0].dtype)
+        outs[0].backward(cot)
+    block = case.block or (lambda t: t)
+    cpu_in = _to(torch, _cut(torch, inputs, block), 'cpu')
+    if dtype_name == 'bf16':
+        cpu_in = _to(torch, cpu_in, 'cpu', torch.float32)
+    for i in grads:
+        cpu_in[i] = cpu_in[i].detach().requires_grad_(True)
+    cpu_out = case.fn(*cpu_in, **case.kw)
+    bar = case.bar.get(dtype_name) if isinstance(case.bar, dict) \
+        else case.bar
+    bar = bar or SWEEP_BARS[dtype_name]
+    pick = case.compare or (lambda r, ins: _flat_tensors(torch, r))
+    got = [block(t) for t in pick(out, inputs)]
+    want = pick(cpu_out, cpu_in)
+    if dtype_name == 'bf16' and case.values_only_bf16:
+        got = [t for t in got if t.is_floating_point()]
+        want = [t for t in want if t.is_floating_point()]
+    err = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        err = max(err, _sweep_close(torch, g.detach().cpu(), w.detach(), bar,
+                                    f'{case.name} {dtype_name} out {k}'))
+    if grads:
+        cpu_outs = _flat_tensors(torch, cpu_out)
+        cpu_outs[0].backward(block(cot).cpu().to(cpu_outs[0].dtype))
+        for i in grads:
+            err = max(err, _sweep_close(
+                torch, block(inputs[i].grad).cpu(), cpu_in[i].grad, bar,
+                f'{case.name} {dtype_name} grad {i}'))
+    return err
+
+
+def surface_cases(torch):
+    """Every op of the port's registry (ops/common.py OP_REGISTRY) and
+    every loss, with its inputs at the sweep's shapes."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import creation as C
+    from paddle_tpu_torch.ops import fft as FF
+    from paddle_tpu_torch.ops import linalg as LA
+    from paddle_tpu_torch.ops import manip as MA
+    from paddle_tpu_torch.ops import math as M
+    from paddle_tpu_torch.ops import nn_ops as NN
+
+    def big(gen, low=None):
+        x = torch.randn(SWEEP_BIG, device=SURFACE_DEVICE, generator=gen)
+        return x if low is None else low(x)
+
+    def pos(x):
+        return x.abs() + 0.5
+
+    def unit(x):
+        return torch.tanh(x) * 0.9
+
+    def near_one(x):
+        return 1.0 + 0.01 * torch.tanh(x)
+
+    def ints(gen, shape, high):
+        return torch.randint(0, high, shape, device=SURFACE_DEVICE, generator=gen,
+                             dtype=torch.int32)
+
+    cases = []
+    add = cases.append
+    both = ('fp32', 'bf16')
+    domains = {'log': pos, 'log2': pos, 'log10': pos, 'log1p': pos,
+               'sqrt': pos, 'rsqrt': pos, 'reciprocal': pos, 'lgamma': pos,
+               'digamma': pos, 'tan': unit, 'asin': unit, 'acos': unit,
+               'atanh': unit, 'acosh': lambda x: x.abs() + 1.5}
+    for n in ('exp', 'expm1', 'log', 'log2', 'log10', 'log1p', 'sqrt',
+              'rsqrt', 'square', 'abs', 'sign', 'floor', 'ceil', 'round',
+              'trunc', 'reciprocal', 'neg', 'sin', 'cos', 'tan', 'asin',
+              'acos', 'atan', 'sinh', 'cosh', 'tanh', 'asinh', 'acosh',
+              'atanh', 'sigmoid', 'erf', 'lgamma', 'digamma', 'frac',
+              'rad2deg', 'deg2rad', 'stanh', 'nan_to_num', 'assign'):
+        low = domains.get(n)
+        add(SurfaceCase(n, getattr(M, n),
+                        lambda g, low=low: [big(g, low)], grad=(0,),
+                        block=_rows, dtypes=both))
+    for n, kw in (('scale', dict(scale=2.5, bias=0.5)),
+                  ('clip', dict(min=-0.5, max=0.7)),
+                  ('increment', dict(value=2.0))):
+        add(SurfaceCase(n, getattr(M, n), lambda g: [big(g)], kw, grad=(0,),
+                        block=_rows, dtypes=both))
+    for n in ('add', 'subtract', 'multiply', 'maximum', 'minimum', 'fmax',
+              'fmin', 'atan2', 'hypot', 'remainder', 'multiply_', 'divide',
+              'pow', 'floor_divide', 'heaviside'):
+        grad = () if n in ('floor_divide', 'heaviside') else (0, 1)
+        low = pos if n in ('divide', 'pow', 'floor_divide') else None
+        add(SurfaceCase(n, getattr(M, n),
+                        lambda g, low=low: [big(g, low), big(g, low)],
+                        grad=grad, block=_rows, dtypes=both))
+    add(SurfaceCase('lerp', M.lerp, lambda g: [big(g), big(g), 0.3],
+                    grad=(0, 1), block=_rows, dtypes=both))
+    for n in ('equal', 'not_equal', 'less_than', 'less_equal',
+              'greater_than', 'greater_equal', 'isclose'):
+        add(SurfaceCase(n, getattr(M, n),
+                        lambda g: [big(g), big(g).round()], block=_rows,
+                        dtypes=both, family='comparison'))
+    for n in ('isnan', 'isinf', 'isfinite'):
+        add(SurfaceCase(n, getattr(M, n), lambda g: [big(g).log()],
+                        block=_rows, dtypes=both, family='comparison'))
+    for n in ('logical_and', 'logical_or', 'logical_xor'):
+        add(SurfaceCase(n, getattr(M, n),
+                        lambda g: [big(g) > 0, big(g) > 0.5], block=_rows,
+                        family='comparison'))
+    add(SurfaceCase('logical_not', M.logical_not, lambda g: [big(g) > 0],
+                    block=_rows, family='comparison'))
+    for n in ('bitwise_and', 'bitwise_or', 'bitwise_xor', 'gcd', 'lcm'):
+        add(SurfaceCase(n, getattr(M, n),
+                        lambda g: [ints(g, SWEEP_BIG, 1024),
+                                   ints(g, SWEEP_BIG, 1024)],
+                        block=_rows, family='comparison'))
+    add(SurfaceCase('bitwise_not', M.bitwise_not,
+                    lambda g: [ints(g, SWEEP_BIG, 1024)], block=_rows,
+                    family='comparison'))
+    for n in ('equal_all', 'allclose'):
+        add(SurfaceCase(n, getattr(M, n), lambda g: [big(g)[0]] * 2,
+                        family='comparison'))
+    # reductions and cumulative ops along the last axis (row-wise)
+    for n in ('sum', 'mean', 'max', 'min', 'amax', 'amin', 'nansum',
+              'nanmean', 'logsumexp', 'std', 'var'):
+        add(SurfaceCase(n, getattr(M, n), lambda g: [big(g)],
+                        dict(axis=-1), grad=(0,), block=_rows, dtypes=both,
+                        family='reduction', bar={
+                            'bf16': SWEEP_BARS['bf16_exp']}
+                        if n == 'logsumexp' else None))
+    add(SurfaceCase('prod', M.prod, lambda g: [big(g, near_one)],
+                    dict(axis=-1), grad=(0,), block=_rows, dtypes=both,
+                    family='reduction'))
+    for n, low, ax in (('cumprod', near_one, 'dim'), ('cumsum', None, 'axis'),
+                       ('cumsum_', None, 'axis'),
+                       ('logcumsumexp', None, 'axis')):
+        add(SurfaceCase(n, getattr(M, n), lambda g, low=low: [big(g, low)],
+                        {ax: -1}, grad=(0,), block=_rows,
+                        family='cumulative'))
+        add(SurfaceCase(f'{n}-axis0', getattr(M, n),
+                        lambda g, low=low: [big(g, low)], {ax: 0},
+                        grad=(0,), block=_cols, dtypes=('bf16',),
+                        family='cumulative', bar={'bf16': SWEEP_BARS[
+                            'bf16_exp' if n == 'logcumsumexp'
+                            else 'bf16_scan']}))
+    for n in ('all', 'any'):
+        add(SurfaceCase(n, getattr(M, n), lambda g: [big(g) > -2.5],
+                        dict(axis=-1), block=_rows, family='reduction'))
+    add(SurfaceCase('count_nonzero', M.count_nonzero,
+                    lambda g: [big(g).round()], dict(axis=-1), block=_rows,
+                    family='reduction'))
+    add(SurfaceCase('norm', M.norm, lambda g: [big(g)],
+                    dict(p=2, axis=-1), grad=(0,), block=_rows,
+                    dtypes=both, family='reduction'))
+    # sorting along the last axis (distinct fp32 values; bf16 has ties,
+    # so its index results are not compared)
+    for n, kw, grad in (('sort', {}, (0,)), ('argsort', {}, ()),
+                        ('topk', dict(k=8), (0,)),
+                        ('median', dict(axis=-1), (0,)),
+                        ('quantile', dict(q=0.3, axis=-1), (0,)),
+                        ('argmax', dict(axis=-1), ()),
+                        ('argmin', dict(axis=-1), ())):
+        add(SurfaceCase(n, getattr(M, n), lambda g: [big(g)], kw,
+                        grad=grad, block=_rows,
+                        dtypes=('fp32',) if n.startswith('arg') else both,
+                        family='sort', values_only_bf16=True))
+    add(SurfaceCase('mode', M.mode, lambda g: [ints(g, SWEEP_BIG, 64)
+                                               .float()],
+                    block=_rows, family='sort'))
+    add(SurfaceCase('unique', MA.unique,
+                    lambda g: [ints(g, (1 << 22,), 1 << 16)],
+                    dict(return_index=True, return_inverse=True,
+                         return_counts=True), family='sort'))
+    add(SurfaceCase('unique_consecutive', MA.unique_consecutive,
+                    lambda g: [ints(g, (1 << 22,), 4).sort().values],
+                    dict(return_inverse=True, return_counts=True),
+                    family='sort'))
+    # gather and scatter over the GPT vocabulary table
+    vocab = lambda g: torch.randn(SWEEP_VOCAB, device=SURFACE_DEVICE, generator=g)
+    ids = lambda g: torch.randint(0, SWEEP_VOCAB[0], (SWEEP_IDS,),
+                                  device=SURFACE_DEVICE, generator=g)
+    uniq = lambda g: torch.randperm(SWEEP_VOCAB[0], device=SURFACE_DEVICE,
+                                    generator=g)[:SWEEP_IDS]
+    for n in ('gather', 'index_select'):
+        add(SurfaceCase(n, getattr(MA, n), lambda g: [vocab(g), ids(g)],
+                        grad=(0,), family='index'))
+    add(SurfaceCase('scatter', MA.scatter,
+                    lambda g: [vocab(g), uniq(g),
+                               torch.randn(SWEEP_IDS, SWEEP_VOCAB[1],
+                                           device=SURFACE_DEVICE, generator=g)],
+                    grad=(0, 2), family='index'))
+    add(SurfaceCase('scatter-add', MA.scatter,
+                    lambda g: [vocab(g), ids(g),
+                               torch.randn(SWEEP_IDS, SWEEP_VOCAB[1],
+                                           device=SURFACE_DEVICE, generator=g)],
+                    dict(overwrite=False), grad=(0, 2), family='index'))
+    mid = lambda g: torch.randn(512, 2048, device=SURFACE_DEVICE, generator=g)
+    add(SurfaceCase('take_along_axis', MA.take_along_axis,
+                    lambda g: [mid(g), torch.randint(0, 2048, (512, 64),
+                                                     device=SURFACE_DEVICE,
+                                                     generator=g)],
+                    dict(axis=1), grad=(0,), family='index'))
+    add(SurfaceCase('put_along_axis', MA.put_along_axis,
+                    lambda g: [mid(g), torch.randperm(2048, device=SURFACE_DEVICE,
+                                                      generator=g)[:64]
+                               .expand(512, 64),
+                               torch.randn(512, 64, device=SURFACE_DEVICE,
+                                           generator=g)],
+                    dict(axis=1), grad=(0,), family='index'))
+    add(SurfaceCase('index_sample', MA.index_sample,
+                    lambda g: [mid(g), torch.randint(0, 2048, (512, 64),
+                                                     device=SURFACE_DEVICE,
+                                                     generator=g)],
+                    grad=(0,), family='index'))
+    add(SurfaceCase('gather_nd', MA.gather_nd,
+                    lambda g: [mid(g), torch.randint(0, 512, (4096, 1),
+                                                     device=SURFACE_DEVICE,
+                                                     generator=g)],
+                    grad=(0,), family='index'))
+    add(SurfaceCase('scatter_nd_add', MA.scatter_nd_add,
+                    lambda g: [mid(g), torch.randint(0, 512, (4096, 1),
+                                                     device=SURFACE_DEVICE,
+                                                     generator=g),
+                               torch.randn(4096, 2048, device=SURFACE_DEVICE,
+                                           generator=g)],
+                    grad=(0, 2), family='index'))
+    add(SurfaceCase('scatter_nd', MA.scatter_nd,
+                    lambda g: [torch.randint(0, 512, (4096, 1),
+                                             device=SURFACE_DEVICE, generator=g),
+                               torch.randn(4096, 2048, device=SURFACE_DEVICE,
+                                           generator=g), [512, 2048]],
+                    grad=(1,), family='index'))
+    add(SurfaceCase('masked_select', MA.masked_select,
+                    lambda g: [mid(g), mid(g) > 0], grad=(0,),
+                    family='index'))
+    add(SurfaceCase('masked_fill', MA.masked_fill,
+                    lambda g: [mid(g), mid(g) > 0], dict(value=2.5),
+                    grad=(0,), family='index'))
+    add(SurfaceCase('take', M.take, lambda g: [mid(g), torch.randint(
+        0, 512 * 2048, (8192,), device=SURFACE_DEVICE, generator=g)], grad=(0,),
+        family='index'))
+    add(SurfaceCase('nonzero', M.nonzero, lambda g: [mid(g).round()],
+                    family='index'))
+    add(SurfaceCase('where', M.where, lambda g: [mid(g) > 0, mid(g),
+                                                 mid(g)], grad=(1, 2),
+                    family='index'))
+    add(SurfaceCase('multiplex', M.multiplex,
+                    lambda g: [[mid(g), mid(g)],
+                               torch.randint(0, 2, (512, 1), device=SURFACE_DEVICE,
+                                             generator=g)],
+                    family='index'))
+    add(SurfaceCase('bincount', M.bincount, lambda g: [ints(
+        g, (1 << 22,), 4096)], family='index'))
+    add(SurfaceCase('histogram', M.histogram, lambda g: [mid(g)],
+                    dict(bins=64, min=-4, max=4), family='index'))
+    add(SurfaceCase('bucketize', M.bucketize,
+                    lambda g: [mid(g), torch.linspace(-3, 3, 256,
+                                                      device=SURFACE_DEVICE)],
+                    family='index'))
+    add(SurfaceCase('searchsorted', M.searchsorted,
+                    lambda g: [torch.linspace(-3, 3, 256, device=SURFACE_DEVICE),
+                               mid(g)], family='index'))
+    # shape and layout ops on a [8, 512, 512] tensor
+    cube = lambda g: torch.randn(8, 512, 512, device=SURFACE_DEVICE, generator=g)
+    for n, kw in (('reshape', dict(shape=[0, -1])),
+                  ('transpose', dict(perm=[2, 0, 1])),
+                  ('transpose_', dict(perm=[1, 0, 2])),
+                  ('moveaxis', dict(source=0, destination=2)),
+                  ('swapaxes', dict(axis0=0, axis1=2)),
+                  ('unsqueeze', dict(axis=[0, 2])),
+                  ('flatten', dict(start_axis=1)),
+                  ('tile', dict(repeat_times=[1, 2, 1])),
+                  ('flip', dict(axis=[0, 2])),
+                  ('roll', dict(shifts=3, axis=1)),
+                  ('rot90', dict(k=1, axes=[1, 2])),
+                  ('slice', dict(axes=[1, 2], starts=[3, -100],
+                                 ends=[400, -1])),
+                  ('strided_slice', dict(axes=[1], starts=[0], ends=[512],
+                                         strides=[3])),
+                  ('tril', dict(diagonal=-1)), ('triu', dict(diagonal=2)),
+                  ('diagonal', dict(offset=1, axis1=1, axis2=2)),
+                  ('pad', dict(pad=[1, 2, 3, 4], value=0.5)),
+                  ('repeat_interleave', dict(repeats=2, axis=0)),
+                  ('cast', dict(dtype='float64')),
+                  ('split', dict(num_or_sections=[100, -1], axis=1)),
+                  ('chunk', dict(chunks=4, axis=2)),
+                  ('unstack', dict(axis=0)), ('unbind', dict(axis=1)),
+                  ('space_to_depth', dict(blocksize=2)),
+                  ('pixel_shuffle', dict(upscale_factor=2)),
+                  ('crop', dict(shape=[4, -1, 100], offsets=[1, 0, 7])),
+                  ('expand', dict(shape=[2, -1, -1, -1])),
+                  ('broadcast_to', dict(shape=[2, 8, 512, 512])),
+                  ('getitem', dict(idx=(slice(1, 5), 7)))):
+        fn = getattr(M, n) if n == 'crop' else getattr(MA, n)
+        four = n in ('space_to_depth', 'pixel_shuffle')
+        add(SurfaceCase(n, fn, lambda g, four=four: [
+            cube(g)[None] if four else cube(g)], kw, grad=(0,),
+            family='shape'))
+    add(SurfaceCase('squeeze', MA.squeeze, lambda g: [cube(g)[:, None]],
+                    dict(axis=1), grad=(0,), family='shape'))
+    add(SurfaceCase('expand_as', MA.expand_as, lambda g: [
+        cube(g)[:1], cube(g)], grad=(0,), family='shape'))
+    for n in ('concat', 'stack', 'broadcast_tensors', 'meshgrid'):
+        make = (lambda g: [[torch.randn(512, device=SURFACE_DEVICE, generator=g),
+                            torch.randn(256, device=SURFACE_DEVICE, generator=g)]]) \
+            if n == 'meshgrid' else (lambda g: [[cube(g), cube(g)]])
+        add(SurfaceCase(n, getattr(MA, n), make, family='shape'))
+    add(SurfaceCase('one_hot', MA.one_hot, lambda g: [ints(
+        g, (4096,), 1000)], dict(num_classes=1000), family='shape'))
+    add(SurfaceCase('shard_index', MA.shard_index, lambda g: [ints(
+        g, (4096, 1), 50304)], dict(index_num=50304, nshards=4,
+                                    shard_id=1), family='shape'))
+    cplx = lambda g: torch.complex(cube(g), cube(g))
+    for n in ('as_real', 'real', 'imag'):
+        add(SurfaceCase(n, getattr(MA, n), lambda g: [cplx(g)],
+                        family='shape'))
+    add(SurfaceCase('as_complex', MA.as_complex,
+                    lambda g: [torch.randn(8, 512, 2, device=SURFACE_DEVICE,
+                                           generator=g)], family='shape'))
+    for n in ('numel', 'shape'):
+        add(SurfaceCase(n, getattr(MA, n), lambda g: [cube(g)],
+                        family='shape'))
+    # products
+    for n, make, kw in (
+            ('matmul', lambda g: [cube(g), cube(g)], {}),
+            ('matmul-transposed', lambda g: [cube(g), cube(g)],
+             dict(transpose_x=True, transpose_y=True)),
+            ('bmm', lambda g: [cube(g), cube(g)], {}),
+            ('mm', lambda g: [cube(g)[0], cube(g)[0]], {}),
+            ('dot', lambda g: [cube(g), cube(g)], {}),
+            ('inner', lambda g: [cube(g)[0], cube(g)[1]], {}),
+            ('outer', lambda g: [cube(g)[0, 0], cube(g)[0, 1]], {}),
+            ('kron', lambda g: [cube(g)[0, :32, :32], cube(g)[1, :16, :16]],
+             {}),
+            ('cross', lambda g: [cube(g)[..., :3], cube(g)[..., :3]], {}),
+            ('mv', lambda g: [cube(g)[0], cube(g)[0, 0]], {}),
+            ('addmm', lambda g: [cube(g)[0], cube(g)[1], cube(g)[2]],
+             dict(beta=0.5, alpha=2.0)),
+            ('tensordot', lambda g: [cube(g), torch.randn(
+                512, 512, 16, device=SURFACE_DEVICE, generator=g)], dict(axes=2)),
+            ('trace', lambda g: [cube(g)[0]], dict(offset=1)),
+            ('diag', lambda g: [cube(g)[0, 0]], dict(offset=1,
+                                                     padding_value=2.0)),
+            ('diag_embed', lambda g: [cube(g)[:, 0]], {}),
+            ('clip_by_norm', lambda g: [cube(g)], dict(max_norm=1.0)),
+            ('renorm', lambda g: [cube(g)], dict(p=2, axis=0,
+                                                 max_norm=100.0)),
+            ('diff', lambda g: [cube(g)], dict(axis=-1)),
+            ('trapezoid', lambda g: [cube(g)], {}),
+            ('vander', lambda g: [torch.tanh(cube(g)[0, 0])], dict(n=8)),
+            ('dist', lambda g: [cube(g), cube(g)], dict(p=2)),
+            ('conj', lambda g: [cube(g)], {})):
+        add(SurfaceCase(n, getattr(M, n.split('-')[0]), make, kw,
+                        grad=('all',), family='product'))
+    add(SurfaceCase('angle', M.angle, lambda g: [cplx(g)], family='product'))
+    add(SurfaceCase('polar', M.polar, lambda g: [cube(g).abs(), cube(g)],
+                    family='product'))
+    add(SurfaceCase('einsum', lambda a, b: LA.einsum('bij,bjk->bik', a, b),
+                    lambda g: [cube(g), cube(g)], grad=(0, 1),
+                    family='product'))
+    add(SurfaceCase('bilinear_tensor_product', LA.bilinear_tensor_product,
+                    lambda g: [cube(g)[0], cube(g)[1],
+                               torch.randn(16, 512, 512, device=SURFACE_DEVICE,
+                                           generator=g),
+                               torch.randn(16, device=SURFACE_DEVICE, generator=g)],
+                    grad=(0, 1, 2, 3), family='product'))
+    # linear algebra at [64, 512, 512]: the CPU recomputes two matrices
+    def spd(g):
+        """I + a·aᵀ/(4n) with a [b, n, 4n]: eigenvalues spread over
+        [1.25, 3.25] with no cluster (a square a's would crowd 1, where
+        eigenvectors, and eigvalsh's gradient, are ill-conditioned)."""
+        b, n, _ = SWEEP_LINALG
+        a = torch.randn(b, n, 4 * n, device=SURFACE_DEVICE, generator=g)
+        return a @ a.mT / (4 * n) + torch.eye(n, device=SURFACE_DEVICE)
+
+    def gen_mat(g, spread=0.5):
+        """I + spread·G/sqrt(n): eigenvalues within `spread` of 1, a
+        well-conditioned general matrix."""
+        n = SWEEP_LINALG[-1]
+        return torch.eye(n, device=SURFACE_DEVICE) + spread / n ** 0.5 * \
+            torch.randn(SWEEP_LINALG, device=SURFACE_DEVICE, generator=g)
+
+    rhs = lambda g: torch.randn(SWEEP_LINALG[0], SWEEP_LINALG[1], 16,
+                                device=SURFACE_DEVICE, generator=g)
+
+    def rebuild(name):
+        def pick(res, ins):
+            a = ins[0]
+            # the rebuilt matrices (each side's equals its input), and
+            # the factors that are unique
+            if name == 'qr':
+                return [res[0] @ res[1]]
+            if name == 'svd':
+                return [(res[0] * res[1][..., None, :]) @ res[2].mT, res[1]]
+            if name == 'eigh':
+                return [(res[1] * res[0][..., None, :]) @ res[1].mT, res[0]]
+            if name == 'eig':
+                v, w = res[1], res[0]
+                return [(v * w[..., None, :]) @ torch.linalg.inv(v)]
+            if name == 'lu':
+                p, low, up = torch.lu_unpack(*res)
+                return [p @ low @ up]
+            if name == 'cholesky':
+                return [res @ res.mT, res]
+        return pick
+
+    for n, make, kw, grad in (
+            ('cholesky', spd, {}, (0,)), ('inverse', spd, {}, (0,)),
+            ('inv', spd, {}, ()), ('matrix_power', gen_mat, dict(n=2),
+                                   (0,)),
+            ('det', lambda g: gen_mat(g, 0.05), {}, (0,)),
+            ('slogdet', gen_mat, {}, ()),
+            ('matrix_rank', spd, {}, ()), ('pinv', gen_mat, {}, ()),
+            ('solve', lambda g: [spd(g), rhs(g)], {}, (0, 1)),
+            ('triangular_solve', lambda g: [torch.linalg.cholesky(
+                spd(g)).mT.contiguous(), rhs(g)], {}, (0, 1)),
+            ('cholesky_solve', lambda g: [rhs(g), torch.linalg.cholesky(
+                spd(g))], {}, (0,)),
+            ('lstsq', lambda g: [gen_mat(g), rhs(g)], {}, ()),
+            ('cond', gen_mat, {}, ()), ('eigvalsh', spd, {}, ()),
+            ('qr', gen_mat, {}, ()), ('svd', gen_mat, {}, ()),
+            ('eigh', spd, {}, ()), ('lu', gen_mat, {}, ())):
+        wrap = make if n in ('solve', 'triangular_solve', 'cholesky_solve',
+                             'lstsq') else (lambda g, make=make: [make(g)])
+        add(SurfaceCase(n, getattr(LA, n), wrap, kw, grad=grad, block=_two,
+                        family='linalg', bar=SWEEP_BARS['linalg'],
+                        compare=rebuild(n) if n in (
+                            'qr', 'svd', 'eigh', 'lu', 'cholesky')
+                        else (lambda r, ins: [r.mT]) if n == 'slogdet'
+                        else None))
+    def spread(g, n=64):
+        """Q diag(linspace(1, 5, n)) Qᵀ: eigenvalues 4/(n-1) apart, so
+        fp32 eigenvectors, and eigvalsh's gradient V diag(g) Vᵀ, are
+        well conditioned (at n = 512 a random spectrum's closest pair
+        moves the gradient by ~1e-3 between two fp32 solvers)."""
+        q = torch.linalg.qr(torch.randn(SWEEP_LINALG[0], n, n,
+                                        device=SURFACE_DEVICE,
+                                        generator=g)).Q
+        lam = torch.linspace(1.0, 5.0, n, device=SURFACE_DEVICE)
+        return (q * lam) @ q.mT
+
+    add(SurfaceCase('eigvalsh-vjp', LA.eigvalsh, lambda g: [spread(g)],
+                    grad=(0,), block=_two, family='linalg',
+                    bar=SWEEP_BARS['linalg']))
+    small = lambda g: torch.eye(256, device=SURFACE_DEVICE) + 0.5 / 16 * \
+        torch.randn(4, 256, 256, device=SURFACE_DEVICE, generator=g)
+    add(SurfaceCase('eig', LA.eig, lambda g: [small(g)], block=_two,
+                    family='linalg', bar=SWEEP_BARS['linalg'],
+                    compare=rebuild('eig')))
+    add(SurfaceCase('eigvals', lambda a: LA.eigvals(a).abs().sort(-1)
+                    .values, lambda g: [small(g)], block=_two,
+                    family='linalg', bar=SWEEP_BARS['linalg']))
+    for n in ('cov', 'corrcoef'):
+        add(SurfaceCase(n, getattr(LA, n), lambda g: [torch.randn(
+            512, 2048, device=SURFACE_DEVICE, generator=g)], family='linalg',
+            bar=SWEEP_BARS['linalg']))
+    # fft at [16384, 2048]: the 1-D transforms along the last axis on a
+    # row block, the 2-D and n-D ones whole
+    sig = lambda g: torch.randn(SWEEP_FFT, device=SURFACE_DEVICE, generator=g)
+    csig = lambda g: torch.complex(sig(g), sig(g))
+    for n in ('fft', 'ifft', 'rfft', 'ihfft'):
+        add(SurfaceCase(n, lambda a, n=n: torch.real(getattr(FF, n)(a)),
+                        lambda g: [sig(g)], grad=(0,), block=_lead_rows,
+                        family='fft'))
+        add(SurfaceCase(f'{n}-complex', getattr(FF, n),
+                        lambda g: [sig(g)], block=_lead_rows,
+                        family='fft'))
+    for n in ('irfft', 'hfft'):
+        add(SurfaceCase(n, getattr(FF, n), lambda g: [csig(g)],
+                        block=_lead_rows, family='fft'))
+    for n in ('fft2', 'ifft2', 'rfft2', 'fftn', 'ifftn', 'rfftn'):
+        add(SurfaceCase(n, getattr(FF, n), lambda g: [sig(g)],
+                        family='fft', bar=(1e-4, 1e-5)))
+    for n in ('irfft2', 'irfftn'):
+        add(SurfaceCase(n, getattr(FF, n), lambda g: [csig(g)[:, :1025]],
+                        family='fft', bar=(1e-4, 1e-5)))
+    for n in ('fftshift', 'ifftshift'):
+        add(SurfaceCase(n, getattr(FF, n), lambda g: [sig(g)],
+                        family='fft'))
+    # creation on the card against the same op on the CPU
+    for n, args, kw in (('zeros', ([64, 2048],), {}),
+                        ('ones', ([64, 2048],), dict(dtype='int32')),
+                        ('full', ([64, 2048], 1.5), {}),
+                        ('empty', ([64, 2048],), {}),
+                        ('arange', (0, 1 << 20), {}),
+                        ('linspace', (0, 1, 4097), {}),
+                        ('logspace', (0, 2, 4097), {}),
+                        ('eye', (2048, 1024), {}),
+                        ('to_tensor', (np.arange(4096.0),), {})):
+        add(SurfaceCase(n, lambda *a, n=n, kw=kw, **k: getattr(C, n)(
+            *a, device=k.pop('_device'), **kw), lambda g, args=args:
+            list(args), family='creation'))
+    for n, args in (('zeros_like', ()), ('ones_like', ()),
+                    ('empty_like', ()), ('full_like', (2.5,)),
+                    ('assign', ()), ('clone', ()), ('tril_', ()),
+                    ('diagflat', ()), ('complex', ())):
+        def make(g, n=n, args=args):
+            t = torch.randn(512, 512, device=SURFACE_DEVICE, generator=g)
+            if n == 'diagflat':
+                return [t[0]]
+            return [t, t] if n == 'complex' else [t, *args]
+        add(SurfaceCase(n, getattr(C, n), make, family='creation'))
+    add(SurfaceCase('broadcast_shape', lambda a, b, _device: torch.tensor(
+        M.broadcast_shape(a, b), device=_device), lambda g: [
+            [8, 1, 2048], [2048, 1]], family='creation'))
+    for n in ('fftfreq', 'rfftfreq'):
+        add(SurfaceCase(n, lambda m, n=n, **k: getattr(FF, n)(
+            m, 0.5, device=k.pop('_device')), lambda g: [4096],
+            family='creation'))
+    # losses
+    add_losses(torch, cases, NN)
+    return cases
+
+
+def add_losses(torch, cases, NN):
+    """Every loss: cross-entropy and nll_loss at the GPT head's [4096,
+    50304] fp32 logits with ignored rows, the others at [16384, 2048],
+    ctc_loss at T=256, B=64, 32 classes, labels up to 64; row-wise ones
+    ('none') on a row block, the reduced ones whole."""
+    add = cases.append
+    V = SWEEP_XENT
+
+    def logits(g):
+        return torch.randn(V, device=SURFACE_DEVICE, generator=g)
+
+    def labels(g, n, c, ignore=None):
+        lab = torch.randint(0, c, (n,), device=SURFACE_DEVICE, generator=g)
+        if ignore is not None:
+            lab[::7] = ignore
+        return lab
+
+    for red in ('none', 'mean'):
+        block = _lead_rows if red == 'none' else None
+        add(SurfaceCase(f'cross_entropy-{red}', NN.cross_entropy,
+                        lambda g: [logits(g), labels(g, V[0], V[1], -100)],
+                        dict(reduction=red, ignore_index=-100), grad=(0,),
+                        block=block, family='loss'))
+        add(SurfaceCase(f'nll_loss-{red}', NN.nll_loss,
+                        lambda g: [torch.log_softmax(logits(g), -1),
+                                   labels(g, V[0], V[1], -100)],
+                        dict(reduction=red, weight=None), grad=(0,),
+                        block=block, family='loss'))
+    add(SurfaceCase('softmax_with_cross_entropy',
+                    NN.softmax_with_cross_entropy,
+                    lambda g: [logits(g), labels(g, V[0], V[1])[:, None]],
+                    grad=(0,), block=_lead_rows, family='loss'))
+    L = SWEEP_LOSS
+    x = lambda g: torch.randn(L, device=SURFACE_DEVICE, generator=g)
+    prob = lambda g: torch.rand(L, device=SURFACE_DEVICE, generator=g) * 0.9 + 0.05
+    sign = lambda g: torch.randn(L, device=SURFACE_DEVICE, generator=g).sign()
+    for name, make, kw, grad, red in (
+            ('mse_loss', lambda g: [x(g), x(g)], {}, (0, 1), True),
+            ('l1_loss', lambda g: [x(g), x(g)], {}, (0, 1), True),
+            ('smooth_l1_loss', lambda g: [x(g), x(g)], dict(delta=0.7),
+             (0, 1), True),
+            ('kl_div', lambda g: [x(g), prob(g)], {}, (0, 1), True),
+            ('soft_margin_loss', lambda g: [x(g), sign(g)], {}, (0,), True),
+            ('binary_cross_entropy', lambda g: [prob(g), prob(g)], {},
+             (0,), True),
+            ('binary_cross_entropy_with_logits', lambda g: [x(g), prob(g)],
+             dict(pos_weight=2.0), (0,), True),
+            ('sigmoid_focal_loss', lambda g: [x(g), (x(g) > 0).float()],
+             {}, (0,), True),
+            ('margin_ranking_loss', lambda g: [x(g)[:, 0], x(g)[:, 0],
+                                               sign(g)[:, 0]],
+             dict(margin=0.1), (0, 1), True),
+            ('triplet_margin_loss', lambda g: [x(g), x(g), x(g)], {},
+             (0, 1, 2), True),
+            ('cosine_embedding_loss', lambda g: [x(g), x(g), sign(g)[:, 0]],
+             dict(margin=0.2), (0, 1), True),
+            ('multi_margin_loss', lambda g: [x(g), torch.randint(
+                0, L[1], (L[0],), device=SURFACE_DEVICE, generator=g)], {}, (0,),
+             True),
+            ('hinge_loss', lambda g: [x(g), (x(g) > 0).float()], {}, (0,),
+             False),
+            ('log_loss', lambda g: [prob(g), (x(g) > 0).float()], {}, (0,),
+             False),
+            ('square_error_cost', lambda g: [x(g), x(g)], {}, (0, 1),
+             False),
+            ('label_smooth', lambda g: [prob(g)], dict(epsilon=0.1), (0,),
+             False),
+            ('npair_loss', lambda g: [x(g)[:2048] / 8, x(g)[:2048] / 8,
+                                      torch.randint(0, 64, (min(
+                                          2048, L[0]),),
+                                          device=SURFACE_DEVICE,
+                                          generator=g)], {},
+             (0, 1), False),
+            ('dice_loss', lambda g: [torch.softmax(torch.randn(
+                64, 256, 512, device=SURFACE_DEVICE, generator=g), -1),
+                                     torch.randint(0, 512, (64, 256, 1),
+                                                   device=SURFACE_DEVICE,
+                                                   generator=g)], {},
+             (0,), False)):
+        if red:
+            add(SurfaceCase(f'{name}-none', getattr(NN, name), make,
+                            dict(kw, reduction='none'), grad=grad,
+                            block=_lead_rows, family='loss'))
+            add(SurfaceCase(f'{name}-mean', getattr(NN, name), make,
+                            dict(kw, reduction='mean'), grad=grad,
+                            family='loss'))
+        else:
+            add(SurfaceCase(name, getattr(NN, name), make, kw, grad=grad,
+                            block=_lead_rows if name in (
+                                'hinge_loss', 'log_loss',
+                                'square_error_cost', 'label_smooth')
+                            else None, family='loss'))
+    c = SWEEP_CTC
+
+    def ctc_inputs(g):
+        lp = torch.log_softmax(torch.randn(c['T'], c['B'], c['C'],
+                                           device=SURFACE_DEVICE, generator=g), -1)
+        lab = torch.randint(1, c['C'], (c['B'], c['S']), device=SURFACE_DEVICE,
+                            generator=g)
+        il = torch.full((c['B'],), c['T'], device=SURFACE_DEVICE, dtype=torch.long)
+        ll = torch.randint(c['S'] // 2, c['S'] + 1, (c['B'],),
+                           device=SURFACE_DEVICE, generator=g)
+        return [lp, lab, il, ll]
+    for red in ('none', 'mean', 'sum'):
+        add(SurfaceCase(f'ctc_loss-{red}', NN.ctc_loss, ctc_inputs,
+                        dict(reduction=red), grad=(0,), family='loss',
+                        bar=(1e-4, 1e-5)))
+
+
+def _default_state(torch):
+    """The state of torch's default generator of the sweep's device."""
+    if torch.device(SURFACE_DEVICE).type == 'cuda':
+        return torch.cuda.default_generators[0].get_state()
+    return torch.default_generator.get_state()
+
+
+def surface_random(torch, card):
+    """The random ops on the card: moments of 2^24 draws (within 6
+    standard errors), reproducibility under `seed()` and a passed
+    generator, and torch's default CUDA generator untouched."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import creation as C
+
+    n = 1 << 24
+    default = _default_state(torch)
+    on_device = ('uniform', 'rand', 'randn', 'standard_normal', 'normal',
+                 'gaussian', 'randint', 'truncated_gaussian_random',
+                 'randperm')
+    draws = {
+        'uniform': (lambda **g: C.uniform([n], min=-2.0, max=4.0, **g),
+                    1.0, 3.0),
+        'rand': (lambda **g: C.rand([n], **g), 0.5, 1 / 12),
+        'randn': (lambda **g: C.randn([n], **g), 0.0, 1.0),
+        'standard_normal': (lambda **g: C.standard_normal([n], **g), 0.0,
+                            1.0),
+        'normal': (lambda **g: C.normal(2.0, 3.0, [n], **g), 2.0, 9.0),
+        'gaussian': (lambda **g: C.gaussian([n], 1.0, 2.0, **g), 1.0, 4.0),
+        'randint': (lambda **g: C.randint(0, 10, [n], **g).float(), 4.5,
+                    99 / 12),
+        'randint_like': (lambda **g: C.randint_like(
+            torch.zeros(n, device=SURFACE_DEVICE), 0, 4, **g).float(), 1.5,
+            15 / 12),
+        'bernoulli': (lambda **g: C.bernoulli(torch.full(
+            (n,), 0.3, device=SURFACE_DEVICE), **g), 0.3, 0.21),
+        'poisson': (lambda **g: C.poisson(torch.full(
+            (n,), 3.0, device=SURFACE_DEVICE), **g), 3.0, 3.0),
+        'multinomial': (lambda **g: C.multinomial(torch.tensor(
+            [1.0, 3.0], device=SURFACE_DEVICE), n, replacement=True, **g).float(),
+            0.75, 0.1875),
+        'truncated_gaussian_random': (lambda **g:
+                                      C.truncated_gaussian_random([n], **g),
+                                      0.0, 0.7737413),
+        'randperm': (lambda **g: C.randperm(n, **g).float(), (n - 1) / 2,
+                     (n * n - 1) / 12),
+        'shuffle': (lambda **g: C.shuffle(torch.arange(
+            n, device=SURFACE_DEVICE, dtype=torch.float32), **g), (n - 1) / 2,
+            (n * n - 1) / 12),
+    }
+    rec = {}
+    for name, (draw, mean, var) in draws.items():
+        if name in on_device:
+            draw = functools.partial(draw, device=SURFACE_DEVICE)
+        rng.seed(2023)
+        a = draw()
+        b = draw()
+        rng.seed(2023)
+        again = draw()
+        g1 = draw(generator=torch.Generator(device=SURFACE_DEVICE).manual_seed(9))
+        g2 = draw(generator=torch.Generator(device=SURFACE_DEVICE).manual_seed(9))
+        if a.device.type != torch.device(SURFACE_DEVICE).type or \
+                not torch.equal(a, again) or \
+                torch.equal(a, b) or not torch.equal(g1, g2):
+            raise AssertionError(f'surface random {name}: not reproducible')
+        m, v = float(a.double().mean()), float(a.double().var())
+        if name in ('randperm', 'shuffle'):
+            ok = torch.equal(a.sort().values, torch.arange(
+                n, device=SURFACE_DEVICE, dtype=torch.float32))
+        else:
+            ok = abs(m - mean) < 6 * (var / n) ** 0.5 and \
+                abs(v - var) < 0.01 * var
+        if not ok:
+            raise AssertionError(f'surface random {name}: mean {m} var {v} '
+                                 f'against {mean} {var}')
+        rec[name] = {'mean': m, 'var': v}
+    if not torch.equal(_default_state(torch),
+                       default):
+        raise AssertionError('surface random: the default CUDA generator '
+                             'moved')
+    return rec
+
+
+def surface_sweep(torch, card, smi):
+    """(a) Every registry op and every loss on the card against the CPU
+    (`surface_cases`), fp32 and bf16 where the op takes floats; every
+    result on the card; the random ops (`surface_random`)."""
+    from paddle_tpu_torch.ops import common
+    from paddle_tpu_torch.ops import nn_ops  # noqa: F401  the losses
+
+    t0 = time.perf_counter()
+    default = _default_state(torch)
+    cases = surface_cases(torch)
+    names = {c.name.split('-')[0] for c in cases}
+    registry = {}
+    for name, fn in common.OP_REGISTRY.items():
+        registry.setdefault(id(fn), set()).add(name)
+    random_ops = {'uniform', 'rand', 'randn', 'normal', 'gaussian',
+                  'standard_normal', 'randint', 'randint_like', 'randperm',
+                  'shuffle', 'bernoulli', 'poisson', 'multinomial',
+                  'truncated_gaussian_random'}
+    missing = sorted(min(ns) for ns in registry.values()
+                     if not ns & (names | random_ops))
+    if missing:
+        raise AssertionError(f'surface: registry ops without a case: '
+                             f'{missing}')
+    gen = torch.Generator(device=SURFACE_DEVICE)
+    errs, blocks, per_family, failed = {}, [], {}, []
+    for i, case in enumerate(cases):
+        for dt in case.dtypes:
+            gen.manual_seed(1000 + i)
+            try:
+                if case.family == 'creation':
+                    err = creation_case(torch, case, gen)
+                else:
+                    err = run_surface_case(torch, case, dt, gen)
+            except Exception as e:      # every case runs; all are reported
+                failed.append(f'{case.name}/{dt}: {type(e).__name__}: {e}')
+                continue
+            key = f'{case.family}/{dt}'
+            per_family[key] = max(per_family.get(key, 0.0), err)
+            errs[f'{case.name}/{dt}'] = err
+        if case.block is not None:
+            blocks.append(case.name)
+    if failed:
+        raise AssertionError(f'surface: {len(failed)} case runs failed: '
+                             + '; '.join(failed))
+    free_cuda(torch)
+    random_rec = surface_random(torch, card)
+    if not torch.equal(_default_state(torch),
+                       default):
+        raise AssertionError('surface: the default CUDA generator moved')
+    rec = {'phase': 'surface_sweep', 'card': card, 'nvidia_smi': smi,
+           'registry_functions': len(registry),
+           'registry_names': len(common.OP_REGISTRY),
+           'registry_functions_held': len(registry),
+           'cases': len(cases), 'case_runs': len(errs),
+           'random_ops': sorted(random_ops),
+           'max_rel_err_by_family': per_family,
+           'cpu_row_block_cases': blocks,
+           'cpu_row_block': f'[:1, :{SWEEP_BLOCK}] of [8, L, N], '
+                            f'[:{SWEEP_BLOCK}] of 2-D, [:2] of batched '
+                            'matrices',
+           'shapes': {'big': SWEEP_BIG, 'vocab': SWEEP_VOCAB,
+                      'ids': SWEEP_IDS, 'linalg': SWEEP_LINALG,
+                      'fft': SWEEP_FFT, 'xent': SWEEP_XENT,
+                      'loss': SWEEP_LOSS, 'ctc': SWEEP_CTC},
+           'random': random_rec, 'seconds': time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+def creation_case(torch, case, gen):
+    """A creation op made on the card and on the CPU from the same
+    arguments (ops on tensors: from the card's tensor and its copy)."""
+    args = case.make(gen)
+    on_tensor = any(isinstance(a, torch.Tensor) for a in args)
+    if on_tensor:
+        card = case.fn(*args, **case.kw)
+        cpu = case.fn(*_to(torch, args, 'cpu'), **case.kw)
+    else:
+        card = case.fn(*args, _device=SURFACE_DEVICE, **case.kw)
+        cpu = case.fn(*args, _device='cpu', **case.kw)
+    if card.device.type != torch.device(SURFACE_DEVICE).type:
+        raise AssertionError(f'surface {case.name}: made on {card.device}')
+    return _sweep_close(torch, card.cpu(), cpu, SWEEP_BARS['fp32'],
+                        f'{case.name} creation')
+
+
+def surface_model(torch, device, B, hw, gen):
+    """The surface_train recipe at one size: resnet50 from the package
+    generator, its fc replaced by the ParamAttr head, CrossEntropyLoss,
+    Momentum with a global-norm clip; inputs from `randn`/`randint`."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn.initializer import Normal
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.seed(2021)
+    x = paddle.randn([B, 3, hw, hw], device=device)
+    y = paddle.randint(0, 1000, [B], device=device)
+    model = resnet50(device=device)
+    model.fc = nn.Linear(2048, 1000, weight_attr=paddle.ParamAttr(
+        initializer=Normal(0.0, 0.01), learning_rate=10.0,
+        regularizer=L2Decay(1e-4)), bias_attr=paddle.ParamAttr(
+            learning_rate=10.0, need_clip=False), device=device)
+    opt = Momentum(learning_rate=0.01, momentum=0.9,
+                   parameters=model.parameters(),
+                   grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    return model, nn.CrossEntropyLoss(), opt, x, y
+
+
+def surface_train_phase(torch, card, smi):
+    """(b) surface_train: the eager fine-tuning loop written against the
+    new surface, fp32, at the resnet50_dp_bf16 leg's width (B = 128,
+    224²): 8 steps of loss.backward(); opt.step(); opt.clear_grad() on
+    the fixed batch. The loss is finite and falls; row 15 launches twice
+    a step (the head's multiplier group and the rest) and nothing else
+    launches; the head's bias takes its unclipped gradient at 10x the
+    rate while the others take the clipped one; then the same recipe at
+    B = 4, 64², one step on the card and on the CPU from the same
+    weights, every parameter within 1e-3 relative L2."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+
+    cfg = SURFACE_TRAIN
+    model, loss_fn, opt, x, y = surface_model(torch, 'cuda', cfg['B'],
+                                              cfg['hw'], None)
+    params = list(model.parameters())
+    named = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, step_s = [], []
+    clip_rec = None
+    for step in range(cfg['steps']):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        if step == 0:
+            before = {n: (p.detach().clone(), p.grad.detach().clone())
+                      for n, p in named.items()}
+            sq = sum(float((p.grad.double() ** 2).sum()) for n, p in
+                     named.items() if n != 'fc.bias')
+            factor = min(1.0, 1.0 / sq ** 0.5)
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        step_s.append(time.perf_counter() - t0)
+        if step == 0:
+            clip_rec = clip_check(torch, named, before, factor)
+    launches = _build.routes_snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    check_exact_launches('surface_train', launches,
+                         {FO.STEP: 2 * cfg['steps']})
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f'surface_train: losses {losses}')
+    timed = step_s[1:]
+    ms = 1e3 * sum(timed) / len(timed)
+    del model, opt, x, y, before, named, params
+    free_cuda(torch)
+    check = surface_train_check(torch)
+    rec = {'phase': 'surface_train', 'card': card, 'nvidia_smi': smi,
+           'model': 'resnet50(1000), fc: Linear(2048, 1000) with '
+                    'ParamAttr(Normal(0, 0.01), lr x10, L2Decay(1e-4)), '
+                    'bias ParamAttr(lr x10, need_clip=False)',
+           'batch': cfg['B'], 'image': [3, cfg['hw'], cfg['hw']],
+           'dtype': 'float32', 'optimizer': 'Momentum(0.01, 0.9), '
+           'ClipGradByGlobalNorm(1.0)', 'steps': cfg['steps'],
+           'losses': losses, 'step_s': step_s,
+           'ms_per_step': ms, 'images_per_sec': cfg['B'] / (ms / 1e3),
+           'peak_memory_bytes': peak, 'launches': launches,
+           'clip': clip_rec, 'cpu_check': check, **cudnn_settings(torch)}
+    emit(rec)
+    return rec
+
+
+def clip_check(torch, named, before, factor):
+    """After the first Momentum step (velocity = gradient): the head's
+    bias moved by 0.01·10·g (no clip), a convolution by 0.01·factor·g,
+    the head's weight by 0.01·10·(factor·g + 1e-4·w)."""
+    def moved(n):
+        p0, _ = before[n]
+        return (p0 - named[n].detach()).double()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    g = {n: before[n][1].double() for n in before}
+    conv = next(n for n in named if n.endswith('weight') and
+                named[n].dim() == 4)
+    errs = {
+        'fc.bias': rel(moved('fc.bias'), 0.1 * g['fc.bias']),
+        conv: rel(moved(conv), 0.01 * factor * g[conv]),
+        'fc.weight': rel(moved('fc.weight'), 0.1 * (
+            factor * g['fc.weight'] + 1e-4 * before['fc.weight'][0]
+            .double()))}
+    # a step read back as the difference of two fp32 parameters keeps
+    # ~eps·|p|/|step| of itself: ~6e-4 for the head's weight, which moves
+    # ~1e-4 of its size; a clip applied where it should not be (or not
+    # where it should) is off by 1 - factor
+    if not factor < 0.5 or max(errs.values()) > 1e-2:
+        raise AssertionError(f'surface_train: clip factor {factor}, the '
+                             f'step against the expected one {errs}')
+    return {'global_norm_factor': factor, 'rel_err': errs}
+
+
+def surface_train_check(torch):
+    """One step of the recipe at B = 4, 64² on the card and on the CPU
+    from the same weights and inputs, with TF32 off as vision_check
+    runs (TF32 convolutions moved the stem's weight 2.5e-3 away from the
+    CPU's on an H100: batch norm over 4 images amplifies their
+    rounding): every parameter within 1e-3 relative L2, and the
+    losses."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _surface_train_check(torch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _surface_train_check(torch):
+    cfg = SURFACE_TRAIN
+    card = surface_model(torch, 'cuda', cfg['check_B'], cfg['check_hw'],
+                         None)
+    cpu = surface_model(torch, 'cpu', cfg['check_B'], cfg['check_hw'],
+                        None)
+    with torch.no_grad():
+        cpu[0].load_state_dict({k: v.cpu() for k, v in
+                                card[0].state_dict().items()})
+    x, y = card[3], card[4]
+    start = {n: p.detach().clone() for n, p in card[0].named_parameters()}
+    out = {}
+    for where, (model, loss_fn, opt, _x, _y) in (('card', card),
+                                                  ('cpu', cpu)):
+        xi, yi = x.to(_x.device), y.to(_y.device)
+        loss = loss_fn(model(xi), yi)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        out[where] = float(loss.detach())
+    # a parameter that starts at zero (the batch norms' and the head's
+    # biases) is its step, whose gradient in a batch norm's bias nearly
+    # cancels (vision_check's note): those are held together by their
+    # steps, each reported
+    errs, zero_diff, zero_norm = {}, 0.0, 0.0
+    for (n, a), (_, b) in zip(card[0].named_parameters(),
+                              cpu[0].named_parameters()):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        d = float((a - b).norm())
+        if not start[n].any():
+            zero_diff += d * d
+            zero_norm += float(b.norm()) ** 2
+            errs[n] = d / max(float(b.norm()), 1e-30)
+            continue
+        errs[n] = d / max(float(b.norm()), 1e-30)
+        if errs[n] > cfg['check_rtol']:
+            raise AssertionError(f'surface_train check: {n} {errs[n]}')
+    zero_rel = (zero_diff / max(zero_norm, 1e-60)) ** 0.5
+    if zero_rel > cfg['check_zero_rtol']:
+        raise AssertionError(f'surface_train check: the zero-initialized '
+                             f'parameters\' steps {zero_rel}; {errs}')
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    return {'batch': cfg['check_B'], 'image': cfg['check_hw'],
+            'losses': out, 'bar': cfg['check_rtol'],
+            'max_rel_l2_initialized': max(
+                v for k, v in errs.items() if start[k].any()),
+            'zero_initialized_steps_rel_l2': zero_rel,
+            'zero_initialized_bar': cfg['check_zero_rtol'],
+            'worst_five': worst, 'cudnn_allow_tf32': False}
+
+
+def event_ms(torch, fn, iters=10):
+    """Device ms per call of fn from CUDA events around `iters` calls
+    (fn may run autograd, which a graph capture would not take)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def conv_layouts_phase(torch, card, smi):
+    """(c) conv_layouts: ResNet-50's shapes in bf16 (and an fp32 pass
+    with TF32 off), each op forward and backward in NHWC (an NHWC tensor
+    permuted to NCHW: channels_last memory, no copy) against NCHW:
+    outputs and input/weight gradients within CONV_LAYOUT_BARS relative
+    L2; the device ms of a forward and of a forward + backward in each
+    layout. cudnn.benchmark is left as it is."""
+    from paddle_tpu_torch.ops import nn_ops as F
+
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    rec = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    for dt_name, dt in (('bf16', torch.bfloat16), ('fp32', torch.float32)):
+        torch.backends.cudnn.allow_tf32 = dt_name != 'fp32' and tf32
+        for name, c in CONV_LAYOUTS.items():
+            x = torch.randn(c['x'], device='cuda', generator=gen).to(dt)
+            w = None if 'w' not in c else (torch.randn(
+                c['w'], device='cuda', generator=gen) * 0.05).to(dt)
+
+            def run(xin, fmt, w=w, c=c, name=name):
+                if name.startswith('max_pool'):
+                    return F.max_pool2d(xin, c['kernel'], c['stride'],
+                                        c['padding'], data_format=fmt)
+                if 'transpose' in name:
+                    return F.conv2d_transpose(
+                        xin, w, None, c['stride'], c['padding'],
+                        groups=c['groups'], data_format=fmt)
+                return F.conv2d(xin, w, None, c['stride'], c['padding'],
+                                data_format=fmt)
+            res, cot = {}, None
+            for fmt in ('NCHW', 'NHWC'):
+                xin = x if fmt == 'NCHW' else \
+                    x.permute(0, 2, 3, 1).contiguous()
+                xin = xin.detach().requires_grad_(True)
+                wi = None if w is None else w.detach().requires_grad_(True)
+                out = run(xin, fmt, wi)
+                if cot is None:
+                    cot = torch.randn(out.shape, device='cuda',
+                                      generator=gen).to(dt)
+                # NHWC's cotangent is the NCHW one in its own layout
+                c_fmt = cot if fmt == 'NCHW' else \
+                    cot.permute(0, 2, 3, 1).contiguous()
+                out.backward(c_fmt)
+                outs = [out, xin.grad] + ([] if wi is None else [wi.grad])
+                if fmt == 'NHWC':
+                    outs[0] = outs[0].permute(0, 3, 1, 2)
+                    outs[1] = outs[1].permute(0, 3, 1, 2)
+                fwd = event_ms(torch, lambda: run(xin.detach(), fmt,
+                                                  None if wi is None
+                                                  else wi.detach()))
+
+                def step(xin=xin, wi=wi, fmt=fmt, c_fmt=c_fmt):
+                    run(xin, fmt, wi).backward(c_fmt)
+                both = event_ms(torch, step)
+                res[fmt] = {'outs': outs, 'fwd_ms': fwd,
+                            'fwd_bwd_ms': both}
+            errs = []
+            for a, b in zip(res['NHWC']['outs'], res['NCHW']['outs']):
+                errs.append(float((a.float() - b.float()).norm()
+                                  / b.float().norm()))
+            if max(errs) > CONV_LAYOUT_BARS[dt_name]:
+                raise AssertionError(f'conv_layouts {name} {dt_name}: '
+                                     f'rel L2 {errs}')
+            rec[f'{name}/{dt_name}'] = {
+                'shape': c, 'rel_l2_out_dx_dw': errs,
+                'nchw_fwd_ms': res['NCHW']['fwd_ms'],
+                'nhwc_fwd_ms': res['NHWC']['fwd_ms'],
+                'nchw_fwd_bwd_ms': res['NCHW']['fwd_bwd_ms'],
+                'nhwc_fwd_bwd_ms': res['NHWC']['fwd_bwd_ms']}
+            del res, x, w
+        free_cuda(torch)
+    torch.backends.cudnn.allow_tf32 = tf32
+    out = {'phase': 'conv_layouts', 'card': card, 'nvidia_smi': smi,
+           'rows': rec, 'bars_rel_l2': CONV_LAYOUT_BARS,
+           **cudnn_settings(torch)}
+    emit(out)
+    return out
+
+
+def surface_phase(torch, card, smi):
+    """The op surface's three parts; returns the port kernels' launches
+    over all of them (row 15: surface_train's 16 and its check's 2)."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    sweep = surface_sweep(torch, card, smi)
+    free_cuda(torch)
+    train = surface_train_phase(torch, card, smi)
+    free_cuda(torch)
+    layouts = conv_layouts_phase(torch, card, smi)
+    free_cuda(torch)
+    launches = _build.routes_snapshot()
+    return launches, {'sweep_s': sweep['seconds'],
+                      'train_ms_per_step': train['ms_per_step'],
+                      'seconds': time.perf_counter() - t0,
+                      'layouts': len(layouts['rows'])}
+
+
 SOURCES = {
     'paged_attention': ('paddle_tpu_torch/csrc/paged_attention.cu',
                         'paddle_tpu/ops/pallas/paged_attention.py:78'),
@@ -6989,6 +8275,8 @@ def main():
     ctr_launches, ctr_state = ctr_ps_phase(torch, card, smi)
     ctr_ps_check(torch, ctr_state)
     free_cuda(torch)
+    ctr_ps_s = time.perf_counter() - t0
+    surface_launches, surface_rec = surface_phase(torch, card, smi)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
@@ -7004,8 +8292,9 @@ def main():
           'bert_check': bert_check_s, 'dense_decode': dense_decode_s,
           'lenet': lenet_s, 'resnet50': resnet50_s,
           'vision_check': vision_check_s, 'deepfm_ps': deepfm_ps_s,
-          'ps_scale_ssd': ps_scale_ssd_s,
-          'ctr_ps': time.perf_counter() - t0})
+          'ps_scale_ssd': ps_scale_ssd_s, 'ctr_ps': ctr_ps_s,
+          'surface': surface_rec['seconds'],
+          'surface_sweep': surface_rec['sweep_s']})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -7083,6 +8372,9 @@ def main():
         entry['launches_deepfm_ps'] = deepfm_launches[name]
         # the CTR path's run: row 15 once an Adam step, 0 elsewhere
         entry['launches_ctr_ps'] = ctr_launches[name]
+        # the op surface: row 15 twice a surface_train step (two
+        # learning-rate groups) and twice in its CPU check, 0 elsewhere
+        entry['launches_surface'] = surface_launches[name]
         if name in SERVE_KERNELS:
             # the tenants leg's SLO run and the oversubscribed serve
             entry['launches_serve_tenants'] = tenants_launches[name]

@@ -161,6 +161,25 @@ class _AmpMode(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+def run_hooked(op_name, fn, tensors, kwargs=None):
+    """`fn(*tensors, **kwargs)` as the reference runs an op built by
+    `unary`, `binary` or `defop` (its ops/common.py:33-38): inside
+    auto_cast the floating inputs are cast as `op_name`'s lists say,
+    and the torch calls inside `fn` are not reached again."""
+    kwargs = kwargs or {}
+    if not _state.enabled or _state.opaque:
+        return fn(*tensors, **kwargs)
+    decision = _should_cast_to_low(op_name)
+    if decision is not None:
+        target = _state.dtype if decision else torch.float32
+        tensors = [_cast(t, target) for t in tensors]
+    _state.opaque += 1
+    try:
+        return fn(*tensors, **kwargs)
+    finally:
+        _state.opaque -= 1
+
+
 def uncast(fn):
     """Marks a port function that stands for one `run_op` of the
     reference, or for jnp code its hook never sees (the optimizers'

@@ -12,12 +12,62 @@ generator bound raises, so a mask never comes from an unseeded stream.
 
 The two frameworks' streams cannot agree (threefry against Philox): the
 tests replace `keep_mask` on both sides with the same numpy masks.
+
+The random ops (`ops/creation.py`) and the initializers draw from the
+package generator of their device (`generator(device)`), or from a
+`generator=` the caller passes: one `torch.Generator` a device, seeded
+0 until `seed(s)` seeds them all (and those made later) with s, as the
+reference's `_GeneratorState(seed=0)` is (:49-67 there).
+`get_rng_state()` is {device name: state} of the generators made so
+far, which `set_rng_state` restores.
 """
 import contextlib
 
 import torch
 
 _BOUND = []
+_SEED = [0]
+_GENERATORS = {}
+
+
+def _key(device):
+    dev = torch.device(device)
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
+    return str(dev)
+
+
+def generator(device):
+    """The package generator of `device`, made (and seeded with the
+    current seed) at its first use; None for the meta device, where a
+    draw fills nothing (a model built there is loaded later)."""
+    if torch.device(device).type == 'meta':
+        return None
+    key = _key(device)
+    gen = _GENERATORS.get(key)
+    if gen is None:
+        gen = _GENERATORS[key] = torch.Generator(device=key)
+        gen.manual_seed(_SEED[0])
+    return gen
+
+
+def seed(s):
+    """Seed every package generator, and those made later, with `s`
+    (parity: paddle.seed)."""
+    _SEED[0] = int(s)
+    for gen in _GENERATORS.values():
+        gen.manual_seed(_SEED[0])
+
+
+def get_rng_state():
+    """{device name: generator state} of the package generators."""
+    return {k: g.get_state() for k, g in _GENERATORS.items()}
+
+
+def set_rng_state(state):
+    """Restore the states `get_rng_state` returned."""
+    for key, st in state.items():
+        generator(key).set_state(st)
 
 
 @contextlib.contextmanager

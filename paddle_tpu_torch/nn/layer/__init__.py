@@ -4,9 +4,14 @@ from .activation import (CELU, ELU, GELU, SELU, Hardshrink,  # noqa: F401
                          ReLU6, Sigmoid, Silu, Softmax, Softplus, Softshrink,
                          Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
 from .common import (Dropout, Embedding, Flatten, Identity,  # noqa: F401
-                     Linear)
+                     Linear, ParamAttr)
 from .container import LayerList, Sequential  # noqa: F401
-from .conv import Conv2D  # noqa: F401
+from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa: F401
+                   CrossEntropyLoss, CTCLoss, KLDivLoss, L1Loss,
+                   MarginRankingLoss, MSELoss, MultiMarginLoss, NLLLoss,
+                   SmoothL1Loss, SoftMarginLoss, TripletMarginLoss)
+from .conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
+                   Conv2DTranspose, Conv3D, Conv3DTranspose)
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                    BatchNorm3D, LayerNorm, SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa: F401

@@ -5,6 +5,7 @@ from torch import nn
 
 from ...ops import nn_ops as F
 from .. import initializer as I
+from .common import create_parameter
 
 
 def _simple(name, fn, **defaults):
@@ -59,14 +60,10 @@ class PReLU(nn.Module):
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
                  data_format='NCHW', name=None, device=None, dtype=None):
         super().__init__()
-        if weight_attr is not None:
-            raise NotImplementedError(
-                'a ParamAttr (weight_attr) is not ported yet (ROADMAP '
-                'Queue 1 item 9c)')
         self._data_format = data_format
-        self.weight = nn.Parameter(torch.empty(num_parameters, device=device,
-                                               dtype=dtype))
-        I.Constant(init)(self.weight)
+        self.weight = create_parameter(
+            [num_parameters], weight_attr, default_initializer=I.Constant(init),
+            device=device, dtype=dtype)
 
     def forward(self, x):
         return F.prelu(x, self.weight, self._data_format)

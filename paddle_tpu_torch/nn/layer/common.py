@@ -1,10 +1,20 @@
 """Linear, Embedding, Dropout, Flatten and Identity with paddle's
 parameter names and layouts — counterparts of
-`paddle_tpu/nn/layer/common.py`.
+`paddle_tpu/nn/layer/common.py` — and `ParamAttr` with the
+`create_parameter` rule the layers share (`paddle_tpu/nn/layer/base.py:
+19-44`, `:97-115`).
 
-Parameters are created on the given `device`/`dtype` (torch factory
-kwargs) with paddle's default initializers (XavierUniform weights, zero
-bias), drawn from an optional `torch.Generator`.
+A layer's `weight_attr` / `bias_attr` is anything `ParamAttr._to_attr`
+takes: None (the layer's default), a `ParamAttr`, an initializer, a
+name, or `False` (no such parameter). The parameter is created on the
+given `device`/`dtype` (torch factory kwargs), filled by the attr's
+initializer or the layer's default (XavierUniform weights, zero bias),
+drawn from the layer's optional `torch.Generator` (else the package
+generator), and carries the attr as attributes the optimizers and clips
+read: `optimize_attr['learning_rate']` (a multiplier of the learning
+rate in the eager `step()`), `regularizer`, `need_clip`, `trainable`
+(False: `requires_grad` off) and, when given, the name as `param_name`
+(a torch tensor's `name` is read-only).
 """
 import torch
 from torch import nn
@@ -13,37 +23,77 @@ from ...ops import nn_ops as F
 from .. import initializer as I
 
 
+class ParamAttr:
+    """Parity: fluid/param_attr.py ParamAttr."""
+
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(attr):
+        if attr is None:
+            return ParamAttr()
+        if isinstance(attr, ParamAttr):
+            return attr
+        if isinstance(attr, str):
+            return ParamAttr(name=attr)
+        if isinstance(attr, I.Initializer):
+            return ParamAttr(initializer=attr)
+        if attr is False:
+            return False
+        raise TypeError(f'a parameter attribute must be None, a ParamAttr, '
+                        f'an initializer, a name or False, got {attr!r}')
+
+
+def create_parameter(shape, attr=None, is_bias=False,
+                     default_initializer=None, device=None, dtype=None,
+                     generator=None):
+    """The parameter `attr` describes (None when it is False), as the
+    reference's `Layer.create_parameter` (base.py:97-115) makes it."""
+    attr = ParamAttr._to_attr(attr)
+    if attr is False:
+        return None
+    p = nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype),
+                     requires_grad=bool(attr.trainable))
+    init = attr.initializer or default_initializer or (
+        I.Constant(0.0) if is_bias else I.XavierUniform())
+    init(p, generator)
+    p.optimize_attr = {'learning_rate': attr.learning_rate}
+    p.regularizer = attr.regularizer
+    p.need_clip = attr.need_clip
+    p.trainable = attr.trainable
+    p.is_bias = is_bias
+    if attr.name is not None:
+        p.param_name = attr.name       # torch's Tensor.name is read-only
+    return p
+
+
 def xavier_uniform_(w, generator=None):
     """paddle's XavierUniform on a 2-D weight: fan_in = shape[0],
     fan_out = shape[1] (paddle lays Linear weights out [in, out])."""
     return I.XavierUniform()(w, generator)
 
 
-def refuse_param_attr(weight_attr, bias_attr):
-    """Whether the layer has a bias (`bias_attr=False`: none); any other
-    `weight_attr`/`bias_attr` than None is a ParamAttr, which is not
-    ported yet."""
-    if weight_attr is not None or bias_attr not in (None, False):
-        raise NotImplementedError(
-            'a ParamAttr (weight_attr / bias_attr) is not ported yet '
-            '(ROADMAP Queue 1 item 9c); pass None, or bias_attr=False')
-    return bias_attr is not False
-
-
 class Linear(nn.Module):
     """y = x @ W + b with W of shape [in, out] (paddle layout)."""
 
-    def __init__(self, in_features, out_features, bias=True, device=None,
-                 dtype=None, generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, device=None, dtype=None,
+                 generator=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        kw = {'device': device, 'dtype': dtype}
-        self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               **kw))
-        self.bias = (nn.Parameter(torch.zeros(out_features, **kw))
-                     if bias else None)
-        xavier_uniform_(self.weight, generator)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.weight = create_parameter([in_features, out_features],
+                                       weight_attr, **kw)
+        self.bias = create_parameter([out_features], bias_attr, True, **kw)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -54,17 +104,23 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Lookup table [num_embeddings, embedding_dim]."""
+    """Lookup table [num_embeddings, embedding_dim]; the `padding_idx`
+    row starts at 0 and its ids look up zeros."""
 
-    def __init__(self, num_embeddings, embedding_dim, device=None,
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, device=None,
                  dtype=None, generator=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype))
-        xavier_uniform_(self.weight, generator)
+        self._padding_idx = padding_idx
+        self.weight = create_parameter(
+            [num_embeddings, embedding_dim], weight_attr, device=device,
+            dtype=dtype, generator=generator)
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
     def extra_repr(self):
         return f'{self.weight.shape[0]}, {self.weight.shape[1]}'

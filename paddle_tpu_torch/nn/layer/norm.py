@@ -1,10 +1,14 @@
 """LayerNorm and the batch norms with paddle's parameter and buffer
-names — counterparts of `paddle_tpu/nn/layer/norm.py` (:17-166)."""
+names — counterparts of `paddle_tpu/nn/layer/norm.py` (:17-190). The
+weight and the bias take a `ParamAttr` (`common.create_parameter`):
+weight from 1 and bias from 0 unless the attr names an initializer,
+none when the attr is False."""
 import torch
 from torch import nn
 
 from ...ops import nn_ops as F
-from .common import refuse_param_attr
+from .. import initializer as I
+from .common import create_parameter
 
 
 class _BatchNormBase(nn.Module):
@@ -26,13 +30,11 @@ class _BatchNormBase(nn.Module):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        refuse_param_attr(None if weight_attr is False else weight_attr,
-                          bias_attr)
         kw = {'device': device, 'dtype': dtype}
-        self.weight = (None if weight_attr is False else
-                       nn.Parameter(torch.ones(num_features, **kw)))
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(num_features, **kw)))
+        self.weight = create_parameter([num_features], weight_attr,
+                                       default_initializer=I.Constant(1.0),
+                                       **kw)
+        self.bias = create_parameter([num_features], bias_attr, True, **kw)
         self.register_buffer('_mean', torch.zeros(
             num_features, device=device, dtype=torch.float32))
         self.register_buffer('_variance', torch.ones(
@@ -91,16 +93,19 @@ class LayerNorm(nn.Module):
     """Normalises over `normalized_shape` (trailing axes); weight starts
     at 1 and bias at 0, as paddle's defaults."""
 
-    def __init__(self, normalized_shape, epsilon=1e-05, device=None,
-                 dtype=None):
+    def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
+                 bias_attr=None, name=None, device=None, dtype=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
         kw = {'device': device, 'dtype': dtype}
-        self.weight = nn.Parameter(torch.ones(self._normalized_shape, **kw))
-        self.bias = nn.Parameter(torch.zeros(self._normalized_shape, **kw))
+        self.weight = create_parameter(self._normalized_shape, weight_attr,
+                                       default_initializer=I.Constant(1.0),
+                                       **kw)
+        self.bias = create_parameter(self._normalized_shape, bias_attr, True,
+                                     **kw)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,

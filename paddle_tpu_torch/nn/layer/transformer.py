@@ -33,9 +33,9 @@ where the reference tags them. The decoder layer keeps the reference's
 plain dropout-then-add.
 
 Layers take `device`, `dtype` and an optional `generator` for their
-initializers; a `weight_attr`/`bias_attr` other than None (or
-`bias_attr=False`, no bias) is a ParamAttr, which waits for ROADMAP
-Queue 1 item 9c.
+initializers; `weight_attr`/`bias_attr` (a `ParamAttr`, an initializer,
+a name, or `bias_attr=False` for no bias) go to every projection, as
+the reference passes them.
 """
 import collections
 import math
@@ -48,7 +48,7 @@ from ...distributed.fleet.utils.recompute import segment as _remat_segment
 from ...distributed.fleet.utils.recompute import tag_tensor as _remat_tag
 from ...ops import nn_ops as F
 from ...ops.kernels import flash_attention as fa
-from .common import Dropout, Linear, refuse_param_attr
+from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
 
@@ -99,7 +99,7 @@ class MultiHeadAttention(nn.Module):
         self.need_weights = need_weights
         self.head_dim = embed_dim // num_heads
         assert self.head_dim * num_heads == embed_dim
-        kw = dict(bias=refuse_param_attr(weight_attr, bias_attr),
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
                   device=device, dtype=dtype, generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(self.kdim, embed_dim, **kw)
@@ -246,7 +246,7 @@ class TransformerEncoderLayer(nn.Module):
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self._factory = dict(device=device, dtype=dtype, generator=generator)
-        kw = dict(bias=refuse_param_attr(weight_attr, bias_attr),
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
                   **self._factory)
         self.self_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
@@ -388,7 +388,7 @@ class TransformerDecoderLayer(nn.Module):
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self._factory = dict(device=device, dtype=dtype, generator=generator)
-        kw = dict(bias=refuse_param_attr(weight_attr, bias_attr),
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
                   **self._factory)
         self.self_attn = MultiHeadAttention(
             d_model, nhead, attn_dropout, weight_attr=weight_attr,

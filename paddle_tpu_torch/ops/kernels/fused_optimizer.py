@@ -553,14 +553,15 @@ class UpdateTable:
 _TABLES = weakref.WeakKeyDictionary()
 
 
-def update_table(optimizer, rule, h, entries):
-    """The cached table of `entries` ([(p, g, state, wd)]), rebuilt when
-    an entry's static part changed."""
+def update_table(optimizer, rule, h, entries, slot=0):
+    """The cached table of `entries` ([(p, g, state, wd)]) in `slot` (one
+    a learning-rate multiplier of the eager step), rebuilt when an
+    entry's static part changed."""
     tables = _TABLES.setdefault(optimizer, {})
-    table = tables.get(len(entries))
+    key = (slot, len(entries))
+    table = tables.get(key)
     if table is None or not table.matches(entries, h):
-        table = tables[len(entries)] = UpdateTable(optimizer, rule, h,
-                                                   entries)
+        table = tables[key] = UpdateTable(optimizer, rule, h, entries)
     return table
 
 
@@ -639,12 +640,14 @@ class ParamUpdates:
     bucketed prefactor, as shard_update's); `found_inf` (a 0-dim device
     tensor) turns the step into a no-op that leaves each output
     bit-equal to its input. CPU tensors take the plain version, entry by
-    entry."""
+    entry. `slot` keys the cached table, so the eager step's groups of
+    one learning-rate multiplier each keep their own."""
 
     def __init__(self, optimizer, lr, prefactor=None, found_inf=None,
-                 round_prefactor=True):
+                 round_prefactor=True, slot=0):
         _require_fusible(optimizer)
         self.optimizer = optimizer
+        self.slot = slot
         self.lr, self.prefactor, self.found_inf = lr, prefactor, found_inf
         self.round_prefactor = round_prefactor
         self._rule, self._h = _rule(optimizer)
@@ -697,7 +700,8 @@ class ParamUpdates:
         entry on its own, a longer list from its cached table."""
         if len(entries) == 1:
             return [self._update_one(*entries[0])]
-        table = update_table(self.optimizer, self._rule, self._h, entries)
+        table = update_table(self.optimizer, self._rule, self._h, entries,
+                             self.slot)
         return table.run(entries, self._h, self._step_block(table.device),
                          self.prefactor is not None,
                          self.found_inf is not None)

@@ -11,7 +11,11 @@ that `nn.Transformer` and BERT use. The vision slice adds the rest of
 the activations (:23-215), `batch_norm` (:268-319), `conv1d`/`conv2d`/
 `conv3d` (:412-497) and the 2-D pools (:542-652). The CTR slice adds
 `binary_cross_entropy` (:1013) and `binary_cross_entropy_with_logits`
-(:1025), plain torch as the reference's are plain jnp.
+(:1025), plain torch as the reference's are plain jnp. The op-surface
+slice adds the rest of the losses (:977-1290, `dice_loss` :1635,
+`sigmoid_focal_loss` :1655), `cross_entropy`'s `weight` and
+`use_softmax`, the channels-last layouts of the convolutions and the
+2-D pools, and the transposed convolutions (:500, :1538, :1562).
 
 Dropout in training draws its keep mask from the generator bound by
 `core.rng.rng_guard` (jit.TrainStep binds its own) and raises when none
@@ -163,13 +167,18 @@ def softmax(x, axis=-1):
 
 
 @uncast
-def embedding(x, weight):
-    """Rows of `weight` at integer ids `x` (lookup_table_v2). The
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of `weight` at integer ids `x` (lookup_table_v2); ids equal
+    to a non-negative `padding_idx` look up zeros (:746-756). The
     gradient is torch's embedding backward, which sums the rows of
     repeated ids in parallel; advanced indexing's backward serialises
     them, and BERT-base's token-type table, one id for every token of a
     64 x 512 batch, took 31.5 ms of a step on an H100 that way."""
-    return torch.nn.functional.embedding(x.to(torch.long), weight)
+    idx = x.to(torch.long)
+    out = torch.nn.functional.embedding(idx, weight)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out.masked_fill((idx == padding_idx)[..., None], 0.0)
+    return out
 
 
 class _HardXent(torch.autograd.Function):
@@ -318,25 +327,279 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
 
 
 @uncast
-def cross_entropy(input, label, ignore_index=-100, reduction='mean',
-                  soft_label=False, axis=-1):
-    """Parity: nn_ops.py:944-979 with `use_softmax` and no class weight:
-    a label with a size-1 class axis is squeezed, the per-row loss is
-    `softmax_with_cross_entropy`'s in the input's dtype, and the mean or
-    sum is taken over it (jnp's mean of a bf16 array sums in fp32 and
-    rounds once)."""
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction='mean', soft_label=False, axis=-1,
+                  use_softmax=True):
+    """Parity: nn_ops.py:944-979: a label with a size-1 class axis is
+    squeezed, the per-row loss is `softmax_with_cross_entropy`'s in the
+    input's dtype (with `use_softmax=False`, -log(max(input, 1e-12)) at
+    the label: the input is already a distribution), times `weight` at
+    the label when given, and the mean or sum is taken over it (jnp's
+    mean of a bf16 array sums in fp32 and rounds once). The mean divides
+    by every row, ignored ones included, as the reference's. A row whose
+    label is `ignore_index` gives 0, weighted too (the reference looks
+    its weight up out of range, a NaN); a soft label's weight is its
+    weighted sum over the classes."""
     nd = axis % input.dim()
     if label.dim() == input.dim() and not soft_label \
             and label.shape[nd] == 1:
         label = label.squeeze(nd)
-    loss = softmax_with_cross_entropy(input, label, soft_label=soft_label,
-                                      ignore_index=ignore_index, axis=axis)
+    if use_softmax:
+        loss = softmax_with_cross_entropy(input, label, soft_label=soft_label,
+                                          ignore_index=ignore_index,
+                                          axis=axis)
+    else:
+        idx = label.to(device=input.device, dtype=torch.long).unsqueeze(nd)
+        ignored = idx == ignore_index
+        safe = torch.where(ignored, torch.zeros_like(idx), idx)
+        loss = -torch.log(input.clamp(min=1e-12)).gather(nd, safe)
+        loss = torch.where(ignored, torch.zeros_like(loss), loss)
+    if weight is not None:
+        w = weight.to(input.device)
+        if soft_label:
+            wt = (label.to(w.dtype) * w.reshape(
+                (-1,) + (1,) * (input.dim() - 1 - nd))).sum(nd, keepdim=True)
+        else:
+            idx = label.to(device=input.device, dtype=torch.long)
+            wt = w[torch.where(idx == ignore_index, torch.zeros_like(idx),
+                               idx)].unsqueeze(nd)
+        loss = loss * wt.to(loss.dtype)
     if reduction == 'none':
         return loss
-    if loss.dim() > label.dim():
+    if loss.dim() > label.dim() or soft_label:
         loss = loss.squeeze(nd)
     out = _reduce_loss(loss.float(), reduction)
     return out.to(loss.dtype)
+
+
+@uncast
+def nll_loss(input, label, weight=None, ignore_index=-100,
+             reduction='mean'):
+    """Parity: nn_ops.py:977-984, honouring `weight` and `ignore_index`
+    as PaddlePaddle does (the reference takes and ignores both): input
+    [N, C, ...] log-probabilities, label [N, ...]; the loss of a row is
+    -weight[label]·input[label], 0 for an ignored row; 'mean' divides
+    the sum by the sum of the rows' weights (by the count of rows not
+    ignored without a weight)."""
+    idx = label.to(device=input.device, dtype=torch.long)
+    ignored = idx == ignore_index
+    safe = torch.where(ignored, torch.zeros_like(idx), idx)
+    picked = -input.gather(1, safe.unsqueeze(1)).squeeze(1)
+    w = torch.ones_like(picked) if weight is None \
+        else weight.to(device=input.device, dtype=input.dtype)[safe]
+    w = torch.where(ignored, torch.zeros_like(w), w)
+    loss = picked * w
+    if reduction == 'mean':
+        return loss.sum() / w.sum()
+    return _reduce_loss(loss, reduction)
+
+
+@uncast
+def mse_loss(input, label, reduction='mean'):
+    return _reduce_loss((input - _loss_label(label, input)) ** 2, reduction)
+
+
+@uncast
+def l1_loss(input, label, reduction='mean'):
+    return _reduce_loss(torch.abs(input - _loss_label(label, input)),
+                        reduction)
+
+
+@uncast
+def smooth_l1_loss(input, label, reduction='mean', delta=1.0):
+    """0.5 d² / delta where |d| < delta, else |d| - delta / 2 (:1003)."""
+    d = torch.abs(input - _loss_label(label, input))
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce_loss(loss, reduction)
+
+
+@uncast
+def kl_div(input, label, reduction='mean'):
+    """label · (log label - input) (:1046), 'batchmean' the sum over the
+    batch size."""
+    b = _loss_label(label, input)
+    loss = b * (torch.log(b.clamp(min=1e-12)) - input)
+    if reduction == 'batchmean':
+        return loss.sum() / input.shape[0]
+    return _reduce_loss(loss, reduction)
+
+
+@uncast
+def hinge_loss(input, label):
+    return torch.clamp(1.0 - (2 * _loss_label(label, input) - 1) * input,
+                       min=0.0)
+
+
+@uncast
+def margin_ranking_loss(input, other, label, margin=0.0, reduction='mean'):
+    loss = torch.clamp(-_loss_label(label, input)
+                       * (input - _loss_label(other, input)) + margin,
+                       min=0.0)
+    return _reduce_loss(loss, reduction)
+
+
+@uncast
+def log_loss(input, label, epsilon=1e-4):
+    b = _loss_label(label, input)
+    return -b * torch.log(input + epsilon) \
+        - (1 - b) * torch.log(1 - input + epsilon)
+
+
+@uncast
+def square_error_cost(input, label):
+    return (input - _loss_label(label, input)) ** 2
+
+
+@uncast
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    """(1 - epsilon)·label + epsilon·prior (uniform over the last axis
+    without one)."""
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * prior_dist
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+@uncast
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    """Parity: :1193-1208: softmax cross-entropy of anchor·positiveᵀ
+    against the rows of equal labels, plus the l2 term."""
+    sim = anchor @ positive.T
+    lbl = labels.to(anchor.device).reshape(-1, 1)
+    tgt = (lbl == lbl.T).to(anchor.dtype)
+    tgt = tgt / tgt.sum(1, keepdim=True)
+    ce = -torch.mean(torch.sum(tgt * _log_softmax(sim, 1), 1))
+    reg = l2_reg * (torch.mean(torch.sum(anchor * anchor, 1))
+                    + torch.mean(torch.sum(positive * positive, 1))) / 2
+    return ce + reg
+
+
+@uncast
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction='mean'):
+    def dist(x, y):
+        return torch.pow(torch.sum(torch.pow(torch.abs(x - y) + epsilon, p),
+                                   -1), 1.0 / p)
+    positive = _loss_label(positive, input)
+    negative = _loss_label(negative, input)
+    d_pos, d_neg = dist(input, positive), dist(input, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, dist(positive, negative))
+    return _reduce_loss(torch.clamp(d_pos - d_neg + margin, min=0.0),
+                        reduction)
+
+
+@uncast
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction='mean'):
+    """1 - cos for a positive label, max(0, cos - margin) otherwise."""
+    cos = torch.sum(input1 * input2, -1) / torch.clamp(
+        torch.linalg.vector_norm(input1, dim=-1)
+        * torch.linalg.vector_norm(input2, dim=-1), min=1e-12)
+    lbl = label.to(input1.device)
+    loss = torch.where(lbl > 0, 1 - cos, torch.clamp(cos - margin, min=0.0))
+    return _reduce_loss(loss, reduction)
+
+
+@uncast
+def soft_margin_loss(input, label, reduction='mean'):
+    return _reduce_loss(
+        torch.log1p(torch.exp(-_loss_label(label, input) * input)),
+        reduction)
+
+
+@uncast
+def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,
+                      reduction='mean'):
+    """Parity: :1266-1277: sum over the classes other than the label of
+    max(margin - x[label] + x[j], 0)^p, over C; `weight` (which the
+    reference takes and ignores) scales a row by weight[label], as
+    PaddlePaddle does."""
+    c = input.shape[1]
+    idx = label.to(device=input.device, dtype=torch.long)
+    correct = input.gather(1, idx[:, None])
+    loss = torch.pow(torch.clamp(margin - correct + input, min=0.0), p)
+    mask = torch.ones_like(loss).scatter(1, idx[:, None], 0.0)
+    loss = torch.sum(loss * mask, 1) / c
+    if weight is not None:
+        loss = loss * weight.to(device=input.device,
+                                dtype=input.dtype)[idx]
+    return _reduce_loss(loss, reduction)
+
+
+def _lse2(a, b):
+    m = torch.maximum(a, b)
+    return m + torch.log(torch.exp(a - m) + torch.exp(b - m))
+
+
+@uncast
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction='mean'):
+    """Parity: operators/warpctc_op (:1280-1326): the CTC negative
+    log-likelihood of each sequence by the forward recursion in log
+    space over log_probs [T, B, C], labels [B, S] padded, the lengths
+    [B]; impossible paths sit at -1e30, not -inf. 'mean' is the mean of
+    each loss over its label length, 'sum' the sum of the losses and
+    'none' the losses [B], as PaddlePaddle's (the reference divides by
+    the label length under all three)."""
+    lp = log_probs
+    T, B, _ = lp.shape
+    dev = lp.device
+    lab = labels.to(device=dev, dtype=torch.long)
+    S = lab.shape[1]
+    L = 2 * S + 1
+    ext = torch.full((B, L), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = lab
+    il = input_lengths.to(device=dev, dtype=torch.long)
+    ll = label_lengths.to(device=dev, dtype=torch.long)
+    neg = torch.full((B, 2), -1e30, dtype=lp.dtype, device=dev)
+    alpha = torch.cat([lp[0, :, blank:blank + 1],
+                       lp[0].gather(1, ext[:, 1:2]),
+                       neg[:, :1].expand(B, L - 2)], 1)
+    can_skip = torch.cat([
+        torch.zeros((B, 2), dtype=torch.bool, device=dev),
+        (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])], 1)
+    for t in range(1, T):
+        a = _lse2(alpha, torch.cat([neg[:, :1], alpha[:, :-1]], 1))
+        a = torch.where(can_skip,
+                        _lse2(a, torch.cat([neg, alpha[:, :-2]], 1)), a)
+        new = a + lp[t].gather(1, ext)
+        alpha = torch.where((t < il)[:, None], new, alpha)
+    end = 2 * ll
+    a1 = alpha.gather(1, end[:, None])[:, 0]
+    a2 = alpha.gather(1, (end - 1).clamp(min=0)[:, None])[:, 0]
+    nll = -_lse2(a1, a2)
+    if reduction == 'mean':
+        return (nll / ll.clamp(min=1).to(nll.dtype)).mean()
+    return _reduce_loss(nll, reduction)
+
+
+@uncast
+def dice_loss(input, label, epsilon=1e-5):
+    """Parity: :1635-1652: 1 - (2|X∩Y| + eps) / (|X| + |Y| + eps) over
+    every axis but the first, averaged; a [..., 1] class-id label is
+    one-hot over input's last axis."""
+    lbl = label.to(device=input.device, dtype=input.dtype)
+    if lbl.shape[-1] == 1 and input.shape[-1] > 1:
+        lbl = _tF.one_hot(lbl[..., 0].long(), input.shape[-1]).to(
+            input.dtype)
+    red = tuple(range(1, input.dim()))
+    inter = (input * lbl).sum(red)
+    union = input.sum(red) + lbl.sum(red)
+    return (1.0 - (2.0 * inter + epsilon) / (union + epsilon)).mean()
+
+
+@uncast
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,
+                       gamma=2.0, reduction='sum'):
+    """Parity: :1655-1681, the 2.x API: float one-hot labels, an
+    optional normalizer dividing the loss."""
+    y = label.to(device=logit.device, dtype=logit.dtype)
+    sig = torch.sigmoid(logit)
+    loss = -y * alpha * (1 - sig) ** gamma * _tF.logsigmoid(logit) \
+        - (1 - y) * (1 - alpha) * sig ** gamma * _tF.logsigmoid(-logit)
+    if normalizer is not None:
+        loss = loss / normalizer.to(logit.device).reshape(())
+    return _reduce_loss(loss, reduction)
 
 
 _HALF = (torch.bfloat16, torch.float16)
@@ -673,49 +936,182 @@ def _conv_nd(x, weight, bias, stride, pad, dilation, groups, nd):
     return out
 
 
-def _nchw_only(data_format, want):
-    if data_format != want:
-        raise NotImplementedError(
-            f'data_format={data_format!r} is not ported yet (ROADMAP '
-            f'Queue 1 item 9c); the port runs {want}')
+_LAYOUTS = {1: ('NCL', 'NLC'), 2: ('NCHW', 'NHWC'), 3: ('NCDHW', 'NDHWC')}
 
 
-@uncast
-def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format='NCHW'):
-    """Parity: operators/conv_op (:431-459): x [N, C, H, W], weight [O,
-    C/groups, kh, kw]. Padding is an int, a per-dimension list, a 2·nd
-    list of (low, high), or 'SAME' / 'VALID'; an asymmetric padding
-    (XLA's 'SAME' at stride > 1 among them) is applied with `F.pad`
-    before the convolution. The output has x's dtype; the bias is added
-    after the convolution."""
-    _nchw_only(data_format, 'NCHW')
-    return _conv_nd(x, weight, bias, stride, _conv_padding(padding), dilation,
-                    groups, 2)
+def _channels_last(data_format, nd):
+    """Whether `data_format` puts the channels last (NLC, NHWC, NDHWC);
+    any other name than the two of its rank raises."""
+    first, last = _LAYOUTS[nd]
+    if data_format not in (first, last):
+        raise ValueError(f'data_format must be {first!r} or {last!r}, got '
+                         f'{data_format!r}')
+    return data_format == last
 
 
-@uncast
-def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format='NCL'):
-    """Parity: :462-474, x [N, C, L]: an int or the first entry of a list
-    pads both ends."""
-    _nchw_only(data_format, 'NCL')
+def _channels_first(x, last):
+    """x with its channels at axis 1: a channels-last x permuted, not
+    copied (an NHWC tensor seen as NCHW is torch's channels_last memory
+    format, which cuDNN convolves and pools without a layout transform)."""
+    return x.movedim(-1, 1) if last else x
+
+
+def _restore(out, last):
+    return out.movedim(1, -1) if last else out
+
+
+def _conv1d_args(padding, stride, dilation):
+    """The reference's conv1d arguments (:462-474): an int or the first
+    entry of a list pads both ends; a list's first stride and dilation."""
     if not isinstance(padding, str):
         p = padding if isinstance(padding, int) else padding[0]
         padding = [(p, p)]
     stride = stride if isinstance(stride, int) else stride[0]
     dilation = dilation if isinstance(dilation, int) else dilation[0]
-    return _conv_nd(x, weight, bias, stride, _conv_padding(padding, 1),
-                    dilation, groups, 1)
+    return _conv_padding(padding, 1), stride, dilation
+
+
+@uncast
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCHW'):
+    """Parity: operators/conv_op (:431-459): x [N, C, H, W] (NCHW) or
+    [N, H, W, C] (NHWC), weight [O, C/groups, kh, kw] in either layout,
+    as PaddlePaddle's (the reference asks for an HWIO weight in NHWC,
+    :439, and raises on Paddle's). Padding is an int, a per-dimension
+    list, a 2·nd list of (low, high), or 'SAME' / 'VALID'; an asymmetric
+    padding (XLA's 'SAME' at stride > 1 among them) is applied with
+    `F.pad` before the convolution. The output has x's dtype and layout;
+    the bias is added after the convolution."""
+    last = _channels_last(data_format, 2)
+    return _restore(_conv_nd(_channels_first(x, last), weight, bias, stride,
+                             _conv_padding(padding), dilation, groups, 2),
+                    last)
+
+
+@uncast
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCL'):
+    """Parity: :462-474, x [N, C, L] (NCL) or [N, L, C] (NLC, which the
+    reference refuses), weight [O, C/groups, k]: an int or the first
+    entry of a list pads both ends."""
+    last = _channels_last(data_format, 1)
+    pad, stride, dilation = _conv1d_args(padding, stride, dilation)
+    return _restore(_conv_nd(_channels_first(x, last), weight, bias, stride,
+                             pad, dilation, groups, 1), last)
 
 
 @uncast
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format='NCDHW'):
-    """Parity: :477-497, x [N, C, D, H, W]."""
-    _nchw_only(data_format, 'NCDHW')
-    return _conv_nd(x, weight, bias, stride, _conv_padding(padding, 3),
-                    dilation, groups, 3)
+    """Parity: :477-497, x [N, C, D, H, W] (NCDHW) or [N, D, H, W, C]
+    (NDHWC, which the reference reads as NCDHW), weight [O, C/groups,
+    kd, kh, kw]."""
+    last = _channels_last(data_format, 3)
+    return _restore(_conv_nd(_channels_first(x, last), weight, bias, stride,
+                             _conv_padding(padding, 3), dilation, groups,
+                             3), last)
+
+
+# ---- transposed convolution (nn_ops.py:500-530, :1515-1595) ----------------
+def _transpose_pads(padding, nd, k, stride, dilation):
+    """(low, high) a spatial dimension of a transposed convolution: an
+    int, a per-dimension list or a 2·nd list of pairs as the forward
+    convolution's; 'VALID' none; 'SAME' PaddlePaddle's, a total of
+    max(dilation·(k - 1) + 1 - stride, 0) so that out = in·stride."""
+    pad = _conv_padding(padding, nd)
+    if pad == 'VALID':
+        return [(0, 0)] * nd
+    if pad == 'SAME':
+        pads = []
+        for kk, s, d in zip(k, stride, dilation):
+            total = max(d * (kk - 1) + 1 - s, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    return list(pad)
+
+
+def _output_padding(in_sizes, k, stride, pads, dilation, opad, output_size):
+    """output_padding from a requested output_size (:1515-1535): the
+    difference from the size without it, which must lie in
+    [0, stride)."""
+    if output_size is None:
+        return opad
+    sizes = [output_size] * len(in_sizes) if isinstance(output_size, int) \
+        else [int(v) for v in output_size]
+    out = []
+    for d, kk, st, (lo, hi), dil, want in zip(in_sizes, k, stride, pads,
+                                              dilation, sizes):
+        base = (int(d) - 1) * st - lo - hi + dil * (kk - 1) + 1
+        extra = int(want) - base
+        if not 0 <= extra < st:
+            raise ValueError(
+                f'output_size {want} unreachable: base {base}, stride {st} '
+                f'(need base <= output_size < base+stride)')
+        out.append(extra)
+    return tuple(out)
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       dilation, groups, output_size, nd):
+    """x [N, Cin, *in] channels first, weight [Cin, Cout/groups, *k]
+    (PaddlePaddle's and torch's layout, grouped natively)."""
+    x, weight = _promoted(x, weight)
+    stride, dilation = _pair(stride, nd), _pair(dilation, nd)
+    k = tuple(weight.shape[2:])
+    pads = _transpose_pads(padding, nd, k, stride, dilation)
+    opad = _output_padding(x.shape[2:], k, stride, pads, dilation,
+                           _pair(output_padding, nd), output_size)
+    conv = (_tF.conv_transpose1d, _tF.conv_transpose2d,
+            _tF.conv_transpose3d)[nd - 1]
+    if all(lo == hi for lo, hi in pads):
+        out = conv(x, weight, None, stride, [lo for lo, _ in pads], opad,
+                   groups, dilation)
+    else:
+        # a transposed convolution's padding crops its full output
+        out = conv(x, weight, None, stride, 0, opad, groups, dilation)
+        out = out[(slice(None), slice(None)) + tuple(
+            slice(lo, n - hi) for (lo, hi), n in zip(pads, out.shape[2:]))]
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+@uncast
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format='NCHW'):
+    """Parity: operators/conv_transpose_op (:500-530): x NCHW or NHWC,
+    weight [C_in, C_out/groups, kh, kw] in either layout; `output_size`
+    picks the output_padding. Grouped transposes regroup the weight as
+    PaddlePaddle does (the reference's regroup is disabled and its
+    groups > 1 raises)."""
+    last = _channels_last(data_format, 2)
+    return _restore(_conv_transpose_nd(
+        _channels_first(x, last), weight, bias, stride, padding,
+        output_padding, dilation, groups, output_size, 2), last)
+
+
+@uncast
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format='NCL'):
+    """Parity: :1538-1559, x NCL or NLC, weight [C_in, C_out/groups, k]."""
+    last = _channels_last(data_format, 1)
+    return _restore(_conv_transpose_nd(
+        _channels_first(x, last), weight, bias, stride, padding,
+        output_padding, dilation, groups, output_size, 1), last)
+
+
+@uncast
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format='NCDHW'):
+    """Parity: :1562-1595, x NCDHW or NDHWC, weight [C_in, C_out/groups,
+    kd, kh, kw]."""
+    last = _channels_last(data_format, 3)
+    return _restore(_conv_transpose_nd(
+        _channels_first(x, last), weight, bias, stride, padding,
+        output_padding, dilation, groups, output_size, 3), last)
 
 
 # ---- 2-D pooling (nn_ops.py:542-652) ----------------------------------------
@@ -745,10 +1141,20 @@ def _native_pads(pads, k):
 @uncast
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format='NCHW'):
-    """Parity: :569-615, the padding pads with -inf. With `return_mask`,
-    also the int32 flat index into each channel's H·W map of every
-    window's maximum (the first, in window order, on ties)."""
-    _nchw_only(data_format, 'NCHW')
+    """Parity: :569-615, x NCHW or NHWC (the reference pools an NHWC x
+    over W and C, :543-600); the padding pads with -inf. With
+    `return_mask`, also the int32 flat index into each channel's H·W map
+    of every window's maximum (the first, in window order, on ties), in
+    x's layout."""
+    last = _channels_last(data_format, 2)
+    res = _max_pool2d(_channels_first(x, last), kernel_size, stride,
+                      padding, return_mask, ceil_mode)
+    if return_mask:
+        return _restore(res[0], last), _restore(res[1], last)
+    return _restore(res, last)
+
+
+def _max_pool2d(x, kernel_size, stride, padding, return_mask, ceil_mode):
     k = _pair(kernel_size)
     s = _pair(stride) if stride is not None else k
     pads, named = _pool_pads(padding, k, s, x.shape[2:], ceil_mode)
@@ -778,8 +1184,16 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     """Parity: :542-566. The padding pads with zeros; `exclusive` divides
     each window's sum by its count of real (unpadded) cells, except under
     'SAME', which divides by the window's size as the reference does;
-    `divisor_override` divides every sum by itself."""
-    _nchw_only(data_format, 'NCHW')
+    `divisor_override` divides every sum by itself. x is NCHW or NHWC
+    (pooled over H and W in either)."""
+    last = _channels_last(data_format, 2)
+    return _restore(_avg_pool2d(_channels_first(x, last), kernel_size,
+                                stride, padding, ceil_mode, exclusive,
+                                divisor_override), last)
+
+
+def _avg_pool2d(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                divisor_override):
     k = _pair(kernel_size)
     s = _pair(stride) if stride is not None else k
     pads, named = _pool_pads(padding, k, s, x.shape[2:], ceil_mode)
@@ -811,9 +1225,11 @@ def _output_hw(output_size, x):
 def adaptive_avg_pool2d(x, output_size, data_format='NCHW'):
     """Parity: :618-642: window i of a dimension d covers
     [floor(i·d / out), ceil((i + 1)·d / out)), as torch's does; a None
-    size keeps the input's."""
-    _nchw_only(data_format, 'NCHW')
-    return _tF.adaptive_avg_pool2d(x, _output_hw(output_size, x))
+    size keeps the input's. x is NCHW or NHWC."""
+    last = _channels_last(data_format, 2)
+    x = _channels_first(x, last)
+    return _restore(_tF.adaptive_avg_pool2d(x, _output_hw(output_size, x)),
+                    last)
 
 
 @uncast

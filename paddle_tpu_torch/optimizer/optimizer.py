@@ -45,9 +45,13 @@ states it is given IN PLACE (where the JAX step donates) and returns
 those tensors.
 
 `weight_decay` is a float or an `L2Decay` (its coefficient). A
-parameter's own `regularizer` attribute (`paddle_tpu_torch.regularizer`)
-replaces the optimizer's decay in the eager `step()` (:219-227); the
-functional routes ignore it, as the reference's do.
+parameter's own `regularizer` attribute (`paddle_tpu_torch.regularizer`,
+a `ParamAttr`'s) replaces the optimizer's decay in the eager `step()`
+(:219-227), which also multiplies the learning rate by the parameter's
+`optimize_attr['learning_rate']` (:218-219) and leaves a parameter whose
+`need_clip` is False out of the clip; the functional routes
+(`functional_apply`, `TrainStep`, the engines) ignore all three, as the
+reference's do.
 
 `step()` is the eager update of the `parameters` the optimizer was built
 with: each parameter with a `.grad` takes the update in place, its state
@@ -173,11 +177,13 @@ class Optimizer:
         place and returned."""
         return self._apply(params, self._clip(grads), states, lr)
 
-    def _apply(self, params, grads, states, lr, regularizers=None):
+    def _apply(self, params, grads, states, lr, regularizers=None, slot=0):
         """The update after the clip; `regularizers` ({name: regularizer},
         eager `step()` only) replace the optimizer's decay into the
-        gradient for those params."""
-        fused = FO.ParamUpdates(self, lr) if FO.fusible(self) else None
+        gradient for those params; `slot` keys the fused route's cached
+        table (one a learning-rate multiplier of the eager step)."""
+        fused = FO.ParamUpdates(self, lr, slot=slot) if FO.fusible(self) \
+            else None
         new_params, new_states, entries = {}, {}, {}
         for n, p in params.items():
             g = grads.get(n)
@@ -259,36 +265,54 @@ class Optimizer:
         if _num.guard().has_pending():
             _num.flush(site='optimizer.step', step=self._step_count)
         if flag('FLAGS_tensor_stats') and live:
-            named = {getattr(p, 'name', None) or f'param_{i}': p.grad
+            named = {getattr(p, 'param_name', None) or f'param_{i}': p.grad
                      for i, p in enumerate(live.values())}
             stats = _num.collect(named)
             gn = math.sqrt(sum(st.l2_norm ** 2 for st in stats.values()))
             _num.publish_stats(stats, kind='grad', global_norm=gn)
 
     def _eager_update(self, live):
+        """The clip over the parameters whose `need_clip` is not False,
+        then the update of each group of one learning-rate multiplier
+        (`optimize_attr['learning_rate']`, a ParamAttr's) at the
+        optimizer's rate times it (:218-219): on the fused route one
+        launch a group, and one for a step without multipliers."""
         dev = next(iter(live.values())).device
-        lr = torch.tensor(self.get_lr(), dtype=torch.float32, device=dev)
+        base = self.get_lr()
         given = {k: p.detach() for k, p in live.items()}
         regs = {k: p.regularizer for k, p in live.items()
                 if getattr(p, 'regularizer', None) is not None}
-        new_params, new_states = self._apply(
-            given, self._clip({k: p.grad for k, p in live.items()},
-                              publish=True),
-            {k: self._accumulators.get(k, {}) for k in live}, lr, regs)
+        grads = self._clip({k: p.grad for k, p in live.items()},
+                           publish=True,
+                           skip={k for k, p in live.items()
+                                 if not getattr(p, 'need_clip', True)})
+        groups = {}
         for k, p in live.items():
-            if new_params[k] is not given[k]:
-                p.copy_(new_params[k])
-        self._accumulators.update(new_states)
+            mult = getattr(p, 'optimize_attr', None) or {}
+            groups.setdefault(float(mult.get('learning_rate', 1.0)),
+                              []).append(k)
+        for slot, (mult, keys) in enumerate(groups.items()):
+            lr = torch.tensor(base * mult, dtype=torch.float32, device=dev)
+            new_params, new_states = self._apply(
+                {k: given[k] for k in keys}, {k: grads[k] for k in keys},
+                {k: self._accumulators.get(k, {}) for k in keys}, lr, regs,
+                slot)
+            for k in keys:
+                if new_params[k] is not given[k]:
+                    live[k].copy_(new_params[k])
+            self._accumulators.update(new_states)
 
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list or ():
             p.grad = None
 
-    def _clip(self, grads, publish=False):
+    def _clip(self, grads, publish=False, skip=()):
         """grad_clip on {name: grad}, as functional_apply (:108-129)
-        applies it."""
+        applies it; the names in `skip` (the eager step's parameters with
+        `need_clip` False) are left out of the norm and not clipped."""
         clip = self._grad_clip
-        live = {n: g for n, g in grads.items() if g is not None}
+        live = {n: g for n, g in grads.items()
+                if g is not None and n not in skip}
         if isinstance(clip, ClipGradByGlobalNorm):
             sq = None
             for g in live.values():
@@ -308,7 +332,7 @@ class Optimizer:
             live = {n: g.clamp(clip.min, clip.max) for n, g in live.items()}
         else:
             return grads
-        return {n: live.get(n) for n in grads}
+        return {n: live.get(n, grads[n]) for n in grads}
 
 
 class SGD(Optimizer):

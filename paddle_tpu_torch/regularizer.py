@@ -2,8 +2,8 @@
 
 `L2Decay(c)` adds c * param to the gradient, `L1Decay(c)` adds
 c * sign(param). A parameter carries one as its own `regularizer`
-attribute (where paddle's `ParamAttr(regularizer=...)` puts it; the port
-has no ParamAttr, so set it on the tensor: `p.regularizer = L1Decay(c)`).
+attribute, where `ParamAttr(regularizer=...)` puts it
+(`nn/layer/common.py` `create_parameter`).
 The optimizer's eager `step()` applies a parameter's own regularizer in
 place of the optimizer's `weight_decay` (optimizer.py:219-227).
 

@@ -381,8 +381,22 @@ def test_decoder_layer_cache_matches_jax():
 
 
 def test_paramattr_waits_for_its_item():
-    with pytest.raises(NotImplementedError, match='item 9'):
-        tnn.MultiHeadAttention(D_MODEL, HEADS, weight_attr=object())
+    """The attention and the encoder layer take a ParamAttr as the
+    reference's do: the same initializer on every projection gives the
+    same weights and the same output."""
+    init = dict(weight_attr=tnn.ParamAttr(
+        initializer=tnn.initializer.Constant(0.01)))
+    mha = tnn.MultiHeadAttention(D_MODEL, HEADS, **init)
+    jmha = jnn.MultiHeadAttention(
+        D_MODEL, HEADS, weight_attr=jnn.initializer.Constant(0.01))
+    for proj in ('q_proj', 'k_proj', 'v_proj', 'out_proj'):
+        np.testing.assert_array_equal(
+            getattr(mha, proj).weight.detach().numpy(),
+            np.asarray(getattr(jmha, proj).weight.data))
+    x = np.random.RandomState(2).randn(2, 5, D_MODEL).astype(np.float32)
+    np.testing.assert_allclose(
+        mha(torch.from_numpy(x)).detach().numpy(),
+        np.asarray(jmha(Tensor(x)).data), **FP32)
     layer = tnn.TransformerEncoderLayer(D_MODEL, HEADS, 256, bias_attr=False)
     assert layer.linear1.bias is None and layer.self_attn.q_proj.bias is None
 

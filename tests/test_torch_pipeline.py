@@ -120,6 +120,19 @@ def _jax_states(jeng):
     return out
 
 
+@pytest.fixture
+def one_thread():
+    """The port's side on one intra-op thread: under a loaded host
+    (the suite's workers side by side) torch's OpenMP regions, one for
+    each small op of the plain flash route, waited on threads that had
+    no core, and a step took ~45 s instead of ~0.3 s; on one thread it
+    takes ~0.8 s either way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = [('sgd', 'param'), ('sgd', 'float32'), ('adam', 'float32'),
          ('adamw_bf16', 'param')]
 
@@ -127,7 +140,7 @@ CASES = [('sgd', 'param'), ('sgd', 'float32'), ('adam', 'float32'),
 @pytest.mark.parametrize('route', ['dense', 'flash'])
 @pytest.mark.parametrize('kind,accum', CASES,
                          ids=[f'{k}-{a}' for k, a in CASES])
-def test_engine_matches_jax_engine(kind, accum, route):
+def test_engine_matches_jax_engine(kind, accum, route, one_thread):
     bf16 = kind == 'adamw_bf16'
     je, jb, jh = _jax_triple(bf16=bf16)
     arrays = _arrays(je, jb, jh)

@@ -302,7 +302,7 @@ def test_backward_reruns_the_projections_only_under_full(policy, again):
 def _bert_blocks(policy, normalize_before, dropout=0.0):
     """Two encoder layers (BERT's block) under `policy`, and a loss fn
     over them run inside the step's generator."""
-    torch.manual_seed(0)
+    trng.seed(0)   # the layers' default draws
     blocks = [ttf.TransformerEncoderLayer(
         32, 2, 64, dropout=dropout, activation='gelu',
         normalize_before=normalize_before) for _ in range(2)]

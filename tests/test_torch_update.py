@@ -34,6 +34,7 @@ from paddle_tpu_torch import jit as tjit
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import regularizer as treg
+from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     spmd_pipeline as tsp)
 from paddle_tpu_torch.models import gpt as tgpt
@@ -331,7 +332,7 @@ def test_ftrl_runs_the_bucketed_route_on_its_chain():
     does), and it has no kernel rule, so the bucket update is its op
     chain: 2 steps equal the per-parameter route."""
     def model():
-        torch.manual_seed(0)
+        trng.seed(0)   # the layers' default draws
         return torch.nn.Sequential(tnn.Linear(8, 16), torch.nn.Tanh(),
                                    tnn.Linear(16, 4))
 

@@ -268,11 +268,22 @@ def test_conv2d_default_init_is_paddles_xavier_with_the_layers_fan_in():
 
 
 def test_layers_refuse_a_param_attr_and_other_padding_modes():
-    with pytest.raises(NotImplementedError, match='item 9c'):
-        tnn.Conv2D(3, 4, 3, weight_attr=object())
-    with pytest.raises(NotImplementedError, match='item 9c'):
-        tnn.BatchNorm2D(4, bias_attr=object())
-    with pytest.raises(NotImplementedError, match='item 9c'):
+    """A ParamAttr is taken as the reference takes it (the same
+    initializer gives the same values, and its learning rate rides on
+    the parameter); a padding_mode other than 'zeros' stays refused,
+    since the reference pads with zeros whatever it says."""
+    conv = tnn.Conv2D(3, 4, 3, weight_attr=tnn.ParamAttr(
+        initializer=tnn.initializer.Constant(0.3), learning_rate=2.0))
+    jconv = jnn.Conv2D(3, 4, 3, weight_attr=jnn.initializer.Constant(0.3))
+    np.testing.assert_array_equal(conv.weight.detach().numpy(),
+                                  np.asarray(jconv.weight.data))
+    assert conv.weight.optimize_attr == {'learning_rate': 2.0}
+    bn = tnn.BatchNorm2D(4, bias_attr=tnn.ParamAttr(
+        initializer=tnn.initializer.Constant(0.2)))
+    jbn = jnn.BatchNorm2D(4, bias_attr=jnn.initializer.Constant(0.2))
+    np.testing.assert_array_equal(bn.bias.detach().numpy(),
+                                  np.asarray(jbn.bias.data))
+    with pytest.raises(NotImplementedError, match='pads with zeros'):
         tnn.Conv2D(3, 4, 3, padding_mode='reflect')
     with pytest.raises(NotImplementedError, match='pretrained'):
         tvm.resnet50(pretrained=True)

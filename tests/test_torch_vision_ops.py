@@ -127,9 +127,18 @@ def test_conv3d_matches_jax(padding):
 
 
 def test_conv2d_refuses_channels_last():
-    x, w = torch.zeros(1, 4, 4, 2), torch.zeros(3, 2, 1, 1)
-    with pytest.raises(NotImplementedError, match='item 9c'):
-        T.conv2d(x, w, data_format='NHWC')
+    """NHWC takes PaddlePaddle's [O, C, kh, kw] weight and equals the
+    reference's NCHW convolution on the transposed input (the
+    reference's own NHWC asks for an HWIO weight)."""
+    rng = np.random.RandomState(6)
+    x, w, b = _rand(rng, 2, 3, 6, 5), _rand(rng, 4, 3, 3, 3), _rand(rng, 4)
+    kw = dict(stride=2, padding=1)
+    want = np.asarray(J.conv2d(Tensor(x), Tensor(w), Tensor(b), **kw).data)
+    got = T.conv2d(torch.from_numpy(np.ascontiguousarray(x.transpose(
+        0, 2, 3, 1))), torch.from_numpy(w), torch.from_numpy(b),
+        data_format='NHWC', **kw)
+    np.testing.assert_allclose(got.numpy(), want.transpose(0, 2, 3, 1),
+                               **FP32)
 
 
 # ---------------------------------------------------------------------------
