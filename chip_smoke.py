@@ -390,12 +390,30 @@ Phases, one JSON line each on stdout:
              bf16 and fp32 (TF32 off), forward and backward in NHWC
              against NCHW (relative L2 CONV_LAYOUT_BARS) and the device
              ms of both layouts.
-25. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
+25. hapi    — the high-level API (after surface). hapi_lenet:
+             Model(LeNet()) with Adam(1e-3), CrossEntropyLoss and
+             Accuracy fits one epoch of MNIST(mode='train') at batch 64
+             (32 steps) on the jit route and the eager one, each with 0
+             and 2 loader workers (spawned): row 15 launches once a step
+             and nothing else does; evaluate, predict, save, and load into
+             a fresh Model that evaluates to the same loss; ms/step and
+             images/s beside a bare TrainStep over the same batches and
+             the lenet phase's. hapi_text: LSTMSentiment (vocabulary
+             10000, embed 64, hidden 64, bidirectional) and BoWClassifier
+             fit Imdb(mode='train') at batch 64 through Model; the loss
+             falls, and the card's first steps match the CPU's. rnn:
+             LSTM, GRU and SimpleRNN at B = 64, T = 128, 512 wide, 2
+             layers, bidirectional: forward and backward device ms and
+             host ms, and the card against the CPU with
+             sequence_length. beam: BeamSearchDecoder over an LSTMCell
+             (hidden 512, vocabulary 10000), beam 4, batch 16, up to 64
+             steps: ms a step, ids equal to the CPU's.
+26. summary — the `kernels` line (all 16 kernels; rows 2-5, 8-10 and 15
              with `launches_bert` and their `bert_shape` times, rows 2
              and 3 with `launches_dense_decode`, every row with
              `launches_lenet`, `launches_resnet50`, `launches_cluster`
              (serve_cluster's cluster pass), `launches_deepfm_ps`,
-             `launches_ctr_ps` and `launches_surface`),
+             `launches_ctr_ps`, `launches_surface` and `launches_hapi`),
              the nvidia-smi line, and as the last line {"ok": true,
              "device": {...}}.
 
@@ -5713,7 +5731,7 @@ def lenet_phase(torch, card):
           'optimizer_step_launches_per_step':
               launches[FO.STEP] / (VISION_STEPS * VISION_TRIALS),
           **cudnn_settings(torch)})
-    return launches
+    return launches, 1e3 * step_s
 
 
 def _vision_group(kernel, ops, update_range):
@@ -8095,6 +8113,573 @@ def surface_phase(torch, card, smi):
                       'layouts': len(layouts['rows'])}
 
 
+HAPI_B = 64
+HAPI_RUNS = ((True, 0), (True, 2), (False, 0), (False, 2))
+HAPI_TEXT = dict(epochs=3, B=64, lr=1e-2, check_steps=3, check_rtol=1e-3)
+RNN_SHAPE = dict(B=64, T=128, C=512, H=512, layers=2, iters=10)
+RNN_CHECK = dict(B=4, T=12, C=16, H=16, layers=2, lens=(12, 5, 9, 1),
+                 rtol=1e-4)
+BEAM = dict(V=10000, H=512, W=4, B=16, steps=64, start=1, end=2,
+            emb_scale=40.0, proj_scale=150.0, margin=1e-3)
+
+
+def step_clock():
+    """A hapi callback: host seconds of each train batch (its loss read,
+    one sync, included) and each batch's loss, recovered from the
+    running mean the loop logs, which restarts at each epoch's step 0:
+    loss = mean_step (step + 1) - mean_(step-1) step."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class Clock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.step_s, self.losses = [], []
+
+        def on_batch_begin(self, mode, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_batch_end(self, mode, step, logs=None):
+            self.step_s.append(time.perf_counter() - self._t0)
+            prev = self._mean if step else 0.0
+            self.losses.append(logs['loss'] * (step + 1) - prev * step)
+            self._mean = logs['loss']
+    return Clock()
+
+
+def lenet_hapi_model(torch, device, jit):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+
+    net = LeNet(10, device=device,
+                generator=torch.Generator(device=device).manual_seed(0))
+    model = Model(net, device=device)
+    model.prepare(Adam(learning_rate=1e-3, parameters=net.parameters()),
+                  pnn.CrossEntropyLoss(), Accuracy(), jit=jit)
+    return model
+
+
+def _hapi_fit(torch, model, data, **kw):
+    """Fit one epoch; (the fit's kernel launches, its clock, wall s)."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    clock = step_clock()
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(data, verbose=0, callbacks=[clock], **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return _build.routes_snapshot(), clock, wall
+
+
+def _add_launches(total, launches):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def hapi_lenet_phase(torch, card, smi, lenet_ms):
+    """hapi_lenet: the reference's canonical hapi flow (tests/
+    test_e2e_train.py:58-73 with LeNet): Model(LeNet()) on the card,
+    Adam(1e-3), CrossEntropyLoss, Accuracy, one epoch of MNIST(mode=
+    'train') at batch 64 (2048 synthetic images: 32 steps), on the jit
+    route and the eager one, each with 0 and 2 loader workers. Row 15
+    launches once a step on both (one jit step; one learning-rate group
+    an eager step) and nothing else launches. Then evaluate on
+    MNIST(mode='test'), predict, save, load into a fresh Model: its
+    evaluation loss equals the saved model's; evaluation, prediction
+    and loading launch nothing. Beside: a bare TrainStep over the same
+    64-image batches, before and after the fits (the hapi loop's own
+    cost is the difference), and the lenet phase's TrainStep at B =
+    256."""
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    train, test = MNIST(mode='train'), MNIST(mode='test')
+    steps = len(train) // HAPI_B
+    np.random.seed(0)
+    batches = [(x.to('cuda'), y.to('cuda')) for x, y in
+               DataLoader(train, batch_size=HAPI_B, shuffle=True)]
+    bare_ms = [bare_trainstep_ms(torch, batches)]
+    total, runs = {}, []
+    for jit, workers in HAPI_RUNS:
+        model = lenet_hapi_model(torch, 'cuda', jit)
+        launches, clock, wall = _hapi_fit(
+            torch, model, train, batch_size=HAPI_B, epochs=1,
+            num_workers=workers)
+        check_exact_launches(f'hapi_lenet jit={jit} workers={workers}',
+                             launches, {FO.STEP: steps})
+        _add_launches(total, launches)
+        losses = clock.losses
+        if len(losses) != steps or not np.isfinite(losses).all() or \
+                not np.mean(losses[-4:]) < np.mean(losses[:4]):
+            raise AssertionError(f'hapi_lenet jit={jit}: losses {losses}')
+        timed = clock.step_s[1:]
+        ms = 1e3 * float(np.mean(timed))
+        runs.append({'jit': jit, 'num_workers': workers, 'steps': steps,
+                     'fit_s': wall, 'first_step_s': clock.step_s[0],
+                     'ms_per_step': ms, 'ms_per_step_median':
+                         1e3 * float(np.median(timed)),
+                     'images_per_sec': HAPI_B / (ms / 1e3),
+                     'losses': losses, 'launches': launches})
+        if (jit, workers) == (True, 0):
+            kept = model
+        del model
+    # evaluate, predict, save, load into a fresh Model
+    _build.reset_launches()
+    ev = {k: float(v) for k, v in kept.evaluate(
+        test, batch_size=HAPI_B, verbose=0).items()}
+    images = TensorDataset([test.images.astype(np.float32)[:, None]
+                            / 255.0])
+    pred = kept.predict(images, batch_size=HAPI_B, stack_outputs=True)
+    path = os.path.join('build', 'hapi', 'lenet')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    kept.save(path)
+    fresh = lenet_hapi_model(torch, 'cuda', True)
+    fresh.load(path)
+    ev2 = {k: float(v) for k, v in fresh.evaluate(
+        test, batch_size=HAPI_B, verbose=0).items()}
+    check_exact_launches('hapi_lenet evaluate/predict/load',
+                         _build.routes_snapshot(), {})
+    if pred[0].shape != (len(test), 10) or not np.isfinite(pred[0]).all() \
+            or not np.isfinite([ev['loss'], ev['acc']]).all():
+        raise AssertionError(f'hapi_lenet: evaluate {ev}, predict '
+                             f'{pred[0].shape}')
+    if abs(ev2['loss'] - ev['loss']) > 1e-6 * abs(ev['loss']) or \
+            ev2['acc'] != ev['acc']:
+        raise AssertionError(f'hapi_lenet: loaded model evaluates {ev2}, '
+                             f'the saved one {ev}')
+    bare_ms.append(bare_trainstep_ms(torch, batches))
+    del batches, kept, fresh
+    free_cuda(torch)
+    jit0 = runs[0]['ms_per_step']
+    rec = {'phase': 'hapi_lenet', 'card': card, 'nvidia_smi': smi,
+           'model': 'LeNet(10)', 'dataset': 'MNIST(mode=train), 2048 '
+           'images', 'batch': HAPI_B, 'optimizer': 'Adam(1e-3)',
+           'runs': runs, 'evaluate': ev, 'evaluate_loaded': ev2,
+           'predict_shape': list(pred[0].shape),
+           'bare_trainstep_b64_ms_per_step': bare_ms,
+           'hapi_loop_ms_per_step': jit0 - float(np.mean(bare_ms)),
+           'lenet_phase_trainstep_b256_ms_per_step': lenet_ms,
+           'launches': total, **cudnn_settings(torch)}
+    emit(rec)
+    return total, rec
+
+
+def bare_trainstep_ms(torch, batches):
+    """ms a step of a bare TrainStep (LeNet, Adam 1e-3, one loss read a
+    step, as the hapi loop reads it) over pre-collated card batches."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    model = lenet_hapi_model(torch, 'cuda', True)
+    step = TrainStep(model.network, xent_hapi, model._optimizer,
+                     device='cuda')
+    step_s = []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        float(step(x, y))
+        step_s.append(time.perf_counter() - t0)
+    return 1e3 * float(np.mean(step_s[1:]))
+
+
+def xent_hapi(model, x, y):
+    from paddle_tpu_torch import nn as pnn
+    return pnn.functional.cross_entropy(model(x), y)
+
+
+def pad_collate(batch):
+    """An Imdb batch: docs right-padded with 0 to the longest; labels
+    [N, 1] int64."""
+    import torch
+    n = max(len(d) for d, _ in batch)
+    ids = np.zeros((len(batch), n), np.int64)
+    for i, (d, _) in enumerate(batch):
+        ids[i, :len(d)] = d
+    return (torch.from_numpy(ids),
+            torch.from_numpy(np.asarray([[y] for _, y in batch], np.int64)))
+
+
+def text_model(torch, name, device):
+    from paddle_tpu_torch import text
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    if name == 'LSTMSentiment':
+        return text.LSTMSentiment(direction='bidirect', device=device,
+                                  generator=gen)
+    return text.BoWClassifier(device=device, generator=gen)
+
+
+def text_hapi_model(torch, net, device):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import Adam
+
+    model = Model(net, device=device)
+    model.prepare(Adam(learning_rate=HAPI_TEXT['lr'],
+                       parameters=net.parameters()), pnn.CrossEntropyLoss())
+    return model
+
+
+def hapi_text_phase(torch, card, smi):
+    """hapi_text: LSTMSentiment at its class defaults (vocabulary 10000,
+    embed 64, hidden 64) with direction='bidirect', and BoWClassifier,
+    each fit through Model (eager, Adam 1e-2) for HAPI_TEXT['epochs']
+    epochs of Imdb(mode='train') (512 synthetic docs of 8-63 words) at
+    batch 64, padded per batch. Row 15 launches once a step and nothing
+    else launches; the last epoch's mean loss is below the first's. Then
+    the same weights on the card and on the CPU take the same first
+    HAPI_TEXT['check_steps'] steps: losses within check_rtol."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as FO
+    from paddle_tpu_torch.text import Imdb
+
+    cfg = HAPI_TEXT
+    data = Imdb(mode='train')
+    steps = -(-len(data) // cfg['B'])
+    total, rows = {}, []
+    for name in ('LSTMSentiment', 'BoWClassifier'):
+        net = text_model(torch, name, 'cuda')
+        start = {k: v.detach().cpu().clone()
+                 for k, v in net.state_dict().items()}
+        model = text_hapi_model(torch, net, 'cuda')
+        loader = DataLoader(data, batch_size=cfg['B'], shuffle=True,
+                            collate_fn=pad_collate)
+        launches, clock, wall = _hapi_fit(torch, model, loader,
+                                          epochs=cfg['epochs'])
+        check_exact_launches(f'hapi_text {name}', launches,
+                             {FO.STEP: steps * cfg['epochs']})
+        _add_launches(total, launches)
+        losses = clock.losses
+        first, last = np.mean(losses[:steps]), np.mean(losses[-steps:])
+        if not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f'hapi_text {name}: losses {losses}')
+        # card against CPU from the same weights on the same batches
+        check = []
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        for device in ('cuda', 'cpu'):
+            net = text_model(torch, name, device)
+            net.load_state_dict(start)
+            m = text_hapi_model(torch, net, device)
+            np.random.seed(0)
+            got = []
+            for i, (x, y) in enumerate(loader):
+                if i == cfg['check_steps']:
+                    break
+                got.append(m.train_batch([x], [y])[0][0])
+            check.append(got)
+        torch.backends.cudnn.allow_tf32 = saved
+        rel = float(np.max(np.abs(np.subtract(*check)) /
+                           np.abs(check[1])))
+        if rel > cfg['check_rtol']:
+            raise AssertionError(f'hapi_text {name}: card {check[0]} CPU '
+                                 f'{check[1]}')
+        timed = clock.step_s[1:]
+        rows.append({'model': name, 'params': sum(
+            p.numel() for p in model.network.parameters()),
+            'steps': len(losses), 'fit_s': wall,
+            'ms_per_step': 1e3 * float(np.mean(timed)),
+            'first_epoch_loss': first, 'last_epoch_loss': last,
+            'losses': losses, 'card_vs_cpu_losses': check,
+            'card_vs_cpu_max_rel': rel, 'launches': launches})
+        del model, net, m
+        free_cuda(torch)
+    rec = {'phase': 'hapi_text', 'card': card, 'nvidia_smi': smi,
+           'dataset': 'Imdb(mode=train), 512 docs', 'batch': cfg['B'],
+           'optimizer': f"Adam({cfg['lr']})", 'epochs': cfg['epochs'],
+           'models': rows, 'launches': total, **cudnn_settings(torch)}
+    emit(rec)
+    return total, rec
+
+
+def _rnn_layer(torch, mode, device, gen, **shape):
+    from paddle_tpu_torch import nn as pnn
+
+    cls = {'LSTM': pnn.LSTM, 'GRU': pnn.GRU, 'SimpleRNN': pnn.SimpleRNN}[mode]
+    return cls(shape['C'], shape['H'], num_layers=shape['layers'],
+               direction='bidirect', device=device, generator=gen)
+
+
+def rnn_flops(mode, B, T, C, H, layers):
+    """Multiply-add FLOPs of a bidirectional stack's forward: the input
+    and recurrent products of every gate, both directions."""
+    g = {'LSTM': 4, 'GRU': 3, 'SimpleRNN': 1}[mode]
+    total = 0
+    for layer in range(layers):
+        inp = C if layer == 0 else 2 * H
+        total += 2 * 2 * B * T * (inp + H) * g * H
+    return total
+
+
+def library_rnn(torch, mode, layer, x, iters):
+    """The yardstick: torch.nn's own module of the mode on the same
+    weights (its parameters flattened into one cuDNN buffer): forward
+    and forward+backward device ms, host ms a call on an idle queue."""
+    cls = {'LSTM': torch.nn.LSTM, 'GRU': torch.nn.GRU,
+           'SimpleRNN': torch.nn.RNN}[mode]
+    lib = cls(layer.input_size, layer.hidden_size, layer.num_layers,
+              batch_first=True, bidirectional=True).to(x.device)
+    lib.load_state_dict(layer.state_dict())
+    host = []
+    with torch.no_grad():
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lib(x)
+            host.append(time.perf_counter() - t0)
+        fwd = event_ms(torch, lambda: lib(x), iters=iters)
+    both = event_ms(torch, lambda: lib(x)[0].sum().backward(), iters=iters)
+    return {'library_fwd_ms': fwd, 'library_fwd_bwd_ms': both,
+            'library_host_ms_per_call': 1e3 * float(np.median(host)),
+            'library': f'torch.nn.{cls.__name__}'}
+
+
+def rnn_phase(torch, card, smi):
+    """rnn: LSTM, GRU and SimpleRNN at B = 64, T = 128, input and hidden
+    512, 2 layers, bidirectional, fp32, each ONE call of torch's
+    recurrent op (cuDNN): forward and forward+backward device ms (CUDA
+    events over RNN_SHAPE['iters'] calls) and host ms a call (the
+    enqueue of one call on an idle queue); then at a small size with
+    sequence_length, the card's outputs and final states against the
+    CPU's on the same weights (max relative error under
+    RNN_CHECK['rtol'], cuDNN TF32 off). Beside each, torch.nn's module
+    on the same weights (library_rnn). No port kernel launches."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    s = RNN_SHAPE
+    _build.reset_launches()
+    rows = []
+    for mode in ('LSTM', 'GRU', 'SimpleRNN'):
+        gen = torch.Generator(device='cuda').manual_seed(5)
+        layer = _rnn_layer(torch, mode, 'cuda', gen, **s)
+        x = torch.randn(s['B'], s['T'], s['C'], device='cuda',
+                        generator=gen, requires_grad=True)
+        for _ in range(2):
+            layer(x)[0].sum().backward()
+        torch.cuda.synchronize()
+        host = []
+        with torch.no_grad():
+            for _ in range(s['iters']):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                layer(x)
+                host.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            fwd = event_ms(torch, lambda: layer(x), iters=s['iters'])
+        both = event_ms(torch, lambda: layer(x)[0].sum().backward(),
+                        iters=s['iters'])
+        flops = rnn_flops(mode, s['B'], s['T'], s['C'], s['H'],
+                          s['layers'])
+        lib = library_rnn(torch, mode, layer, x, s['iters'])
+        rows.append({'mode': mode, 'fwd_ms': fwd, 'fwd_bwd_ms': both,
+                     'host_ms_per_call': 1e3 * float(np.median(host)),
+                     'fwd_flops': flops,
+                     'fwd_tflops_per_s': flops / (fwd / 1e3) / 1e12,
+                     **lib})
+        del layer, x
+    free_cuda(torch)
+    c = RNN_CHECK
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for mode in ('LSTM', 'GRU', 'SimpleRNN'):
+            gen = torch.Generator().manual_seed(6)
+            cpu = _rnn_layer(torch, mode, 'cpu', gen, **c)
+            card_layer = _rnn_layer(torch, mode, 'cuda', None, **c)
+            card_layer.load_state_dict(cpu.state_dict())
+            x = torch.randn(c['B'], c['T'], c['C'], generator=gen)
+            lens = torch.tensor(c['lens'])
+            with torch.no_grad():
+                want = cpu(x, sequence_length=lens)
+                got = card_layer(x.to('cuda'), sequence_length=lens)
+            pairs = [(got[0], want[0])] + list(zip(
+                got[1] if mode == 'LSTM' else [got[1]],
+                want[1] if mode == 'LSTM' else [want[1]]))
+            err = max(float(((g.cpu() - w).abs().max()) /
+                            w.abs().max()) for g, w in pairs)
+            if err > c['rtol'] or got[0].cpu()[3, 1:].abs().max() != 0:
+                raise AssertionError(f'rnn check {mode}: {err}')
+            next(r for r in rows if r['mode'] == mode)[
+                'card_vs_cpu_max_rel'] = err
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    launches = _build.routes_snapshot()
+    check_exact_launches('rnn', launches, {})
+    rec = {'phase': 'rnn', 'card': card, 'nvidia_smi': smi,
+           'shape': s, 'check': {k: list(v) if isinstance(v, tuple) else v
+                                 for k, v in c.items()},
+           'direction': 'bidirect', 'dtype': 'float32',
+           'route': 'torch._VF (cuDNN), one call a stack', 'rows': rows,
+           **cudnn_settings(torch)}
+    emit(rec)
+    return rec
+
+
+def beam_parts(torch, device, gen=None):
+    from paddle_tpu_torch import nn as pnn
+
+    b = BEAM
+    kw = dict(device=device, generator=gen)
+    emb = pnn.Embedding(b['V'], b['H'], **kw)
+    cell = pnn.LSTMCell(b['H'], b['H'], **kw)
+    proj = pnn.Linear(b['H'], b['V'], **kw)
+    return emb, cell, proj
+
+
+def _raw_decoder():
+    """The port's BeamSearchDecoder, keeping the raw per-step token and
+    parent ids that finalize backtraces (its steps are the port's own)."""
+    from paddle_tpu_torch import nn as pnn
+
+    class RawDecoder(pnn.BeamSearchDecoder):
+        def finalize(self, outputs, final_states, sequence_lengths):
+            self.raw = (outputs['predicted_ids'], outputs['parent_ids'])
+            return super().finalize(outputs, final_states,
+                                    sequence_lengths)
+    return RawDecoder
+
+
+def _margin_decoder(torch):
+    """A _raw_decoder that also records, each step, each batch row's
+    least gap between adjacent candidates among its W + 1 best (from the
+    same ops on the same values as the step's own: it runs the cell and
+    the projection a second time, so it serves the CPU reference, not
+    the timed decode)."""
+    import torch.nn.functional as F
+
+    class MarginDecoder(_raw_decoder()):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.margins = []
+
+        def step(self, time, inputs, states, **kwargs):
+            B, W = self._batch, self.beam_size
+            logits = self.output_fn(self.cell(inputs, states['cell'])[0])
+            V = logits.shape[-1]
+            lp = F.log_softmax(logits.float(), dim=-1).reshape(B, W, V)
+            frozen = torch.full((V,), -1e9, dtype=lp.dtype,
+                                device=lp.device)
+            frozen[self.end_token] = 0.0
+            lp = torch.where(states['finished'][..., None], frozen, lp)
+            top = (states['log_probs'][..., None] + lp).reshape(
+                B, W * V).topk(W + 1).values
+            self.margins.append((top[:, :-1] - top[:, 1:]).min(1).values)
+            return super().step(time, inputs, states, **kwargs)
+    return MarginDecoder
+
+
+def _beam_decode(torch, cls, emb, cell, proj, h0):
+    from paddle_tpu_torch import nn as pnn
+
+    b = BEAM
+    dec = cls(cell, start_token=b['start'], end_token=b['end'],
+              beam_size=b['W'], embedding_fn=emb, output_fn=proj)
+    with torch.no_grad():
+        out, final = pnn.dynamic_decode(dec, inits=(h0, h0.clone()),
+                                        max_step_num=b['steps'])
+    return out, final, dec
+
+
+def beam_phase(torch, card, smi):
+    """beam: BeamSearchDecoder over an LSTMCell at hidden 512 and a
+    vocabulary of 10000 (Embedding, LSTMCell, Linear from a seeded
+    generator; the embedding and projection scaled by BEAM['emb_scale']
+    and ['proj_scale'], since at their initial scales the hidden state
+    shrinks to ~0.01 and the next-token distribution is near uniform),
+    beam 4, batch 16, at most 64 steps, on the card through the port's
+    BeamSearchDecoder: ms a step (one host read of the all-finished flag
+    a step); then the
+    same fp32 decode on the CPU on the same weights gives the same token
+    and parent ids at every step of every row up to that row's first
+    near-tie (two of its W + 1 best candidates within BEAM['margin'] on
+    the CPU, where fp32 rounding may order them either way), and the
+    same backtraced ids and scores for the rows without one. No port
+    kernel launches."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    b = BEAM
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    card_parts = beam_parts(torch, 'cuda', gen)
+    with torch.no_grad():
+        card_parts[0].weight.mul_(b['emb_scale'])
+        card_parts[2].weight.mul_(b['proj_scale'])
+    h0 = torch.randn(b['B'], b['H'], device='cuda', generator=gen)
+    timed = []
+    for _ in range(2):                          # a warm-up, then timed
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out, final, dec = _beam_decode(torch, _raw_decoder(),
+                                       *card_parts, h0)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+    wall = timed[-1]
+    check_exact_launches('beam', _build.routes_snapshot(), {})
+    steps = out['predicted_ids'].shape[1]
+    cpu_parts = beam_parts(torch, 'cpu')
+    for c, g in zip(cpu_parts, card_parts):
+        c.load_state_dict(g.state_dict())
+    want, _, cdec = _beam_decode(torch, _margin_decoder(torch),
+                                 *cpu_parts, h0.cpu())
+    # each row is compared up to its first step whose CPU candidates lie
+    # within BEAM['margin'] of each other (fp32 rounding may order them
+    # either way there); in full when it has none
+    margins = torch.stack(cdec.margins)                      # [T, B]
+    tied = margins < b['margin']
+    first = torch.where(tied.any(0), tied.float().argmax(0),
+                        torch.full((b['B'],), steps)).tolist()
+    raw_card = [t.cpu() for t in dec.raw]
+    bad = []
+    for row, t in enumerate(first):
+        for got, ref in zip(raw_card, cdec.raw):
+            if not torch.equal(got[:t, row], ref[:t, row]):
+                bad.append(row)
+        if t == steps and not torch.equal(
+                out['predicted_ids'][row].cpu(), want['predicted_ids'][row]):
+            bad.append(row)
+    if bad or want['predicted_ids'].shape[1] != steps:
+        raise AssertionError(f'beam: ids differ from the CPU in rows '
+                             f'{sorted(set(bad))} before any near-tie')
+    whole = [r for r, t in enumerate(first) if t == steps]
+    score_err = float((out['scores'][whole].cpu() -
+                       want['scores'][whole]).abs().max()) if whole else None
+    rec = {'phase': 'beam', 'card': card, 'nvidia_smi': smi,
+           'config': b, 'steps': steps,
+           'finished': int(final['finished'].sum()),
+           'ms_per_step': 1e3 * wall / steps, 'decode_s': wall,
+           'warmup_s': timed[0], 'host_reads': steps,
+           'rows_equal_cpu_whole': len(whole),
+           'rows_cut_at_near_tie': {r: t for r, t in enumerate(first)
+                                    if t < steps},
+           'min_margin_cpu': float(margins.min()),
+           'max_score_diff_cpu_whole_rows': score_err,
+           'best_scores': out['scores'][:, -1, 0].tolist()}
+    del card_parts, cpu_parts, out, want
+    free_cuda(torch)
+    emit(rec)
+    return rec
+
+
+def hapi_phase(torch, card, smi, lenet_ms):
+    """The high-level API on the card: hapi_lenet, hapi_text, rnn, beam;
+    returns the port kernels' launches over the two hapi fits' main
+    paths (row 15 only) and the phase's seconds."""
+    t0 = time.perf_counter()
+    lenet_launches, _ = hapi_lenet_phase(torch, card, smi, lenet_ms)
+    text_launches, _ = hapi_text_phase(torch, card, smi)
+    rnn_phase(torch, card, smi)
+    beam_phase(torch, card, smi)
+    total = {}
+    for launches in (lenet_launches, text_launches):
+        _add_launches(total, launches)
+    return total, time.perf_counter() - t0
+
+
 SOURCES = {
     'paged_attention': ('paddle_tpu_torch/csrc/paged_attention.cu',
                         'paddle_tpu/ops/pallas/paged_attention.py:78'),
@@ -8252,7 +8837,7 @@ def main():
     free_cuda(torch)
     dense_decode_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lenet_launches = lenet_phase(torch, card)
+    lenet_launches, lenet_ms = lenet_phase(torch, card)
     free_cuda(torch)
     lenet_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -8277,6 +8862,8 @@ def main():
     free_cuda(torch)
     ctr_ps_s = time.perf_counter() - t0
     surface_launches, surface_rec = surface_phase(torch, card, smi)
+    free_cuda(torch)
+    hapi_launches, hapi_s = hapi_phase(torch, card, smi, lenet_ms)
     emit({'phase': 'seconds', 'kernel': kernel_s, 'serve': serve_s,
           'serve_int8': serve_int8_s, 'serve_modes': serve_modes_s,
           'serve_tenants': serve_tenants_s, 'serve_tiered': serve_tiered_s,
@@ -8294,7 +8881,7 @@ def main():
           'vision_check': vision_check_s, 'deepfm_ps': deepfm_ps_s,
           'ps_scale_ssd': ps_scale_ssd_s, 'ctr_ps': ctr_ps_s,
           'surface': surface_rec['seconds'],
-          'surface_sweep': surface_rec['sweep_s']})
+          'surface_sweep': surface_rec['sweep_s'], 'hapi': hapi_s})
 
     def row_of(name, path):
         (row,) = [r for r in results[name] if r['path'] == path]
@@ -8375,6 +8962,10 @@ def main():
         # the op surface: row 15 twice a surface_train step (two
         # learning-rate groups) and twice in its CPU check, 0 elsewhere
         entry['launches_surface'] = surface_launches[name]
+        # the high-level API: row 15 once a hapi jit step and once a
+        # learning-rate group an eager step (hapi_lenet's four fits and
+        # hapi_text's two), 0 elsewhere
+        entry['launches_hapi'] = hapi_launches.get(name, 0)
         if name in SERVE_KERNELS:
             # the tenants leg's SLO run and the oversubscribed serve
             entry['launches_serve_tenants'] = tenants_launches[name]

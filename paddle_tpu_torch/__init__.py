@@ -15,8 +15,11 @@ dataset's pipe_command runs imports `distributed.fleet.data_generator`
 only, once an input file. The op surface (`paddle.add`, `paddle.concat`,
 `paddle.randn`, `paddle.to_tensor`, `paddle.seed`, `paddle.linalg`,
 `paddle.fft`, `paddle.ParamAttr`, the dtype names, ...), what
-`paddle_tpu/__init__.py:18-61` and `:118-121` re-export, resolves at its
-first use through the module `__getattr__` (PEP 562).
+`paddle_tpu/__init__.py:18-61` and `:118-121` re-export, and the
+high-level names (`paddle.Model`, `summary`, `save`, `load`, `grad`, and
+the modules `io`, `hapi`, `text`, `distribution`, `autograd`, ...,
+`:66-123` there) resolve at their first use through the module
+`__getattr__` (PEP 562).
 """
 import importlib
 
@@ -57,7 +60,13 @@ _LAZY = {'resolve_device': ('device', 'resolve_device'),
          'set_rng_state': ('core.rng', 'set_rng_state'),
          'einsum': ('ops.linalg', 'einsum'),
          'ParamAttr': ('nn.layer.common', 'ParamAttr'),
-         'linalg': ('ops.linalg', None), 'fft': ('ops.fft', None)}
+         'linalg': ('ops.linalg', None), 'fft': ('ops.fft', None),
+         'Model': ('hapi', 'Model'), 'summary': ('hapi', 'summary'),
+         'save': ('framework', 'save'), 'load': ('framework', 'load'),
+         'grad': ('framework', 'grad')}
+_LAZY.update((m, (m, None)) for m in (
+    'io', 'hapi', 'text', 'distribution', 'autograd', 'framework', 'nn',
+    'optimizer', 'metric', 'vision', 'jit', 'utils'))
 for _mod, _names in (('ops.math', _MATH), ('ops.manip', _MANIP),
                      ('ops.creation', _CREATION)):
     _LAZY.update((n, (_mod, n)) for n in _names.split())

@@ -245,3 +245,37 @@ class TrainStep(EngineTeardown):
             return B.flat_states_to_named(self._layout, self._opt_states)
         return {n: {k: v.detach().cpu().clone() for k, v in st.items()}
                 for n, st in self._opt_states.items()}
+
+    def _ckpt_params(self):
+        """The parameters a checkpoint's keys name: the optimizer's list
+        when it holds every trained parameter, else the trained ones."""
+        own = self.optimizer._parameter_list
+        if own is not None and {id(p) for p in self._params.values()} <= \
+                {id(p) for p in own}:
+            return own
+        return list(self._params.values())
+
+    def state_dict(self):
+        """The states this step holds as `Optimizer.state_dict()` writes
+        them (`{param}.{state}`, `master.{param}`, `LR_Scheduler`,
+        `@step` = the steps taken), on either route."""
+        keys = self.optimizer.param_keys(self._ckpt_params())
+        return self.optimizer.states_to_dict(
+            {keys[id(self._params[n])]: st
+             for n, st in self.named_opt_states().items()}, self._step_i)
+
+    def set_state_dict(self, state_dict):
+        """Restore a checkpoint dict (this step's, an eager optimizer's or
+        the reference's) into the states this step holds."""
+        params = self._ckpt_params()
+        step, named = self.optimizer.dict_to_states(state_dict, params)
+        keys = self.optimizer.param_keys(params)
+        mine = {n: named[keys[id(p)]] for n, p in self._params.items()
+                if keys[id(p)] in named}
+        if self._use_buckets:
+            self._opt_states = B.named_states_to_flat(
+                self._layout, mine, self._opt_states)
+        else:
+            self._opt_states.update(mine)
+        if step is not None:
+            self._step_i = step

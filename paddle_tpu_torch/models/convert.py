@@ -5,7 +5,10 @@ bridge is a rename-free copy: `named_arrays` maps each name of the JAX
 model's `named_parameters()` to its value as a numpy array (a test
 builds it with `{n: np.asarray(p.data) for n, p in
 jax_model.named_parameters()}`), and `named_buffers` each name of its
-`named_buffers()` (batch norm's `_mean` and `_variance`). The port never
+`named_buffers()` (batch norm's `_mean` and `_variance`). The recurrent
+stacks and cells (`weight_ih_l0`, `bias_hh_l1_reverse`, ...), the text
+models and any `hapi.Model` network built from the port's layers keep
+the reference's names too, so they bridge the same way. The port never
 imports the JAX package; callers hand it plain arrays.
 """
 import os

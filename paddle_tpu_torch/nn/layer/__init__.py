@@ -19,3 +19,5 @@ from .pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa: F401
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
+from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
+                  RNNCellBase, SimpleRNN, SimpleRNNCell)

@@ -69,7 +69,9 @@ reference everywhere) and `L1Decay` as an optimizer's `weight_decay`
 (taken by the reference as an L2 coefficient, :45-49).
 """
 import math
+import re
 
+import numpy as np
 import torch
 
 from ..amp import uncast
@@ -79,6 +81,8 @@ from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
 from ..ops.kernels import fused_optimizer as FO
 from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
+
+_COUNTER = re.compile(r'param_\d+')     # an unnamed parameter's key
 
 
 def _not_ported(what, cls='AdamW'):
@@ -305,6 +309,121 @@ class Optimizer:
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list or ():
             p.grad = None
+
+    # -- checkpoint (:366-395) ---------------------------------------------
+    def param_keys(self, params=None):
+        """{id(param): checkpoint key} of `params` (the optimizer's own
+        list by default): a `ParamAttr` name, else `param_{i}` by position,
+        where the reference names each parameter `param_{n}` from one
+        process-wide counter."""
+        params = self._parameter_list if params is None else params
+        return {id(p): getattr(p, 'param_name', None) or f'param_{i}'
+                for i, p in enumerate(params or ())}
+
+    def state_dict(self):
+        """The eager step's states under the reference's keys:
+        `{param}.{state}` for each state, `master.{param}` for an fp32
+        master, `LR_Scheduler` and `@step`. (`jit.TrainStep.state_dict`
+        gives the same for the states a train step holds.)"""
+        keys = self.param_keys()
+        return self.states_to_dict(
+            {keys[k]: st for k, st in self._accumulators.items()
+             if k in keys}, self._step_count)
+
+    def states_to_dict(self, named_states, step):
+        """{key: {state: tensor}} and a step count as a checkpoint dict
+        in the reference's key order (states, then masters)."""
+        sd, masters = {}, {}
+        for key, st in named_states.items():
+            for name, t in st.items():
+                if name == 'master':
+                    masters[f'master.{key}'] = t.detach()
+                else:
+                    sd[f'{key}.{name}'] = t.detach()
+        sd.update(masters)
+        if isinstance(self._learning_rate, LRScheduler):
+            sd['LR_Scheduler'] = self._learning_rate.state_dict()
+        sd['@step'] = int(step)
+        return sd
+
+    def set_state_dict(self, state_dict):
+        """Restore `state_dict()`'s (or a reference checkpoint's) states
+        into the eager step."""
+        step, named = self.dict_to_states(state_dict, self._parameter_list)
+        keys = self.param_keys()
+        self._accumulators = {id(p): named[keys[id(p)]]
+                              for p in self._parameter_list or ()
+                              if keys[id(p)] in named}
+        if step is not None:
+            self._step_count = step
+
+    set_dict = set_state_dict
+
+    def dict_to_states(self, state_dict, params):
+        """(step or None, {key: {state: tensor}}) from a checkpoint dict,
+        each state cast to the dtype and device its parameter's fresh
+        state has, and the scheduler's state restored. The file's
+        parameter names match `params` by key; or else by position, but
+        only where the file holds as many parameters as `params` and at
+        each position the two names agree or both are counter names
+        (`param_{n}`): a reference file names its parameters from a
+        process-wide counter, which a fresh model does not repeat. Any
+        other file (a frozen parameter's states missing, a `ParamAttr`
+        name out of place) raises, as does a shape that does not fit."""
+        step, raw, order = None, {}, []
+        for k, v in state_dict.items():
+            if k == 'LR_Scheduler':
+                if isinstance(self._learning_rate, LRScheduler):
+                    self._learning_rate.set_state_dict(v)
+                continue
+            if k == '@step':
+                step = int(v.item() if isinstance(v, torch.Tensor) else v)
+                continue
+            if k.startswith('master.'):
+                key, name = k[len('master.'):], 'master'
+            else:
+                key, name = k.rsplit('.', 1)
+            if key not in raw:
+                raw[key] = {}
+                order.append(key)
+            raw[key][name] = v
+        params = list(params or ())
+        keys = self.param_keys(params)
+        by_key = {keys[id(p)]: p for p in params}
+        if not set(order) <= set(by_key):
+            mine = [keys[id(p)] for p in params]
+            if len(order) != len(params) or not all(
+                    a == b or (_COUNTER.fullmatch(a) and _COUNTER.fullmatch(b))
+                    for a, b in zip(order, mine)):
+                raise ValueError(
+                    f'set_state_dict: the file holds states of parameters '
+                    f'{order}, which match neither the names of the '
+                    f'{len(params)} parameters here ({mine}) nor, one for '
+                    f'one, their positions')
+            renamed = dict(zip(order, mine))
+            raw = {renamed[k]: st for k, st in raw.items()}
+        out = {}
+        for key, st in raw.items():
+            p = by_key[key]
+            fresh = self.init_state(p.detach())
+            fresh['master'] = torch.empty(p.shape, dtype=torch.float32)
+            conv = {}
+            for name, v in st.items():
+                v = torch.as_tensor(np.asarray(v) if not isinstance(
+                    v, torch.Tensor) else v)
+                tmpl = fresh.get(name)
+                if tmpl is None:
+                    raise KeyError(f'set_state_dict: {type(self).__name__} '
+                                   f'keeps no state {name!r}')
+                if v.numel() != tmpl.numel():
+                    raise ValueError(
+                        f'set_state_dict: {key}.{name} has shape '
+                        f'{tuple(v.shape)}, the parameter\'s state '
+                        f'{tuple(tmpl.shape)}')
+                conv[name] = v.reshape(tmpl.shape).to(
+                    device=p.device, dtype=tmpl.dtype).clone()
+            out[key] = conv
+        return step, out
 
     def _clip(self, grads, publish=False, skip=()):
         """grad_clip on {name: grad}, as functional_apply (:108-129)

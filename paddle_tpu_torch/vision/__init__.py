@@ -1,4 +1,5 @@
 """paddle.vision — counterpart of `paddle_tpu/vision`: the model zoo
-(`models`). `datasets` (which downloads) and `transforms` are not
-ported; the bench's vision legs feed random images."""
-from . import models  # noqa: F401
+(`models`), the datasets (`datasets`: cached files or the reference's
+synthetic sets, never a download) and the numpy transforms
+(`transforms`)."""
+from . import datasets, models, transforms  # noqa: F401

@@ -42,6 +42,7 @@ from paddle_tpu_torch.ops import nn_ops as tF
 from test_torch_pipeline import (A, _arrays, _batch, _flat, _jax_states,
                                  _jax_triple, _optimizers, _port_triple)
 from test_torch_train import _check_bf16_update
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
 BF16 = dict(rtol=2.0 ** -7, atol=0)

@@ -62,6 +62,7 @@ from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import fused_norm as tfln
 from paddle_tpu_torch.ops.kernels import fused_optimizer as tfo
 from test_torch_train import _ReplayMasks, _rel_l2
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 FP32 = dict(rtol=2e-4, atol=2e-5)

@@ -28,6 +28,7 @@ from paddle_tpu_torch.core import ledger as tledger
 from paddle_tpu_torch.core import monitor as tmon
 from paddle_tpu_torch.core import numerics as tnum
 from paddle_tpu_torch.io import DeviceLoader
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _batches(n, seed=0, shape=(4, 8)):

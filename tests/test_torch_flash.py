@@ -36,6 +36,7 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
 GRAD = dict(rtol=5e-4, atol=5e-5)

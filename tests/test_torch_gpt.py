@@ -27,6 +27,7 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import load_jax_params
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
             max_seq_len=128, hidden_dropout=0.0, attn_dropout=0.0,

@@ -26,6 +26,7 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import load_jax_params
 from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import fused_norm as tfln
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,

@@ -35,6 +35,7 @@ from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import fused_norm as tfn
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
 BF16 = dict(rtol=5e-2, atol=5e-2)

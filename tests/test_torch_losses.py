@@ -26,6 +26,7 @@ from paddle_tpu.ops import nn_ops as J
 from paddle_tpu_torch.nn.layer import loss as TLL
 from paddle_tpu_torch.ops import nn_ops as T
 from torch_surface_util import FP32, check_op, rand
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 R = np.random.RandomState
 REDUCTIONS = ('none', 'mean', 'sum')

@@ -29,6 +29,7 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.core import monitor as tmon
 from paddle_tpu_torch.core import numerics as tnum
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SUB32 = 1e-40        # an fp32 subnormal
 SUB16 = 1e-39        # a bf16 subnormal

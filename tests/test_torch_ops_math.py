@@ -16,6 +16,7 @@ import torch
 from paddle_tpu.ops import math as J
 from paddle_tpu_torch.ops import math as T
 from torch_surface_util import check_op, rand
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 R = np.random.RandomState
 

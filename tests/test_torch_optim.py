@@ -50,6 +50,7 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.core import bucketing as TB
 from paddle_tpu_torch.ops.kernels import fused_optimizer as TFO
 from paddle_tpu_torch.optimizer import lr as tlr
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-6, atol=5e-7)
 L = 1000

@@ -40,6 +40,7 @@ from paddle_tpu_torch.models import (gpt as tgpt, load_jax_pipeline_params,
                                      pipeline_params_as_stacked)
 from paddle_tpu_torch.ops import nn_ops as tF
 from test_torch_train import _check_bf16_update
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
             max_seq_len=512, hidden_dropout=0.0, attn_dropout=0.0,
@@ -120,19 +121,6 @@ def _jax_states(jeng):
     return out
 
 
-@pytest.fixture
-def one_thread():
-    """The port's side on one intra-op thread: under a loaded host
-    (the suite's workers side by side) torch's OpenMP regions, one for
-    each small op of the plain flash route, waited on threads that had
-    no core, and a step took ~45 s instead of ~0.3 s; on one thread it
-    takes ~0.8 s either way."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 CASES = [('sgd', 'param'), ('sgd', 'float32'), ('adam', 'float32'),
          ('adamw_bf16', 'param')]
 
@@ -140,7 +128,7 @@ CASES = [('sgd', 'param'), ('sgd', 'float32'), ('adam', 'float32'),
 @pytest.mark.parametrize('route', ['dense', 'flash'])
 @pytest.mark.parametrize('kind,accum', CASES,
                          ids=[f'{k}-{a}' for k, a in CASES])
-def test_engine_matches_jax_engine(kind, accum, route, one_thread):
+def test_engine_matches_jax_engine(kind, accum, route):
     bf16 = kind == 'adamw_bf16'
     je, jb, jh = _jax_triple(bf16=bf16)
     arrays = _arrays(je, jb, jh)

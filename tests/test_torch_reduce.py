@@ -43,6 +43,7 @@ from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import fused_norm as tfn
 from paddle_tpu_torch.ops.kernels import fused_optimizer as tfo
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
 FP32_SUMS = dict(rtol=1e-3, atol=1e-4)

@@ -43,6 +43,7 @@ from paddle_tpu_torch.nn.layer import transformer as ttf
 from paddle_tpu_torch.ops.kernels import fused_elementwise as tfe
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import fused_norm as tfln
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
@@ -77,17 +78,9 @@ def _engine_run(policy, route):
     return losses, grads, params
 
 
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize('route', ['dense', 'flash'])
 @pytest.mark.parametrize('policy', ['full', 'dots', 'attn_mlp_boundaries'])
-def test_policies_bit_equal_in_engine(policy, route, one_thread):
+def test_policies_bit_equal_in_engine(policy, route):
     want = _engine_run('none', route)
     got = _engine_run(policy, route)
     for a, b in zip(got, want):
@@ -95,8 +88,7 @@ def test_policies_bit_equal_in_engine(policy, route, one_thread):
             assert torch.equal(x, y)
 
 
-def test_recompute_without_the_generator_replay_differs(monkeypatch,
-                                                        one_thread):
+def test_recompute_without_the_generator_replay_differs(monkeypatch):
     """The bit-equality above rests on the replay: a recompute that draws
     fresh masks gives other gradients, and moves the generator on, so the
     next micro-batch's forward draws other masks too (no error either
@@ -124,7 +116,7 @@ def _train_step_run(policy):
 
 
 @pytest.mark.parametrize('policy', ['full', 'dots', 'attn_mlp_boundaries'])
-def test_policies_bit_equal_in_train_step(policy, one_thread):
+def test_policies_bit_equal_in_train_step(policy):
     want = _train_step_run('none')
     got = _train_step_run(policy)
     for a, b in zip(got, want):
@@ -338,7 +330,7 @@ def test_bert_block_backward_reruns(policy, again, normalize_before):
     assert mode.count == again * len(blocks)
 
 
-def test_bert_block_segments_change_no_value(one_thread):
+def test_bert_block_segments_change_no_value():
     """The stretches replay the bound generator: with dropout 0.1 the
     gradients under 'attn_mlp_boundaries' are bit-equal to 'none'."""
     grads = {}
@@ -353,8 +345,7 @@ def test_bert_block_segments_change_no_value(one_thread):
                zip(grads['none'], grads['attn_mlp_boundaries']))
 
 
-def test_segments_without_the_generator_replay_differ(monkeypatch,
-                                                      one_thread):
+def test_segments_without_the_generator_replay_differ(monkeypatch):
     """'attn_mlp_boundaries' replays the bound generator in each stretch:
     without the replay the attention and residual dropouts of the
     recompute draw fresh masks and the gradients differ."""

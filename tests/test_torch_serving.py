@@ -45,6 +45,7 @@ from paddle_tpu_torch.serving import (KVPagePool, PoolExhausted, Request,
                                       ServingConfig, ServingEngine,
                                       chain_hash, chain_hashes)
 from paddle_tpu_torch.serving import engine as tengine
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
             max_seq_len=128, hidden_dropout=0.0, attn_dropout=0.0,

@@ -42,6 +42,7 @@ from paddle_tpu_torch.serving.cluster import (ClusterRouter, LocalReplica,
                                               cluster_snapshot)
 from paddle_tpu_torch.serving.host_tier import HostTier
 from torch_serving_twin import model_pair
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ENGINE_KW = dict(page_size=8, max_batch_size=3, prefill_chunk=16)
 STEADY = dict(refresh_interval_s=3600.0)

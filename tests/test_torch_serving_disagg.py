@@ -27,6 +27,7 @@ from paddle_tpu_torch.serving.cluster import (ClusterRouter,
                                               LocalReplica, build_engine,
                                               stream_kv_pages)
 from torch_serving_twin import FakeClock, Twin, model_pair
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ENGINE_KW = dict(page_size=8, max_batch_size=3, prefill_chunk=16)
 DISAGG = dict(ENGINE_KW, disaggregate=True)

@@ -26,6 +26,7 @@ from paddle_tpu_torch.serving import engine as engine_mod
 from paddle_tpu_torch.serving.host_tier import HostTier
 from paddle_tpu_torch.serving.metrics import scalar_series, serve_snapshot
 from torch_serving_twin import Twin, model_pair
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope='module')

@@ -23,6 +23,7 @@ from paddle_tpu_torch.serving import ledger as tledger
 from paddle_tpu_torch.serving.metrics import serve_snapshot
 from paddle_tpu_torch.serving.request_trace import load_trace, reconstruct
 from torch_serving_twin import Twin, model_pair
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 H100 = 'NVIDIA H100 80GB HBM3'
 

@@ -16,6 +16,7 @@ from paddle_tpu_torch import serving as tserving
 from paddle_tpu_torch.serving import AdmissionRejected
 from paddle_tpu_torch.serving.request_trace import load_trace, reconstruct
 from torch_serving_twin import FakeClock, Twin, model_pair
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 PAGES8 = dict(page_size=8, max_batch_size=2, prefill_chunk=8)
 

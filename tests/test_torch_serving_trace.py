@@ -23,6 +23,7 @@ from paddle_tpu_torch.serving import engine as engine_mod
 from paddle_tpu_torch.serving import metrics as serve_metrics
 from paddle_tpu_torch.serving import request_trace as ttrace
 from torch_serving_twin import Twin, model_pair
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 PRESSURED = dict(page_size=8, max_batch_size=3, prefill_chunk=8,
                  num_pages=4)

@@ -48,6 +48,7 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import load_jax_params
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
             max_seq_len=64, hidden_dropout=0.0, attn_dropout=0.0,

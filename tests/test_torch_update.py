@@ -42,6 +42,7 @@ from paddle_tpu_torch.ops import nn_ops as tF
 from paddle_tpu_torch.ops.kernels import fused_optimizer as TFO
 from paddle_tpu_torch.optimizer import device_lr as tdlr
 from paddle_tpu_torch.optimizer import lr as tlr
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
 STEPS = 3

@@ -51,6 +51,7 @@ from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.models import load_jax_params
 from paddle_tpu_torch.vision import models as tvm
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
 

@@ -31,6 +31,7 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.ops import nn_ops as J
 from paddle_tpu_torch.distributed.fleet.utils import recompute as tremat
 from paddle_tpu_torch.ops import nn_ops as T
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32 = dict(rtol=2e-4, atol=2e-5)
 
